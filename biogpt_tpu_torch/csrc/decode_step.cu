@@ -1,0 +1,238 @@
+// One single-stream (B=1) decode step through all L layers, bf16 KV cache,
+// packed Q4_0 / Q4_1 weights.
+//
+// Replaces biogpt_tpu/ops/pallas_decode.py::decode_step_fused, B=1 lockstep
+// path (`_make_kernel`). Contract: (x0 (1,D) f32, layers, k_cache, v_cache
+// (L,1,S,D) bf16, past) -> (x (1,D) f32, k_rows, v_rows (L,1,D) bf16); the
+// caller commits the rows at position `past`. Bound on an H100: bytes --
+// the packed layer weights (~7 MB a layer at 347M) and the `past` live KV
+// rows of each layer are read once per token; every other operand is a
+// vector. The TPU megakernel kept all layers in one pallas_call because
+// op issue dominated there; this first Hopper version is a chain of
+// per-layer kernels on the current stream, launched by ONE host entry
+// point (Python pays one ctypes call per token):
+//   qkv GEMV with LayerNorm-0 in its prologue (qgemv.cuh)
+//   split-KV attention: blocks of 64 cache rows per (head, split), each
+//     writing (max, sum, P.V) -- 16 heads alone would fill 16 SMs
+//   combine: folds the splits and the current token, writes the new K/V
+//     rows (the current token's k/v enter attention UNROUNDED, as in the
+//     TPU kernel; only the cache copies are bf16)
+//   o GEMV + residual, fc1 GEMV with LayerNorm-1 prologue + exact erf GELU,
+//     fc2 GEMV + residual
+// Numerics mirror pallas_decode.py:276-349: h rounds to bf16 before each
+// product, q * (1/sqrt(Dk)) rounds to bf16, scores are f32 against bf16 K,
+// p rounds to bf16 before p.V (the denominators keep f32 p). Cache row
+// `past` is never read.
+#include "qgemv.cuh"
+
+using namespace bgt;
+
+namespace {
+
+constexpr int DK = 64;           // head width this kernel is built for
+constexpr int ATT_ROWS = 64;     // cache rows per attention split
+constexpr int ATT_THREADS = 128;
+
+__device__ __forceinline__ float block_max(float v, float* scratch) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  v = warp_max(v);
+  __syncthreads();
+  if (lane == 0) scratch[warp] = v;
+  __syncthreads();
+  float t = scratch[0];
+  for (int w = 1; w < nw; ++w) t = fmaxf(t, scratch[w]);
+  return t;
+}
+
+// qkv[col] = sum of the qkv GEMV's partials + bias (fixed split order)
+__device__ __forceinline__ float qkv_value(const float* part, int splits,
+                                           int width, const float* bias,
+                                           int col) {
+  float s = 0.f;
+  for (int k = 0; k < splits; ++k) s += part[(size_t)k * width + col];
+  return s + bias[col];
+}
+
+// grid (H, n_splits), block ATT_THREADS. ml: (H, n_splits, 2) = (max, sum);
+// acc: (H, n_splits, DK) = sum_s bf16(exp(score_s - max)) * V[s].
+__global__ void __launch_bounds__(ATT_THREADS)
+attn_split_kernel(const float* qkv_part, int qsplits, const float* qkv_b,
+                  int D, const __nv_bfloat16* kc, const __nv_bfloat16* vc,
+                  int past, float scale, float* ml, float* acc) {
+  __shared__ float q[DK];
+  __shared__ float sc[ATT_ROWS];
+  __shared__ float red[ATT_THREADS / 32][DK];
+  __shared__ float scratch[32];
+  const int h = blockIdx.x, sp = blockIdx.y, ns = gridDim.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nw = ATT_THREADS / 32;
+  if (threadIdx.x < DK)
+    q[threadIdx.x] = bf16r(
+        qkv_value(qkv_part, qsplits, 3 * D, qkv_b, h * DK + threadIdx.x) * scale);
+  __syncthreads();
+  const int s0 = sp * ATT_ROWS;
+  const int n = min(past - s0, ATT_ROWS);
+  const float q0 = q[2 * lane], q1 = q[2 * lane + 1];
+  for (int r = warp; r < n; r += nw) {
+    const __nv_bfloat162 k2 = *reinterpret_cast<const __nv_bfloat162*>(
+        kc + (size_t)(s0 + r) * D + h * DK + 2 * lane);
+    const float d = warp_sum(q0 * __low2float(k2) + q1 * __high2float(k2));
+    if (lane == 0) sc[r] = d;
+  }
+  __syncthreads();
+  float mx = -INFINITY;
+  for (int r = threadIdx.x; r < n; r += ATT_THREADS) mx = fmaxf(mx, sc[r]);
+  mx = block_max(mx, scratch);
+  float ls = 0.f;
+  for (int r = threadIdx.x; r < n; r += ATT_THREADS) {
+    const float p = expf(sc[r] - mx);
+    sc[r] = p;
+    ls += p;
+  }
+  const float l = block_sum(ls, scratch);   // (syncs before reading sc)
+  float a0 = 0.f, a1 = 0.f;
+  for (int r = warp; r < n; r += nw) {
+    const float p = bf16r(sc[r]);
+    const __nv_bfloat162 v2 = *reinterpret_cast<const __nv_bfloat162*>(
+        vc + (size_t)(s0 + r) * D + h * DK + 2 * lane);
+    a0 += p * __low2float(v2);
+    a1 += p * __high2float(v2);
+  }
+  red[warp][2 * lane] = a0;
+  red[warp][2 * lane + 1] = a1;
+  __syncthreads();
+  if (threadIdx.x < DK) {
+    float s = 0.f;
+    for (int w = 0; w < nw; ++w) s += red[w][threadIdx.x];
+    acc[((size_t)h * ns + sp) * DK + threadIdx.x] = s;
+  }
+  if (threadIdx.x == 0) {
+    ml[((size_t)h * ns + sp) * 2 + 0] = mx;
+    ml[((size_t)h * ns + sp) * 2 + 1] = l;
+  }
+}
+
+// grid H, block DK. Folds the cache splits and the current token into the
+// context row; writes the bf16 K/V rows the caller commits.
+__global__ void __launch_bounds__(DK)
+attn_combine_kernel(const float* qkv_part, int qsplits, const float* qkv_b,
+                    int D, const float* ml, const float* acc, int ns,
+                    float scale, float* ctx, __nv_bfloat16* k_row,
+                    __nv_bfloat16* v_row) {
+  __shared__ float scratch[32];
+  const int h = blockIdx.x, t = threadIdx.x, col = h * DK + t;
+  const float q = bf16r(qkv_value(qkv_part, qsplits, 3 * D, qkv_b, col) * scale);
+  const float k = qkv_value(qkv_part, qsplits, 3 * D, qkv_b, D + col);
+  const float v = qkv_value(qkv_part, qsplits, 3 * D, qkv_b, 2 * D + col);
+  k_row[col] = __float2bfloat16(k);
+  v_row[col] = __float2bfloat16(v);
+  const float cur = block_sum(q * k, scratch);
+  float m = cur;
+  for (int j = 0; j < ns; ++j) m = fmaxf(m, ml[((size_t)h * ns + j) * 2]);
+  float l = 0.f, a = 0.f;
+  for (int j = 0; j < ns; ++j) {
+    const float w = expf(ml[((size_t)h * ns + j) * 2] - m);
+    l += ml[((size_t)h * ns + j) * 2 + 1] * w;
+    a += acc[((size_t)h * ns + j) * DK + t] * w;
+  }
+  const float pc = expf(cur - m);
+  l += pc;
+  a += pc * v;
+  ctx[col] = a / l;
+}
+
+struct Proj {
+  const uint8_t* lv;
+  const __nv_bfloat16* sc;
+  const __nv_bfloat16* mn;
+  const float* b;
+};
+
+GemvArgs layer_args(const Proj& p, int l, int d_in, int d_out,
+                    const float* x, const float* ln_w, const float* ln_b,
+                    float eps, int offset) {
+  GemvArgs a;
+  const size_t lv_stride = (size_t)(d_in / 2) * d_out;
+  const size_t sc_stride = (size_t)(d_in / QK) * d_out;
+  a.x = x;
+  a.ln_w = ln_w;
+  a.ln_b = ln_b;
+  a.eps = eps;
+  a.lv = p.lv + l * lv_stride;
+  a.sc = p.sc + l * sc_stride;
+  a.mn = p.mn != nullptr ? p.mn + l * sc_stride : nullptr;
+  a.d_in = d_in;
+  a.d_out = d_out;
+  a.offset = offset;
+  a.gpb = pick_gpb(d_in);
+  return a;
+}
+
+void launch_m1(const GemvArgs& a, float* part, cudaStream_t st) {
+  if (a.mn != nullptr) launch_partial<1, false, true>(a, part, st);
+  else launch_partial<1, false, false>(a, part, st);
+}
+
+int splits_of(int d_in) { return d_in / (2 * QK) / pick_gpb(d_in); }
+
+}  // namespace
+
+// Scratch sizes (floats) the wrapper allocates: part >= bgt_decode_part_size,
+// ml >= H * ceil(past/64) * 2, acc >= H * ceil(past/64) * 64, ctx D, ff F.
+extern "C" int bgt_decode_part_size(int D, int F) {
+  const int a = splits_of(D) * 3 * D, b = splits_of(D) * F, c = splits_of(F) * D;
+  return a > b ? (a > c ? a : c) : (b > c ? b : c);
+}
+
+extern "C" int bgt_decode_head_dim() { return DK; }
+
+extern "C" int bgt_decode_step(
+    float* x, int L, int D, int F, int H, int S, int past, float eps,
+    int offset, const float* ln0w, const float* ln0b, const float* ln1w,
+    const float* ln1b,
+    const uint8_t* qkv_lv, const void* qkv_sc, const void* qkv_mn, const float* qkv_b,
+    const uint8_t* o_lv, const void* o_sc, const void* o_mn, const float* o_b,
+    const uint8_t* fc1_lv, const void* fc1_sc, const void* fc1_mn, const float* fc1_b,
+    const uint8_t* fc2_lv, const void* fc2_sc, const void* fc2_mn, const float* fc2_b,
+    const void* k_cache, const void* v_cache, void* k_rows, void* v_rows,
+    float* part, float* ml, float* acc, float* ctx, float* ff, void* stream) {
+  if (D != H * DK) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Proj qkv{qkv_lv, static_cast<const __nv_bfloat16*>(qkv_sc),
+                 static_cast<const __nv_bfloat16*>(qkv_mn), qkv_b};
+  const Proj o{o_lv, static_cast<const __nv_bfloat16*>(o_sc),
+               static_cast<const __nv_bfloat16*>(o_mn), o_b};
+  const Proj fc1{fc1_lv, static_cast<const __nv_bfloat16*>(fc1_sc),
+                 static_cast<const __nv_bfloat16*>(fc1_mn), fc1_b};
+  const Proj fc2{fc2_lv, static_cast<const __nv_bfloat16*>(fc2_sc),
+                 static_cast<const __nv_bfloat16*>(fc2_mn), fc2_b};
+  const __nv_bfloat16* kc = static_cast<const __nv_bfloat16*>(k_cache);
+  const __nv_bfloat16* vc = static_cast<const __nv_bfloat16*>(v_cache);
+  __nv_bfloat16* kr = static_cast<__nv_bfloat16*>(k_rows);
+  __nv_bfloat16* vr = static_cast<__nv_bfloat16*>(v_rows);
+  const float scale = 1.0f / sqrtf((float)DK);
+  const int ns = (past + ATT_ROWS - 1) / ATT_ROWS;
+  const int sd = splits_of(D), sf = splits_of(F);
+
+  for (int l = 0; l < L; ++l) {
+    launch_m1(layer_args(qkv, l, D, 3 * D, x, ln0w + (size_t)l * D,
+                         ln0b + (size_t)l * D, eps, offset), part, st);
+    const float* bq = qkv_b + (size_t)l * 3 * D;
+    const size_t kv_off = (size_t)l * S * D;
+    if (ns > 0)
+      attn_split_kernel<<<dim3(H, ns), ATT_THREADS, 0, st>>>(
+          part, sd, bq, D, kc + kv_off, vc + kv_off, past, scale, ml, acc);
+    attn_combine_kernel<<<H, DK, 0, st>>>(part, sd, bq, D, ml, acc, ns, scale,
+                                          ctx, kr + (size_t)l * D,
+                                          vr + (size_t)l * D);
+    launch_m1(layer_args(o, l, D, D, ctx, nullptr, nullptr, eps, offset), part, st);
+    launch_partial_sum(part, sd, 1, D, o_b + (size_t)l * D, 0, x, x, st);
+    launch_m1(layer_args(fc1, l, D, F, x, ln1w + (size_t)l * D,
+                         ln1b + (size_t)l * D, eps, offset), part, st);
+    launch_partial_sum(part, sd, 1, F, fc1_b + (size_t)l * F, 1, nullptr, ff, st);
+    launch_m1(layer_args(fc2, l, F, D, ff, nullptr, nullptr, eps, offset), part, st);
+    launch_partial_sum(part, sf, 1, D, fc2_b + (size_t)l * D, 0, x, x, st);
+  }
+  return (int)cudaGetLastError();
+}

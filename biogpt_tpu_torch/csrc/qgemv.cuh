@@ -1,0 +1,325 @@
+// Skinny-M quantized GEMV for packed 4-bit planes, shared by every kernel
+// of the port (qmatmul.cu, lm_head_argmax.cu, decode_step.cu).
+//
+// Weight layout (biogpt_tpu_torch/quant/layouts.py): levels are a uint8
+// (d_in/2, d_out) plane in split-half order -- byte row i holds level row i
+// in its low nibble and level row i + d_in/2 in its high nibble, UNCENTERED
+// (0..15); scales and mins are bf16 (d_in/32, d_out) planes.
+//
+// Work split: a block owns TILE_COLS = 128 output columns (32 lanes x 4
+// columns, one u32 load per packed row per lane, so a warp reads 128
+// contiguous bytes of a row) and `gpb` packed 32-row groups along d_in.
+// Packed group g carries level blocks g (low nibbles) and g + nbh (high
+// nibbles), nbh = d_in/64. The block's warps stride over its groups; their
+// per-column sums reduce across warps in shared memory in a fixed order,
+// and across the blocks of a column tile (grid.y) in a second pass
+// (epilogue kernels below) -- no atomics, so every run sums in one order.
+//
+// Two numerics, one per TPU kernel (biogpt_tpu/ops/pallas_qmatmul.py):
+//   XPRIME (qmatmul_pallas, `_kernel`): x rounded to bf16; per level block
+//     n the f32 partial p_n = sum_k x_k * lv_k over UNCENTERED levels, then
+//     (p_n - offset * xsum_n) * scale_n [+ xsum_n * min_n], summed over n.
+//   WIDE (qmatmul_pallas_wide, `_kernel_wide`): the weight dequantizes in
+//     f32 and rounds once to bf16, w = bf16((lv - offset) * scale [+ min]),
+//     and y = sum_k x_k * w_k in f32.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace bgt {
+
+constexpr int QK = 32;
+constexpr int TILE_COLS = 128;
+constexpr int GEMV_WARPS = 4;
+constexpr int GEMV_THREADS = GEMV_WARPS * 32;
+// shared-memory budget for the staged activation slices (static limit)
+constexpr int XS_BYTES_MAX = 40 * 1024;
+
+__device__ __forceinline__ float bf16r(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Sum over the block (blockDim.x a multiple of 32, <= 1024); every thread
+// gets the result. `scratch` holds 32 floats.
+__device__ __forceinline__ float block_sum(float v, float* scratch) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  v = warp_sum(v);
+  __syncthreads();
+  if (lane == 0) scratch[warp] = v;
+  __syncthreads();
+  float t = 0.f;
+  for (int w = 0; w < nw; ++w) t += scratch[w];
+  return t;
+}
+
+struct GemvArgs {
+  const float* x;            // (M, d_in) f32 activations
+  const float* ln_w;         // (d_in) LayerNorm weight, or null: no LN
+  const float* ln_b;         // (d_in)
+  float eps;
+  const uint8_t* lv;         // (d_in/2, d_out) packed levels
+  const __nv_bfloat16* sc;   // (d_in/32, d_out)
+  const __nv_bfloat16* mn;   // (d_in/32, d_out) or null (Q4_0)
+  int d_in;
+  int d_out;
+  int offset;                // LEVEL_OFFSET: 8 for Q4_0, 0 for Q4_1
+  int gpb;                   // packed groups per block
+};
+
+// Stage the bf16-rounded activations this block needs into shared memory:
+// xs[(m * 2 + h) * span + i] = x[m, h * d_in/2 + g0 * QK + i], i < span,
+// after LayerNorm when a.ln_w is set (statistics over the full row, as the
+// TPU kernels' `_ln` computes them: mean, then the mean squared deviation).
+template <int M>
+__device__ void stage_x(const GemvArgs& a, float* xs, int g0, int span,
+                        float* scratch) {
+  const int half = a.d_in / 2;
+  for (int m = 0; m < M; ++m) {
+    const float* xr = a.x + (size_t)m * a.d_in;
+    float mean = 0.f, rstd = 1.f;
+    if (a.ln_w != nullptr) {
+      float s = 0.f;
+      for (int i = threadIdx.x; i < a.d_in; i += blockDim.x) s += xr[i];
+      mean = block_sum(s, scratch) / (float)a.d_in;
+      float q = 0.f;
+      for (int i = threadIdx.x; i < a.d_in; i += blockDim.x) {
+        const float c = xr[i] - mean;
+        q += c * c;
+      }
+      const float var = block_sum(q, scratch) / (float)a.d_in;
+      rstd = 1.0f / sqrtf(var + a.eps);
+    }
+    for (int t = threadIdx.x; t < 2 * span; t += blockDim.x) {
+      const int h = t / span, i = t % span;
+      const int k = h * half + g0 * QK + i;
+      float v = xr[k];
+      if (a.ln_w != nullptr) v = (v - mean) * rstd * a.ln_w[k] + a.ln_b[k];
+      xs[(m * 2 + h) * span + i] = bf16r(v);
+    }
+  }
+}
+
+// The per-thread half of a block's column tile: acc[m][c] for columns
+// tile * 128 + lane * 4 + c, summed over this warp's packed groups.
+template <int M, bool WIDE, bool HAS_MIN>
+__device__ __forceinline__ void gemv_accumulate(const GemvArgs& a,
+                                                const float* xs, int tile,
+                                                int g0, float (&acc)[M][4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int col0 = tile * TILE_COLS + lane * 4;
+  const int nbh = a.d_in / (2 * QK);
+  const int span = a.gpb * QK;
+  const float off = (float)a.offset;
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[m][c] = 0.f;
+
+  for (int gi = warp; gi < a.gpb; gi += GEMV_WARPS) {
+    const int g = g0 + gi;
+    // block scales (and mins) of level blocks g (low) and g + nbh (high)
+    float slo[4], shi[4], mlo[4] = {0.f, 0.f, 0.f, 0.f},
+                          mhi[4] = {0.f, 0.f, 0.f, 0.f};
+    {
+      const uint2 s0 = *reinterpret_cast<const uint2*>(
+          a.sc + (size_t)g * a.d_out + col0);
+      const uint2 s1 = *reinterpret_cast<const uint2*>(
+          a.sc + (size_t)(g + nbh) * a.d_out + col0);
+      const __nv_bfloat16* p0 = reinterpret_cast<const __nv_bfloat16*>(&s0);
+      const __nv_bfloat16* p1 = reinterpret_cast<const __nv_bfloat16*>(&s1);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        slo[c] = __bfloat162float(p0[c]);
+        shi[c] = __bfloat162float(p1[c]);
+      }
+      if (HAS_MIN) {
+        const uint2 n0 = *reinterpret_cast<const uint2*>(
+            a.mn + (size_t)g * a.d_out + col0);
+        const uint2 n1 = *reinterpret_cast<const uint2*>(
+            a.mn + (size_t)(g + nbh) * a.d_out + col0);
+        const __nv_bfloat16* q0 = reinterpret_cast<const __nv_bfloat16*>(&n0);
+        const __nv_bfloat16* q1 = reinterpret_cast<const __nv_bfloat16*>(&n1);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          mlo[c] = __bfloat162float(q0[c]);
+          mhi[c] = __bfloat162float(q1[c]);
+        }
+      }
+    }
+    const uint8_t* lrow = a.lv + (size_t)g * QK * a.d_out + col0;
+    if (WIDE) {
+#pragma unroll 4
+      for (int r = 0; r < QK; ++r) {
+        const uint32_t w = *reinterpret_cast<const uint32_t*>(
+            lrow + (size_t)r * a.d_out);
+        float wl[4], wh[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const uint32_t b = (w >> (8 * c)) & 0xFFu;
+          // _rn: no fused multiply-add, so the product rounds before the
+          // min is added, as in the TPU kernel
+          wl[c] = __fmul_rn((float)(b & 0xFu) - off, slo[c]);
+          wh[c] = __fmul_rn((float)(b >> 4) - off, shi[c]);
+          if (HAS_MIN) {
+            wl[c] += mlo[c];
+            wh[c] += mhi[c];
+          }
+          wl[c] = bf16r(wl[c]);
+          wh[c] = bf16r(wh[c]);
+        }
+#pragma unroll
+        for (int m = 0; m < M; ++m) {
+          const float xl = xs[(m * 2 + 0) * span + gi * QK + r];
+          const float xh = xs[(m * 2 + 1) * span + gi * QK + r];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            acc[m][c] += xl * wl[c];
+            acc[m][c] += xh * wh[c];
+          }
+        }
+      }
+    } else {
+      float plo[M][4], phi[M][4];
+#pragma unroll
+      for (int m = 0; m < M; ++m)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) plo[m][c] = phi[m][c] = 0.f;
+#pragma unroll 8
+      for (int r = 0; r < QK; ++r) {
+        const uint32_t w = *reinterpret_cast<const uint32_t*>(
+            lrow + (size_t)r * a.d_out);
+#pragma unroll
+        for (int m = 0; m < M; ++m) {
+          const float xl = xs[(m * 2 + 0) * span + gi * QK + r];
+          const float xh = xs[(m * 2 + 1) * span + gi * QK + r];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const uint32_t b = (w >> (8 * c)) & 0xFFu;
+            plo[m][c] += xl * (float)(b & 0xFu);
+            phi[m][c] += xh * (float)(b >> 4);
+          }
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        float sl = 0.f, sh = 0.f;   // per-block activation sums
+        for (int r = 0; r < QK; ++r) {
+          sl += xs[(m * 2 + 0) * span + gi * QK + r];
+          sh += xs[(m * 2 + 1) * span + gi * QK + r];
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float tl = (plo[m][c] - off * sl) * slo[c];
+          float th = (phi[m][c] - off * sh) * shi[c];
+          if (HAS_MIN) {
+            tl += sl * mlo[c];
+            th += sh * mhi[c];
+          }
+          acc[m][c] += tl;
+          acc[m][c] += th;
+        }
+      }
+    }
+  }
+}
+
+// Fixed-order cross-warp sum of acc into out[m * out_stride + col] for the
+// block's 128 columns (col = threadIdx.x). `red` holds GEMV_WARPS * 128.
+template <int M>
+__device__ __forceinline__ void warp_tile_reduce(float (&acc)[M][4], float* red,
+                                                 float* out, size_t out_stride) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    __syncthreads();
+#pragma unroll
+    for (int c = 0; c < 4; ++c) red[warp * TILE_COLS + lane * 4 + c] = acc[m][c];
+    __syncthreads();
+    float s = 0.f;
+    for (int w = 0; w < GEMV_WARPS; ++w) s += red[w * TILE_COLS + threadIdx.x];
+    out[m * out_stride + threadIdx.x] = s;
+  }
+}
+
+// Partial products: part[(blockIdx.y * M + m) * d_out + col].
+// grid = (d_out / 128, nbh / gpb), block = GEMV_THREADS.
+template <int M, bool WIDE, bool HAS_MIN>
+__global__ void __launch_bounds__(GEMV_THREADS)
+qgemv_partial_kernel(GemvArgs a, float* part) {
+  __shared__ float xs[XS_BYTES_MAX / 4];
+  __shared__ float red[GEMV_WARPS * TILE_COLS];
+  __shared__ float scratch[32];
+  const int g0 = blockIdx.y * a.gpb;
+  stage_x<M>(a, xs, g0, a.gpb * QK, scratch);
+  __syncthreads();
+  float acc[M][4];
+  gemv_accumulate<M, WIDE, HAS_MIN>(a, xs, blockIdx.x, g0, acc);
+  float* out = part + (size_t)blockIdx.y * M * a.d_out + blockIdx.x * TILE_COLS;
+  warp_tile_reduce<M>(acc, red, out, a.d_out);
+}
+
+// Epilogue over the partials: y[m, o] = act(sum_s part[s, m, o] + bias[o])
+// (+ res[m, o]), summed over s in order. `res` may alias `y` (in-place
+// residual update). act: 0 none, 1 exact-erf GELU.
+__global__ void partial_sum_kernel(const float* part, int splits, int rows,
+                                   int d_out, const float* bias, int act,
+                                   const float* res, float* y) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= rows * d_out) return;
+  const int o = i % d_out;
+  float s = 0.f;
+  for (int k = 0; k < splits; ++k) s += part[(size_t)k * rows * d_out + i];
+  if (res != nullptr) {
+    // residual order of the TPU kernel: (x + proj) + bias
+    float v = res[i] + s;
+    if (bias != nullptr) v += bias[o];
+    y[i] = v;
+    return;
+  }
+  if (bias != nullptr) s += bias[o];
+  if (act == 1) s = 0.5f * s * (1.0f + erff(s * 0.70710678118654752f));
+  y[i] = s;
+}
+
+// Packed groups per block: the largest divisor of d_in/64 up to one per
+// warp, so a projection's partial blocks spread over the card and the
+// staged activations (M * 2 * gpb * 32 floats) stay within XS_BYTES_MAX.
+inline int pick_gpb(int d_in) {
+  const int nbh = d_in / (2 * QK);
+  int g = GEMV_WARPS;
+  while (nbh % g != 0) --g;
+  return g;
+}
+
+template <int M, bool WIDE, bool HAS_MIN>
+inline void launch_partial(const GemvArgs& a, float* part, cudaStream_t st) {
+  const int nbh = a.d_in / (2 * QK);
+  dim3 grid(a.d_out / TILE_COLS, nbh / a.gpb);
+  qgemv_partial_kernel<M, WIDE, HAS_MIN><<<grid, GEMV_THREADS, 0, st>>>(a, part);
+}
+
+inline void launch_partial_sum(const float* part, int splits, int rows,
+                               int d_out, const float* bias, int act,
+                               const float* res, float* y, cudaStream_t st) {
+  const int n = rows * d_out;
+  partial_sum_kernel<<<(n + 255) / 256, 256, 0, st>>>(part, splits, rows, d_out,
+                                                       bias, act, res, y);
+}
+
+}  // namespace bgt

@@ -1,0 +1,129 @@
+"""Synthetic model files for tests and offline drives.
+
+No BioGPT checkpoint ships with the repository, so these helpers write a
+random model with the exact HF tensor-name/shape contract and a small
+working character-level BPE vocabulary, through the real file format.
+
+``write_random_quantized_model`` writes random ggml block BYTES straight
+into the file (random levels, f16 scales in [0.005, 0.02], Q4_1/Q5_1 minima
+in [-0.2, -0.05]) — the same draw ranges as the JAX package's
+``make_random_quantized_params`` — so a full-width 347M file takes seconds
+instead of a float-codec pass over 347M values.
+"""
+
+from __future__ import annotations
+
+import string
+from pathlib import Path
+from typing import Dict, List, Tuple
+
+import numpy as np
+
+from ..config import (BioGptConfig, FTYPE_Q4_0, FTYPE_Q4_1, FTYPE_Q5_0,
+                      FTYPE_Q5_1, FTYPE_Q8_0)
+from ..quant import codecs
+from . import ggml_format
+from .ggml_format import TensorRecord
+
+_FTYPE_FOR_QTYPE = {
+    codecs.GGML_TYPE_Q4_0: FTYPE_Q4_0,
+    codecs.GGML_TYPE_Q4_1: FTYPE_Q4_1,
+    codecs.GGML_TYPE_Q5_0: FTYPE_Q5_0,
+    codecs.GGML_TYPE_Q5_1: FTYPE_Q5_1,
+    codecs.GGML_TYPE_Q8_0: FTYPE_Q8_0,
+}
+
+
+def make_char_vocab(n_vocab: int) -> Tuple[Dict[str, int], List[Tuple[str, str]]]:
+    """A character-level BPE vocab: specials, printable chars, char</w> forms,
+    and a few common merges. Tokenizes any ASCII text without <unk>."""
+    tokens: Dict[str, int] = {"<unk>": 0, "<s>": 1, "</s>": 2, "<pad>": 3}
+    chars = string.ascii_letters + string.digits + string.punctuation
+    for ch in chars:
+        tokens.setdefault(ch, len(tokens))
+    for ch in chars:
+        tokens.setdefault(ch + "</w>", len(tokens))
+    merges: List[Tuple[str, str]] = []
+    for a, b in [("t", "h"), ("th", "e</w>"), ("i", "n"), ("a", "n"),
+                 ("e", "r"), ("o", "n"), ("e", "n"), ("an", "d</w>")]:
+        if len(tokens) >= n_vocab:
+            break
+        merges.append((a, b))
+        tokens.setdefault(a + b, len(tokens))
+    if len(tokens) > n_vocab:
+        raise ValueError(f"n_vocab={n_vocab} too small (need {len(tokens)})")
+    for i in range(len(tokens), n_vocab):
+        tokens[f"[unused_{i}]"] = i
+    return tokens, merges
+
+
+def _tensor_shapes(config: BioGptConfig) -> List[Tuple[str, Tuple[int, ...]]]:
+    """HF BioGPT tensor names and torch-order shapes, in file order."""
+    d, ff = config.d_model, config.d_ff
+    shapes = [
+        ("biogpt.embed_tokens.weight", (config.n_vocab, d)),
+        ("biogpt.embed_positions.weight",
+         (config.n_positions + config.pos_offset, d)),
+        ("biogpt.layer_norm.weight", (d,)),
+        ("biogpt.layer_norm.bias", (d,)),
+        ("output_projection.weight", (config.n_vocab, d)),
+    ]
+    for i in range(config.n_layer):
+        p = f"biogpt.layers.{i}."
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            shapes += [(p + f"self_attn.{proj}.weight", (d, d)),
+                       (p + f"self_attn.{proj}.bias", (d,))]
+        shapes += [(p + "self_attn_layer_norm.weight", (d,)),
+                   (p + "self_attn_layer_norm.bias", (d,)),
+                   (p + "final_layer_norm.weight", (d,)),
+                   (p + "final_layer_norm.bias", (d,)),
+                   (p + "fc1.weight", (ff, d)), (p + "fc1.bias", (ff,)),
+                   (p + "fc2.weight", (d, ff)), (p + "fc2.bias", (d,))]
+    return shapes
+
+
+def _random_blocks(rng: np.random.Generator, n_blocks: int, qtype: int) -> bytes:
+    """Random ggml blocks: random level bytes, f16 scale (and min) fields
+    overwritten with draws from the synthetic ranges."""
+    bs = codecs.BLOCK_SIZES[qtype]
+    blocks = rng.integers(0, 256, size=(n_blocks, bs), dtype=np.uint8)
+    blocks[:, 0:2] = (rng.uniform(0.005, 0.02, n_blocks).astype(np.float16)
+                      .view(np.uint8).reshape(n_blocks, 2))
+    if qtype in (codecs.GGML_TYPE_Q4_1, codecs.GGML_TYPE_Q5_1):
+        blocks[:, 2:4] = ((-rng.uniform(0.05, 0.2, n_blocks)).astype(np.float16)
+                          .view(np.uint8).reshape(n_blocks, 2))
+    return blocks.tobytes()
+
+
+def write_random_quantized_model(path: str | Path, config: BioGptConfig,
+                                 qtype: int = codecs.GGML_TYPE_Q4_0,
+                                 seed: int = 0) -> BioGptConfig:
+    """Write a random quantized model file; returns its config.
+
+    Tensors that the reference quantization rule selects ("weight" in the
+    name, 2-D) carry random ``qtype`` block bytes; layer norms are ones and
+    zeros; biases are N(0, 0.02) float32.
+    """
+    import dataclasses
+
+    config = dataclasses.replace(config, ftype=_FTYPE_FOR_QTYPE[qtype])
+    rng = np.random.default_rng(seed)
+    vocab, merges = make_char_vocab(config.n_vocab)
+
+    def records():
+        for name, shape in _tensor_shapes(config):
+            if "weight" in name and len(shape) == 2:
+                n_blocks = shape[0] * shape[1] // codecs.QK
+                yield TensorRecord(name=name, shape=shape, ttype=qtype,
+                                   data=_random_blocks(rng, n_blocks, qtype))
+                continue
+            if "layer_norm" in name:
+                fill = 1.0 if name.endswith("weight") else 0.0
+                arr = np.full(shape, fill, np.float32)
+            else:
+                arr = (rng.standard_normal(shape) * 0.02).astype(np.float32)
+            yield TensorRecord(name=name, shape=shape,
+                               ttype=codecs.GGML_TYPE_F32, data=arr.tobytes())
+
+    ggml_format.write_model_file(path, config, vocab, merges, records())
+    return config

@@ -1,0 +1,159 @@
+"""Build and load the port's CUDA kernels (``biogpt_tpu_torch/csrc``).
+
+Each ``csrc/*.cu`` source compiles with ``nvcc`` into its own shared
+library with a plain C interface, loaded through ``ctypes``: every pointer
+and the stream pass as ``c_void_p``, and every entry point returns
+``cudaGetLastError()``, which :func:`check` turns into an exception.
+
+Libraries build on first use into ``build/biogpt_tpu_torch/`` at the root
+of the checkout (``BIOGPT_TORCH_BUILD_DIR`` overrides it), named by a hash
+of the sources, so an edited kernel rebuilds and an unchanged one loads at
+once. Nothing builds while a module is imported. :func:`build_all` starts
+one ``nvcc`` per source at the same time.
+
+``LAUNCHES`` counts kernel launches per wrapper; each wrapper adds one
+where it launches its kernel and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+
+# kernel library -> source file
+SOURCES = {
+    "qmatmul": "qmatmul.cu",
+    "lm_head_argmax": "lm_head_argmax.cu",
+    "decode_step": "decode_step.cu",
+}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry points: (library, function) -> argtypes; all return int
+SIGNATURES = {
+    ("qmatmul", "bgt_qmatmul"): [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+                                 _P],
+    ("qmatmul", "bgt_qmatmul_splits"): [_I],
+    ("lm_head_argmax", "bgt_lm_head_argmax"): [
+        _P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+        _P, _P],
+    ("decode_step", "bgt_decode_part_size"): [_I, _I],
+    ("decode_step", "bgt_decode_head_dim"): [],
+    ("decode_step", "bgt_decode_step"): (
+        [_P, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P]
+        + [_P] * 16 + [_P] * 4 + [_P] * 5 + [_P]),
+}
+
+LAUNCHES = {"qmatmul": 0, "qmatmul_wide": 0, "lm_head_argmax": 0,
+            "decode_step_fused": 0}
+
+_LIBS: dict = {}
+_LOCK = threading.Lock()
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def build_dir() -> Path:
+    env = os.environ.get("BIOGPT_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    return CSRC.parent.parent / "build" / "biogpt_tpu_torch"
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the port's CUDA kernels build on a "
+                       "machine with the CUDA toolkit (set CUDA_HOME)")
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha1()
+    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / SOURCES[name]]:
+        h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"lib{name}_{h.hexdigest()[:12]}.so"
+
+
+def _start_build(name: str):
+    out = _lib_path(name)
+    if out.exists():
+        return None
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out, cmd
+
+
+def _finish_build(job) -> None:
+    proc, tmp, out, cmd = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                           f"{' '.join(cmd)}\n{log}")
+    os.replace(tmp, out)
+
+
+def build_all(names=None) -> None:
+    """Build every kernel library that is not built yet, one ``nvcc`` per
+    source, all started together."""
+    with _LOCK:
+        jobs = [j for j in (_start_build(n) for n in (names or SOURCES)) if j]
+        errors = []
+        for job in jobs:
+            try:
+                _finish_build(job)
+            except RuntimeError as e:
+                errors.append(str(e))
+        if errors:
+            raise RuntimeError("\n".join(errors))
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library ``name`` (built on first use)."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    build_all([name])
+    lib = ctypes.CDLL(str(_lib_path(name)))
+    for (lname, fn), argtypes in SIGNATURES.items():
+        if lname == name:
+            f = getattr(lib, fn)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+    _LIBS[name] = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error (a refused launch
+    never runs, and a later synchronize would not report it)."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def ptr(t) -> int | None:
+    """Device pointer of a tensor, or None (NULL) for a missing operand."""
+    return None if t is None else t.data_ptr()
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream

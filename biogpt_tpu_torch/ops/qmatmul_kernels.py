@@ -1,0 +1,278 @@
+"""Quantized GEMV kernels: ``qmatmul``, ``qmatmul_wide``, ``lm_head_argmax``.
+
+Each function takes plane-layout weights (``quant.layouts.QuantizedTensor``)
+and dispatches on the device of its tensors: on the CPU it runs its plain
+PyTorch version (``*_plain``), which transcribes what the TPU kernel
+computes, bf16 roundings included; on a CUDA tensor it launches the
+hand-written Hopper kernel (``csrc/qmatmul.cu``, ``csrc/lm_head_argmax.cu``)
+or raises. There is no fallback from the card to the plain version.
+
+The CUDA kernels take the packed 4-bit formats (Q4_0, Q4_1) with bf16
+scale planes, as ``runtime.engine._pack_matmul_weights`` prepares them; the
+plain versions take all five formats, packed or not.
+
+Replaces (biogpt_tpu/ops/pallas_qmatmul.py):
+  qmatmul          <- qmatmul_pallas         (M <= 8, X' numerics)
+  qmatmul_wide     <- qmatmul_pallas_wide    (8 < M <= 32, dequant-then-dot)
+  lm_head_argmax   <- lm_head_argmax_pallas  (final LN + lm_head + argmax)
+All three are bound by the bytes of the weight planes on an H100; see the
+kernel sources for what each design does about it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..quant.codecs import QK, GGML_TYPE_Q4_0, GGML_TYPE_Q4_1
+from ..quant.layouts import LEVEL_OFFSET, QuantizedTensor, unpack_levels
+from . import cuda_lib
+
+LANES = 128             # output-column alignment of every kernel
+# d_in chunk of the TPU wide kernel's dequant loop; it has no remainder path
+_WIDE_CHUNK = 1024
+CUDA_QTYPES = (GGML_TYPE_Q4_0, GGML_TYPE_Q4_1)   # formats the CUDA kernels take
+
+
+# ------------------------------------------------------------------ gates
+
+def supports(qt: QuantizedTensor, m: int) -> bool:
+    """Shape gate of ``qmatmul`` (``pallas_qmatmul.supports``): lane-aligned
+    d_out, block-aligned d_in halves, M <= 8."""
+    d_out = qt.scales.shape[-1]
+    d_in = qt.scales.shape[-2] * QK
+    return d_out % LANES == 0 and d_in % (2 * QK) == 0 and m <= 8
+
+
+def supports_wide(qt: QuantizedTensor, m: int) -> bool:
+    """Shape gate of ``qmatmul_wide`` (``pallas_qmatmul.supports_wide``),
+    including its refusal of a d_in tail the TPU kernel's 1024-row chunking
+    would drop."""
+    d_out = qt.scales.shape[-1]
+    d_in = qt.scales.shape[-2] * QK
+    return (d_out % LANES == 0 and d_in % (2 * QK) == 0
+            and (d_in <= _WIDE_CHUNK or d_in % _WIDE_CHUNK == 0)
+            and 8 < m <= 32)
+
+
+def pick_tile(d_out: int) -> int:
+    """The TPU kernels' lane tile (``pallas_qmatmul._pick_tile``): the argmax
+    fold runs tile by tile, so its NaN rule depends on it."""
+    for t in (512, 256, LANES):
+        if d_out % t == 0:
+            return t
+    raise ValueError(f"d_out={d_out} not lane-aligned")
+
+
+# --------------------------------------------------------- plain versions
+
+def _offset(qt: QuantizedTensor) -> int:
+    # packed levels are stored uncentered; unpacked ones are centered
+    return LEVEL_OFFSET[qt.qtype] if qt.packed else 0
+
+
+def _raw_levels(qt: QuantizedTensor) -> torch.Tensor:
+    """(d_in, d_out) levels as the kernel sees them: uncentered when packed."""
+    if qt.packed:
+        return unpack_levels(qt.levels, qt.qtype).to(torch.int16) + _offset(qt)
+    return qt.levels
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def xprime_logits(xb: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """The X' formulation on already-bf16-valued rows xb (M, d_in) f32:
+    per-block f32 partials of the raw levels, the offset and mins folded in
+    through per-block activation sums, f32 scales -> (M, d_out) f32."""
+    d_in, d_out = qt.d_in, qt.d_out
+    nb = d_in // QK
+    lv = _raw_levels(qt).to(torch.float32).reshape(nb, QK, d_out)
+    xblk = xb.reshape(-1, nb, QK)
+    partial = torch.einsum("mnk,nko->mno", xblk, lv)
+    xsum = xblk.sum(-1, keepdim=True)                   # (M, nb, 1)
+    off = _offset(qt)
+    if off:
+        partial = partial - float(off) * xsum
+    acc = partial * qt.scales.to(torch.float32)
+    if qt.mins is not None:
+        acc = acc + xsum * qt.mins.to(torch.float32)
+    return acc.sum(1)
+
+
+def wide_weight(qt: QuantizedTensor) -> torch.Tensor:
+    """Dequant-then-dot weight of the wide kernel: (lv - offset) * bf16(scale)
+    [+ bf16(min)] in f32, rounded once to bf16 -> (d_in, d_out) f32."""
+    lv = _raw_levels(qt).to(torch.float32)
+    sc = _bf16(qt.scales).repeat_interleave(QK, dim=0)
+    w = (lv - float(_offset(qt))) * sc
+    if qt.mins is not None:
+        w = w + _bf16(qt.mins).repeat_interleave(QK, dim=0)
+    return _bf16(w)
+
+
+def qmatmul_plain(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """Plain version of ``qmatmul``: x (M, d_in) -> (M, d_out) f32."""
+    return xprime_logits(_bf16(x), qt)
+
+
+def qmatmul_wide_plain(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """Plain version of ``qmatmul_wide``: x (M, d_in) -> (M, d_out) f32."""
+    return _bf16(x) @ wide_weight(qt)
+
+
+def layer_norm_bf16(x, ln_w, ln_b, eps: float) -> torch.Tensor:
+    """The TPU kernels' LayerNorm (mean, then mean squared deviation), in
+    f32, rounded to bf16 for the product that follows."""
+    x = x.to(torch.float32)
+    mean = x.mean(-1, keepdim=True)
+    xc = x - mean
+    var = (xc * xc).mean(-1, keepdim=True)
+    y = xc * torch.rsqrt(var + eps)
+    return _bf16(y * ln_w.to(torch.float32) + ln_b.to(torch.float32))
+
+
+def argmax_fold(logits: torch.Tensor, n_valid: int, tile: int):
+    """The TPU argmax epilogue over (M, d_out) logits: pad columns become
+    -1e30; per lane tile (max, lowest index >= max, clamped to n_valid-1),
+    a NaN anywhere in a tile giving (NaN, n_valid-1); tiles fold from tile 0
+    with a strict `>`. Returns ((M,) int32 ids, (M,) f32 max values)."""
+    M, d_out = logits.shape
+    col = torch.arange(d_out, device=logits.device)
+    v = torch.where(col < n_valid, logits, torch.full_like(logits, -1e30))
+    vt = v.reshape(M, d_out // tile, tile)
+    tmax = vt.amax(-1)                                  # NaN-propagating
+    coli = col.reshape(d_out // tile, tile).expand(M, -1, -1)
+    big = torch.full_like(coli, 2 ** 30)
+    targ = torch.where(vt >= tmax[..., None], coli, big).amin(-1)
+    targ = torch.clamp(targ, max=n_valid - 1)
+    bv, bi = tmax[:, 0].clone(), targ[:, 0].clone()
+    for j in range(1, tmax.shape[1]):
+        better = tmax[:, j] > bv
+        bv = torch.where(better, tmax[:, j], bv)
+        bi = torch.where(better, targ[:, j], bi)
+    return bi.to(torch.int32), bv
+
+
+def lm_head_argmax_plain(x, ln_w, ln_b, qt: QuantizedTensor, n_valid: int,
+                         ln_eps: float = 1e-5):
+    """Plain version of ``lm_head_argmax``: ((M,) int32 ids, (M,) f32 max
+    logits). M > 8 rows take the wide formulation, as the TPU tile does."""
+    xn = layer_norm_bf16(x, ln_w, ln_b, ln_eps)
+    if x.shape[0] > 8:
+        logits = xn @ wide_weight(qt)
+    else:
+        logits = xprime_logits(xn, qt)
+    return argmax_fold(logits, n_valid, pick_tile(qt.d_out))
+
+
+# --------------------------------------------------------------- wrappers
+
+def _check_cuda_weight(qt: QuantizedTensor, what: str) -> None:
+    if not qt.packed or qt.qtype not in CUDA_QTYPES:
+        raise NotImplementedError(
+            f"{what}: the CUDA kernel takes packed Q4_0/Q4_1 planes; Q5_0/"
+            f"Q5_1 and Q8_0 kernels are a later slice of the port "
+            f"(qtype {qt.qtype}, packed={qt.packed})")
+    for name, t in (("scales", qt.scales), ("mins", qt.mins)):
+        if t is not None and (t.dtype != torch.bfloat16 or not t.is_contiguous()
+                              or not t.is_cuda):
+            raise ValueError(f"{what}: {name} must be a contiguous bf16 CUDA "
+                             f"tensor, got {t.dtype} on {t.device}")
+    if (qt.levels.dtype != torch.uint8 or not qt.levels.is_contiguous()
+            or qt.levels.dim() != 2 or qt.levels.shape[0] * 2 != qt.d_in):
+        raise ValueError(f"{what}: levels must be a contiguous uint8 "
+                         f"(d_in/2, d_out) plane, got {tuple(qt.levels.shape)}")
+
+
+def _cuda_x(x: torch.Tensor, d_in: int, what: str) -> torch.Tensor:
+    if x.dim() != 2 or x.shape[1] != d_in:
+        raise ValueError(f"{what}: x must be (M, {d_in}), got {tuple(x.shape)}")
+    return x.to(torch.float32).contiguous()
+
+
+def _launch_qmatmul(x: torch.Tensor, qt: QuantizedTensor, wide: bool):
+    what = "qmatmul_wide" if wide else "qmatmul"
+    _check_cuda_weight(qt, what)
+    d_in, d_out = qt.d_in, qt.d_out
+    x = _cuda_x(x, d_in, what)
+    M = x.shape[0]
+    if wide:
+        if not supports_wide(qt, M):
+            raise ValueError(f"{what}: unsupported shape M={M} d_in={d_in} "
+                             f"d_out={d_out}")
+        Mk = 16 if M <= 16 else 32   # kernel row counts; extra rows are zero
+        if Mk != M:
+            x = torch.cat([x, x.new_zeros(Mk - M, d_in)])
+    else:
+        if not supports(qt, M):
+            raise ValueError(f"{what}: unsupported shape M={M} d_in={d_in} "
+                             f"d_out={d_out}")
+        Mk = M
+    lib = cuda_lib.library("qmatmul")
+    splits = lib.bgt_qmatmul_splits(d_in)
+    part = torch.empty(splits * Mk * d_out, dtype=torch.float32,
+                       device=x.device)
+    y = torch.empty(Mk, d_out, dtype=torch.float32, device=x.device)
+    err = lib.bgt_qmatmul(
+        x.data_ptr(), qt.levels.data_ptr(), qt.scales.data_ptr(),
+        cuda_lib.ptr(qt.mins), Mk, d_in, d_out, LEVEL_OFFSET[qt.qtype],
+        int(wide), part.data_ptr(), y.data_ptr(),
+        cuda_lib.stream_ptr(x.device))
+    cuda_lib.LAUNCHES[what] += 1
+    cuda_lib.check(err, what)
+    return y[:M]
+
+
+def qmatmul(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """y = x @ dequant(qt) for M <= 8 rows -> (M, d_out) f32."""
+    if x.is_cuda:
+        return _launch_qmatmul(x, qt, wide=False)
+    return qmatmul_plain(x, qt)
+
+
+def qmatmul_wide(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """y = x @ dequant(qt) for 8 < M <= 32 rows -> (M, d_out) f32."""
+    if x.is_cuda:
+        return _launch_qmatmul(x, qt, wide=True)
+    return qmatmul_wide_plain(x, qt)
+
+
+def lm_head_argmax(x, ln_w, ln_b, qt: QuantizedTensor, n_valid: int,
+                   ln_eps: float = 1e-5):
+    """argmax(LN(x) @ dequant(qt)) over the first ``n_valid`` columns ->
+    ((M,) int32 ids, (M,) f32 winning logits: the health lane's probe)."""
+    if not x.is_cuda:
+        return lm_head_argmax_plain(x, ln_w, ln_b, qt, n_valid, ln_eps)
+    what = "lm_head_argmax"
+    _check_cuda_weight(qt, what)
+    d_in, d_out = qt.d_in, qt.d_out
+    x = _cuda_x(x, d_in, what)
+    M = x.shape[0]
+    if M > 8:
+        raise NotImplementedError(
+            f"{what}: M={M} > 8 rows is the batched serving epilogue, a later "
+            "slice of the port")
+    if d_out % LANES != 0 or M * d_in * 4 > 40 * 1024 or not 0 < n_valid <= d_out:
+        raise ValueError(f"{what}: unsupported shape M={M} d_in={d_in} "
+                         f"d_out={d_out} n_valid={n_valid}")
+    ln_w = ln_w.to(torch.float32).contiguous()
+    ln_b = ln_b.to(torch.float32).contiguous()
+    nblk = d_out // LANES
+    dev = x.device
+    bmax = torch.empty(M * nblk, dtype=torch.float32, device=dev)
+    bidx = torch.empty(M * nblk, dtype=torch.int32, device=dev)
+    bnan = torch.empty(M * nblk, dtype=torch.int32, device=dev)
+    ids = torch.empty(M, dtype=torch.int32, device=dev)
+    mv = torch.empty(M, dtype=torch.float32, device=dev)
+    lib = cuda_lib.library(what)
+    err = lib.bgt_lm_head_argmax(
+        x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), float(ln_eps),
+        qt.levels.data_ptr(), qt.scales.data_ptr(), cuda_lib.ptr(qt.mins),
+        M, d_in, d_out, LEVEL_OFFSET[qt.qtype], n_valid,
+        pick_tile(d_out) // LANES, bmax.data_ptr(), bidx.data_ptr(),
+        bnan.data_ptr(), ids.data_ptr(), mv.data_ptr(),
+        cuda_lib.stream_ptr(dev))
+    cuda_lib.LAUNCHES[what] += 1
+    cuda_lib.check(err, what)
+    return ids, mv

@@ -1,0 +1,317 @@
+"""The single-stream generation engine (``biogpt_tpu/runtime/engine.py``, B=1).
+
+Prefill pads the prompt to a power-of-two bucket (floor 8) and runs the
+per-op ``forward``; its quantized projections go through the GEMV kernels
+(m <= 8: ``qmatmul``, 9..32: ``qmatmul_wide``) and larger buckets through
+one dense product. Decode runs the fused whole-model step; greedy decode
+adds the fused LN + lm_head + argmax tail, sampled decode the lm_head GEMV
+and the torch sampler.
+
+``generate`` decodes in chunks of ``SCAN_LEN`` steps. The sampled token,
+the token buffer, the EOS flag and the health bit stay on the device; the
+host knows ``past`` as a Python int and reads the device once per chunk.
+Steps after an EOS inside a chunk still run (their tokens are discarded at
+the drain), where the JAX scan skipped them with a ``cond``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from dataclasses import dataclass, field
+from typing import Callable, List, Optional
+
+import numpy as np
+import torch
+
+from ..config import BioGptConfig, GenerationParams
+from ..device import resolve_device
+from ..models.biogpt import (forward, forward_fused_decode,
+                             forward_fused_decode_greedy)
+from ..modelio.checkpoint import tree_map
+from ..ops.decode_kernels import supports_layers
+from ..ops.qmatmul_kernels import CUDA_QTYPES, LANES, supports
+from ..quant.layouts import QuantizedTensor, pack_nibble_planes
+from .cache import KVCache, init_cache
+from .sampling import greedy, sample_top_k_top_p
+
+
+def _bucket(n: int, floor: int = 8) -> int:
+    b = floor
+    while b < n:
+        b *= 2
+    return b
+
+
+def _pack_matmul_weights(params: dict) -> dict:
+    """Prepare quantized matmul weights for the kernels, as the JAX engine
+    does: q/k/v fused into one (d_in, 3*d_model) projection, 4/5-bit levels
+    nibble-packed, scale and min planes stored as bf16, and the lm_head's
+    d_out lane-padded to a multiple of 128 with zero levels and scales.
+    Embeddings stay row-major and unpacked (gather path)."""
+
+    def maybe_pack(w, pad_out: bool = False):
+        if not isinstance(w, QuantizedTensor) or w.packed:
+            return w
+        if pad_out and w.d_out % LANES != 0:
+            pad = LANES - w.d_out % LANES
+            w = w.map(lambda a: torch.nn.functional.pad(a, (0, pad)))
+        if not supports(w, 1):
+            return w
+        w = pack_nibble_planes(w)
+        return dataclasses.replace(
+            w, scales=w.scales.to(torch.bfloat16),
+            mins=w.mins.to(torch.bfloat16) if w.mins is not None else None)
+
+    def fuse_qkv(layers: dict) -> dict:
+        ws = [layers.get(n, {}).get("w") for n in ("q", "k", "v")]
+        if not all(isinstance(w, QuantizedTensor) and not w.packed for w in ws):
+            return layers
+        qw, kw, vw = ws
+        fused = QuantizedTensor(
+            levels=torch.cat([qw.levels, kw.levels, vw.levels], dim=-1),
+            scales=torch.cat([qw.scales, kw.scales, vw.scales], dim=-1),
+            mins=(torch.cat([qw.mins, kw.mins, vw.mins], dim=-1)
+                  if qw.mins is not None else None),
+            qtype=qw.qtype)
+        bias = torch.cat([layers[n]["b"] for n in ("q", "k", "v")], dim=-1)
+        out = {k: v for k, v in layers.items() if k not in ("q", "k", "v")}
+        out["qkv"] = {"w": fused, "b": bias}
+        return out
+
+    out = dict(params)
+    out["lm_head"] = maybe_pack(params["lm_head"], pad_out=True)
+    out["layers"] = {
+        k: ({"w": maybe_pack(v["w"]), "b": v["b"]}
+            if isinstance(v, dict) and isinstance(v.get("w"), QuantizedTensor)
+            else v)
+        for k, v in fuse_qkv(params["layers"]).items()}
+    return out
+
+
+@dataclass
+class GenerationResult:
+    ids: List[int]
+    prompt_len: int
+    timings: dict = field(default_factory=dict)
+
+    @property
+    def new_ids(self) -> List[int]:
+        return self.ids[self.prompt_len:]
+
+
+class Engine:
+    """Single-stream generation engine.
+
+    ``compute_dtype``: torch.bfloat16 (default) or torch.float32 for
+    parity work. ``cache_dtype`` defaults to bf16 when the fused decode step
+    is live, else float16. ``device`` defaults to "cuda" and raises without
+    a card; the CPU runs every kernel's plain version.
+    """
+
+    SCAN_LEN = 64   # decode steps per chunk (one device read per chunk)
+
+    def __init__(self, config: BioGptConfig, params: dict,
+                 compute_dtype=torch.bfloat16, cache_dtype=None,
+                 max_seq: Optional[int] = None, pack_q4: bool = True,
+                 kv_quant: bool = False, device="cuda"):
+        if kv_quant:
+            raise NotImplementedError(
+                "--kv-quant (the int8 KV cache) belongs to a later slice of "
+                "the PyTorch port; this slice runs a bf16 KV cache")
+        self.device = resolve_device(device)
+        self.config = config
+        self.compute_dtype = compute_dtype
+        self.max_seq = max_seq or config.n_positions
+        self.allow_kernels = pack_q4
+        if pack_q4:
+            params = _pack_matmul_weights(params)
+        self.params = tree_map(lambda a: a.to(self.device), params)
+        if self.device.type == "cuda" and pack_q4:
+            self._check_cuda_formats()
+        self._fused_decode = (
+            pack_q4 and compute_dtype != torch.float32
+            and cache_dtype in (None, torch.bfloat16)
+            and supports_layers(self.params.get("layers", {}), torch.bfloat16,
+                                batch=1, n_new=1))
+        if cache_dtype is None:
+            cache_dtype = torch.bfloat16 if self._fused_decode else torch.float16
+        self.cache_dtype = cache_dtype
+        lm_head = self.params.get("lm_head")
+        self._fused_greedy = (self._fused_decode
+                              and isinstance(lm_head, QuantizedTensor)
+                              and lm_head.packed and supports(lm_head, 1))
+
+    def _check_cuda_formats(self) -> None:
+        qts = [self.params["lm_head"]] + [
+            v["w"] for v in self.params["layers"].values()
+            if isinstance(v, dict) and isinstance(v.get("w"), QuantizedTensor)]
+        for qt in qts:
+            if qt.qtype not in CUDA_QTYPES:
+                raise NotImplementedError(
+                    f"ggml type {qt.qtype}: this slice of the PyTorch port "
+                    "has CUDA kernels for Q4_0 and Q4_1 only; Q5_0/Q5_1/Q8_0 "
+                    "are a later slice")
+
+    # ------------------------------------------------------------ plumbing
+
+    def _window(self, needed: int) -> int:
+        """KV-attention window: the live length bucketed up (floor 128)."""
+        return min(_bucket(needed, floor=128), self.max_seq)
+
+    def new_cache(self, batch: int = 1, max_len: Optional[int] = None) -> KVCache:
+        return init_cache(self.config, batch=batch,
+                          max_len=max_len or self.max_seq,
+                          dtype=self.cache_dtype, device=self.device)
+
+    def prefill(self, cache: KVCache, token_ids):
+        """Run the prompt through the model -> (logits (1, V), cache, n)."""
+        ids = np.asarray(token_ids, dtype=np.int64).reshape(1, -1)
+        n = ids.shape[1]
+        if n > self.max_seq:
+            raise ValueError(f"prompt length {n} exceeds max_seq {self.max_seq}")
+        padded = min(_bucket(n), self.max_seq)
+        buf = np.zeros((1, padded), dtype=np.int64)
+        buf[:, :n] = ids
+        logits, cache = forward(
+            self.params, torch.from_numpy(buf).to(self.device), cache, 0,
+            self.config, compute_dtype=self.compute_dtype,
+            allow_kernels=self.allow_kernels, logits_mode="last",
+            kv_window=self._window(padded), last_index=n - 1)
+        return logits, cache, n
+
+    def decode_step(self, cache: KVCache, token, past: int,
+                    window: Optional[int] = None):
+        """One-token decode -> (logits (1, V), cache). ``window`` (>= past+1)
+        is the KV window, by default the bucket of past + 1."""
+        tok = torch.as_tensor(token, device=self.device).reshape(1, 1).long()
+        window = window or self._window(past + 1)
+        if self._fused_decode:
+            return forward_fused_decode(self.params, tok, cache, past,
+                                        self.config,
+                                        compute_dtype=self.compute_dtype,
+                                        kv_window=window)
+        return forward(self.params, tok, cache, past, self.config,
+                       compute_dtype=self.compute_dtype,
+                       allow_kernels=self.allow_kernels, logits_mode="last",
+                       kv_window=window)
+
+    def _step(self, cache, tok, past: int, window: int, use_greedy: bool,
+              gen, generator):
+        """One decode step -> (next token (1,) int32, finite bit, cache)."""
+        if use_greedy and self._fused_greedy:
+            nxt, mv, cache = forward_fused_decode_greedy(
+                self.params, tok, cache, past, self.config, kv_window=window)
+            return nxt, torch.isfinite(mv).all(), cache
+        logits, cache = self.decode_step(cache, tok, past, window)
+        ok = torch.isfinite(logits).all()
+        if use_greedy:
+            return greedy(logits), ok, cache
+        return sample_top_k_top_p(logits, generator, top_k=gen.top_k,
+                                  top_p=gen.top_p, temp=gen.temp), ok, cache
+
+    # ------------------------------------------------------------ generation
+
+    def generate(self, prompt_ids: List[int],
+                 gen: GenerationParams | None = None,
+                 stream_cb: Optional[Callable[[int], None]] = None
+                 ) -> GenerationResult:
+        """Prefill + chunked decode. Streaming reads every token."""
+        from .health import ModelHealthError
+
+        gen = gen or GenerationParams()
+        seed = gen.seed if gen.seed >= 0 else int(time.time())
+        generator = torch.Generator(device=self.device)
+        generator.manual_seed(seed)
+        use_greedy = gen.temp <= 0
+        chunk = 1 if stream_cb is not None else self.SCAN_LEN
+
+        limit = min(self.max_seq, self.config.n_positions)
+        n_predict = min(gen.n_predict, limit - len(prompt_ids))
+        ids = list(prompt_ids)
+        if n_predict <= 0:
+            return GenerationResult(ids=ids, prompt_len=len(prompt_ids))
+
+        sync = (torch.cuda.synchronize if self.device.type == "cuda"
+                else lambda: None)
+        t0 = time.perf_counter()
+        cache = self.new_cache(batch=1)
+        logits, cache, past = self.prefill(cache, ids)
+        sync()
+        t_prefill = time.perf_counter() - t0
+        health = torch.isfinite(logits).all()
+
+        td0 = time.perf_counter()
+        if use_greedy:
+            tok = greedy(logits)
+        else:
+            tok = sample_top_k_top_p(logits, generator, top_k=gen.top_k,
+                                     top_p=gen.top_p, temp=gen.temp)
+        eos = gen.eos_token_id if gen.stop_at_eos else -1
+        done = tok[0] == eos
+
+        # tokens land in a device buffer that the host reads once per chunk
+        out_buf = torch.zeros(n_predict, dtype=torch.int32, device=self.device)
+        out_buf[0:1] = tok
+        queued, emitted, stopped, steps = 1, 0, False, 0
+
+        def drain():
+            nonlocal emitted, stopped
+            vals = torch.cat([out_buf, health.to(torch.int32)[None]]).cpu()
+            if int(vals[-1]) == 0:
+                raise ModelHealthError(
+                    "non-finite logits during generation (after "
+                    f"{emitted} emitted tokens) -- corrupt checkpoint or "
+                    "numerics bug; tokens withheld")
+            while emitted < min(queued, n_predict) and not stopped:
+                tid = int(vals[emitted])
+                ids.append(tid)
+                emitted += 1
+                if stream_cb is not None:
+                    stream_cb(tid)
+                if gen.stop_at_eos and tid == gen.eos_token_id:
+                    stopped = True
+
+        td = time.perf_counter()
+        if stream_cb is not None:
+            drain()
+        while queued < n_predict and not stopped:
+            if stream_cb is None and bool(done):   # the chunk's one read
+                break
+            budget = min(chunk, n_predict - queued)
+            # one KV window per chunk, as the JAX engine compiles one per scan
+            window = self._window(past + queued + (budget if stream_cb else chunk))
+            for _ in range(budget):
+                tok, ok, cache = self._step(cache, tok.reshape(1, 1).long(),
+                                            past + queued - 1, window,
+                                            use_greedy, gen, generator)
+                out_buf[queued:queued + 1] = tok
+                health = health & ok
+                done = done | (tok[0] == eos)
+                queued += 1
+                steps += 1
+            if stream_cb is not None:
+                drain()
+        if stream_cb is None:
+            drain()
+        sync()
+        t_decode = time.perf_counter() - td
+        return GenerationResult(
+            ids=ids, prompt_len=len(prompt_ids),
+            timings={"prefill_s": t_prefill, "sample_s": td - td0,
+                     "decode_s": t_decode, "n_new": len(ids) - len(prompt_ids),
+                     "ms_per_token": t_decode / max(steps, 1) * 1e3})
+
+    # -------------------------------------------------------------- scoring
+
+    def score(self, token_ids) -> np.ndarray:
+        """Full-sequence logits (B, N, V) as numpy."""
+        ids = torch.as_tensor(np.asarray(token_ids, dtype=np.int64))
+        if ids.dim() == 1:
+            ids = ids[None, :]
+        cache = self.new_cache(batch=ids.shape[0], max_len=ids.shape[1])
+        logits, _ = forward(self.params, ids.to(self.device), cache, 0,
+                            self.config, compute_dtype=self.compute_dtype,
+                            allow_kernels=self.allow_kernels,
+                            logits_mode="all")
+        return logits.float().cpu().numpy()
