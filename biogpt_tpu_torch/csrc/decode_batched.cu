@@ -1,0 +1,245 @@
+// One batched decode step (2 <= B <= 32 slots, each at its own position)
+// through all L layers, bf16 KV cache, packed Q4_0 / Q4_1 weights.
+//
+// Replaces biogpt_tpu/ops/pallas_decode.py::decode_step_fused, batched
+// lockstep path (`_make_kernel_batched`, calls :1322 grouped and :1333).
+// Contract: (x0 (B,D) f32, layers, k_cache, v_cache (L,B,S,D) bf16, past
+// (B,) int32 on the device, window W) -> (x (B,D) f32, k_rows, v_rows
+// (L,B,D) bf16); the caller commits slot b's rows at past[b]. Slot b's
+// attention reads only its own cache rows idx < min(past[b], W), never row
+// past[b] itself: a dead slot sits at past 0, and a slot whose position
+// ran past the window (or past S) reads the window only. The TPU kernel's
+// `kv_groups` changes which KV blocks it copies, not the math; here every
+// slot reads its own live rows, so there is nothing to group.
+//
+// Bound on an H100: bytes -- the packed layer weights (~7 MB a layer at
+// 347M), read once for all B rows, plus each slot's live KV rows. This
+// first version is a chain of per-layer kernels behind ONE host call:
+//   qkv GEMV (M rows, LayerNorm-0 prologue) + its partial sum with bias
+//   split-KV attention over B*H head-rows: grid (H, ceil(W/64), B), a
+//     block per (head, 64-row split, slot); splits past a slot's live rows
+//     exit at once
+//   combine: folds the splits and the current token (its k/v enter
+//     UNROUNDED, as in the TPU kernel), writes the new bf16 K/V rows
+//   o GEMV + residual, fc1 GEMV with LayerNorm-1 prologue + exact erf
+//   GELU, fc2 GEMV + residual
+// The projections take the M-row dequant-then-dot GEMV of qgemv.cuh (the
+// numerics of `_qmm_dq`, which the TPU kernel uses at every B >= 2), run
+// on M = 8, 16 or 32 rows: rows B..M-1 are zero padding the wrapper adds.
+// Attention numerics as decode_step.cu: q * (1/sqrt(Dk)) rounds to bf16,
+// scores are f32 against bf16 K, p rounds to bf16 before p.V relative to
+// its own split's max (the TPU kernel rounds relative to its running max
+// over KV blocks; see the tolerance in chip_smoke.py).
+#include "decode_layers.cuh"
+
+using namespace bgt;
+
+namespace {
+
+// grid (H, ns, B), block ATT_THREADS. qkv: (M, 3D) f32 with bias.
+// ml: (B, H, ns, 2) = (max, sum); acc: (B, H, ns, DK).
+__global__ void __launch_bounds__(ATT_THREADS)
+attn_split_batched_kernel(const float* qkv, int D, const __nv_bfloat16* kc,
+                          const __nv_bfloat16* vc, int S, const int* past,
+                          int W, float scale, float* ml, float* acc) {
+  __shared__ float q[DK];
+  __shared__ float sc[ATT_ROWS];
+  __shared__ float red[ATT_THREADS / 32][DK];
+  __shared__ float scratch[32];
+  const int h = blockIdx.x, sp = blockIdx.y, ns = gridDim.y, b = blockIdx.z;
+  const int H = gridDim.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nw = ATT_THREADS / 32;
+  const size_t o = ((size_t)(b * H + h) * ns + sp);
+  const int live = max(0, min(past[b], W));
+  const int s0 = sp * ATT_ROWS;
+  const int n = min(live - s0, ATT_ROWS);
+  if (n <= 0) {   // no live rows in this split: a neutral partial
+    if (threadIdx.x < DK) acc[o * DK + threadIdx.x] = 0.f;
+    if (threadIdx.x == 0) {
+      ml[o * 2 + 0] = -INFINITY;
+      ml[o * 2 + 1] = 0.f;
+    }
+    return;
+  }
+  if (threadIdx.x < DK)
+    q[threadIdx.x] = bf16r(qkv[(size_t)b * 3 * D + h * DK + threadIdx.x] * scale);
+  __syncthreads();
+  const __nv_bfloat16* kb = kc + (size_t)b * S * D;
+  const __nv_bfloat16* vb = vc + (size_t)b * S * D;
+  const float q0 = q[2 * lane], q1 = q[2 * lane + 1];
+  for (int r = warp; r < n; r += nw) {
+    const __nv_bfloat162 k2 = *reinterpret_cast<const __nv_bfloat162*>(
+        kb + (size_t)(s0 + r) * D + h * DK + 2 * lane);
+    const float d = warp_sum(q0 * __low2float(k2) + q1 * __high2float(k2));
+    if (lane == 0) sc[r] = d;
+  }
+  __syncthreads();
+  float mx = -INFINITY;
+  for (int r = threadIdx.x; r < n; r += ATT_THREADS) mx = fmaxf(mx, sc[r]);
+  mx = block_max(mx, scratch);
+  float ls = 0.f;
+  for (int r = threadIdx.x; r < n; r += ATT_THREADS) {
+    const float p = expf(sc[r] - mx);
+    sc[r] = p;
+    ls += p;
+  }
+  const float l = block_sum(ls, scratch);   // (syncs before reading sc)
+  float a0 = 0.f, a1 = 0.f;
+  for (int r = warp; r < n; r += nw) {
+    const float p = bf16r(sc[r]);
+    const __nv_bfloat162 v2 = *reinterpret_cast<const __nv_bfloat162*>(
+        vb + (size_t)(s0 + r) * D + h * DK + 2 * lane);
+    a0 += p * __low2float(v2);
+    a1 += p * __high2float(v2);
+  }
+  red[warp][2 * lane] = a0;
+  red[warp][2 * lane + 1] = a1;
+  __syncthreads();
+  if (threadIdx.x < DK) {
+    float s = 0.f;
+    for (int w = 0; w < nw; ++w) s += red[w][threadIdx.x];
+    acc[o * DK + threadIdx.x] = s;
+  }
+  if (threadIdx.x == 0) {
+    ml[o * 2 + 0] = mx;
+    ml[o * 2 + 1] = l;
+  }
+}
+
+// grid (H, B), block DK. Folds slot b's splits and its current token into
+// its context row; writes the bf16 K/V rows (B, D) of this layer.
+__global__ void __launch_bounds__(DK)
+attn_combine_batched_kernel(const float* qkv, int D, const float* ml,
+                            const float* acc, int ns, float scale, float* ctx,
+                            __nv_bfloat16* k_rows, __nv_bfloat16* v_rows) {
+  __shared__ float scratch[32];
+  const int h = blockIdx.x, b = blockIdx.y, H = gridDim.x, t = threadIdx.x;
+  const int col = h * DK + t;
+  const float* row = qkv + (size_t)b * 3 * D;
+  const float q = bf16r(row[col] * scale);
+  const float k = row[D + col];
+  const float v = row[2 * D + col];
+  k_rows[(size_t)b * D + col] = __float2bfloat16(k);
+  v_rows[(size_t)b * D + col] = __float2bfloat16(v);
+  const float cur = block_sum(q * k, scratch);
+  const size_t base = (size_t)(b * H + h) * ns;
+  float m = cur;
+  for (int j = 0; j < ns; ++j) m = fmaxf(m, ml[(base + j) * 2]);
+  float l = 0.f, a = 0.f;
+  for (int j = 0; j < ns; ++j) {
+    const float w = expf(ml[(base + j) * 2] - m);
+    l += ml[(base + j) * 2 + 1] * w;
+    a += acc[(base + j) * DK + t] * w;
+  }
+  const float pc = expf(cur - m);
+  l += pc;
+  a += pc * v;
+  ctx[(size_t)b * D + col] = a / l;
+}
+
+struct Step {
+  float* x;                  // (M, D) residual stream, updated in place
+  int L, D, F, H, S, B, W;
+  const int* past;           // (B,) int32
+  float eps;
+  int offset;
+  const float *ln0w, *ln0b, *ln1w, *ln1b;   // (L, D) f32
+  Proj qkv, o, fc1, fc2;
+  const __nv_bfloat16 *kc, *vc;             // (L, B, S, D)
+  __nv_bfloat16 *kr, *vr;                   // (L, B, D)
+  float *part, *qkvbuf, *ml, *acc, *ctx, *ff;
+};
+
+template <int M, bool HAS_MIN>
+void run_step(const Step& s, cudaStream_t st) {
+  const float scale = 1.0f / sqrtf((float)DK);
+  const int D = s.D, F = s.F;
+  const int ns = (s.W + ATT_ROWS - 1) / ATT_ROWS;
+  const int sd = splits_of(D), sf = splits_of(F);
+  for (int l = 0; l < s.L; ++l) {
+    const size_t kv_off = (size_t)l * s.B * s.S * D;
+    launch_partial<M, true, HAS_MIN>(
+        layer_args(s.qkv, l, D, 3 * D, s.x, s.ln0w + (size_t)l * D,
+                   s.ln0b + (size_t)l * D, s.eps, s.offset), s.part, st);
+    launch_partial_sum(s.part, sd, M, 3 * D, s.qkv.b + (size_t)l * 3 * D, 0,
+                       nullptr, s.qkvbuf, st);
+    attn_split_batched_kernel<<<dim3(s.H, ns, s.B), ATT_THREADS, 0, st>>>(
+        s.qkvbuf, D, s.kc + kv_off, s.vc + kv_off, s.S, s.past, s.W, scale,
+        s.ml, s.acc);
+    attn_combine_batched_kernel<<<dim3(s.H, s.B), DK, 0, st>>>(
+        s.qkvbuf, D, s.ml, s.acc, ns, scale, s.ctx,
+        s.kr + (size_t)l * s.B * D, s.vr + (size_t)l * s.B * D);
+    launch_partial<M, true, HAS_MIN>(
+        layer_args(s.o, l, D, D, s.ctx, nullptr, nullptr, s.eps, s.offset),
+        s.part, st);
+    launch_partial_sum(s.part, sd, M, D, s.o.b + (size_t)l * D, 0, s.x, s.x,
+                       st);
+    launch_partial<M, true, HAS_MIN>(
+        layer_args(s.fc1, l, D, F, s.x, s.ln1w + (size_t)l * D,
+                   s.ln1b + (size_t)l * D, s.eps, s.offset), s.part, st);
+    launch_partial_sum(s.part, sd, M, F, s.fc1.b + (size_t)l * F, 1, nullptr,
+                       s.ff, st);
+    launch_partial<M, true, HAS_MIN>(
+        layer_args(s.fc2, l, F, D, s.ff, nullptr, nullptr, s.eps, s.offset),
+        s.part, st);
+    launch_partial_sum(s.part, sf, M, D, s.fc2.b + (size_t)l * D, 0, s.x, s.x,
+                       st);
+  }
+}
+
+template <int M>
+void run_rows(const Step& s, cudaStream_t st) {
+  if (s.qkv.mn != nullptr) run_step<M, true>(s, st);
+  else run_step<M, false>(s, st);
+}
+
+}  // namespace
+
+// Scratch sizes (floats) the wrapper allocates for M padded rows:
+// part >= bgt_decode_batched_part_size(D, F, M), qkv M*3D,
+// ml B*H*ceil(W/64)*2, acc B*H*ceil(W/64)*64, ctx M*D (zeroed), ff M*F.
+extern "C" int bgt_decode_batched_part_size(int D, int F, int M) {
+  const int a = splits_of(D) * 3 * D, b = splits_of(D) * F, c = splits_of(F) * D;
+  return M * (a > b ? (a > c ? a : c) : (b > c ? b : c));
+}
+
+extern "C" int bgt_decode_batched(
+    float* x, int L, int D, int F, int H, int S, int B, int M, int W,
+    const int* past, float eps, int offset, const float* ln0w,
+    const float* ln0b, const float* ln1w, const float* ln1b,
+    const uint8_t* qkv_lv, const void* qkv_sc, const void* qkv_mn, const float* qkv_b,
+    const uint8_t* o_lv, const void* o_sc, const void* o_mn, const float* o_b,
+    const uint8_t* fc1_lv, const void* fc1_sc, const void* fc1_mn, const float* fc1_b,
+    const uint8_t* fc2_lv, const void* fc2_sc, const void* fc2_mn, const float* fc2_b,
+    const void* k_cache, const void* v_cache, void* k_rows, void* v_rows,
+    float* part, float* qkv, float* ml, float* acc, float* ctx, float* ff,
+    void* stream) {
+  if (D != H * DK || B < 1 || B > M || W < 1 || W > S)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Step s;
+  s.x = x;
+  s.L = L; s.D = D; s.F = F; s.H = H; s.S = S; s.B = B; s.W = W;
+  s.past = past;
+  s.eps = eps;
+  s.offset = offset;
+  s.ln0w = ln0w; s.ln0b = ln0b; s.ln1w = ln1w; s.ln1b = ln1b;
+  s.qkv = make_proj(qkv_lv, qkv_sc, qkv_mn, qkv_b);
+  s.o = make_proj(o_lv, o_sc, o_mn, o_b);
+  s.fc1 = make_proj(fc1_lv, fc1_sc, fc1_mn, fc1_b);
+  s.fc2 = make_proj(fc2_lv, fc2_sc, fc2_mn, fc2_b);
+  s.kc = static_cast<const __nv_bfloat16*>(k_cache);
+  s.vc = static_cast<const __nv_bfloat16*>(v_cache);
+  s.kr = static_cast<__nv_bfloat16*>(k_rows);
+  s.vr = static_cast<__nv_bfloat16*>(v_rows);
+  s.part = part; s.qkvbuf = qkv; s.ml = ml; s.acc = acc; s.ctx = ctx;
+  s.ff = ff;
+  switch (M) {
+    case 8: run_rows<8>(s, st); break;
+    case 16: run_rows<16>(s, st); break;
+    case 32: run_rows<32>(s, st); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

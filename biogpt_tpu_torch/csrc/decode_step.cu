@@ -23,27 +23,11 @@
 // product, q * (1/sqrt(Dk)) rounds to bf16, scores are f32 against bf16 K,
 // p rounds to bf16 before p.V (the denominators keep f32 p). Cache row
 // `past` is never read.
-#include "qgemv.cuh"
+#include "decode_layers.cuh"
 
 using namespace bgt;
 
 namespace {
-
-constexpr int DK = 64;           // head width this kernel is built for
-constexpr int ATT_ROWS = 64;     // cache rows per attention split
-constexpr int ATT_THREADS = 128;
-
-__device__ __forceinline__ float block_max(float v, float* scratch) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  v = warp_max(v);
-  __syncthreads();
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  float t = scratch[0];
-  for (int w = 1; w < nw; ++w) t = fmaxf(t, scratch[w]);
-  return t;
-}
 
 // qkv[col] = sum of the qkv GEMV's partials + bias (fixed split order)
 __device__ __forceinline__ float qkv_value(const float* part, int splits,
@@ -142,39 +126,10 @@ attn_combine_kernel(const float* qkv_part, int qsplits, const float* qkv_b,
   ctx[col] = a / l;
 }
 
-struct Proj {
-  const uint8_t* lv;
-  const __nv_bfloat16* sc;
-  const __nv_bfloat16* mn;
-  const float* b;
-};
-
-GemvArgs layer_args(const Proj& p, int l, int d_in, int d_out,
-                    const float* x, const float* ln_w, const float* ln_b,
-                    float eps, int offset) {
-  GemvArgs a;
-  const size_t lv_stride = (size_t)(d_in / 2) * d_out;
-  const size_t sc_stride = (size_t)(d_in / QK) * d_out;
-  a.x = x;
-  a.ln_w = ln_w;
-  a.ln_b = ln_b;
-  a.eps = eps;
-  a.lv = p.lv + l * lv_stride;
-  a.sc = p.sc + l * sc_stride;
-  a.mn = p.mn != nullptr ? p.mn + l * sc_stride : nullptr;
-  a.d_in = d_in;
-  a.d_out = d_out;
-  a.offset = offset;
-  a.gpb = pick_gpb(d_in);
-  return a;
-}
-
 void launch_m1(const GemvArgs& a, float* part, cudaStream_t st) {
   if (a.mn != nullptr) launch_partial<1, false, true>(a, part, st);
   else launch_partial<1, false, false>(a, part, st);
 }
-
-int splits_of(int d_in) { return d_in / (2 * QK) / pick_gpb(d_in); }
 
 }  // namespace
 
@@ -199,14 +154,10 @@ extern "C" int bgt_decode_step(
     float* part, float* ml, float* acc, float* ctx, float* ff, void* stream) {
   if (D != H * DK) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Proj qkv{qkv_lv, static_cast<const __nv_bfloat16*>(qkv_sc),
-                 static_cast<const __nv_bfloat16*>(qkv_mn), qkv_b};
-  const Proj o{o_lv, static_cast<const __nv_bfloat16*>(o_sc),
-               static_cast<const __nv_bfloat16*>(o_mn), o_b};
-  const Proj fc1{fc1_lv, static_cast<const __nv_bfloat16*>(fc1_sc),
-                 static_cast<const __nv_bfloat16*>(fc1_mn), fc1_b};
-  const Proj fc2{fc2_lv, static_cast<const __nv_bfloat16*>(fc2_sc),
-                 static_cast<const __nv_bfloat16*>(fc2_mn), fc2_b};
+  const Proj qkv = make_proj(qkv_lv, qkv_sc, qkv_mn, qkv_b);
+  const Proj o = make_proj(o_lv, o_sc, o_mn, o_b);
+  const Proj fc1 = make_proj(fc1_lv, fc1_sc, fc1_mn, fc1_b);
+  const Proj fc2 = make_proj(fc2_lv, fc2_sc, fc2_mn, fc2_b);
   const __nv_bfloat16* kc = static_cast<const __nv_bfloat16*>(k_cache);
   const __nv_bfloat16* vc = static_cast<const __nv_bfloat16*>(v_cache);
   __nv_bfloat16* kr = static_cast<__nv_bfloat16*>(k_rows);

@@ -1,0 +1,52 @@
+// Batched KV commit: slot b's new row of every layer lands at its own
+// position past[b] of the bf16 caches, in place, in one launch.
+//
+// Replaces biogpt_tpu/ops/pallas_decode.py::kv_commit_pallas. Contract:
+// caches (L,B,S,D) bf16, rows slot-major (B,L,D) bf16 (any row strides --
+// the caller's transpose of the decode step's (L,B,D) rows is a view),
+// past (B,) int32 on the device. A position outside [0, S) is clamped into
+// it, as the per-slot dynamic_update_slice of the JAX package clamps.
+// Bound on an H100: bytes -- 2*L*B*D bf16 read and written once (3 MB at
+// 347M, B=32); the kernel is one block per (slot, layer), each thread
+// moving 16 bytes at a time. The TPU kernel's 8-row aligned
+// read-modify-write existed for Mosaic's tiled DMAs; a GPU store of one
+// row needs none.
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+// grid (B, L), block 128; D % 8 == 0, row strides in elements % 8 == 0.
+__global__ void kv_commit_kernel(__nv_bfloat16* kc, __nv_bfloat16* vc,
+                                 const __nv_bfloat16* kr,
+                                 const __nv_bfloat16* vr, long long stride_b,
+                                 long long stride_l, const int* past, int S,
+                                 int D) {
+  const int b = blockIdx.x, l = blockIdx.y, B = gridDim.x;
+  const int p = min(max(past[b], 0), S - 1);
+  const size_t dst = ((size_t)(l * B + b) * S + p) * D;
+  const size_t src = (size_t)b * stride_b + (size_t)l * stride_l;
+  for (int i = threadIdx.x * 8; i < D; i += blockDim.x * 8) {
+    *reinterpret_cast<uint4*>(kc + dst + i) =
+        *reinterpret_cast<const uint4*>(kr + src + i);
+    *reinterpret_cast<uint4*>(vc + dst + i) =
+        *reinterpret_cast<const uint4*>(vr + src + i);
+  }
+}
+
+}  // namespace
+
+extern "C" int bgt_kv_commit(void* k_cache, void* v_cache, const void* k_rows,
+                             const void* v_rows, long long stride_b,
+                             long long stride_l, const int* past, int L, int B,
+                             int S, int D, void* stream) {
+  if (D % 8 != 0 || stride_b % 8 != 0 || stride_l % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  kv_commit_kernel<<<dim3(B, L), 128, 0, st>>>(
+      static_cast<__nv_bfloat16*>(k_cache), static_cast<__nv_bfloat16*>(v_cache),
+      static_cast<const __nv_bfloat16*>(k_rows),
+      static_cast<const __nv_bfloat16*>(v_rows), stride_b, stride_l, past, S, D);
+  return (int)cudaGetLastError();
+}

@@ -1,42 +1,77 @@
-// Greedy tail: argmax over the first n_valid columns of
-// LayerNorm(x) @ dequant(lm_head), M <= 8 rows, packed Q4_0 / Q4_1.
+// Serving and decode tails over LayerNorm(x) @ dequant(lm_head), M <= 32
+// rows, packed Q4_0 / Q4_1:
+//   bgt_lm_head_argmax       greedy: argmax over the first n_valid columns
+//   bgt_lm_head_logits_gmax  sampled: the logits (pad columns -1e30) and
+//                            their per-128-column group maxima
 //
-// Replaces biogpt_tpu/ops/pallas_qmatmul.py::lm_head_argmax_pallas
-// (`_argmax_kernel` + `_ln_lmhead_tile`, X' numerics). Bound on an H100:
-// bytes -- the 1024 x 42496 packed lm_head (21.8 MB of levels, 2.7 MB of
-// bf16 scales) is read once; the logits never reach device memory. The
-// TPU kernel walked vocab tiles in order carrying a running best in VMEM;
-// here each of the d_out/128 blocks (332 at BioGPT-347M, enough to fill
-// the card) recomputes the LayerNorm, computes its 128 logits over the
-// full d_in and writes one (max, lowest index, any-NaN) triple per row; a
-// second one-warp-per-row kernel folds them in column order with the TPU
-// kernel's rules, tile by tile (T = its lane tile, 512 columns at 347M):
-//   - a tile holding a NaN yields (NaN, n_valid - 1) (jnp.max propagates
-//     NaN and no column then satisfies `logits >= tmax`; the id clamps);
-//   - tiles fold with a strict `>` from tile 0, so ties keep the lowest
-//     index and a NaN first tile pins the result (the health lane's probe).
+// Replaces biogpt_tpu/ops/pallas_qmatmul.py::lm_head_argmax_pallas and the
+// lm_head parts of ::lm_head_argmax_commit_pallas and
+// ::lm_head_logits_gmax_commit_pallas (tile body `_ln_lmhead_tile`: X'
+// numerics at M <= 8, dequant-then-dot at M > 8, pallas_qmatmul.py:320).
+// The KV commits of the two fused TPU epilogues are kv_commit.cu, launched
+// next on the same stream by the wrappers. Bound on an H100: bytes -- the
+// 1024 x 42496 packed lm_head (21.8 MB of levels, 2.7 MB of bf16 scales)
+// is read once; the argmax never writes logits, the sampled tail writes
+// them once (5.4 MB at M=32). The TPU kernels walked vocab tiles in order
+// carrying state in VMEM; here each of the d_out/128 blocks (332 at
+// BioGPT-347M, enough to fill the card) recomputes the LayerNorm of all M
+// rows into dynamic shared memory (M * d_in floats), computes its 128
+// logits per row over the full d_in, and then
+//   argmax: writes one (max, lowest index, any-NaN) triple per row; a
+//     second one-warp-per-row kernel folds them in column order with the
+//     TPU kernel's rules, tile by tile (T = its lane tile, 512 columns at
+//     347M): a tile holding a NaN yields (NaN, n_valid - 1) (jnp.max
+//     propagates NaN and no column then satisfies `logits >= tmax`; the id
+//     clamps); tiles fold with a strict `>` from tile 0, so ties keep the
+//     lowest index and a NaN first tile pins the result (the health
+//     lane's probe);
+//   logits+gmax: writes its 128 logits per row and their maximum -- one
+//     block is one 128-column group -- NaN-propagating as jnp.max.
 #include "qgemv.cuh"
 
 using namespace bgt;
 
 namespace {
 
-template <int M, bool HAS_MIN>
+// LayerNorm of all M rows into xs (dynamic shared memory), then this
+// block's 128 logits per row into logits (M, 128).
+template <int M, bool WIDE, bool HAS_MIN>
+__device__ __forceinline__ void lm_head_tile(const GemvArgs& a, float* xs,
+                                             float* red, float* logits,
+                                             float* scratch) {
+  stage_x<M>(a, xs, 0, a.gpb * QK, scratch);
+  __syncthreads();
+  float acc[M][4];
+  gemv_accumulate<M, WIDE, HAS_MIN>(a, xs, blockIdx.x, 0, acc);
+  warp_tile_reduce<M>(acc, red, logits, TILE_COLS);
+  __syncthreads();
+}
+
+// NaN-propagating max of v over the block (as jnp.max); every thread gets
+// it. `wmax` holds GEMV_WARPS floats.
+__device__ __forceinline__ float block_max_nan(float v, float* wmax) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int any_nan = __syncthreads_or(isnan(v) ? 1 : 0);
+  float mx = warp_max(isnan(v) ? -INFINITY : v);
+  if (lane == 0) wmax[warp] = mx;
+  __syncthreads();
+  mx = wmax[0];
+  for (int w = 1; w < GEMV_WARPS; ++w) mx = fmaxf(mx, wmax[w]);
+  __syncthreads();
+  return any_nan ? __int_as_float(0x7fc00000) : mx;
+}
+
+template <int M, bool WIDE, bool HAS_MIN>
 __global__ void __launch_bounds__(GEMV_THREADS)
 lm_head_block_kernel(GemvArgs a, int n_valid, float* bmax, int* bidx,
                      int* bnan) {
-  __shared__ float xs[XS_BYTES_MAX / 4];
+  extern __shared__ float xs[];
   __shared__ float red[GEMV_WARPS * TILE_COLS];
   __shared__ float logits[M * TILE_COLS];
   __shared__ float scratch[32];
   __shared__ float wmax[GEMV_WARPS];
   __shared__ int widx[GEMV_WARPS];
-  stage_x<M>(a, xs, 0, a.gpb * QK, scratch);
-  __syncthreads();
-  float acc[M][4];
-  gemv_accumulate<M, false, HAS_MIN>(a, xs, blockIdx.x, 0, acc);
-  warp_tile_reduce<M>(acc, red, logits, TILE_COLS);
-  __syncthreads();
+  lm_head_tile<M, WIDE, HAS_MIN>(a, xs, red, logits, scratch);
 
   const int nblk = gridDim.x;
   const int col = blockIdx.x * TILE_COLS + threadIdx.x;
@@ -62,6 +97,28 @@ lm_head_block_kernel(GemvArgs a, int n_valid, float* bmax, int* bidx,
       bnan[m * nblk + blockIdx.x] = any_nan;
     }
     __syncthreads();
+  }
+}
+
+// logits (M, d_out) with pad columns -1e30; gmax (M, d_out/128).
+template <int M, bool WIDE, bool HAS_MIN>
+__global__ void __launch_bounds__(GEMV_THREADS)
+lm_head_logits_gmax_kernel(GemvArgs a, int n_valid, float* out,
+                           float* gmax) {
+  extern __shared__ float xs[];
+  __shared__ float red[GEMV_WARPS * TILE_COLS];
+  __shared__ float logits[M * TILE_COLS];
+  __shared__ float scratch[32];
+  __shared__ float wmax[GEMV_WARPS];
+  lm_head_tile<M, WIDE, HAS_MIN>(a, xs, red, logits, scratch);
+
+  const int nblk = gridDim.x;
+  const int col = blockIdx.x * TILE_COLS + threadIdx.x;
+  for (int m = 0; m < M; ++m) {
+    const float v = col < n_valid ? logits[m * TILE_COLS + threadIdx.x] : -1e30f;
+    out[(size_t)m * a.d_out + col] = v;
+    const float mx = block_max_nan(v, wmax);
+    if (threadIdx.x == 0) gmax[m * nblk + blockIdx.x] = mx;
   }
 }
 
@@ -110,28 +167,44 @@ __global__ void argmax_fold_kernel(const float* bmax, const int* bidx,
   }
 }
 
-template <int M>
-void launch_blocks(const GemvArgs& a, int n_valid, float* bmax, int* bidx,
-                   int* bnan, cudaStream_t st) {
-  dim3 grid(a.d_out / TILE_COLS);
-  if (a.mn != nullptr)
-    lm_head_block_kernel<M, true><<<grid, GEMV_THREADS, 0, st>>>(a, n_valid, bmax, bidx, bnan);
-  else
-    lm_head_block_kernel<M, false><<<grid, GEMV_THREADS, 0, st>>>(a, n_valid, bmax, bidx, bnan);
+// Launch `kernel` over the d_out/128 column blocks with M * d_in floats of
+// dynamic shared memory (above 48 KB only after opting in).
+template <typename Kernel, typename... Args>
+cudaError_t launch_tiles(Kernel kernel, int M, const GemvArgs& a,
+                         cudaStream_t st, Args... args) {
+  const size_t smem = (size_t)M * a.d_in * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<a.d_out / TILE_COLS, GEMV_THREADS, smem, st>>>(a, args...);
+  return cudaGetLastError();
 }
 
-}  // namespace
+template <int M, bool WIDE>
+cudaError_t launch_argmax(const GemvArgs& a, int n_valid, float* bmax,
+                          int* bidx, int* bnan, cudaStream_t st) {
+  if (a.mn != nullptr)
+    return launch_tiles(lm_head_block_kernel<M, WIDE, true>, M, a, st,
+                        n_valid, bmax, bidx, bnan);
+  return launch_tiles(lm_head_block_kernel<M, WIDE, false>, M, a, st,
+                      n_valid, bmax, bidx, bnan);
+}
 
-// x (M, d_in) f32; ln_w/ln_b (d_in) f32; scratch bmax/bidx/bnan hold
-// M * d_out/128 entries each; out_idx (M,) i32, out_max (M,) f32.
-extern "C" int bgt_lm_head_argmax(const float* x, const float* ln_w,
-                                  const float* ln_b, float eps,
-                                  const uint8_t* lv, const void* sc,
-                                  const void* mn, int M, int d_in, int d_out,
-                                  int offset, int n_valid, int tile_blocks,
-                                  float* bmax, int* bidx, int* bnan,
-                                  int* out_idx, float* out_max, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+template <int M, bool WIDE>
+cudaError_t launch_logits(const GemvArgs& a, int n_valid, float* out,
+                          float* gmax, cudaStream_t st) {
+  if (a.mn != nullptr)
+    return launch_tiles(lm_head_logits_gmax_kernel<M, WIDE, true>, M, a, st,
+                        n_valid, out, gmax);
+  return launch_tiles(lm_head_logits_gmax_kernel<M, WIDE, false>, M, a, st,
+                      n_valid, out, gmax);
+}
+
+GemvArgs lm_head_args(const float* x, const float* ln_w, const float* ln_b,
+                      float eps, const uint8_t* lv, const void* sc,
+                      const void* mn, int d_in, int d_out, int offset) {
   GemvArgs a;
   a.x = x;
   a.ln_w = ln_w;
@@ -144,18 +217,39 @@ extern "C" int bgt_lm_head_argmax(const float* x, const float* ln_w,
   a.d_out = d_out;
   a.offset = offset;
   a.gpb = d_in / (2 * QK);   // one block covers the whole of d_in
+  return a;
+}
+
+}  // namespace
+
+// x (M, d_in) f32 with M in 1..8 (X' numerics) or 16 / 32 (dequant-then-
+// dot; the wrapper pads 9..32 rows with zeros); ln_w/ln_b (d_in) f32;
+// scratch bmax/bidx/bnan hold M * d_out/128 entries each; out_idx (M,)
+// i32, out_max (M,) f32.
+extern "C" int bgt_lm_head_argmax(const float* x, const float* ln_w,
+                                  const float* ln_b, float eps,
+                                  const uint8_t* lv, const void* sc,
+                                  const void* mn, int M, int d_in, int d_out,
+                                  int offset, int n_valid, int tile_blocks,
+                                  float* bmax, int* bidx, int* bnan,
+                                  int* out_idx, float* out_max, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const GemvArgs a = lm_head_args(x, ln_w, ln_b, eps, lv, sc, mn, d_in,
+                                  d_out, offset);
+  cudaError_t err;
   switch (M) {
-    case 1: launch_blocks<1>(a, n_valid, bmax, bidx, bnan, st); break;
-    case 2: launch_blocks<2>(a, n_valid, bmax, bidx, bnan, st); break;
-    case 3: launch_blocks<3>(a, n_valid, bmax, bidx, bnan, st); break;
-    case 4: launch_blocks<4>(a, n_valid, bmax, bidx, bnan, st); break;
-    case 5: launch_blocks<5>(a, n_valid, bmax, bidx, bnan, st); break;
-    case 6: launch_blocks<6>(a, n_valid, bmax, bidx, bnan, st); break;
-    case 7: launch_blocks<7>(a, n_valid, bmax, bidx, bnan, st); break;
-    case 8: launch_blocks<8>(a, n_valid, bmax, bidx, bnan, st); break;
+    case 1: err = launch_argmax<1, false>(a, n_valid, bmax, bidx, bnan, st); break;
+    case 2: err = launch_argmax<2, false>(a, n_valid, bmax, bidx, bnan, st); break;
+    case 3: err = launch_argmax<3, false>(a, n_valid, bmax, bidx, bnan, st); break;
+    case 4: err = launch_argmax<4, false>(a, n_valid, bmax, bidx, bnan, st); break;
+    case 5: err = launch_argmax<5, false>(a, n_valid, bmax, bidx, bnan, st); break;
+    case 6: err = launch_argmax<6, false>(a, n_valid, bmax, bidx, bnan, st); break;
+    case 7: err = launch_argmax<7, false>(a, n_valid, bmax, bidx, bnan, st); break;
+    case 8: err = launch_argmax<8, false>(a, n_valid, bmax, bidx, bnan, st); break;
+    case 16: err = launch_argmax<16, true>(a, n_valid, bmax, bidx, bnan, st); break;
+    case 32: err = launch_argmax<32, true>(a, n_valid, bmax, bidx, bnan, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int nblk = d_out / TILE_COLS;
   const int n_tiles = nblk / tile_blocks;
@@ -163,4 +257,24 @@ extern "C" int bgt_lm_head_argmax(const float* x, const float* ln_w,
                                                  tile_blocks, n_valid, out_idx,
                                                  out_max);
   return (int)cudaGetLastError();
+}
+
+// x (M, d_in) f32 with M = 8 (X' numerics; the wrapper pads 1..8 rows) or
+// 16 / 32 (dequant-then-dot; pads 9..32); out (M, d_out) f32; gmax
+// (M, d_out/128) f32.
+extern "C" int bgt_lm_head_logits_gmax(const float* x, const float* ln_w,
+                                       const float* ln_b, float eps,
+                                       const uint8_t* lv, const void* sc,
+                                       const void* mn, int M, int d_in,
+                                       int d_out, int offset, int n_valid,
+                                       float* out, float* gmax, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const GemvArgs a = lm_head_args(x, ln_w, ln_b, eps, lv, sc, mn, d_in,
+                                  d_out, offset);
+  switch (M) {
+    case 8: return (int)launch_logits<8, false>(a, n_valid, out, gmax, st);
+    case 16: return (int)launch_logits<16, true>(a, n_valid, out, gmax, st);
+    case 32: return (int)launch_logits<32, true>(a, n_valid, out, gmax, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

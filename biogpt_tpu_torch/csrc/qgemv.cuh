@@ -1,5 +1,6 @@
 // Skinny-M quantized GEMV for packed 4-bit planes, shared by every kernel
-// of the port (qmatmul.cu, lm_head_argmax.cu, decode_step.cu).
+// of the port (qmatmul.cu, lm_head_argmax.cu, decode_step.cu,
+// decode_batched.cu).
 //
 // Weight layout (biogpt_tpu_torch/quant/layouts.py): levels are a uint8
 // (d_in/2, d_out) plane in split-half order -- byte row i holds level row i
@@ -65,6 +66,19 @@ __device__ __forceinline__ float block_sum(float v, float* scratch) {
   __syncthreads();
   float t = 0.f;
   for (int w = 0; w < nw; ++w) t += scratch[w];
+  return t;
+}
+
+// Max over the block, as block_sum.
+__device__ __forceinline__ float block_max(float v, float* scratch) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  v = warp_max(v);
+  __syncthreads();
+  if (lane == 0) scratch[warp] = v;
+  __syncthreads();
+  float t = scratch[0];
+  for (int w = 1; w < nw; ++w) t = fmaxf(t, scratch[w]);
   return t;
 }
 

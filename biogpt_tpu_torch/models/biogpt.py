@@ -1,5 +1,5 @@
 """The BioGPT decoder as functions over a params dict
-(``biogpt_tpu/models/biogpt.py``, single-stream branches).
+(``biogpt_tpu/models/biogpt.py``).
 
 OPT-style decoder: token embedding scaled by sqrt(d_model), learned
 positions with a +2 offset, pre-LN blocks (eps 1e-5), the query pre-scaled
@@ -7,10 +7,18 @@ by 1/sqrt(d_kv), GELU FFN, final LN and an untied lm_head. Prefill applies
 a causal mask; ``causal=False`` keeps the reference's unmasked mode (every
 new token sees all real tokens written so far).
 
-``forward`` serves prefill and per-op decode; ``forward_fused_decode`` and
-``forward_fused_decode_greedy`` run the whole-model decode step
-(``ops.decode_kernels.decode_step_fused``) and, for greedy decode, the
-fused final-LN + lm_head + argmax tail (``ops.qmatmul_kernels.lm_head_argmax``).
+``forward`` serves prefill, the serving refill (per-row ``last_index``) and
+per-op decode (a host-int ``past``, or per-slot positions (B,) on the
+device). ``forward_fused_decode``, ``forward_fused_decode_greedy`` and
+``forward_fused_decode_sampled`` run the whole-model decode step
+(``ops.decode_kernels.decode_step_fused``, B <= 32) and then: the final LN
+and lm_head; the fused LN + lm_head + argmax tail; or the fused LN +
+lm_head + group-maxima tail of the per-request sampler. At B > 1 the new
+KV rows commit through ``kv_commit`` or inside the fused tails.
+
+Position ids past the embedding table clamp to its last row, as the JAX
+gather clamps: a serving slot can run a chunk past its cache's end before
+it is truncated (``runtime/cache.py``).
 """
 
 from __future__ import annotations
@@ -23,8 +31,9 @@ import torch
 from ..config import BioGptConfig
 from ..modelio.checkpoint import layer_slice
 from ..ops import embedding_lookup, matmul
-from ..ops.decode_kernels import decode_step_fused
-from ..ops.qmatmul_kernels import lm_head_argmax
+from ..ops.decode_kernels import decode_step_fused, kv_commit
+from ..ops.qmatmul_kernels import (lm_head_argmax, lm_head_argmax_commit,
+                                   lm_head_logits_gmax_commit)
 from ..runtime.cache import KVCache, commit_rows, update_layer
 
 
@@ -46,9 +55,24 @@ def _project(x, wb, compute_dtype, allow_kernels: bool) -> torch.Tensor:
     return y + wb["b"].to(torch.float32)
 
 
-def _attention(layer: dict, x, cache: KVCache, layer_ix: int, past: int,
+def _per_row(v, B: int, device) -> torch.Tensor:
+    """A host int or a (B,) tensor as a (B,) int64 tensor on ``device``."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=torch.int64).reshape(B)
+    return torch.full((B,), int(v), dtype=torch.int64, device=device)
+
+
+def _positions(past, B: int, N: int, config: BioGptConfig, table, device):
+    """(B, N) position ids of rows starting at ``past`` (host int or (B,)
+    tensor), clamped to the embedding table."""
+    start = _per_row(past, B, device)[:, None]
+    pos = start + torch.arange(N, device=device)[None, :] + config.pos_offset
+    return torch.clamp(pos, max=table.shape[0] - 1)
+
+
+def _attention(layer: dict, x, cache: KVCache, layer_ix: int, past,
                config: BioGptConfig, compute_dtype, causal: bool,
-               n_valid: int, allow_kernels: bool,
+               n_valid, allow_kernels: bool,
                kv_window: Optional[int]):
     B, N, D = x.shape
     H, Dk = config.n_head, config.d_kv
@@ -73,11 +97,13 @@ def _attention(layer: dict, x, cache: KVCache, layer_ix: int, past: int,
         q_dot = q.to(cache.k.dtype).to(torch.float32)
     scores = torch.einsum("bnhd,bshd->bhns", q_dot.reshape(B, N, H, Dk), k_all)
     pos_s = torch.arange(S, device=x.device)[None, None, None, :]
+    past_b = _per_row(past, B, x.device)[:, None, None, None]
     if causal:
-        pos_n = past + torch.arange(N, device=x.device)[None, None, :, None]
+        pos_n = past_b + torch.arange(N, device=x.device)[None, None, :, None]
         valid = pos_s <= pos_n
     else:
-        valid = pos_s < past + n_valid
+        valid = pos_s < past_b + _per_row(n_valid, B, x.device)[
+            :, None, None, None]
     scores = torch.where(valid, scores, torch.full_like(scores, -math.inf))
     attn = torch.softmax(scores, dim=-1)
     if compute_dtype != torch.float32:
@@ -86,20 +112,23 @@ def _attention(layer: dict, x, cache: KVCache, layer_ix: int, past: int,
     return _project(ctx, layer["o"], compute_dtype, allow_kernels)
 
 
-def forward(params: dict, tokens: torch.Tensor, cache: KVCache, past: int,
+def forward(params: dict, tokens: torch.Tensor, cache: KVCache, past,
             config: BioGptConfig, compute_dtype=torch.float32,
             causal: bool = True, logits_mode: str = "last",
             allow_kernels: bool = True, kv_window: Optional[int] = None,
-            last_index: Optional[int] = None):
+            last_index=None):
     """One forward step (prefill or per-op decode) -> (logits, cache):
     (B, n_vocab) for "last" or (B, N, n_vocab) for "all". The cache rows
-    [past, past + N) are written in place."""
+    [past, past + N) are written in place. ``past``: a host int, or (B,)
+    per-slot positions. ``last_index``: the position of the real last
+    token (padded prefill), a host int or (B,) per row."""
     B, N = tokens.shape
     dev = tokens.device
     emb = embedding_lookup(tokens, params["embed_tokens"]) * math.sqrt(
         config.d_model)
-    positions = (past + torch.arange(N, device=dev) + config.pos_offset)
-    pos_emb = embedding_lookup(positions.expand(B, N), params["embed_positions"])
+    pos_emb = embedding_lookup(
+        _positions(past, B, N, config, params["embed_positions"], dev),
+        params["embed_positions"])
     x = emb + pos_emb
     n_valid = N if last_index is None else last_index + 1
     for i in range(config.n_layer):
@@ -113,8 +142,8 @@ def forward(params: dict, tokens: torch.Tensor, cache: KVCache, past: int,
     x = _layer_norm(x, params["final_ln"]["w"], params["final_ln"]["b"],
                     config.ln_eps)
     if logits_mode == "last":
-        idx = N - 1 if last_index is None else last_index
-        x = x[:, idx:idx + 1]
+        idx = _per_row(N - 1 if last_index is None else last_index, B, dev)
+        x = torch.gather(x, 1, idx[:, None, None].expand(B, 1, x.shape[-1]))
     logits = matmul(x, params["lm_head"], compute_dtype=compute_dtype,
                     allow_kernels=allow_kernels)
     logits = logits[..., :config.n_vocab]   # the lm_head may be lane-padded
@@ -124,30 +153,41 @@ def forward(params: dict, tokens: torch.Tensor, cache: KVCache, past: int,
 
 
 def _fused_decode_hidden(params: dict, tokens: torch.Tensor, cache: KVCache,
-                         past: int, config: BioGptConfig, kv_window: int = 128):
-    """Whole-model decode step + the KV-row commit -> (hidden (1, D) f32
-    before the final LN, cache)."""
+                         past, config: BioGptConfig, kv_window: int = 128,
+                         commit: bool = True):
+    """Whole-model decode step (B <= 32) + the KV-row commit -> (hidden
+    (B, D) f32 before the final LN, cache). ``past``: the host's int at
+    B=1, (B,) per-slot positions on the device at B >= 2. ``commit=False``
+    skips the commit and returns (x, k_rows, v_rows) (L, B, D) instead, for
+    the tails that fold the commit in."""
     B, N = tokens.shape
-    if B != 1 or N != 1:
-        raise NotImplementedError("the fused decode step runs B=1, N=1 in "
-                                  "this slice of the port")
+    if N != 1 or B > 32:
+        raise ValueError(f"the fused decode step takes one token for B <= 32 "
+                         f"slots, got ({B}, {N})")
+    table = params["embed_positions"]
     emb = embedding_lookup(tokens, params["embed_tokens"]) * math.sqrt(
         config.d_model)
-    pos = torch.full((1, 1), past + config.pos_offset, device=tokens.device)
-    x0 = (emb + embedding_lookup(pos, params["embed_positions"])).reshape(
-        1, config.d_model)
+    pos = _positions(past, B, 1, config, table, tokens.device)
+    x0 = (emb + embedding_lookup(pos, table)).reshape(B, config.d_model)
     x, k_rows, v_rows = decode_step_fused(
         x0, params["layers"], cache.k, cache.v, past, n_head=config.n_head,
         window=kv_window, ln_eps=config.ln_eps)
-    commit_rows(cache, k_rows, v_rows, past)
+    if not commit:
+        return x, k_rows, v_rows
+    if B > 1:
+        kv_commit(cache.k, cache.v, k_rows.transpose(0, 1),
+                  v_rows.transpose(0, 1), past)
+    else:
+        commit_rows(cache, k_rows, v_rows, past)
     return x, cache
 
 
 def forward_fused_decode(params: dict, tokens: torch.Tensor, cache: KVCache,
-                         past: int, config: BioGptConfig,
+                         past, config: BioGptConfig,
                          compute_dtype=torch.bfloat16, kv_window: int = 128):
-    """Single-token decode through the fused step, then final LN and the
-    lm_head (``qmatmul`` at m=1) -> (logits (1, n_vocab) f32, cache)."""
+    """Decode one token per slot through the fused step, then final LN and
+    the lm_head (``qmatmul`` / ``qmatmul_wide`` at m = B) -> (logits
+    (B, n_vocab) f32, cache)."""
     x, cache = _fused_decode_hidden(params, tokens, cache, past, config,
                                     kv_window)
     x = _layer_norm(x, params["final_ln"]["w"], params["final_ln"]["b"],
@@ -158,14 +198,41 @@ def forward_fused_decode(params: dict, tokens: torch.Tensor, cache: KVCache,
 
 
 def forward_fused_decode_greedy(params: dict, tokens: torch.Tensor,
-                                cache: KVCache, past: int,
-                                config: BioGptConfig, kv_window: int = 128):
+                                cache: KVCache, past, config: BioGptConfig,
+                                kv_window: int = 128):
     """Greedy decode with the final LN + lm_head + argmax tail fused ->
-    (ids (1,) int32, max logits (1,) f32 -- the health lane's probe, cache).
-    Needs a packed, lane-padded quantized lm_head (the engine prepares it)."""
+    (ids (B,) int32, max logits (B,) f32 -- the health lane's probe, cache).
+    At B > 1 the tail also commits the KV rows. Needs a packed, lane-padded
+    quantized lm_head (the engine prepares it)."""
+    B = tokens.shape[0]
+    fw, fb = params["final_ln"]["w"], params["final_ln"]["b"]
+    if B > 1:
+        x, k_rows, v_rows = _fused_decode_hidden(
+            params, tokens, cache, past, config, kv_window, commit=False)
+        ids, mv, _, _ = lm_head_argmax_commit(
+            x, fw, fb, params["lm_head"], config.n_vocab, cache.k, cache.v,
+            k_rows.transpose(0, 1), v_rows.transpose(0, 1), past,
+            ln_eps=config.ln_eps)
+        return ids, mv, cache
     x, cache = _fused_decode_hidden(params, tokens, cache, past, config,
                                     kv_window)
-    ids, mv = lm_head_argmax(x, params["final_ln"]["w"],
-                             params["final_ln"]["b"], params["lm_head"],
+    ids, mv = lm_head_argmax(x, fw, fb, params["lm_head"],
                              n_valid=config.n_vocab, ln_eps=config.ln_eps)
     return ids, mv, cache
+
+
+def forward_fused_decode_sampled(params: dict, tokens: torch.Tensor,
+                                 cache: KVCache, past, config: BioGptConfig,
+                                 kv_window: int = 128):
+    """Sampled batched decode (2 <= B <= 32) with the final LN + lm_head +
+    KV commit tail fused -> (logits (B, d_out) f32 at the lm_head's padded
+    width, pad columns -1e30; their 128-column group maxima (B, d_out/128),
+    stage 1 of ``sampling.topk_gather``; cache). bf16 cache only."""
+    x, k_rows, v_rows = _fused_decode_hidden(
+        params, tokens, cache, past, config, kv_window, commit=False)
+    logits, gmax, _, _ = lm_head_logits_gmax_commit(
+        x, params["final_ln"]["w"], params["final_ln"]["b"],
+        params["lm_head"], config.n_vocab, cache.k, cache.v,
+        k_rows.transpose(0, 1), v_rows.transpose(0, 1), past,
+        ln_eps=config.ln_eps)
+    return logits, gmax, cache

@@ -1,21 +1,33 @@
-"""Single-stream decode step through all layers: ``decode_step_fused``.
+"""The decode step through all layers, ``decode_step_fused``, and the
+batched KV commit, ``kv_commit``.
 
-Replaces ``biogpt_tpu/ops/pallas_decode.py::decode_step_fused`` on its B=1
-path with a bf16 KV cache (``_make_kernel``). Same contract:
+``decode_step_fused`` replaces ``biogpt_tpu/ops/pallas_decode.py::
+decode_step_fused`` with a bf16 KV cache: its B=1 path (``_make_kernel``)
+and its batched lockstep path at 2 <= B <= 32 (``_make_kernel_batched``).
+Same contract:
 
-    (x0 (1, D) f32, layers, k_cache, v_cache (L, 1, S, D) bf16, past)
-        -> (x (1, D) f32, k_rows, v_rows (L, 1, D) bf16)
+    (x0 (B, D) f32, layers, k_cache, v_cache (L, B, S, D) bf16, past)
+        -> (x (B, D) f32, k_rows, v_rows (L, B, D) bf16)
 
 ``layers`` are the engine-packed layer-stacked weights (fused ``qkv``,
-packed 4-bit planes, bf16 scales). The caller commits the returned rows at
-position ``past``; attention reads cache rows ``< past`` and the current
-token, never row ``past`` itself.
+packed 4-bit planes, bf16 scales). ``past`` is the host's int at B=1 and a
+(B,) integer tensor of per-slot positions on the device at B >= 2. The
+caller commits slot b's rows at its position; attention reads slot b's
+cache rows ``< min(past[b], window)`` and the current token, never row
+``past[b]`` itself. The two paths keep the TPU kernels' two numerics: X'
+projections at B=1, dequant-then-dot (``_qmm_dq``) at every B >= 2.
 
-On a CUDA tensor the step runs the hand-written chain of per-layer Hopper
-kernels in ``csrc/decode_step.cu`` (one host call per token; see that file
-for the design and what bounds it) or raises; on the CPU it runs
-:func:`decode_step_fused_plain`, which transcribes the TPU kernel's math,
-its online softmax over KV blocks and bf16 roundings included.
+``kv_commit`` replaces ``pallas_decode.py::kv_commit_pallas``: each slot's
+rows (B, L, D), slot-major, land at its own position in every layer's
+cache. It writes the port's mutable caches in place (the JAX call donates
+its buffers and returns new ones); it returns the same tensors.
+
+On CUDA tensors each function launches its hand-written Hopper kernels
+(``csrc/decode_step.cu``, ``csrc/decode_batched.cu``, ``csrc/kv_commit.cu``;
+one host call each -- see those files for the designs and what bounds
+them) or raises; on the CPU it runs its plain version, which transcribes
+the TPU kernel's math, the online softmax over KV blocks and the bf16
+roundings included.
 """
 
 from __future__ import annotations
@@ -27,18 +39,23 @@ import torch
 from ..quant.codecs import QK
 from ..quant.layouts import LEVEL_OFFSET, QuantizedTensor
 from . import cuda_lib
-from .qmatmul_kernels import CUDA_QTYPES, LANES, layer_norm_bf16, qmatmul_plain
+from .qmatmul_kernels import (CUDA_QTYPES, LANES, layer_norm_bf16,
+                              qmatmul_plain, qmatmul_wide_plain)
 
 # d_in chunk of the TPU kernel's matmul loops; it has no remainder path
 _CHUNK = 32 * QK
 # per-tensor VMEM budget that sized the TPU kernel's KV blocks
 _KV_WINDOW_BYTES = 8 * 1024 * 1024
+MAX_BATCH = 32     # slots of the batched step
+_CUDA_HEAD_DIM = 64   # DK of csrc/decode_layers.cuh
 
 
 def supports_layers(layers: dict, cache_dtype, batch: int, n_new: int) -> bool:
     """Whether the fused step applies to these engine-packed layers
-    (``pallas_decode.supports_layers``; this slice runs batch 1)."""
-    if batch != 1 or n_new != 1 or cache_dtype != torch.bfloat16:
+    (``pallas_decode.supports_layers``: 1 <= batch <= 32, one new token,
+    bf16 cache, fused packed planes of one format)."""
+    if (not 1 <= batch <= MAX_BATCH or n_new != 1
+            or cache_dtype != torch.bfloat16):
         return False
     if "qkv" not in layers:
         return False
@@ -59,12 +76,13 @@ def supports_layers(layers: dict, cache_dtype, batch: int, n_new: int) -> bool:
     return True
 
 
-def kv_block(window: int, d_model: int = 1024) -> int:
-    """The TPU kernel's KV block for a B=1 window (``pallas_decode._kv_block``):
-    the plain version's online softmax walks the same blocks."""
+def kv_block(window: int, d_model: int = 1024, batch: int = 1) -> int:
+    """The TPU kernel's KV block for a window (``pallas_decode._kv_block``;
+    wide batches shrink it): the plain versions' online softmax walks the
+    same blocks."""
     kvb = window
     while (kvb % 2 == 0 and kvb > 128
-           and (kvb > 512 or kvb * d_model * 2 > _KV_WINDOW_BYTES)):
+           and (kvb > 512 or batch * kvb * d_model * 2 > _KV_WINDOW_BYTES)):
         kvb //= 2
     return kvb
 
@@ -132,7 +150,88 @@ def decode_step_fused_plain(x0, layers: dict, k_cache, v_cache, past: int, *,
     return x, torch.stack(k_rows), torch.stack(v_rows)
 
 
-def _check_cuda_layers(layers: dict, L: int, D: int) -> None:
+def decode_step_fused_batched_plain(x0, layers: dict, k_cache, v_cache, past,
+                                   *, n_head: int, window: int,
+                                   ln_eps: float = 1e-5,
+                                   kv_block_size: int | None = None):
+    """Plain version of the batched :func:`decode_step_fused`
+    (pallas_decode.py:358-570): per-slot positions ``past`` (B,), every
+    projection dequant-then-dot, the online softmax over the TPU kernel's
+    KV blocks for all B*H head-rows at once. The TPU kernel's ``kv_groups``
+    only chooses which KV blocks it copies; the math is this."""
+    L, B, S, D = k_cache.shape
+    H = n_head
+    Dk = D // H
+    W = min(window, S)
+    KVB = kv_block_size or kv_block(W, D, batch=B)
+    if W % KVB:
+        raise ValueError(f"window {W} not divisible by kv_block {KVB}")
+    scale = 1.0 / math.sqrt(Dk)
+    dev = x0.device
+    past = torch.as_tensor(past, device=dev).to(torch.int64).reshape(B)
+    x = x0.to(torch.float32).reshape(B, D)
+    k_rows, v_rows = [], []
+    for lyr in range(L):
+        def w(name):
+            return layers[name]["w"].map(lambda a: a[lyr])
+
+        def b(name):
+            return layers[name]["b"][lyr].to(torch.float32)
+
+        h = layer_norm_bf16(x, layers["ln0"]["w"][lyr], layers["ln0"]["b"][lyr],
+                            ln_eps)
+        qkv = qmatmul_wide_plain(h, w("qkv")) + b("qkv")
+        q, k, v = qkv[:, :D] * scale, qkv[:, D:2 * D], qkv[:, 2 * D:]
+        k_rows.append(k.to(k_cache.dtype))
+        v_rows.append(v.to(v_cache.dtype))
+        qh = q.to(torch.bfloat16).to(torch.float32).reshape(B, H, Dk)
+        kh, vh = k.reshape(B, H, Dk), v.reshape(B, H, Dk)
+        m = torch.full((B, H, 1), -1e30, device=dev)
+        l = torch.zeros(B, H, 1, device=dev)
+        acc = torch.zeros(B, H, Dk, device=dev)
+        kc = k_cache[lyr].to(torch.float32).reshape(B, S, H, Dk)
+        vc = v_cache[lyr].to(torch.float32).reshape(B, S, H, Dk)
+        for j in range(W // KVB):
+            kb, vb = kc[:, j * KVB:(j + 1) * KVB], vc[:, j * KVB:(j + 1) * KVB]
+            scores = torch.einsum("bhd,bshd->bhs", qh, kb)
+            idx = torch.arange(KVB, device=dev) + j * KVB
+            valid = idx[None, None, :] < past[:, None, None]
+            masked = torch.where(valid, scores, torch.full_like(scores, -1e30))
+            m_new = torch.maximum(m, masked.amax(-1, keepdim=True))
+            p = torch.where(valid, torch.exp(scores - m_new),
+                            torch.zeros_like(scores))
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            pb = p.to(torch.bfloat16).to(torch.float32)
+            acc = acc * alpha + torch.einsum("bhs,bshd->bhd", pb, vb)
+            m = m_new
+        cur = (qh * kh).sum(-1, keepdim=True)
+        m_fin = torch.maximum(m, cur)
+        alpha2 = torch.exp(m - m_fin)
+        p_cur = torch.exp(cur - m_fin)
+        ctx = ((acc * alpha2 + p_cur * vh) / (l * alpha2 + p_cur)).reshape(B, D)
+        x = x + qmatmul_wide_plain(ctx, w("o")) + b("o")
+        h2 = layer_norm_bf16(x, layers["ln1"]["w"][lyr], layers["ln1"]["b"][lyr],
+                             ln_eps)
+        f = torch.nn.functional.gelu(qmatmul_wide_plain(h2, w("fc1")) + b("fc1"))
+        x = x + qmatmul_wide_plain(f, w("fc2")) + b("fc2")
+    return x, torch.stack(k_rows), torch.stack(v_rows)
+
+
+def kv_commit_plain(k_cache, v_cache, k_rows_t, v_rows_t, past):
+    """Plain version of :func:`kv_commit`: slot b's rows ``k_rows_t[b]``
+    (L, D) land at ``past[b]``, clamped into ``[0, S)``; in place."""
+    S = k_cache.shape[2]
+    pos = torch.clamp(past.to(torch.int64), 0, S - 1)
+    slots = torch.arange(k_cache.shape[1], device=pos.device)
+    k_cache[:, slots, pos] = k_rows_t.transpose(0, 1).to(k_cache.dtype)
+    v_cache[:, slots, pos] = v_rows_t.transpose(0, 1).to(v_cache.dtype)
+    return k_cache, v_cache
+
+
+# --------------------------------------------------------------- wrappers
+
+def _check_cuda_layers(layers: dict, L: int, D: int, batch: int) -> None:
     for name in ("qkv", "o", "fc1", "fc2"):
         qt = layers[name]["w"]
         if not qt.packed or qt.qtype not in CUDA_QTYPES:
@@ -148,34 +247,58 @@ def _check_cuda_layers(layers: dict, L: int, D: int) -> None:
                 or layers[name]["b"].dtype != torch.float32):
             raise ValueError(f"decode_step_fused: {name} needs uint8 levels, "
                              "bf16 scales and f32 biases")
-    if not supports_layers(layers, torch.bfloat16, 1, 1):
+    if not supports_layers(layers, torch.bfloat16, batch, 1):
         raise ValueError("decode_step_fused: unsupported layer shapes")
     if layers["qkv"]["w"].d_in != D:
         raise ValueError("decode_step_fused: qkv d_in != d_model")
 
 
-def decode_step_fused(x0, layers: dict, k_cache, v_cache, past: int, *,
-                      n_head: int, window: int, ln_eps: float = 1e-5):
-    """One decode step over all layers (see the module docstring).
-    ``past`` is the host's Python int; ``window`` (>= past + 1) sizes the
-    plain version's KV blocks and bounds ``past`` on the card."""
-    if not x0.is_cuda:
-        return decode_step_fused_plain(x0, layers, k_cache, v_cache, past,
-                                       n_head=n_head, window=window,
-                                       ln_eps=ln_eps)
+def _check_cuda_caches(k_cache, v_cache, what: str) -> None:
+    if (k_cache.dtype != torch.bfloat16 or v_cache.dtype != torch.bfloat16
+            or not k_cache.is_cuda or not k_cache.is_contiguous()
+            or not v_cache.is_contiguous() or v_cache.shape != k_cache.shape):
+        raise ValueError(f"{what}: caches must be contiguous bf16 CUDA "
+                         "tensors (L, B, S, D) of one shape")
+
+
+def _cuda_past(past, B: int, dev, what: str) -> torch.Tensor:
+    """(B,) int32 per-slot positions on the card (no host read)."""
+    if not isinstance(past, torch.Tensor):
+        return torch.full((B,), int(past), dtype=torch.int32, device=dev)
+    if (not past.is_cuda or past.numel() != B
+            or past.dtype not in (torch.int32, torch.int64)):
+        raise ValueError(f"{what}: past must be a ({B},) integer CUDA tensor")
+    return past.reshape(B).to(torch.int32).contiguous()
+
+
+def _layer_planes(layers: dict) -> list:
+    out = []
+    for name in ("qkv", "o", "fc1", "fc2"):
+        qt = layers[name]["w"]
+        out += [qt.levels.data_ptr(), qt.scales.data_ptr(),
+                cuda_lib.ptr(qt.mins), layers[name]["b"].data_ptr()]
+    return out
+
+
+def _layer_norms(layers: dict) -> list:
+    return [layers[n][k].to(torch.float32).contiguous()
+            for n in ("ln0", "ln1") for k in ("w", "b")]
+
+
+def _decode_step_b1(x0, layers, k_cache, v_cache, past: int, n_head: int,
+                    window: int, ln_eps: float):
     what = "decode_step_fused"
     L, B, S, D = k_cache.shape
-    if B != 1 or x0.shape[-1] != D or x0.numel() != D:
-        raise NotImplementedError(f"{what}: this slice runs B=1 (got B={B}); "
-                                  "the batched kernel is a later slice")
-    if (k_cache.dtype != torch.bfloat16 or v_cache.dtype != torch.bfloat16
-            or not k_cache.is_contiguous() or not v_cache.is_contiguous()
-            or v_cache.shape != k_cache.shape):
-        raise ValueError(f"{what}: caches must be contiguous bf16 (L,1,S,D)")
+    if x0.shape[-1] != D or x0.numel() != D:
+        raise ValueError(f"{what}: x0 must be (1, {D})")
+    if isinstance(past, torch.Tensor):
+        raise NotImplementedError(
+            f"{what}: the B=1 kernel takes the host's int past; per-slot "
+            "device positions need B >= 2")
     if not 0 <= past < min(window, S):
         raise ValueError(f"{what}: past={past} outside the window "
                          f"{min(window, S)}")
-    _check_cuda_layers(layers, L, D)
+    _check_cuda_layers(layers, L, D, 1)
     lib = cuda_lib.library("decode_step")
     DK = lib.bgt_decode_head_dim()
     if D != n_head * DK:
@@ -193,22 +316,109 @@ def decode_step_fused(x0, layers: dict, k_cache, v_cache, past: int, *,
     acc = torch.empty(n_head * ns * DK, **f32)
     ctx = torch.empty(D, **f32)
     ff = torch.empty(F, **f32)
-
-    def planes(name):
-        qt = layers[name]["w"]
-        return [qt.levels.data_ptr(), qt.scales.data_ptr(),
-                cuda_lib.ptr(qt.mins), layers[name]["b"].data_ptr()]
-
-    norms = [layers[n][k].to(torch.float32).contiguous()
-             for n in ("ln0", "ln1") for k in ("w", "b")]
+    norms = _layer_norms(layers)
     err = lib.bgt_decode_step(
         x.data_ptr(), L, D, F, n_head, S, int(past), float(ln_eps),
         LEVEL_OFFSET[layers["qkv"]["w"].qtype],
-        *[t.data_ptr() for t in norms],
-        *planes("qkv"), *planes("o"), *planes("fc1"), *planes("fc2"),
+        *[t.data_ptr() for t in norms], *_layer_planes(layers),
         k_cache.data_ptr(), v_cache.data_ptr(), k_rows.data_ptr(),
         v_rows.data_ptr(), part.data_ptr(), ml.data_ptr(), acc.data_ptr(),
         ctx.data_ptr(), ff.data_ptr(), cuda_lib.stream_ptr(dev))
     cuda_lib.LAUNCHES[what] += 1
     cuda_lib.check(err, what)
     return x.reshape(1, D), k_rows, v_rows
+
+
+def _decode_step_batched(x0, layers, k_cache, v_cache, past, n_head: int,
+                         window: int, ln_eps: float):
+    what = "decode_step_fused_batched"
+    L, B, S, D = k_cache.shape
+    if x0.shape != (B, D):
+        raise ValueError(f"{what}: x0 must be ({B}, {D}), got "
+                         f"{tuple(x0.shape)}")
+    if D != n_head * _CUDA_HEAD_DIM:
+        raise NotImplementedError(
+            f"{what}: the CUDA kernel is built for head width "
+            f"{_CUDA_HEAD_DIM}, got {D // n_head}")
+    _check_cuda_layers(layers, L, D, B)
+    dev = x0.device
+    past = _cuda_past(past, B, dev, what)
+    W = min(window, S)
+    M = 8 if B <= 8 else 16 if B <= 16 else 32   # kernel rows; extra are zero
+    F = layers["fc1"]["w"].d_out
+    ns = -(-W // 64)
+    lib = cuda_lib.library("decode_batched")
+    f32 = dict(dtype=torch.float32, device=dev)
+    x = torch.zeros(M, D, **f32)
+    x[:B] = x0
+    k_rows = torch.empty(L, B, D, dtype=torch.bfloat16, device=dev)
+    v_rows = torch.empty(L, B, D, dtype=torch.bfloat16, device=dev)
+    part = torch.empty(lib.bgt_decode_batched_part_size(D, F, M), **f32)
+    qkv = torch.empty(M, 3 * D, **f32)
+    ml = torch.empty(B * n_head * ns * 2, **f32)
+    acc = torch.empty(B * n_head * ns * _CUDA_HEAD_DIM, **f32)
+    ctx = torch.zeros(M, D, **f32)
+    ff = torch.empty(M, F, **f32)
+    norms = _layer_norms(layers)
+    err = lib.bgt_decode_batched(
+        x.data_ptr(), L, D, F, n_head, S, B, M, W, past.data_ptr(),
+        float(ln_eps), LEVEL_OFFSET[layers["qkv"]["w"].qtype],
+        *[t.data_ptr() for t in norms], *_layer_planes(layers),
+        k_cache.data_ptr(), v_cache.data_ptr(), k_rows.data_ptr(),
+        v_rows.data_ptr(), part.data_ptr(), qkv.data_ptr(), ml.data_ptr(),
+        acc.data_ptr(), ctx.data_ptr(), ff.data_ptr(),
+        cuda_lib.stream_ptr(dev))
+    cuda_lib.LAUNCHES[what] += 1
+    cuda_lib.check(err, what)
+    return x[:B], k_rows, v_rows
+
+
+def decode_step_fused(x0, layers: dict, k_cache, v_cache, past, *,
+                      n_head: int, window: int, ln_eps: float = 1e-5):
+    """One decode step over all layers (see the module docstring).
+    ``past``: the host's int at B=1, a (B,) integer tensor of per-slot
+    positions at B >= 2. ``window`` (a host int, >= the live positions
+    + 1) bounds the rows attention reads and sizes the plain versions' KV
+    blocks."""
+    B = k_cache.shape[1]
+    if not x0.is_cuda:
+        step = (decode_step_fused_plain if B == 1
+                else decode_step_fused_batched_plain)
+        return step(x0, layers, k_cache, v_cache, past, n_head=n_head,
+                    window=window, ln_eps=ln_eps)
+    _check_cuda_caches(k_cache, v_cache, "decode_step_fused")
+    if not 1 <= B <= MAX_BATCH:
+        raise ValueError(f"decode_step_fused: batch {B} outside 1..{MAX_BATCH}")
+    step = _decode_step_b1 if B == 1 else _decode_step_batched
+    return step(x0, layers, k_cache, v_cache, past, n_head, window, ln_eps)
+
+
+def kv_commit(k_cache, v_cache, k_rows_t, v_rows_t, past):
+    """Commit slot b's new rows ``k_rows_t[b]``, ``v_rows_t[b]`` (slot-major
+    (B, L, D)) at ``past[b]`` of every layer's cache, in place, and return
+    the caches. ``past``: (B,) integer tensor; a position outside
+    ``[0, S)`` is clamped into it, as dynamic_update_slice clamps."""
+    if not k_cache.is_cuda:
+        return kv_commit_plain(k_cache, v_cache, k_rows_t, v_rows_t, past)
+    what = "kv_commit"
+    _check_cuda_caches(k_cache, v_cache, what)
+    L, B, S, D = k_cache.shape
+    k_rows_t = k_rows_t.to(torch.bfloat16)
+    v_rows_t = v_rows_t.to(torch.bfloat16)
+    if (k_rows_t.shape != (B, L, D) or v_rows_t.shape != (B, L, D)
+            or not k_rows_t.is_cuda or k_rows_t.stride() != v_rows_t.stride()
+            or k_rows_t.stride(2) != 1):
+        raise ValueError(f"{what}: rows must be ({B}, {L}, {D}) CUDA tensors "
+                         "of one layout, rows contiguous")
+    sb, sl = k_rows_t.stride(0), k_rows_t.stride(1)
+    if (D % 8 or sb % 8 or sl % 8 or k_rows_t.data_ptr() % 16
+            or v_rows_t.data_ptr() % 16):
+        raise ValueError(f"{what}: rows must be 16-byte aligned (D % 8 == 0)")
+    past = _cuda_past(past, B, k_cache.device, what)
+    err = cuda_lib.library(what).bgt_kv_commit(
+        k_cache.data_ptr(), v_cache.data_ptr(), k_rows_t.data_ptr(),
+        v_rows_t.data_ptr(), sb, sl, past.data_ptr(), L, B, S, D,
+        cuda_lib.stream_ptr(k_cache.device))
+    cuda_lib.LAUNCHES[what] += 1
+    cuda_lib.check(err, what)
+    return k_cache, v_cache

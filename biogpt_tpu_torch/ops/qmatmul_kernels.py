@@ -1,4 +1,5 @@
-"""Quantized GEMV kernels: ``qmatmul``, ``qmatmul_wide``, ``lm_head_argmax``.
+"""Quantized GEMV kernels: ``qmatmul``, ``qmatmul_wide``, ``lm_head_argmax``
+and the two serving epilogues with their KV commit.
 
 Each function takes plane-layout weights (``quant.layouts.QuantizedTensor``)
 and dispatches on the device of its tensors: on the CPU it runs its plain
@@ -14,9 +15,18 @@ plain versions take all five formats, packed or not.
 Replaces (biogpt_tpu/ops/pallas_qmatmul.py):
   qmatmul          <- qmatmul_pallas         (M <= 8, X' numerics)
   qmatmul_wide     <- qmatmul_pallas_wide    (8 < M <= 32, dequant-then-dot)
-  lm_head_argmax   <- lm_head_argmax_pallas  (final LN + lm_head + argmax)
-All three are bound by the bytes of the weight planes on an H100; see the
-kernel sources for what each design does about it.
+  lm_head_argmax   <- lm_head_argmax_pallas  (final LN + lm_head + argmax,
+                                              M <= 32)
+  lm_head_argmax_commit      <- lm_head_argmax_commit_pallas
+  lm_head_logits_gmax_commit <- lm_head_logits_gmax_commit_pallas
+The lm_head tails switch from X' to dequant-then-dot above M = 8, as the
+TPU tile does (``_ln_lmhead_tile``, pallas_qmatmul.py:320). The two
+``*_commit`` functions keep the JAX call contract -- slot-major rows
+(B, L, D), per-slot ``past`` (B,), caches updated -- and on the card run
+their lm_head kernel and then ``decode_kernels.kv_commit`` on the same
+stream; the port's caches are written in place. All are bound by the
+bytes of the weight planes on an H100; see the kernel sources for what
+each design does about it.
 """
 
 from __future__ import annotations
@@ -154,16 +164,58 @@ def argmax_fold(logits: torch.Tensor, n_valid: int, tile: int):
     return bi.to(torch.int32), bv
 
 
+def lm_head_logits_plain(x, ln_w, ln_b, qt: QuantizedTensor,
+                         ln_eps: float = 1e-5) -> torch.Tensor:
+    """The TPU tile body ``_ln_lmhead_tile``: final LN, then the lm_head
+    logits (M, d_out) f32, X' at M <= 8 and dequant-then-dot above."""
+    xn = layer_norm_bf16(x, ln_w, ln_b, ln_eps)
+    if x.shape[0] > 8:
+        return xn @ wide_weight(qt)
+    return xprime_logits(xn, qt)
+
+
 def lm_head_argmax_plain(x, ln_w, ln_b, qt: QuantizedTensor, n_valid: int,
                          ln_eps: float = 1e-5):
     """Plain version of ``lm_head_argmax``: ((M,) int32 ids, (M,) f32 max
-    logits). M > 8 rows take the wide formulation, as the TPU tile does."""
-    xn = layer_norm_bf16(x, ln_w, ln_b, ln_eps)
-    if x.shape[0] > 8:
-        logits = xn @ wide_weight(qt)
-    else:
-        logits = xprime_logits(xn, qt)
-    return argmax_fold(logits, n_valid, pick_tile(qt.d_out))
+    logits)."""
+    return argmax_fold(lm_head_logits_plain(x, ln_w, ln_b, qt, ln_eps),
+                       n_valid, pick_tile(qt.d_out))
+
+
+def lm_head_logits_gmax_plain(x, ln_w, ln_b, qt: QuantizedTensor,
+                              n_valid: int, ln_eps: float = 1e-5):
+    """Logits (M, d_out) f32 with pad columns (>= n_valid) at -1e30, and
+    their NaN-propagating maxima over 128-column groups (M, d_out/128)."""
+    logits = lm_head_logits_plain(x, ln_w, ln_b, qt, ln_eps)
+    col = torch.arange(qt.d_out, device=logits.device)
+    logits = torch.where(col < n_valid, logits,
+                         torch.full_like(logits, -1e30))
+    return logits, logits.reshape(logits.shape[0], -1, LANES).amax(-1)
+
+
+def lm_head_argmax_commit_plain(x, ln_w, ln_b, qt: QuantizedTensor,
+                                n_valid: int, k_cache, v_cache, k_rows_t,
+                                v_rows_t, past, ln_eps: float = 1e-5):
+    """Plain version of ``lm_head_argmax_commit``."""
+    from .decode_kernels import kv_commit_plain
+
+    ids, mv = lm_head_argmax_plain(x, ln_w, ln_b, qt, n_valid, ln_eps)
+    k_cache, v_cache = kv_commit_plain(k_cache, v_cache, k_rows_t, v_rows_t,
+                                       past)
+    return ids, mv, k_cache, v_cache
+
+
+def lm_head_logits_gmax_commit_plain(x, ln_w, ln_b, qt: QuantizedTensor,
+                                     n_valid: int, k_cache, v_cache, k_rows_t,
+                                     v_rows_t, past, ln_eps: float = 1e-5):
+    """Plain version of ``lm_head_logits_gmax_commit``."""
+    from .decode_kernels import kv_commit_plain
+
+    logits, gmax = lm_head_logits_gmax_plain(x, ln_w, ln_b, qt, n_valid,
+                                             ln_eps)
+    k_cache, v_cache = kv_commit_plain(k_cache, v_cache, k_rows_t, v_rows_t,
+                                       past)
+    return logits, gmax, k_cache, v_cache
 
 
 # --------------------------------------------------------------- wrappers
@@ -238,41 +290,113 @@ def qmatmul_wide(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     return qmatmul_wide_plain(x, qt)
 
 
-def lm_head_argmax(x, ln_w, ln_b, qt: QuantizedTensor, n_valid: int,
-                   ln_eps: float = 1e-5):
-    """argmax(LN(x) @ dequant(qt)) over the first ``n_valid`` columns ->
-    ((M,) int32 ids, (M,) f32 winning logits: the health lane's probe)."""
-    if not x.is_cuda:
-        return lm_head_argmax_plain(x, ln_w, ln_b, qt, n_valid, ln_eps)
-    what = "lm_head_argmax"
+# lm_head tails: dynamic shared memory for the LayerNorm'd rows, M * d_in
+# floats, within the card's 227 KB beside the kernels' static buffers
+_TAIL_SMEM_BYTES = 200 * 1024
+
+
+def _tail_rows(x, ln_w, ln_b, qt: QuantizedTensor, n_valid: int, what: str):
+    """Checked (x padded to the kernel's rows, ln_w, ln_b, M) of a tail."""
     _check_cuda_weight(qt, what)
     d_in, d_out = qt.d_in, qt.d_out
     x = _cuda_x(x, d_in, what)
     M = x.shape[0]
-    if M > 8:
-        raise NotImplementedError(
-            f"{what}: M={M} > 8 rows is the batched serving epilogue, a later "
-            "slice of the port")
-    if d_out % LANES != 0 or M * d_in * 4 > 40 * 1024 or not 0 < n_valid <= d_out:
+    if (not 0 < M <= 32 or d_out % LANES != 0 or not 0 < n_valid <= d_out
+            or 32 * d_in * 4 > _TAIL_SMEM_BYTES):
         raise ValueError(f"{what}: unsupported shape M={M} d_in={d_in} "
                          f"d_out={d_out} n_valid={n_valid}")
     ln_w = ln_w.to(torch.float32).contiguous()
     ln_b = ln_b.to(torch.float32).contiguous()
-    nblk = d_out // LANES
+    return x, ln_w, ln_b, M
+
+
+def _pad_rows(x: torch.Tensor, Mk: int) -> torch.Tensor:
+    if Mk == x.shape[0]:
+        return x
+    return torch.cat([x, x.new_zeros(Mk - x.shape[0], x.shape[1])])
+
+
+def _launch_argmax(x, ln_w, ln_b, qt, n_valid: int, ln_eps: float,
+                   what: str):
+    x, ln_w, ln_b, M = _tail_rows(x, ln_w, ln_b, qt, n_valid, what)
+    # kernel rows: 1..8 (X'), or 16 / 32 (dequant-then-dot) with zero rows
+    Mk = M if M <= 8 else 16 if M <= 16 else 32
+    x = _pad_rows(x, Mk)
+    nblk = qt.d_out // LANES
     dev = x.device
-    bmax = torch.empty(M * nblk, dtype=torch.float32, device=dev)
-    bidx = torch.empty(M * nblk, dtype=torch.int32, device=dev)
-    bnan = torch.empty(M * nblk, dtype=torch.int32, device=dev)
-    ids = torch.empty(M, dtype=torch.int32, device=dev)
-    mv = torch.empty(M, dtype=torch.float32, device=dev)
-    lib = cuda_lib.library(what)
+    bmax = torch.empty(Mk * nblk, dtype=torch.float32, device=dev)
+    bidx = torch.empty(Mk * nblk, dtype=torch.int32, device=dev)
+    bnan = torch.empty(Mk * nblk, dtype=torch.int32, device=dev)
+    ids = torch.empty(Mk, dtype=torch.int32, device=dev)
+    mv = torch.empty(Mk, dtype=torch.float32, device=dev)
+    lib = cuda_lib.library("lm_head_argmax")
     err = lib.bgt_lm_head_argmax(
         x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), float(ln_eps),
         qt.levels.data_ptr(), qt.scales.data_ptr(), cuda_lib.ptr(qt.mins),
-        M, d_in, d_out, LEVEL_OFFSET[qt.qtype], n_valid,
-        pick_tile(d_out) // LANES, bmax.data_ptr(), bidx.data_ptr(),
+        Mk, qt.d_in, qt.d_out, LEVEL_OFFSET[qt.qtype], n_valid,
+        pick_tile(qt.d_out) // LANES, bmax.data_ptr(), bidx.data_ptr(),
         bnan.data_ptr(), ids.data_ptr(), mv.data_ptr(),
         cuda_lib.stream_ptr(dev))
     cuda_lib.LAUNCHES[what] += 1
     cuda_lib.check(err, what)
-    return ids, mv
+    return ids[:M], mv[:M]
+
+
+def lm_head_argmax(x, ln_w, ln_b, qt: QuantizedTensor, n_valid: int,
+                   ln_eps: float = 1e-5):
+    """argmax(LN(x) @ dequant(qt)) over the first ``n_valid`` columns, M <=
+    32 rows -> ((M,) int32 ids, (M,) f32 winning logits: the health lane's
+    probe)."""
+    if not x.is_cuda:
+        return lm_head_argmax_plain(x, ln_w, ln_b, qt, n_valid, ln_eps)
+    return _launch_argmax(x, ln_w, ln_b, qt, n_valid, ln_eps,
+                          "lm_head_argmax")
+
+
+def lm_head_argmax_commit(x, ln_w, ln_b, qt: QuantizedTensor, n_valid: int,
+                          k_cache, v_cache, k_rows_t, v_rows_t, past,
+                          ln_eps: float = 1e-5):
+    """The batched greedy tail and the KV commit: ``lm_head_argmax`` of the
+    B = M rows, then slot b's rows ``k_rows_t[b]`` (slot-major (B, L, D))
+    committed at ``past[b]`` -> (ids, max logits, k_cache, v_cache)."""
+    if not x.is_cuda:
+        return lm_head_argmax_commit_plain(x, ln_w, ln_b, qt, n_valid,
+                                           k_cache, v_cache, k_rows_t,
+                                           v_rows_t, past, ln_eps)
+    from .decode_kernels import kv_commit
+
+    ids, mv = _launch_argmax(x, ln_w, ln_b, qt, n_valid, ln_eps,
+                             "lm_head_argmax_commit")
+    k_cache, v_cache = kv_commit(k_cache, v_cache, k_rows_t, v_rows_t, past)
+    return ids, mv, k_cache, v_cache
+
+
+def lm_head_logits_gmax_commit(x, ln_w, ln_b, qt: QuantizedTensor,
+                               n_valid: int, k_cache, v_cache, k_rows_t,
+                               v_rows_t, past, ln_eps: float = 1e-5):
+    """The batched sampled tail and the KV commit -> (logits (M, d_out) f32
+    with pad columns -1e30, their 128-column group maxima (M, d_out/128),
+    k_cache, v_cache); the commit as in :func:`lm_head_argmax_commit`."""
+    if not x.is_cuda:
+        return lm_head_logits_gmax_commit_plain(
+            x, ln_w, ln_b, qt, n_valid, k_cache, v_cache, k_rows_t, v_rows_t,
+            past, ln_eps)
+    from .decode_kernels import kv_commit
+
+    what = "lm_head_logits_gmax_commit"
+    x, ln_w, ln_b, M = _tail_rows(x, ln_w, ln_b, qt, n_valid, what)
+    Mk = 8 if M <= 8 else 16 if M <= 16 else 32   # rows are independent
+    x = _pad_rows(x, Mk)
+    dev = x.device
+    logits = torch.empty(Mk, qt.d_out, dtype=torch.float32, device=dev)
+    gmax = torch.empty(Mk, qt.d_out // LANES, dtype=torch.float32, device=dev)
+    lib = cuda_lib.library("lm_head_argmax")
+    err = lib.bgt_lm_head_logits_gmax(
+        x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), float(ln_eps),
+        qt.levels.data_ptr(), qt.scales.data_ptr(), cuda_lib.ptr(qt.mins),
+        Mk, qt.d_in, qt.d_out, LEVEL_OFFSET[qt.qtype], n_valid,
+        logits.data_ptr(), gmax.data_ptr(), cuda_lib.stream_ptr(dev))
+    cuda_lib.LAUNCHES[what] += 1
+    cuda_lib.check(err, what)
+    k_cache, v_cache = kv_commit(k_cache, v_cache, k_rows_t, v_rows_t, past)
+    return logits[:M], gmax[:M], k_cache, v_cache

@@ -89,6 +89,19 @@ def _pack_matmul_weights(params: dict) -> dict:
     return out
 
 
+def check_cuda_formats(params: dict) -> None:
+    """Raise on quantized weights whose format has no CUDA kernel yet."""
+    qts = [params["lm_head"]] + [
+        v["w"] for v in params["layers"].values()
+        if isinstance(v, dict) and isinstance(v.get("w"), QuantizedTensor)]
+    for qt in qts:
+        if isinstance(qt, QuantizedTensor) and qt.qtype not in CUDA_QTYPES:
+            raise NotImplementedError(
+                f"ggml type {qt.qtype}: this slice of the PyTorch port "
+                "has CUDA kernels for Q4_0 and Q4_1 only; Q5_0/Q5_1/Q8_0 "
+                "are a later slice")
+
+
 @dataclass
 class GenerationResult:
     ids: List[int]
@@ -128,7 +141,7 @@ class Engine:
             params = _pack_matmul_weights(params)
         self.params = tree_map(lambda a: a.to(self.device), params)
         if self.device.type == "cuda" and pack_q4:
-            self._check_cuda_formats()
+            check_cuda_formats(self.params)
         self._fused_decode = (
             pack_q4 and compute_dtype != torch.float32
             and cache_dtype in (None, torch.bfloat16)
@@ -141,17 +154,6 @@ class Engine:
         self._fused_greedy = (self._fused_decode
                               and isinstance(lm_head, QuantizedTensor)
                               and lm_head.packed and supports(lm_head, 1))
-
-    def _check_cuda_formats(self) -> None:
-        qts = [self.params["lm_head"]] + [
-            v["w"] for v in self.params["layers"].values()
-            if isinstance(v, dict) and isinstance(v.get("w"), QuantizedTensor)]
-        for qt in qts:
-            if qt.qtype not in CUDA_QTYPES:
-                raise NotImplementedError(
-                    f"ggml type {qt.qtype}: this slice of the PyTorch port "
-                    "has CUDA kernels for Q4_0 and Q4_1 only; Q5_0/Q5_1/Q8_0 "
-                    "are a later slice")
 
     # ------------------------------------------------------------ plumbing
 

@@ -1,8 +1,10 @@
-"""Failure detection (``biogpt_tpu/runtime/health.py``, single-stream part).
+"""Failure detection (``biogpt_tpu/runtime/health.py``).
 
 ``ModelHealthError`` is raised when a generation produced non-finite logits
-(the engine folds the finite check into its decode loop on the device and
-reads it with the chunk's token drain). ``check_params_finite`` rejects a
+(the engines fold the finite check into their decode loops on the device
+and read it with the chunk's token drain). ``DrainStallError`` is raised by
+the serving engine when launched chunks stop draining for its watchdog's
+``watchdog_s`` seconds (a hung device). ``check_params_finite`` rejects a
 loaded parameter tree with any non-finite float plane, scales and mins of
 quantized weights included.
 """
@@ -16,6 +18,10 @@ from ..quant.layouts import QuantizedTensor
 
 class ModelHealthError(RuntimeError):
     """Non-finite values in the parameters or the logits."""
+
+
+class DrainStallError(RuntimeError):
+    """Launched decode chunks stopped draining within the watchdog."""
 
 
 def _float_leaves(tree, path=""):

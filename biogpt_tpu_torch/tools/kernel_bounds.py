@@ -1,0 +1,124 @@
+"""The least time an H100 could take for each TPU kernel of the JAX package,
+at the shape the port's main paths give it.
+
+    python -m biogpt_tpu_torch.tools.kernel_bounds
+
+One JSON line per kernel (each function of ``biogpt_tpu/ops`` that reaches
+``pl.pallas_call``), ported or not, at BioGPT-347M with Q4_0 planes: the
+bytes it must move (each input read once, each output written once), the
+operations it does, and ``bound_ms``, the larger of bytes over the card's
+memory rate and operations over its bf16 tensor rate (published H100 SXM
+figures). ``chip_smoke.py`` computes the ported kernels' bounds with the
+same :func:`bound` from the inputs of its own run. Needs no card.
+"""
+
+from __future__ import annotations
+
+import json
+
+from ..config import BioGptConfig
+from ..quant.codecs import QK
+
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (published)
+BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor rate (published)
+
+# per-slot positions of the batched rows: chip_smoke.py's B=32 case
+# (1 + 13 b, slots 7 and 19 dead at 0), window 512
+RAGGED_PAST = [0 if b in (7, 19) else 1 + 13 * b for b in range(32)]
+WINDOW = 512
+
+
+def bound(nbytes: float, flops: float):
+    """(ms, "bytes" or "operations"): the larger of the two times."""
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_f = flops / BF16_FLOPS * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def q4_bytes(d_in: int, d_out: int) -> int:
+    """Packed Q4_0 levels plus bf16 scales of one (d_in, d_out) weight."""
+    return d_in // 2 * d_out + d_in // QK * d_out * 2
+
+
+def layer_bytes(c: BioGptConfig) -> int:
+    """One layer's packed planes, f32 biases and LayerNorm parameters."""
+    D, F = c.d_model, c.d_ff
+    planes = (q4_bytes(D, 3 * D) + q4_bytes(D, D) + q4_bytes(D, F)
+              + q4_bytes(F, D))
+    return planes + (3 * D + D + F + D) * 4 + 4 * D * 4
+
+
+def layer_flops(c: BioGptConfig, rows: int) -> int:
+    D, F = c.d_model, c.d_ff
+    return 2 * rows * (D * 3 * D + D * D + 2 * D * F)
+
+
+def rows(c: BioGptConfig = BioGptConfig()) -> list:
+    D, L = c.d_model, c.n_layer
+    V = -(-c.n_vocab // 128) * 128
+    W = L * layer_bytes(c)
+    B = len(RAGGED_PAST)
+    live = sum(min(p, WINDOW) for p in RAGGED_PAST)
+    lm = q4_bytes(D, V)
+    commit = 4 * L * B * D * 2 + B * 4           # rows read, cache rows written
+    R, T = 32, 32                                # a uniform 32-prompt refill
+    attn = R * 4 * (T * (T + 1) // 2) * D        # causal scores and p.V
+    out = [
+        ("qmatmul_pallas", "pallas_qmatmul.py:860", "lm_head m=1",
+         lm + D * 4 + V * 4, 2 * D * V),
+        ("qmatmul_pallas_wide", "pallas_qmatmul.py:246", "fc1 m=32",
+         q4_bytes(D, c.d_ff) + 32 * D * 4 + 32 * c.d_ff * 4,
+         2 * 32 * D * c.d_ff),
+        ("lm_head_argmax_pallas", "pallas_qmatmul.py:789", "m=1",
+         lm + D * 4 + 2 * D * 4 + 8, 2 * D * V),
+        ("lm_head_argmax_commit_pallas", "pallas_qmatmul.py:689",
+         "m=32 + commit B=32", lm + B * D * 4 + 2 * D * 4 + B * 8 + commit,
+         2 * B * D * V),
+        ("lm_head_logits_gmax_commit_pallas", "pallas_qmatmul.py:592",
+         "m=32 + commit B=32",
+         lm + B * D * 4 + 2 * D * 4 + B * V * 4 + B * V // 128 * 4 + commit,
+         2 * B * D * V),
+        ("decode_step_fused B=1", "pallas_decode.py:1016", "past=100",
+         W + 2 * L * 100 * D * 2 + 2 * L * D * 2 + 2 * D * 4,
+         L * layer_flops(c, 1) + 4 * L * 100 * D),
+        ("decode_step_fused batched", "pallas_decode.py:358",
+         "B=32 ragged, window 512",
+         W + 2 * L * live * D * 2 + 2 * L * B * D * 2 + 2 * B * D * 4 + B * 4,
+         L * layer_flops(c, B) + 4 * L * live * D),
+        ("decode_step_fused paged", "pallas_decode.py:573",
+         "B=32 ragged, window 512",
+         W + 2 * L * live * D * 2 + 2 * L * B * D * 2 + 2 * B * D * 4 + B * 4,
+         L * layer_flops(c, B) + 4 * L * live * D),
+        ("decode_step_fused int8 KV", "pallas_decode.py:1028",
+         "B=32 ragged, window 512",
+         W + 2 * L * live * (D + 4) + 2 * L * B * (D + 4) + 2 * B * D * 4
+         + B * 4, L * layer_flops(c, B) + 4 * L * live * D),
+        ("kv_commit_pallas", "pallas_decode.py:754", "B=32", commit, 0),
+        ("kv_commit_quant_pallas", "pallas_decode.py:839", "B=32",
+         4 * L * B * (D + 4) + B * 4, 0),
+        ("prefill_fused", "pallas_prefill.py:172", "R=32 prompts x T=32",
+         W + 2 * R * T * D * 4 + 2 * L * R * T * D * 2,
+         L * (layer_flops(c, R * T) + attn)),
+        ("decode_step_fused_tp", "pallas_decode_tp.py:294",
+         "one of 4 shards, B=32 ragged",
+         (W + 2 * L * live * D * 2 + 2 * L * B * D * 2) // 4
+         + 2 * B * D * 4 + B * 4,
+         (L * layer_flops(c, B) + 4 * L * live * D) // 4),
+    ]
+    recs = []
+    for i, (name, where, shape, nbytes, flops) in enumerate(out, 1):
+        ms, by = bound(nbytes, flops)
+        recs.append({"row": i, "kernel": name, "replaces": f"biogpt_tpu/ops/"
+                     f"{where}", "shape": shape, "bytes": nbytes,
+                     "flops": flops, "bound_ms": ms, "bound_by": by})
+    return recs
+
+
+def main() -> int:
+    for rec in rows():
+        print(json.dumps(rec))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

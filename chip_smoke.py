@@ -3,17 +3,27 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero, and no result line is printed):
-  1. card stamp: name and power limit (nvidia-smi), TF32 off;
-  2. every kernel of the single-stream path, built from ``biogpt_tpu_torch/
-     csrc`` (one nvcc per source, started together), against its plain
-     PyTorch version at BioGPT-347M shapes on seeded random planes, with
-     its time beside its bound, the plain version's time and a one-call
-     PyTorch yardstick;
-  3. end to end: a 347M Q4_0 model file with random weights, the CLI
-     greedy (prompts of <= 8, 9-32 and >= 33 tokens, 128 new tokens) and
-     sampled, the launch counts of that run, 8 teacher-forced decode steps
-     of the kernels against the plain path, and the decode rate;
-  4. the ``kernels`` line and the result line.
+  1. card stamp: name and power limit (nvidia-smi), TF32 off; every kernel
+     library built from ``biogpt_tpu_torch/csrc`` (one nvcc per source,
+     started together);
+  2. every kernel of the single-stream path against its plain PyTorch
+     version at BioGPT-347M shapes on seeded random planes, with its time
+     beside its bound, the plain version's time and a one-call PyTorch
+     yardstick;
+  3. likewise every kernel of the batched serving path: the batched decode
+     step at B=8 and B=32 (window 512, ragged positions, dead slots), the
+     KV commit, and the greedy and sampled lm_head + commit tails at M=8
+     and M=32;
+  4. single stream end to end: a 347M Q4_0 model file with random weights,
+     the CLI greedy (prompts of <= 8, 9-32 and >= 33 tokens, 128 new
+     tokens) and sampled, the launch counts of that run, 8 teacher-forced
+     decode steps of the kernels against the plain path, the decode rate;
+  5. serving end to end on the same file: ``BatchedEngine.serve`` of 96
+     uniform greedy requests at B=32, then the HTTP server answering 8
+     concurrent mixed greedy/sampled requests, one SSE stream and
+     ``GET /stats``, the launch counts of that run, 8 teacher-forced B=32
+     steps of the kernels against the plain path, the tokens/s of each run;
+  6. the ``kernels`` line and the result line.
 
 Needs a CUDA card; exits non-zero without one or without the package.
 """
@@ -29,12 +39,11 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import torch
 
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (published)
-BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor rate (published)
 FAILURES: list = []
 SPREAD: dict = {}
 
@@ -71,14 +80,24 @@ def time_ms(fn, reps: int, flush=None) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float):
-    t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_f = flops / BF16_FLOPS * 1e3
-    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+def timed(rec: dict, kfn, plain, lib_call, nbytes, flops, reps=20,
+          plain_reps=3, flush=None) -> dict:
+    """Add the kernel's, the plain version's and the yardstick's times and
+    the bound to ``rec`` (``tools/kernel_bounds.py``: the H100's published
+    memory and bf16 rates)."""
+    from biogpt_tpu_torch.tools.kernel_bounds import bound
+
+    b_ms, b_by = bound(nbytes, flops)
+    rec.update(kernel_ms=time_ms(kfn, reps, flush), kernel_ms_range=SPREAD[kfn],
+               plain_ms=time_ms(plain, plain_reps, flush),
+               library_ms=(None if lib_call is None
+                           else time_ms(lib_call, reps, flush)),
+               bytes=nbytes, bound_ms=b_ms, bound_by=b_by)
+    return rec
 
 
 def rows_within(got, want, what: str) -> float:
-    """Check each layer's K/V rows (L, 1, D) against the plain ones, to two
+    """Check each layer's K/V rows (L, B, D) against the plain ones, to two
     bf16 ulps (2^-6 of that layer's largest magnitude); returns the worst
     error as a fraction of its layer's limit. A row comes after all earlier
     layers' attention, so an attention fault shows here even where the FFN
@@ -96,81 +115,206 @@ def rows_within(got, want, what: str) -> float:
     return worst
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    from biogpt_tpu_torch.config import BioGptConfig, GenerationParams
-    from biogpt_tpu_torch.modelio.checkpoint import load_params
-    from biogpt_tpu_torch.modelio.synthetic import write_random_quantized_model
-    from biogpt_tpu_torch.ops import cuda_lib, dequantize
-    from biogpt_tpu_torch.ops.decode_kernels import (decode_step_fused,
-                                                     decode_step_fused_plain)
-    from biogpt_tpu_torch.ops.qmatmul_kernels import (
-        lm_head_argmax, lm_head_argmax_plain, qmatmul, qmatmul_plain,
-        qmatmul_wide, qmatmul_wide_plain, xprime_logits, layer_norm_bf16)
+def hidden_within(got, want, what: str) -> float:
+    """The decode step's hidden state: the bf16 path rounds h, q and p to
+    bf16, and the kernel's softmax splits differ from the plain version's
+    KV blocks, so a rounding flip can move one product by a bf16 ulp. Over
+    24 layers it measured within 1.3e-3 of its magnitude (H100): the limit
+    is 3e-3. Returns the error."""
+    err = (got - want).abs().max().item()
+    tol = 3e-3 * want.abs().max().item()
+    check(err <= tol and bool(torch.isfinite(got).all()),
+          f"{what}: x err {err} > {tol}")
+    return err
+
+
+def kernel_ln(x, lnw, lnb, eps):
+    """The lm_head kernels' own LayerNorm of the rows x (bf16-valued f32),
+    read back through the logits kernel with an identity Q4_1 weight
+    (levels 0 and 1, scale 1, min 0): each logit is then exactly one LN
+    element, in the X' numerics (M <= 8) and the dequant-then-dot ones."""
+    from biogpt_tpu_torch.ops.qmatmul_kernels import lm_head_logits_gmax_commit
     from biogpt_tpu_torch.quant import codecs
     from biogpt_tpu_torch.quant.layouts import QuantizedTensor
-    from biogpt_tpu_torch.runtime.engine import Engine, _bucket
 
-    dev = torch.device("cuda")
-    # ---------------------------------------------------------- 1. stamp
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    log(f"card: {torch.cuda.get_device_name(0)} | {smi} | torch "
-        f"{torch.__version__} cuda {torch.version.cuda} | TF32 off for "
-        "matmul and cuDNN")
+    M, D = x.shape
+    dev, bf16 = x.device, torch.bfloat16
+    eye = torch.eye(D, dtype=torch.uint8, device=dev)
+    qt = QuantizedTensor(   # split-half packing: byte row i = rows i, i + D/2
+        levels=(eye[:D // 2] | (eye[D // 2:] << 4)).contiguous(),
+        scales=torch.ones(D // 32, D, dtype=bf16, device=dev),
+        mins=torch.zeros(D // 32, D, dtype=bf16, device=dev),
+        qtype=codecs.GGML_TYPE_Q4_1, packed=True)
+    kc = torch.zeros(1, M, 8, 8, dtype=bf16, device=dev)
+    rows = torch.zeros(M, 1, 8, dtype=bf16, device=dev)
+    past = torch.zeros(M, dtype=torch.int32, device=dev)
+    xn, _, _, _ = lm_head_logits_gmax_commit(x, lnw, lnb, qt, D, kc, kc.clone(),
+                                             rows, rows, past, eps)
+    return xn
 
-    t0 = time.perf_counter()
-    cuda_lib.build_all()
-    log(f"built {len(cuda_lib.SOURCES)} kernel libraries in "
-        f"{time.perf_counter() - t0:.1f} s")
 
-    # ------------------------------------------------ 2. kernels vs plain
-    cfg = BioGptConfig()
-    D, F, L, H = cfg.d_model, cfg.d_ff, cfg.n_layer, cfg.n_head
-    V_PAD = -(-cfg.n_vocab // 128) * 128
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(1234)
-    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+def lm_head_expect(x, lnw, lnb, qt, eps, what: str) -> dict:
+    """What the lm_head tails' outputs are held to.
 
-    def flush():
-        flush_buf.zero_()
+    ``plain``: the plain version's logits (M, d_out), ``lm_head_logits_plain``
+    on the same inputs. ``tol``: f32 summation order, 1e-5 of their
+    magnitude. The two LayerNorms sum in different orders (and the kernel's
+    compiler may fuse a multiply-add), so an element whose f32 value lies
+    next to a bf16 rounding boundary can round the other way: one bf16 ulp,
+    which moves a logit by up to ~1e-3 of its magnitude (seen on the H100
+    at M=32). Such a flip is checked on its own: the two values must be
+    bf16 neighbours, and the plain f32 value within 2^-17 of its row's
+    largest magnitude of the boundary between them. ``row_tol`` (M,) is
+    ``tol`` plus, for each flipped element of the row, its ulp times its
+    weight row's largest magnitude: every row is held to the plain version
+    within it. The rows with a flip (``flipped``) are held besides, at
+    ``tol``, to ``ref``: logits computed from the kernel's own LayerNorm."""
+    from biogpt_tpu_torch.ops.qmatmul_kernels import (lm_head_logits_plain,
+                                                      wide_weight, xprime_logits)
 
-    def rand_qt(d_in, d_out, lead=(), mins=False):
-        lv = torch.randint(0, 256, lead + (d_in // 2, d_out), generator=gen,
-                           device=dev, dtype=torch.int32).to(torch.uint8)
+    plain = lm_head_logits_plain(x, lnw, lnb, qt, eps)
+    tol = 1e-5 * plain.abs().max().item() + 1e-5
+    xk = kernel_ln(x, lnw, lnb, eps)
+    xf = x.to(torch.float32)
+    xc = xf - xf.mean(-1, keepdim=True)
+    y = (xc * torch.rsqrt((xc * xc).mean(-1, keepdim=True) + eps)
+         * lnw.to(torch.float32) + lnb.to(torch.float32))
+    yb = y.to(torch.bfloat16)
+    flips = xk.to(torch.bfloat16) != yb
+    if bool(flips.any()):
+        apart = (xk.to(torch.bfloat16).view(torch.int16).int()
+                 - yb.view(torch.int16).int()).abs()
+        edge = (y - (xk + yb.float()) / 2).abs()
+        window = 2 ** -17 * y.abs().amax(-1, keepdim=True).expand_as(y)
+        check(bool((apart[flips] == 1).all()
+                   and (edge[flips] <= window[flips]).all()),
+              f"{what}: LayerNorm differs beyond a bf16 rounding flip")
+    w = wide_weight(qt)
+    # X' (M <= 8) leaves the scale products unrounded: allow 2^-7 over the
+    # bf16-rounded weights' magnitude
+    ulp = torch.where(flips, (xk - yb.float()).abs(), torch.zeros_like(xk))
+    row_tol = tol + ulp @ (w.abs().amax(-1) * (1 + 2 ** -7))
+    ref = xprime_logits(xk, qt) if x.shape[0] <= 8 else xk @ w
+    return {"plain": plain, "tol": tol, "row_tol": row_tol,
+            "flipped": flips.any(-1), "ref": ref, "flips": int(flips.sum())}
+
+
+def ids_within(ids, mv, logits, tol, n_valid: int, what: str) -> tuple:
+    """Check a tail's ids and max logits against the argmax fold of
+    ``logits`` (M, d_out): max logits within ``tol`` (a float or (M,)),
+    ids equal on the rows whose top-2 gap exceeds twice it -> (max error,
+    decided rows)."""
+    from biogpt_tpu_torch.ops.qmatmul_kernels import argmax_fold, pick_tile
+
+    tol = torch.as_tensor(tol, dtype=torch.float32, device=logits.device)
+    tol = tol.expand(logits.shape[0])
+    pids, pmv = argmax_fold(logits, n_valid, pick_tile(logits.shape[1]))
+    top2 = torch.topk(logits[:, :n_valid], 2).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * tol
+    err = (mv - pmv).abs()
+    check(bool((ids == pids)[decided].all()) and bool((err <= tol).all()),
+          f"{what}: ids {ids.tolist()} vs {pids.tolist()} on decided rows "
+          f"{decided.tolist()}, max err {err.max().item()} (tol {tol.tolist()})")
+    return err.max().item(), int(decided.sum())
+
+
+def tail_ids_within(ids, mv, exp: dict, n_valid: int, what: str) -> tuple:
+    """A tail's ids and max logits against the plain version within each
+    row's tolerance and, on rows with an LN flip, against the kernel-LN
+    reference within ``tol`` (see :func:`lm_head_expect`)."""
+    out = ids_within(ids, mv, exp["plain"], exp["row_tol"], n_valid, what)
+    f = exp["flipped"]
+    if bool(f.any()):
+        ids_within(ids[f], mv[f], exp["ref"][f], exp["tol"], n_valid,
+                   what + " (kernel-LN reference, flipped rows)")
+    return out
+
+
+class Ctx:
+    """What the phases share: the card, a seeded generator, the 347M shapes
+    and the records of the ``kernels`` line."""
+
+    def __init__(self):
+        from biogpt_tpu_torch.config import BioGptConfig
+
+        self.dev = torch.device("cuda")
+        self.cfg = BioGptConfig()
+        self.V_PAD = -(-self.cfg.n_vocab // 128) * 128
+        self.gen = torch.Generator(device=self.dev)
+        self.gen.manual_seed(1234)
+        self.results = {}
+        self.launches = {}
+
+    def randn(self, *shape):
+        return torch.randn(*shape, generator=self.gen, device=self.dev)
+
+    def rand_qt(self, d_in, d_out, lead=(), mins=False):
+        from biogpt_tpu_torch.quant import codecs
+        from biogpt_tpu_torch.quant.layouts import QuantizedTensor
+
+        lv = torch.randint(0, 256, lead + (d_in // 2, d_out), generator=self.gen,
+                           device=self.dev, dtype=torch.int32).to(torch.uint8)
         sshape = lead + (d_in // 32, d_out)
-        sc = (torch.rand(sshape, generator=gen, device=dev) * 0.015 + 0.005)
-        mn = (-(torch.rand(sshape, generator=gen, device=dev) * 0.15 + 0.05)
-              ).to(torch.bfloat16) if mins else None
+        sc = (torch.rand(sshape, generator=self.gen, device=self.dev) * 0.015
+              + 0.005)
+        mn = (-(torch.rand(sshape, generator=self.gen, device=self.dev) * 0.15
+                + 0.05)).to(torch.bfloat16) if mins else None
         return QuantizedTensor(levels=lv, scales=sc.to(torch.bfloat16),
                                mins=mn, qtype=(codecs.GGML_TYPE_Q4_1 if mins
                                                else codecs.GGML_TYPE_Q4_0),
                                packed=True)
 
-    def qbytes(qt):
-        return sum(t.numel() * t.element_size()
-                   for t in (qt.levels, qt.scales, qt.mins) if t is not None)
+    def rand_layers(self, mins):
+        """Layer-stacked random planes of 347M -> (layers, their bytes)."""
+        c = self.cfg
+        D, F, L = c.d_model, c.d_ff, c.n_layer
+        layers = {n: {"w": 1 + 0.1 * self.randn(L, D), "b": 0.1 * self.randn(L, D)}
+                  for n in ("ln0", "ln1")}
+        for name, d_in, d_out in (("qkv", D, 3 * D), ("o", D, D),
+                                  ("fc1", D, F), ("fc2", F, D)):
+            layers[name] = {"w": self.rand_qt(d_in, d_out, (L,), mins),
+                            "b": 0.02 * self.randn(L, d_out)}
+        wbytes = sum(qbytes(layers[n]["w"]) + layers[n]["b"].numel() * 4
+                     for n in ("qkv", "o", "fc1", "fc2")) + 4 * L * D * 4
+        return layers, wbytes
 
-    results = {}     # kernel -> the main-path-shape record for the kernels line
+
+def qbytes(qt):
+    return sum(t.numel() * t.element_size()
+               for t in (qt.levels, qt.scales, qt.mins) if t is not None)
+
+
+# ------------------------------------------------- 2. single-stream kernels
+
+def phase_single_kernels(c: Ctx) -> None:
+    from biogpt_tpu_torch.ops import dequantize
+    from biogpt_tpu_torch.ops.decode_kernels import (decode_step_fused,
+                                                     decode_step_fused_plain)
+    from biogpt_tpu_torch.ops.qmatmul_kernels import (
+        argmax_fold, lm_head_argmax, lm_head_argmax_plain, pick_tile, qmatmul,
+        qmatmul_plain, qmatmul_wide, qmatmul_wide_plain)
+    from biogpt_tpu_torch.quant.layouts import QuantizedTensor
+    from biogpt_tpu_torch.runtime.engine import _bucket
+
+    cfg, dev, V_PAD = c.cfg, c.dev, c.V_PAD
+    D, F, L, H = cfg.d_model, cfg.d_ff, cfg.n_layer, cfg.n_head
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
     shapes = [("qkv", D, 3 * D), ("o", D, D), ("fc1", D, F), ("fc2", F, D),
               ("lm_head", D, V_PAD)]
     for name, d_in, d_out in shapes:
         for mins in (False, True):
-            qt = rand_qt(d_in, d_out, mins=mins)
+            qt = c.rand_qt(d_in, d_out, mins=mins)
             fmt = "q4_1" if mins else "q4_0"
             for m, kern, plain, kname in (
                     (1, qmatmul, qmatmul_plain, "qmatmul"),
                     (8, qmatmul, qmatmul_plain, "qmatmul"),
                     (16, qmatmul_wide, qmatmul_wide_plain, "qmatmul_wide"),
                     (32, qmatmul_wide, qmatmul_wide_plain, "qmatmul_wide")):
-                x = torch.randn(m, d_in, generator=gen, device=dev)
+                x = c.randn(m, d_in)
                 y = kern(x, qt)
                 ref = plain(x, qt)
                 torch.cuda.synchronize()
@@ -184,105 +328,74 @@ def main() -> int:
                 rec = {"kernel": kname, "shape": name, "m": m, "format": fmt,
                        "max_abs_err": err, "tol": tol}
                 if not mins:
-                    nbytes = qbytes(qt) + x.numel() * 4 + m * d_out * 4
-                    b_ms, b_by = bound(nbytes, 2 * m * d_in * d_out)
                     def lib_call():
                         return x.to(torch.bfloat16) @ dequantize(
                             qt, torch.bfloat16)
-                    kfn = lambda: kern(x, qt)
-                    rec.update(
-                        kernel_ms=time_ms(kfn, 50, flush),
-                        kernel_ms_range=SPREAD[kfn],
-                        plain_ms=time_ms(lambda: plain(x, qt), 5, flush),
-                        library_ms=time_ms(lib_call, 20, flush),
-                        bytes=nbytes, bound_ms=b_ms, bound_by=b_by)
+                    timed(rec, lambda: kern(x, qt), lambda: plain(x, qt),
+                          lib_call, qbytes(qt) + x.numel() * 4 + m * d_out * 4,
+                          2 * m * d_in * d_out, reps=50, plain_reps=5,
+                          flush=flush)
                     key = (kname, name, m)
                     if key in (("qmatmul", "lm_head", 1),
                                ("qmatmul_wide", "fc1", 32)):
-                        results[kname] = rec
+                        c.results[kname] = rec
                 print(json.dumps(rec), flush=True)
 
     # decode_step_fused over 24 layers at three cache lengths
     for mins in (False, True):
-        layers = {
-            "ln0": {"w": 1 + 0.1 * torch.randn(L, D, generator=gen, device=dev),
-                    "b": 0.1 * torch.randn(L, D, generator=gen, device=dev)},
-            "ln1": {"w": 1 + 0.1 * torch.randn(L, D, generator=gen, device=dev),
-                    "b": 0.1 * torch.randn(L, D, generator=gen, device=dev)},
-        }
-        for name, d_in, d_out in (("qkv", D, 3 * D), ("o", D, D),
-                                  ("fc1", D, F), ("fc2", F, D)):
-            layers[name] = {"w": rand_qt(d_in, d_out, (L,), mins),
-                            "b": 0.02 * torch.randn(L, d_out, generator=gen,
-                                                    device=dev)}
+        layers, wbytes = c.rand_layers(mins)
         S = cfg.n_positions
-        kc = torch.randn(L, 1, S, D, generator=gen, device=dev).to(torch.bfloat16)
-        vc = torch.randn(L, 1, S, D, generator=gen, device=dev).to(torch.bfloat16)
-        wbytes = sum(qbytes(layers[n]["w"]) + layers[n]["b"].numel() * 4
-                     for n in ("qkv", "o", "fc1", "fc2")) + 4 * L * D * 4
+        kc = c.randn(L, 1, S, D).to(torch.bfloat16)
+        vc = c.randn(L, 1, S, D).to(torch.bfloat16)
         for past in (1, 100, 700):
             window = min(_bucket(past + 1, 128), S)
-            x0 = torch.randn(1, D, generator=gen, device=dev)
+            x0 = c.randn(1, D)
             run = lambda: decode_step_fused(x0, layers, kc, vc, past, n_head=H,
                                             window=window, ln_eps=cfg.ln_eps)
-            x, kr, vr = run()
-            xp, krp, vrp = decode_step_fused_plain(
+            plain = lambda: decode_step_fused_plain(
                 x0, layers, kc, vc, past, n_head=H, window=window,
                 ln_eps=cfg.ln_eps)
+            x, kr, vr = run()
+            xp, krp, vrp = plain()
             torch.cuda.synchronize()
-            err = (x - xp).abs().max().item()
-            # bf16 path: h, q and p round to bf16, and the kernel's softmax
-            # splits differ from the plain version's KV blocks, so a rounding
-            # flip can move one product by a bf16 ulp. Over 24 layers the
-            # hidden state measured within 1.3e-3 of its magnitude (H100):
-            # the limit is 3e-3. Each layer's K/V rows: see rows_within.
-            tol = 3e-3 * xp.abs().max().item()
             fmt = "q4_1" if mins else "q4_0"
             what = f"decode_step_fused past={past} {fmt}"
-            check(err <= tol and bool(torch.isfinite(x).all()),
-                  f"{what}: x err {err} > {tol}")
+            err = hidden_within(x, xp, what)
             rows = max(rows_within(kr, krp, what + " k"),
                        rows_within(vr, vrp, what + " v"))
             rec = {"kernel": "decode_step_fused", "layers": L, "past": past,
                    "window": window, "format": fmt, "max_abs_err": err,
-                   "tol": tol, "rows_err_over_tol": rows}
+                   "tol": 3e-3 * xp.abs().max().item(),
+                   "rows_err_over_tol": rows}
             if not mins:
                 nbytes = wbytes + 2 * L * past * D * 2 + 2 * L * D * 2 + 2 * D * 4
                 flops = 2 * L * (D * 3 * D + D * D + 2 * D * F + 2 * past * D)
-                b_ms, b_by = bound(nbytes, flops)
-                rec.update(
-                    kernel_ms=time_ms(run, 20), kernel_ms_range=SPREAD[run],
-                    plain_ms=time_ms(lambda: decode_step_fused_plain(
-                        x0, layers, kc, vc, past, n_head=H, window=window,
-                        ln_eps=cfg.ln_eps), 3),
-                    library_ms=None, bytes=nbytes, bound_ms=b_ms,
-                    bound_by=b_by)
+                timed(rec, run, plain, None, nbytes, flops)
                 if past == 100:
-                    results["decode_step_fused"] = rec
+                    c.results["decode_step_fused"] = rec
             print(json.dumps(rec), flush=True)
         del layers, kc, vc
 
     # lm_head_argmax, m = 1, plus a forced tie and an all-NaN row
     for mins in (False, True):
-        qt = rand_qt(D, V_PAD, mins=mins)
-        lnw = 1 + 0.1 * torch.randn(D, generator=gen, device=dev)
-        lnb = 0.1 * torch.randn(D, generator=gen, device=dev)
-        x = torch.randn(1, D, generator=gen, device=dev)
-        ids, mv = lm_head_argmax(x, lnw, lnb, qt, cfg.n_vocab, cfg.ln_eps)
-        pids, pmv = lm_head_argmax_plain(x, lnw, lnb, qt, cfg.n_vocab,
-                                         cfg.ln_eps)
-        torch.cuda.synchronize()
-        err = (mv - pmv).abs().max().item()
-        tol = 1e-5 * pmv.abs().max().item() + 1e-5
+        qt = c.rand_qt(D, V_PAD, mins=mins)
+        lnw = 1 + 0.1 * c.randn(D)
+        lnb = 0.1 * c.randn(D)
+        x = c.randn(1, D)
         fmt = "q4_1" if mins else "q4_0"
-        check(bool((ids == pids).all()) and err <= tol,
-              f"lm_head_argmax {fmt}: ids {ids.tolist()} vs {pids.tolist()}, "
-              f"max err {err} (tol {tol})")
+        ids, mv = lm_head_argmax(x, lnw, lnb, qt, cfg.n_vocab, cfg.ln_eps)
+        what = f"lm_head_argmax {fmt}"
+        exp = lm_head_expect(x, lnw, lnb, qt, cfg.ln_eps, what)
+        torch.cuda.synchronize()
+        err, decided = tail_ids_within(ids, mv, exp, cfg.n_vocab, what)
         rec = {"kernel": "lm_head_argmax", "m": 1, "format": fmt,
-               "max_abs_err": err, "tol": tol}
+               "max_abs_err": err, "tol": exp["tol"],
+               "row_tol": exp["row_tol"].tolist(), "ids_decided": decided,
+               "ln_flips": exp["flips"]}
         if not mins:
             # forced tie: duplicate the winning column into a lower one
-            win = int(pids[0])
+            win = int(argmax_fold(exp["plain"], cfg.n_vocab,
+                                  pick_tile(V_PAD))[0][0])
             low = 5 if win > 5 else win + 1
             tied = QuantizedTensor(levels=qt.levels.clone(),
                                    scales=qt.scales.clone(), mins=None,
@@ -296,58 +409,256 @@ def main() -> int:
                                       lnb, qt, cfg.n_vocab, cfg.ln_eps)
             check(int(nid[0]) == cfg.n_vocab - 1 and bool(torch.isnan(nmv[0])),
                   f"lm_head_argmax NaN row: {int(nid[0])}, {float(nmv[0])}")
-            nbytes = qbytes(qt) + D * 4 + 2 * D * 4 + 8
-            b_ms, b_by = bound(nbytes, 2 * D * V_PAD)
 
             def lib_call():
                 xn = torch.nn.functional.layer_norm(x, (D,), lnw, lnb,
                                                     cfg.ln_eps)
                 logits = xn.to(torch.bfloat16) @ dequantize(qt, torch.bfloat16)
                 return torch.argmax(logits[:, :cfg.n_vocab], dim=-1)
-            kfn = lambda: lm_head_argmax(x, lnw, lnb, qt, cfg.n_vocab,
-                                         cfg.ln_eps)
-            rec.update(
-                kernel_ms=time_ms(kfn, 50, flush), kernel_ms_range=SPREAD[kfn],
-                plain_ms=time_ms(lambda: lm_head_argmax_plain(
-                    x, lnw, lnb, qt, cfg.n_vocab, cfg.ln_eps), 5, flush),
-                library_ms=time_ms(lib_call, 20, flush), bytes=nbytes,
-                bound_ms=b_ms, bound_by=b_by)
-            results["lm_head_argmax"] = rec
+            timed(rec, lambda: lm_head_argmax(x, lnw, lnb, qt, cfg.n_vocab,
+                                              cfg.ln_eps),
+                  lambda: lm_head_argmax_plain(x, lnw, lnb, qt, cfg.n_vocab,
+                                               cfg.ln_eps),
+                  lib_call, qbytes(qt) + D * 4 + 2 * D * 4 + 8, 2 * D * V_PAD,
+                  reps=50, plain_reps=5, flush=flush)
+            c.results["lm_head_argmax"] = rec
         print(json.dumps(rec), flush=True)
     del flush_buf
 
-    # ------------------------------------------------------- 3. end to end
-    from biogpt_tpu_torch.cli import main as cli_main
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        path = os.path.join(tmp, "biogpt347m-q4_0.bin")
+# ------------------------------------------------ 3. batched serving kernels
+
+def ragged_past(B: int, dead=(), beyond=()) -> list:
+    """Per-slot positions 1 + 13 b, dead slots at 0, and slots past the
+    window of 512 at 600."""
+    past = [1 + 13 * b for b in range(B)]
+    for b in dead:
+        past[b] = 0
+    for b in beyond:
+        past[b] = 600
+    return past
+
+
+def phase_serving_kernels(c: Ctx) -> None:
+    from biogpt_tpu_torch.ops import dequantize
+    from biogpt_tpu_torch.ops.decode_kernels import (
+        decode_step_fused, decode_step_fused_batched_plain, kv_commit,
+        kv_commit_plain)
+    from biogpt_tpu_torch.ops.qmatmul_kernels import (
+        lm_head_argmax, lm_head_argmax_commit, lm_head_argmax_commit_plain,
+        lm_head_logits_gmax_commit, lm_head_logits_gmax_commit_plain)
+
+    cfg, dev, V_PAD = c.cfg, c.dev, c.V_PAD
+    D, F, L, H, V = cfg.d_model, cfg.d_ff, cfg.n_layer, cfg.n_head, cfg.n_vocab
+    W = 512
+
+    # batched decode step: B=8 with a slot past the window, B=32
+    for mins in (False, True):
+        layers, wbytes = c.rand_layers(mins)
+        fmt = "q4_1" if mins else "q4_0"
+        cases = ((8, ragged_past(8, dead=(2, 5), beyond=(7,))),
+                 (32, ragged_past(32, dead=(7, 19))))
+        for B, past in cases if not mins else cases[1:]:
+            S = c.cfg.n_positions
+            kc = c.randn(L, B, S, D).to(torch.bfloat16)
+            vc = c.randn(L, B, S, D).to(torch.bfloat16)
+            x0 = c.randn(B, D)
+            pt = torch.tensor(past, dtype=torch.int32, device=dev)
+            run = lambda: decode_step_fused(x0, layers, kc, vc, pt, n_head=H,
+                                            window=W, ln_eps=cfg.ln_eps)
+            plain = lambda: decode_step_fused_batched_plain(
+                x0, layers, kc, vc, pt, n_head=H, window=W, ln_eps=cfg.ln_eps)
+            x, kr, vr = run()
+            xp, krp, vrp = plain()
+            torch.cuda.synchronize()
+            what = f"decode_step_fused B={B} {fmt}"
+            err = hidden_within(x, xp, what)
+            rows = max(rows_within(kr, krp, what + " k"),
+                       rows_within(vr, vrp, what + " v"))
+            rec = {"kernel": "decode_step_fused_batched", "layers": L, "B": B,
+                   "past": past, "window": W, "format": fmt,
+                   "max_abs_err": err, "tol": 3e-3 * xp.abs().max().item(),
+                   "rows_err_over_tol": rows}
+            if not mins:
+                live = sum(min(p, W) for p in past)
+                nbytes = (wbytes + 2 * L * live * D * 2 + 2 * L * B * D * 2
+                          + 2 * B * D * 4 + B * 4)
+                flops = (2 * L * B * (D * 3 * D + D * D + 2 * D * F)
+                         + 4 * L * live * D)
+                timed(rec, run, plain, None, nbytes, flops)
+                if B == 32:
+                    c.results["decode_step_fused_batched"] = rec
+            print(json.dumps(rec), flush=True)
+            del kc, vc
+        del layers
+
+    # KV commit at B=32: bit-equal
+    B, S = 32, 512
+    kc = c.randn(L, B, S, D).to(torch.bfloat16)
+    vc = c.randn(L, B, S, D).to(torch.bfloat16)
+    kr = c.randn(L, B, D).to(torch.bfloat16)
+    vr = c.randn(L, B, D).to(torch.bfloat16)
+    past = ragged_past(B, dead=(7, 19))
+    pt = torch.tensor(past, dtype=torch.int32, device=dev)
+    krt, vrt = kr.transpose(0, 1), vr.transpose(0, 1)
+    k1, v1 = kv_commit(kc.clone(), vc.clone(), krt, vrt, pt)
+    k2, v2 = kv_commit_plain(kc.clone(), vc.clone(), krt, vrt, pt)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(k1, k2)) and bool(torch.equal(v1, v2))
+    check(same, "kv_commit B=32: caches differ from the plain commit")
+    slots = torch.arange(B, device=dev)
+    pos = pt.long()
+
+    def commit_lib():
+        kc[:, slots, pos] = kr
+        vc[:, slots, pos] = vr
+    rec = {"kernel": "kv_commit", "B": B, "L": L, "past": past,
+           "max_abs_err": 0.0 if same else float("nan"), "tol": 0.0}
+    timed(rec, lambda: kv_commit(kc, vc, krt, vrt, pt),
+          lambda: kv_commit_plain(kc, vc, krt, vrt, pt), commit_lib,
+          4 * L * B * D * 2 + B * 4, 0, reps=50)
+    c.results["kv_commit"] = rec
+    print(json.dumps(rec), flush=True)
+    del kc, vc, k1, v1, k2, v2
+
+    # the two tails with their commit, M = 8 and M = 32
+    qt = c.rand_qt(D, V_PAD)
+    lnw = 1 + 0.1 * c.randn(D)
+    lnb = 0.1 * c.randn(D)
+    for M in (8, 32):
+        x = c.randn(M, D)
+        kc = c.randn(L, M, S, D).to(torch.bfloat16)
+        vc = c.randn(L, M, S, D).to(torch.bfloat16)
+        krt = c.randn(M, L, D).to(torch.bfloat16)
+        vrt = c.randn(M, L, D).to(torch.bfloat16)
+        past = ragged_past(M)
+        pt = torch.tensor(past, dtype=torch.int32, device=dev)
+        slots = torch.arange(M, device=dev)
+        pos = pt.long()
+        commit_bytes = 4 * L * M * D * 2 + M * 4
+        # held to the plain version's logits (see lm_head_expect); ids
+        # compared where the top-2 gap exceeds the tolerance
+        exp = lm_head_expect(x, lnw, lnb, qt, cfg.ln_eps, f"lm_head tails M={M}")
+        tol, row_tol = exp["tol"], exp["row_tol"]
+
+        # greedy: ids, winning logits and caches against the plain tail
+        ids, mv, k1, v1 = lm_head_argmax_commit(
+            x, lnw, lnb, qt, V, kc.clone(), vc.clone(), krt, vrt, pt,
+            cfg.ln_eps)
+        _, _, k2, v2 = lm_head_argmax_commit_plain(
+            x, lnw, lnb, qt, V, kc.clone(), vc.clone(), krt, vrt, pt,
+            cfg.ln_eps)
+        torch.cuda.synchronize()
+        err, decided = tail_ids_within(ids, mv, exp, V,
+                                       f"lm_head_argmax_commit M={M}")
+        check(bool(torch.equal(k1, k2)) and bool(torch.equal(v1, v2)),
+              f"lm_head_argmax_commit M={M}: caches differ")
+        aid, amv = lm_head_argmax(x, lnw, lnb, qt, V, cfg.ln_eps)
+        tail_ids_within(aid, amv, exp, V, f"lm_head_argmax M={M}")
+
+        def argmax_lib():
+            xn = torch.nn.functional.layer_norm(x, (D,), lnw, lnb, cfg.ln_eps)
+            logits = xn.to(torch.bfloat16) @ dequantize(qt, torch.bfloat16)
+            kc[:, slots, pos] = krt.transpose(0, 1)
+            vc[:, slots, pos] = vrt.transpose(0, 1)
+            return torch.argmax(logits[:, :V], dim=-1)
+        rec = {"kernel": "lm_head_argmax_commit", "m": M, "past": past,
+               "max_abs_err": err, "tol": tol, "row_tol": row_tol.tolist(),
+               "ids_decided": decided, "ln_flips": exp["flips"]}
+        timed(rec, lambda: lm_head_argmax_commit(
+                  x, lnw, lnb, qt, V, kc, vc, krt, vrt, pt, cfg.ln_eps),
+              lambda: lm_head_argmax_commit_plain(
+                  x, lnw, lnb, qt, V, kc, vc, krt, vrt, pt, cfg.ln_eps),
+              argmax_lib, qbytes(qt) + M * D * 4 + 2 * D * 4 + M * 8
+              + commit_bytes, 2 * M * D * V_PAD)
+        if M == 32:
+            c.results["lm_head_argmax_commit"] = rec
+        print(json.dumps(rec), flush=True)
+
+        # sampled: logits, their group maxima, pad columns, caches
+        lo, gm, k1, v1 = lm_head_logits_gmax_commit(
+            x, lnw, lnb, qt, V, kc.clone(), vc.clone(), krt, vrt, pt,
+            cfg.ln_eps)
+        _, _, k2, v2 = lm_head_logits_gmax_commit_plain(
+            x, lnw, lnb, qt, V, kc.clone(), vc.clone(), krt, vrt, pt,
+            cfg.ln_eps)
+        torch.cuda.synchronize()
+        rerr = (lo[:, :V] - exp["plain"][:, :V]).abs().amax(-1)
+        err = rerr.max().item()
+        own = lo.reshape(M, -1, 128).amax(-1)
+        check(bool((rerr <= row_tol).all()) and bool(torch.equal(gm, own))
+              and bool((lo[:, V:] == -1e30).all()),
+              f"lm_head_logits_gmax_commit M={M}: logits err {rerr.tolist()} "
+              f"(tol {row_tol.tolist()}), gmax equal to its logits' group "
+              f"maxima: {bool(torch.equal(gm, own))}")
+        f = exp["flipped"]
+        if bool(f.any()):
+            ferr = (lo[f, :V] - exp["ref"][f, :V]).abs().max().item()
+            check(ferr <= tol, f"lm_head_logits_gmax_commit M={M}: flipped "
+                  f"rows' logits err {ferr} from the kernel-LN reference "
+                  f"(tol {tol})")
+        check(bool(torch.equal(k1, k2)) and bool(torch.equal(v1, v2)),
+              f"lm_head_logits_gmax_commit M={M}: caches differ")
+
+        def gmax_lib():
+            xn = torch.nn.functional.layer_norm(x, (D,), lnw, lnb, cfg.ln_eps)
+            logits = xn.to(torch.bfloat16) @ dequantize(qt, torch.bfloat16)
+            kc[:, slots, pos] = krt.transpose(0, 1)
+            vc[:, slots, pos] = vrt.transpose(0, 1)
+            return logits.float().reshape(M, -1, 128).amax(-1)
+        rec = {"kernel": "lm_head_logits_gmax_commit", "m": M, "past": past,
+               "max_abs_err": err, "tol": tol, "row_tol": row_tol.tolist(),
+               "ln_flips": exp["flips"]}
+        timed(rec, lambda: lm_head_logits_gmax_commit(
+                  x, lnw, lnb, qt, V, kc, vc, krt, vrt, pt, cfg.ln_eps),
+              lambda: lm_head_logits_gmax_commit_plain(
+                  x, lnw, lnb, qt, V, kc, vc, krt, vrt, pt, cfg.ln_eps),
+              gmax_lib, qbytes(qt) + M * D * 4 + 2 * D * 4
+              + M * V_PAD * 4 + M * (V_PAD // 128) * 4 + commit_bytes,
+              2 * M * D * V_PAD)
+        if M == 32:
+            c.results["lm_head_logits_gmax_commit"] = rec
+        print(json.dumps(rec), flush=True)
+        del kc, vc, k1, v1, k2, v2
+
+
+# ------------------------------------------------- 4. single stream, e2e
+
+def phase_cli(c: Ctx, path: str, smi: str) -> None:
+    from biogpt_tpu_torch.cli import main as cli_main
+    from biogpt_tpu_torch.config import GenerationParams
+    from biogpt_tpu_torch.modelio.checkpoint import load_params
+    from biogpt_tpu_torch.ops import cuda_lib, embedding_lookup
+    from biogpt_tpu_torch.ops.decode_kernels import (decode_step_fused,
+                                                     decode_step_fused_plain)
+    from biogpt_tpu_torch.ops.qmatmul_kernels import (
+        layer_norm_bf16, lm_head_argmax, xprime_logits)
+    from biogpt_tpu_torch.runtime.engine import Engine
+
+    cfg, dev = c.cfg, c.dev
+    D, H = cfg.d_model, cfg.n_head
+    runs = [["-p", "cells", "--temp", "0"],                    # 6 tokens
+            ["-p", "tumour cells grow", "--temp", "0"],        # 16
+            ["-p", "the protein binds the receptor in the membrane of "
+                   "tumour cells", "--temp", "0"],             # 45
+            ["-p", "the protein binds the receptor", "--temp", "0.9",
+             "-s", "1"]]                                       # 9-32
+    cuda_lib.reset_launch_counts()
+    for argv in runs:
+        out = io.StringIO()
         t0 = time.perf_counter()
-        write_random_quantized_model(path, cfg, codecs.GGML_TYPE_Q4_0, seed=7)
-        log(f"wrote {path} ({os.path.getsize(path) / 1e6:.1f} MB) in "
-            f"{time.perf_counter() - t0:.1f} s")
-        runs = [["-p", "cells", "--temp", "0"],                    # 6 tokens
-                ["-p", "tumour cells grow", "--temp", "0"],        # 16
-                ["-p", "the protein binds the receptor in the membrane of "
-                       "tumour cells", "--temp", "0"],             # 45
-                ["-p", "the protein binds the receptor", "--temp", "0.9",
-                 "-s", "1"]]                                       # 9-32
-        cuda_lib.reset_launch_counts()
-        for argv in runs:
-            out = io.StringIO()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(out):
-                rc = cli_main(["-m", path, "-n", "128", "--no-stop-at-eos",
-                               *argv])
-            text = out.getvalue().strip()
-            log(f"cli {argv}: rc={rc} {time.perf_counter() - t0:.1f} s, "
-                f"{len(text)} chars of text")
-            check(rc == 0 and len(text) > 0, f"cli {argv} rc={rc}")
-        launches = dict(cuda_lib.LAUNCHES)
-        log(f"main-path launches: {launches}")
-        for k, n in launches.items():
-            check(n > 0, f"kernel {k} was not launched on the main path")
-        # the engine's weights, for the teacher-forced steps below
-        config, _, _, params = load_params(path, device="cuda")
+        with contextlib.redirect_stdout(out):
+            rc = cli_main(["-m", path, "-n", "128", "--no-stop-at-eos", *argv])
+        text = out.getvalue().strip()
+        log(f"cli {argv}: rc={rc} {time.perf_counter() - t0:.1f} s, "
+            f"{len(text)} chars of text")
+        check(rc == 0 and len(text) > 0, f"cli {argv} rc={rc}")
+    launches = dict(cuda_lib.LAUNCHES)
+    log(f"single-stream path launches: {launches}")
+    for k in ("qmatmul", "qmatmul_wide", "lm_head_argmax", "decode_step_fused"):
+        check(launches[k] > 0, f"kernel {k} was not launched on its path")
+        c.launches[k] = launches[k]
+    config, _, _, params = load_params(path, device="cuda")
 
     # teacher-forced decode: kernels vs the plain path on the engine's weights
     eng = Engine(config, params, device="cuda")
@@ -356,7 +667,6 @@ def main() -> int:
     logits, cache, past = eng.prefill(cache, prompt)
     tok = torch.argmax(logits, -1).reshape(1, 1)
     P = eng.params
-    from biogpt_tpu_torch.ops import embedding_lookup
     worst = 0.0
     for step in range(8):
         emb = embedding_lookup(tok, P["embed_tokens"]) * math.sqrt(D)
@@ -375,13 +685,11 @@ def main() -> int:
                                            P["final_ln"]["b"], cfg.ln_eps),
                            P["lm_head"])[0, :config.n_vocab]
         top2 = torch.topk(lp, 2).values
-        err = (xk - xp).abs().max().item()
-        tol = 3e-3 * xp.abs().max().item()     # as in phase 2
-        worst = max(worst, err / max(tol, 1e-30),
+        err = hidden_within(xk, xp, f"teacher-forced step {step}")
+        worst = max(worst, err / max(3e-3 * xp.abs().max().item(), 1e-30),
                     rows_within(krk, krp, f"teacher-forced step {step} k"),
                     rows_within(vrk, vrp, f"teacher-forced step {step} v"))
         gap = (top2[0] - top2[1]).item()
-        check(err <= tol, f"teacher-forced step {step}: x err {err} > {tol}")
         if gap > 2e-2 * lp.abs().max().item():
             check(int(idk[0]) == int(torch.argmax(lp)),
                   f"teacher-forced step {step}: argmax {int(idk[0])} vs "
@@ -397,26 +705,288 @@ def main() -> int:
     eng.generate(prompt, g)
     res = eng.generate(prompt, g)
     ms = res.timings["ms_per_token"]
-    card = torch.cuda.get_device_name(0)
     print(json.dumps({"decode_ms_per_token": ms, "tokens_per_s": 1e3 / ms,
-                      "new_tokens": res.timings["n_new"], "card": card,
+                      "new_tokens": res.timings["n_new"],
+                      "card": torch.cuda.get_device_name(0),
                       "card_stamp": smi}), flush=True)
     check(res.timings["n_new"] == 128, "greedy generation stopped early")
 
-    # ------------------------------------------------------- 4. the lines
-    sources = {"qmatmul": ("biogpt_tpu_torch/csrc/qmatmul.cu",
-                           "biogpt_tpu/ops/pallas_qmatmul.py:860"),
-               "qmatmul_wide": ("biogpt_tpu_torch/csrc/qmatmul.cu",
-                                "biogpt_tpu/ops/pallas_qmatmul.py:246"),
-               "lm_head_argmax": ("biogpt_tpu_torch/csrc/lm_head_argmax.cu",
-                                  "biogpt_tpu/ops/pallas_qmatmul.py:789"),
-               "decode_step_fused": ("biogpt_tpu_torch/csrc/decode_step.cu",
-                                     "biogpt_tpu/ops/pallas_decode.py:1016")}
+
+# -------------------------------------------------------- 5. serving, e2e
+
+SERVING_KERNELS = ("decode_step_fused_batched", "kv_commit",
+                   "lm_head_argmax_commit", "lm_head_logits_gmax_commit")
+
+
+def http_round(srv, rng, V: int) -> tuple:
+    """8 concurrent /generate requests (half greedy, half temp 0.9 / top-k
+    40 / top-p 0.9; prompts of 5-25 and 100-124 tokens), one SSE stream and
+    GET /stats -> (generated tokens, wall s, stats)."""
+    import urllib.request
+
+    base = f"http://{srv.host}:{srv.port}"
+    bodies = []
+    for i in range(8):
+        n = int(rng.integers(5, 26) if i % 2 == 0 else rng.integers(100, 125))
+        body = {"prompt_ids": [2] + rng.integers(4, V - 2, size=n - 1).tolist(),
+                "n_predict": 48}
+        if i >= 4:
+            body.update(temp=0.9, top_k=40, top_p=0.9)
+        bodies.append(body)
+    out = [None] * 8
+
+    def post(i):
+        req = urllib.request.Request(
+            f"{base}/generate", data=json.dumps(bodies[i]).encode(),
+            headers={"Content-Type": "application/json"})
+        out[i] = json.loads(urllib.request.urlopen(req, timeout=300).read())
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=post, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    for i, r in enumerate(out):
+        check(r is not None and len(r["new_ids"]) == 48
+              and all(0 <= t < V for t in r["new_ids"]),
+              f"http request {i}: {None if r is None else len(r['new_ids'])} "
+              "new tokens")
+    # one SSE stream
+    sse = {"prompt_ids": [2, 40, 41, 42, 43], "n_predict": 16, "stream": True,
+           "temp": 0.9, "top_k": 40, "top_p": 0.9}
+    resp = urllib.request.urlopen(urllib.request.Request(
+        f"{base}/generate", data=json.dumps(sse).encode(),
+        headers={"Content-Type": "application/json"}), timeout=300)
+    events = [json.loads(line[len(b"data: "):]) for line in
+              resp.read().splitlines() if line.startswith(b"data: ")]
+    streamed = [e["token_id"] for e in events if "token_id" in e]
+    check(bool(events) and events[-1].get("done")
+          and events[-1]["new_ids"] == streamed and len(streamed) == 16,
+          f"SSE stream: {len(streamed)} tokens, last event {events[-1:]}")
+    stats = json.loads(urllib.request.urlopen(f"{base}/stats",
+                                              timeout=60).read())
+    check(stats["batch_slots"] == 32 and stats["requests_completed"] >= 9,
+          f"/stats: {stats}")
+    return sum(len(r["new_ids"]) for r in out if r), wall, stats
+
+
+def phase_serving(c: Ctx, path: str, smi: str) -> None:
+    import numpy as np
+
+    from biogpt_tpu_torch.config import GenerationParams
+    from biogpt_tpu_torch.modelio.checkpoint import load_params
+    from biogpt_tpu_torch.models.biogpt import (forward,
+                                                forward_fused_decode_greedy)
+    from biogpt_tpu_torch.ops import cuda_lib, embedding_lookup
+    from biogpt_tpu_torch.ops.decode_kernels import (
+        decode_step_fused, decode_step_fused_batched_plain, kv_commit_plain)
+    from biogpt_tpu_torch.ops.qmatmul_kernels import (lm_head_argmax,
+                                                      lm_head_logits_plain)
+    from biogpt_tpu_torch.runtime.cache import init_cache, merge_rows
+    from biogpt_tpu_torch.runtime.serving import (BatchedEngine, Request,
+                                                  ServingScheduler)
+    from biogpt_tpu_torch.server import BioGptServer
+
+    config, _, _, params = load_params(path, device="cpu")
+    B, V, card = 32, config.n_vocab, torch.cuda.get_device_name(0)
+    eng = BatchedEngine(config, params, max_batch=B, max_seq=512, chunk=16,
+                        device="cuda")
+    check(eng._fused_greedy and eng._fused_sampled,
+          "BatchedEngine: the fused serving tails are not live")
+    rng = np.random.default_rng(0)
+
+    def make_reqs(n):   # bench.py:225-228
+        return [Request(prompt_ids=[2] + rng.integers(
+            4, min(40000, V - 2), size=int(rng.integers(4, 24))).tolist(),
+            n_predict=48, request_id=i) for i in range(n)]
+
+    greedy = GenerationParams(temp=0.0, stop_at_eos=False)
+    eng.serve(make_reqs(4), greedy)   # warm-up: allocator, first launches
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    reqs = make_reqs(3 * B)
+    chunks0 = eng.metrics.snapshot()["chunks_launched"]
+    t0 = time.perf_counter()
+    res = eng.serve(reqs, greedy)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = (eng.metrics.snapshot()["chunks_launched"] - chunks0) * eng.chunk
+    n_tok = sum(len(r.new_ids) for r in res.values())
+    check(len(res) == 3 * B and all(len(r.new_ids) == 48 for r in res.values())
+          and all(0 <= t < V for r in res.values() for t in r.new_ids),
+          f"serve: {len(res)} results, {n_tok} tokens")
+    serve_rec = {"serve_uniform_greedy_tokens_per_s": n_tok / wall,
+                 "requests": len(res), "new_tokens": n_tok, "wall_s": wall,
+                 "decode_steps": steps, "wall_per_step_ms": 1e3 * wall / steps,
+                 "batch_slots": B, "chunk": eng.chunk}
+
+    sched = ServingScheduler(eng, GenerationParams(temp=0.0,
+                                                   stop_at_eos=False))
+    srv = BioGptServer(sched, tokenizer=None)
+    srv.start()
+    try:
+        n_http, wall_http, stats = http_round(srv, rng, V)
+    finally:
+        srv.shutdown()
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.LAUNCHES)
+    log(f"serving path launches: {launches}")
+    for k in SERVING_KERNELS:
+        check(launches[k] > 0, f"kernel {k} was not launched on its path")
+        c.launches[k] = launches[k]
+    print(json.dumps({"http_mixed_tokens_per_s": n_http / wall_http,
+                      "requests": 8, "new_tokens": n_http,
+                      "wall_s": wall_http, "stats": stats, "card": card,
+                      "card_stamp": smi}), flush=True)
+
+    P, cfg, dev = eng.params, c.cfg, c.dev
+    D, H = cfg.d_model, cfg.n_head
+    # device time of one greedy serving step at the uniform run's shape
+    # (B=32, window 128, positions 5-72) beside that run's wall per step
+    cache = eng.new_cache()
+    past_host = rng.integers(5, 73, size=B)
+    past = torch.from_numpy(past_host).to(dev, torch.int32)
+    toks = torch.from_numpy(rng.integers(4, V - 2, size=(B, 1))).to(dev)
+    def step():
+        return forward_fused_decode_greedy(P, toks, cache, past, config,
+                                           kv_window=128)
+    serve_rec["step_device_ms"] = time_ms(step, 20)
+    serve_rec["step_device_ms_range"] = SPREAD[step]
+    # the step's bound: every plane once, each slot's live K/V rows read
+    # and its new rows written, the tokens and positions in, the ids out
+    from biogpt_tpu_torch.tools.kernel_bounds import bound, layer_flops
+
+    live = int(past_host.sum())
+    wbytes = (sum(qbytes(P["layers"][n]["w"]) + P["layers"][n]["b"].numel() * 4
+                  for n in ("qkv", "o", "fc1", "fc2")) + 4 * cfg.n_layer * D * 4
+              + qbytes(P["lm_head"]) + 2 * D * 4)
+    step_bytes = wbytes + 2 * cfg.n_layer * (live + B) * D * 2 + B * 16
+    step_flops = (cfg.n_layer * (layer_flops(cfg, B) + 4 * live * D)
+                  + 2 * B * D * P["lm_head"].d_out)
+    serve_rec["step_bound_ms"], serve_rec["step_bound_by"] = bound(
+        step_bytes, step_flops)
+    serve_rec.update(card=card, card_stamp=smi)
+    print(json.dumps(serve_rec), flush=True)
+    del cache
+
+    # teacher-forced B=32 steps: kernels vs the plain path, engine weights
+    lens = [int(n) for n in rng.integers(4, 24, size=B)]
+    ids = torch.zeros(B, 32, dtype=torch.long)
+    for b, n in enumerate(lens):
+        ids[b, :n] = torch.from_numpy(rng.integers(4, V - 2, size=n))
+    last = torch.tensor([n - 1 for n in lens], device=dev)
+    small = init_cache(config, batch=B, max_len=32, dtype=torch.bfloat16,
+                       device=dev)
+    logits, small = forward(P, ids.to(dev), small, 0, config,
+                            compute_dtype=torch.bfloat16, allow_kernels=False,
+                            last_index=last)
+    cache = eng.new_cache()
+    merge_rows(cache, small, torch.arange(B, device=dev),
+               torch.arange(B, device=dev))
+    tok = torch.argmax(logits, -1)
+    past = torch.tensor(lens, dtype=torch.int32, device=dev)
+    fw, fb = P["final_ln"]["w"], P["final_ln"]["b"]
+    worst = 0.0
+    for step in range(8):
+        emb = embedding_lookup(tok[:, None], P["embed_tokens"]) * math.sqrt(D)
+        pos = (past.long() + config.pos_offset)[:, None]
+        x0 = (emb + embedding_lookup(pos, P["embed_positions"])).reshape(B, D)
+        window = 128
+        xk, krk, vrk = decode_step_fused(x0, P["layers"], cache.k, cache.v,
+                                         past, n_head=H, window=window,
+                                         ln_eps=cfg.ln_eps)
+        xp, krp, vrp = decode_step_fused_batched_plain(
+            x0, P["layers"], cache.k, cache.v, past, n_head=H, window=window,
+            ln_eps=cfg.ln_eps)
+        idk, _ = lm_head_argmax(xk, fw, fb, P["lm_head"], V, cfg.ln_eps)
+        lp = lm_head_logits_plain(xp, fw, fb, P["lm_head"], cfg.ln_eps)[:, :V]
+        top2 = torch.topk(lp, 2).values
+        what = f"teacher-forced B={B} step {step}"
+        err = hidden_within(xk, xp, what)
+        worst = max(worst, err / max(3e-3 * xp.abs().max().item(), 1e-30),
+                    rows_within(krk, krp, what + " k"),
+                    rows_within(vrk, vrp, what + " v"))
+        decided = (top2[:, 0] - top2[:, 1]) > 2e-2 * lp.abs().amax(-1)
+        ref = torch.argmax(lp, -1)
+        check(bool((idk.long() == ref)[decided].all()),
+              f"{what}: argmax differs on {int(((idk.long() != ref) & decided).sum())} "
+              "decided rows")
+        kv_commit_plain(cache.k, cache.v, krp.transpose(0, 1),
+                        vrp.transpose(0, 1), past)
+        tok = ref
+        past = past + 1
+    log(f"teacher-forced B={B}, 8 steps: worst err/tol {worst:.3f}")
+
+
+# ------------------------------------------------------------------- main
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from biogpt_tpu_torch.modelio.synthetic import write_random_quantized_model
+    from biogpt_tpu_torch.ops import cuda_lib
+    from biogpt_tpu_torch.quant import codecs
+
+    # ---------------------------------------------------------- 1. stamp
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"card: {torch.cuda.get_device_name(0)} | {smi} | torch "
+        f"{torch.__version__} cuda {torch.version.cuda} | TF32 off for "
+        "matmul and cuDNN")
+    t0 = time.perf_counter()
+    cuda_lib.build_all()
+    log(f"built {len(cuda_lib.SOURCES)} kernel libraries in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    c = Ctx()
+    for phase in (phase_single_kernels, phase_serving_kernels):
+        t0 = time.perf_counter()
+        phase(c)
+        log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        path = os.path.join(tmp, "biogpt347m-q4_0.bin")
+        t0 = time.perf_counter()
+        write_random_quantized_model(path, c.cfg, codecs.GGML_TYPE_Q4_0, seed=7)
+        log(f"wrote {path} ({os.path.getsize(path) / 1e6:.1f} MB) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for phase in (phase_cli, phase_serving):
+            t0 = time.perf_counter()
+            phase(c, path, smi)
+            log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
+
+    # ------------------------------------------------------- 6. the lines
+    sources = {
+        "qmatmul": ("biogpt_tpu_torch/csrc/qmatmul.cu",
+                    "biogpt_tpu/ops/pallas_qmatmul.py:860"),
+        "qmatmul_wide": ("biogpt_tpu_torch/csrc/qmatmul.cu",
+                         "biogpt_tpu/ops/pallas_qmatmul.py:246"),
+        "lm_head_argmax": ("biogpt_tpu_torch/csrc/lm_head_argmax.cu",
+                           "biogpt_tpu/ops/pallas_qmatmul.py:789"),
+        "decode_step_fused": ("biogpt_tpu_torch/csrc/decode_step.cu",
+                              "biogpt_tpu/ops/pallas_decode.py:1016"),
+        "decode_step_fused_batched": ("biogpt_tpu_torch/csrc/decode_batched.cu",
+                                      "biogpt_tpu/ops/pallas_decode.py:358"),
+        "kv_commit": ("biogpt_tpu_torch/csrc/kv_commit.cu",
+                      "biogpt_tpu/ops/pallas_decode.py:754"),
+        "lm_head_argmax_commit": ("biogpt_tpu_torch/csrc/lm_head_argmax.cu",
+                                  "biogpt_tpu/ops/pallas_qmatmul.py:689"),
+        "lm_head_logits_gmax_commit": (
+            "biogpt_tpu_torch/csrc/lm_head_argmax.cu",
+            "biogpt_tpu/ops/pallas_qmatmul.py:592"),
+    }
     kernels = []
     for name, (src, rep) in sources.items():
-        r = results[name]
+        r = c.results[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": rep, "launches": launches[name],
+                        "replaces": rep, "launches": c.launches[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
@@ -426,7 +996,7 @@ def main() -> int:
         return 1
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": card,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

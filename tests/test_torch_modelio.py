@@ -144,7 +144,8 @@ def test_tokenizer_matches_jax():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every port module and chip_smoke.py's imports, in a fresh process."""
+    """Every port module (the serving engine and the HTTP server among
+    them) and chip_smoke.py's imports, in a fresh process."""
     code = """
 import importlib, pkgutil, sys
 import biogpt_tpu_torch
@@ -152,6 +153,8 @@ for m in pkgutil.walk_packages(biogpt_tpu_torch.__path__, "biogpt_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
 from biogpt_tpu_torch.cli import main
+from biogpt_tpu_torch.runtime.serving import BatchedEngine, ServingScheduler
+from biogpt_tpu_torch.server import BioGptServer, main as server_main
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith(("jax.", "jaxlib"))
              or k == "biogpt_tpu" or k.startswith("biogpt_tpu."))
