@@ -53,7 +53,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--warmup", type=int, default=0, metavar="N",
                    help="run N warmup tokens first (kernel builds, allocator)")
     p.add_argument("--kv-quant", action="store_true",
-                   help="int8 KV cache: not in this slice of the port (raises)")
+                   help="int8 KV cache with per-row f32 scales (half the KV "
+                        "bytes of bf16)")
     return p
 
 

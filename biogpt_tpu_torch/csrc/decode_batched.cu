@@ -1,8 +1,13 @@
 // One batched decode step (2 <= B <= 32 slots, each at its own position)
-// through all L layers, bf16 KV cache, packed Q4_0 / Q4_1 weights.
+// through all L layers, bf16 or int8 KV cache, packed Q4_0 / Q4_1 weights.
 //
 // Replaces biogpt_tpu/ops/pallas_decode.py::decode_step_fused, batched
-// lockstep path (`_make_kernel_batched`, calls :1322 grouped and :1333).
+// lockstep path (`_make_kernel_batched`, calls :1322 grouped and :1333; its
+// int8-KV mode :438-439, :455-496, as in decode_step.cu: scores times the
+// row's K scale, V scale folded into p before its bf16 rounding, the
+// current token fake-quantized, rows out in f32 for the caller to quantize;
+// slot b's scales are the contiguous (S) row of the (L,B,1,S) planes, and
+// each (head, split, slot) block stages its split's 64 of them once).
 // Contract: (x0 (B,D) f32, layers, k_cache, v_cache (L,B,S,D) bf16, past
 // (B,) int32 on the device, window W) -> (x (B,D) f32, k_rows, v_rows
 // (L,B,D) bf16); the caller commits slot b's rows at past[b]. Slot b's
@@ -37,13 +42,17 @@ using namespace bgt;
 namespace {
 
 // grid (H, ns, B), block ATT_THREADS. qkv: (M, 3D) f32 with bias.
-// ml: (B, H, ns, 2) = (max, sum); acc: (B, H, ns, DK).
+// ml: (B, H, ns, 2) = (max, sum); acc: (B, H, ns, DK). KT: bf16 values, or
+// int8 levels with row scales ks, vs ((B, S) of this layer; else null).
+template <typename KT>
 __global__ void __launch_bounds__(ATT_THREADS)
-attn_split_batched_kernel(const float* qkv, int D, const __nv_bfloat16* kc,
-                          const __nv_bfloat16* vc, int S, const int* past,
-                          int W, float scale, float* ml, float* acc) {
+attn_split_batched_kernel(const float* qkv, int D, const KT* kc, const KT* vc,
+                          const float* ks, const float* vs, int S,
+                          const int* past, int W, float scale, float* ml,
+                          float* acc) {
   __shared__ float q[DK];
   __shared__ float sc[ATT_ROWS];
+  __shared__ float kss[ATT_ROWS], vss[ATT_ROWS];
   __shared__ float red[ATT_THREADS / 32][DK];
   __shared__ float scratch[32];
   const int h = blockIdx.x, sp = blockIdx.y, ns = gridDim.y, b = blockIdx.z;
@@ -64,15 +73,18 @@ attn_split_batched_kernel(const float* qkv, int D, const __nv_bfloat16* kc,
   }
   if (threadIdx.x < DK)
     q[threadIdx.x] = bf16r(qkv[(size_t)b * 3 * D + h * DK + threadIdx.x] * scale);
+  if (ks != nullptr && threadIdx.x < n) {
+    kss[threadIdx.x] = ks[(size_t)b * S + s0 + threadIdx.x];
+    vss[threadIdx.x] = vs[(size_t)b * S + s0 + threadIdx.x];
+  }
   __syncthreads();
-  const __nv_bfloat16* kb = kc + (size_t)b * S * D;
-  const __nv_bfloat16* vb = vc + (size_t)b * S * D;
+  const KT* kb = kc + (size_t)b * S * D;
+  const KT* vb = vc + (size_t)b * S * D;
   const float q0 = q[2 * lane], q1 = q[2 * lane + 1];
   for (int r = warp; r < n; r += nw) {
-    const __nv_bfloat162 k2 = *reinterpret_cast<const __nv_bfloat162*>(
-        kb + (size_t)(s0 + r) * D + h * DK + 2 * lane);
-    const float d = warp_sum(q0 * __low2float(k2) + q1 * __high2float(k2));
-    if (lane == 0) sc[r] = d;
+    const float2 k2 = kv_pair(kb + (size_t)(s0 + r) * D + h * DK + 2 * lane);
+    const float d = warp_sum(q0 * k2.x + q1 * k2.y);
+    if (lane == 0) sc[r] = ks != nullptr ? d * kss[r] : d;
   }
   __syncthreads();
   float mx = -INFINITY;
@@ -87,11 +99,10 @@ attn_split_batched_kernel(const float* qkv, int D, const __nv_bfloat16* kc,
   const float l = block_sum(ls, scratch);   // (syncs before reading sc)
   float a0 = 0.f, a1 = 0.f;
   for (int r = warp; r < n; r += nw) {
-    const float p = bf16r(sc[r]);
-    const __nv_bfloat162 v2 = *reinterpret_cast<const __nv_bfloat162*>(
-        vb + (size_t)(s0 + r) * D + h * DK + 2 * lane);
-    a0 += p * __low2float(v2);
-    a1 += p * __high2float(v2);
+    const float p = bf16r(vs != nullptr ? sc[r] * vss[r] : sc[r]);
+    const float2 v2 = kv_pair(vb + (size_t)(s0 + r) * D + h * DK + 2 * lane);
+    a0 += p * v2.x;
+    a1 += p * v2.y;
   }
   red[warp][2 * lane] = a0;
   red[warp][2 * lane + 1] = a1;
@@ -108,20 +119,35 @@ attn_split_batched_kernel(const float* qkv, int D, const __nv_bfloat16* kc,
 }
 
 // grid (H, B), block DK. Folds slot b's splits and its current token into
-// its context row; writes the bf16 K/V rows (B, D) of this layer.
+// its context row; writes the K/V rows (B, D) of this layer: bf16, or in
+// the int8 mode (QUANT) raw f32, the current token then entering attention
+// fake-quantized with its whole row's absmax.
+template <bool QUANT>
 __global__ void __launch_bounds__(DK)
 attn_combine_batched_kernel(const float* qkv, int D, const float* ml,
                             const float* acc, int ns, float scale, float* ctx,
-                            __nv_bfloat16* k_rows, __nv_bfloat16* v_rows) {
+                            void* k_rows, void* v_rows) {
   __shared__ float scratch[32];
   const int h = blockIdx.x, b = blockIdx.y, H = gridDim.x, t = threadIdx.x;
   const int col = h * DK + t;
   const float* row = qkv + (size_t)b * 3 * D;
   const float q = bf16r(row[col] * scale);
-  const float k = row[D + col];
-  const float v = row[2 * D + col];
-  k_rows[(size_t)b * D + col] = __float2bfloat16(k);
-  v_rows[(size_t)b * D + col] = __float2bfloat16(v);
+  float k = row[D + col];
+  float v = row[2 * D + col];
+  if (QUANT) {
+    static_cast<float*>(k_rows)[(size_t)b * D + col] = k;
+    static_cast<float*>(v_rows)[(size_t)b * D + col] = v;
+    float ka = 0.f, va = 0.f;
+    for (int c = t; c < D; c += DK) {
+      ka = fmaxf(ka, fabsf(row[D + c]));
+      va = fmaxf(va, fabsf(row[2 * D + c]));
+    }
+    k = fake_quant(k, block_max(ka, scratch));
+    v = fake_quant(v, block_max(va, scratch));
+  } else {
+    static_cast<__nv_bfloat16*>(k_rows)[(size_t)b * D + col] = __float2bfloat16(k);
+    static_cast<__nv_bfloat16*>(v_rows)[(size_t)b * D + col] = __float2bfloat16(v);
+  }
   const float cur = block_sum(q * k, scratch);
   const size_t base = (size_t)(b * H + h) * ns;
   float m = cur;
@@ -146,10 +172,27 @@ struct Step {
   int offset;
   const float *ln0w, *ln0b, *ln1w, *ln1b;   // (L, D) f32
   Proj qkv, o, fc1, fc2;
-  const __nv_bfloat16 *kc, *vc;             // (L, B, S, D)
-  __nv_bfloat16 *kr, *vr;                   // (L, B, D)
+  const void *kc, *vc;                      // (L, B, S, D) bf16 or int8
+  const float *ks, *vs;                     // (L, B, 1, S) f32, or null
+  void *kr, *vr;                            // (L, B, D) bf16, or f32 (int8)
   float *part, *qkvbuf, *ml, *acc, *ctx, *ff;
 };
+
+// Split + combine of layer l's attention (bf16 or int8 KV).
+template <typename KT, bool QUANT>
+void attention(const Step& s, int l, int ns, float scale, cudaStream_t st) {
+  const size_t kv_off = (size_t)l * s.B * s.S * s.D;
+  const size_t sc_off = (size_t)l * s.B * s.S;
+  const size_t row_off = (size_t)l * s.B * s.D * (QUANT ? 4 : 2);
+  attn_split_batched_kernel<KT><<<dim3(s.H, ns, s.B), ATT_THREADS, 0, st>>>(
+      s.qkvbuf, s.D, static_cast<const KT*>(s.kc) + kv_off,
+      static_cast<const KT*>(s.vc) + kv_off,
+      QUANT ? s.ks + sc_off : nullptr, QUANT ? s.vs + sc_off : nullptr, s.S,
+      s.past, s.W, scale, s.ml, s.acc);
+  attn_combine_batched_kernel<QUANT><<<dim3(s.H, s.B), DK, 0, st>>>(
+      s.qkvbuf, s.D, s.ml, s.acc, ns, scale, s.ctx,
+      static_cast<char*>(s.kr) + row_off, static_cast<char*>(s.vr) + row_off);
+}
 
 template <int M, bool HAS_MIN>
 void run_step(const Step& s, cudaStream_t st) {
@@ -158,18 +201,13 @@ void run_step(const Step& s, cudaStream_t st) {
   const int ns = (s.W + ATT_ROWS - 1) / ATT_ROWS;
   const int sd = splits_of(D), sf = splits_of(F);
   for (int l = 0; l < s.L; ++l) {
-    const size_t kv_off = (size_t)l * s.B * s.S * D;
     launch_partial<M, true, HAS_MIN>(
         layer_args(s.qkv, l, D, 3 * D, s.x, s.ln0w + (size_t)l * D,
                    s.ln0b + (size_t)l * D, s.eps, s.offset), s.part, st);
     launch_partial_sum(s.part, sd, M, 3 * D, s.qkv.b + (size_t)l * 3 * D, 0,
                        nullptr, s.qkvbuf, st);
-    attn_split_batched_kernel<<<dim3(s.H, ns, s.B), ATT_THREADS, 0, st>>>(
-        s.qkvbuf, D, s.kc + kv_off, s.vc + kv_off, s.S, s.past, s.W, scale,
-        s.ml, s.acc);
-    attn_combine_batched_kernel<<<dim3(s.H, s.B), DK, 0, st>>>(
-        s.qkvbuf, D, s.ml, s.acc, ns, scale, s.ctx,
-        s.kr + (size_t)l * s.B * D, s.vr + (size_t)l * s.B * D);
+    if (s.ks != nullptr) attention<int8_t, true>(s, l, ns, scale, st);
+    else attention<__nv_bfloat16, false>(s, l, ns, scale, st);
     launch_partial<M, true, HAS_MIN>(
         layer_args(s.o, l, D, D, s.ctx, nullptr, nullptr, s.eps, s.offset),
         s.part, st);
@@ -199,6 +237,8 @@ void run_rows(const Step& s, cudaStream_t st) {
 // Scratch sizes (floats) the wrapper allocates for M padded rows:
 // part >= bgt_decode_batched_part_size(D, F, M), qkv M*3D,
 // ml B*H*ceil(W/64)*2, acc B*H*ceil(W/64)*64, ctx M*D (zeroed), ff M*F.
+// k_scales/v_scales: (L,B,1,S) f32 in the int8 mode (the caches int8, the
+// rows f32), else null (bf16 caches and rows).
 extern "C" int bgt_decode_batched_part_size(int D, int F, int M) {
   const int a = splits_of(D) * 3 * D, b = splits_of(D) * F, c = splits_of(F) * D;
   return M * (a > b ? (a > c ? a : c) : (b > c ? b : c));
@@ -212,10 +252,11 @@ extern "C" int bgt_decode_batched(
     const uint8_t* o_lv, const void* o_sc, const void* o_mn, const float* o_b,
     const uint8_t* fc1_lv, const void* fc1_sc, const void* fc1_mn, const float* fc1_b,
     const uint8_t* fc2_lv, const void* fc2_sc, const void* fc2_mn, const float* fc2_b,
-    const void* k_cache, const void* v_cache, void* k_rows, void* v_rows,
-    float* part, float* qkv, float* ml, float* acc, float* ctx, float* ff,
-    void* stream) {
-  if (D != H * DK || B < 1 || B > M || W < 1 || W > S)
+    const void* k_cache, const void* v_cache, const float* k_scales,
+    const float* v_scales, void* k_rows, void* v_rows, float* part,
+    float* qkv, float* ml, float* acc, float* ctx, float* ff, void* stream) {
+  if (D != H * DK || B < 1 || B > M || W < 1 || W > S
+      || (k_scales == nullptr) != (v_scales == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Step s;
@@ -229,10 +270,12 @@ extern "C" int bgt_decode_batched(
   s.o = make_proj(o_lv, o_sc, o_mn, o_b);
   s.fc1 = make_proj(fc1_lv, fc1_sc, fc1_mn, fc1_b);
   s.fc2 = make_proj(fc2_lv, fc2_sc, fc2_mn, fc2_b);
-  s.kc = static_cast<const __nv_bfloat16*>(k_cache);
-  s.vc = static_cast<const __nv_bfloat16*>(v_cache);
-  s.kr = static_cast<__nv_bfloat16*>(k_rows);
-  s.vr = static_cast<__nv_bfloat16*>(v_rows);
+  s.kc = k_cache;
+  s.vc = v_cache;
+  s.ks = k_scales;
+  s.vs = v_scales;
+  s.kr = k_rows;
+  s.vr = v_rows;
   s.part = part; s.qkvbuf = qkv; s.ml = ml; s.acc = acc; s.ctx = ctx;
   s.ff = ff;
   switch (M) {

@@ -1,5 +1,7 @@
-// Batched KV commit: slot b's new row of every layer lands at its own
-// position past[b] of the bf16 caches, in place, in one launch.
+// Batched KV commits: slot b's new row of every layer lands at its own
+// position past[b] of the bf16 caches (kv_commit_kernel) or of the int8
+// levels and their f32 scale planes (kv_commit_quant_kernel), in place, in
+// one launch.
 //
 // Replaces biogpt_tpu/ops/pallas_decode.py::kv_commit_pallas. Contract:
 // caches (L,B,S,D) bf16, rows slot-major (B,L,D) bf16 (any row strides --
@@ -35,7 +37,58 @@ __global__ void kv_commit_kernel(__nv_bfloat16* kc, __nv_bfloat16* vc,
   }
 }
 
+// Replaces biogpt_tpu/ops/pallas_decode.py::kv_commit_quant_pallas.
+// Contract: levels (L,B,S,D) int8, scale planes (L,B,1,S) f32; rows
+// slot-major (B,L,D) int8 and scales (B,L,1) f32 (any strides, rows
+// contiguous), past (B,) int32, clamped into [0, S). Bound: bytes -- 2*L*B
+// (D + 4) read and written once (1.6 MB at 347M, B=32). One block per
+// (slot, layer): D/16 threads move the level row 16 bytes each, thread 0
+// the two scales. The TPU's 8-row and 128-lane aligned read-modify-writes
+// existed for Mosaic's tiled DMAs and are not ported.
+// grid (B, L), block 64; D % 16 == 0, level row strides % 16 == 0.
+__global__ void kv_commit_quant_kernel(int8_t* kc, int8_t* vc, float* ks,
+                                       float* vs, const int8_t* kr,
+                                       const int8_t* vr, long long stride_b,
+                                       long long stride_l, const float* ksr,
+                                       const float* vsr, long long sstride_b,
+                                       long long sstride_l, const int* past,
+                                       int S, int D) {
+  const int b = blockIdx.x, l = blockIdx.y, B = gridDim.x;
+  const int p = min(max(past[b], 0), S - 1);
+  const size_t row = (size_t)(l * B + b) * S + p;
+  const size_t src = (size_t)b * stride_b + (size_t)l * stride_l;
+  for (int i = threadIdx.x * 16; i < D; i += blockDim.x * 16) {
+    *reinterpret_cast<uint4*>(kc + row * D + i) =
+        *reinterpret_cast<const uint4*>(kr + src + i);
+    *reinterpret_cast<uint4*>(vc + row * D + i) =
+        *reinterpret_cast<const uint4*>(vr + src + i);
+  }
+  if (threadIdx.x == 0) {
+    const size_t s = (size_t)b * sstride_b + (size_t)l * sstride_l;
+    ks[row] = ksr[s];
+    vs[row] = vsr[s];
+  }
+}
+
 }  // namespace
+
+extern "C" int bgt_kv_commit_quant(
+    void* k_cache, void* v_cache, void* k_scales, void* v_scales,
+    const void* k_rows, const void* v_rows, long long stride_b,
+    long long stride_l, const float* k_row_scales, const float* v_row_scales,
+    long long sstride_b, long long sstride_l, const int* past, int L, int B,
+    int S, int D, void* stream) {
+  if (D % 16 != 0 || stride_b % 16 != 0 || stride_l % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  kv_commit_quant_kernel<<<dim3(B, L), 64, 0, st>>>(
+      static_cast<int8_t*>(k_cache), static_cast<int8_t*>(v_cache),
+      static_cast<float*>(k_scales), static_cast<float*>(v_scales),
+      static_cast<const int8_t*>(k_rows), static_cast<const int8_t*>(v_rows),
+      stride_b, stride_l, k_row_scales, v_row_scales, sstride_b, sstride_l,
+      past, S, D);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int bgt_kv_commit(void* k_cache, void* v_cache, const void* k_rows,
                              const void* v_rows, long long stride_b,

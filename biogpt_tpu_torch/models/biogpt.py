@@ -9,12 +9,17 @@ new token sees all real tokens written so far).
 
 ``forward`` serves prefill, the serving refill (per-row ``last_index``) and
 per-op decode (a host-int ``past``, or per-slot positions (B,) on the
-device). ``forward_fused_decode``, ``forward_fused_decode_greedy`` and
+device). ``forward_prefill_fused`` runs a serving refill group through the
+whole-prompt kernel (``ops.prefill_kernels.prefill_fused``).
+``forward_fused_decode``, ``forward_fused_decode_greedy`` and
 ``forward_fused_decode_sampled`` run the whole-model decode step
 (``ops.decode_kernels.decode_step_fused``, B <= 32) and then: the final LN
 and lm_head; the fused LN + lm_head + argmax tail; or the fused LN +
 lm_head + group-maxima tail of the per-request sampler. At B > 1 the new
-KV rows commit through ``kv_commit`` or inside the fused tails.
+KV rows commit through ``kv_commit`` or inside the fused tails; an int8
+cache (``runtime.cache.QuantKVCache``) quantizes them and commits through
+``kv_commit_quant`` (B > 1) or an index store (B = 1), and its tails run
+without the commit fusion, as in the JAX package.
 
 Position ids past the embedding table clamp to its last row, as the JAX
 gather clamps: a serving slot can run a chunk past its cache's end before
@@ -31,10 +36,12 @@ import torch
 from ..config import BioGptConfig
 from ..modelio.checkpoint import layer_slice
 from ..ops import embedding_lookup, matmul
-from ..ops.decode_kernels import decode_step_fused, kv_commit
+from ..ops.decode_kernels import decode_step_fused, kv_commit, kv_commit_quant
+from ..ops.prefill_kernels import prefill_fused
 from ..ops.qmatmul_kernels import (lm_head_argmax, lm_head_argmax_commit,
                                    lm_head_logits_gmax_commit)
-from ..runtime.cache import KVCache, commit_rows, update_layer
+from ..runtime.cache import (KVCache, QuantKVCache, commit_rows,
+                             dequant_layer, quantize_rows, update_layer)
 
 
 def _layer_norm(x, w, b, eps: float) -> torch.Tensor:
@@ -88,13 +95,21 @@ def _attention(layer: dict, x, cache: KVCache, layer_ix: int, past,
 
     update_layer(cache, layer_ix, k, v, past)
     S = cache.max_len if kv_window is None else min(kv_window, cache.max_len)
-    k_all = cache.k[layer_ix][:, :S].reshape(B, S, H, Dk).to(torch.float32)
-    v_all = cache.v[layer_ix][:, :S].reshape(B, S, H, Dk).to(torch.float32)
+    if isinstance(cache, QuantKVCache):
+        # int8 levels x row scales, dequantized into the compute dtype
+        dq = torch.float32 if compute_dtype == torch.float32 else torch.bfloat16
+        k_flat, v_flat = dequant_layer(cache, layer_ix, S, dq)
+        kv_dtype = dq
+    else:
+        k_flat, v_flat = cache.k[layer_ix][:, :S], cache.v[layer_ix][:, :S]
+        kv_dtype = cache.k.dtype
+    k_all = k_flat.reshape(B, S, H, Dk).to(torch.float32)
+    v_all = v_flat.reshape(B, S, H, Dk).to(torch.float32)
     if compute_dtype == torch.float32:
         q_dot = q
     else:
         # the reference feeds the cache dtype into the dots (f32 accumulation)
-        q_dot = q.to(cache.k.dtype).to(torch.float32)
+        q_dot = q.to(kv_dtype).to(torch.float32)
     scores = torch.einsum("bnhd,bshd->bhns", q_dot.reshape(B, N, H, Dk), k_all)
     pos_s = torch.arange(S, device=x.device)[None, None, None, :]
     past_b = _per_row(past, B, x.device)[:, None, None, None]
@@ -107,7 +122,8 @@ def _attention(layer: dict, x, cache: KVCache, layer_ix: int, past,
     scores = torch.where(valid, scores, torch.full_like(scores, -math.inf))
     attn = torch.softmax(scores, dim=-1)
     if compute_dtype != torch.float32:
-        attn = attn.to(cache.v.dtype).to(torch.float32)
+        # the dequantized value dtype, not int8 (which would zero p < 1)
+        attn = attn.to(kv_dtype).to(torch.float32)
     ctx = torch.einsum("bhns,bshd->bnhd", attn, v_all).reshape(B, N, D)
     return _project(ctx, layer["o"], compute_dtype, allow_kernels)
 
@@ -152,6 +168,47 @@ def forward(params: dict, tokens: torch.Tensor, cache: KVCache, past,
     return logits, cache
 
 
+def forward_prefill_fused(params: dict, ids: torch.Tensor,
+                          config: BioGptConfig, last_index,
+                          compute_dtype=torch.bfloat16,
+                          cache_dtype=torch.bfloat16):
+    """Fresh-cache forward of a refill group (R, T) of padded prompts,
+    ``past`` 0, through ``prefill_fused`` -> (logits (R, n_vocab), small
+    cache shaped as ``init_cache(batch=R, max_len=T, dtype=cache_dtype)``).
+    The final LN and the lm_head run on each prompt's row ``last_index``
+    (R,). An int8 ``cache_dtype`` quantizes the kernel's bf16 rows with
+    ``quantize_rows``, as the JAX package does."""
+    R, T = ids.shape
+    D = config.d_model
+    emb = embedding_lookup(ids, params["embed_tokens"]) * math.sqrt(D)
+    pos = _positions(0, R, T, config, params["embed_positions"], ids.device)
+    x0 = (emb + embedding_lookup(pos, params["embed_positions"])).reshape(
+        R * T, D)
+    quant = cache_dtype == torch.int8
+    x, k_rows, v_rows = prefill_fused(
+        x0, params["layers"], rows=R, padded=T, n_head=config.n_head,
+        ln_eps=config.ln_eps,
+        cache_dtype=torch.bfloat16 if quant else cache_dtype)
+    L = k_rows.shape[0]
+    sel = (torch.arange(R, device=ids.device) * T
+           + _per_row(last_index, R, ids.device))
+    xl = _layer_norm(x[sel], params["final_ln"]["w"], params["final_ln"]["b"],
+                     config.ln_eps)
+    logits = matmul(xl[:, None, :], params["lm_head"],
+                    compute_dtype=compute_dtype, allow_kernels=True)
+    logits = logits[:, 0, :config.n_vocab]
+    if quant:
+        kq, ksc = quantize_rows(k_rows)                 # (L, R*T) scales
+        vq, vsc = quantize_rows(v_rows)
+        small = QuantKVCache(
+            k=kq.reshape(L, R, T, D), v=vq.reshape(L, R, T, D),
+            ks=ksc.reshape(L, R, 1, T), vs=vsc.reshape(L, R, 1, T))
+    else:
+        small = KVCache(k=k_rows.reshape(L, R, T, D),
+                        v=v_rows.reshape(L, R, T, D))
+    return logits, small
+
+
 def _fused_decode_hidden(params: dict, tokens: torch.Tensor, cache: KVCache,
                          past, config: BioGptConfig, kv_window: int = 128,
                          commit: bool = True):
@@ -159,7 +216,8 @@ def _fused_decode_hidden(params: dict, tokens: torch.Tensor, cache: KVCache,
     (B, D) f32 before the final LN, cache). ``past``: the host's int at
     B=1, (B,) per-slot positions on the device at B >= 2. ``commit=False``
     skips the commit and returns (x, k_rows, v_rows) (L, B, D) instead, for
-    the tails that fold the commit in."""
+    the tails that fold the commit in. An int8 cache's rows leave the step
+    in f32 and quantize here before they commit."""
     B, N = tokens.shape
     if N != 1 or B > 32:
         raise ValueError(f"the fused decode step takes one token for B <= 32 "
@@ -169,16 +227,26 @@ def _fused_decode_hidden(params: dict, tokens: torch.Tensor, cache: KVCache,
         config.d_model)
     pos = _positions(past, B, 1, config, table, tokens.device)
     x0 = (emb + embedding_lookup(pos, table)).reshape(B, config.d_model)
+    quant = isinstance(cache, QuantKVCache)
     x, k_rows, v_rows = decode_step_fused(
         x0, params["layers"], cache.k, cache.v, past, n_head=config.n_head,
-        window=kv_window, ln_eps=config.ln_eps)
+        window=kv_window, ln_eps=config.ln_eps,
+        k_scales=cache.ks if quant else None,
+        v_scales=cache.vs if quant else None)
     if not commit:
         return x, k_rows, v_rows
-    if B > 1:
+    if B == 1:
+        commit_rows(cache, k_rows, v_rows, past)
+    elif quant:
+        kq, ksc = quantize_rows(k_rows)                 # (L, B) scales
+        vq, vsc = quantize_rows(v_rows)
+        kv_commit_quant(cache.k, cache.v, cache.ks, cache.vs,
+                        kq.transpose(0, 1), vq.transpose(0, 1),
+                        ksc.transpose(0, 1)[..., None],
+                        vsc.transpose(0, 1)[..., None], past)
+    else:
         kv_commit(cache.k, cache.v, k_rows.transpose(0, 1),
                   v_rows.transpose(0, 1), past)
-    else:
-        commit_rows(cache, k_rows, v_rows, past)
     return x, cache
 
 
@@ -202,11 +270,12 @@ def forward_fused_decode_greedy(params: dict, tokens: torch.Tensor,
                                 kv_window: int = 128):
     """Greedy decode with the final LN + lm_head + argmax tail fused ->
     (ids (B,) int32, max logits (B,) f32 -- the health lane's probe, cache).
-    At B > 1 the tail also commits the KV rows. Needs a packed, lane-padded
-    quantized lm_head (the engine prepares it)."""
+    At B > 1 with a bf16 cache the tail also commits the KV rows; an int8
+    cache commits before the tail. Needs a packed, lane-padded quantized
+    lm_head (the engine prepares it)."""
     B = tokens.shape[0]
     fw, fb = params["final_ln"]["w"], params["final_ln"]["b"]
-    if B > 1:
+    if B > 1 and not isinstance(cache, QuantKVCache):
         x, k_rows, v_rows = _fused_decode_hidden(
             params, tokens, cache, past, config, kv_window, commit=False)
         ids, mv, _, _ = lm_head_argmax_commit(

@@ -38,6 +38,7 @@ SOURCES = {
     "decode_step": "decode_step.cu",
     "decode_batched": "decode_batched.cu",
     "kv_commit": "kv_commit.cu",
+    "prefill": "prefill.cu",
 }
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -56,19 +57,25 @@ SIGNATURES = {
     ("decode_step", "bgt_decode_head_dim"): [],
     ("decode_step", "bgt_decode_step"): (
         [_P, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P]
-        + [_P] * 16 + [_P] * 4 + [_P] * 5 + [_P]),
+        + [_P] * 16 + [_P] * 6 + [_P] * 5 + [_P]),
     ("decode_batched", "bgt_decode_batched_part_size"): [_I, _I, _I],
     ("decode_batched", "bgt_decode_batched"): (
         [_P] + [_I] * 8 + [_P, _F, _I] + [_P] * 4
-        + [_P] * 16 + [_P] * 4 + [_P] * 6 + [_P]),
+        + [_P] * 16 + [_P] * 6 + [_P] * 6 + [_P]),
     ("kv_commit", "bgt_kv_commit"): [_P, _P, _P, _P, _LL, _LL, _P, _I, _I, _I,
                                      _I, _P],
+    ("kv_commit", "bgt_kv_commit_quant"): (
+        [_P] * 6 + [_LL, _LL, _P, _P, _LL, _LL, _P] + [_I] * 4 + [_P]),
+    ("prefill", "bgt_prefill"): (
+        [_P] + [_I] * 6 + [_F, _I] + [_P] * 4 + [_P] * 16 + [_P] * 6 + [_P]),
 }
 
 LAUNCHES = {"qmatmul": 0, "qmatmul_wide": 0, "lm_head_argmax": 0,
             "decode_step_fused": 0, "decode_step_fused_batched": 0,
             "kv_commit": 0, "lm_head_argmax_commit": 0,
-            "lm_head_logits_gmax_commit": 0}
+            "lm_head_logits_gmax_commit": 0, "prefill_fused": 0,
+            "decode_step_fused_int8": 0, "decode_step_fused_batched_int8": 0,
+            "kv_commit_quant": 0}
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()

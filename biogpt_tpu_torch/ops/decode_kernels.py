@@ -1,13 +1,20 @@
 """The decode step through all layers, ``decode_step_fused``, and the
-batched KV commit, ``kv_commit``.
+batched KV commits, ``kv_commit`` and ``kv_commit_quant``.
 
 ``decode_step_fused`` replaces ``biogpt_tpu/ops/pallas_decode.py::
-decode_step_fused`` with a bf16 KV cache: its B=1 path (``_make_kernel``)
-and its batched lockstep path at 2 <= B <= 32 (``_make_kernel_batched``).
-Same contract:
+decode_step_fused`` with a bf16 or an int8 KV cache: its B=1 path
+(``_make_kernel``) and its batched lockstep path at 2 <= B <= 32
+(``_make_kernel_batched``). Same contract:
 
     (x0 (B, D) f32, layers, k_cache, v_cache (L, B, S, D) bf16, past)
         -> (x (B, D) f32, k_rows, v_rows (L, B, D) bf16)
+
+In the int8 mode (``k_scales``/``v_scales`` (L, B, 1, S) f32 given, the
+caches int8 levels) each score column is multiplied by its row's K scale,
+the V scale folds into p before p's bf16 rounding (the softmax denominator
+sums raw p), the current token enters attention fake-quantized
+(:func:`fake_quant_rows`), and the new rows leave in f32: the caller
+quantizes them (``runtime.cache.quantize_rows``).
 
 ``layers`` are the engine-packed layer-stacked weights (fused ``qkv``,
 packed 4-bit planes, bf16 scales). ``past`` is the host's int at B=1 and a
@@ -19,8 +26,10 @@ projections at B=1, dequant-then-dot (``_qmm_dq``) at every B >= 2.
 
 ``kv_commit`` replaces ``pallas_decode.py::kv_commit_pallas``: each slot's
 rows (B, L, D), slot-major, land at its own position in every layer's
-cache. It writes the port's mutable caches in place (the JAX call donates
-its buffers and returns new ones); it returns the same tensors.
+cache. ``kv_commit_quant`` replaces ``kv_commit_quant_pallas``: the same
+for int8 level rows and their f32 scales (B, L, 1). Both write the port's
+mutable caches in place (the JAX calls donate their buffers and return new
+ones) and return the same tensors.
 
 On CUDA tensors each function launches its hand-written Hopper kernels
 (``csrc/decode_step.cu``, ``csrc/decode_batched.cu``, ``csrc/kv_commit.cu``;
@@ -53,9 +62,10 @@ _CUDA_HEAD_DIM = 64   # DK of csrc/decode_layers.cuh
 def supports_layers(layers: dict, cache_dtype, batch: int, n_new: int) -> bool:
     """Whether the fused step applies to these engine-packed layers
     (``pallas_decode.supports_layers``: 1 <= batch <= 32, one new token,
-    bf16 cache, fused packed planes of one format)."""
+    fused packed planes of one format; the cache bf16, or int8 with scale
+    planes, which the JAX engines let through by gating on bf16)."""
     if (not 1 <= batch <= MAX_BATCH or n_new != 1
-            or cache_dtype != torch.bfloat16):
+            or cache_dtype not in (torch.bfloat16, torch.int8)):
         return False
     if "qkv" not in layers:
         return False
@@ -87,14 +97,39 @@ def kv_block(window: int, d_model: int = 1024, batch: int = 1) -> int:
     return kvb
 
 
+def fake_quant_rows(x: torch.Tensor) -> torch.Tensor:
+    """Per-row absmax int8 quantize -> dequantize of the current token's k/v
+    in the int8 mode (``pallas_decode._fake_quant_rows``). Its scale is
+    ``amax * (1/127)``, where the cache's ``quantize_rows`` divides by 127:
+    the two can differ by one ulp, and each is transcribed as written."""
+    s = x.abs().amax(-1, keepdim=True) * (1.0 / 127.0)
+    safe = torch.clamp(s, min=1e-12)
+    return torch.clamp(torch.round(x / safe), -127, 127) * safe
+
+
+def _scale_planes(k_cache, k_scales, v_scales):
+    """Whether the caches are int8 levels with (L, B, 1, S) f32 scales."""
+    if k_scales is None and v_scales is None:
+        return False
+    L, B, S, _ = k_cache.shape
+    for t in (k_scales, v_scales):
+        if t is None or tuple(t.shape) != (L, B, 1, S):
+            raise ValueError("decode_step_fused: the int8 mode takes k_scales "
+                             f"and v_scales of shape ({L}, {B}, 1, {S})")
+    return True
+
+
 def decode_step_fused_plain(x0, layers: dict, k_cache, v_cache, past: int, *,
                             n_head: int, window: int, ln_eps: float = 1e-5,
-                            kv_block_size: int | None = None):
-    """Plain version of :func:`decode_step_fused` (pallas_decode.py:246-355)."""
+                            kv_block_size: int | None = None, k_scales=None,
+                            v_scales=None):
+    """Plain version of :func:`decode_step_fused` (pallas_decode.py:246-355,
+    the int8 mode :288-318)."""
     L, B, S, D = k_cache.shape
     H = n_head
     Dk = D // H
     W = min(window, S)
+    quant = _scale_planes(k_cache, k_scales, v_scales)
     if not 0 <= past < W:
         raise ValueError(f"past={past} outside the window {W}")
     KVB = kv_block_size or kv_block(W, D)
@@ -102,6 +137,7 @@ def decode_step_fused_plain(x0, layers: dict, k_cache, v_cache, past: int, *,
         raise ValueError(f"window {W} not divisible by kv_block {KVB}")
     scale = 1.0 / math.sqrt(Dk)
     dev = x0.device
+    row_dtype = torch.float32 if quant else k_cache.dtype
     x = x0.to(torch.float32).reshape(1, D)
     k_rows, v_rows = [], []
     for lyr in range(L):
@@ -115,8 +151,10 @@ def decode_step_fused_plain(x0, layers: dict, k_cache, v_cache, past: int, *,
                             ln_eps)
         qkv = qmatmul_plain(h, w("qkv")) + b("qkv")
         q, k, v = qkv[:, :D] * scale, qkv[:, D:2 * D], qkv[:, 2 * D:]
-        k_rows.append(k.to(k_cache.dtype))
-        v_rows.append(v.to(v_cache.dtype))
+        k_rows.append(k.to(row_dtype))
+        v_rows.append(v.to(row_dtype))
+        if quant:
+            k, v = fake_quant_rows(k), fake_quant_rows(v)
         qh = q.to(torch.bfloat16).to(torch.float32).reshape(H, Dk)
         kh, vh = k.reshape(H, Dk), v.reshape(H, Dk)
         m = torch.full((H, 1), -1e30, device=dev)
@@ -125,8 +163,10 @@ def decode_step_fused_plain(x0, layers: dict, k_cache, v_cache, past: int, *,
         kc = k_cache[lyr, 0].to(torch.float32).reshape(S, H, Dk)
         vc = v_cache[lyr, 0].to(torch.float32).reshape(S, H, Dk)
         for j in range(W // KVB):
-            kb, vb = kc[j * KVB:(j + 1) * KVB], vc[j * KVB:(j + 1) * KVB]
-            scores = torch.einsum("hd,shd->hs", qh, kb)
+            blk = slice(j * KVB, (j + 1) * KVB)
+            scores = torch.einsum("hd,shd->hs", qh, kc[blk])
+            if quant:
+                scores = scores * k_scales[lyr, 0, :, blk]
             valid = (torch.arange(KVB, device=dev) + j * KVB < past)[None, :]
             masked = torch.where(valid, scores, torch.full_like(scores, -1e30))
             m_new = torch.maximum(m, masked.amax(1, keepdim=True))
@@ -134,8 +174,10 @@ def decode_step_fused_plain(x0, layers: dict, k_cache, v_cache, past: int, *,
                             torch.zeros_like(scores))
             alpha = torch.exp(m - m_new)
             l = l * alpha + p.sum(1, keepdim=True)
+            if quant:
+                p = p * v_scales[lyr, 0, :, blk]
             pb = p.to(torch.bfloat16).to(torch.float32)
-            acc = acc * alpha + torch.einsum("hs,shd->hd", pb, vb)
+            acc = acc * alpha + torch.einsum("hs,shd->hd", pb, vc[blk])
             m = m_new
         cur = (qh * kh).sum(1, keepdim=True)
         m_fin = torch.maximum(m, cur)
@@ -153,21 +195,25 @@ def decode_step_fused_plain(x0, layers: dict, k_cache, v_cache, past: int, *,
 def decode_step_fused_batched_plain(x0, layers: dict, k_cache, v_cache, past,
                                    *, n_head: int, window: int,
                                    ln_eps: float = 1e-5,
-                                   kv_block_size: int | None = None):
+                                   kv_block_size: int | None = None,
+                                   k_scales=None, v_scales=None):
     """Plain version of the batched :func:`decode_step_fused`
-    (pallas_decode.py:358-570): per-slot positions ``past`` (B,), every
-    projection dequant-then-dot, the online softmax over the TPU kernel's
-    KV blocks for all B*H head-rows at once. The TPU kernel's ``kv_groups``
-    only chooses which KV blocks it copies; the math is this."""
+    (pallas_decode.py:358-570, the int8 mode :438-439 and :455-496):
+    per-slot positions ``past`` (B,), every projection dequant-then-dot,
+    the online softmax over the TPU kernel's KV blocks for all B*H
+    head-rows at once. The TPU kernel's ``kv_groups`` only chooses which KV
+    blocks it copies; the math is this."""
     L, B, S, D = k_cache.shape
     H = n_head
     Dk = D // H
     W = min(window, S)
+    quant = _scale_planes(k_cache, k_scales, v_scales)
     KVB = kv_block_size or kv_block(W, D, batch=B)
     if W % KVB:
         raise ValueError(f"window {W} not divisible by kv_block {KVB}")
     scale = 1.0 / math.sqrt(Dk)
     dev = x0.device
+    row_dtype = torch.float32 if quant else k_cache.dtype
     past = torch.as_tensor(past, device=dev).to(torch.int64).reshape(B)
     x = x0.to(torch.float32).reshape(B, D)
     k_rows, v_rows = [], []
@@ -182,8 +228,10 @@ def decode_step_fused_batched_plain(x0, layers: dict, k_cache, v_cache, past,
                             ln_eps)
         qkv = qmatmul_wide_plain(h, w("qkv")) + b("qkv")
         q, k, v = qkv[:, :D] * scale, qkv[:, D:2 * D], qkv[:, 2 * D:]
-        k_rows.append(k.to(k_cache.dtype))
-        v_rows.append(v.to(v_cache.dtype))
+        k_rows.append(k.to(row_dtype))
+        v_rows.append(v.to(row_dtype))
+        if quant:
+            k, v = fake_quant_rows(k), fake_quant_rows(v)
         qh = q.to(torch.bfloat16).to(torch.float32).reshape(B, H, Dk)
         kh, vh = k.reshape(B, H, Dk), v.reshape(B, H, Dk)
         m = torch.full((B, H, 1), -1e30, device=dev)
@@ -192,8 +240,10 @@ def decode_step_fused_batched_plain(x0, layers: dict, k_cache, v_cache, past,
         kc = k_cache[lyr].to(torch.float32).reshape(B, S, H, Dk)
         vc = v_cache[lyr].to(torch.float32).reshape(B, S, H, Dk)
         for j in range(W // KVB):
-            kb, vb = kc[:, j * KVB:(j + 1) * KVB], vc[:, j * KVB:(j + 1) * KVB]
-            scores = torch.einsum("bhd,bshd->bhs", qh, kb)
+            blk = slice(j * KVB, (j + 1) * KVB)
+            scores = torch.einsum("bhd,bshd->bhs", qh, kc[:, blk])
+            if quant:
+                scores = scores * k_scales[lyr, :, :, blk]
             idx = torch.arange(KVB, device=dev) + j * KVB
             valid = idx[None, None, :] < past[:, None, None]
             masked = torch.where(valid, scores, torch.full_like(scores, -1e30))
@@ -202,8 +252,10 @@ def decode_step_fused_batched_plain(x0, layers: dict, k_cache, v_cache, past,
                             torch.zeros_like(scores))
             alpha = torch.exp(m - m_new)
             l = l * alpha + p.sum(-1, keepdim=True)
+            if quant:
+                p = p * v_scales[lyr, :, :, blk]
             pb = p.to(torch.bfloat16).to(torch.float32)
-            acc = acc * alpha + torch.einsum("bhs,bshd->bhd", pb, vb)
+            acc = acc * alpha + torch.einsum("bhs,bshd->bhd", pb, vc[:, blk])
             m = m_new
         cur = (qh * kh).sum(-1, keepdim=True)
         m_fin = torch.maximum(m, cur)
@@ -227,6 +279,21 @@ def kv_commit_plain(k_cache, v_cache, k_rows_t, v_rows_t, past):
     k_cache[:, slots, pos] = k_rows_t.transpose(0, 1).to(k_cache.dtype)
     v_cache[:, slots, pos] = v_rows_t.transpose(0, 1).to(v_cache.dtype)
     return k_cache, v_cache
+
+
+def kv_commit_quant_plain(k_cache, v_cache, ks, vs, kq_t, vq_t, ksc_t, vsc_t,
+                          past):
+    """Plain version of :func:`kv_commit_quant`: slot b's int8 rows
+    ``kq_t[b]`` (L, D) and scales ``ksc_t[b]`` (L, 1) land at ``past[b]``,
+    clamped into ``[0, S)``; in place."""
+    S = k_cache.shape[2]
+    pos = torch.clamp(past.to(torch.int64), 0, S - 1)
+    slots = torch.arange(k_cache.shape[1], device=pos.device)
+    k_cache[:, slots, pos] = kq_t.transpose(0, 1)
+    v_cache[:, slots, pos] = vq_t.transpose(0, 1)
+    ks[:, slots, 0, pos] = ksc_t[..., 0].transpose(0, 1).to(ks.dtype)
+    vs[:, slots, 0, pos] = vsc_t[..., 0].transpose(0, 1).to(vs.dtype)
+    return k_cache, v_cache, ks, vs
 
 
 # --------------------------------------------------------------- wrappers
@@ -253,12 +320,25 @@ def _check_cuda_layers(layers: dict, L: int, D: int, batch: int) -> None:
         raise ValueError("decode_step_fused: qkv d_in != d_model")
 
 
-def _check_cuda_caches(k_cache, v_cache, what: str) -> None:
-    if (k_cache.dtype != torch.bfloat16 or v_cache.dtype != torch.bfloat16
+def _check_cuda_caches(k_cache, v_cache, what: str, k_scales=None,
+                       v_scales=None) -> bool:
+    """Check the caches for a CUDA kernel -> whether they are int8 levels
+    with f32 scale planes (else bf16)."""
+    quant = k_scales is not None or v_scales is not None
+    dtype = torch.int8 if quant else torch.bfloat16
+    if (k_cache.dtype != dtype or v_cache.dtype != dtype
             or not k_cache.is_cuda or not k_cache.is_contiguous()
             or not v_cache.is_contiguous() or v_cache.shape != k_cache.shape):
-        raise ValueError(f"{what}: caches must be contiguous bf16 CUDA "
+        raise ValueError(f"{what}: caches must be contiguous {dtype} CUDA "
                          "tensors (L, B, S, D) of one shape")
+    if quant:
+        L, B, S, _ = k_cache.shape
+        for t in (k_scales, v_scales):
+            if (t is None or t.dtype != torch.float32 or not t.is_cuda
+                    or not t.is_contiguous() or tuple(t.shape) != (L, B, 1, S)):
+                raise ValueError(f"{what}: scale planes must be contiguous "
+                                 f"f32 CUDA tensors ({L}, {B}, 1, {S})")
+    return quant
 
 
 def _cuda_past(past, B: int, dev, what: str) -> torch.Tensor:
@@ -286,8 +366,9 @@ def _layer_norms(layers: dict) -> list:
 
 
 def _decode_step_b1(x0, layers, k_cache, v_cache, past: int, n_head: int,
-                    window: int, ln_eps: float):
-    what = "decode_step_fused"
+                    window: int, ln_eps: float, k_scales, v_scales):
+    what = "decode_step_fused_int8" if k_scales is not None else \
+        "decode_step_fused"
     L, B, S, D = k_cache.shape
     if x0.shape[-1] != D or x0.numel() != D:
         raise ValueError(f"{what}: x0 must be (1, {D})")
@@ -307,8 +388,9 @@ def _decode_step_b1(x0, layers, k_cache, v_cache, past: int, n_head: int,
     F = layers["fc1"]["w"].d_out
     dev = x0.device
     x = x0.reshape(D).to(torch.float32).clone()
-    k_rows = torch.empty(L, 1, D, dtype=torch.bfloat16, device=dev)
-    v_rows = torch.empty(L, 1, D, dtype=torch.bfloat16, device=dev)
+    row_dtype = torch.bfloat16 if k_scales is None else torch.float32
+    k_rows = torch.empty(L, 1, D, dtype=row_dtype, device=dev)
+    v_rows = torch.empty(L, 1, D, dtype=row_dtype, device=dev)
     ns = max(1, -(-past // 64))
     f32 = dict(dtype=torch.float32, device=dev)
     part = torch.empty(lib.bgt_decode_part_size(D, F), **f32)
@@ -321,17 +403,19 @@ def _decode_step_b1(x0, layers, k_cache, v_cache, past: int, n_head: int,
         x.data_ptr(), L, D, F, n_head, S, int(past), float(ln_eps),
         LEVEL_OFFSET[layers["qkv"]["w"].qtype],
         *[t.data_ptr() for t in norms], *_layer_planes(layers),
-        k_cache.data_ptr(), v_cache.data_ptr(), k_rows.data_ptr(),
-        v_rows.data_ptr(), part.data_ptr(), ml.data_ptr(), acc.data_ptr(),
-        ctx.data_ptr(), ff.data_ptr(), cuda_lib.stream_ptr(dev))
+        k_cache.data_ptr(), v_cache.data_ptr(), cuda_lib.ptr(k_scales),
+        cuda_lib.ptr(v_scales), k_rows.data_ptr(), v_rows.data_ptr(),
+        part.data_ptr(), ml.data_ptr(), acc.data_ptr(), ctx.data_ptr(),
+        ff.data_ptr(), cuda_lib.stream_ptr(dev))
     cuda_lib.LAUNCHES[what] += 1
     cuda_lib.check(err, what)
     return x.reshape(1, D), k_rows, v_rows
 
 
 def _decode_step_batched(x0, layers, k_cache, v_cache, past, n_head: int,
-                         window: int, ln_eps: float):
-    what = "decode_step_fused_batched"
+                         window: int, ln_eps: float, k_scales, v_scales):
+    what = "decode_step_fused_batched_int8" if k_scales is not None else \
+        "decode_step_fused_batched"
     L, B, S, D = k_cache.shape
     if x0.shape != (B, D):
         raise ValueError(f"{what}: x0 must be ({B}, {D}), got "
@@ -351,8 +435,9 @@ def _decode_step_batched(x0, layers, k_cache, v_cache, past, n_head: int,
     f32 = dict(dtype=torch.float32, device=dev)
     x = torch.zeros(M, D, **f32)
     x[:B] = x0
-    k_rows = torch.empty(L, B, D, dtype=torch.bfloat16, device=dev)
-    v_rows = torch.empty(L, B, D, dtype=torch.bfloat16, device=dev)
+    row_dtype = torch.bfloat16 if k_scales is None else torch.float32
+    k_rows = torch.empty(L, B, D, dtype=row_dtype, device=dev)
+    v_rows = torch.empty(L, B, D, dtype=row_dtype, device=dev)
     part = torch.empty(lib.bgt_decode_batched_part_size(D, F, M), **f32)
     qkv = torch.empty(M, 3 * D, **f32)
     ml = torch.empty(B * n_head * ns * 2, **f32)
@@ -364,8 +449,9 @@ def _decode_step_batched(x0, layers, k_cache, v_cache, past, n_head: int,
         x.data_ptr(), L, D, F, n_head, S, B, M, W, past.data_ptr(),
         float(ln_eps), LEVEL_OFFSET[layers["qkv"]["w"].qtype],
         *[t.data_ptr() for t in norms], *_layer_planes(layers),
-        k_cache.data_ptr(), v_cache.data_ptr(), k_rows.data_ptr(),
-        v_rows.data_ptr(), part.data_ptr(), qkv.data_ptr(), ml.data_ptr(),
+        k_cache.data_ptr(), v_cache.data_ptr(), cuda_lib.ptr(k_scales),
+        cuda_lib.ptr(v_scales), k_rows.data_ptr(), v_rows.data_ptr(),
+        part.data_ptr(), qkv.data_ptr(), ml.data_ptr(),
         acc.data_ptr(), ctx.data_ptr(), ff.data_ptr(),
         cuda_lib.stream_ptr(dev))
     cuda_lib.LAUNCHES[what] += 1
@@ -374,23 +460,28 @@ def _decode_step_batched(x0, layers, k_cache, v_cache, past, n_head: int,
 
 
 def decode_step_fused(x0, layers: dict, k_cache, v_cache, past, *,
-                      n_head: int, window: int, ln_eps: float = 1e-5):
+                      n_head: int, window: int, ln_eps: float = 1e-5,
+                      k_scales=None, v_scales=None):
     """One decode step over all layers (see the module docstring).
     ``past``: the host's int at B=1, a (B,) integer tensor of per-slot
     positions at B >= 2. ``window`` (a host int, >= the live positions
     + 1) bounds the rows attention reads and sizes the plain versions' KV
-    blocks."""
+    blocks. ``k_scales``/``v_scales``: the int8 mode's (L, B, 1, S) f32
+    scale planes; the rows then leave in f32."""
     B = k_cache.shape[1]
     if not x0.is_cuda:
         step = (decode_step_fused_plain if B == 1
                 else decode_step_fused_batched_plain)
         return step(x0, layers, k_cache, v_cache, past, n_head=n_head,
-                    window=window, ln_eps=ln_eps)
-    _check_cuda_caches(k_cache, v_cache, "decode_step_fused")
+                    window=window, ln_eps=ln_eps, k_scales=k_scales,
+                    v_scales=v_scales)
+    _check_cuda_caches(k_cache, v_cache, "decode_step_fused", k_scales,
+                       v_scales)
     if not 1 <= B <= MAX_BATCH:
         raise ValueError(f"decode_step_fused: batch {B} outside 1..{MAX_BATCH}")
     step = _decode_step_b1 if B == 1 else _decode_step_batched
-    return step(x0, layers, k_cache, v_cache, past, n_head, window, ln_eps)
+    return step(x0, layers, k_cache, v_cache, past, n_head, window, ln_eps,
+                k_scales, v_scales)
 
 
 def kv_commit(k_cache, v_cache, k_rows_t, v_rows_t, past):
@@ -422,3 +513,41 @@ def kv_commit(k_cache, v_cache, k_rows_t, v_rows_t, past):
     cuda_lib.LAUNCHES[what] += 1
     cuda_lib.check(err, what)
     return k_cache, v_cache
+
+
+def kv_commit_quant(k_cache, v_cache, ks, vs, kq_t, vq_t, ksc_t, vsc_t, past):
+    """Commit slot b's int8 rows ``kq_t[b]``, ``vq_t[b]`` (slot-major
+    (B, L, D)) and their scales ``ksc_t[b]``, ``vsc_t[b]`` ((B, L, 1) f32)
+    at ``past[b]`` of every layer's levels and scale planes, in place, and
+    return the four. A position outside ``[0, S)`` is clamped into it."""
+    if not k_cache.is_cuda:
+        return kv_commit_quant_plain(k_cache, v_cache, ks, vs, kq_t, vq_t,
+                                     ksc_t, vsc_t, past)
+    what = "kv_commit_quant"
+    _check_cuda_caches(k_cache, v_cache, what, ks, vs)
+    L, B, S, D = k_cache.shape
+    if (kq_t.shape != (B, L, D) or vq_t.shape != (B, L, D)
+            or kq_t.dtype != torch.int8 or vq_t.dtype != torch.int8
+            or not kq_t.is_cuda or kq_t.stride() != vq_t.stride()
+            or kq_t.stride(2) != 1):
+        raise ValueError(f"{what}: level rows must be ({B}, {L}, {D}) int8 "
+                         "CUDA tensors of one layout, rows contiguous")
+    sb, sl = kq_t.stride(0), kq_t.stride(1)
+    if (D % 16 or sb % 16 or sl % 16 or kq_t.data_ptr() % 16
+            or vq_t.data_ptr() % 16):
+        raise ValueError(f"{what}: rows must be 16-byte aligned (D % 16 == 0)")
+    ksc_t = ksc_t.to(torch.float32)
+    vsc_t = vsc_t.to(torch.float32)
+    if (ksc_t.shape != (B, L, 1) or vsc_t.shape != (B, L, 1)
+            or ksc_t.stride() != vsc_t.stride() or not ksc_t.is_cuda):
+        raise ValueError(f"{what}: scales must be ({B}, {L}, 1) CUDA tensors "
+                         "of one layout")
+    past = _cuda_past(past, B, k_cache.device, what)
+    err = cuda_lib.library("kv_commit").bgt_kv_commit_quant(
+        k_cache.data_ptr(), v_cache.data_ptr(), ks.data_ptr(), vs.data_ptr(),
+        kq_t.data_ptr(), vq_t.data_ptr(), sb, sl, ksc_t.data_ptr(),
+        vsc_t.data_ptr(), ksc_t.stride(0), ksc_t.stride(1), past.data_ptr(),
+        L, B, S, D, cuda_lib.stream_ptr(k_cache.device))
+    cuda_lib.LAUNCHES[what] += 1
+    cuda_lib.check(err, what)
+    return k_cache, v_cache, ks, vs

@@ -1,9 +1,15 @@
-"""Dense KV cache (``biogpt_tpu/runtime/cache.py``).
+"""Dense and int8 KV caches (``biogpt_tpu/runtime/cache.py``).
 
 k, v: (n_layer, batch, max_len, d_model), the feature axis flat (heads are
 contiguous in d_model), as the JAX package lays it out. Unlike the JAX
 cache, which is a pytree updated functionally, this one is updated in place
 (``index_copy_``, index stores), so a step never copies the cache.
+
+``QuantKVCache`` (``kv_quant=True``) stores K/V as int8 levels with one f32
+absmax scale per written row, in lane-major (n_layer, batch, 1, max_len)
+planes, as the JAX package does. Rows quantize through
+:func:`quantize_rows` (amax / 127, round half to even) and read back
+through :func:`dequant_layer` (level x scale in f32, one rounding).
 
 Positions are a host int (one offset for every row) or a (batch,) integer
 tensor on the device (per-slot positions of batched serving; reading it on
@@ -37,12 +43,46 @@ class KVCache:
         return self.k.shape[1]
 
 
+@dataclasses.dataclass
+class QuantKVCache(KVCache):
+    ks: torch.Tensor = None   # (n_layer, batch, 1, max_len) f32 row scales
+    vs: torch.Tensor = None
+
+
 def init_cache(config: BioGptConfig, batch: int = 1, max_len: int | None = None,
                dtype=torch.float16, device="cpu") -> KVCache:
     shape = (config.n_layer, batch, max_len or config.n_positions,
              config.d_model)
+    if dtype == torch.int8:
+        sshape = shape[:2] + (1, shape[2])
+        return QuantKVCache(
+            k=torch.zeros(shape, dtype=torch.int8, device=device),
+            v=torch.zeros(shape, dtype=torch.int8, device=device),
+            ks=torch.zeros(sshape, dtype=torch.float32, device=device),
+            vs=torch.zeros(sshape, dtype=torch.float32, device=device))
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+def quantize_rows(x: torch.Tensor):
+    """(..., D) float -> (int8 levels, (...) f32 scales): per-row absmax/127,
+    the scale floored at 1e-12 for the division, levels rounded half to
+    even and clipped to +-127."""
+    x = x.to(torch.float32)
+    scale = x.abs().amax(-1) / 127.0
+    safe = torch.clamp(scale, min=1e-12)
+    q = torch.clamp(torch.round(x / safe[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequant_layer(cache: QuantKVCache, layer: int, S: int, dtype):
+    """Layer views (batch, S, d_model) of a quantized cache: level x scale in
+    f32, one rounding to ``dtype``."""
+    k = cache.k[layer][:, :S].to(torch.float32)
+    v = cache.v[layer][:, :S].to(torch.float32)
+    ks = cache.ks[layer][:, :, :S].transpose(1, 2)
+    vs = cache.vs[layer][:, :, :S].transpose(1, 2)
+    return (k * ks).to(dtype), (v * vs).to(dtype)
 
 
 def slot_positions(past: torch.Tensor, n: int, max_len: int) -> torch.Tensor:
@@ -52,24 +92,44 @@ def slot_positions(past: torch.Tensor, n: int, max_len: int) -> torch.Tensor:
     return start[:, None] + torch.arange(n, device=past.device)[None, :]
 
 
-def update_layer(cache: KVCache, layer: int, k_new: torch.Tensor,
-                 v_new: torch.Tensor, past) -> KVCache:
-    """Write (batch, n_new, d_model) rows into one layer at offset ``past``
-    (a host int, or a (batch,) tensor of per-slot offsets), in place. A
-    host-int write past ``max_len`` raises; a per-slot one clamps."""
+def _write(cache: KVCache, layer: int, k_new, v_new, past, ks_new=None,
+           vs_new=None) -> None:
+    """Store (batch, n, d_model) rows (and, for an int8 cache, their (batch,
+    n) scales) at ``past``, in place."""
     n = k_new.shape[1]
+    quant = isinstance(cache, QuantKVCache)
     if isinstance(past, torch.Tensor):
         pos = slot_positions(past, n, cache.max_len)
         rows = torch.arange(k_new.shape[0], device=pos.device)[:, None]
         cache.k[layer][rows, pos] = k_new.to(cache.k.dtype)
         cache.v[layer][rows, pos] = v_new.to(cache.v.dtype)
-        return cache
+        if quant:
+            cache.ks[layer][rows, 0, pos] = ks_new
+            cache.vs[layer][rows, 0, pos] = vs_new
+        return
     if past + n > cache.max_len:
         raise ValueError(f"cache write [{past}, {past + n}) past max_len "
                          f"{cache.max_len}")
     idx = torch.arange(past, past + n, device=cache.k.device)
     cache.k[layer].index_copy_(1, idx, k_new.to(cache.k.dtype))
     cache.v[layer].index_copy_(1, idx, v_new.to(cache.v.dtype))
+    if quant:
+        cache.ks[layer].index_copy_(2, idx, ks_new[:, None, :])
+        cache.vs[layer].index_copy_(2, idx, vs_new[:, None, :])
+
+
+def update_layer(cache: KVCache, layer: int, k_new: torch.Tensor,
+                 v_new: torch.Tensor, past) -> KVCache:
+    """Write (batch, n_new, d_model) rows into one layer at offset ``past``
+    (a host int, or a (batch,) tensor of per-slot offsets), in place; an
+    int8 cache quantizes them first. A host-int write past ``max_len``
+    raises; a per-slot one clamps."""
+    if isinstance(cache, QuantKVCache):
+        kq, ksc = quantize_rows(k_new)
+        vq, vsc = quantize_rows(v_new)
+        _write(cache, layer, kq, vq, past, ksc, vsc)
+    else:
+        _write(cache, layer, k_new, v_new, past)
     return cache
 
 
@@ -77,8 +137,17 @@ def commit_rows(cache: KVCache, k_rows: torch.Tensor, v_rows: torch.Tensor,
                 past: int) -> KVCache:
     """Write every layer's new row (L, batch, d_model) at the host's
     position ``past`` -- the single-stream fused decode step's caller-side
-    commit -- in place. Per-slot positions commit through
-    ``ops.decode_kernels.kv_commit``."""
+    commit -- in place; an int8 cache quantizes the rows first. Per-slot
+    positions commit through ``ops.decode_kernels.kv_commit`` and
+    ``kv_commit_quant``."""
+    if isinstance(cache, QuantKVCache):
+        kq, ksc = quantize_rows(k_rows)              # (L, batch) scales
+        vq, vsc = quantize_rows(v_rows)
+        cache.k[:, :, past] = kq
+        cache.v[:, :, past] = vq
+        cache.ks[:, :, 0, past] = ksc
+        cache.vs[:, :, 0, past] = vsc
+        return cache
     cache.k[:, :, past] = k_rows.to(cache.k.dtype)
     cache.v[:, :, past] = v_rows.to(cache.v.dtype)
     return cache
@@ -88,9 +157,13 @@ def merge_rows(cache: KVCache, small: KVCache, slots, rows) -> KVCache:
     """Serving refill: slot ``slots[i]`` of ``cache`` takes row ``rows[i]``
     of the freshly prefilled ``small`` cache over its ``[0, padded)``
     prefix, ``padded = small.max_len`` (rows past a prompt hold padding that
-    no later read reaches: attention masks ``idx < past``). In place;
+    no later read reaches: attention masks ``idx < past``); an int8 cache
+    takes the levels on axis 2 and the scales on axis 3. In place;
     ``slots``/``rows`` are (n,) index tensors on the cache's device."""
     padded = small.max_len
     cache.k[:, slots, :padded] = small.k[:, rows].to(cache.k.dtype)
     cache.v[:, slots, :padded] = small.v[:, rows].to(cache.v.dtype)
+    if isinstance(cache, QuantKVCache):
+        cache.ks[:, slots, :, :padded] = small.ks[:, rows]
+        cache.vs[:, slots, :, :padded] = small.vs[:, rows]
     return cache

@@ -5,7 +5,9 @@ per-op ``forward``; its quantized projections go through the GEMV kernels
 (m <= 8: ``qmatmul``, 9..32: ``qmatmul_wide``) and larger buckets through
 one dense product. Decode runs the fused whole-model step; greedy decode
 adds the fused LN + lm_head + argmax tail, sampled decode the lm_head GEMV
-and the torch sampler.
+and the torch sampler. ``kv_quant=True`` keeps the KV cache in int8 with
+per-row scales (``runtime.cache.QuantKVCache``); the fused step then runs
+in its int8 mode.
 
 ``generate`` decodes in chunks of ``SCAN_LEN`` steps. The sampled token,
 the token buffer, the EOS flag and the health bit stay on the device; the
@@ -118,8 +120,9 @@ class Engine:
 
     ``compute_dtype``: torch.bfloat16 (default) or torch.float32 for
     parity work. ``cache_dtype`` defaults to bf16 when the fused decode step
-    is live, else float16. ``device`` defaults to "cuda" and raises without
-    a card; the CPU runs every kernel's plain version.
+    is live, else float16; ``kv_quant`` forces an int8 cache. ``device``
+    defaults to "cuda" and raises without a card; the CPU runs every
+    kernel's plain version.
     """
 
     SCAN_LEN = 64   # decode steps per chunk (one device read per chunk)
@@ -129,9 +132,9 @@ class Engine:
                  max_seq: Optional[int] = None, pack_q4: bool = True,
                  kv_quant: bool = False, device="cuda"):
         if kv_quant:
-            raise NotImplementedError(
-                "--kv-quant (the int8 KV cache) belongs to a later slice of "
-                "the PyTorch port; this slice runs a bf16 KV cache")
+            if cache_dtype not in (None, torch.int8):
+                raise ValueError("kv_quant forces an int8 cache")
+            cache_dtype = torch.int8
         self.device = resolve_device(device)
         self.config = config
         self.compute_dtype = compute_dtype
@@ -144,7 +147,7 @@ class Engine:
             check_cuda_formats(self.params)
         self._fused_decode = (
             pack_q4 and compute_dtype != torch.float32
-            and cache_dtype in (None, torch.bfloat16)
+            and cache_dtype in (None, torch.bfloat16, torch.int8)
             and supports_layers(self.params.get("layers", {}), torch.bfloat16,
                                 batch=1, n_new=1))
         if cache_dtype is None:

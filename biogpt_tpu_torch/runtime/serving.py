@@ -7,16 +7,26 @@ parameters, the first tokens of fresh refills -- lives on the device; the
 host drains one token block per chunk and schedules refills.
 
 As in the JAX package:
-  - the lockstep step runs the fused decode step (2 <= B <= 32, bf16 KV)
-    and then, when every bound request is greedy and no live intake can add
-    a sampled one, the fused LN + lm_head + argmax + KV-commit tail; else
+  - the lockstep step runs the fused decode step (2 <= B <= 32, bf16 or
+    int8 KV) and then, when every bound request is greedy and no live
+    intake can add a sampled one, the fused LN + lm_head + argmax tail
+    (with the KV commit folded in on a bf16 cache); else, on a bf16 cache,
     the fused LN + lm_head + group-maxima + KV-commit tail and the
-    per-request sampler (``sampling.sample_per_request``). Without the
-    fused step (f32 compute, unpacked weights) it runs the per-op forward.
-  - refills that arrive together prefill as one batched per-op forward per
-    prompt-length group (``allow_kernels=False``: the configuration the JAX
-    package runs with its refill prefill kernel switched off), sample each
-    request's first token and merge into their slots.
+    per-request sampler (``sampling.sample_per_request``), and on an int8
+    cache the commit, the final LN, the lm_head GEMV and the sampler.
+    Without the fused step (f32 compute, unpacked weights) it runs the
+    per-op forward.
+  - refills that arrive together prefill as one batched forward per
+    prompt-length group, sample each request's first token and merge into
+    their slots. Where the fused step runs on the card, a group whose shape
+    passes ``supports_prefill`` runs the whole-prompt kernel
+    (``forward_prefill_fused``); the rest run the per-op forward with
+    ``allow_kernels=False``, as the JAX package does. On the CPU the
+    refills run the per-op forward unless ``_prefill_fused`` is set, as the
+    JAX package keeps its refill kernel off in interpret mode.
+  - ``kv_quant=True`` keeps the slots' KV in int8 with per-row scales
+    (``runtime.cache.QuantKVCache``): the step runs in its int8 mode, the
+    refills quantize their rows, and the merge moves levels and scales.
   - ``kv_groups`` keeps only its scheduling role: ``assign_slots`` packs
     requests of similar final length into the same slot group. The CUDA
     step reads each slot's own live rows, so there is no grouped read.
@@ -27,9 +37,8 @@ a host read, and each chunk ends with one copy of its (chunk, B) token ring
 into pinned host memory behind a CUDA event. Drain threads wait on that
 event only, never on the device. The caches are updated in place.
 
-Later slices of the port: the refill prefill kernel, int8 KV
-(``kv_quant``), per-slot paged KV (``paged_kv``), chunk-local KV staging
-(``staged_kv``) and tensor-parallel serving (``mesh``,
+Later slices of the port: per-slot paged KV (``paged_kv``), chunk-local
+KV staging (``staged_kv``) and tensor-parallel serving (``mesh``,
 ``tp_fused_decode``); each raises ``NotImplementedError`` here. A pool of
 B=1 runs the per-op step: the fused step takes per-slot device positions
 from B=2 on.
@@ -51,9 +60,11 @@ from ..config import BioGptConfig, GenerationParams
 from ..device import resolve_device
 from ..models.biogpt import (forward, forward_fused_decode,
                              forward_fused_decode_greedy,
-                             forward_fused_decode_sampled)
+                             forward_fused_decode_sampled,
+                             forward_prefill_fused)
 from ..modelio.checkpoint import tree_map
 from ..ops.decode_kernels import supports_layers
+from ..ops.prefill_kernels import supports_prefill
 from ..ops.qmatmul_kernels import supports, supports_wide
 from ..quant.layouts import QuantizedTensor
 from .cache import KVCache, init_cache, merge_rows
@@ -158,7 +169,6 @@ class BatchedEngine:
     ):
         for flag, what in ((mesh is not None or tp_fused_decode,
                             "tensor-parallel serving (mesh, tp_fused_decode)"),
-                           (kv_quant, "the int8 KV cache (kv_quant)"),
                            (paged_kv, "per-slot paged KV (paged_kv)"),
                            (staged_kv, "chunk-local KV staging (staged_kv)")):
             if flag:
@@ -180,9 +190,14 @@ class BatchedEngine:
         self.pipeline = max(1, pipeline)
         if pack_q4:
             params = _pack_matmul_weights(params)
+        if kv_quant:
+            if cache_dtype not in (None, torch.int8):
+                raise ValueError("kv_quant forces an int8 cache")
+            cache_dtype = torch.int8
         self._fused_decode = (
             pack_q4 and compute_dtype != torch.float32
-            and cache_dtype in (None, torch.bfloat16) and self.B >= 2
+            and cache_dtype in (None, torch.bfloat16, torch.int8)
+            and self.B >= 2
             and supports_layers(params.get("layers", {}), torch.bfloat16,
                                 batch=self.B, n_new=1))
         # slot groups of assign_slots' length affinity (default: 16 / 8
@@ -206,9 +221,14 @@ class BatchedEngine:
         self._fused_greedy = (
             self._fused_decode and isinstance(lm, QuantizedTensor)
             and lm.packed and (supports(lm, self.B) or supports_wide(lm, self.B)))
-        # the sampled tail fusion needs what the greedy one does: the
-        # cache is bf16 wherever the fused step runs
-        self._fused_sampled = self._fused_greedy
+        # the sampled tail fusion commits bf16 rows: an int8 cache samples
+        # from the per-step logits instead
+        self._fused_sampled = (self._fused_greedy
+                               and self.cache_dtype == torch.bfloat16)
+        # refills through the whole-prompt kernel where the fused step runs
+        # on the card (the JAX package runs its refill kernel where Pallas
+        # runs, not in interpret mode); tests set it on the CPU
+        self._prefill_fused = self._fused_decode and self.device.type == "cuda"
 
     def new_cache(self) -> KVCache:
         return init_cache(self.config, batch=self.B, max_len=self.max_seq,
@@ -228,11 +248,13 @@ class BatchedEngine:
 
     def _prefill_group(self, pairs, cache: KVCache, generator,
                        gen: GenerationParams, st: _Slots):
-        """Prefill + commit several (slot, request) pairs: one per-op
-        forward of the prompts padded to the group's bucket (rows bucketed
-        to a power of two <= B), each request's first token sampled with
-        its own parameters, the rows merged over the slots' cache prefix
-        and the slot vectors updated -> (cache, prompt lengths)."""
+        """Prefill + commit several (slot, request) pairs: one forward of
+        the prompts padded to the group's bucket (rows bucketed to a power
+        of two <= B) -- the whole-prompt kernel where ``_prefill_fused`` is
+        on and the shape passes ``supports_prefill``, else the per-op
+        forward --, each request's first token sampled with its own
+        parameters, the rows merged over the slots' cache prefix and the
+        slot vectors updated -> (cache, prompt lengths)."""
         lens = [len(req.prompt_ids) for _, req in pairs]
         n = len(pairs)
         padded = min(_bucket(max(lens)), self.max_seq)
@@ -247,13 +269,22 @@ class BatchedEngine:
         temps, top_ps, top_ks = self._gen_vectors(
             reqs + [Request(prompt_ids=[0])] * (nr - n), gen)
         dev = self.device
-        small = init_cache(self.config, batch=nr, max_len=padded,
-                           dtype=self.cache_dtype, device=dev)
-        logits, small = forward(
-            self.params, _to_device(ids, torch.int64, dev), small, 0,
-            self.config, compute_dtype=self.compute_dtype,
-            allow_kernels=False, logits_mode="last",
-            last_index=_to_device(last, torch.int64, dev))
+        cfg = self.config
+        ids_d = _to_device(ids, torch.int64, dev)
+        last_d = _to_device(last, torch.int64, dev)
+        if self._prefill_fused and supports_prefill(
+                self.params["layers"], nr, padded, n_head=cfg.n_head,
+                n_positions=cfg.n_positions):
+            logits, small = forward_prefill_fused(
+                self.params, ids_d, cfg, last_d,
+                compute_dtype=self.compute_dtype, cache_dtype=self.cache_dtype)
+        else:
+            small = init_cache(cfg, batch=nr, max_len=padded,
+                               dtype=self.cache_dtype, device=dev)
+            logits, small = forward(
+                self.params, ids_d, small, 0, cfg,
+                compute_dtype=self.compute_dtype, allow_kernels=False,
+                logits_mode="last", last_index=last_d)
         firsts = sample_per_request(logits, generator, top_ks, top_ps, temps,
                                     max_top_k=self.MAX_TOP_K)[:n]
         slots = _to_device([slot for slot, _ in pairs], torch.int64, dev)

@@ -198,7 +198,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--temp", type=float, default=0.0,
                    help="default temperature (requests may override)")
     p.add_argument("--kv-quant", action="store_true",
-                   help="int8 KV cache: not in this slice of the port (raises)")
+                   help="int8 KV cache with per-row f32 scales (half the KV "
+                        "bytes of bf16)")
     p.add_argument("--kv-groups", type=int, default=None,
                    help="slot groups of the length-affine slot assignment "
                         "(default auto: 16 or 8 when the batch divides; "

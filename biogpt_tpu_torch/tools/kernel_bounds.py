@@ -4,7 +4,8 @@ at the shape the port's main paths give it.
     python -m biogpt_tpu_torch.tools.kernel_bounds
 
 One JSON line per kernel (each function of ``biogpt_tpu/ops`` that reaches
-``pl.pallas_call``), ported or not, at BioGPT-347M with Q4_0 planes: the
+``pl.pallas_call``) and shape, ported or not, at BioGPT-347M with Q4_0
+planes; ``row`` is the kernel's number in PERF.md's table. Each line has the
 bytes it must move (each input read once, each output written once), the
 operations it does, and ``bound_ms``, the larger of bytes over the card's
 memory rate and operations over its bf16 tensor rate (published H100 SXM
@@ -26,6 +27,17 @@ BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor rate (published)
 # (1 + 13 b, slots 7 and 19 dead at 0), window 512
 RAGGED_PAST = [0 if b in (7, 19) else 1 + 13 * b for b in range(32)]
 WINDOW = 512
+# the refill groups chip_smoke.py times: the uniform wave, the mixed wave,
+# one long prompt
+PREFILL_SHAPES = ((32, 32), (8, 128), (1, 512))
+# each kernel's number in PERF.md's table
+ROW = {name: i for i, name in enumerate((
+    "qmatmul_pallas", "qmatmul_pallas_wide", "lm_head_argmax_pallas",
+    "lm_head_argmax_commit_pallas", "lm_head_logits_gmax_commit_pallas",
+    "decode_step_fused B=1", "decode_step_fused batched",
+    "decode_step_fused paged", "decode_step_fused int8 KV",
+    "kv_commit_pallas", "kv_commit_quant_pallas", "prefill_fused",
+    "decode_step_fused_tp"), 1)}
 
 
 def bound(nbytes: float, flops: float):
@@ -53,6 +65,28 @@ def layer_flops(c: BioGptConfig, rows: int) -> int:
     return 2 * rows * (D * 3 * D + D * D + 2 * D * F)
 
 
+def prefill_cost(c: BioGptConfig, R: int, T: int, wbytes: int):
+    """(bytes, operations) of ``prefill_fused`` on R prompts padded to T:
+    the layer planes ``wbytes`` once, x in and out (f32), every layer's K/V
+    rows out (bf16); the projections of all R*T rows and causal attention
+    over each whole padded prompt (the kernel computes padding rows too)."""
+    D, L, RT = c.d_model, c.n_layer, R * T
+    attn = R * 4 * (T * (T + 1) // 2) * D        # causal scores and p.V
+    return (wbytes + 2 * RT * D * 4 + 2 * L * RT * D * 2,
+            L * (layer_flops(c, RT) + attn))
+
+
+def int8_step_cost(c: BioGptConfig, past: list, window: int, wbytes: int):
+    """(bytes, operations) of the int8-KV ``decode_step_fused`` at B =
+    len(past): the planes once, each slot's live level rows and their f32
+    scales, the new rows out in f32, x in and out (and the B>1 positions)."""
+    D, L, B = c.d_model, c.n_layer, len(past)
+    live = sum(min(p, window) for p in past)
+    return (wbytes + 2 * L * live * (D + 4) + 2 * L * B * D * 4
+            + 2 * B * D * 4 + (B * 4 if B > 1 else 0),
+            L * (layer_flops(c, B) + 4 * live * D))
+
+
 def rows(c: BioGptConfig = BioGptConfig()) -> list:
     D, L = c.d_model, c.n_layer
     V = -(-c.n_vocab // 128) * 128
@@ -61,8 +95,6 @@ def rows(c: BioGptConfig = BioGptConfig()) -> list:
     live = sum(min(p, WINDOW) for p in RAGGED_PAST)
     lm = q4_bytes(D, V)
     commit = 4 * L * B * D * 2 + B * 4           # rows read, cache rows written
-    R, T = 32, 32                                # a uniform 32-prompt refill
-    attn = R * 4 * (T * (T + 1) // 2) * D        # causal scores and p.V
     out = [
         ("qmatmul_pallas", "pallas_qmatmul.py:860", "lm_head m=1",
          lm + D * 4 + V * 4, 2 * D * V),
@@ -90,15 +122,15 @@ def rows(c: BioGptConfig = BioGptConfig()) -> list:
          W + 2 * L * live * D * 2 + 2 * L * B * D * 2 + 2 * B * D * 4 + B * 4,
          L * layer_flops(c, B) + 4 * L * live * D),
         ("decode_step_fused int8 KV", "pallas_decode.py:1028",
-         "B=32 ragged, window 512",
-         W + 2 * L * live * (D + 4) + 2 * L * B * (D + 4) + 2 * B * D * 4
-         + B * 4, L * layer_flops(c, B) + 4 * L * live * D),
+         "B=32 ragged, window 512", *int8_step_cost(c, RAGGED_PAST, WINDOW, W)),
+        ("decode_step_fused int8 KV", "pallas_decode.py:1028",
+         "B=1, past=100", *int8_step_cost(c, [100], 128, W)),
         ("kv_commit_pallas", "pallas_decode.py:754", "B=32", commit, 0),
         ("kv_commit_quant_pallas", "pallas_decode.py:839", "B=32",
          4 * L * B * (D + 4) + B * 4, 0),
-        ("prefill_fused", "pallas_prefill.py:172", "R=32 prompts x T=32",
-         W + 2 * R * T * D * 4 + 2 * L * R * T * D * 2,
-         L * (layer_flops(c, R * T) + attn)),
+        *(("prefill_fused", "pallas_prefill.py:172",
+           f"R={R} prompts x T={T}", *prefill_cost(c, R, T, W))
+          for R, T in PREFILL_SHAPES),
         ("decode_step_fused_tp", "pallas_decode_tp.py:294",
          "one of 4 shards, B=32 ragged",
          (W + 2 * L * live * D * 2 + 2 * L * B * D * 2) // 4
@@ -106,9 +138,9 @@ def rows(c: BioGptConfig = BioGptConfig()) -> list:
          (L * layer_flops(c, B) + 4 * L * live * D) // 4),
     ]
     recs = []
-    for i, (name, where, shape, nbytes, flops) in enumerate(out, 1):
+    for name, where, shape, nbytes, flops in out:
         ms, by = bound(nbytes, flops)
-        recs.append({"row": i, "kernel": name, "replaces": f"biogpt_tpu/ops/"
+        recs.append({"row": ROW[name], "kernel": name, "replaces": f"biogpt_tpu/ops/"
                      f"{where}", "shape": shape, "bytes": nbytes,
                      "flops": flops, "bound_ms": ms, "bound_by": by})
     return recs

@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero, and no result line is printed):
+Phases (any failure exits non-zero, and no result line is printed; each
+logs its seconds):
   1. card stamp: name and power limit (nvidia-smi), TF32 off; every kernel
      library built from ``biogpt_tpu_torch/csrc`` (one nvcc per source,
      started together);
@@ -14,16 +15,26 @@ Phases (any failure exits non-zero, and no result line is printed):
      step at B=8 and B=32 (window 512, ragged positions, dead slots), the
      KV commit, and the greedy and sampled lm_head + commit tails at M=8
      and M=32;
-  4. single stream end to end: a 347M Q4_0 model file with random weights,
+  4. likewise the kernels of the refill and int8 KV paths: ``prefill_fused``
+     at 32x32, 8x128 and 1x512 prompts x tokens (ragged lengths; with the
+     per-op refill it replaces timed beside it), the int8 decode step at
+     B=1 (past 100) and at B=8 and B=32 (window 512, ragged positions, dead
+     slots), and ``kv_commit_quant`` (bit-equal, positions clamped);
+  5. single stream end to end: a 347M Q4_0 model file with random weights,
      the CLI greedy (prompts of <= 8, 9-32 and >= 33 tokens, 128 new
-     tokens) and sampled, the launch counts of that run, 8 teacher-forced
-     decode steps of the kernels against the plain path, the decode rate;
-  5. serving end to end on the same file: ``BatchedEngine.serve`` of 96
-     uniform greedy requests at B=32, then the HTTP server answering 8
-     concurrent mixed greedy/sampled requests, one SSE stream and
-     ``GET /stats``, the launch counts of that run, 8 teacher-forced B=32
-     steps of the kernels against the plain path, the tokens/s of each run;
-  6. the ``kernels`` line and the result line.
+     tokens) and sampled, then the CLI ``--kv-quant`` greedy, the launch
+     counts of each, 8 teacher-forced decode steps of the kernels against
+     the plain path, the decode rate with a bf16 and an int8 cache;
+  6. serving end to end on the same file, once with a bf16 and once with
+     an int8 KV cache: ``BatchedEngine.serve`` of 96 uniform greedy
+     requests at B=32 (refills through ``prefill_fused``; the wall split
+     into decode chunks, refill waves and the rest), then the HTTP server
+     answering 8 concurrent mixed greedy/sampled requests, one SSE stream
+     and ``GET /stats``, the launch counts of that run; one refill wave's
+     first-token logits through the prefill kernel against the per-op
+     refill (bf16); 8 teacher-forced B=32 steps of the kernels against the
+     plain path; the tokens/s of each run;
+  7. the ``kernels`` line and the result line.
 
 Needs a CUDA card; exits non-zero without one or without the package.
 """
@@ -622,7 +633,201 @@ def phase_serving_kernels(c: Ctx) -> None:
         del kc, vc, k1, v1, k2, v2
 
 
-# ------------------------------------------------- 4. single stream, e2e
+# ------------------------------------- 4. refill prefill and int8 kernels
+
+def rand_int8_cache(c: Ctx, L: int, B: int, S: int):
+    """int8 levels (L, B, S, D) and f32 row scales (L, B, 1, S) whose
+    dequantized rows have about unit magnitude."""
+    D = c.cfg.d_model
+    lv = torch.randint(-127, 128, (L, B, S, D), generator=c.gen, device=c.dev,
+                       dtype=torch.int32).to(torch.int8)
+    sc = torch.rand(L, B, 1, S, generator=c.gen, device=c.dev) * 0.01 + 0.005
+    return lv, sc
+
+
+def padded_prompts(c: Ctx, R: int, T: int):
+    """x0 (R*T, D) of R prompts of ragged real lengths 1..T padded to T:
+    real rows random, padding rows one shared pad vector plus a position
+    term, as padded embeddings are -> (x0, lengths)."""
+    D = c.cfg.d_model
+    lens = torch.randint(1, T + 1, (R,), generator=c.gen, device=c.dev)
+    x0 = c.randn(R, T, D)
+    pad = c.randn(D)[None, None, :] + 0.1 * c.randn(1, T, D)
+    padding = torch.arange(T, device=c.dev)[None, :] >= lens[:, None]
+    x0 = torch.where(padding[..., None], pad.expand(R, T, D), x0)
+    return x0.reshape(R * T, D).contiguous(), lens.tolist()
+
+
+def per_op_params(c: Ctx, layers) -> dict:
+    """A full-size params dict around ``layers`` for the per-op forward."""
+    cfg = c.cfg
+    D = cfg.d_model
+    return {"embed_tokens": 0.02 * c.randn(cfg.n_vocab, D),
+            "embed_positions": 0.02 * c.randn(cfg.n_positions + 2, D),
+            "layers": layers,
+            "final_ln": {"w": 1 + 0.1 * c.randn(D), "b": 0.1 * c.randn(D)},
+            "lm_head": c.rand_qt(D, c.V_PAD)}
+
+
+def phase_refill_int8_kernels(c: Ctx) -> None:
+    from biogpt_tpu_torch.models.biogpt import forward
+    from biogpt_tpu_torch.ops.decode_kernels import (
+        decode_step_fused, decode_step_fused_batched_plain,
+        decode_step_fused_plain, kv_commit_quant, kv_commit_quant_plain)
+    from biogpt_tpu_torch.ops.prefill_kernels import (prefill_fused,
+                                                      prefill_fused_plain)
+    from biogpt_tpu_torch.runtime.cache import init_cache
+    from biogpt_tpu_torch.tools.kernel_bounds import (int8_step_cost,
+                                                      prefill_cost)
+
+    cfg, dev = c.cfg, c.dev
+    D, L, H, S = cfg.d_model, cfg.n_layer, cfg.n_head, cfg.n_positions
+
+    # prefill_fused at the refill shapes, ragged real lengths
+    for mins in (False, True):
+        layers, wbytes = c.rand_layers(mins)
+        fmt = "q4_1" if mins else "q4_0"
+        params = None if mins else per_op_params(c, layers)
+        for R, T in ((32, 32), (8, 128), (1, 512)):
+            x0, lens = padded_prompts(c, R, T)
+            run = lambda: prefill_fused(x0, layers, rows=R, padded=T,
+                                        n_head=H, ln_eps=cfg.ln_eps)
+            plain = lambda: prefill_fused_plain(x0, layers, rows=R, padded=T,
+                                                n_head=H, ln_eps=cfg.ln_eps)
+            x, kr, vr = run()
+            xp, krp, vrp = plain()
+            torch.cuda.synchronize()
+            what = f"prefill_fused {R}x{T} {fmt}"
+            err = hidden_within(x, xp, what)
+            rows = max(rows_within(kr, krp, what + " k"),
+                       rows_within(vr, vrp, what + " v"))
+            rec = {"kernel": "prefill_fused", "layers": L, "R": R, "T": T,
+                   "lengths": lens, "format": fmt, "max_abs_err": err,
+                   "tol": 3e-3 * xp.abs().max().item(),
+                   "rows_err_over_tol": rows}
+            if not mins:
+                timed(rec, run, plain, None, *prefill_cost(cfg, R, T, wbytes),
+                      reps=10)
+                # the path it replaces: the per-op refill of the same group
+                ids = torch.randint(4, cfg.n_vocab, (R, T), generator=c.gen,
+                                    device=dev)
+                last = torch.tensor([n - 1 for n in lens], device=dev)
+
+                def per_op():
+                    small = init_cache(cfg, batch=R, max_len=T,
+                                       dtype=torch.bfloat16, device=dev)
+                    return forward(params, ids, small, 0, cfg,
+                                   compute_dtype=torch.bfloat16,
+                                   allow_kernels=False, last_index=last)
+                rec["per_op_ms"] = time_ms(per_op, 5)
+                rec["per_op_ms_range"] = SPREAD[per_op]
+                if (R, T) == (32, 32):
+                    c.results["prefill_fused"] = rec
+            print(json.dumps(rec), flush=True)
+        del layers, params
+
+    # the int8 decode step: B=1 (past 100, window 128); B=8 and B=32
+    # (window 512, ragged positions, dead slots, one slot past the window)
+    layers, wbytes = c.rand_layers(False)
+    kc, ks = rand_int8_cache(c, L, 1, S)
+    vc, vs = rand_int8_cache(c, L, 1, S)
+    past, window = 100, 128
+    x0 = c.randn(1, D)
+    run = lambda: decode_step_fused(x0, layers, kc, vc, past, n_head=H,
+                                    window=window, ln_eps=cfg.ln_eps,
+                                    k_scales=ks, v_scales=vs)
+    plain = lambda: decode_step_fused_plain(
+        x0, layers, kc, vc, past, n_head=H, window=window, ln_eps=cfg.ln_eps,
+        k_scales=ks, v_scales=vs)
+    x, kr, vr = run()
+    xp, krp, vrp = plain()
+    torch.cuda.synchronize()
+    what = "decode_step_fused int8 B=1 past=100"
+    err = hidden_within(x, xp, what)
+    rows = max(rows_within(kr, krp, what + " k"),
+               rows_within(vr, vrp, what + " v"))
+    rec = {"kernel": "decode_step_fused_int8", "layers": L, "past": past,
+           "window": window, "format": "q4_0", "max_abs_err": err,
+           "tol": 3e-3 * xp.abs().max().item(), "rows_err_over_tol": rows}
+    timed(rec, run, plain, None, *int8_step_cost(cfg, [past], window, wbytes))
+    c.results["decode_step_fused_int8"] = rec
+    print(json.dumps(rec), flush=True)
+    del kc, vc, ks, vs
+
+    W = 512
+    for B, past in ((8, ragged_past(8, dead=(2, 5), beyond=(7,))),
+                    (32, ragged_past(32, dead=(7, 19)))):
+        kc, ks = rand_int8_cache(c, L, B, S)
+        vc, vs = rand_int8_cache(c, L, B, S)
+        x0 = c.randn(B, D)
+        pt = torch.tensor(past, dtype=torch.int32, device=dev)
+        run = lambda: decode_step_fused(x0, layers, kc, vc, pt, n_head=H,
+                                        window=W, ln_eps=cfg.ln_eps,
+                                        k_scales=ks, v_scales=vs)
+        plain = lambda: decode_step_fused_batched_plain(
+            x0, layers, kc, vc, pt, n_head=H, window=W, ln_eps=cfg.ln_eps,
+            k_scales=ks, v_scales=vs)
+        x, kr, vr = run()
+        xp, krp, vrp = plain()
+        torch.cuda.synchronize()
+        what = f"decode_step_fused int8 B={B}"
+        err = hidden_within(x, xp, what)
+        rows = max(rows_within(kr, krp, what + " k"),
+                   rows_within(vr, vrp, what + " v"))
+        rec = {"kernel": "decode_step_fused_batched_int8", "layers": L,
+               "B": B, "past": past, "window": W, "format": "q4_0",
+               "max_abs_err": err, "tol": 3e-3 * xp.abs().max().item(),
+               "rows_err_over_tol": rows}
+        timed(rec, run, plain, None, *int8_step_cost(cfg, past, W, wbytes))
+        if B == 32:
+            c.results["decode_step_fused_batched_int8"] = rec
+        print(json.dumps(rec), flush=True)
+        del kc, vc, ks, vs
+    del layers
+
+    # kv_commit_quant at B=32: bit-equal, and clamped outside [0, S)
+    B, S = 32, 512
+    kc, ks = rand_int8_cache(c, L, B, S)
+    vc, vs = rand_int8_cache(c, L, B, S)
+    kq = torch.randint(-127, 128, (L, B, D), generator=c.gen, device=dev,
+                       dtype=torch.int32).to(torch.int8)
+    vq = torch.randint(-127, 128, (L, B, D), generator=c.gen, device=dev,
+                       dtype=torch.int32).to(torch.int8)
+    ksc = torch.rand(L, B, generator=c.gen, device=dev)
+    vsc = torch.rand(L, B, generator=c.gen, device=dev)
+    rows = (kq.transpose(0, 1), vq.transpose(0, 1),
+            ksc.transpose(0, 1)[..., None], vsc.transpose(0, 1)[..., None])
+    same = True
+    for past in (ragged_past(B, dead=(7, 19)),
+                 [-3, S + 5] + ragged_past(B - 2)):
+        pt = torch.tensor(past, dtype=torch.int32, device=dev)
+        got = kv_commit_quant(kc.clone(), vc.clone(), ks.clone(), vs.clone(),
+                              *rows, pt)
+        want = kv_commit_quant_plain(kc.clone(), vc.clone(), ks.clone(),
+                                     vs.clone(), *rows, pt)
+        torch.cuda.synchronize()
+        same = same and all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+    check(same, "kv_commit_quant B=32: caches differ from the plain commit "
+          "(positions in range, or clamped)")
+    past = ragged_past(B, dead=(7, 19))
+    pt = torch.tensor(past, dtype=torch.int32, device=dev)
+    slots, pos = torch.arange(B, device=dev), pt.long()
+
+    def commit_lib():
+        kc[:, slots, pos] = kq
+        vc[:, slots, pos] = vq
+        ks[:, slots, 0, pos] = ksc
+        vs[:, slots, 0, pos] = vsc
+    rec = {"kernel": "kv_commit_quant", "B": B, "L": L, "past": past,
+           "max_abs_err": 0.0 if same else float("nan"), "tol": 0.0}
+    timed(rec, lambda: kv_commit_quant(kc, vc, ks, vs, *rows, pt),
+          lambda: kv_commit_quant_plain(kc, vc, ks, vs, *rows, pt),
+          commit_lib, 4 * L * B * (D + 4) + B * 4, 0, reps=50)
+    c.results["kv_commit_quant"] = rec
+    print(json.dumps(rec), flush=True)
+
+
+# ------------------------------------------------- 5. single stream, e2e
 
 def phase_cli(c: Ctx, path: str, smi: str) -> None:
     from biogpt_tpu_torch.cli import main as cli_main
@@ -657,7 +862,28 @@ def phase_cli(c: Ctx, path: str, smi: str) -> None:
     log(f"single-stream path launches: {launches}")
     for k in ("qmatmul", "qmatmul_wide", "lm_head_argmax", "decode_step_fused"):
         check(launches[k] > 0, f"kernel {k} was not launched on its path")
-        c.launches[k] = launches[k]
+        c.launches[k] = c.launches.get(k, 0) + launches[k]
+
+    # the int8 KV cache: CLI --kv-quant greedy, 128 new tokens
+    cuda_lib.reset_launch_counts()
+    out = io.StringIO()
+    argv = ["-p", "the protein binds the receptor", "--temp", "0",
+            "--kv-quant"]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(["-m", path, "-n", "128", "--no-stop-at-eos", *argv])
+    text = out.getvalue().strip()
+    log(f"cli {argv}: rc={rc} {time.perf_counter() - t0:.1f} s, "
+        f"{len(text)} chars of text")
+    check(rc == 0 and len(text) > 0, f"cli {argv} rc={rc}")
+    launches = dict(cuda_lib.LAUNCHES)
+    log(f"single-stream int8 path launches: {launches}")
+    for k in ("decode_step_fused_int8", "lm_head_argmax"):
+        check(launches[k] > 0, f"kernel {k} was not launched on the "
+              "--kv-quant path")
+        c.launches[k] = c.launches.get(k, 0) + launches[k]
+    check(launches["decode_step_fused"] == 0,
+          "--kv-quant ran the bf16 decode step")
     config, _, _, params = load_params(path, device="cuda")
 
     # teacher-forced decode: kernels vs the plain path on the engine's weights
@@ -700,22 +926,55 @@ def phase_cli(c: Ctx, path: str, smi: str) -> None:
         past += 1
     log(f"teacher-forced 8 steps: worst err/tol {worst:.3f}")
 
-    # decode rate of a 128-token greedy generation
+    # decode rate of a 128-token greedy generation, bf16 and int8 KV
     g = GenerationParams(n_predict=128, temp=0.0, stop_at_eos=False, seed=0)
-    eng.generate(prompt, g)
-    res = eng.generate(prompt, g)
-    ms = res.timings["ms_per_token"]
-    print(json.dumps({"decode_ms_per_token": ms, "tokens_per_s": 1e3 / ms,
-                      "new_tokens": res.timings["n_new"],
-                      "card": torch.cuda.get_device_name(0),
-                      "card_stamp": smi}), flush=True)
-    check(res.timings["n_new"] == 128, "greedy generation stopped early")
+    for kv_quant in (False, True):
+        e = eng if not kv_quant else Engine(config, params, kv_quant=True,
+                                            device="cuda")
+        e.generate(prompt, g)
+        res = e.generate(prompt, g)
+        ms = res.timings["ms_per_token"]
+        print(json.dumps({"decode_ms_per_token": ms, "tokens_per_s": 1e3 / ms,
+                          "kv_cache": "int8" if kv_quant else "bf16",
+                          "new_tokens": res.timings["n_new"],
+                          "card": torch.cuda.get_device_name(0),
+                          "card_stamp": smi}), flush=True)
+        check(res.timings["n_new"] == 128, "greedy generation stopped early")
 
 
-# -------------------------------------------------------- 5. serving, e2e
+# -------------------------------------------------------- 6. serving, e2e
 
-SERVING_KERNELS = ("decode_step_fused_batched", "kv_commit",
-                   "lm_head_argmax_commit", "lm_head_logits_gmax_commit")
+# kernels each serving path must launch: bf16 KV, int8 KV
+SERVING_KERNELS = {
+    False: ("decode_step_fused_batched", "kv_commit", "lm_head_argmax_commit",
+            "lm_head_logits_gmax_commit", "prefill_fused"),
+    True: ("decode_step_fused_batched_int8", "kv_commit_quant",
+           "prefill_fused", "lm_head_argmax", "qmatmul_wide"),
+}
+
+
+def span_meter(eng) -> dict:
+    """Record CUDA events around every refill group and decode chunk that
+    ``eng.serve`` enqueues (instance attributes wrapping its methods;
+    ``del`` them to restore) -> {"refill": [...], "chunk": [...]} of
+    (start, end) event pairs."""
+    spans = {"refill": [], "chunk": []}
+
+    def wrap(name, key):
+        real = getattr(eng, name)
+
+        def timed_call(*a, **k):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = real(*a, **k)
+            e.record()
+            spans[key].append((s, e))
+            return out
+        setattr(eng, name, timed_call)
+    wrap("_prefill_group", "refill")
+    wrap("_run_chunk", "chunk")
+    return spans
 
 
 def http_round(srv, rng, V: int) -> tuple:
@@ -772,29 +1031,36 @@ def http_round(srv, rng, V: int) -> tuple:
     return sum(len(r["new_ids"]) for r in out if r), wall, stats
 
 
-def phase_serving(c: Ctx, path: str, smi: str) -> None:
+def phase_serving(c: Ctx, path: str, smi: str, kv_quant: bool = False) -> None:
     import numpy as np
 
     from biogpt_tpu_torch.config import GenerationParams
     from biogpt_tpu_torch.modelio.checkpoint import load_params
     from biogpt_tpu_torch.models.biogpt import (forward,
-                                                forward_fused_decode_greedy)
+                                                forward_fused_decode_greedy,
+                                                forward_prefill_fused)
     from biogpt_tpu_torch.ops import cuda_lib, embedding_lookup
     from biogpt_tpu_torch.ops.decode_kernels import (
-        decode_step_fused, decode_step_fused_batched_plain, kv_commit_plain)
+        decode_step_fused, decode_step_fused_batched_plain, kv_commit_plain,
+        kv_commit_quant_plain)
     from biogpt_tpu_torch.ops.qmatmul_kernels import (lm_head_argmax,
                                                       lm_head_logits_plain)
-    from biogpt_tpu_torch.runtime.cache import init_cache, merge_rows
+    from biogpt_tpu_torch.runtime.cache import (init_cache, merge_rows,
+                                                quantize_rows)
     from biogpt_tpu_torch.runtime.serving import (BatchedEngine, Request,
                                                   ServingScheduler)
     from biogpt_tpu_torch.server import BioGptServer
+    from biogpt_tpu_torch.tools.kernel_bounds import bound, layer_flops
 
     config, _, _, params = load_params(path, device="cpu")
     B, V, card = 32, config.n_vocab, torch.cuda.get_device_name(0)
+    kv = "int8" if kv_quant else "bf16"
     eng = BatchedEngine(config, params, max_batch=B, max_seq=512, chunk=16,
-                        device="cuda")
-    check(eng._fused_greedy and eng._fused_sampled,
-          "BatchedEngine: the fused serving tails are not live")
+                        kv_quant=kv_quant, device="cuda")
+    # the sampled tail's commit fusion is bf16-only; refills take the kernel
+    check(eng._fused_greedy and eng._fused_sampled == (not kv_quant)
+          and eng._prefill_fused,
+          f"BatchedEngine ({kv} KV): the fused serving paths are not live")
     rng = np.random.default_rng(0)
 
     def make_reqs(n):   # bench.py:225-228
@@ -807,20 +1073,37 @@ def phase_serving(c: Ctx, path: str, smi: str) -> None:
     torch.cuda.synchronize()
     cuda_lib.reset_launch_counts()
     reqs = make_reqs(3 * B)
-    chunks0 = eng.metrics.snapshot()["chunks_launched"]
+    snap0 = eng.metrics.snapshot()
+    spans = span_meter(eng)
     t0 = time.perf_counter()
     res = eng.serve(reqs, greedy)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    steps = (eng.metrics.snapshot()["chunks_launched"] - chunks0) * eng.chunk
+    del eng._prefill_group, eng._run_chunk
+    snap1 = eng.metrics.snapshot()
+    chunks = snap1["chunks_launched"] - snap0["chunks_launched"]
+    steps = chunks * eng.chunk
     n_tok = sum(len(r.new_ids) for r in res.values())
     check(len(res) == 3 * B and all(len(r.new_ids) == 48 for r in res.values())
           and all(0 <= t < V for r in res.values() for t in r.new_ids),
-          f"serve: {len(res)} results, {n_tok} tokens")
+          f"serve ({kv} KV): {len(res)} results, {n_tok} tokens")
+    chunk_ms = sum(s.elapsed_time(e) for s, e in spans["chunk"])
+    refill_ms = sum(s.elapsed_time(e) for s, e in spans["refill"])
     serve_rec = {"serve_uniform_greedy_tokens_per_s": n_tok / wall,
-                 "requests": len(res), "new_tokens": n_tok, "wall_s": wall,
-                 "decode_steps": steps, "wall_per_step_ms": 1e3 * wall / steps,
-                 "batch_slots": B, "chunk": eng.chunk}
+                 "kv_cache": kv, "requests": len(res), "new_tokens": n_tok,
+                 "wall_s": wall, "decode_steps": steps,
+                 "wall_per_step_ms": 1e3 * wall / steps, "batch_slots": B,
+                 "chunk": eng.chunk,
+                 "refill_programs": (snap1["refill_programs"]
+                                     - snap0["refill_programs"]),
+                 # the wall split: device spans of the decode chunks and of
+                 # the refill groups (CUDA events around each), the rest
+                 # host scheduling, drains and idle
+                 "decode_chunks_device_ms": chunk_ms,
+                 "refill_waves_device_ms": refill_ms,
+                 "refill_wave_ms": [s.elapsed_time(e)
+                                    for s, e in spans["refill"]],
+                 "other_ms": 1e3 * wall - chunk_ms - refill_ms}
 
     sched = ServingScheduler(eng, GenerationParams(temp=0.0,
                                                    stop_at_eos=False))
@@ -832,17 +1115,18 @@ def phase_serving(c: Ctx, path: str, smi: str) -> None:
         srv.shutdown()
     torch.cuda.synchronize()
     launches = dict(cuda_lib.LAUNCHES)
-    log(f"serving path launches: {launches}")
-    for k in SERVING_KERNELS:
-        check(launches[k] > 0, f"kernel {k} was not launched on its path")
-        c.launches[k] = launches[k]
+    log(f"serving path ({kv} KV) launches: {launches}")
+    for k in SERVING_KERNELS[kv_quant]:
+        check(launches[k] > 0, f"kernel {k} was not launched on its path "
+              f"({kv} KV)")
+        c.launches[k] = c.launches.get(k, 0) + launches[k]
     print(json.dumps({"http_mixed_tokens_per_s": n_http / wall_http,
-                      "requests": 8, "new_tokens": n_http,
+                      "kv_cache": kv, "requests": 8, "new_tokens": n_http,
                       "wall_s": wall_http, "stats": stats, "card": card,
                       "card_stamp": smi}), flush=True)
 
     P, cfg, dev = eng.params, c.cfg, c.dev
-    D, H = cfg.d_model, cfg.n_head
+    D, H, L = cfg.d_model, cfg.n_head, cfg.n_layer
     # device time of one greedy serving step at the uniform run's shape
     # (B=32, window 128, positions 5-72) beside that run's wall per step
     cache = eng.new_cache()
@@ -854,16 +1138,16 @@ def phase_serving(c: Ctx, path: str, smi: str) -> None:
                                            kv_window=128)
     serve_rec["step_device_ms"] = time_ms(step, 20)
     serve_rec["step_device_ms_range"] = SPREAD[step]
-    # the step's bound: every plane once, each slot's live K/V rows read
-    # and its new rows written, the tokens and positions in, the ids out
-    from biogpt_tpu_torch.tools.kernel_bounds import bound, layer_flops
-
+    # the step's bound: every plane once, each slot's live K/V rows (and
+    # their scales) read and its new rows written, the tokens and
+    # positions in, the ids out
     live = int(past_host.sum())
+    row = D + 4 if kv_quant else 2 * D
     wbytes = (sum(qbytes(P["layers"][n]["w"]) + P["layers"][n]["b"].numel() * 4
-                  for n in ("qkv", "o", "fc1", "fc2")) + 4 * cfg.n_layer * D * 4
+                  for n in ("qkv", "o", "fc1", "fc2")) + 4 * L * D * 4
               + qbytes(P["lm_head"]) + 2 * D * 4)
-    step_bytes = wbytes + 2 * cfg.n_layer * (live + B) * D * 2 + B * 16
-    step_flops = (cfg.n_layer * (layer_flops(cfg, B) + 4 * live * D)
+    step_bytes = wbytes + 2 * L * (live + B) * row + B * 16
+    step_flops = (L * (layer_flops(cfg, B) + 4 * live * D)
                   + 2 * B * D * P["lm_head"].d_out)
     serve_rec["step_bound_ms"], serve_rec["step_bound_by"] = bound(
         step_bytes, step_flops)
@@ -871,23 +1155,47 @@ def phase_serving(c: Ctx, path: str, smi: str) -> None:
     print(json.dumps(serve_rec), flush=True)
     del cache
 
-    # teacher-forced B=32 steps: kernels vs the plain path, engine weights
+    # one refill wave of the uniform run's shape (32 prompts of 4-23
+    # tokens padded to 32), through the prefill kernel and the per-op
+    # forward (tests/test_pallas_prefill.py's limits)
     lens = [int(n) for n in rng.integers(4, 24, size=B)]
     ids = torch.zeros(B, 32, dtype=torch.long)
     for b, n in enumerate(lens):
         ids[b, :n] = torch.from_numpy(rng.integers(4, V - 2, size=n))
+    ids = ids.to(dev)
     last = torch.tensor([n - 1 for n in lens], device=dev)
-    small = init_cache(config, batch=B, max_len=32, dtype=torch.bfloat16,
+    small = init_cache(config, batch=B, max_len=32, dtype=eng.cache_dtype,
                        device=dev)
-    logits, small = forward(P, ids.to(dev), small, 0, config,
+    logits, small = forward(P, ids, small, 0, config,
                             compute_dtype=torch.bfloat16, allow_kernels=False,
                             last_index=last)
+    if not kv_quant:
+        lk, _ = forward_prefill_fused(P, ids, config, last)
+        top2 = torch.topk(logits, 2, dim=-1).values
+        decided = (top2[:, 0] - top2[:, 1]) > 2e-2 * logits.abs().amax(-1)
+        same = (torch.argmax(lk, -1) == torch.argmax(logits, -1))[decided]
+        lerr = (lk - logits).abs() - (0.35 + 5e-2 * logits.abs())
+        check(bool(same.all()) and bool((lerr <= 0).all()),
+              f"refill wave: prefill kernel vs per-op logits: argmax equal on "
+              f"{int(same.sum())}/{int(decided.sum())} decided rows, worst "
+              f"excess over rtol 5e-2 + atol 0.35: {lerr.max().item()}")
+        print(json.dumps({"refill_logits_check": "prefill_fused vs per-op",
+                          "rows": B, "decided_rows": int(decided.sum()),
+                          "argmax_equal": int(same.sum()),
+                          "max_abs_diff": (lk - logits).abs().max().item(),
+                          "logits_max_abs": logits.abs().max().item()}),
+              flush=True)
+
+    # teacher-forced B=32 steps from that wave: kernels vs the plain path
+    # on the engine's weights, committing with the plain commit
     cache = eng.new_cache()
     merge_rows(cache, small, torch.arange(B, device=dev),
                torch.arange(B, device=dev))
     tok = torch.argmax(logits, -1)
     past = torch.tensor(lens, dtype=torch.int32, device=dev)
     fw, fb = P["final_ln"]["w"], P["final_ln"]["b"]
+    scales = (dict(k_scales=cache.ks, v_scales=cache.vs) if kv_quant
+              else {})
     worst = 0.0
     for step in range(8):
         emb = embedding_lookup(tok[:, None], P["embed_tokens"]) * math.sqrt(D)
@@ -896,14 +1204,14 @@ def phase_serving(c: Ctx, path: str, smi: str) -> None:
         window = 128
         xk, krk, vrk = decode_step_fused(x0, P["layers"], cache.k, cache.v,
                                          past, n_head=H, window=window,
-                                         ln_eps=cfg.ln_eps)
+                                         ln_eps=cfg.ln_eps, **scales)
         xp, krp, vrp = decode_step_fused_batched_plain(
             x0, P["layers"], cache.k, cache.v, past, n_head=H, window=window,
-            ln_eps=cfg.ln_eps)
+            ln_eps=cfg.ln_eps, **scales)
         idk, _ = lm_head_argmax(xk, fw, fb, P["lm_head"], V, cfg.ln_eps)
         lp = lm_head_logits_plain(xp, fw, fb, P["lm_head"], cfg.ln_eps)[:, :V]
         top2 = torch.topk(lp, 2).values
-        what = f"teacher-forced B={B} step {step}"
+        what = f"teacher-forced B={B} {kv} KV step {step}"
         err = hidden_within(xk, xp, what)
         worst = max(worst, err / max(3e-3 * xp.abs().max().item(), 1e-30),
                     rows_within(krk, krp, what + " k"),
@@ -913,11 +1221,19 @@ def phase_serving(c: Ctx, path: str, smi: str) -> None:
         check(bool((idk.long() == ref)[decided].all()),
               f"{what}: argmax differs on {int(((idk.long() != ref) & decided).sum())} "
               "decided rows")
-        kv_commit_plain(cache.k, cache.v, krp.transpose(0, 1),
-                        vrp.transpose(0, 1), past)
+        if kv_quant:
+            kq, ksc = quantize_rows(krp)
+            vq, vsc = quantize_rows(vrp)
+            kv_commit_quant_plain(cache.k, cache.v, cache.ks, cache.vs,
+                                  kq.transpose(0, 1), vq.transpose(0, 1),
+                                  ksc.transpose(0, 1)[..., None],
+                                  vsc.transpose(0, 1)[..., None], past)
+        else:
+            kv_commit_plain(cache.k, cache.v, krp.transpose(0, 1),
+                            vrp.transpose(0, 1), past)
         tok = ref
         past = past + 1
-    log(f"teacher-forced B={B}, 8 steps: worst err/tol {worst:.3f}")
+    log(f"teacher-forced B={B} {kv} KV, 8 steps: worst err/tol {worst:.3f}")
 
 
 # ------------------------------------------------------------------- main
@@ -947,7 +1263,8 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
 
     c = Ctx()
-    for phase in (phase_single_kernels, phase_serving_kernels):
+    for phase in (phase_single_kernels, phase_serving_kernels,
+                  phase_refill_int8_kernels):
         t0 = time.perf_counter()
         phase(c)
         log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
@@ -957,12 +1274,16 @@ def main() -> int:
         write_random_quantized_model(path, c.cfg, codecs.GGML_TYPE_Q4_0, seed=7)
         log(f"wrote {path} ({os.path.getsize(path) / 1e6:.1f} MB) in "
             f"{time.perf_counter() - t0:.1f} s")
-        for phase in (phase_cli, phase_serving):
+        for name, phase in (
+                ("phase_cli", phase_cli),
+                ("phase_serving bf16", phase_serving),
+                ("phase_serving int8",
+                 lambda *a: phase_serving(*a, kv_quant=True))):
             t0 = time.perf_counter()
             phase(c, path, smi)
-            log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
+            log(f"{name}: {time.perf_counter() - t0:.1f} s")
 
-    # ------------------------------------------------------- 6. the lines
+    # ------------------------------------------------------- 7. the lines
     sources = {
         "qmatmul": ("biogpt_tpu_torch/csrc/qmatmul.cu",
                     "biogpt_tpu/ops/pallas_qmatmul.py:860"),
@@ -981,6 +1302,15 @@ def main() -> int:
         "lm_head_logits_gmax_commit": (
             "biogpt_tpu_torch/csrc/lm_head_argmax.cu",
             "biogpt_tpu/ops/pallas_qmatmul.py:592"),
+        "prefill_fused": ("biogpt_tpu_torch/csrc/prefill.cu",
+                          "biogpt_tpu/ops/pallas_prefill.py:172"),
+        "decode_step_fused_int8": ("biogpt_tpu_torch/csrc/decode_step.cu",
+                                   "biogpt_tpu/ops/pallas_decode.py:288"),
+        "decode_step_fused_batched_int8": (
+            "biogpt_tpu_torch/csrc/decode_batched.cu",
+            "biogpt_tpu/ops/pallas_decode.py:455"),
+        "kv_commit_quant": ("biogpt_tpu_torch/csrc/kv_commit.cu",
+                            "biogpt_tpu/ops/pallas_decode.py:839"),
     }
     kernels = []
     for name, (src, rep) in sources.items():

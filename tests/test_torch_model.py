@@ -151,8 +151,14 @@ def test_engine_without_card_raises():
         pytest.skip("a CUDA card is present")   # decided at run time
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Engine(TCFG, pt)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Engine(TCFG, pt, kv_quant=True, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(TCFG, pt, kv_quant=True)
+    # the int8 KV cache serves on the CPU when asked for it
+    et = Engine(TCFG, pt, kv_quant=True, device="cpu")
+    assert et.cache_dtype == torch.int8 and et._fused_greedy
+    ids = et.generate([2, 40, 41], GenerationParams(n_predict=4, temp=0.0,
+                                                    stop_at_eos=False)).ids
+    assert len(ids) == 7
 
 
 def test_cli_runs_on_cpu(tmp_path):

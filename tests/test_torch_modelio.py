@@ -144,8 +144,9 @@ def test_tokenizer_matches_jax():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every port module (the serving engine and the HTTP server among
-    them) and chip_smoke.py's imports, in a fresh process."""
+    """Every port module (the serving engine, the HTTP server and the
+    refill prefill kernels among them) and chip_smoke.py's imports, in a
+    fresh process."""
     code = """
 import importlib, pkgutil, sys
 import biogpt_tpu_torch
@@ -155,6 +156,8 @@ import chip_smoke
 from biogpt_tpu_torch.cli import main
 from biogpt_tpu_torch.runtime.serving import BatchedEngine, ServingScheduler
 from biogpt_tpu_torch.server import BioGptServer, main as server_main
+from biogpt_tpu_torch.ops.prefill_kernels import prefill_fused, supports_prefill
+from biogpt_tpu_torch.models.biogpt import forward_prefill_fused
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith(("jax.", "jaxlib"))
              or k == "biogpt_tpu" or k.startswith("biogpt_tpu."))
