@@ -19,7 +19,9 @@
 //
 // Bound on an H100: bytes -- the packed layer weights (~7 MB a layer at
 // 347M), read once for all B rows, plus each slot's live KV rows. This
-// first version is a chain of per-layer kernels behind ONE host call:
+// first version is a chain of per-layer kernels behind ONE host call (the
+// layer loop is decode_layers.cuh's `batched_layers`, which
+// decode_paged.cu shares):
 //   qkv GEMV (M rows, LayerNorm-0 prologue) + its partial sum with bias
 //   split-KV attention over B*H head-rows: grid (H, ceil(W/64), B), a
 //     block per (head, 64-row split, slot); splits past a slot's live rows
@@ -164,23 +166,11 @@ attn_combine_batched_kernel(const float* qkv, int D, const float* ml,
   ctx[(size_t)b * D + col] = a / l;
 }
 
-struct Step {
-  float* x;                  // (M, D) residual stream, updated in place
-  int L, D, F, H, S, B, W;
-  const int* past;           // (B,) int32
-  float eps;
-  int offset;
-  const float *ln0w, *ln0b, *ln1w, *ln1b;   // (L, D) f32
-  Proj qkv, o, fc1, fc2;
-  const void *kc, *vc;                      // (L, B, S, D) bf16 or int8
-  const float *ks, *vs;                     // (L, B, 1, S) f32, or null
-  void *kr, *vr;                            // (L, B, D) bf16, or f32 (int8)
-  float *part, *qkvbuf, *ml, *acc, *ctx, *ff;
-};
-
 // Split + combine of layer l's attention (bf16 or int8 KV).
+// ml: (B, H, ns, 2) = (max, sum); acc: (B, H, ns, DK).
 template <typename KT, bool QUANT>
-void attention(const Step& s, int l, int ns, float scale, cudaStream_t st) {
+void attention(const BatchedStep& s, int l, int ns, float scale, float* ml,
+               float* acc, cudaStream_t st) {
   const size_t kv_off = (size_t)l * s.B * s.S * s.D;
   const size_t sc_off = (size_t)l * s.B * s.S;
   const size_t row_off = (size_t)l * s.B * s.D * (QUANT ? 4 : 2);
@@ -188,48 +178,10 @@ void attention(const Step& s, int l, int ns, float scale, cudaStream_t st) {
       s.qkvbuf, s.D, static_cast<const KT*>(s.kc) + kv_off,
       static_cast<const KT*>(s.vc) + kv_off,
       QUANT ? s.ks + sc_off : nullptr, QUANT ? s.vs + sc_off : nullptr, s.S,
-      s.past, s.W, scale, s.ml, s.acc);
+      s.past, s.W, scale, ml, acc);
   attn_combine_batched_kernel<QUANT><<<dim3(s.H, s.B), DK, 0, st>>>(
-      s.qkvbuf, s.D, s.ml, s.acc, ns, scale, s.ctx,
+      s.qkvbuf, s.D, ml, acc, ns, scale, s.ctx,
       static_cast<char*>(s.kr) + row_off, static_cast<char*>(s.vr) + row_off);
-}
-
-template <int M, bool HAS_MIN>
-void run_step(const Step& s, cudaStream_t st) {
-  const float scale = 1.0f / sqrtf((float)DK);
-  const int D = s.D, F = s.F;
-  const int ns = (s.W + ATT_ROWS - 1) / ATT_ROWS;
-  const int sd = splits_of(D), sf = splits_of(F);
-  for (int l = 0; l < s.L; ++l) {
-    launch_partial<M, true, HAS_MIN>(
-        layer_args(s.qkv, l, D, 3 * D, s.x, s.ln0w + (size_t)l * D,
-                   s.ln0b + (size_t)l * D, s.eps, s.offset), s.part, st);
-    launch_partial_sum(s.part, sd, M, 3 * D, s.qkv.b + (size_t)l * 3 * D, 0,
-                       nullptr, s.qkvbuf, st);
-    if (s.ks != nullptr) attention<int8_t, true>(s, l, ns, scale, st);
-    else attention<__nv_bfloat16, false>(s, l, ns, scale, st);
-    launch_partial<M, true, HAS_MIN>(
-        layer_args(s.o, l, D, D, s.ctx, nullptr, nullptr, s.eps, s.offset),
-        s.part, st);
-    launch_partial_sum(s.part, sd, M, D, s.o.b + (size_t)l * D, 0, s.x, s.x,
-                       st);
-    launch_partial<M, true, HAS_MIN>(
-        layer_args(s.fc1, l, D, F, s.x, s.ln1w + (size_t)l * D,
-                   s.ln1b + (size_t)l * D, s.eps, s.offset), s.part, st);
-    launch_partial_sum(s.part, sd, M, F, s.fc1.b + (size_t)l * F, 1, nullptr,
-                       s.ff, st);
-    launch_partial<M, true, HAS_MIN>(
-        layer_args(s.fc2, l, F, D, s.ff, nullptr, nullptr, s.eps, s.offset),
-        s.part, st);
-    launch_partial_sum(s.part, sf, M, D, s.fc2.b + (size_t)l * D, 0, s.x, s.x,
-                       st);
-  }
-}
-
-template <int M>
-void run_rows(const Step& s, cudaStream_t st) {
-  if (s.qkv.mn != nullptr) run_step<M, true>(s, st);
-  else run_step<M, false>(s, st);
 }
 
 }  // namespace
@@ -240,8 +192,7 @@ void run_rows(const Step& s, cudaStream_t st) {
 // k_scales/v_scales: (L,B,1,S) f32 in the int8 mode (the caches int8, the
 // rows f32), else null (bf16 caches and rows).
 extern "C" int bgt_decode_batched_part_size(int D, int F, int M) {
-  const int a = splits_of(D) * 3 * D, b = splits_of(D) * F, c = splits_of(F) * D;
-  return M * (a > b ? (a > c ? a : c) : (b > c ? b : c));
+  return batched_part_size(D, F, M);
 }
 
 extern "C" int bgt_decode_batched(
@@ -259,30 +210,18 @@ extern "C" int bgt_decode_batched(
       || (k_scales == nullptr) != (v_scales == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Step s;
-  s.x = x;
-  s.L = L; s.D = D; s.F = F; s.H = H; s.S = S; s.B = B; s.W = W;
-  s.past = past;
-  s.eps = eps;
-  s.offset = offset;
-  s.ln0w = ln0w; s.ln0b = ln0b; s.ln1w = ln1w; s.ln1b = ln1b;
-  s.qkv = make_proj(qkv_lv, qkv_sc, qkv_mn, qkv_b);
-  s.o = make_proj(o_lv, o_sc, o_mn, o_b);
-  s.fc1 = make_proj(fc1_lv, fc1_sc, fc1_mn, fc1_b);
-  s.fc2 = make_proj(fc2_lv, fc2_sc, fc2_mn, fc2_b);
-  s.kc = k_cache;
-  s.vc = v_cache;
-  s.ks = k_scales;
-  s.vs = v_scales;
-  s.kr = k_rows;
-  s.vr = v_rows;
-  s.part = part; s.qkvbuf = qkv; s.ml = ml; s.acc = acc; s.ctx = ctx;
-  s.ff = ff;
-  switch (M) {
-    case 8: run_rows<8>(s, st); break;
-    case 16: run_rows<16>(s, st); break;
-    case 32: run_rows<32>(s, st); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const BatchedStep s = batched_step(
+      x, L, D, F, H, S, B, W, past, eps, offset, ln0w, ln0b, ln1w, ln1b,
+      qkv_lv, qkv_sc, qkv_mn, qkv_b, o_lv, o_sc, o_mn, o_b,
+      fc1_lv, fc1_sc, fc1_mn, fc1_b, fc2_lv, fc2_sc, fc2_mn, fc2_b,
+      k_cache, v_cache, k_scales, v_scales, k_rows, v_rows, part, qkv, ctx,
+      ff);
+  const float scale = 1.0f / sqrtf((float)DK);
+  const int ns = (W + ATT_ROWS - 1) / ATT_ROWS;
+  auto attend = [&](int l) {
+    if (k_scales != nullptr) attention<int8_t, true>(s, l, ns, scale, ml, acc, st);
+    else attention<__nv_bfloat16, false>(s, l, ns, scale, ml, acc, st);
+  };
+  if (!run_batched(s, M, attend, st)) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

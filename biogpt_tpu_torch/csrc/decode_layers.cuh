@@ -1,8 +1,9 @@
 // Per-layer plumbing shared by the decode-step chains (decode_step.cu at
-// B=1, decode_batched.cu at 2 <= B <= 32) and the prefill chain
-// (prefill.cu): the head width and attention split the kernels are built
-// for, one projection's layer-stacked planes, the GEMV arguments of layer
-// l, and the cache reads of the bf16 and int8 KV modes.
+// B=1; decode_batched.cu and decode_paged.cu over B slots) and the prefill
+// chain (prefill.cu): the head width and attention split the kernels are
+// built for, one projection's layer-stacked planes, the GEMV arguments of
+// layer l, the cache reads of the bf16 and int8 KV modes, and the batched
+// chains' layer loop around their own attention.
 #pragma once
 
 #include "qgemv.cuh"
@@ -71,6 +72,113 @@ __device__ __forceinline__ float fake_quant(float x, float amax) {
   float r = rintf(x / safe);
   r = r < -127.f ? -127.f : (r > 127.f ? 127.f : r);
   return r * safe;
+}
+
+// The batched chains' operands: M padded activation rows (B live), per-slot
+// positions on the device, the caches and the scratch every layer reuses.
+struct BatchedStep {
+  float* x;                  // (M, D) residual stream, updated in place
+  int L, D, F, H, S, B, W;
+  const int* past;           // (B,) int32
+  float eps;
+  int offset;
+  const float *ln0w, *ln0b, *ln1w, *ln1b;   // (L, D) f32
+  Proj qkv, o, fc1, fc2;
+  const void *kc, *vc;                      // (L, B, S, D) bf16 or int8
+  const float *ks, *vs;                     // (L, B, 1, S) f32, or null
+  void *kr, *vr;                            // (L, B, D) bf16, or f32 (int8)
+  float *part, *qkvbuf, *ctx, *ff;          // scratch; ctx (M, D) zeroed
+};
+
+inline BatchedStep batched_step(
+    float* x, int L, int D, int F, int H, int S, int B, int W,
+    const int* past, float eps, int offset, const float* ln0w,
+    const float* ln0b, const float* ln1w, const float* ln1b,
+    const uint8_t* qkv_lv, const void* qkv_sc, const void* qkv_mn, const float* qkv_b,
+    const uint8_t* o_lv, const void* o_sc, const void* o_mn, const float* o_b,
+    const uint8_t* fc1_lv, const void* fc1_sc, const void* fc1_mn, const float* fc1_b,
+    const uint8_t* fc2_lv, const void* fc2_sc, const void* fc2_mn, const float* fc2_b,
+    const void* k_cache, const void* v_cache, const float* k_scales,
+    const float* v_scales, void* k_rows, void* v_rows, float* part,
+    float* qkv, float* ctx, float* ff) {
+  BatchedStep s;
+  s.x = x;
+  s.L = L; s.D = D; s.F = F; s.H = H; s.S = S; s.B = B; s.W = W;
+  s.past = past;
+  s.eps = eps;
+  s.offset = offset;
+  s.ln0w = ln0w; s.ln0b = ln0b; s.ln1w = ln1w; s.ln1b = ln1b;
+  s.qkv = make_proj(qkv_lv, qkv_sc, qkv_mn, qkv_b);
+  s.o = make_proj(o_lv, o_sc, o_mn, o_b);
+  s.fc1 = make_proj(fc1_lv, fc1_sc, fc1_mn, fc1_b);
+  s.fc2 = make_proj(fc2_lv, fc2_sc, fc2_mn, fc2_b);
+  s.kc = k_cache; s.vc = v_cache;
+  s.ks = k_scales; s.vs = v_scales;
+  s.kr = k_rows; s.vr = v_rows;
+  s.part = part; s.qkvbuf = qkv; s.ctx = ctx; s.ff = ff;
+  return s;
+}
+
+// Scratch floats of the chain's GEMV partials for M padded rows.
+inline int batched_part_size(int D, int F, int M) {
+  const int a = splits_of(D) * 3 * D, b = splits_of(D) * F, c = splits_of(F) * D;
+  return M * (a > b ? (a > c ? a : c) : (b > c ? b : c));
+}
+
+// All L layers over M rows: qkv GEMV (M rows, LayerNorm-0 prologue) + its
+// partial sum with bias into qkvbuf; `attend(l)`, which reads qkvbuf,
+// writes ctx rows < B and layer l's K/V rows; o GEMV + residual, fc1 GEMV
+// with LayerNorm-1 prologue + exact erf GELU, fc2 GEMV + residual. The
+// projections are the dequant-then-dot GEMV (`_qmm_dq`).
+template <int M, bool HAS_MIN, typename Attend>
+void batched_layers(const BatchedStep& s, Attend attend, cudaStream_t st) {
+  const int D = s.D, F = s.F;
+  const int sd = splits_of(D), sf = splits_of(F);
+  for (int l = 0; l < s.L; ++l) {
+    launch_partial<M, true, HAS_MIN>(
+        layer_args(s.qkv, l, D, 3 * D, s.x, s.ln0w + (size_t)l * D,
+                   s.ln0b + (size_t)l * D, s.eps, s.offset), s.part, st);
+    launch_partial_sum(s.part, sd, M, 3 * D, s.qkv.b + (size_t)l * 3 * D, 0,
+                       nullptr, s.qkvbuf, st);
+    attend(l);
+    launch_partial<M, true, HAS_MIN>(
+        layer_args(s.o, l, D, D, s.ctx, nullptr, nullptr, s.eps, s.offset),
+        s.part, st);
+    launch_partial_sum(s.part, sd, M, D, s.o.b + (size_t)l * D, 0, s.x, s.x,
+                       st);
+    launch_partial<M, true, HAS_MIN>(
+        layer_args(s.fc1, l, D, F, s.x, s.ln1w + (size_t)l * D,
+                   s.ln1b + (size_t)l * D, s.eps, s.offset), s.part, st);
+    launch_partial_sum(s.part, sd, M, F, s.fc1.b + (size_t)l * F, 1, nullptr,
+                       s.ff, st);
+    launch_partial<M, true, HAS_MIN>(
+        layer_args(s.fc2, l, F, D, s.ff, nullptr, nullptr, s.eps, s.offset),
+        s.part, st);
+    launch_partial_sum(s.part, sf, M, D, s.fc2.b + (size_t)l * D, 0, s.x, s.x,
+                       st);
+  }
+}
+
+// The chain at M = 8, 16 or 32 rows -> false for another M.
+template <typename Attend>
+bool run_batched(const BatchedStep& s, int M, Attend attend, cudaStream_t st) {
+  const bool mins = s.qkv.mn != nullptr;
+  switch (M) {
+    case 8:
+      if (mins) batched_layers<8, true>(s, attend, st);
+      else batched_layers<8, false>(s, attend, st);
+      return true;
+    case 16:
+      if (mins) batched_layers<16, true>(s, attend, st);
+      else batched_layers<16, false>(s, attend, st);
+      return true;
+    case 32:
+      if (mins) batched_layers<32, true>(s, attend, st);
+      else batched_layers<32, false>(s, attend, st);
+      return true;
+    default:
+      return false;
+  }
 }
 
 }  // namespace bgt

@@ -13,13 +13,16 @@ device). ``forward_prefill_fused`` runs a serving refill group through the
 whole-prompt kernel (``ops.prefill_kernels.prefill_fused``).
 ``forward_fused_decode``, ``forward_fused_decode_greedy`` and
 ``forward_fused_decode_sampled`` run the whole-model decode step
-(``ops.decode_kernels.decode_step_fused``, B <= 32) and then: the final LN
-and lm_head; the fused LN + lm_head + argmax tail; or the fused LN +
-lm_head + group-maxima tail of the per-request sampler. At B > 1 the new
-KV rows commit through ``kv_commit`` or inside the fused tails; an int8
-cache (``runtime.cache.QuantKVCache``) quantizes them and commits through
-``kv_commit_quant`` (B > 1) or an index store (B = 1), and its tails run
-without the commit fusion, as in the JAX package.
+(``ops.decode_kernels.decode_step_fused``, B <= 32; ``per_slot_kv`` its
+paged variant) and then: the final LN and lm_head; the fused LN + lm_head
++ argmax tail; or the fused LN + lm_head + group-maxima tail of the
+per-request sampler. Per-slot positions commit the new KV rows through
+``kv_commit`` or inside the fused tails; an int8 cache
+(``runtime.cache.QuantKVCache``) quantizes them and commits through
+``kv_commit_quant`` (or an index store at the host's B=1 position), and its
+tails run without the commit fusion, as in the JAX package.
+``forward_fused_decode_staged`` runs the staged step (chunk-local KV
+staging) and returns the rows for the caller's staging.
 
 Position ids past the embedding table clamp to its last row, as the JAX
 gather clamps: a serving slot can run a chunk past its cache's end before
@@ -209,15 +212,9 @@ def forward_prefill_fused(params: dict, ids: torch.Tensor,
     return logits, small
 
 
-def _fused_decode_hidden(params: dict, tokens: torch.Tensor, cache: KVCache,
-                         past, config: BioGptConfig, kv_window: int = 128,
-                         commit: bool = True):
-    """Whole-model decode step (B <= 32) + the KV-row commit -> (hidden
-    (B, D) f32 before the final LN, cache). ``past``: the host's int at
-    B=1, (B,) per-slot positions on the device at B >= 2. ``commit=False``
-    skips the commit and returns (x, k_rows, v_rows) (L, B, D) instead, for
-    the tails that fold the commit in. An int8 cache's rows leave the step
-    in f32 and quantize here before they commit."""
+def _decode_x0(params: dict, tokens: torch.Tensor, past,
+               config: BioGptConfig) -> torch.Tensor:
+    """Token plus position embeddings (B, D) of one decode step."""
     B, N = tokens.shape
     if N != 1 or B > 32:
         raise ValueError(f"the fused decode step takes one token for B <= 32 "
@@ -226,16 +223,40 @@ def _fused_decode_hidden(params: dict, tokens: torch.Tensor, cache: KVCache,
     emb = embedding_lookup(tokens, params["embed_tokens"]) * math.sqrt(
         config.d_model)
     pos = _positions(past, B, 1, config, table, tokens.device)
-    x0 = (emb + embedding_lookup(pos, table)).reshape(B, config.d_model)
+    return (emb + embedding_lookup(pos, table)).reshape(B, config.d_model)
+
+
+def _final_logits(params: dict, x, config: BioGptConfig, compute_dtype):
+    """Final LN and the lm_head (``qmatmul`` / ``qmatmul_wide`` at m = B)
+    -> (B, n_vocab) f32."""
+    x = _layer_norm(x, params["final_ln"]["w"], params["final_ln"]["b"],
+                    config.ln_eps)
+    logits = matmul(x, params["lm_head"], compute_dtype=compute_dtype,
+                    allow_kernels=True)
+    return logits[..., :config.n_vocab]
+
+
+def _fused_decode_hidden(params: dict, tokens: torch.Tensor, cache: KVCache,
+                         past, config: BioGptConfig, kv_window: int = 128,
+                         commit: bool = True, per_slot_kv: bool = False):
+    """Whole-model decode step (B <= 32) + the KV-row commit -> (hidden
+    (B, D) f32 before the final LN, cache). ``past``: the host's int at
+    B=1, (B,) per-slot positions on the device at B >= 2 and for the paged
+    step (``per_slot_kv``) at every B. ``commit=False`` skips the commit
+    and returns (x, k_rows, v_rows) (L, B, D) instead, for the tails that
+    fold the commit in. An int8 cache's rows leave the step in f32 and
+    quantize here before they commit."""
+    B = tokens.shape[0]
+    x0 = _decode_x0(params, tokens, past, config)
     quant = isinstance(cache, QuantKVCache)
     x, k_rows, v_rows = decode_step_fused(
         x0, params["layers"], cache.k, cache.v, past, n_head=config.n_head,
         window=kv_window, ln_eps=config.ln_eps,
         k_scales=cache.ks if quant else None,
-        v_scales=cache.vs if quant else None)
+        v_scales=cache.vs if quant else None, per_slot_kv=per_slot_kv)
     if not commit:
         return x, k_rows, v_rows
-    if B == 1:
+    if B == 1 and not isinstance(past, torch.Tensor):
         commit_rows(cache, k_rows, v_rows, past)
     elif quant:
         kq, ksc = quantize_rows(k_rows)                 # (L, B) scales
@@ -252,22 +273,20 @@ def _fused_decode_hidden(params: dict, tokens: torch.Tensor, cache: KVCache,
 
 def forward_fused_decode(params: dict, tokens: torch.Tensor, cache: KVCache,
                          past, config: BioGptConfig,
-                         compute_dtype=torch.bfloat16, kv_window: int = 128):
+                         compute_dtype=torch.bfloat16, kv_window: int = 128,
+                         per_slot_kv: bool = False):
     """Decode one token per slot through the fused step, then final LN and
     the lm_head (``qmatmul`` / ``qmatmul_wide`` at m = B) -> (logits
     (B, n_vocab) f32, cache)."""
     x, cache = _fused_decode_hidden(params, tokens, cache, past, config,
-                                    kv_window)
-    x = _layer_norm(x, params["final_ln"]["w"], params["final_ln"]["b"],
-                    config.ln_eps)
-    logits = matmul(x, params["lm_head"], compute_dtype=compute_dtype,
-                    allow_kernels=True)
-    return logits[..., :config.n_vocab], cache
+                                    kv_window, per_slot_kv=per_slot_kv)
+    return _final_logits(params, x, config, compute_dtype), cache
 
 
 def forward_fused_decode_greedy(params: dict, tokens: torch.Tensor,
                                 cache: KVCache, past, config: BioGptConfig,
-                                kv_window: int = 128):
+                                kv_window: int = 128,
+                                per_slot_kv: bool = False):
     """Greedy decode with the final LN + lm_head + argmax tail fused ->
     (ids (B,) int32, max logits (B,) f32 -- the health lane's probe, cache).
     At B > 1 with a bf16 cache the tail also commits the KV rows; an int8
@@ -277,14 +296,15 @@ def forward_fused_decode_greedy(params: dict, tokens: torch.Tensor,
     fw, fb = params["final_ln"]["w"], params["final_ln"]["b"]
     if B > 1 and not isinstance(cache, QuantKVCache):
         x, k_rows, v_rows = _fused_decode_hidden(
-            params, tokens, cache, past, config, kv_window, commit=False)
+            params, tokens, cache, past, config, kv_window, commit=False,
+            per_slot_kv=per_slot_kv)
         ids, mv, _, _ = lm_head_argmax_commit(
             x, fw, fb, params["lm_head"], config.n_vocab, cache.k, cache.v,
             k_rows.transpose(0, 1), v_rows.transpose(0, 1), past,
             ln_eps=config.ln_eps)
         return ids, mv, cache
     x, cache = _fused_decode_hidden(params, tokens, cache, past, config,
-                                    kv_window)
+                                    kv_window, per_slot_kv=per_slot_kv)
     ids, mv = lm_head_argmax(x, fw, fb, params["lm_head"],
                              n_valid=config.n_vocab, ln_eps=config.ln_eps)
     return ids, mv, cache
@@ -305,3 +325,23 @@ def forward_fused_decode_sampled(params: dict, tokens: torch.Tensor,
         k_rows.transpose(0, 1), v_rows.transpose(0, 1), past,
         ln_eps=config.ln_eps)
     return logits, gmax, cache
+
+
+def forward_fused_decode_staged(params: dict, tokens: torch.Tensor,
+                                cache: KVCache, k_stage, v_stage, past,
+                                step_i: int, config: BioGptConfig,
+                                compute_dtype=torch.bfloat16,
+                                kv_window: int = 128):
+    """Decode one token per slot (2 <= B <= 32, bf16 cache) with chunk-local
+    KV staging -> (logits (B, n_vocab) f32, k_rows, v_rows (L, B, D)).
+    ``past`` (B,) holds the current positions; attention reads the cache
+    rows below the chunk-start lengths ``past - step_i`` and the staged rows
+    ``k_stage``/``v_stage`` (L, B, C, D) below the host int ``step_i``. The
+    cache is not written: the caller writes the rows into the staging at
+    ``step_i`` and commits the staging once per chunk."""
+    x0 = _decode_x0(params, tokens, past, config)
+    x, k_rows, v_rows = decode_step_fused(
+        x0, params["layers"], cache.k, cache.v, past, n_head=config.n_head,
+        window=kv_window, ln_eps=config.ln_eps, k_stage=k_stage,
+        v_stage=v_stage, step_i=step_i)
+    return _final_logits(params, x, config, compute_dtype), k_rows, v_rows

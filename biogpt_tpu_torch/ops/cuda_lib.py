@@ -37,6 +37,7 @@ SOURCES = {
     "lm_head_argmax": "lm_head_argmax.cu",
     "decode_step": "decode_step.cu",
     "decode_batched": "decode_batched.cu",
+    "decode_paged": "decode_paged.cu",
     "kv_commit": "kv_commit.cu",
     "prefill": "prefill.cu",
 }
@@ -62,6 +63,10 @@ SIGNATURES = {
     ("decode_batched", "bgt_decode_batched"): (
         [_P] + [_I] * 8 + [_P, _F, _I] + [_P] * 4
         + [_P] * 16 + [_P] * 6 + [_P] * 6 + [_P]),
+    ("decode_paged", "bgt_decode_paged_part_size"): [_I, _I, _I],
+    ("decode_paged", "bgt_decode_paged"): (
+        [_P] + [_I] * 8 + [_P, _F, _I] + [_P] * 4
+        + [_P] * 16 + [_P] * 6 + [_P] * 5 + [_I] * 3 + [_P] * 2 + [_P]),
     ("kv_commit", "bgt_kv_commit"): [_P, _P, _P, _P, _LL, _LL, _P, _I, _I, _I,
                                      _I, _P],
     ("kv_commit", "bgt_kv_commit_quant"): (
@@ -75,7 +80,8 @@ LAUNCHES = {"qmatmul": 0, "qmatmul_wide": 0, "lm_head_argmax": 0,
             "kv_commit": 0, "lm_head_argmax_commit": 0,
             "lm_head_logits_gmax_commit": 0, "prefill_fused": 0,
             "decode_step_fused_int8": 0, "decode_step_fused_batched_int8": 0,
-            "kv_commit_quant": 0}
+            "kv_commit_quant": 0, "decode_step_fused_paged": 0,
+            "decode_step_fused_paged_int8": 0, "decode_step_fused_staged": 0}
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()

@@ -24,6 +24,16 @@ cache rows ``< min(past[b], window)`` and the current token, never row
 ``past[b]`` itself. The two paths keep the TPU kernels' two numerics: X'
 projections at B=1, dequant-then-dot (``_qmm_dq``) at every B >= 2.
 
+``per_slot_kv=True`` is the paged step (``_make_kernel_paged``), at
+1 <= B <= 32, bf16 or int8: each slot walks only its own live KV blocks of
+:func:`kv_block_paged` rows, and every B, B=1 included, projects
+dequant-then-dot. ``k_stage``/``v_stage`` (L, B, C, D) bf16 with the host
+int ``step_i`` is the staged step (``_make_kernel_batched(staged=True)``,
+bf16 cache, B >= 2, not paged): slot b reads its cache rows below
+``min(past[b] - step_i, window)``, then the chunk's staged rows
+``< step_i`` as one more block of the online softmax, then the current
+token. Both take device positions at every B.
+
 ``kv_commit`` replaces ``pallas_decode.py::kv_commit_pallas``: each slot's
 rows (B, L, D), slot-major, land at its own position in every layer's
 cache. ``kv_commit_quant`` replaces ``kv_commit_quant_pallas``: the same
@@ -32,7 +42,8 @@ mutable caches in place (the JAX calls donate their buffers and return new
 ones) and return the same tensors.
 
 On CUDA tensors each function launches its hand-written Hopper kernels
-(``csrc/decode_step.cu``, ``csrc/decode_batched.cu``, ``csrc/kv_commit.cu``;
+(``csrc/decode_step.cu``, ``csrc/decode_batched.cu``,
+``csrc/decode_paged.cu``, ``csrc/kv_commit.cu``;
 one host call each -- see those files for the designs and what bounds
 them) or raises; on the CPU it runs its plain version, which transcribes
 the TPU kernel's math, the online softmax over KV blocks and the bf16
@@ -57,6 +68,10 @@ _CHUNK = 32 * QK
 _KV_WINDOW_BYTES = 8 * 1024 * 1024
 MAX_BATCH = 32     # slots of the batched step
 _CUDA_HEAD_DIM = 64   # DK of csrc/decode_layers.cuh
+# the paged kernel's KV block when it divides the window
+# (pallas_decode._PAGED_KVB)
+_PAGED_KVB = 128
+_CUDA_MAX_KVB = 1024  # PG_MAX_KVB of csrc/decode_paged.cu
 
 
 def supports_layers(layers: dict, cache_dtype, batch: int, n_new: int) -> bool:
@@ -95,6 +110,12 @@ def kv_block(window: int, d_model: int = 1024, batch: int = 1) -> int:
            and (kvb > 512 or batch * kvb * d_model * 2 > _KV_WINDOW_BYTES)):
         kvb //= 2
     return kvb
+
+
+def kv_block_paged(window: int) -> int:
+    """The paged kernel's KV block (``pallas_decode._kv_block_paged``): 128
+    rows when they divide the window, else the lockstep block at B=1."""
+    return _PAGED_KVB if window % _PAGED_KVB == 0 else kv_block(window)
 
 
 def fake_quant_rows(x: torch.Tensor) -> torch.Tensor:
@@ -192,29 +213,43 @@ def decode_step_fused_plain(x0, layers: dict, k_cache, v_cache, past: int, *,
     return x, torch.stack(k_rows), torch.stack(v_rows)
 
 
-def decode_step_fused_batched_plain(x0, layers: dict, k_cache, v_cache, past,
-                                   *, n_head: int, window: int,
-                                   ln_eps: float = 1e-5,
-                                   kv_block_size: int | None = None,
-                                   k_scales=None, v_scales=None):
-    """Plain version of the batched :func:`decode_step_fused`
-    (pallas_decode.py:358-570, the int8 mode :438-439 and :455-496):
-    per-slot positions ``past`` (B,), every projection dequant-then-dot,
-    the online softmax over the TPU kernel's KV blocks for all B*H
-    head-rows at once. The TPU kernel's ``kv_groups`` only chooses which KV
-    blocks it copies; the math is this."""
+def _softmax_block(m, l, acc, scores, valid, v, v_scale=None):
+    """One KV block of the TPU kernels' online softmax over the (B, H)
+    head-rows: m_new over the block's masked scores (B, H, n), raw p into
+    the denominator, p (times its row's V scale) rounded to bf16 before
+    p.V against ``v`` (B, n, H, Dk) -> (m, l, acc)."""
+    masked = torch.where(valid, scores, torch.full_like(scores, -1e30))
+    m_new = torch.maximum(m, masked.amax(-1, keepdim=True))
+    p = torch.where(valid, torch.exp(scores - m_new), torch.zeros_like(scores))
+    alpha = torch.exp(m - m_new)
+    l = l * alpha + p.sum(-1, keepdim=True)
+    if v_scale is not None:
+        p = p * v_scale
+    pb = p.to(torch.bfloat16).to(torch.float32)
+    return m_new, l, acc * alpha + torch.einsum("bhs,bshd->bhd", pb, v)
+
+
+def _lockstep_plain(x0, layers: dict, k_cache, v_cache, past, *, n_head: int,
+                    window: int, ln_eps: float, KVB: int, k_scales, v_scales,
+                    k_stage=None, v_stage=None, step_i: int = 0):
+    """The batched steps' math (pallas_decode.py:358-570, the paged kernel
+    :573-751): per-slot positions ``past`` (B,), every projection
+    dequant-then-dot, the online softmax over KV blocks of ``KVB`` rows for
+    all B*H head-rows at once over slot b's cache rows below ``past[b] -
+    step_i``; with ``k_stage``, the staged rows ``< step_i`` fold in as one
+    more block before the current token (:502-534)."""
     L, B, S, D = k_cache.shape
     H = n_head
     Dk = D // H
     W = min(window, S)
     quant = _scale_planes(k_cache, k_scales, v_scales)
-    KVB = kv_block_size or kv_block(W, D, batch=B)
     if W % KVB:
         raise ValueError(f"window {W} not divisible by kv_block {KVB}")
     scale = 1.0 / math.sqrt(Dk)
     dev = x0.device
     row_dtype = torch.float32 if quant else k_cache.dtype
     past = torch.as_tensor(past, device=dev).to(torch.int64).reshape(B)
+    live = past - int(step_i)
     x = x0.to(torch.float32).reshape(B, D)
     k_rows, v_rows = [], []
     for lyr in range(L):
@@ -245,18 +280,18 @@ def decode_step_fused_batched_plain(x0, layers: dict, k_cache, v_cache, past,
             if quant:
                 scores = scores * k_scales[lyr, :, :, blk]
             idx = torch.arange(KVB, device=dev) + j * KVB
-            valid = idx[None, None, :] < past[:, None, None]
-            masked = torch.where(valid, scores, torch.full_like(scores, -1e30))
-            m_new = torch.maximum(m, masked.amax(-1, keepdim=True))
-            p = torch.where(valid, torch.exp(scores - m_new),
-                            torch.zeros_like(scores))
-            alpha = torch.exp(m - m_new)
-            l = l * alpha + p.sum(-1, keepdim=True)
-            if quant:
-                p = p * v_scales[lyr, :, :, blk]
-            pb = p.to(torch.bfloat16).to(torch.float32)
-            acc = acc * alpha + torch.einsum("bhs,bshd->bhd", pb, vc[:, blk])
-            m = m_new
+            valid = idx[None, None, :] < live[:, None, None]
+            m, l, acc = _softmax_block(
+                m, l, acc, scores, valid, vc[:, blk],
+                v_scales[lyr, :, :, blk] if quant else None)
+        if k_stage is not None:
+            C = k_stage.shape[2]
+            ks_ = k_stage[lyr].to(torch.bfloat16).to(torch.float32)
+            vs_ = v_stage[lyr].to(torch.bfloat16).to(torch.float32)
+            scores = torch.einsum("bhd,bshd->bhs", qh, ks_.reshape(B, C, H, Dk))
+            valid = (torch.arange(C, device=dev) < int(step_i))[None, None, :]
+            m, l, acc = _softmax_block(m, l, acc, scores, valid,
+                                       vs_.reshape(B, C, H, Dk))
         cur = (qh * kh).sum(-1, keepdim=True)
         m_fin = torch.maximum(m, cur)
         alpha2 = torch.exp(m - m_fin)
@@ -268,6 +303,59 @@ def decode_step_fused_batched_plain(x0, layers: dict, k_cache, v_cache, past,
         f = torch.nn.functional.gelu(qmatmul_wide_plain(h2, w("fc1")) + b("fc1"))
         x = x + qmatmul_wide_plain(f, w("fc2")) + b("fc2")
     return x, torch.stack(k_rows), torch.stack(v_rows)
+
+
+def decode_step_fused_batched_plain(x0, layers: dict, k_cache, v_cache, past,
+                                   *, n_head: int, window: int,
+                                   ln_eps: float = 1e-5,
+                                   kv_block_size: int | None = None,
+                                   k_scales=None, v_scales=None):
+    """Plain version of the batched :func:`decode_step_fused`
+    (pallas_decode.py:358-570, the int8 mode :438-439 and :455-496) over
+    the TPU kernel's lockstep KV blocks. Its ``kv_groups`` only chooses
+    which KV blocks it copies; the math is this."""
+    _, B, S, D = k_cache.shape
+    return _lockstep_plain(
+        x0, layers, k_cache, v_cache, past, n_head=n_head, window=window,
+        ln_eps=ln_eps, KVB=kv_block_size or kv_block(min(window, S), D, B),
+        k_scales=k_scales, v_scales=v_scales)
+
+
+def decode_step_fused_paged_plain(x0, layers: dict, k_cache, v_cache, past,
+                                  *, n_head: int, window: int,
+                                  ln_eps: float = 1e-5,
+                                  kv_block_size: int | None = None,
+                                  k_scales=None, v_scales=None):
+    """Plain version of the paged :func:`decode_step_fused`
+    (``_make_kernel_paged``, pallas_decode.py:573-751, its int8 mode
+    :680-702), 1 <= B <= 32: dequant-then-dot projections at every B, and
+    slot b's online softmax over its live blocks ``j < clip(ceil(past[b] /
+    KVB), 1, W / KVB)`` of :func:`kv_block_paged` rows. It walks every
+    block of the window: a block past a slot's live count is fully masked,
+    which leaves m, l and acc unchanged bit for bit (alpha = 1, p = 0), so
+    the walk equals the per-slot one."""
+    return _lockstep_plain(
+        x0, layers, k_cache, v_cache, past, n_head=n_head, window=window,
+        ln_eps=ln_eps,
+        KVB=kv_block_size or kv_block_paged(min(window, k_cache.shape[2])),
+        k_scales=k_scales, v_scales=v_scales)
+
+
+def decode_step_fused_staged_plain(x0, layers: dict, k_cache, v_cache, past,
+                                   k_stage, v_stage, step_i, *, n_head: int,
+                                   window: int, ln_eps: float = 1e-5,
+                                   kv_block_size: int | None = None):
+    """Plain version of the staged :func:`decode_step_fused`
+    (``_make_kernel_batched(staged=True)``, pallas_decode.py:384-392,
+    :472-475, :502-534): the lockstep blocks over slot b's cache rows below
+    ``past[b] - step_i``, then its staged rows ``k_stage[:, b, :step_i]``
+    as one block with its own running max, then the current token."""
+    _, B, S, D = k_cache.shape
+    return _lockstep_plain(
+        x0, layers, k_cache, v_cache, past, n_head=n_head, window=window,
+        ln_eps=ln_eps, KVB=kv_block_size or kv_block(min(window, S), D, B),
+        k_scales=None, v_scales=None, k_stage=k_stage, v_stage=v_stage,
+        step_i=step_i)
 
 
 def kv_commit_plain(k_cache, v_cache, k_rows_t, v_rows_t, past):
@@ -459,18 +547,112 @@ def _decode_step_batched(x0, layers, k_cache, v_cache, past, n_head: int,
     return x[:B], k_rows, v_rows
 
 
+def _decode_step_paged(x0, layers, k_cache, v_cache, past, n_head: int,
+                       window: int, ln_eps: float, k_scales, v_scales,
+                       k_stage, v_stage, step_i):
+    """The paged step (bf16 or int8) or, with ``k_stage``, the staged step:
+    one single-pass attention CTA per (head, slot) in the batched chain
+    (``csrc/decode_paged.cu``)."""
+    staged = k_stage is not None
+    what = ("decode_step_fused_staged" if staged
+            else "decode_step_fused_paged_int8" if k_scales is not None
+            else "decode_step_fused_paged")
+    L, B, S, D = k_cache.shape
+    if x0.shape != (B, D):
+        raise ValueError(f"{what}: x0 must be ({B}, {D}), got "
+                         f"{tuple(x0.shape)}")
+    if D != n_head * _CUDA_HEAD_DIM:
+        raise NotImplementedError(
+            f"{what}: the CUDA kernel is built for head width "
+            f"{_CUDA_HEAD_DIM}, got {D // n_head}")
+    _check_cuda_layers(layers, L, D, B)
+    dev = x0.device
+    past = _cuda_past(past, B, dev, what)
+    W = min(window, S)
+    kvb = kv_block(W, D, batch=B) if staged else kv_block_paged(W)
+    if kvb > _CUDA_MAX_KVB:
+        raise ValueError(f"{what}: KV block {kvb} of window {W} exceeds "
+                         f"{_CUDA_MAX_KVB} rows")
+    C, step = 0, 0
+    if staged:
+        C = k_stage.shape[2]
+        for t in (k_stage, v_stage):
+            if (t is None or tuple(t.shape) != (L, B, C, D)
+                    or t.dtype != torch.bfloat16 or not t.is_cuda
+                    or not t.is_contiguous()):
+                raise ValueError(f"{what}: k_stage and v_stage must be "
+                                 f"contiguous bf16 CUDA tensors ({L}, {B}, C, "
+                                 f"{D}) of one shape")
+        if isinstance(step_i, torch.Tensor) and step_i.is_cuda:
+            raise ValueError(f"{what}: step_i is the host loop's int")
+        step = int(step_i)
+        if not 0 <= step <= C <= _CUDA_MAX_KVB:
+            raise ValueError(f"{what}: step_i={step} outside [0, {C}]")
+    M = 8 if B <= 8 else 16 if B <= 16 else 32   # kernel rows; extra are zero
+    F = layers["fc1"]["w"].d_out
+    lib = cuda_lib.library("decode_paged")
+    f32 = dict(dtype=torch.float32, device=dev)
+    x = torch.zeros(M, D, **f32)
+    x[:B] = x0
+    row_dtype = torch.bfloat16 if k_scales is None else torch.float32
+    k_rows = torch.empty(L, B, D, dtype=row_dtype, device=dev)
+    v_rows = torch.empty(L, B, D, dtype=row_dtype, device=dev)
+    part = torch.empty(lib.bgt_decode_paged_part_size(D, F, M), **f32)
+    qkv = torch.empty(M, 3 * D, **f32)
+    ctx = torch.zeros(M, D, **f32)
+    ff = torch.empty(M, F, **f32)
+    amax = torch.empty(B, 2, **f32)
+    norms = _layer_norms(layers)
+    err = lib.bgt_decode_paged(
+        x.data_ptr(), L, D, F, n_head, S, B, M, W, past.data_ptr(),
+        float(ln_eps), LEVEL_OFFSET[layers["qkv"]["w"].qtype],
+        *[t.data_ptr() for t in norms], *_layer_planes(layers),
+        k_cache.data_ptr(), v_cache.data_ptr(), cuda_lib.ptr(k_scales),
+        cuda_lib.ptr(v_scales), k_rows.data_ptr(), v_rows.data_ptr(),
+        part.data_ptr(), qkv.data_ptr(), ctx.data_ptr(), ff.data_ptr(),
+        amax.data_ptr(), kvb, step, C, cuda_lib.ptr(k_stage),
+        cuda_lib.ptr(v_stage), cuda_lib.stream_ptr(dev))
+    cuda_lib.LAUNCHES[what] += 1
+    cuda_lib.check(err, what)
+    return x[:B], k_rows, v_rows
+
+
 def decode_step_fused(x0, layers: dict, k_cache, v_cache, past, *,
                       n_head: int, window: int, ln_eps: float = 1e-5,
-                      k_scales=None, v_scales=None):
+                      k_scales=None, v_scales=None, per_slot_kv: bool = False,
+                      k_stage=None, v_stage=None, step_i=None,
+                      kv_groups: int | None = None):
     """One decode step over all layers (see the module docstring).
     ``past``: the host's int at B=1, a (B,) integer tensor of per-slot
-    positions at B >= 2. ``window`` (a host int, >= the live positions
-    + 1) bounds the rows attention reads and sizes the plain versions' KV
-    blocks. ``k_scales``/``v_scales``: the int8 mode's (L, B, 1, S) f32
-    scale planes; the rows then leave in f32."""
-    B = k_cache.shape[1]
+    positions at B >= 2 (and for the paged and staged steps at every B).
+    ``window`` (a host int, >= the live positions + 1) bounds the rows
+    attention reads and sizes the KV blocks. ``k_scales``/``v_scales``: the
+    int8 mode's (L, B, 1, S) f32 scale planes; the rows then leave in f32.
+    ``per_slot_kv``: the paged step. ``k_stage``/``v_stage``/``step_i``:
+    the staged step. ``kv_groups`` changes no number (every step reads each
+    slot's own live rows); it is checked as the JAX package checks it."""
+    _, B, S, D = k_cache.shape
+    staged = k_stage is not None
+    if staged and (per_slot_kv or k_scales is not None or B == 1
+                   or v_stage is None or step_i is None):
+        raise ValueError("decode_step_fused: staged KV is the batched "
+                         "lockstep serving path (bf16 cache, B >= 2, not "
+                         "per-slot, k_stage, v_stage and step_i together)")
+    W = min(window, S)
+    if (kv_groups is not None and kv_groups > 1 and B > 1 and not per_slot_kv
+            and W // kv_block(W, D, batch=B) > 1):
+        if B % kv_groups:
+            raise ValueError(f"batch {B} not divisible by kv_groups "
+                             f"{kv_groups}")
+        if staged:
+            raise ValueError("kv_groups and staged KV do not compose")
     if not x0.is_cuda:
-        step = (decode_step_fused_plain if B == 1
+        if staged:
+            return decode_step_fused_staged_plain(
+                x0, layers, k_cache, v_cache, past, k_stage, v_stage, step_i,
+                n_head=n_head, window=window, ln_eps=ln_eps)
+        step = (decode_step_fused_paged_plain if per_slot_kv
+                else decode_step_fused_plain if B == 1
                 else decode_step_fused_batched_plain)
         return step(x0, layers, k_cache, v_cache, past, n_head=n_head,
                     window=window, ln_eps=ln_eps, k_scales=k_scales,
@@ -479,6 +661,10 @@ def decode_step_fused(x0, layers: dict, k_cache, v_cache, past, *,
                        v_scales)
     if not 1 <= B <= MAX_BATCH:
         raise ValueError(f"decode_step_fused: batch {B} outside 1..{MAX_BATCH}")
+    if per_slot_kv or staged:
+        return _decode_step_paged(x0, layers, k_cache, v_cache, past, n_head,
+                                  window, ln_eps, k_scales, v_scales, k_stage,
+                                  v_stage, step_i)
     step = _decode_step_b1 if B == 1 else _decode_step_batched
     return step(x0, layers, k_cache, v_cache, past, n_head, window, ln_eps,
                 k_scales, v_scales)

@@ -13,11 +13,11 @@ through :func:`dequant_layer` (level x scale in f32, one rounding).
 
 Positions are a host int (one offset for every row) or a (batch,) integer
 tensor on the device (per-slot positions of batched serving; reading it on
-the host would stall the pipeline). A per-slot write clamps its start to
-``[0, max_len - n]`` as ``lax.dynamic_update_slice`` does: the JAX serve
-can feed a slot past the end of its cache (a prompt that leaves less than
-one chunk of room still decodes that chunk, and the request is then
-truncated), and the port writes where the JAX update does.
+the host would stall the pipeline). Every block write (:func:`write_block`)
+clamps its start to ``[0, max_len - n]`` as ``lax.dynamic_update_slice``
+does: the JAX serve can feed a slot past the end of its cache (a prompt
+that leaves less than one chunk of room still decodes that chunk, and the
+request is then truncated), and the port writes where the JAX update does.
 """
 
 from __future__ import annotations
@@ -85,45 +85,44 @@ def dequant_layer(cache: QuantKVCache, layer: int, S: int, dtype):
     return (k * ks).to(dtype), (v * vs).to(dtype)
 
 
-def slot_positions(past: torch.Tensor, n: int, max_len: int) -> torch.Tensor:
-    """(batch, n) write positions of per-slot offsets ``past`` (batch,),
-    the start clamped to ``[0, max_len - n]`` (dynamic_update_slice)."""
-    start = torch.clamp(past.to(torch.int64), 0, max_len - n)
-    return start[:, None] + torch.arange(n, device=past.device)[None, :]
+def write_block(buf: torch.Tensor, rows: torch.Tensor, start) -> None:
+    """In place: ``buf[..., b, start_b + i, :] = rows[..., b, i, :]`` for
+    ``buf`` (..., batch, max_len, d) and ``rows`` (..., batch, n, d).
+    ``start``: a host int (every slot) or a (batch,) integer tensor
+    (per slot). As in ``lax.dynamic_update_slice``, a negative start counts
+    from the end, and then each start clamps into ``[0, max_len - n]``."""
+    n, max_len = rows.shape[-2], buf.shape[-2]
+    rows = rows.to(buf.dtype)
+    if not isinstance(start, torch.Tensor):
+        s = int(start)
+        s = min(max(s + max_len if s < 0 else s, 0), max_len - n)
+        buf[..., s:s + n, :] = rows
+        return
+    start = start.to(torch.int64)
+    start = torch.where(start < 0, start + max_len, start)
+    pos = (torch.clamp(start, 0, max_len - n)[:, None]
+           + torch.arange(n, device=start.device)[None, :])
+    slots = torch.arange(buf.shape[-3], device=start.device)[:, None]
+    buf[..., slots, pos, :] = rows
 
 
 def _write(cache: KVCache, layer: int, k_new, v_new, past, ks_new=None,
            vs_new=None) -> None:
     """Store (batch, n, d_model) rows (and, for an int8 cache, their (batch,
     n) scales) at ``past``, in place."""
-    n = k_new.shape[1]
-    quant = isinstance(cache, QuantKVCache)
-    if isinstance(past, torch.Tensor):
-        pos = slot_positions(past, n, cache.max_len)
-        rows = torch.arange(k_new.shape[0], device=pos.device)[:, None]
-        cache.k[layer][rows, pos] = k_new.to(cache.k.dtype)
-        cache.v[layer][rows, pos] = v_new.to(cache.v.dtype)
-        if quant:
-            cache.ks[layer][rows, 0, pos] = ks_new
-            cache.vs[layer][rows, 0, pos] = vs_new
-        return
-    if past + n > cache.max_len:
-        raise ValueError(f"cache write [{past}, {past + n}) past max_len "
-                         f"{cache.max_len}")
-    idx = torch.arange(past, past + n, device=cache.k.device)
-    cache.k[layer].index_copy_(1, idx, k_new.to(cache.k.dtype))
-    cache.v[layer].index_copy_(1, idx, v_new.to(cache.v.dtype))
-    if quant:
-        cache.ks[layer].index_copy_(2, idx, ks_new[:, None, :])
-        cache.vs[layer].index_copy_(2, idx, vs_new[:, None, :])
+    write_block(cache.k[layer], k_new, past)
+    write_block(cache.v[layer], v_new, past)
+    if isinstance(cache, QuantKVCache):
+        write_block(cache.ks[layer][:, 0, :, None], ks_new[..., None], past)
+        write_block(cache.vs[layer][:, 0, :, None], vs_new[..., None], past)
 
 
 def update_layer(cache: KVCache, layer: int, k_new: torch.Tensor,
                  v_new: torch.Tensor, past) -> KVCache:
     """Write (batch, n_new, d_model) rows into one layer at offset ``past``
     (a host int, or a (batch,) tensor of per-slot offsets), in place; an
-    int8 cache quantizes them first. A host-int write past ``max_len``
-    raises; a per-slot one clamps."""
+    int8 cache quantizes them first. A write past ``max_len`` clamps, as
+    ``lax.dynamic_update_slice`` does."""
     if isinstance(cache, QuantKVCache):
         kq, ksc = quantize_rows(k_new)
         vq, vsc = quantize_rows(v_new)

@@ -30,6 +30,16 @@ As in the JAX package:
   - ``kv_groups`` keeps only its scheduling role: ``assign_slots`` packs
     requests of similar final length into the same slot group. The CUDA
     step reads each slot's own live rows, so there is no grouped read.
+  - ``paged_kv=True`` runs the paged step (each slot walks its own live KV
+    blocks), bf16 or int8, at every B from 1: the greedy tail as above, the
+    sampled step through ``forward_fused_decode`` with its commit (the
+    sampled tail fusion is off), and no slot groups.
+  - ``staged_kv=True`` (a bf16 cache, B > 1, not paged; else it runs
+    unstaged, as in the JAX package) collects each chunk's new KV rows in a
+    (L, B, chunk, D) staging pair that the staged step attends to, samples
+    from its logits, and commits the staging once per chunk at each slot's
+    chunk-start position, the start clamped as ``dynamic_update_slice``
+    clamps (``cache.write_block``).
 
 The JAX ``step_scan`` (one dispatch per chunk) is a Python loop of
 ``chunk`` steps here: the steps enqueue on the current CUDA stream without
@@ -37,11 +47,10 @@ a host read, and each chunk ends with one copy of its (chunk, B) token ring
 into pinned host memory behind a CUDA event. Drain threads wait on that
 event only, never on the device. The caches are updated in place.
 
-Later slices of the port: per-slot paged KV (``paged_kv``), chunk-local
-KV staging (``staged_kv``) and tensor-parallel serving (``mesh``,
-``tp_fused_decode``); each raises ``NotImplementedError`` here. A pool of
-B=1 runs the per-op step: the fused step takes per-slot device positions
-from B=2 on.
+Tensor-parallel serving (``mesh``, ``tp_fused_decode``) belongs to a later
+slice of the port and raises ``NotImplementedError`` here. A pool of B=1
+runs the per-op step unless it is paged: the lockstep fused step takes
+per-slot device positions from B=2 on, the paged one at every B.
 """
 
 from __future__ import annotations
@@ -61,13 +70,14 @@ from ..device import resolve_device
 from ..models.biogpt import (forward, forward_fused_decode,
                              forward_fused_decode_greedy,
                              forward_fused_decode_sampled,
+                             forward_fused_decode_staged,
                              forward_prefill_fused)
 from ..modelio.checkpoint import tree_map
 from ..ops.decode_kernels import supports_layers
 from ..ops.prefill_kernels import supports_prefill
 from ..ops.qmatmul_kernels import supports, supports_wide
 from ..quant.layouts import QuantizedTensor
-from .cache import KVCache, init_cache, merge_rows
+from .cache import KVCache, init_cache, merge_rows, write_block
 from .engine import _bucket, _pack_matmul_weights, check_cuda_formats
 from .health import DrainStallError, ModelHealthError
 from .metrics import ServingMetrics
@@ -167,13 +177,10 @@ class BatchedEngine:
         kv_groups: Optional[int] = None,
         device="cuda",
     ):
-        for flag, what in ((mesh is not None or tp_fused_decode,
-                            "tensor-parallel serving (mesh, tp_fused_decode)"),
-                           (paged_kv, "per-slot paged KV (paged_kv)"),
-                           (staged_kv, "chunk-local KV staging (staged_kv)")):
-            if flag:
-                raise NotImplementedError(
-                    f"{what} belongs to a later slice of the PyTorch port")
+        if mesh is not None or tp_fused_decode:
+            raise NotImplementedError(
+                "tensor-parallel serving (mesh, tp_fused_decode) belongs to "
+                "a later slice of the PyTorch port")
         self.device = resolve_device(device)
         self.config = config
         self.B = max_batch
@@ -197,16 +204,22 @@ class BatchedEngine:
         self._fused_decode = (
             pack_q4 and compute_dtype != torch.float32
             and cache_dtype in (None, torch.bfloat16, torch.int8)
-            and self.B >= 2
+            and (self.B >= 2 or bool(paged_kv))
             and supports_layers(params.get("layers", {}), torch.bfloat16,
                                 batch=self.B, n_new=1))
+        # per-slot paged KV reads in the fused step (opt-in, as in JAX)
+        self._paged_kv = bool(paged_kv) and self._fused_decode
         # slot groups of assign_slots' length affinity (default: 16 / 8
-        # when the batch divides)
+        # when the batch divides); paged KV turns them off, as in JAX
         if kv_groups is None:
             kv_groups = (16 if self.B % 16 == 0
                          else 8 if self.B % 8 == 0 else 1)
         self._kv_groups = (kv_groups if kv_groups > 1 and self._fused_decode
+                           and not self._paged_kv
                            and self.B % kv_groups == 0 else None)
+        # chunk-local KV staging (opt-in; _run_chunk applies it to a bf16
+        # cache at B > 1, unpaged)
+        self._staged_kv = bool(staged_kv) and self._fused_decode
         if cache_dtype is None:
             cache_dtype = (torch.bfloat16 if self._fused_decode
                            else torch.float16)
@@ -222,8 +235,8 @@ class BatchedEngine:
             self._fused_decode and isinstance(lm, QuantizedTensor)
             and lm.packed and (supports(lm, self.B) or supports_wide(lm, self.B)))
         # the sampled tail fusion commits bf16 rows: an int8 cache samples
-        # from the per-step logits instead
-        self._fused_sampled = (self._fused_greedy
+        # from the per-step logits instead, and so does the paged step
+        self._fused_sampled = (self._fused_greedy and not self._paged_kv
                                and self.cache_dtype == torch.bfloat16)
         # refills through the whole-prompt kernel where the fused step runs
         # on the card (the JAX package runs its refill kernel where Pallas
@@ -338,7 +351,8 @@ class BatchedEngine:
         cfg = self.config
         if all_greedy and self._fused_greedy:
             nxt, mv, cache = forward_fused_decode_greedy(
-                self.params, toks, cache, st.lengths, cfg, kv_window=window)
+                self.params, toks, cache, st.lengths, cfg, kv_window=window,
+                per_slot_kv=self._paged_kv)
             return nxt, (torch.isfinite(mv) | ~live).all(), cache
         if not all_greedy and self._fused_sampled:
             logits, gmax, cache = forward_fused_decode_sampled(
@@ -351,18 +365,25 @@ class BatchedEngine:
         if self._fused_decode:
             logits, cache = forward_fused_decode(
                 self.params, toks, cache, st.lengths, cfg,
-                compute_dtype=self.compute_dtype, kv_window=window)
+                compute_dtype=self.compute_dtype, kv_window=window,
+                per_slot_kv=self._paged_kv)
         else:
             logits, cache = forward(
                 self.params, toks, cache, st.lengths, cfg,
                 compute_dtype=self.compute_dtype,
                 allow_kernels=self.allow_kernels, logits_mode="last",
                 kv_window=window)
+        return (*self._emit(logits, st, live, all_greedy, generator), cache)
+
+    def _emit(self, logits, st: _Slots, live, all_greedy: bool, generator):
+        """The per-step epilogue on full logits (the JAX ``sample_emit``):
+        the live slots' finite bit and greedy or per-request sampled ids ->
+        (next tokens (B,), finite bit)."""
         ok = (torch.isfinite(logits) | ~live[:, None]).all()
         if all_greedy:
-            return greedy(logits), ok, cache
+            return greedy(logits), ok
         return sample_per_request(logits, generator, st.top_ks, st.top_ps,
-                                  st.temps, max_top_k=self.MAX_TOP_K), ok, cache
+                                  st.temps, max_top_k=self.MAX_TOP_K), ok
 
     def _run_chunk(self, st: _Slots, cache: KVCache, live, window: int,
                    all_greedy: bool, generator):
@@ -378,13 +399,34 @@ class BatchedEngine:
         ring = torch.zeros(self.chunk, self.B, dtype=torch.int32,
                            device=self.device)
         health = torch.ones((), dtype=torch.bool, device=self.device)
+        # chunk-local KV staging: a bf16 cache at B > 1, unpaged
+        staged = (self._staged_kv and self.B > 1 and not self._paged_kv
+                  and self.cache_dtype == torch.bfloat16)
+        if staged:
+            L, _, _, D = cache.k.shape
+            k_stage = torch.zeros(L, self.B, self.chunk, D,
+                                  dtype=cache.k.dtype, device=self.device)
+            v_stage = torch.zeros_like(k_stage)
+            lengths0 = st.lengths             # the chunk-start positions
         for i in range(self.chunk):
-            nxt, ok, cache = self._step(st, cache, live, window, all_greedy,
-                                        generator)
+            if staged:
+                logits, k_rows, v_rows = forward_fused_decode_staged(
+                    self.params, st.toks[:, None], cache, k_stage, v_stage,
+                    st.lengths, i, self.config,
+                    compute_dtype=self.compute_dtype, kv_window=window)
+                k_stage[:, :, i] = k_rows
+                v_stage[:, :, i] = v_rows
+                nxt, ok = self._emit(logits, st, live, all_greedy, generator)
+            else:
+                nxt, ok, cache = self._step(st, cache, live, window,
+                                            all_greedy, generator)
             ring[i] = nxt
             health = health & ok
             st.toks = nxt.to(torch.int32)
             st.lengths = st.lengths + 1
+        if staged:   # one block write per slot at its chunk-start position
+            write_block(cache.k, k_stage, lengths0)
+            write_block(cache.v, v_stage, lengths0)
         fetch = torch.cat([st.first_buf, ring.reshape(-1),
                            health.to(torch.int32)[None]])
         return cache, fetch

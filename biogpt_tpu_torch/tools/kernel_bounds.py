@@ -27,6 +27,8 @@ BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor rate (published)
 # (1 + 13 b, slots 7 and 19 dead at 0), window 512
 RAGGED_PAST = [0 if b in (7, 19) else 1 + 13 * b for b in range(32)]
 WINDOW = 512
+# the staged step chip_smoke.py times: chunk 16, step 7 of it
+STAGE_ROWS, STEP_I = 16, 7
 # the refill groups chip_smoke.py times: the uniform wave, the mixed wave,
 # one long prompt
 PREFILL_SHAPES = ((32, 32), (8, 128), (1, 512))
@@ -37,7 +39,8 @@ ROW = {name: i for i, name in enumerate((
     "decode_step_fused B=1", "decode_step_fused batched",
     "decode_step_fused paged", "decode_step_fused int8 KV",
     "kv_commit_pallas", "kv_commit_quant_pallas", "prefill_fused",
-    "decode_step_fused_tp"), 1)}
+    "decode_step_fused_tp", "decode_step_fused paged int8 KV",
+    "decode_step_fused staged"), 1)}
 
 
 def bound(nbytes: float, flops: float):
@@ -74,6 +77,20 @@ def prefill_cost(c: BioGptConfig, R: int, T: int, wbytes: int):
     attn = R * 4 * (T * (T + 1) // 2) * D        # causal scores and p.V
     return (wbytes + 2 * RT * D * 4 + 2 * L * RT * D * 2,
             L * (layer_flops(c, RT) + attn))
+
+
+def bf16_step_cost(c: BioGptConfig, past: list, window: int, wbytes: int,
+                   step_i: int = 0):
+    """(bytes, operations) of a bf16-KV ``decode_step_fused`` (batched,
+    paged or, with ``step_i`` > 0, staged) at B = len(past) per-slot
+    positions: the planes once, each slot's live K/V rows below its
+    chunk-start length ``min(past - step_i, window)`` and its ``step_i``
+    staged rows, the new rows out, x in and out and the positions."""
+    D, L, B = c.d_model, c.n_layer, len(past)
+    rows = sum(min(max(p - step_i, 0), window) for p in past) + B * step_i
+    return (wbytes + 2 * L * rows * D * 2 + 2 * L * B * D * 2
+            + 2 * B * D * 4 + B * 4,
+            L * (layer_flops(c, B) + 4 * rows * D))
 
 
 def int8_step_cost(c: BioGptConfig, past: list, window: int, wbytes: int):
@@ -115,12 +132,10 @@ def rows(c: BioGptConfig = BioGptConfig()) -> list:
          L * layer_flops(c, 1) + 4 * L * 100 * D),
         ("decode_step_fused batched", "pallas_decode.py:358",
          "B=32 ragged, window 512",
-         W + 2 * L * live * D * 2 + 2 * L * B * D * 2 + 2 * B * D * 4 + B * 4,
-         L * layer_flops(c, B) + 4 * L * live * D),
+         *bf16_step_cost(c, RAGGED_PAST, WINDOW, W)),
         ("decode_step_fused paged", "pallas_decode.py:573",
          "B=32 ragged, window 512",
-         W + 2 * L * live * D * 2 + 2 * L * B * D * 2 + 2 * B * D * 4 + B * 4,
-         L * layer_flops(c, B) + 4 * L * live * D),
+         *bf16_step_cost(c, RAGGED_PAST, WINDOW, W)),
         ("decode_step_fused int8 KV", "pallas_decode.py:1028",
          "B=32 ragged, window 512", *int8_step_cost(c, RAGGED_PAST, WINDOW, W)),
         ("decode_step_fused int8 KV", "pallas_decode.py:1028",
@@ -136,6 +151,13 @@ def rows(c: BioGptConfig = BioGptConfig()) -> list:
          (W + 2 * L * live * D * 2 + 2 * L * B * D * 2) // 4
          + 2 * B * D * 4 + B * 4,
          (L * layer_flops(c, B) + 4 * L * live * D) // 4),
+        ("decode_step_fused paged int8 KV", "pallas_decode.py:680",
+         "B=32 ragged, window 512", *int8_step_cost(c, RAGGED_PAST, WINDOW, W)),
+        ("decode_step_fused staged", "pallas_decode.py:502",
+         f"B=32 ragged chunk starts, window 512, C={STAGE_ROWS}, "
+         f"step_i={STEP_I}",
+         *bf16_step_cost(c, [p + STEP_I for p in RAGGED_PAST], WINDOW, W,
+                         STEP_I)),
     ]
     recs = []
     for name, where, shape, nbytes, flops in out:

@@ -20,12 +20,16 @@ logs its seconds):
      per-op refill it replaces timed beside it), the int8 decode step at
      B=1 (past 100) and at B=8 and B=32 (window 512, ragged positions, dead
      slots), and ``kv_commit_quant`` (bit-equal, positions clamped);
-  5. single stream end to end: a 347M Q4_0 model file with random weights,
+  5. likewise the paged and staged steps: the paged step, bf16 and int8, at
+     B=1 (past 100 and 600) and B=32 (window 512, ragged positions, dead
+     slots, a slot past the window), also held against the batched CUDA
+     step, and the staged step at B=32 (16 staging rows, steps 0, 7, 15);
+  6. single stream end to end: a 347M Q4_0 model file with random weights,
      the CLI greedy (prompts of <= 8, 9-32 and >= 33 tokens, 128 new
      tokens) and sampled, then the CLI ``--kv-quant`` greedy, the launch
      counts of each, 8 teacher-forced decode steps of the kernels against
      the plain path, the decode rate with a bf16 and an int8 cache;
-  6. serving end to end on the same file, once with a bf16 and once with
+  7. serving end to end on the same file, once with a bf16 and once with
      an int8 KV cache: ``BatchedEngine.serve`` of 96 uniform greedy
      requests at B=32 (refills through ``prefill_fused``; the wall split
      into decode chunks, refill waves and the rest), then the HTTP server
@@ -34,7 +38,11 @@ logs its seconds):
      first-token logits through the prefill kernel against the per-op
      refill (bf16); 8 teacher-forced B=32 steps of the kernels against the
      plain path; the tokens/s of each run;
-  7. the ``kernels`` line and the result line.
+  8. the paged (bf16 and int8) and staged engines on the same file: the
+     uniform greedy serve (ids against the lockstep serve's, the launch
+     counts) and a mixed-length serve of 32 requests, half greedy (its
+     greedy rows against the lockstep engines' on the same requests);
+  9. the ``kernels`` line and the result line.
 
 Needs a CUDA card; exits non-zero without one or without the package.
 """
@@ -255,6 +263,7 @@ class Ctx:
         self.gen.manual_seed(1234)
         self.results = {}
         self.launches = {}
+        self.lockstep_ids = {}   # the uniform lockstep serves' ids, per cache
 
     def randn(self, *shape):
         return torch.randn(*shape, generator=self.gen, device=self.dev)
@@ -458,9 +467,10 @@ def phase_serving_kernels(c: Ctx) -> None:
     from biogpt_tpu_torch.ops.qmatmul_kernels import (
         lm_head_argmax, lm_head_argmax_commit, lm_head_argmax_commit_plain,
         lm_head_logits_gmax_commit, lm_head_logits_gmax_commit_plain)
+    from biogpt_tpu_torch.tools.kernel_bounds import bf16_step_cost
 
     cfg, dev, V_PAD = c.cfg, c.dev, c.V_PAD
-    D, F, L, H, V = cfg.d_model, cfg.d_ff, cfg.n_layer, cfg.n_head, cfg.n_vocab
+    D, L, H, V = cfg.d_model, cfg.n_layer, cfg.n_head, cfg.n_vocab
     W = 512
 
     # batched decode step: B=8 with a slot past the window, B=32
@@ -491,12 +501,8 @@ def phase_serving_kernels(c: Ctx) -> None:
                    "max_abs_err": err, "tol": 3e-3 * xp.abs().max().item(),
                    "rows_err_over_tol": rows}
             if not mins:
-                live = sum(min(p, W) for p in past)
-                nbytes = (wbytes + 2 * L * live * D * 2 + 2 * L * B * D * 2
-                          + 2 * B * D * 4 + B * 4)
-                flops = (2 * L * B * (D * 3 * D + D * D + 2 * D * F)
-                         + 4 * L * live * D)
-                timed(rec, run, plain, None, nbytes, flops)
+                timed(rec, run, plain, None,
+                      *bf16_step_cost(cfg, past, W, wbytes))
                 if B == 32:
                     c.results["decode_step_fused_batched"] = rec
             print(json.dumps(rec), flush=True)
@@ -827,7 +833,119 @@ def phase_refill_int8_kernels(c: Ctx) -> None:
     print(json.dumps(rec), flush=True)
 
 
-# ------------------------------------------------- 5. single stream, e2e
+# ------------------------------------------------- 5. paged and staged steps
+
+def phase_paged_staged_kernels(c: Ctx) -> None:
+    """The paged and staged steps round p relative to the same running max
+    over the same KV blocks as their plain versions, unlike the split
+    kernels; yet over 24 layers (and over one) their errors measured as
+    large as the split kernels' (H100): the bf16 roundings of h, q, p and
+    the context row that f32 summation order flips dominate both. So they
+    keep the decode steps' limits (:func:`hidden_within`,
+    :func:`rows_within`)."""
+    from biogpt_tpu_torch.ops.decode_kernels import (
+        decode_step_fused, decode_step_fused_paged_plain,
+        decode_step_fused_staged_plain)
+    from biogpt_tpu_torch.tools.kernel_bounds import (bf16_step_cost,
+                                                      int8_step_cost)
+
+    cfg, dev = c.cfg, c.dev
+    D, L, H, S = cfg.d_model, cfg.n_layer, cfg.n_head, cfg.n_positions
+    W = 512
+    timed_past = ragged_past(32, dead=(7, 19))
+    beyond_past = ragged_past(32, dead=(7, 19), beyond=(30,))
+
+    def held(run, plain, what, rec):
+        x, kr, vr = run()
+        xp, krp, vrp = plain()
+        torch.cuda.synchronize()
+        err = hidden_within(x, xp, what)
+        rows = max(rows_within(kr, krp, what + " k"),
+                   rows_within(vr, vrp, what + " v"))
+        rec.update(max_abs_err=err, tol=3e-3 * xp.abs().max().item(),
+                   rows_err_over_tol=rows)
+        return x, kr, vr
+
+    for mins in (False, True):
+        layers, wbytes = c.rand_layers(mins)
+        fmt = "q4_1" if mins else "q4_0"
+        for quant in (False, True):
+            name = ("decode_step_fused_paged_int8" if quant
+                    else "decode_step_fused_paged")
+            cases = [(1, [100]), (1, [600]), (32, beyond_past),
+                     (32, timed_past)]
+            for B, past in cases if not mins else cases[2:3]:
+                if quant:
+                    kc, ks = rand_int8_cache(c, L, B, S)
+                    vc, vs = rand_int8_cache(c, L, B, S)
+                    scales = dict(k_scales=ks, v_scales=vs)
+                else:
+                    kc = c.randn(L, B, S, D).to(torch.bfloat16)
+                    vc = c.randn(L, B, S, D).to(torch.bfloat16)
+                    scales = {}
+                x0 = c.randn(B, D)
+                pt = torch.tensor(past, dtype=torch.int32, device=dev)
+                run = lambda: decode_step_fused(
+                    x0, layers, kc, vc, pt, n_head=H, window=W,
+                    ln_eps=cfg.ln_eps, per_slot_kv=True, **scales)
+                plain = lambda: decode_step_fused_paged_plain(
+                    x0, layers, kc, vc, pt, n_head=H, window=W,
+                    ln_eps=cfg.ln_eps, **scales)
+                rec = {"kernel": name, "layers": L, "B": B, "past": past,
+                       "window": W, "format": fmt}
+                x, kr, vr = held(run, plain, f"{name} B={B} {fmt}", rec)
+                if B == 32 and not mins:
+                    # the paged step against the lockstep (split-KV) CUDA
+                    # step on the same inputs: the split kernels' limits
+                    xb, krb, vrb = decode_step_fused(
+                        x0, layers, kc, vc, pt, n_head=H, window=W,
+                        ln_eps=cfg.ln_eps, **scales)
+                    torch.cuda.synchronize()
+                    what = f"{name} B=32 vs the batched CUDA step"
+                    rec["vs_batched_cuda_err"] = hidden_within(x, xb, what)
+                    rec["vs_batched_cuda_rows_err_over_tol"] = max(
+                        rows_within(kr, krb, what + " k"),
+                        rows_within(vr, vrb, what + " v"))
+                if past is timed_past and not mins:
+                    cost = (int8_step_cost if quant else bf16_step_cost)(
+                        cfg, past, W, wbytes)
+                    timed(rec, run, plain, None, *cost)
+                    c.results[name] = rec
+                print(json.dumps(rec), flush=True)
+                del kc, vc, scales
+        if mins:
+            break
+
+        # the staged step: B=32, 16 staging rows, chunk-start positions
+        # ragged (dead slots at 0), step 0, 7 and 15 of the chunk
+        B, C = 32, 16
+        kc = c.randn(L, B, S, D).to(torch.bfloat16)
+        vc = c.randn(L, B, S, D).to(torch.bfloat16)
+        k_st = c.randn(L, B, C, D).to(torch.bfloat16)
+        v_st = c.randn(L, B, C, D).to(torch.bfloat16)
+        x0 = c.randn(B, D)
+        for step_i in (0, 7, 15):
+            past = [p + step_i for p in timed_past]
+            pt = torch.tensor(past, dtype=torch.int32, device=dev)
+            run = lambda: decode_step_fused(
+                x0, layers, kc, vc, pt, n_head=H, window=W, ln_eps=cfg.ln_eps,
+                k_stage=k_st, v_stage=v_st, step_i=step_i)
+            plain = lambda: decode_step_fused_staged_plain(
+                x0, layers, kc, vc, pt, k_st, v_st, step_i, n_head=H,
+                window=W, ln_eps=cfg.ln_eps)
+            rec = {"kernel": "decode_step_fused_staged", "layers": L, "B": B,
+                   "past": past, "window": W, "stage_rows": C,
+                   "step_i": step_i, "format": fmt}
+            held(run, plain, f"decode_step_fused_staged step_i={step_i}", rec)
+            if step_i == 7:
+                timed(rec, run, plain, None,
+                      *bf16_step_cost(cfg, past, W, wbytes, step_i))
+                c.results["decode_step_fused_staged"] = rec
+            print(json.dumps(rec), flush=True)
+        del kc, vc, k_st, v_st, layers
+
+
+# ------------------------------------------------- 6. single stream, e2e
 
 def phase_cli(c: Ctx, path: str, smi: str) -> None:
     from biogpt_tpu_torch.cli import main as cli_main
@@ -942,7 +1060,7 @@ def phase_cli(c: Ctx, path: str, smi: str) -> None:
         check(res.timings["n_new"] == 128, "greedy generation stopped early")
 
 
-# -------------------------------------------------------- 6. serving, e2e
+# -------------------------------------------------------- 7. serving, e2e
 
 # kernels each serving path must launch: bf16 KV, int8 KV
 SERVING_KERNELS = {
@@ -1087,6 +1205,7 @@ def phase_serving(c: Ctx, path: str, smi: str, kv_quant: bool = False) -> None:
     check(len(res) == 3 * B and all(len(r.new_ids) == 48 for r in res.values())
           and all(0 <= t < V for r in res.values() for t in r.new_ids),
           f"serve ({kv} KV): {len(res)} results, {n_tok} tokens")
+    c.lockstep_ids[kv] = {i: r.ids for i, r in res.items()}
     chunk_ms = sum(s.elapsed_time(e) for s, e in spans["chunk"])
     refill_ms = sum(s.elapsed_time(e) for s, e in spans["refill"])
     serve_rec = {"serve_uniform_greedy_tokens_per_s": n_tok / wall,
@@ -1236,6 +1355,128 @@ def phase_serving(c: Ctx, path: str, smi: str, kv_quant: bool = False) -> None:
     log(f"teacher-forced B={B} {kv} KV, 8 steps: worst err/tol {worst:.3f}")
 
 
+# ------------------------------------------- 8. paged and staged serving
+
+def mixed_reqs(rng, V: int, n: int, Request) -> list:
+    """n requests of 48 new tokens, prompts of 5-25 and 100-124 tokens in
+    turn; every other pair sampled (temp 0.9, top-k 40, top-p 0.9), the
+    rest greedy (the HTTP round's mix, as one serve)."""
+    out = []
+    for i in range(n):
+        k = int(rng.integers(5, 26) if i % 2 == 0 else rng.integers(100, 125))
+        kw = dict(temp=0.9, top_k=40, top_p=0.9) if i % 4 >= 2 else {}
+        out.append(Request(prompt_ids=[2] + rng.integers(
+            4, V - 2, size=k - 1).tolist(), n_predict=48, request_id=i, **kw))
+    return out
+
+
+def phase_paged_staged_serving(c: Ctx, path: str, smi: str) -> None:
+    import numpy as np
+
+    from biogpt_tpu_torch.config import GenerationParams
+    from biogpt_tpu_torch.modelio.checkpoint import load_params
+    from biogpt_tpu_torch.ops import cuda_lib
+    from biogpt_tpu_torch.runtime.serving import BatchedEngine, Request
+
+    config, _, _, params = load_params(path, device="cpu")
+    B, V, card = 32, config.n_vocab, torch.cuda.get_device_name(0)
+    greedy = GenerationParams(temp=0.0, stop_at_eos=False)
+    mixed_gen = GenerationParams(temp=0.0, stop_at_eos=False, seed=3)
+    mixed_ids = {}   # the lockstep serves' greedy rows, per cache
+    # (name, flags, kernels its uniform greedy serve launches, kernels its
+    # mixed serve launches); the lockstep engines run the mixed serve only
+    paths = (
+        ("lockstep bf16", {}, None, ()),
+        ("lockstep int8", dict(kv_quant=True), None, ()),
+        ("paged bf16", dict(paged_kv=True),
+         ("decode_step_fused_paged", "lm_head_argmax_commit", "prefill_fused"),
+         ("decode_step_fused_paged", "kv_commit", "qmatmul_wide")),
+        ("paged int8", dict(paged_kv=True, kv_quant=True),
+         ("decode_step_fused_paged_int8", "kv_commit_quant", "lm_head_argmax",
+          "prefill_fused"),
+         ("decode_step_fused_paged_int8", "kv_commit_quant", "qmatmul_wide")),
+        ("staged bf16", dict(staged_kv=True),
+         ("decode_step_fused_staged", "qmatmul_wide", "prefill_fused"),
+         ("decode_step_fused_staged", "qmatmul_wide")),
+    )
+    for name, flags, uniform_kernels, mixed_kernels in paths:
+        kv = "int8" if flags.get("kv_quant") else "bf16"
+        eng = BatchedEngine(config, params, max_batch=B, max_seq=512, chunk=16,
+                            device="cuda", **flags)
+        check(eng._paged_kv == bool(flags.get("paged_kv"))
+              and eng._staged_kv == bool(flags.get("staged_kv"))
+              and eng._prefill_fused and eng._fused_greedy,
+              f"BatchedEngine ({name}): the path is not live")
+        rng = np.random.default_rng(0)
+
+        def make_reqs(n):   # phase_serving's requests, in its order
+            return [Request(prompt_ids=[2] + rng.integers(
+                4, min(40000, V - 2), size=int(rng.integers(4, 24))).tolist(),
+                n_predict=48, request_id=i) for i in range(n)]
+        eng.serve(make_reqs(4), greedy)   # warm-up
+        rec = {"serving_path": name, "batch_slots": B, "chunk": eng.chunk,
+               "card": card, "card_stamp": smi}
+        if uniform_kernels is not None:
+            reqs = make_reqs(3 * B)
+            torch.cuda.synchronize()
+            cuda_lib.reset_launch_counts()
+            spans = span_meter(eng)
+            t0 = time.perf_counter()
+            res = eng.serve(reqs, greedy)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            del eng._prefill_group, eng._run_chunk
+            launches = dict(cuda_lib.LAUNCHES)
+            n_tok = sum(len(r.new_ids) for r in res.values())
+            check(len(res) == 3 * B
+                  and all(len(r.new_ids) == 48 for r in res.values())
+                  and all(0 <= t < V for r in res.values() for t in r.new_ids)
+                  and eng.metrics.snapshot()["health_failures"] == 0,
+                  f"serve ({name}): {len(res)} results, {n_tok} tokens")
+            same = sum(res[i].ids == c.lockstep_ids[kv][i] for i in res)
+            for k in uniform_kernels:
+                check(launches[k] > 0, f"kernel {k} was not launched on the "
+                      f"{name} uniform serve")
+                c.launches[k] = c.launches.get(k, 0) + launches[k]
+            log(f"{name} uniform serve launches: {launches}")
+            rec.update(serve_uniform_greedy_tokens_per_s=n_tok / wall,
+                       requests=len(res), new_tokens=n_tok, wall_s=wall,
+                       decode_chunks_device_ms=sum(
+                           s.elapsed_time(e) for s, e in spans["chunk"]),
+                       refill_waves_device_ms=sum(
+                           s.elapsed_time(e) for s, e in spans["refill"]),
+                       greedy_ids_equal_lockstep=same)
+        # the mixed-length serve, half greedy: tokens/s, and its greedy rows
+        # against the lockstep engine's on the same requests
+        reqs = mixed_reqs(np.random.default_rng(1), V, B, Request)
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = eng.serve(reqs, mixed_gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(cuda_lib.LAUNCHES)
+        n_tok = sum(len(r.new_ids) for r in res.values())
+        check(len(res) == B and all(len(r.new_ids) == 48 for r in res.values())
+              and all(0 <= t < V for r in res.values() for t in r.new_ids)
+              and eng.metrics.snapshot()["health_failures"] == 0,
+              f"mixed serve ({name}): {len(res)} results, {n_tok} tokens")
+        for k in mixed_kernels:
+            check(launches[k] > 0, f"kernel {k} was not launched on the {name} "
+                  "mixed serve")
+            c.launches[k] = c.launches.get(k, 0) + launches[k]
+        greedy_rows = [r.request_id for r in reqs if r.temp is None]
+        if uniform_kernels is None:
+            mixed_ids[kv] = {i: res[i].ids for i in greedy_rows}
+        rec.update(kv_cache=kv, serve_mixed_tokens_per_s=n_tok / wall,
+                   mixed_requests=B, mixed_new_tokens=n_tok,
+                   mixed_wall_s=wall, mixed_greedy_rows=len(greedy_rows),
+                   mixed_greedy_ids_equal_lockstep=sum(
+                       res[i].ids == mixed_ids[kv][i] for i in greedy_rows))
+        print(json.dumps(rec), flush=True)
+        del eng
+
+
 # ------------------------------------------------------------------- main
 
 def main() -> int:
@@ -1264,7 +1505,7 @@ def main() -> int:
 
     c = Ctx()
     for phase in (phase_single_kernels, phase_serving_kernels,
-                  phase_refill_int8_kernels):
+                  phase_refill_int8_kernels, phase_paged_staged_kernels):
         t0 = time.perf_counter()
         phase(c)
         log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
@@ -1278,12 +1519,13 @@ def main() -> int:
                 ("phase_cli", phase_cli),
                 ("phase_serving bf16", phase_serving),
                 ("phase_serving int8",
-                 lambda *a: phase_serving(*a, kv_quant=True))):
+                 lambda *a: phase_serving(*a, kv_quant=True)),
+                ("phase_paged_staged_serving", phase_paged_staged_serving)):
             t0 = time.perf_counter()
             phase(c, path, smi)
             log(f"{name}: {time.perf_counter() - t0:.1f} s")
 
-    # ------------------------------------------------------- 7. the lines
+    # ------------------------------------------------------- 9. the lines
     sources = {
         "qmatmul": ("biogpt_tpu_torch/csrc/qmatmul.cu",
                     "biogpt_tpu/ops/pallas_qmatmul.py:860"),
@@ -1311,6 +1553,13 @@ def main() -> int:
             "biogpt_tpu/ops/pallas_decode.py:455"),
         "kv_commit_quant": ("biogpt_tpu_torch/csrc/kv_commit.cu",
                             "biogpt_tpu/ops/pallas_decode.py:839"),
+        "decode_step_fused_paged": ("biogpt_tpu_torch/csrc/decode_paged.cu",
+                                    "biogpt_tpu/ops/pallas_decode.py:573"),
+        "decode_step_fused_paged_int8": (
+            "biogpt_tpu_torch/csrc/decode_paged.cu",
+            "biogpt_tpu/ops/pallas_decode.py:680"),
+        "decode_step_fused_staged": ("biogpt_tpu_torch/csrc/decode_paged.cu",
+                                     "biogpt_tpu/ops/pallas_decode.py:502"),
     }
     kernels = []
     for name, (src, rep) in sources.items():

@@ -299,18 +299,20 @@ def test_scheduler_http_round_trip(tiny):
 
 def test_batched_engine_gates(tiny, tmp_path):
     """The card by default (raises without one, decided at run time); the
-    later slices' options raise NotImplementedError; ``kv_quant`` serves."""
+    tensor-parallel options raise NotImplementedError naming their later
+    slice; ``kv_quant``, ``paged_kv`` and ``staged_kv`` serve."""
     _, ct, _, pt = tiny
-    for kw in (dict(staged_kv=True), dict(paged_kv=True),
-               dict(mesh=object()), dict(tp_fused_decode=True)):
+    for kw in (dict(mesh=object()), dict(tp_fused_decode=True)):
         with pytest.raises(NotImplementedError, match="later slice"):
             BatchedEngine(ct, pt, device="cpu", **kw)
-    be = BatchedEngine(ct, pt, device="cpu", kv_quant=True, max_batch=2,
-                       chunk=2)
-    assert be.cache_dtype == torch.int8
-    res = be.serve([Request(prompt_ids=[2, 5, 9], n_predict=3)],
-                   GenerationParams(temp=0.0, stop_at_eos=False))
-    assert len(res[0].new_ids) == 3
+    for kw in (dict(kv_quant=True), dict(paged_kv=True),
+               dict(staged_kv=True)):
+        be = BatchedEngine(ct, pt, device="cpu", max_batch=2, chunk=2, **kw)
+        assert be.cache_dtype == (torch.int8 if "kv_quant" in kw
+                                  else torch.float16)
+        res = be.serve([Request(prompt_ids=[2, 5, 9], n_predict=3)],
+                       GenerationParams(temp=0.0, stop_at_eos=False))
+        assert len(res[0].new_ids) == 3
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
