@@ -1,5 +1,6 @@
 // One batched decode step (2 <= B <= 32 slots, each at its own position)
-// through all L layers, bf16 or int8 KV cache, packed Q4_0 / Q4_1 weights.
+// through all L layers, bf16 or int8 KV cache, Q4_0 / Q4_1 / Q5_0 / Q5_1
+// (packed) or Q8_0 (unpacked) weights.
 //
 // Replaces biogpt_tpu/ops/pallas_decode.py::decode_step_fused, batched
 // lockstep path (`_make_kernel_batched`, calls :1322 grouped and :1333; its
@@ -17,11 +18,11 @@
 // `kv_groups` changes which KV blocks it copies, not the math; here every
 // slot reads its own live rows, so there is nothing to group.
 //
-// Bound on an H100: bytes -- the packed layer weights (~7 MB a layer at
-// 347M), read once for all B rows, plus each slot's live KV rows. This
-// first version is a chain of per-layer kernels behind ONE host call (the
-// layer loop is decode_layers.cuh's `batched_layers`, which
-// decode_paged.cu shares):
+// Bound on an H100: bytes -- the layer weights (~7 MB a layer at 347M in
+// Q4_0, ~13.4 MB in Q8_0), read once for all B rows, plus each slot's live
+// KV rows. This first version is a chain of per-layer kernels behind ONE
+// host call (the layer loop is decode_layers.cuh's `batched_layers`,
+// which decode_paged.cu shares):
 //   qkv GEMV (M rows, LayerNorm-0 prologue) + its partial sum with bias
 //   split-KV attention over B*H head-rows: grid (H, ceil(W/64), B), a
 //     block per (head, 64-row split, slot); splits past a slot's live rows
@@ -197,7 +198,7 @@ extern "C" int bgt_decode_batched_part_size(int D, int F, int M) {
 
 extern "C" int bgt_decode_batched(
     float* x, int L, int D, int F, int H, int S, int B, int M, int W,
-    const int* past, float eps, int offset, const float* ln0w,
+    const int* past, float eps, int offset, int bits, const float* ln0w,
     const float* ln0b, const float* ln1w, const float* ln1b,
     const uint8_t* qkv_lv, const void* qkv_sc, const void* qkv_mn, const float* qkv_b,
     const uint8_t* o_lv, const void* o_sc, const void* o_mn, const float* o_b,
@@ -211,7 +212,8 @@ extern "C" int bgt_decode_batched(
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const BatchedStep s = batched_step(
-      x, L, D, F, H, S, B, W, past, eps, offset, ln0w, ln0b, ln1w, ln1b,
+      x, L, D, F, H, S, B, W, past, eps, offset, bits, ln0w, ln0b, ln1w,
+      ln1b,
       qkv_lv, qkv_sc, qkv_mn, qkv_b, o_lv, o_sc, o_mn, o_b,
       fc1_lv, fc1_sc, fc1_mn, fc1_b, fc2_lv, fc2_sc, fc2_mn, fc2_b,
       k_cache, v_cache, k_scales, v_scales, k_rows, v_rows, part, qkv, ctx,

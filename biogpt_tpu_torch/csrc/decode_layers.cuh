@@ -14,25 +14,28 @@ constexpr int DK = 64;           // head width the attention kernels take
 constexpr int ATT_ROWS = 64;     // cache rows per attention split
 constexpr int ATT_THREADS = 128;
 
-// One projection's layer-stacked planes and bias.
+// One projection's layer-stacked planes, their level format (4, 5 or 8;
+// qgemv.cuh) and bias.
 struct Proj {
   const uint8_t* lv;
   const __nv_bfloat16* sc;
   const __nv_bfloat16* mn;
   const float* b;
+  int bits;
 };
 
 inline Proj make_proj(const uint8_t* lv, const void* sc, const void* mn,
-                      const float* b) {
+                      const float* b, int bits) {
   return Proj{lv, static_cast<const __nv_bfloat16*>(sc),
-              static_cast<const __nv_bfloat16*>(mn), b};
+              static_cast<const __nv_bfloat16*>(mn), b, bits};
 }
 
+// Layer l's planes: the level plane's layer stride follows the format.
 inline GemvArgs layer_args(const Proj& p, int l, int d_in, int d_out,
                            const float* x, const float* ln_w, const float* ln_b,
                            float eps, int offset) {
   GemvArgs a;
-  const size_t lv_stride = (size_t)(d_in / 2) * d_out;
+  const size_t lv_stride = level_rows(d_in, p.bits) * d_out;
   const size_t sc_stride = (size_t)(d_in / QK) * d_out;
   a.x = x;
   a.ln_w = ln_w;
@@ -44,6 +47,7 @@ inline GemvArgs layer_args(const Proj& p, int l, int d_in, int d_out,
   a.d_in = d_in;
   a.d_out = d_out;
   a.offset = offset;
+  a.bits = p.bits;
   a.gpb = pick_gpb(d_in);
   return a;
 }
@@ -81,7 +85,7 @@ struct BatchedStep {
   int L, D, F, H, S, B, W;
   const int* past;           // (B,) int32
   float eps;
-  int offset;
+  int offset, bits;
   const float *ln0w, *ln0b, *ln1w, *ln1b;   // (L, D) f32
   Proj qkv, o, fc1, fc2;
   const void *kc, *vc;                      // (L, B, S, D) bf16 or int8
@@ -92,7 +96,7 @@ struct BatchedStep {
 
 inline BatchedStep batched_step(
     float* x, int L, int D, int F, int H, int S, int B, int W,
-    const int* past, float eps, int offset, const float* ln0w,
+    const int* past, float eps, int offset, int bits, const float* ln0w,
     const float* ln0b, const float* ln1w, const float* ln1b,
     const uint8_t* qkv_lv, const void* qkv_sc, const void* qkv_mn, const float* qkv_b,
     const uint8_t* o_lv, const void* o_sc, const void* o_mn, const float* o_b,
@@ -107,11 +111,12 @@ inline BatchedStep batched_step(
   s.past = past;
   s.eps = eps;
   s.offset = offset;
+  s.bits = bits;
   s.ln0w = ln0w; s.ln0b = ln0b; s.ln1w = ln1w; s.ln1b = ln1b;
-  s.qkv = make_proj(qkv_lv, qkv_sc, qkv_mn, qkv_b);
-  s.o = make_proj(o_lv, o_sc, o_mn, o_b);
-  s.fc1 = make_proj(fc1_lv, fc1_sc, fc1_mn, fc1_b);
-  s.fc2 = make_proj(fc2_lv, fc2_sc, fc2_mn, fc2_b);
+  s.qkv = make_proj(qkv_lv, qkv_sc, qkv_mn, qkv_b, bits);
+  s.o = make_proj(o_lv, o_sc, o_mn, o_b, bits);
+  s.fc1 = make_proj(fc1_lv, fc1_sc, fc1_mn, fc1_b, bits);
+  s.fc2 = make_proj(fc2_lv, fc2_sc, fc2_mn, fc2_b, bits);
   s.kc = k_cache; s.vc = v_cache;
   s.ks = k_scales; s.vs = v_scales;
   s.kr = k_rows; s.vr = v_rows;
@@ -129,29 +134,30 @@ inline int batched_part_size(int D, int F, int M) {
 // partial sum with bias into qkvbuf; `attend(l)`, which reads qkvbuf,
 // writes ctx rows < B and layer l's K/V rows; o GEMV + residual, fc1 GEMV
 // with LayerNorm-1 prologue + exact erf GELU, fc2 GEMV + residual. The
-// projections are the dequant-then-dot GEMV (`_qmm_dq`).
-template <int M, bool HAS_MIN, typename Attend>
+// projections are the dequant-then-dot GEMV (`_qmm_dq`) of level format
+// BITS.
+template <int M, int BITS, bool HAS_MIN, typename Attend>
 void batched_layers(const BatchedStep& s, Attend attend, cudaStream_t st) {
   const int D = s.D, F = s.F;
   const int sd = splits_of(D), sf = splits_of(F);
   for (int l = 0; l < s.L; ++l) {
-    launch_partial<M, true, HAS_MIN>(
+    launch_partial<M, true, BITS, HAS_MIN>(
         layer_args(s.qkv, l, D, 3 * D, s.x, s.ln0w + (size_t)l * D,
                    s.ln0b + (size_t)l * D, s.eps, s.offset), s.part, st);
     launch_partial_sum(s.part, sd, M, 3 * D, s.qkv.b + (size_t)l * 3 * D, 0,
                        nullptr, s.qkvbuf, st);
     attend(l);
-    launch_partial<M, true, HAS_MIN>(
+    launch_partial<M, true, BITS, HAS_MIN>(
         layer_args(s.o, l, D, D, s.ctx, nullptr, nullptr, s.eps, s.offset),
         s.part, st);
     launch_partial_sum(s.part, sd, M, D, s.o.b + (size_t)l * D, 0, s.x, s.x,
                        st);
-    launch_partial<M, true, HAS_MIN>(
+    launch_partial<M, true, BITS, HAS_MIN>(
         layer_args(s.fc1, l, D, F, s.x, s.ln1w + (size_t)l * D,
                    s.ln1b + (size_t)l * D, s.eps, s.offset), s.part, st);
     launch_partial_sum(s.part, sd, M, F, s.fc1.b + (size_t)l * F, 1, nullptr,
                        s.ff, st);
-    launch_partial<M, true, HAS_MIN>(
+    launch_partial<M, true, BITS, HAS_MIN>(
         layer_args(s.fc2, l, F, D, s.ff, nullptr, nullptr, s.eps, s.offset),
         s.part, st);
     launch_partial_sum(s.part, sf, M, D, s.fc2.b + (size_t)l * D, 0, s.x, s.x,
@@ -159,26 +165,19 @@ void batched_layers(const BatchedStep& s, Attend attend, cudaStream_t st) {
   }
 }
 
-// The chain at M = 8, 16 or 32 rows -> false for another M.
+// The chain at M = 8, 16 or 32 rows in the planes' format -> false for
+// another M or format.
 template <typename Attend>
 bool run_batched(const BatchedStep& s, int M, Attend attend, cudaStream_t st) {
-  const bool mins = s.qkv.mn != nullptr;
-  switch (M) {
-    case 8:
-      if (mins) batched_layers<8, true>(s, attend, st);
-      else batched_layers<8, false>(s, attend, st);
-      return true;
-    case 16:
-      if (mins) batched_layers<16, true>(s, attend, st);
-      else batched_layers<16, false>(s, attend, st);
-      return true;
-    case 32:
-      if (mins) batched_layers<32, true>(s, attend, st);
-      else batched_layers<32, false>(s, attend, st);
-      return true;
-    default:
-      return false;
-  }
+  if (M != 8 && M != 16 && M != 32) return false;
+  return with_format(s.bits, s.qkv.mn != nullptr, [&](auto fmt) {
+    using T = decltype(fmt);
+    switch (M) {
+      case 8: batched_layers<8, T::BITS, T::HAS_MIN>(s, attend, st); break;
+      case 16: batched_layers<16, T::BITS, T::HAS_MIN>(s, attend, st); break;
+      case 32: batched_layers<32, T::BITS, T::HAS_MIN>(s, attend, st); break;
+    }
+  });
 }
 
 }  // namespace bgt

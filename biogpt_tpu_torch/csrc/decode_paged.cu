@@ -1,5 +1,6 @@
 // The paged (per-slot KV) and staged decode steps: 1 <= B <= 32 slots, each
-// at its own position, through all L layers, packed Q4_0 / Q4_1 weights.
+// at its own position, through all L layers, Q4_0 / Q4_1 / Q5_0 / Q5_1
+// (packed) or Q8_0 (unpacked) weights.
 //
 // Replaces biogpt_tpu/ops/pallas_decode.py::decode_step_fused in two more
 // modes:
@@ -16,13 +17,14 @@
 // int32 on the device, window W) -> (x (B,D) f32, k_rows, v_rows (L,B,D)
 // bf16, or f32 in the int8 mode for the caller to quantize).
 //
-// Bound on an H100: bytes -- the packed layer weights (~7 MB a layer at
-// 347M) read once for all B rows, plus each slot's live K/V rows (and
-// their scales), plus the staged rows < step_i. The layer chain and its
-// M-row dequant-then-dot GEMVs (`_qmm_dq`, which the paged kernel uses at
-// every B, B=1 included) are decode_batched.cu's (`batched_layers` in
-// decode_layers.cuh). Attention is one single-pass CTA per (head, slot)
-// instead of split + combine, carrying the TPU kernel's design over:
+// Bound on an H100: bytes -- the layer weights (~7 MB a layer at 347M in
+// Q4_0, ~13.4 MB in Q8_0) read once for all B rows, plus each slot's live
+// K/V rows (and their scales), plus the staged rows < step_i. The layer
+// chain and its M-row dequant-then-dot GEMVs (`_qmm_dq`, which the paged
+// kernel uses at every B, B=1 included) are decode_batched.cu's
+// (`batched_layers` in decode_layers.cuh). Attention is one single-pass
+// CTA per (head, slot) instead of split + combine, carrying the TPU
+// kernel's design over:
 //   - the CTA streams the slot's live rows only, in 64-row tiles of one
 //     head's K or V slice (and, in the int8 mode, the rows' scales),
 //     double-buffered in shared memory with cp.async (the counterpart of
@@ -326,7 +328,7 @@ extern "C" int bgt_decode_paged_part_size(int D, int F, int M) {
 
 extern "C" int bgt_decode_paged(
     float* x, int L, int D, int F, int H, int S, int B, int M, int W,
-    const int* past, float eps, int offset, const float* ln0w,
+    const int* past, float eps, int offset, int bits, const float* ln0w,
     const float* ln0b, const float* ln1w, const float* ln1b,
     const uint8_t* qkv_lv, const void* qkv_sc, const void* qkv_mn, const float* qkv_b,
     const uint8_t* o_lv, const void* o_sc, const void* o_mn, const float* o_b,
@@ -344,7 +346,8 @@ extern "C" int bgt_decode_paged(
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const BatchedStep s = batched_step(
-      x, L, D, F, H, S, B, W, past, eps, offset, ln0w, ln0b, ln1w, ln1b,
+      x, L, D, F, H, S, B, W, past, eps, offset, bits, ln0w, ln0b, ln1w,
+      ln1b,
       qkv_lv, qkv_sc, qkv_mn, qkv_b, o_lv, o_sc, o_mn, o_b,
       fc1_lv, fc1_sc, fc1_mn, fc1_b, fc2_lv, fc2_sc, fc2_mn, fc2_b,
       k_cache, v_cache, k_scales, v_scales, k_rows, v_rows, part, qkv, ctx,

@@ -1,5 +1,5 @@
 // One single-stream (B=1) decode step through all L layers, bf16 or int8 KV
-// cache, packed Q4_0 / Q4_1 weights.
+// cache, Q4_0 / Q4_1 / Q5_0 / Q5_1 (packed) or Q8_0 (unpacked) weights.
 //
 // Replaces biogpt_tpu/ops/pallas_decode.py::decode_step_fused, B=1 lockstep
 // path (`_make_kernel`, its int8-KV mode :288-318). Contract: (x0 (1,D)
@@ -11,7 +11,8 @@
 // current token's k/v enter attention fake-quantized with their row's
 // absmax (amax * (1/127)), and the rows leave in f32 for the caller to
 // quantize. Bound on an H100: bytes --
-// the packed layer weights (~7 MB a layer at 347M) and the `past` live KV
+// the layer weights (~7 MB a layer at 347M in Q4_0, ~13.4 MB in Q8_0) and
+// the `past` live KV
 // rows of each layer are read once per token; every other operand is a
 // vector. The TPU megakernel kept all layers in one pallas_call because
 // op issue dominated there; this first Hopper version is a chain of
@@ -153,11 +154,6 @@ attn_combine_kernel(const float* qkv_part, int qsplits, const float* qkv_b,
   ctx[col] = a / l;
 }
 
-void launch_m1(const GemvArgs& a, float* part, cudaStream_t st) {
-  if (a.mn != nullptr) launch_partial<1, false, true>(a, part, st);
-  else launch_partial<1, false, false>(a, part, st);
-}
-
 }  // namespace
 
 // Scratch sizes (floats) the wrapper allocates: part >= bgt_decode_part_size,
@@ -173,8 +169,8 @@ extern "C" int bgt_decode_head_dim() { return DK; }
 
 extern "C" int bgt_decode_step(
     float* x, int L, int D, int F, int H, int S, int past, float eps,
-    int offset, const float* ln0w, const float* ln0b, const float* ln1w,
-    const float* ln1b,
+    int offset, int bits, const float* ln0w, const float* ln0b,
+    const float* ln1w, const float* ln1b,
     const uint8_t* qkv_lv, const void* qkv_sc, const void* qkv_mn, const float* qkv_b,
     const uint8_t* o_lv, const void* o_sc, const void* o_mn, const float* o_b,
     const uint8_t* fc1_lv, const void* fc1_sc, const void* fc1_mn, const float* fc1_b,
@@ -182,14 +178,16 @@ extern "C" int bgt_decode_step(
     const void* k_cache, const void* v_cache, const float* k_scales,
     const float* v_scales, void* k_rows, void* v_rows, float* part, float* ml,
     float* acc, float* ctx, float* ff, void* stream) {
-  if (D != H * DK || (k_scales == nullptr) != (v_scales == nullptr))
+  if (D != H * DK || (k_scales == nullptr) != (v_scales == nullptr)
+      || !with_format(bits, qkv_mn != nullptr, [](auto) {}))
     return (int)cudaErrorInvalidValue;
   const bool quant = k_scales != nullptr;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Proj qkv = make_proj(qkv_lv, qkv_sc, qkv_mn, qkv_b);
-  const Proj o = make_proj(o_lv, o_sc, o_mn, o_b);
-  const Proj fc1 = make_proj(fc1_lv, fc1_sc, fc1_mn, fc1_b);
-  const Proj fc2 = make_proj(fc2_lv, fc2_sc, fc2_mn, fc2_b);
+  const Proj qkv = make_proj(qkv_lv, qkv_sc, qkv_mn, qkv_b, bits);
+  const Proj o = make_proj(o_lv, o_sc, o_mn, o_b, bits);
+  const Proj fc1 = make_proj(fc1_lv, fc1_sc, fc1_mn, fc1_b, bits);
+  const Proj fc2 = make_proj(fc2_lv, fc2_sc, fc2_mn, fc2_b, bits);
+  auto gemv = [&](const GemvArgs& a) { launch_partial_fmt<1, false>(a, part, st); };
   const size_t row_bytes = quant ? sizeof(float) : sizeof(__nv_bfloat16);
   char* kr = static_cast<char*>(k_rows);
   char* vr = static_cast<char*>(v_rows);
@@ -198,8 +196,8 @@ extern "C" int bgt_decode_step(
   const int sd = splits_of(D), sf = splits_of(F);
 
   for (int l = 0; l < L; ++l) {
-    launch_m1(layer_args(qkv, l, D, 3 * D, x, ln0w + (size_t)l * D,
-                         ln0b + (size_t)l * D, eps, offset), part, st);
+    gemv(layer_args(qkv, l, D, 3 * D, x, ln0w + (size_t)l * D,
+                    ln0b + (size_t)l * D, eps, offset));
     const float* bq = qkv_b + (size_t)l * 3 * D;
     const size_t kv_off = (size_t)l * S * D;
     void* krl = kr + (size_t)l * D * row_bytes;
@@ -222,12 +220,12 @@ extern "C" int bgt_decode_step(
       attn_combine_kernel<false><<<H, DK, 0, st>>>(
           part, sd, bq, D, ml, acc, ns, scale, ctx, krl, vrl);
     }
-    launch_m1(layer_args(o, l, D, D, ctx, nullptr, nullptr, eps, offset), part, st);
+    gemv(layer_args(o, l, D, D, ctx, nullptr, nullptr, eps, offset));
     launch_partial_sum(part, sd, 1, D, o_b + (size_t)l * D, 0, x, x, st);
-    launch_m1(layer_args(fc1, l, D, F, x, ln1w + (size_t)l * D,
-                         ln1b + (size_t)l * D, eps, offset), part, st);
+    gemv(layer_args(fc1, l, D, F, x, ln1w + (size_t)l * D,
+                    ln1b + (size_t)l * D, eps, offset));
     launch_partial_sum(part, sd, 1, F, fc1_b + (size_t)l * F, 1, nullptr, ff, st);
-    launch_m1(layer_args(fc2, l, F, D, ff, nullptr, nullptr, eps, offset), part, st);
+    gemv(layer_args(fc2, l, F, D, ff, nullptr, nullptr, eps, offset));
     launch_partial_sum(part, sf, 1, D, fc2_b + (size_t)l * D, 0, x, x, st);
   }
   return (int)cudaGetLastError();

@@ -1,5 +1,6 @@
 // Serving and decode tails over LayerNorm(x) @ dequant(lm_head), M <= 32
-// rows, packed Q4_0 / Q4_1:
+// rows, the Q4_0 / Q4_1 / Q5_0 / Q5_1 (packed) and Q8_0 (unpacked) planes
+// of qgemv.cuh:
 //   bgt_lm_head_argmax       greedy: argmax over the first n_valid columns
 //   bgt_lm_head_logits_gmax  sampled: the logits (pad columns -1e30) and
 //                            their per-128-column group maxima
@@ -10,9 +11,10 @@
 // numerics at M <= 8, dequant-then-dot at M > 8, pallas_qmatmul.py:320).
 // The KV commits of the two fused TPU epilogues are kv_commit.cu, launched
 // next on the same stream by the wrappers. Bound on an H100: bytes -- the
-// 1024 x 42496 packed lm_head (21.8 MB of levels, 2.7 MB of bf16 scales)
-// is read once; the argmax never writes logits, the sampled tail writes
-// them once (5.4 MB at M=32). The TPU kernels walked vocab tiles in order
+// 1024 x 42496 lm_head (21.8 MB of Q4 levels, 27.2 MB of Q5, 43.5 MB of
+// Q8_0, and 2.7 MB of bf16 scales [+ 2.7 MB of mins]) is read once; the
+// argmax never writes logits, the sampled tail writes them once (5.4 MB at
+// M=32). The TPU kernels walked vocab tiles in order
 // carrying state in VMEM; here each of the d_out/128 blocks (332 at
 // BioGPT-347M, enough to fill the card) recomputes the LayerNorm of all M
 // rows into dynamic shared memory (M * d_in floats), computes its 128
@@ -35,14 +37,14 @@ namespace {
 
 // LayerNorm of all M rows into xs (dynamic shared memory), then this
 // block's 128 logits per row into logits (M, 128).
-template <int M, bool WIDE, bool HAS_MIN>
+template <int M, bool WIDE, int BITS, bool HAS_MIN>
 __device__ __forceinline__ void lm_head_tile(const GemvArgs& a, float* xs,
                                              float* red, float* logits,
                                              float* scratch) {
   stage_x<M>(a, xs, 0, a.gpb * QK, scratch);
   __syncthreads();
   float acc[M][4];
-  gemv_accumulate<M, WIDE, HAS_MIN>(a, xs, blockIdx.x, 0, acc);
+  gemv_accumulate<M, WIDE, BITS, HAS_MIN>(a, xs, blockIdx.x, 0, acc);
   warp_tile_reduce<M>(acc, red, logits, TILE_COLS);
   __syncthreads();
 }
@@ -61,7 +63,7 @@ __device__ __forceinline__ float block_max_nan(float v, float* wmax) {
   return any_nan ? __int_as_float(0x7fc00000) : mx;
 }
 
-template <int M, bool WIDE, bool HAS_MIN>
+template <int M, bool WIDE, int BITS, bool HAS_MIN>
 __global__ void __launch_bounds__(GEMV_THREADS)
 lm_head_block_kernel(GemvArgs a, int n_valid, float* bmax, int* bidx,
                      int* bnan) {
@@ -71,7 +73,7 @@ lm_head_block_kernel(GemvArgs a, int n_valid, float* bmax, int* bidx,
   __shared__ float scratch[32];
   __shared__ float wmax[GEMV_WARPS];
   __shared__ int widx[GEMV_WARPS];
-  lm_head_tile<M, WIDE, HAS_MIN>(a, xs, red, logits, scratch);
+  lm_head_tile<M, WIDE, BITS, HAS_MIN>(a, xs, red, logits, scratch);
 
   const int nblk = gridDim.x;
   const int col = blockIdx.x * TILE_COLS + threadIdx.x;
@@ -101,7 +103,7 @@ lm_head_block_kernel(GemvArgs a, int n_valid, float* bmax, int* bidx,
 }
 
 // logits (M, d_out) with pad columns -1e30; gmax (M, d_out/128).
-template <int M, bool WIDE, bool HAS_MIN>
+template <int M, bool WIDE, int BITS, bool HAS_MIN>
 __global__ void __launch_bounds__(GEMV_THREADS)
 lm_head_logits_gmax_kernel(GemvArgs a, int n_valid, float* out,
                            float* gmax) {
@@ -110,7 +112,7 @@ lm_head_logits_gmax_kernel(GemvArgs a, int n_valid, float* out,
   __shared__ float logits[M * TILE_COLS];
   __shared__ float scratch[32];
   __shared__ float wmax[GEMV_WARPS];
-  lm_head_tile<M, WIDE, HAS_MIN>(a, xs, red, logits, scratch);
+  lm_head_tile<M, WIDE, BITS, HAS_MIN>(a, xs, red, logits, scratch);
 
   const int nblk = gridDim.x;
   const int col = blockIdx.x * TILE_COLS + threadIdx.x;
@@ -185,26 +187,32 @@ cudaError_t launch_tiles(Kernel kernel, int M, const GemvArgs& a,
 template <int M, bool WIDE>
 cudaError_t launch_argmax(const GemvArgs& a, int n_valid, float* bmax,
                           int* bidx, int* bnan, cudaStream_t st) {
-  if (a.mn != nullptr)
-    return launch_tiles(lm_head_block_kernel<M, WIDE, true>, M, a, st,
-                        n_valid, bmax, bidx, bnan);
-  return launch_tiles(lm_head_block_kernel<M, WIDE, false>, M, a, st,
-                      n_valid, bmax, bidx, bnan);
+  cudaError_t err = cudaErrorInvalidValue;
+  with_format(a.bits, a.mn != nullptr, [&](auto fmt) {
+    using T = decltype(fmt);
+    err = launch_tiles(lm_head_block_kernel<M, WIDE, T::BITS, T::HAS_MIN>, M,
+                       a, st, n_valid, bmax, bidx, bnan);
+  });
+  return err;
 }
 
 template <int M, bool WIDE>
 cudaError_t launch_logits(const GemvArgs& a, int n_valid, float* out,
                           float* gmax, cudaStream_t st) {
-  if (a.mn != nullptr)
-    return launch_tiles(lm_head_logits_gmax_kernel<M, WIDE, true>, M, a, st,
-                        n_valid, out, gmax);
-  return launch_tiles(lm_head_logits_gmax_kernel<M, WIDE, false>, M, a, st,
-                      n_valid, out, gmax);
+  cudaError_t err = cudaErrorInvalidValue;
+  with_format(a.bits, a.mn != nullptr, [&](auto fmt) {
+    using T = decltype(fmt);
+    err = launch_tiles(
+        lm_head_logits_gmax_kernel<M, WIDE, T::BITS, T::HAS_MIN>, M, a, st,
+        n_valid, out, gmax);
+  });
+  return err;
 }
 
 GemvArgs lm_head_args(const float* x, const float* ln_w, const float* ln_b,
                       float eps, const uint8_t* lv, const void* sc,
-                      const void* mn, int d_in, int d_out, int offset) {
+                      const void* mn, int d_in, int d_out, int offset,
+                      int bits) {
   GemvArgs a;
   a.x = x;
   a.ln_w = ln_w;
@@ -216,6 +224,7 @@ GemvArgs lm_head_args(const float* x, const float* ln_w, const float* ln_b,
   a.d_in = d_in;
   a.d_out = d_out;
   a.offset = offset;
+  a.bits = bits;
   a.gpb = d_in / (2 * QK);   // one block covers the whole of d_in
   return a;
 }
@@ -225,17 +234,18 @@ GemvArgs lm_head_args(const float* x, const float* ln_w, const float* ln_b,
 // x (M, d_in) f32 with M in 1..8 (X' numerics) or 16 / 32 (dequant-then-
 // dot; the wrapper pads 9..32 rows with zeros); ln_w/ln_b (d_in) f32;
 // scratch bmax/bidx/bnan hold M * d_out/128 entries each; out_idx (M,)
-// i32, out_max (M,) f32.
+// i32, out_max (M,) f32; bits: the level format (4, 5 or 8).
 extern "C" int bgt_lm_head_argmax(const float* x, const float* ln_w,
                                   const float* ln_b, float eps,
                                   const uint8_t* lv, const void* sc,
                                   const void* mn, int M, int d_in, int d_out,
-                                  int offset, int n_valid, int tile_blocks,
+                                  int offset, int bits, int n_valid,
+                                  int tile_blocks,
                                   float* bmax, int* bidx, int* bnan,
                                   int* out_idx, float* out_max, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const GemvArgs a = lm_head_args(x, ln_w, ln_b, eps, lv, sc, mn, d_in,
-                                  d_out, offset);
+                                  d_out, offset, bits);
   cudaError_t err;
   switch (M) {
     case 1: err = launch_argmax<1, false>(a, n_valid, bmax, bidx, bnan, st); break;
@@ -266,11 +276,12 @@ extern "C" int bgt_lm_head_logits_gmax(const float* x, const float* ln_w,
                                        const float* ln_b, float eps,
                                        const uint8_t* lv, const void* sc,
                                        const void* mn, int M, int d_in,
-                                       int d_out, int offset, int n_valid,
+                                       int d_out, int offset, int bits,
+                                       int n_valid,
                                        float* out, float* gmax, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const GemvArgs a = lm_head_args(x, ln_w, ln_b, eps, lv, sc, mn, d_in,
-                                  d_out, offset);
+                                  d_out, offset, bits);
   switch (M) {
     case 8: return (int)launch_logits<8, false>(a, n_valid, out, gmax, st);
     case 16: return (int)launch_logits<16, true>(a, n_valid, out, gmax, st);

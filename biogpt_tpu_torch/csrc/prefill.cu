@@ -1,5 +1,6 @@
 // Fresh-cache prompt forward of a serving refill group: R prompts padded to
-// T tokens through all L layers, packed Q4_0 / Q4_1 weights.
+// T tokens through all L layers, Q4_0 / Q4_1 / Q5_0 / Q5_1 (packed) or Q8_0
+// (unpacked) weights.
 //
 // Replaces biogpt_tpu/ops/pallas_prefill.py::prefill_fused (body
 // `_make_prefill_kernel`). Contract: (x0 (R*T, D) f32, layers) -> (x
@@ -9,11 +10,14 @@
 //
 // Bound on an H100: operations at the large refill shapes (2*R*T*(12 D^2
 // ... ) ~ 6.2e11 at 32 prompts x 32 tokens, 0.63 ms at the bf16 tensor
-// rate), bytes (the ~170 MB of layer planes) at the small ones. So the
-// projections are a tiled tensor-core GEMM, unlike the decode GEMVs:
-//   a 64-row x 128-column block tile; per k-step 32 packed rows of the
-//   split-half level plane, i.e. 32 low-nibble and 32 high-nibble level
-//   rows, dequantized into shared memory as bf16 with `_qmm_dq`'s
+// rate), bytes (the layer planes: ~170 MB in Q4_0, ~321 MB in Q8_0) at the
+// small ones. So the projections are a tiled tensor-core GEMM, unlike the
+// decode GEMVs:
+//   a 64-row x 128-column block tile; per k-step 32 packed rows, i.e. 32
+//   low and 32 high level rows (the split-half nibbles, with their fifth
+//   bits for Q5; the rows k and d_in/2 + k of the int8 plane for Q8_0;
+//   qgemv.cuh's level fetch), dequantized into shared memory as bf16 with
+//   `_qmm_dq`'s
 //   rounding ((level - offset) * scale [+ min] in f32, one rounding), the
 //   matching 64 activation columns staged beside them; four warps of
 //   mma.sync m16n8k16 (bf16 in, f32 accumulation), each 32 x 64; bias,
@@ -70,7 +74,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // (level - offset) * scale [+ min] in f32; the caller rounds it to bf16
 template <bool HAS_MIN>
-__device__ __forceinline__ float dq(uint32_t lvl, float off, float s, float m) {
+__device__ __forceinline__ float dq(int lvl, float off, float s, float m) {
   float w = __fmul_rn((float)lvl - off, s);
   if (HAS_MIN) w = __fadd_rn(w, m);
   return w;
@@ -110,8 +114,9 @@ __device__ __forceinline__ void epilogue(const Epi& e, int row, int col,
 // y = A (M, d_in) bf16 @ dequant(planes) (d_in, d_out), epilogue EPI.
 // grid (d_out / 128, ceil(M / 64)), block 128; d_in % 64 == 0.
 // Shared k-slot j of a step at packed row p0: level row p0 + j (j < 32,
-// low nibbles) or d_in/2 + p0 + j - 32 (high nibbles); both tiles use it.
-template <int EPI, bool HAS_MIN>
+// low) or d_in/2 + p0 + j - 32 (high); both tiles use it. BITS: the level
+// format of `lv` (qgemv.cuh).
+template <int EPI, int BITS, bool HAS_MIN>
 __global__ void __launch_bounds__(GTHREADS)
 qgemm_kernel(const __nv_bfloat16* __restrict__ A, int M, int d_in, int d_out,
              const uint8_t* __restrict__ lv, const __nv_bfloat16* __restrict__ sc,
@@ -152,19 +157,20 @@ qgemm_kernel(const __nv_bfloat16* __restrict__ A, int M, int d_in, int d_out,
         mlo = __bfloat162float(mn[(size_t)blo * d_out + col]);
         mhi = __bfloat162float(mn[(size_t)(blo + nbh) * d_out + col]);
       }
-      const uint8_t* lp = lv + (size_t)p0 * d_out + col;
       __nv_bfloat16* bp = Bs + tid * GKS;
+      FifthBit fb(p0, d_in);
 #pragma unroll
       for (int j = 0; j < GPR; j += 8) {
         uint32_t lo[4], hi[4];
 #pragma unroll
         for (int r = 0; r < 8; r += 2) {
-          const uint32_t b0 = lp[(size_t)(j + r) * d_out];
-          const uint32_t b1 = lp[(size_t)(j + r + 1) * d_out];
-          lo[r / 2] = pack_bf16(dq<HAS_MIN>(b0 & 15u, off, slo, mlo),
-                                dq<HAS_MIN>(b1 & 15u, off, slo, mlo));
-          hi[r / 2] = pack_bf16(dq<HAS_MIN>(b0 >> 4, off, shi, mhi),
-                                dq<HAS_MIN>(b1 >> 4, off, shi, mhi));
+          int l0, h0, l1, h1;
+          fetch_levels1<BITS>(lv, fb, j + r, half, d_out, col, l0, h0);
+          fetch_levels1<BITS>(lv, fb, j + r + 1, half, d_out, col, l1, h1);
+          lo[r / 2] = pack_bf16(dq<HAS_MIN>(l0, off, slo, mlo),
+                                dq<HAS_MIN>(l1, off, slo, mlo));
+          hi[r / 2] = pack_bf16(dq<HAS_MIN>(h0, off, shi, mhi),
+                                dq<HAS_MIN>(h1, off, shi, mhi));
         }
         *reinterpret_cast<uint4*>(bp + j) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
         *reinterpret_cast<uint4*>(bp + GPR + j) =
@@ -319,21 +325,22 @@ prefill_attn_kernel(const __nv_bfloat16* q, const __nv_bfloat16* k,
   }
 }
 
+// Layer l's GEMM: the level plane's layer stride follows the format.
 template <int EPI>
 void launch_gemm(const __nv_bfloat16* A, int M, int d_in, int d_out,
                  const Proj& p, int l, float off, const Epi& e,
                  cudaStream_t st) {
-  const size_t lv_stride = (size_t)(d_in / 2) * d_out;
+  const size_t lv_stride = level_rows(d_in, p.bits) * d_out;
   const size_t sc_stride = (size_t)(d_in / QK) * d_out;
   const dim3 grid(d_out / GBN, (M + GBM - 1) / GBM);
-  if (p.mn != nullptr)
-    qgemm_kernel<EPI, true><<<grid, GTHREADS, 0, st>>>(
-        A, M, d_in, d_out, p.lv + l * lv_stride, p.sc + l * sc_stride,
-        p.mn + l * sc_stride, off, e);
-  else
-    qgemm_kernel<EPI, false><<<grid, GTHREADS, 0, st>>>(
-        A, M, d_in, d_out, p.lv + l * lv_stride, p.sc + l * sc_stride,
-        nullptr, off, e);
+  const uint8_t* lv = p.lv + l * lv_stride;
+  const __nv_bfloat16* sc = p.sc + l * sc_stride;
+  const __nv_bfloat16* mn = p.mn != nullptr ? p.mn + l * sc_stride : nullptr;
+  with_format(p.bits, mn != nullptr, [&](auto fmt) {
+    using T = decltype(fmt);
+    qgemm_kernel<EPI, T::BITS, T::HAS_MIN><<<grid, GTHREADS, 0, st>>>(
+        A, M, d_in, d_out, lv, sc, mn, off, e);
+  });
 }
 
 }  // namespace
@@ -342,7 +349,8 @@ void launch_gemm(const __nv_bfloat16* A, int M, int d_in, int d_out,
 // wrapper allocates: hb, qb, ctx (R*T, D) bf16, ff (R*T, F) bf16.
 extern "C" int bgt_prefill(
     float* x, int R, int T, int L, int D, int F, int H, float eps, int offset,
-    const float* ln0w, const float* ln0b, const float* ln1w, const float* ln1b,
+    int bits, const float* ln0w, const float* ln0b, const float* ln1w,
+    const float* ln1b,
     const uint8_t* qkv_lv, const void* qkv_sc, const void* qkv_mn, const float* qkv_b,
     const uint8_t* o_lv, const void* o_sc, const void* o_mn, const float* o_b,
     const uint8_t* fc1_lv, const void* fc1_sc, const void* fc1_mn, const float* fc1_b,
@@ -350,14 +358,15 @@ extern "C" int bgt_prefill(
     void* k_rows, void* v_rows, void* hb, void* qb, void* ctx, void* ff,
     void* stream) {
   if (D != H * DK || R < 1 || T < 1 || T > MAX_T || D % GBN != 0
-      || F % GBN != 0 || (3 * D) % GBN != 0)
+      || F % GBN != 0 || (3 * D) % GBN != 0
+      || !with_format(bits, qkv_mn != nullptr, [](auto) {}))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = R * T;
-  const Proj qkv = make_proj(qkv_lv, qkv_sc, qkv_mn, qkv_b);
-  const Proj o = make_proj(o_lv, o_sc, o_mn, o_b);
-  const Proj fc1 = make_proj(fc1_lv, fc1_sc, fc1_mn, fc1_b);
-  const Proj fc2 = make_proj(fc2_lv, fc2_sc, fc2_mn, fc2_b);
+  const Proj qkv = make_proj(qkv_lv, qkv_sc, qkv_mn, qkv_b, bits);
+  const Proj o = make_proj(o_lv, o_sc, o_mn, o_b, bits);
+  const Proj fc1 = make_proj(fc1_lv, fc1_sc, fc1_mn, fc1_b, bits);
+  const Proj fc2 = make_proj(fc2_lv, fc2_sc, fc2_mn, fc2_b, bits);
   __nv_bfloat16* kr = static_cast<__nv_bfloat16*>(k_rows);
   __nv_bfloat16* vr = static_cast<__nv_bfloat16*>(v_rows);
   __nv_bfloat16* h = static_cast<__nv_bfloat16*>(hb);

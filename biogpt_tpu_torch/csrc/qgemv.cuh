@@ -1,20 +1,34 @@
-// Skinny-M quantized GEMV for packed 4-bit planes, shared by every kernel
-// of the port (qmatmul.cu, lm_head_argmax.cu, decode_step.cu,
-// decode_batched.cu).
+// Skinny-M quantized GEMV for the packed 4/5-bit and the unpacked 8-bit
+// weight planes, shared by every kernel of the port (qmatmul.cu,
+// lm_head_argmax.cu, decode_step.cu, decode_batched.cu, decode_paged.cu;
+// prefill.cu shares the level fetch).
 //
-// Weight layout (biogpt_tpu_torch/quant/layouts.py): levels are a uint8
-// (d_in/2, d_out) plane in split-half order -- byte row i holds level row i
-// in its low nibble and level row i + d_in/2 in its high nibble, UNCENTERED
-// (0..15); scales and mins are bf16 (d_in/32, d_out) planes.
+// Weight layout (biogpt_tpu_torch/quant/layouts.py), one of three level
+// planes, the format BITS a template parameter beside HAS_MIN:
+//   4 (Q4_0, Q4_1): uint8 (d_in/2, d_out) in split-half order -- byte row i
+//     holds level row i in its low nibble and level row i + d_in/2 in its
+//     high nibble, UNCENTERED (0..15);
+//   5 (Q5_0, Q5_1): those nibble rows, then a split-eighth fifth-bit plane
+//     of d_in/8 rows (bit p of plane row j is bit 4 of level row
+//     p*d_in/8 + j), levels UNCENTERED (0..31). Since d_in/2 = 4 * d_in/8,
+//     level rows k and k + d_in/2 take their fifth bits from the same plane
+//     row k mod d_in/8, at bits q and q + 4 (q = k div d_in/8): one u32 load
+//     per packed row gives both halves' bits for a lane's 4 columns, ORed
+//     into the levels as integers before the float conversion, as the TPU
+//     kernel does (pallas_qmatmul.py::unpack_levels_swar);
+//   8 (Q8_0): int8 (d_in, d_out), levels already centered (offset 0).
+// Scales and mins are bf16 (d_in/32, d_out) planes.
 //
-// Work split: a block owns TILE_COLS = 128 output columns (32 lanes x 4
-// columns, one u32 load per packed row per lane, so a warp reads 128
-// contiguous bytes of a row) and `gpb` packed 32-row groups along d_in.
-// Packed group g carries level blocks g (low nibbles) and g + nbh (high
-// nibbles), nbh = d_in/64. The block's warps stride over its groups; their
-// per-column sums reduce across warps in shared memory in a fixed order,
-// and across the blocks of a column tile (grid.y) in a second pass
-// (epilogue kernels below) -- no atomics, so every run sums in one order.
+// Work split (the same for every format): a block owns TILE_COLS = 128
+// output columns (32 lanes x 4 columns, one u32 load per level row per
+// lane, so a warp reads 128 contiguous bytes of a row) and `gpb` packed
+// 32-row groups along d_in. Packed group g carries level blocks g (rows
+// g*32 + r, "low") and g + nbh (rows d_in/2 + g*32 + r, "high"), nbh =
+// d_in/64. The block's warps stride over its groups; their per-column sums
+// reduce across warps in shared memory in a fixed order, and across the
+// blocks of a column tile (grid.y) in a second pass (epilogue kernels
+// below) -- no atomics, so every run sums in one order, the same order for
+// every format.
 //
 // Two numerics, one per TPU kernel (biogpt_tpu/ops/pallas_qmatmul.py):
 //   XPRIME (qmatmul_pallas, `_kernel`): x rounded to bf16; per level block
@@ -87,14 +101,109 @@ struct GemvArgs {
   const float* ln_w;         // (d_in) LayerNorm weight, or null: no LN
   const float* ln_b;         // (d_in)
   float eps;
-  const uint8_t* lv;         // (d_in/2, d_out) packed levels
+  const uint8_t* lv;         // level plane of format `bits` (see top)
   const __nv_bfloat16* sc;   // (d_in/32, d_out)
   const __nv_bfloat16* mn;   // (d_in/32, d_out) or null (Q4_0)
   int d_in;
   int d_out;
-  int offset;                // LEVEL_OFFSET: 8 for Q4_0, 0 for Q4_1
+  int offset;                // LEVEL_OFFSET: 8 Q4_0, 16 Q5_0, else 0
+  int bits;                  // level format: 4, 5 or 8
   int gpb;                   // packed groups per block
 };
+
+// Byte rows of a (d_in, d_out) level plane of format `bits`: d_in/2,
+// 5*d_in/8 or d_in (the layer stride of a layer-stacked plane).
+__host__ __device__ inline size_t level_rows(int d_in, int bits) {
+  return bits == 8 ? (size_t)d_in
+                   : (size_t)(d_in / 2) + (bits == 5 ? d_in / 8 : 0);
+}
+
+// The fifth-bit plane positions of a group of level rows k0 + i, i < 32
+// (k0 + i < d_in/2): at(i) gives plane row j and bit q of row k0 + i
+// without a carried dependence from row to row, so an unrolled loop's
+// loads issue together.
+struct FifthBit {
+  int k0, j0, q0, e;   // e = d_in/8 rows in the plane
+  __device__ __forceinline__ FifthBit(int k0_, int d_in)
+      : k0(k0_), e(d_in / 8) {
+    q0 = k0 / e;
+    j0 = k0 - q0 * e;
+  }
+  __device__ __forceinline__ void at(int i, int& j, int& q) const {
+    if (e >= QK) {   // a group of QK rows wraps at most once
+      j = j0 + i;
+      q = q0;
+      if (j >= e) {
+        j -= e;
+        ++q;
+      }
+    } else {
+      q = (k0 + i) / e;
+      j = k0 + i - q * e;
+    }
+  }
+};
+
+__device__ __forceinline__ uint32_t ld_u32(const uint8_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Level bytes of packed row k = fb.k0 + i (< d_in/2) for the 4 columns at
+// `col`, one u32 each: lo holds level row k, hi level row k + d_in/2 --
+// uncentered for the packed formats, signed bytes for BITS == 8.
+template <int BITS>
+__device__ __forceinline__ void fetch_levels4(const uint8_t* lv,
+                                              const FifthBit& fb, int i,
+                                              int half, int d_out, int col,
+                                              uint32_t& lo, uint32_t& hi) {
+  const int k = fb.k0 + i;
+  if (BITS == 8) {
+    lo = ld_u32(lv + (size_t)k * d_out + col);
+    hi = ld_u32(lv + (size_t)(k + half) * d_out + col);
+  } else {
+    const uint32_t w = ld_u32(lv + (size_t)k * d_out + col);
+    lo = w & 0x0F0F0F0Fu;
+    hi = (w >> 4) & 0x0F0F0F0Fu;
+    if (BITS == 5) {
+      int j, q;
+      fb.at(i, j, q);
+      const uint32_t f = ld_u32(lv + (size_t)(half + j) * d_out + col);
+      lo |= ((f >> q) & 0x01010101u) << 4;
+      hi |= ((f >> (q + 4)) & 0x01010101u) << 4;
+    }
+  }
+}
+
+// The same for one column: (lo, hi) levels as ints.
+template <int BITS>
+__device__ __forceinline__ void fetch_levels1(const uint8_t* lv,
+                                              const FifthBit& fb, int i,
+                                              int half, int d_out, int col,
+                                              int& lo, int& hi) {
+  const int k = fb.k0 + i;
+  if (BITS == 8) {
+    lo = (int)(int8_t)lv[(size_t)k * d_out + col];
+    hi = (int)(int8_t)lv[(size_t)(k + half) * d_out + col];
+  } else {
+    const uint32_t b = lv[(size_t)k * d_out + col];
+    lo = (int)(b & 15u);
+    hi = (int)(b >> 4);
+    if (BITS == 5) {
+      int j, q;
+      fb.at(i, j, q);
+      const uint32_t f = lv[(size_t)(half + j) * d_out + col];
+      lo |= (int)((f >> q) & 1u) << 4;
+      hi |= (int)((f >> (q + 4)) & 1u) << 4;
+    }
+  }
+}
+
+// Level of column c (byte c) of a fetched u32, as a float.
+template <int BITS>
+__device__ __forceinline__ float level_of(uint32_t u, int c) {
+  const uint32_t b = (u >> (8 * c)) & 0xFFu;
+  return BITS == 8 ? (float)(int)(int8_t)b : (float)b;
+}
 
 // Stage the bf16-rounded activations this block needs into shared memory:
 // xs[(m * 2 + h) * span + i] = x[m, h * d_in/2 + g0 * QK + i], i < span,
@@ -131,13 +240,14 @@ __device__ void stage_x(const GemvArgs& a, float* xs, int g0, int span,
 
 // The per-thread half of a block's column tile: acc[m][c] for columns
 // tile * 128 + lane * 4 + c, summed over this warp's packed groups.
-template <int M, bool WIDE, bool HAS_MIN>
+template <int M, bool WIDE, int BITS, bool HAS_MIN>
 __device__ __forceinline__ void gemv_accumulate(const GemvArgs& a,
                                                 const float* xs, int tile,
                                                 int g0, float (&acc)[M][4]) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int col0 = tile * TILE_COLS + lane * 4;
   const int nbh = a.d_in / (2 * QK);
+  const int half = a.d_in / 2;
   const int span = a.gpb * QK;
   const float off = (float)a.offset;
 #pragma unroll
@@ -176,20 +286,19 @@ __device__ __forceinline__ void gemv_accumulate(const GemvArgs& a,
         }
       }
     }
-    const uint8_t* lrow = a.lv + (size_t)g * QK * a.d_out + col0;
+    FifthBit fb(g * QK, a.d_in);
     if (WIDE) {
 #pragma unroll 4
       for (int r = 0; r < QK; ++r) {
-        const uint32_t w = *reinterpret_cast<const uint32_t*>(
-            lrow + (size_t)r * a.d_out);
+        uint32_t ulo, uhi;
+        fetch_levels4<BITS>(a.lv, fb, r, half, a.d_out, col0, ulo, uhi);
         float wl[4], wh[4];
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          const uint32_t b = (w >> (8 * c)) & 0xFFu;
           // _rn: no fused multiply-add, so the product rounds before the
           // min is added, as in the TPU kernel
-          wl[c] = __fmul_rn((float)(b & 0xFu) - off, slo[c]);
-          wh[c] = __fmul_rn((float)(b >> 4) - off, shi[c]);
+          wl[c] = __fmul_rn(level_of<BITS>(ulo, c) - off, slo[c]);
+          wh[c] = __fmul_rn(level_of<BITS>(uhi, c) - off, shi[c]);
           if (HAS_MIN) {
             wl[c] += mlo[c];
             wh[c] += mhi[c];
@@ -216,17 +325,16 @@ __device__ __forceinline__ void gemv_accumulate(const GemvArgs& a,
         for (int c = 0; c < 4; ++c) plo[m][c] = phi[m][c] = 0.f;
 #pragma unroll 8
       for (int r = 0; r < QK; ++r) {
-        const uint32_t w = *reinterpret_cast<const uint32_t*>(
-            lrow + (size_t)r * a.d_out);
+        uint32_t ulo, uhi;
+        fetch_levels4<BITS>(a.lv, fb, r, half, a.d_out, col0, ulo, uhi);
 #pragma unroll
         for (int m = 0; m < M; ++m) {
           const float xl = xs[(m * 2 + 0) * span + gi * QK + r];
           const float xh = xs[(m * 2 + 1) * span + gi * QK + r];
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
-            const uint32_t b = (w >> (8 * c)) & 0xFFu;
-            plo[m][c] += xl * (float)(b & 0xFu);
-            phi[m][c] += xh * (float)(b >> 4);
+            plo[m][c] += xl * level_of<BITS>(ulo, c);
+            phi[m][c] += xh * level_of<BITS>(uhi, c);
           }
         }
       }
@@ -273,7 +381,7 @@ __device__ __forceinline__ void warp_tile_reduce(float (&acc)[M][4], float* red,
 
 // Partial products: part[(blockIdx.y * M + m) * d_out + col].
 // grid = (d_out / 128, nbh / gpb), block = GEMV_THREADS.
-template <int M, bool WIDE, bool HAS_MIN>
+template <int M, bool WIDE, int BITS, bool HAS_MIN>
 __global__ void __launch_bounds__(GEMV_THREADS)
 qgemv_partial_kernel(GemvArgs a, float* part) {
   __shared__ float xs[XS_BYTES_MAX / 4];
@@ -283,7 +391,7 @@ qgemv_partial_kernel(GemvArgs a, float* part) {
   stage_x<M>(a, xs, g0, a.gpb * QK, scratch);
   __syncthreads();
   float acc[M][4];
-  gemv_accumulate<M, WIDE, HAS_MIN>(a, xs, blockIdx.x, g0, acc);
+  gemv_accumulate<M, WIDE, BITS, HAS_MIN>(a, xs, blockIdx.x, g0, acc);
   float* out = part + (size_t)blockIdx.y * M * a.d_out + blockIdx.x * TILE_COLS;
   warp_tile_reduce<M>(acc, red, out, a.d_out);
 }
@@ -321,11 +429,51 @@ inline int pick_gpb(int d_in) {
   return g;
 }
 
-template <int M, bool WIDE, bool HAS_MIN>
+// The five (format, mins) pairs the kernels are built for: calls
+// f(Fmt<BITS, HAS_MIN>{}) for the pair of (bits, mins) -> false for
+// another pair (Q8_0 has no mins).
+template <int B_, bool M_>
+struct Fmt {
+  static constexpr int BITS = B_;
+  static constexpr bool HAS_MIN = M_;
+};
+
+template <typename F>
+inline bool with_format(int bits, bool mins, F f) {
+  switch (bits) {
+    case 4:
+      if (mins) f(Fmt<4, true>{});
+      else f(Fmt<4, false>{});
+      return true;
+    case 5:
+      if (mins) f(Fmt<5, true>{});
+      else f(Fmt<5, false>{});
+      return true;
+    case 8:
+      if (mins) return false;
+      f(Fmt<8, false>{});
+      return true;
+    default:
+      return false;
+  }
+}
+
+template <int M, bool WIDE, int BITS, bool HAS_MIN>
 inline void launch_partial(const GemvArgs& a, float* part, cudaStream_t st) {
   const int nbh = a.d_in / (2 * QK);
   dim3 grid(a.d_out / TILE_COLS, nbh / a.gpb);
-  qgemv_partial_kernel<M, WIDE, HAS_MIN><<<grid, GEMV_THREADS, 0, st>>>(a, part);
+  qgemv_partial_kernel<M, WIDE, BITS, HAS_MIN>
+      <<<grid, GEMV_THREADS, 0, st>>>(a, part);
+}
+
+// launch_partial for the format of `a` -> false for an unknown format
+template <int M, bool WIDE>
+inline bool launch_partial_fmt(const GemvArgs& a, float* part,
+                               cudaStream_t st) {
+  return with_format(a.bits, a.mn != nullptr, [&](auto fmt) {
+    using T = decltype(fmt);
+    launch_partial<M, WIDE, T::BITS, T::HAS_MIN>(a, part, st);
+  });
 }
 
 inline void launch_partial_sum(const float* part, int splits, int rows,

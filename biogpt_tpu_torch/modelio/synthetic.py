@@ -5,10 +5,14 @@ random model with the exact HF tensor-name/shape contract and a small
 working character-level BPE vocabulary, through the real file format.
 
 ``write_random_quantized_model`` writes random ggml block BYTES straight
-into the file (random levels, f16 scales in [0.005, 0.02], Q4_1/Q5_1 minima
-in [-0.2, -0.05]) — the same draw ranges as the JAX package's
+into a Q4_0 or Q4_1 file (random levels, f16 scales in [0.005, 0.02],
+Q4_1 minima in [-0.2, -0.05]) — the same draw ranges as the JAX package's
 ``make_random_quantized_params`` — so a full-width 347M file takes seconds
-instead of a float-codec pass over 347M values.
+instead of a float-codec pass over 347M values. A Q5_0/Q8_0 (Q5_1) file
+holds the same seed's Q4_0 (Q4_1) model re-quantized by the reference
+codec, as the quantize tool makes one model's files: every format then
+carries weights of one magnitude (random Q8_0 level bytes under Q4 scales
+would make every weight 16 times larger).
 """
 
 from __future__ import annotations
@@ -89,7 +93,7 @@ def _random_blocks(rng: np.random.Generator, n_blocks: int, qtype: int) -> bytes
     blocks = rng.integers(0, 256, size=(n_blocks, bs), dtype=np.uint8)
     blocks[:, 0:2] = (rng.uniform(0.005, 0.02, n_blocks).astype(np.float16)
                       .view(np.uint8).reshape(n_blocks, 2))
-    if qtype in (codecs.GGML_TYPE_Q4_1, codecs.GGML_TYPE_Q5_1):
+    if qtype == codecs.GGML_TYPE_Q4_1:
         blocks[:, 2:4] = ((-rng.uniform(0.05, 0.2, n_blocks)).astype(np.float16)
                           .view(np.uint8).reshape(n_blocks, 2))
     return blocks.tobytes()
@@ -101,21 +105,30 @@ def write_random_quantized_model(path: str | Path, config: BioGptConfig,
     """Write a random quantized model file; returns its config.
 
     Tensors that the reference quantization rule selects ("weight" in the
-    name, 2-D) carry random ``qtype`` block bytes; layer norms are ones and
-    zeros; biases are N(0, 0.02) float32.
+    name, 2-D) carry random Q4_0/Q4_1 block bytes, re-quantized to
+    ``qtype`` where it is another format (see the module docstring); layer
+    norms are ones and zeros; biases are N(0, 0.02) float32.
     """
     import dataclasses
 
     config = dataclasses.replace(config, ftype=_FTYPE_FOR_QTYPE[qtype])
     rng = np.random.default_rng(seed)
     vocab, merges = make_char_vocab(config.n_vocab)
+    # the random blocks are drawn as Q4 ones; other formats re-quantize them
+    drawn = (qtype if qtype in (codecs.GGML_TYPE_Q4_0, codecs.GGML_TYPE_Q4_1)
+             else codecs.GGML_TYPE_Q4_1 if qtype == codecs.GGML_TYPE_Q5_1
+             else codecs.GGML_TYPE_Q4_0)
 
     def records():
         for name, shape in _tensor_shapes(config):
             if "weight" in name and len(shape) == 2:
                 n_blocks = shape[0] * shape[1] // codecs.QK
+                data = _random_blocks(rng, n_blocks, drawn)
+                if drawn != qtype:
+                    data = codecs.quantize_blocks(
+                        codecs.dequantize_blocks(data, drawn), qtype).tobytes()
                 yield TensorRecord(name=name, shape=shape, ttype=qtype,
-                                   data=_random_blocks(rng, n_blocks, qtype))
+                                   data=data)
                 continue
             if "layer_norm" in name:
                 fill = 1.0 if name.endswith("weight") else 0.0

@@ -23,6 +23,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
@@ -44,35 +45,38 @@ SOURCES = {
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LL = ctypes.c_longlong
-# C entry points: (library, function) -> argtypes; all return int
+# C entry points: (library, function) -> argtypes; all return int. The
+# weight-reading entry points take the level format (4, 5 or 8) after the
+# level offset.
 SIGNATURES = {
-    ("qmatmul", "bgt_qmatmul"): [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
-                                 _P],
+    ("qmatmul", "bgt_qmatmul"): [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+                                 _P, _P],
     ("qmatmul", "bgt_qmatmul_splits"): [_I],
     ("lm_head_argmax", "bgt_lm_head_argmax"): [
-        _P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-        _P, _P],
+        _P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+        _P, _P, _P],
     ("lm_head_argmax", "bgt_lm_head_logits_gmax"): [
-        _P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+        _P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     ("decode_step", "bgt_decode_part_size"): [_I, _I],
     ("decode_step", "bgt_decode_head_dim"): [],
     ("decode_step", "bgt_decode_step"): (
-        [_P, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P]
+        [_P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P]
         + [_P] * 16 + [_P] * 6 + [_P] * 5 + [_P]),
     ("decode_batched", "bgt_decode_batched_part_size"): [_I, _I, _I],
     ("decode_batched", "bgt_decode_batched"): (
-        [_P] + [_I] * 8 + [_P, _F, _I] + [_P] * 4
+        [_P] + [_I] * 8 + [_P, _F, _I, _I] + [_P] * 4
         + [_P] * 16 + [_P] * 6 + [_P] * 6 + [_P]),
     ("decode_paged", "bgt_decode_paged_part_size"): [_I, _I, _I],
     ("decode_paged", "bgt_decode_paged"): (
-        [_P] + [_I] * 8 + [_P, _F, _I] + [_P] * 4
+        [_P] + [_I] * 8 + [_P, _F, _I, _I] + [_P] * 4
         + [_P] * 16 + [_P] * 6 + [_P] * 5 + [_I] * 3 + [_P] * 2 + [_P]),
     ("kv_commit", "bgt_kv_commit"): [_P, _P, _P, _P, _LL, _LL, _P, _I, _I, _I,
                                      _I, _P],
     ("kv_commit", "bgt_kv_commit_quant"): (
         [_P] * 6 + [_LL, _LL, _P, _P, _LL, _LL, _P] + [_I] * 4 + [_P]),
     ("prefill", "bgt_prefill"): (
-        [_P] + [_I] * 6 + [_F, _I] + [_P] * 4 + [_P] * 16 + [_P] * 6 + [_P]),
+        [_P] + [_I] * 6 + [_F, _I, _I] + [_P] * 4 + [_P] * 16 + [_P] * 6
+        + [_P]),
 }
 
 LAUNCHES = {"qmatmul": 0, "qmatmul_wide": 0, "lm_head_argmax": 0,
@@ -126,31 +130,41 @@ def _start_build(name: str):
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out, cmd
+    return name, proc, tmp, out, cmd, time.perf_counter()
 
 
-def _finish_build(job) -> None:
-    proc, tmp, out, cmd = job
+def _finish_build(job) -> float:
+    """Wait for a build -> its seconds."""
+    _, proc, tmp, out, cmd, t0 = job
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}): "
                            f"{' '.join(cmd)}\n{log}")
     os.replace(tmp, out)
+    return time.perf_counter() - t0
 
 
-def build_all(names=None) -> None:
+def build_all(names=None) -> dict:
     """Build every kernel library that is not built yet, one ``nvcc`` per
-    source, all started together."""
+    source, all started together -> {library: seconds its nvcc took}."""
     with _LOCK:
         jobs = [j for j in (_start_build(n) for n in (names or SOURCES)) if j]
-        errors = []
-        for job in jobs:
+        done = {}   # library -> its seconds, or the build's error
+
+        def finish(job):   # one waiting thread per build: each its own time
             try:
-                _finish_build(job)
+                done[job[0]] = _finish_build(job)
             except RuntimeError as e:
-                errors.append(str(e))
+                done[job[0]] = e
+        waiters = [threading.Thread(target=finish, args=(j,)) for j in jobs]
+        for w in waiters:
+            w.start()
+        for w in waiters:
+            w.join()
+        errors = [str(v) for v in done.values() if isinstance(v, Exception)]
         if errors:
             raise RuntimeError("\n".join(errors))
+        return done
 
 
 def library(name: str) -> ctypes.CDLL:

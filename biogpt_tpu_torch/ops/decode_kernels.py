@@ -17,7 +17,7 @@ sums raw p), the current token enters attention fake-quantized
 quantizes them (``runtime.cache.quantize_rows``).
 
 ``layers`` are the engine-packed layer-stacked weights (fused ``qkv``,
-packed 4-bit planes, bf16 scales). ``past`` is the host's int at B=1 and a
+packed 4/5-bit or unpacked Q8_0 planes, bf16 scales). ``past`` is the host's int at B=1 and a
 (B,) integer tensor of per-slot positions on the device at B >= 2. The
 caller commits slot b's rows at its position; attention reads slot b's
 cache rows ``< min(past[b], window)`` and the current token, never row
@@ -57,10 +57,11 @@ import math
 import torch
 
 from ..quant.codecs import QK
-from ..quant.layouts import LEVEL_OFFSET, QuantizedTensor
+from ..quant.layouts import QuantizedTensor
 from . import cuda_lib
-from .qmatmul_kernels import (CUDA_QTYPES, LANES, layer_norm_bf16,
-                              qmatmul_plain, qmatmul_wide_plain)
+from .qmatmul_kernels import (LANES, _offset, check_cuda_levels,
+                              layer_norm_bf16, qmatmul_plain,
+                              qmatmul_wide_plain)
 
 # d_in chunk of the TPU kernel's matmul loops; it has no remainder path
 _CHUNK = 32 * QK
@@ -386,26 +387,23 @@ def kv_commit_quant_plain(k_cache, v_cache, ks, vs, kq_t, vq_t, ksc_t, vsc_t,
 
 # --------------------------------------------------------------- wrappers
 
-def _check_cuda_layers(layers: dict, L: int, D: int, batch: int) -> None:
-    for name in ("qkv", "o", "fc1", "fc2"):
-        qt = layers[name]["w"]
-        if not qt.packed or qt.qtype not in CUDA_QTYPES:
-            raise NotImplementedError(
-                "decode_step_fused: the CUDA kernel takes packed Q4_0/Q4_1 "
-                "planes; Q5_0/Q5_1 and Q8_0 are a later slice of the port")
-        for t in (qt.levels, qt.scales, qt.mins, layers[name]["b"]):
-            if t is not None and (not t.is_cuda or not t.is_contiguous()
-                                  or t.shape[0] != L):
-                raise ValueError(f"decode_step_fused: {name} planes must be "
-                                 "contiguous layer-stacked CUDA tensors")
-        if (qt.scales.dtype != torch.bfloat16 or qt.levels.dtype != torch.uint8
-                or layers[name]["b"].dtype != torch.float32):
-            raise ValueError(f"decode_step_fused: {name} needs uint8 levels, "
-                             "bf16 scales and f32 biases")
+def _check_cuda_layers(layers: dict, L: int, D: int, batch: int,
+                       what: str = "decode_step_fused") -> tuple:
+    """Check the layer-stacked planes for the CUDA chains -> (level offset,
+    level format) of their one format (``supports_layers``)."""
     if not supports_layers(layers, torch.bfloat16, batch, 1):
-        raise ValueError("decode_step_fused: unsupported layer shapes")
-    if layers["qkv"]["w"].d_in != D:
-        raise ValueError("decode_step_fused: qkv d_in != d_model")
+        raise ValueError(f"{what}: unsupported layer shapes")
+    for name in ("qkv", "o", "fc1", "fc2"):
+        bits = check_cuda_levels(layers[name]["w"], (L,), f"{what} {name}")
+        b = layers[name]["b"]
+        if (not b.is_cuda or not b.is_contiguous() or b.shape[0] != L
+                or b.dtype != torch.float32):
+            raise ValueError(f"{what}: {name} bias must be a contiguous f32 "
+                             "layer-stacked CUDA tensor")
+    qkv = layers["qkv"]["w"]
+    if qkv.d_in != D:
+        raise ValueError(f"{what}: qkv d_in != d_model")
+    return _offset(qkv), bits
 
 
 def _check_cuda_caches(k_cache, v_cache, what: str, k_scales=None,
@@ -467,7 +465,7 @@ def _decode_step_b1(x0, layers, k_cache, v_cache, past: int, n_head: int,
     if not 0 <= past < min(window, S):
         raise ValueError(f"{what}: past={past} outside the window "
                          f"{min(window, S)}")
-    _check_cuda_layers(layers, L, D, 1)
+    offset, bits = _check_cuda_layers(layers, L, D, 1, what)
     lib = cuda_lib.library("decode_step")
     DK = lib.bgt_decode_head_dim()
     if D != n_head * DK:
@@ -488,9 +486,8 @@ def _decode_step_b1(x0, layers, k_cache, v_cache, past: int, n_head: int,
     ff = torch.empty(F, **f32)
     norms = _layer_norms(layers)
     err = lib.bgt_decode_step(
-        x.data_ptr(), L, D, F, n_head, S, int(past), float(ln_eps),
-        LEVEL_OFFSET[layers["qkv"]["w"].qtype],
-        *[t.data_ptr() for t in norms], *_layer_planes(layers),
+        x.data_ptr(), L, D, F, n_head, S, int(past), float(ln_eps), offset,
+        bits, *[t.data_ptr() for t in norms], *_layer_planes(layers),
         k_cache.data_ptr(), v_cache.data_ptr(), cuda_lib.ptr(k_scales),
         cuda_lib.ptr(v_scales), k_rows.data_ptr(), v_rows.data_ptr(),
         part.data_ptr(), ml.data_ptr(), acc.data_ptr(), ctx.data_ptr(),
@@ -512,7 +509,7 @@ def _decode_step_batched(x0, layers, k_cache, v_cache, past, n_head: int,
         raise NotImplementedError(
             f"{what}: the CUDA kernel is built for head width "
             f"{_CUDA_HEAD_DIM}, got {D // n_head}")
-    _check_cuda_layers(layers, L, D, B)
+    offset, bits = _check_cuda_layers(layers, L, D, B, what)
     dev = x0.device
     past = _cuda_past(past, B, dev, what)
     W = min(window, S)
@@ -535,8 +532,8 @@ def _decode_step_batched(x0, layers, k_cache, v_cache, past, n_head: int,
     norms = _layer_norms(layers)
     err = lib.bgt_decode_batched(
         x.data_ptr(), L, D, F, n_head, S, B, M, W, past.data_ptr(),
-        float(ln_eps), LEVEL_OFFSET[layers["qkv"]["w"].qtype],
-        *[t.data_ptr() for t in norms], *_layer_planes(layers),
+        float(ln_eps), offset, bits, *[t.data_ptr() for t in norms],
+        *_layer_planes(layers),
         k_cache.data_ptr(), v_cache.data_ptr(), cuda_lib.ptr(k_scales),
         cuda_lib.ptr(v_scales), k_rows.data_ptr(), v_rows.data_ptr(),
         part.data_ptr(), qkv.data_ptr(), ml.data_ptr(),
@@ -565,7 +562,7 @@ def _decode_step_paged(x0, layers, k_cache, v_cache, past, n_head: int,
         raise NotImplementedError(
             f"{what}: the CUDA kernel is built for head width "
             f"{_CUDA_HEAD_DIM}, got {D // n_head}")
-    _check_cuda_layers(layers, L, D, B)
+    offset, bits = _check_cuda_layers(layers, L, D, B, what)
     dev = x0.device
     past = _cuda_past(past, B, dev, what)
     W = min(window, S)
@@ -605,8 +602,8 @@ def _decode_step_paged(x0, layers, k_cache, v_cache, past, n_head: int,
     norms = _layer_norms(layers)
     err = lib.bgt_decode_paged(
         x.data_ptr(), L, D, F, n_head, S, B, M, W, past.data_ptr(),
-        float(ln_eps), LEVEL_OFFSET[layers["qkv"]["w"].qtype],
-        *[t.data_ptr() for t in norms], *_layer_planes(layers),
+        float(ln_eps), offset, bits, *[t.data_ptr() for t in norms],
+        *_layer_planes(layers),
         k_cache.data_ptr(), v_cache.data_ptr(), cuda_lib.ptr(k_scales),
         cuda_lib.ptr(v_scales), k_rows.data_ptr(), v_rows.data_ptr(),
         part.data_ptr(), qkv.data_ptr(), ctx.data_ptr(), ff.data_ptr(),

@@ -30,11 +30,10 @@ import math
 
 import torch
 
-from ..quant.layouts import LEVEL_OFFSET
 from . import cuda_lib
 from .decode_kernels import (_check_cuda_layers, _layer_norms, _layer_planes,
                              supports_layers)
-from .qmatmul_kernels import CUDA_QTYPES, layer_norm_bf16, qmatmul_wide_plain
+from .qmatmul_kernels import CUDA_FORMATS, layer_norm_bf16, qmatmul_wide_plain
 
 # Routing caps on the flattened rows R*T, kept from the TPU gate
 # (pallas_prefill.py:59-61): there they came from VMEM, here they decide
@@ -52,8 +51,10 @@ def supports_prefill(layers: dict, rows: int, padded: int, *, n_head: int,
     """Whether a refill group of ``rows`` prompts padded to ``padded``
     tokens takes :func:`prefill_fused`. The R*T caps are the JAX package's
     routing caps (R*T <= 512, or <= 1024 when T <= 128); the kernel itself
-    needs fused packed Q4_0/Q4_1 planes of one format (``supports_layers``),
-    head width 64 and T <= n_positions. The TPU gate's ``padded % 8`` and
+    needs fused planes of one format as the engines prepare them
+    (``supports_layers``: packed Q4_0/Q4_1/Q5_0/Q5_1 or unpacked Q8_0, as
+    the JAX gate lets packed and unpacked planes through), head width 64
+    and T <= n_positions. The TPU gate's ``padded % 8`` and
     ``d_model % 128`` come from Mosaic tiling and are not kept (the layer
     gate already implies the second)."""
     rt = rows * padded
@@ -63,7 +64,7 @@ def supports_prefill(layers: dict, rows: int, padded: int, *, n_head: int,
     if not supports_layers(layers, torch.bfloat16, batch=1, n_new=1):
         return False
     qkv = layers["qkv"]["w"]
-    return (qkv.packed and qkv.qtype in CUDA_QTYPES
+    return ((qkv.qtype, qkv.packed) in CUDA_FORMATS
             and qkv.d_in == n_head * HEAD_DIM)
 
 
@@ -136,7 +137,7 @@ def prefill_fused(x0, layers: dict, *, rows: int, padded: int, n_head: int,
                                   f"width {HEAD_DIM}, got {D // n_head}")
     if T > MAX_T:
         raise ValueError(f"{what}: prompts padded to {T} > {MAX_T} tokens")
-    _check_cuda_layers(layers, L, D, 1)
+    offset, bits = _check_cuda_layers(layers, L, D, 1, what)
     F = layers["fc1"]["w"].d_out
     dev = x0.device
     bf16 = dict(dtype=torch.bfloat16, device=dev)
@@ -149,8 +150,7 @@ def prefill_fused(x0, layers: dict, *, rows: int, padded: int, n_head: int,
     ff = torch.empty(RT, F, **bf16)     # GELU(fc1)
     norms = _layer_norms(layers)
     err = cuda_lib.library("prefill").bgt_prefill(
-        x.data_ptr(), R, T, L, D, F, n_head, float(ln_eps),
-        LEVEL_OFFSET[layers["qkv"]["w"].qtype],
+        x.data_ptr(), R, T, L, D, F, n_head, float(ln_eps), offset, bits,
         *[t.data_ptr() for t in norms], *_layer_planes(layers),
         k_rows.data_ptr(), v_rows.data_ptr(), hb.data_ptr(), qb.data_ptr(),
         ctx.data_ptr(), ff.data_ptr(), cuda_lib.stream_ptr(dev))

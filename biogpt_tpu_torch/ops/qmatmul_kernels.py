@@ -8,9 +8,11 @@ computes, bf16 roundings included; on a CUDA tensor it launches the
 hand-written Hopper kernel (``csrc/qmatmul.cu``, ``csrc/lm_head_argmax.cu``)
 or raises. There is no fallback from the card to the plain version.
 
-The CUDA kernels take the packed 4-bit formats (Q4_0, Q4_1) with bf16
-scale planes, as ``runtime.engine._pack_matmul_weights`` prepares them; the
-plain versions take all five formats, packed or not.
+The CUDA kernels take every format as ``runtime.engine.
+_pack_matmul_weights`` prepares it, with bf16 scale planes: the packed
+4-bit (Q4_0, Q4_1) and 5-bit (Q5_0, Q5_1) planes and the unpacked int8
+plane of Q8_0 (:func:`cuda_format`); the plain versions take all five
+formats, packed or not.
 
 Replaces (biogpt_tpu/ops/pallas_qmatmul.py):
   qmatmul          <- qmatmul_pallas         (M <= 8, X' numerics)
@@ -33,14 +35,20 @@ from __future__ import annotations
 
 import torch
 
-from ..quant.codecs import QK, GGML_TYPE_Q4_0, GGML_TYPE_Q4_1
+from ..quant.codecs import (QK, GGML_TYPE_Q4_0, GGML_TYPE_Q4_1,
+                            GGML_TYPE_Q5_0, GGML_TYPE_Q5_1, GGML_TYPE_Q8_0)
 from ..quant.layouts import LEVEL_OFFSET, QuantizedTensor, unpack_levels
 from . import cuda_lib
 
 LANES = 128             # output-column alignment of every kernel
 # d_in chunk of the TPU wide kernel's dequant loop; it has no remainder path
 _WIDE_CHUNK = 1024
-CUDA_QTYPES = (GGML_TYPE_Q4_0, GGML_TYPE_Q4_1)   # formats the CUDA kernels take
+# (ggml type, packed) -> the CUDA kernels' level format (csrc/qgemv.cuh):
+# split-half nibbles (4), the nibbles and a fifth-bit plane (5), or the
+# unpacked int8 plane (8), as the engines prepare each format
+CUDA_FORMATS = {(GGML_TYPE_Q4_0, True): 4, (GGML_TYPE_Q4_1, True): 4,
+                (GGML_TYPE_Q5_0, True): 5, (GGML_TYPE_Q5_1, True): 5,
+                (GGML_TYPE_Q8_0, False): 8}
 
 
 # ------------------------------------------------------------------ gates
@@ -220,21 +228,44 @@ def lm_head_logits_gmax_commit_plain(x, ln_w, ln_b, qt: QuantizedTensor,
 
 # --------------------------------------------------------------- wrappers
 
-def _check_cuda_weight(qt: QuantizedTensor, what: str) -> None:
-    if not qt.packed or qt.qtype not in CUDA_QTYPES:
-        raise NotImplementedError(
-            f"{what}: the CUDA kernel takes packed Q4_0/Q4_1 planes; Q5_0/"
-            f"Q5_1 and Q8_0 kernels are a later slice of the port "
-            f"(qtype {qt.qtype}, packed={qt.packed})")
+def cuda_format(qt: QuantizedTensor, what: str) -> int:
+    """The CUDA kernels' level format of ``qt`` (4, 5 or 8); raises for a
+    plane the engines never hand them (a 4/5-bit format left unpacked, a
+    packed Q8_0)."""
+    bits = CUDA_FORMATS.get((qt.qtype, qt.packed))
+    if bits is None:
+        raise ValueError(
+            f"{what}: the CUDA kernels take packed Q4_0/Q4_1/Q5_0/Q5_1 planes "
+            f"or an unpacked Q8_0 plane, got qtype {qt.qtype} "
+            f"packed={qt.packed}")
+    return bits
+
+
+def level_rows(d_in: int, bits: int) -> int:
+    """Rows of a (d_in, d_out) level plane of format ``bits`` (qgemv.cuh's
+    ``level_rows``): d_in/2 nibble rows, plus d_in/8 fifth-bit rows, or
+    d_in int8 rows."""
+    return d_in if bits == 8 else d_in // 2 + (d_in // 8 if bits == 5 else 0)
+
+
+def check_cuda_levels(qt: QuantizedTensor, lead: tuple, what: str) -> int:
+    """Check ``qt``'s planes for the CUDA kernels (``lead``: the layer-stack
+    dimensions) -> its level format."""
+    bits = cuda_format(qt, what)
+    d_in, d_out = qt.d_in, qt.d_out
     for name, t in (("scales", qt.scales), ("mins", qt.mins)):
         if t is not None and (t.dtype != torch.bfloat16 or not t.is_contiguous()
                               or not t.is_cuda):
             raise ValueError(f"{what}: {name} must be a contiguous bf16 CUDA "
                              f"tensor, got {t.dtype} on {t.device}")
-    if (qt.levels.dtype != torch.uint8 or not qt.levels.is_contiguous()
-            or qt.levels.dim() != 2 or qt.levels.shape[0] * 2 != qt.d_in):
-        raise ValueError(f"{what}: levels must be a contiguous uint8 "
-                         f"(d_in/2, d_out) plane, got {tuple(qt.levels.shape)}")
+    dtype = torch.int8 if bits == 8 else torch.uint8
+    shape = lead + (level_rows(d_in, bits), d_out)
+    if (qt.levels.dtype != dtype or not qt.levels.is_contiguous()
+            or not qt.levels.is_cuda or tuple(qt.levels.shape) != shape):
+        raise ValueError(f"{what}: levels must be a contiguous {dtype} CUDA "
+                         f"plane {shape}, got {qt.levels.dtype} "
+                         f"{tuple(qt.levels.shape)}")
+    return bits
 
 
 def _cuda_x(x: torch.Tensor, d_in: int, what: str) -> torch.Tensor:
@@ -245,7 +276,7 @@ def _cuda_x(x: torch.Tensor, d_in: int, what: str) -> torch.Tensor:
 
 def _launch_qmatmul(x: torch.Tensor, qt: QuantizedTensor, wide: bool):
     what = "qmatmul_wide" if wide else "qmatmul"
-    _check_cuda_weight(qt, what)
+    bits = check_cuda_levels(qt, (), what)
     d_in, d_out = qt.d_in, qt.d_out
     x = _cuda_x(x, d_in, what)
     M = x.shape[0]
@@ -268,7 +299,7 @@ def _launch_qmatmul(x: torch.Tensor, qt: QuantizedTensor, wide: bool):
     y = torch.empty(Mk, d_out, dtype=torch.float32, device=x.device)
     err = lib.bgt_qmatmul(
         x.data_ptr(), qt.levels.data_ptr(), qt.scales.data_ptr(),
-        cuda_lib.ptr(qt.mins), Mk, d_in, d_out, LEVEL_OFFSET[qt.qtype],
+        cuda_lib.ptr(qt.mins), Mk, d_in, d_out, _offset(qt), bits,
         int(wide), part.data_ptr(), y.data_ptr(),
         cuda_lib.stream_ptr(x.device))
     cuda_lib.LAUNCHES[what] += 1
@@ -296,8 +327,8 @@ _TAIL_SMEM_BYTES = 200 * 1024
 
 
 def _tail_rows(x, ln_w, ln_b, qt: QuantizedTensor, n_valid: int, what: str):
-    """Checked (x padded to the kernel's rows, ln_w, ln_b, M) of a tail."""
-    _check_cuda_weight(qt, what)
+    """Checked (x, ln_w, ln_b, M, level format) of a tail."""
+    bits = check_cuda_levels(qt, (), what)
     d_in, d_out = qt.d_in, qt.d_out
     x = _cuda_x(x, d_in, what)
     M = x.shape[0]
@@ -307,7 +338,7 @@ def _tail_rows(x, ln_w, ln_b, qt: QuantizedTensor, n_valid: int, what: str):
                          f"d_out={d_out} n_valid={n_valid}")
     ln_w = ln_w.to(torch.float32).contiguous()
     ln_b = ln_b.to(torch.float32).contiguous()
-    return x, ln_w, ln_b, M
+    return x, ln_w, ln_b, M, bits
 
 
 def _pad_rows(x: torch.Tensor, Mk: int) -> torch.Tensor:
@@ -318,7 +349,7 @@ def _pad_rows(x: torch.Tensor, Mk: int) -> torch.Tensor:
 
 def _launch_argmax(x, ln_w, ln_b, qt, n_valid: int, ln_eps: float,
                    what: str):
-    x, ln_w, ln_b, M = _tail_rows(x, ln_w, ln_b, qt, n_valid, what)
+    x, ln_w, ln_b, M, bits = _tail_rows(x, ln_w, ln_b, qt, n_valid, what)
     # kernel rows: 1..8 (X'), or 16 / 32 (dequant-then-dot) with zero rows
     Mk = M if M <= 8 else 16 if M <= 16 else 32
     x = _pad_rows(x, Mk)
@@ -333,7 +364,7 @@ def _launch_argmax(x, ln_w, ln_b, qt, n_valid: int, ln_eps: float,
     err = lib.bgt_lm_head_argmax(
         x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), float(ln_eps),
         qt.levels.data_ptr(), qt.scales.data_ptr(), cuda_lib.ptr(qt.mins),
-        Mk, qt.d_in, qt.d_out, LEVEL_OFFSET[qt.qtype], n_valid,
+        Mk, qt.d_in, qt.d_out, _offset(qt), bits, n_valid,
         pick_tile(qt.d_out) // LANES, bmax.data_ptr(), bidx.data_ptr(),
         bnan.data_ptr(), ids.data_ptr(), mv.data_ptr(),
         cuda_lib.stream_ptr(dev))
@@ -384,7 +415,7 @@ def lm_head_logits_gmax_commit(x, ln_w, ln_b, qt: QuantizedTensor,
     from .decode_kernels import kv_commit
 
     what = "lm_head_logits_gmax_commit"
-    x, ln_w, ln_b, M = _tail_rows(x, ln_w, ln_b, qt, n_valid, what)
+    x, ln_w, ln_b, M, bits = _tail_rows(x, ln_w, ln_b, qt, n_valid, what)
     Mk = 8 if M <= 8 else 16 if M <= 16 else 32   # rows are independent
     x = _pad_rows(x, Mk)
     dev = x.device
@@ -394,7 +425,7 @@ def lm_head_logits_gmax_commit(x, ln_w, ln_b, qt: QuantizedTensor,
     err = lib.bgt_lm_head_logits_gmax(
         x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), float(ln_eps),
         qt.levels.data_ptr(), qt.scales.data_ptr(), cuda_lib.ptr(qt.mins),
-        Mk, qt.d_in, qt.d_out, LEVEL_OFFSET[qt.qtype], n_valid,
+        Mk, qt.d_in, qt.d_out, _offset(qt), bits, n_valid,
         logits.data_ptr(), gmax.data_ptr(), cuda_lib.stream_ptr(dev))
     cuda_lib.LAUNCHES[what] += 1
     cuda_lib.check(err, what)

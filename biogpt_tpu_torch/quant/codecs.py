@@ -9,10 +9,12 @@ QK=32, nibble packing low=j / high=j+16):
   Q5_1 (24 B/block): fp16 d, m; u32 qh; 16 B nibbles. w = d * q + m
   Q8_0 (34 B/block): fp16 d;        32 int8.       w = d * q
 
-The port only reads quantized files (the encoders live with the JAX
-package's quantize tool), so this module keeps the decoders: dequantization
-widens the stored fp16 scale back to f32. Blocks never straddle rows
-(row length = ne[0] = d_in).
+The port reads quantized files, so this module keeps the decoders:
+dequantization widens the stored fp16 scale back to f32. Its encoders are
+the Q5_0, Q5_1 and Q8_0 ones of the ggml reference (as the JAX package's
+quantize tool implements them), which the random model writer
+(``modelio.synthetic``) uses to re-quantize one random model into these
+formats. Blocks never straddle rows (row length = ne[0] = d_in).
 """
 
 from __future__ import annotations
@@ -89,6 +91,91 @@ def _unpack_qh(qh_bytes: np.ndarray) -> np.ndarray:
     qh = qh_bytes.reshape(-1, 4).copy().view("<u4").reshape(-1, 1)
     shifts = np.arange(32, dtype=np.uint32)[None, :]
     return ((qh >> shifts) & 1).astype(np.uint8)
+
+
+# ---------------------------------------------------------------- encoders
+
+def _fp16_bytes(x: np.ndarray) -> np.ndarray:
+    """f32 -> IEEE fp16 (RN-even, as GGML_FP32_TO_FP16) as raw bytes."""
+    return x.astype(np.float16).view(np.uint8)
+
+
+def _inverse(d: np.ndarray) -> np.ndarray:
+    """1/d, 0 where d is 0 (an all-zero block)."""
+    return np.where(d != 0.0, np.float32(1.0) / np.where(d != 0.0, d, 1.0), 0.0)
+
+
+def _trunc_shift(x: np.ndarray, shift: float, hi: int) -> np.ndarray:
+    """clamp((int)(x + shift), 0, hi): the reference's C cast truncates;
+    the shifted values are >= 0 there, where truncation is floor."""
+    return np.clip(np.floor(x + np.float32(shift)), 0, hi).astype(np.uint8)
+
+
+def _pack_nibbles(q: np.ndarray) -> np.ndarray:
+    """(n_blocks, 32) levels -> (n_blocks, 16) bytes: q[j] | q[j+16] << 4."""
+    return ((q[:, :16] & 0x0F) | ((q[:, 16:] & 0x0F) << 4)).astype(np.uint8)
+
+
+def _pack_qh(q: np.ndarray) -> np.ndarray:
+    """Bit 4 of each of the 32 levels -> (n_blocks, 4) LE u32 bytes (bit j
+    for element j)."""
+    bits = ((q >> 4) & 1).astype(np.uint32)
+    weights = (np.uint32(1) << np.arange(32, dtype=np.uint32))[None, :]
+    qh = (bits * weights).sum(axis=1, dtype=np.uint32)
+    return qh.astype("<u4").view(np.uint8).reshape(-1, 4)
+
+
+def _quantize_q5_0(blocks: np.ndarray) -> np.ndarray:
+    # d from the block's value of largest magnitude, sign kept (ggml "max")
+    smax = blocks[np.arange(blocks.shape[0]), np.argmax(np.abs(blocks), 1)]
+    d = smax / np.float32(-16.0)
+    q = _trunc_shift(blocks * _inverse(d)[:, None], 16.5, 31)
+    out = np.empty((blocks.shape[0], 22), dtype=np.uint8)
+    out[:, 0:2] = _fp16_bytes(d).reshape(-1, 2)
+    out[:, 2:6] = _pack_qh(q)
+    out[:, 6:] = _pack_nibbles(q)
+    return out
+
+
+def _quantize_q5_1(blocks: np.ndarray) -> np.ndarray:
+    mn, mx = blocks.min(axis=1), blocks.max(axis=1)
+    d = (mx - mn) / np.float32(31.0)
+    q = _trunc_shift((blocks - mn[:, None]) * _inverse(d)[:, None], 0.5, 31)
+    out = np.empty((blocks.shape[0], 24), dtype=np.uint8)
+    out[:, 0:2] = _fp16_bytes(d).reshape(-1, 2)
+    out[:, 2:4] = _fp16_bytes(mn).reshape(-1, 2)
+    out[:, 4:8] = _pack_qh(q)
+    out[:, 8:] = _pack_nibbles(q)
+    return out
+
+
+def _quantize_q8_0(blocks: np.ndarray) -> np.ndarray:
+    d = np.abs(blocks).max(axis=1) / np.float32(127.0)
+    scaled = blocks * _inverse(d)[:, None]
+    # roundf: half away from zero
+    q = np.trunc(scaled + np.copysign(np.float32(0.5), scaled)).astype(np.int8)
+    out = np.empty((blocks.shape[0], 34), dtype=np.uint8)
+    out[:, 0:2] = _fp16_bytes(d).reshape(-1, 2)
+    out[:, 2:] = q.view(np.uint8)
+    return out
+
+
+_ENCODERS = {
+    GGML_TYPE_Q5_0: _quantize_q5_0,
+    GGML_TYPE_Q5_1: _quantize_q5_1,
+    GGML_TYPE_Q8_0: _quantize_q8_0,
+}
+
+
+def quantize_blocks(x: np.ndarray, qtype: int) -> np.ndarray:
+    """float32 values (size % 32 == 0) -> raw ggml block bytes (n_blocks,
+    BLOCK_SIZES[qtype]) of Q5_0, Q5_1 or Q8_0."""
+    if qtype not in _ENCODERS:
+        raise ValueError(f"no encoder for ggml type {qtype}")
+    x = np.ascontiguousarray(x, dtype=np.float32)
+    if x.size % QK != 0:
+        raise ValueError(f"element count {x.size} not a multiple of QK={QK}")
+    return _ENCODERS[qtype](x.reshape(-1, QK))
 
 
 # ---------------------------------------------------------------- decoders

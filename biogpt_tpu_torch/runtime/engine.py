@@ -4,8 +4,10 @@ Prefill pads the prompt to a power-of-two bucket (floor 8) and runs the
 per-op ``forward``; its quantized projections go through the GEMV kernels
 (m <= 8: ``qmatmul``, 9..32: ``qmatmul_wide``) and larger buckets through
 one dense product. Decode runs the fused whole-model step; greedy decode
-adds the fused LN + lm_head + argmax tail, sampled decode the lm_head GEMV
-and the torch sampler. ``kv_quant=True`` keeps the KV cache in int8 with
+adds the fused LN + lm_head + argmax tail where the lm_head is packed (the
+4- and 5-bit formats), sampled decode, and greedy decode on an unpacked
+Q8_0 lm_head (as in the JAX engine), the final LN, the lm_head GEMV and
+the torch sampler or argmax. Every format has its CUDA kernels. ``kv_quant=True`` keeps the KV cache in int8 with
 per-row scales (``runtime.cache.QuantKVCache``); the fused step then runs
 in its int8 mode.
 
@@ -32,7 +34,7 @@ from ..models.biogpt import (forward, forward_fused_decode,
                              forward_fused_decode_greedy)
 from ..modelio.checkpoint import tree_map
 from ..ops.decode_kernels import supports_layers
-from ..ops.qmatmul_kernels import CUDA_QTYPES, LANES, supports
+from ..ops.qmatmul_kernels import LANES, supports
 from ..quant.layouts import QuantizedTensor, pack_nibble_planes
 from .cache import KVCache, init_cache
 from .sampling import greedy, sample_top_k_top_p
@@ -91,19 +93,6 @@ def _pack_matmul_weights(params: dict) -> dict:
     return out
 
 
-def check_cuda_formats(params: dict) -> None:
-    """Raise on quantized weights whose format has no CUDA kernel yet."""
-    qts = [params["lm_head"]] + [
-        v["w"] for v in params["layers"].values()
-        if isinstance(v, dict) and isinstance(v.get("w"), QuantizedTensor)]
-    for qt in qts:
-        if isinstance(qt, QuantizedTensor) and qt.qtype not in CUDA_QTYPES:
-            raise NotImplementedError(
-                f"ggml type {qt.qtype}: this slice of the PyTorch port "
-                "has CUDA kernels for Q4_0 and Q4_1 only; Q5_0/Q5_1/Q8_0 "
-                "are a later slice")
-
-
 @dataclass
 class GenerationResult:
     ids: List[int]
@@ -143,8 +132,6 @@ class Engine:
         if pack_q4:
             params = _pack_matmul_weights(params)
         self.params = tree_map(lambda a: a.to(self.device), params)
-        if self.device.type == "cuda" and pack_q4:
-            check_cuda_formats(self.params)
         self._fused_decode = (
             pack_q4 and compute_dtype != torch.float32
             and cache_dtype in (None, torch.bfloat16, torch.int8)

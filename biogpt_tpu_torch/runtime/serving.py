@@ -78,7 +78,7 @@ from ..ops.prefill_kernels import supports_prefill
 from ..ops.qmatmul_kernels import supports, supports_wide
 from ..quant.layouts import QuantizedTensor
 from .cache import KVCache, init_cache, merge_rows, write_block
-from .engine import _bucket, _pack_matmul_weights, check_cuda_formats
+from .engine import _bucket, _pack_matmul_weights
 from .health import DrainStallError, ModelHealthError
 from .metrics import ServingMetrics
 from .sampling import greedy, sample_per_request
@@ -225,8 +225,6 @@ class BatchedEngine:
                            else torch.float16)
         self.cache_dtype = cache_dtype
         self.params = tree_map(lambda a: a.to(self.device), params)
-        if self.device.type == "cuda" and pack_q4:
-            check_cuda_formats(self.params)
         # the per-op step's matmul kernels, where the JAX engine allows its
         # Pallas kernels: on the accelerator
         self.allow_kernels = pack_q4 and self.device.type == "cuda"

@@ -4,8 +4,9 @@ at the shape the port's main paths give it.
     python -m biogpt_tpu_torch.tools.kernel_bounds
 
 One JSON line per kernel (each function of ``biogpt_tpu/ops`` that reaches
-``pl.pallas_call``) and shape, ported or not, at BioGPT-347M with Q4_0
-planes; ``row`` is the kernel's number in PERF.md's table. Each line has the
+``pl.pallas_call``), shape and weight format (Q4_0, Q4_1, Q5_0, Q5_1,
+Q8_0: the planes as the engines prepare them), ported or not, at
+BioGPT-347M; ``row`` is the kernel's number in PERF.md's table. Each line has the
 bytes it must move (each input read once, each output written once), the
 operations it does, and ``bound_ms``, the larger of bytes over the card's
 memory rate and operations over its bf16 tensor rate (published H100 SXM
@@ -50,16 +51,24 @@ def bound(nbytes: float, flops: float):
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
-def q4_bytes(d_in: int, d_out: int) -> int:
-    """Packed Q4_0 levels plus bf16 scales of one (d_in, d_out) weight."""
-    return d_in // 2 * d_out + d_in // QK * d_out * 2
+FORMATS = ("q4_0", "q4_1", "q5_0", "q5_1", "q8_0")
 
 
-def layer_bytes(c: BioGptConfig) -> int:
-    """One layer's packed planes, f32 biases and LayerNorm parameters."""
+def q_bytes(d_in: int, d_out: int, fmt: str = "q4_0") -> int:
+    """The planes of one (d_in, d_out) weight in format ``fmt``: 4, 5 or 8
+    bits of levels per weight, a bf16 scale per 32 weights and, for the _1
+    formats, a bf16 min (0.5625, 0.625, 0.6875, 0.75 and 1.0625 bytes per
+    weight for Q4_0, Q4_1, Q5_0, Q5_1 and Q8_0)."""
+    bits = {"q4": 4, "q5": 5, "q8": 8}[fmt[:2]]
+    planes = 2 if fmt.endswith("_1") else 1
+    return d_in * bits // 8 * d_out + planes * (d_in // QK) * d_out * 2
+
+
+def layer_bytes(c: BioGptConfig, fmt: str = "q4_0") -> int:
+    """One layer's planes, f32 biases and LayerNorm parameters."""
     D, F = c.d_model, c.d_ff
-    planes = (q4_bytes(D, 3 * D) + q4_bytes(D, D) + q4_bytes(D, F)
-              + q4_bytes(F, D))
+    planes = (q_bytes(D, 3 * D, fmt) + q_bytes(D, D, fmt)
+              + q_bytes(D, F, fmt) + q_bytes(F, D, fmt))
     return planes + (3 * D + D + F + D) * 4 + 4 * D * 4
 
 
@@ -104,19 +113,19 @@ def int8_step_cost(c: BioGptConfig, past: list, window: int, wbytes: int):
             L * (layer_flops(c, B) + 4 * live * D))
 
 
-def rows(c: BioGptConfig = BioGptConfig()) -> list:
+def rows(c: BioGptConfig = BioGptConfig(), fmt: str = "q4_0") -> list:
     D, L = c.d_model, c.n_layer
     V = -(-c.n_vocab // 128) * 128
-    W = L * layer_bytes(c)
+    W = L * layer_bytes(c, fmt)
     B = len(RAGGED_PAST)
     live = sum(min(p, WINDOW) for p in RAGGED_PAST)
-    lm = q4_bytes(D, V)
+    lm = q_bytes(D, V, fmt)
     commit = 4 * L * B * D * 2 + B * 4           # rows read, cache rows written
     out = [
         ("qmatmul_pallas", "pallas_qmatmul.py:860", "lm_head m=1",
          lm + D * 4 + V * 4, 2 * D * V),
         ("qmatmul_pallas_wide", "pallas_qmatmul.py:246", "fc1 m=32",
-         q4_bytes(D, c.d_ff) + 32 * D * 4 + 32 * c.d_ff * 4,
+         q_bytes(D, c.d_ff, fmt) + 32 * D * 4 + 32 * c.d_ff * 4,
          2 * 32 * D * c.d_ff),
         ("lm_head_argmax_pallas", "pallas_qmatmul.py:789", "m=1",
          lm + D * 4 + 2 * D * 4 + 8, 2 * D * V),
@@ -163,14 +172,16 @@ def rows(c: BioGptConfig = BioGptConfig()) -> list:
     for name, where, shape, nbytes, flops in out:
         ms, by = bound(nbytes, flops)
         recs.append({"row": ROW[name], "kernel": name, "replaces": f"biogpt_tpu/ops/"
-                     f"{where}", "shape": shape, "bytes": nbytes,
-                     "flops": flops, "bound_ms": ms, "bound_by": by})
+                     f"{where}", "shape": shape, "format": fmt,
+                     "bytes": nbytes, "flops": flops, "bound_ms": ms,
+                     "bound_by": by})
     return recs
 
 
 def main() -> int:
-    for rec in rows():
-        print(json.dumps(rec))
+    for fmt in FORMATS:
+        for rec in rows(fmt=fmt):
+            print(json.dumps(rec))
     return 0
 
 

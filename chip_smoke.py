@@ -24,12 +24,17 @@ logs its seconds):
      B=1 (past 100 and 600) and B=32 (window 512, ragged positions, dead
      slots, a slot past the window), also held against the batched CUDA
      step, and the staged step at B=32 (16 staging rows, steps 0, 7, 15);
-  6. single stream end to end: a 347M Q4_0 model file with random weights,
+  6. every kernel that reads weights again in each of Q5_0, Q5_1 and
+     Q8_0 (the GEMVs at every projection shape, ``lm_head_argmax`` and both
+     tails, the B=1, batched, paged and staged steps with bf16 and int8 KV,
+     ``prefill_fused``) against its plain version with the Q4 limits,
+     timed beside its bound and yardstick;
+  7. single stream end to end: a 347M Q4_0 model file with random weights,
      the CLI greedy (prompts of <= 8, 9-32 and >= 33 tokens, 128 new
      tokens) and sampled, then the CLI ``--kv-quant`` greedy, the launch
      counts of each, 8 teacher-forced decode steps of the kernels against
      the plain path, the decode rate with a bf16 and an int8 cache;
-  7. serving end to end on the same file, once with a bf16 and once with
+  8. serving end to end on the same file, once with a bf16 and once with
      an int8 KV cache: ``BatchedEngine.serve`` of 96 uniform greedy
      requests at B=32 (refills through ``prefill_fused``; the wall split
      into decode chunks, refill waves and the rest), then the HTTP server
@@ -38,11 +43,18 @@ logs its seconds):
      first-token logits through the prefill kernel against the per-op
      refill (bf16); 8 teacher-forced B=32 steps of the kernels against the
      plain path; the tokens/s of each run;
-  8. the paged (bf16 and int8) and staged engines on the same file: the
+  9. the paged (bf16 and int8) and staged engines on the same file: the
      uniform greedy serve (ids against the lockstep serve's, the launch
      counts) and a mixed-length serve of 32 requests, half greedy (its
      greedy rows against the lockstep engines' on the same requests);
-  9. the ``kernels`` line and the result line.
+  10. a random 347M file in each of Q5_0, Q5_1 and Q8_0: the CLI greedy,
+     sampled and ``--kv-quant`` (32 new tokens), the uniform greedy serve
+     of 96 requests (bf16 and int8 lockstep, paged, staged), each run
+     launching exactly its route's kernels (an unpacked Q8_0 lm_head takes
+     the lm_head GEMV, never the argmax tails), teacher-forced B=1 and B=32
+     steps and a refill wave against the plain path;
+  11. the ``kernels`` line (each kernel with the formats this run held on
+     the card) and the result line.
 
 Needs a CUDA card; exits non-zero without one or without the package.
 """
@@ -65,6 +77,11 @@ import torch
 
 FAILURES: list = []
 SPREAD: dict = {}
+# weight formats: name -> (ggml type, level bits as the engines prepare them)
+FORMATS = {"q4_0": (2, 4), "q4_1": (3, 4), "q5_0": (6, 5), "q5_1": (7, 5),
+           "q8_0": (8, 8)}
+# the formats this slice added, held and driven on their own
+NEW_FORMATS = ("q5_0", "q5_1", "q8_0")
 
 
 def log(msg: str) -> None:
@@ -145,6 +162,22 @@ def hidden_within(got, want, what: str) -> float:
     check(err <= tol and bool(torch.isfinite(got).all()),
           f"{what}: x err {err} > {tol}")
     return err
+
+
+def held_step(run, plain, what: str, rec: dict):
+    """Run a decode or prefill step's kernel and its plain version, hold
+    the hidden state and every layer's K/V rows to the steps' limits
+    (:func:`hidden_within`, :func:`rows_within`) and note the errors in
+    ``rec`` -> the kernel's (x, k_rows, v_rows)."""
+    x, kr, vr = run()
+    xp, krp, vrp = plain()
+    torch.cuda.synchronize()
+    err = hidden_within(x, xp, what)
+    rows = max(rows_within(kr, krp, what + " k"),
+               rows_within(vr, vrp, what + " v"))
+    rec.update(max_abs_err=err, tol=3e-3 * xp.abs().max().item(),
+               rows_err_over_tol=rows)
+    return x, kr, vr
 
 
 def kernel_ln(x, lnw, lnb, eps):
@@ -261,30 +294,46 @@ class Ctx:
         self.V_PAD = -(-self.cfg.n_vocab // 128) * 128
         self.gen = torch.Generator(device=self.dev)
         self.gen.manual_seed(1234)
-        self.results = {}
+        self.results = {}        # kernel -> its timed Q4_0 record
+        self.fmt_results = {}    # (kernel, format) -> the timed record
+        self.formats = {}        # kernel -> formats held on the card
         self.launches = {}
         self.lockstep_ids = {}   # the uniform lockstep serves' ids, per cache
 
     def randn(self, *shape):
         return torch.randn(*shape, generator=self.gen, device=self.dev)
 
-    def rand_qt(self, d_in, d_out, lead=(), mins=False):
-        from biogpt_tpu_torch.quant import codecs
+    def rand_qt(self, d_in, d_out, lead=(), mins=False, fmt=None):
+        """Random planes of a (d_in, d_out) weight as the engines prepare
+        them: ``fmt`` "q4_0", "q4_1", "q5_0", "q5_1" (packed nibbles, and
+        for Q5 a fifth-bit plane; random bytes are valid levels) or "q8_0"
+        (int8 levels -128..127); by default Q4_1 with ``mins``, else Q4_0.
+        The scales shrink with the level range (8, 16 or 128 levels each
+        side), so every format's weights have the same magnitude."""
         from biogpt_tpu_torch.quant.layouts import QuantizedTensor
 
-        lv = torch.randint(0, 256, lead + (d_in // 2, d_out), generator=self.gen,
-                           device=self.dev, dtype=torch.int32).to(torch.uint8)
+        fmt = fmt or ("q4_1" if mins else "q4_0")
+        qtype, bits = FORMATS[fmt]
+        mins = fmt.endswith("_1")
+        if bits == 8:
+            lv = torch.randint(-128, 128, lead + (d_in, d_out),
+                               generator=self.gen, device=self.dev,
+                               dtype=torch.int32).to(torch.int8)
+        else:
+            rows = d_in // 2 + (d_in // 8 if bits == 5 else 0)
+            lv = torch.randint(0, 256, lead + (rows, d_out),
+                               generator=self.gen, device=self.dev,
+                               dtype=torch.int32).to(torch.uint8)
         sshape = lead + (d_in // 32, d_out)
+        shrink = {4: 1.0, 5: 0.5, 8: 1 / 16}[bits]
         sc = (torch.rand(sshape, generator=self.gen, device=self.dev) * 0.015
-              + 0.005)
+              + 0.005) * shrink
         mn = (-(torch.rand(sshape, generator=self.gen, device=self.dev) * 0.15
                 + 0.05)).to(torch.bfloat16) if mins else None
         return QuantizedTensor(levels=lv, scales=sc.to(torch.bfloat16),
-                               mins=mn, qtype=(codecs.GGML_TYPE_Q4_1 if mins
-                                               else codecs.GGML_TYPE_Q4_0),
-                               packed=True)
+                               mins=mn, qtype=qtype, packed=bits != 8)
 
-    def rand_layers(self, mins):
+    def rand_layers(self, mins=False):
         """Layer-stacked random planes of 347M -> (layers, their bytes)."""
         c = self.cfg
         D, F, L = c.d_model, c.d_ff, c.n_layer
@@ -294,14 +343,98 @@ class Ctx:
                                   ("fc1", D, F), ("fc2", F, D)):
             layers[name] = {"w": self.rand_qt(d_in, d_out, (L,), mins),
                             "b": 0.02 * self.randn(L, d_out)}
-        wbytes = sum(qbytes(layers[n]["w"]) + layers[n]["b"].numel() * 4
-                     for n in ("qkv", "o", "fc1", "fc2")) + 4 * L * D * 4
-        return layers, wbytes
+        return layers, layers_bytes(layers)
+
+    def emit(self, rec: dict) -> None:
+        """Print a kernel record and note the format it held on the card."""
+        if "format" in rec:
+            self.formats.setdefault(rec["kernel"], set()).add(rec["format"])
+        print(json.dumps(rec), flush=True)
 
 
 def qbytes(qt):
     return sum(t.numel() * t.element_size()
                for t in (qt.levels, qt.scales, qt.mins) if t is not None)
+
+
+PROJECTIONS = ("qkv", "o", "fc1", "fc2")
+
+
+def layers_bytes(layers) -> int:
+    """Bytes of the layer planes, biases and LayerNorm parameters."""
+    L, D = layers["ln0"]["w"].shape
+    return sum(qbytes(layers[n]["w"]) + layers[n]["b"].numel() * 4
+               for n in PROJECTIONS) + 4 * L * D * 4
+
+
+def with_weights(layers, fn) -> dict:
+    """``layers`` with ``fn`` applied to each projection's planes."""
+    out = dict(layers)
+    for n in PROJECTIONS:
+        out[n] = {"w": fn(layers[n]["w"]), "b": layers[n]["b"]}
+    return out
+
+
+def in_format(fmt: str, lv, scales, mins):
+    """Centered int8 levels (..., d_in, d_out) with their scale (and min)
+    planes as ``fmt`` planes the kernels take: packed (split-half nibbles,
+    and for Q5 the fifth-bit plane) or, for Q8_0, unpacked; bf16 scales."""
+    from biogpt_tpu_torch.quant.layouts import (QuantizedTensor,
+                                                pack_nibble_planes)
+
+    qtype, bits = FORMATS[fmt]
+    out = QuantizedTensor(
+        levels=lv, scales=scales.to(torch.bfloat16),
+        mins=None if mins is None else mins.to(torch.bfloat16), qtype=qtype)
+    if bits == 8:
+        return out
+    dev = lv.device
+    return pack_nibble_planes(out.map(lambda a: a.cpu())).map(
+        lambda a: a.to(dev))
+
+
+def reencode(qt, fmt: str):
+    """The Q4 planes ``qt``'s own levels, scales and mins written in
+    ``fmt`` (Q5_0 and Q8_0 from Q4_0, Q5_1 from Q4_1): the same weights
+    exactly, so a dequant-then-dot kernel gives bit-equal results."""
+    from biogpt_tpu_torch.quant.layouts import unpack_levels
+
+    return in_format(fmt, unpack_levels(qt.levels, qt.qtype), qt.scales,
+                     qt.mins)
+
+
+def requantize(qt, fmt: str):
+    """The weights of the Q4 planes ``qt`` re-quantized to ``fmt`` by the
+    reference codec's rules (``codecs.quantize_blocks``: Q8_0 round(w /
+    (amax/127)); Q5_0 from the block's signed largest value / -16; Q5_1
+    over [min, max] in 31 steps; fp16 scales), on the card: the Q4 rows'
+    model, its levels now spanning the format's whole range."""
+    from biogpt_tpu_torch.quant.layouts import unpack_levels
+
+    w = unpack_levels(qt.levels, qt.qtype).float() * qt.scales.float(
+        ).repeat_interleave(32, dim=-2)
+    if qt.mins is not None:
+        w = w + qt.mins.float().repeat_interleave(32, dim=-2)
+    *lead, d_in, d_out = w.shape
+    b = w.reshape(*lead, d_in // 32, 32, d_out)
+
+    def inv(d):
+        inverse = torch.where(d != 0, 1 / torch.where(d != 0, d, 1), 0)
+        return inverse[..., None, :]
+    mins = None
+    if fmt == "q8_0":
+        d = b.abs().amax(-2) / 127
+        x = b * inv(d)
+        lv = torch.trunc(x + torch.copysign(torch.full_like(x, 0.5), x))
+    elif fmt == "q5_0":
+        d = b.gather(-2, b.abs().argmax(-2, keepdim=True)).squeeze(-2) / -16
+        lv = torch.floor(b * inv(d) + 16.5).clamp(0, 31) - 16
+    else:
+        mins, mx = b.amin(-2), b.amax(-2)
+        d = (mx - mins) / 31
+        lv = torch.floor((b - mins[..., None, :]) * inv(d) + 0.5).clamp(0, 31)
+        mins = mins.half()
+    return in_format(fmt, lv.to(torch.int8).reshape(w.shape), d.half(), mins)
 
 
 # ------------------------------------------------- 2. single-stream kernels
@@ -359,7 +492,7 @@ def phase_single_kernels(c: Ctx) -> None:
                     if key in (("qmatmul", "lm_head", 1),
                                ("qmatmul_wide", "fc1", 32)):
                         c.results[kname] = rec
-                print(json.dumps(rec), flush=True)
+                c.emit(rec)
 
     # decode_step_fused over 24 layers at three cache lengths
     for mins in (False, True):
@@ -393,7 +526,7 @@ def phase_single_kernels(c: Ctx) -> None:
                 timed(rec, run, plain, None, nbytes, flops)
                 if past == 100:
                     c.results["decode_step_fused"] = rec
-            print(json.dumps(rec), flush=True)
+            c.emit(rec)
         del layers, kc, vc
 
     # lm_head_argmax, m = 1, plus a forced tie and an all-NaN row
@@ -442,7 +575,7 @@ def phase_single_kernels(c: Ctx) -> None:
                   lib_call, qbytes(qt) + D * 4 + 2 * D * 4 + 8, 2 * D * V_PAD,
                   reps=50, plain_reps=5, flush=flush)
             c.results["lm_head_argmax"] = rec
-        print(json.dumps(rec), flush=True)
+        c.emit(rec)
     del flush_buf
 
 
@@ -460,13 +593,9 @@ def ragged_past(B: int, dead=(), beyond=()) -> list:
 
 
 def phase_serving_kernels(c: Ctx) -> None:
-    from biogpt_tpu_torch.ops import dequantize
     from biogpt_tpu_torch.ops.decode_kernels import (
         decode_step_fused, decode_step_fused_batched_plain, kv_commit,
         kv_commit_plain)
-    from biogpt_tpu_torch.ops.qmatmul_kernels import (
-        lm_head_argmax, lm_head_argmax_commit, lm_head_argmax_commit_plain,
-        lm_head_logits_gmax_commit, lm_head_logits_gmax_commit_plain)
     from biogpt_tpu_torch.tools.kernel_bounds import bf16_step_cost
 
     cfg, dev, V_PAD = c.cfg, c.dev, c.V_PAD
@@ -505,7 +634,7 @@ def phase_serving_kernels(c: Ctx) -> None:
                       *bf16_step_cost(cfg, past, W, wbytes))
                 if B == 32:
                     c.results["decode_step_fused_batched"] = rec
-            print(json.dumps(rec), flush=True)
+            c.emit(rec)
             del kc, vc
         del layers
 
@@ -535,7 +664,7 @@ def phase_serving_kernels(c: Ctx) -> None:
           lambda: kv_commit_plain(kc, vc, krt, vrt, pt), commit_lib,
           4 * L * B * D * 2 + B * 4, 0, reps=50)
     c.results["kv_commit"] = rec
-    print(json.dumps(rec), flush=True)
+    c.emit(rec)
     del kc, vc, k1, v1, k2, v2
 
     # the two tails with their commit, M = 8 and M = 32
@@ -543,100 +672,123 @@ def phase_serving_kernels(c: Ctx) -> None:
     lnw = 1 + 0.1 * c.randn(D)
     lnb = 0.1 * c.randn(D)
     for M in (8, 32):
-        x = c.randn(M, D)
-        kc = c.randn(L, M, S, D).to(torch.bfloat16)
-        vc = c.randn(L, M, S, D).to(torch.bfloat16)
-        krt = c.randn(M, L, D).to(torch.bfloat16)
-        vrt = c.randn(M, L, D).to(torch.bfloat16)
-        past = ragged_past(M)
-        pt = torch.tensor(past, dtype=torch.int32, device=dev)
-        slots = torch.arange(M, device=dev)
-        pos = pt.long()
-        commit_bytes = 4 * L * M * D * 2 + M * 4
-        # held to the plain version's logits (see lm_head_expect); ids
-        # compared where the top-2 gap exceeds the tolerance
-        exp = lm_head_expect(x, lnw, lnb, qt, cfg.ln_eps, f"lm_head tails M={M}")
-        tol, row_tol = exp["tol"], exp["row_tol"]
-
-        # greedy: ids, winning logits and caches against the plain tail
-        ids, mv, k1, v1 = lm_head_argmax_commit(
-            x, lnw, lnb, qt, V, kc.clone(), vc.clone(), krt, vrt, pt,
-            cfg.ln_eps)
-        _, _, k2, v2 = lm_head_argmax_commit_plain(
-            x, lnw, lnb, qt, V, kc.clone(), vc.clone(), krt, vrt, pt,
-            cfg.ln_eps)
-        torch.cuda.synchronize()
-        err, decided = tail_ids_within(ids, mv, exp, V,
-                                       f"lm_head_argmax_commit M={M}")
-        check(bool(torch.equal(k1, k2)) and bool(torch.equal(v1, v2)),
-              f"lm_head_argmax_commit M={M}: caches differ")
-        aid, amv = lm_head_argmax(x, lnw, lnb, qt, V, cfg.ln_eps)
-        tail_ids_within(aid, amv, exp, V, f"lm_head_argmax M={M}")
-
-        def argmax_lib():
-            xn = torch.nn.functional.layer_norm(x, (D,), lnw, lnb, cfg.ln_eps)
-            logits = xn.to(torch.bfloat16) @ dequantize(qt, torch.bfloat16)
-            kc[:, slots, pos] = krt.transpose(0, 1)
-            vc[:, slots, pos] = vrt.transpose(0, 1)
-            return torch.argmax(logits[:, :V], dim=-1)
-        rec = {"kernel": "lm_head_argmax_commit", "m": M, "past": past,
-               "max_abs_err": err, "tol": tol, "row_tol": row_tol.tolist(),
-               "ids_decided": decided, "ln_flips": exp["flips"]}
-        timed(rec, lambda: lm_head_argmax_commit(
-                  x, lnw, lnb, qt, V, kc, vc, krt, vrt, pt, cfg.ln_eps),
-              lambda: lm_head_argmax_commit_plain(
-                  x, lnw, lnb, qt, V, kc, vc, krt, vrt, pt, cfg.ln_eps),
-              argmax_lib, qbytes(qt) + M * D * 4 + 2 * D * 4 + M * 8
-              + commit_bytes, 2 * M * D * V_PAD)
+        recs = hold_tails(c, qt, lnw, lnb, M, "q4_0")
         if M == 32:
-            c.results["lm_head_argmax_commit"] = rec
-        print(json.dumps(rec), flush=True)
+            c.results.update(recs)
 
-        # sampled: logits, their group maxima, pad columns, caches
-        lo, gm, k1, v1 = lm_head_logits_gmax_commit(
-            x, lnw, lnb, qt, V, kc.clone(), vc.clone(), krt, vrt, pt,
-            cfg.ln_eps)
-        _, _, k2, v2 = lm_head_logits_gmax_commit_plain(
-            x, lnw, lnb, qt, V, kc.clone(), vc.clone(), krt, vrt, pt,
-            cfg.ln_eps)
-        torch.cuda.synchronize()
-        rerr = (lo[:, :V] - exp["plain"][:, :V]).abs().amax(-1)
-        err = rerr.max().item()
-        own = lo.reshape(M, -1, 128).amax(-1)
-        check(bool((rerr <= row_tol).all()) and bool(torch.equal(gm, own))
-              and bool((lo[:, V:] == -1e30).all()),
-              f"lm_head_logits_gmax_commit M={M}: logits err {rerr.tolist()} "
-              f"(tol {row_tol.tolist()}), gmax equal to its logits' group "
-              f"maxima: {bool(torch.equal(gm, own))}")
-        f = exp["flipped"]
-        if bool(f.any()):
-            ferr = (lo[f, :V] - exp["ref"][f, :V]).abs().max().item()
-            check(ferr <= tol, f"lm_head_logits_gmax_commit M={M}: flipped "
-                  f"rows' logits err {ferr} from the kernel-LN reference "
-                  f"(tol {tol})")
-        check(bool(torch.equal(k1, k2)) and bool(torch.equal(v1, v2)),
-              f"lm_head_logits_gmax_commit M={M}: caches differ")
 
-        def gmax_lib():
-            xn = torch.nn.functional.layer_norm(x, (D,), lnw, lnb, cfg.ln_eps)
-            logits = xn.to(torch.bfloat16) @ dequantize(qt, torch.bfloat16)
-            kc[:, slots, pos] = krt.transpose(0, 1)
-            vc[:, slots, pos] = vrt.transpose(0, 1)
-            return logits.float().reshape(M, -1, 128).amax(-1)
-        rec = {"kernel": "lm_head_logits_gmax_commit", "m": M, "past": past,
-               "max_abs_err": err, "tol": tol, "row_tol": row_tol.tolist(),
-               "ln_flips": exp["flips"]}
-        timed(rec, lambda: lm_head_logits_gmax_commit(
-                  x, lnw, lnb, qt, V, kc, vc, krt, vrt, pt, cfg.ln_eps),
-              lambda: lm_head_logits_gmax_commit_plain(
-                  x, lnw, lnb, qt, V, kc, vc, krt, vrt, pt, cfg.ln_eps),
-              gmax_lib, qbytes(qt) + M * D * 4 + 2 * D * 4
-              + M * V_PAD * 4 + M * (V_PAD // 128) * 4 + commit_bytes,
-              2 * M * D * V_PAD)
-        if M == 32:
-            c.results["lm_head_logits_gmax_commit"] = rec
-        print(json.dumps(rec), flush=True)
-        del kc, vc, k1, v1, k2, v2
+def hold_tails(c: Ctx, qt, lnw, lnb, M: int, fmt: str) -> dict:
+    """The greedy and sampled lm_head tails with their KV commit at M rows,
+    and ``lm_head_argmax`` at M, against their plain versions on random
+    rows and caches, timed beside their bounds and one-call yardsticks ->
+    {kernel: record}."""
+    from biogpt_tpu_torch.ops import dequantize
+    from biogpt_tpu_torch.ops.qmatmul_kernels import (
+        lm_head_argmax, lm_head_argmax_commit, lm_head_argmax_commit_plain,
+        lm_head_logits_gmax_commit, lm_head_logits_gmax_commit_plain)
+
+    cfg, dev, V_PAD = c.cfg, c.dev, c.V_PAD
+    D, L, V = cfg.d_model, cfg.n_layer, cfg.n_vocab
+    S = 512
+    recs = {}
+    x = c.randn(M, D)
+    kc = c.randn(L, M, S, D).to(torch.bfloat16)
+    vc = c.randn(L, M, S, D).to(torch.bfloat16)
+    krt = c.randn(M, L, D).to(torch.bfloat16)
+    vrt = c.randn(M, L, D).to(torch.bfloat16)
+    past = ragged_past(M)
+    pt = torch.tensor(past, dtype=torch.int32, device=dev)
+    slots = torch.arange(M, device=dev)
+    pos = pt.long()
+    commit_bytes = 4 * L * M * D * 2 + M * 4
+    # held to the plain version's logits (see lm_head_expect); ids
+    # compared where the top-2 gap exceeds the tolerance
+    exp = lm_head_expect(x, lnw, lnb, qt, cfg.ln_eps,
+                         f"lm_head tails M={M} {fmt}")
+    tol, row_tol = exp["tol"], exp["row_tol"]
+
+    # greedy: ids, winning logits and caches against the plain tail
+    ids, mv, k1, v1 = lm_head_argmax_commit(
+        x, lnw, lnb, qt, V, kc.clone(), vc.clone(), krt, vrt, pt,
+        cfg.ln_eps)
+    _, _, k2, v2 = lm_head_argmax_commit_plain(
+        x, lnw, lnb, qt, V, kc.clone(), vc.clone(), krt, vrt, pt,
+        cfg.ln_eps)
+    torch.cuda.synchronize()
+    err, decided = tail_ids_within(ids, mv, exp, V,
+                                   f"lm_head_argmax_commit M={M} {fmt}")
+    check(bool(torch.equal(k1, k2)) and bool(torch.equal(v1, v2)),
+          f"lm_head_argmax_commit M={M} {fmt}: caches differ")
+    aid, amv = lm_head_argmax(x, lnw, lnb, qt, V, cfg.ln_eps)
+    tail_ids_within(aid, amv, exp, V, f"lm_head_argmax M={M} {fmt}")
+    c.formats.setdefault("lm_head_argmax", set()).add(fmt)
+
+    def argmax_lib():
+        xn = torch.nn.functional.layer_norm(x, (D,), lnw, lnb, cfg.ln_eps)
+        logits = xn.to(torch.bfloat16) @ dequantize(qt, torch.bfloat16)
+        kc[:, slots, pos] = krt.transpose(0, 1)
+        vc[:, slots, pos] = vrt.transpose(0, 1)
+        return torch.argmax(logits[:, :V], dim=-1)
+    rec = {"kernel": "lm_head_argmax_commit", "m": M, "format": fmt,
+           "past": past,
+           "max_abs_err": err, "tol": tol, "row_tol": row_tol.tolist(),
+           "ids_decided": decided, "ln_flips": exp["flips"]}
+    timed(rec, lambda: lm_head_argmax_commit(
+              x, lnw, lnb, qt, V, kc, vc, krt, vrt, pt, cfg.ln_eps),
+          lambda: lm_head_argmax_commit_plain(
+              x, lnw, lnb, qt, V, kc, vc, krt, vrt, pt, cfg.ln_eps),
+          argmax_lib, qbytes(qt) + M * D * 4 + 2 * D * 4 + M * 8
+          + commit_bytes, 2 * M * D * V_PAD)
+    recs["lm_head_argmax_commit"] = rec
+    c.emit(rec)
+
+    # sampled: logits, their group maxima, pad columns, caches
+    lo, gm, k1, v1 = lm_head_logits_gmax_commit(
+        x, lnw, lnb, qt, V, kc.clone(), vc.clone(), krt, vrt, pt,
+        cfg.ln_eps)
+    _, _, k2, v2 = lm_head_logits_gmax_commit_plain(
+        x, lnw, lnb, qt, V, kc.clone(), vc.clone(), krt, vrt, pt,
+        cfg.ln_eps)
+    torch.cuda.synchronize()
+    rerr = (lo[:, :V] - exp["plain"][:, :V]).abs().amax(-1)
+    err = rerr.max().item()
+    own = lo.reshape(M, -1, 128).amax(-1)
+    check(bool((rerr <= row_tol).all()) and bool(torch.equal(gm, own))
+          and bool((lo[:, V:] == -1e30).all()),
+          f"lm_head_logits_gmax_commit M={M} {fmt}: logits err "
+          f"{rerr.tolist()} "
+          f"(tol {row_tol.tolist()}), gmax equal to its logits' group "
+          f"maxima: {bool(torch.equal(gm, own))}")
+    f = exp["flipped"]
+    if bool(f.any()):
+        ferr = (lo[f, :V] - exp["ref"][f, :V]).abs().max().item()
+        check(ferr <= tol, f"lm_head_logits_gmax_commit M={M} {fmt}: flipped "
+              f"rows' logits err {ferr} from the kernel-LN reference "
+              f"(tol {tol})")
+    check(bool(torch.equal(k1, k2)) and bool(torch.equal(v1, v2)),
+          f"lm_head_logits_gmax_commit M={M} {fmt}: caches differ")
+
+    def gmax_lib():
+        xn = torch.nn.functional.layer_norm(x, (D,), lnw, lnb, cfg.ln_eps)
+        logits = xn.to(torch.bfloat16) @ dequantize(qt, torch.bfloat16)
+        kc[:, slots, pos] = krt.transpose(0, 1)
+        vc[:, slots, pos] = vrt.transpose(0, 1)
+        return logits.float().reshape(M, -1, 128).amax(-1)
+    rec = {"kernel": "lm_head_logits_gmax_commit", "m": M,
+           "format": fmt, "past": past,
+           "max_abs_err": err, "tol": tol, "row_tol": row_tol.tolist(),
+           "ln_flips": exp["flips"]}
+    timed(rec, lambda: lm_head_logits_gmax_commit(
+              x, lnw, lnb, qt, V, kc, vc, krt, vrt, pt, cfg.ln_eps),
+          lambda: lm_head_logits_gmax_commit_plain(
+              x, lnw, lnb, qt, V, kc, vc, krt, vrt, pt, cfg.ln_eps),
+          gmax_lib, qbytes(qt) + M * D * 4 + 2 * D * 4
+          + M * V_PAD * 4 + M * (V_PAD // 128) * 4 + commit_bytes,
+          2 * M * D * V_PAD)
+    recs["lm_head_logits_gmax_commit"] = rec
+    c.emit(rec)
+    del kc, vc, k1, v1, k2, v2
+    return recs
 
 
 # ------------------------------------- 4. refill prefill and int8 kernels
@@ -729,7 +881,7 @@ def phase_refill_int8_kernels(c: Ctx) -> None:
                 rec["per_op_ms_range"] = SPREAD[per_op]
                 if (R, T) == (32, 32):
                     c.results["prefill_fused"] = rec
-            print(json.dumps(rec), flush=True)
+            c.emit(rec)
         del layers, params
 
     # the int8 decode step: B=1 (past 100, window 128); B=8 and B=32
@@ -757,7 +909,7 @@ def phase_refill_int8_kernels(c: Ctx) -> None:
            "tol": 3e-3 * xp.abs().max().item(), "rows_err_over_tol": rows}
     timed(rec, run, plain, None, *int8_step_cost(cfg, [past], window, wbytes))
     c.results["decode_step_fused_int8"] = rec
-    print(json.dumps(rec), flush=True)
+    c.emit(rec)
     del kc, vc, ks, vs
 
     W = 512
@@ -787,7 +939,7 @@ def phase_refill_int8_kernels(c: Ctx) -> None:
         timed(rec, run, plain, None, *int8_step_cost(cfg, past, W, wbytes))
         if B == 32:
             c.results["decode_step_fused_batched_int8"] = rec
-        print(json.dumps(rec), flush=True)
+        c.emit(rec)
         del kc, vc, ks, vs
     del layers
 
@@ -830,7 +982,7 @@ def phase_refill_int8_kernels(c: Ctx) -> None:
           lambda: kv_commit_quant_plain(kc, vc, ks, vs, *rows, pt),
           commit_lib, 4 * L * B * (D + 4) + B * 4, 0, reps=50)
     c.results["kv_commit_quant"] = rec
-    print(json.dumps(rec), flush=True)
+    c.emit(rec)
 
 
 # ------------------------------------------------- 5. paged and staged steps
@@ -854,17 +1006,6 @@ def phase_paged_staged_kernels(c: Ctx) -> None:
     W = 512
     timed_past = ragged_past(32, dead=(7, 19))
     beyond_past = ragged_past(32, dead=(7, 19), beyond=(30,))
-
-    def held(run, plain, what, rec):
-        x, kr, vr = run()
-        xp, krp, vrp = plain()
-        torch.cuda.synchronize()
-        err = hidden_within(x, xp, what)
-        rows = max(rows_within(kr, krp, what + " k"),
-                   rows_within(vr, vrp, what + " v"))
-        rec.update(max_abs_err=err, tol=3e-3 * xp.abs().max().item(),
-                   rows_err_over_tol=rows)
-        return x, kr, vr
 
     for mins in (False, True):
         layers, wbytes = c.rand_layers(mins)
@@ -893,7 +1034,7 @@ def phase_paged_staged_kernels(c: Ctx) -> None:
                     ln_eps=cfg.ln_eps, **scales)
                 rec = {"kernel": name, "layers": L, "B": B, "past": past,
                        "window": W, "format": fmt}
-                x, kr, vr = held(run, plain, f"{name} B={B} {fmt}", rec)
+                x, kr, vr = held_step(run, plain, f"{name} B={B} {fmt}", rec)
                 if B == 32 and not mins:
                     # the paged step against the lockstep (split-KV) CUDA
                     # step on the same inputs: the split kernels' limits
@@ -911,7 +1052,7 @@ def phase_paged_staged_kernels(c: Ctx) -> None:
                         cfg, past, W, wbytes)
                     timed(rec, run, plain, None, *cost)
                     c.results[name] = rec
-                print(json.dumps(rec), flush=True)
+                c.emit(rec)
                 del kc, vc, scales
         if mins:
             break
@@ -936,30 +1077,326 @@ def phase_paged_staged_kernels(c: Ctx) -> None:
             rec = {"kernel": "decode_step_fused_staged", "layers": L, "B": B,
                    "past": past, "window": W, "stage_rows": C,
                    "step_i": step_i, "format": fmt}
-            held(run, plain, f"decode_step_fused_staged step_i={step_i}", rec)
+            held_step(run, plain,
+                      f"decode_step_fused_staged step_i={step_i}", rec)
             if step_i == 7:
                 timed(rec, run, plain, None,
                       *bf16_step_cost(cfg, past, W, wbytes, step_i))
                 c.results["decode_step_fused_staged"] = rec
-            print(json.dumps(rec), flush=True)
+            c.emit(rec)
         del kc, vc, k_st, v_st, layers
 
 
-# ------------------------------------------------- 6. single stream, e2e
+# ------------------------------------ 6. the Q5_0, Q5_1 and Q8_0 kernels
+
+def hold_equivalence(c: Ctx, src, same, fmt: str) -> None:
+    """The CUDA steps on the Q4 planes ``src`` and on ``same``, their exact
+    re-encoding in ``fmt``: bit-equal through the dequant-then-dot chains
+    (the batched and paged steps at B=32, ``prefill_fused`` 32 x 32),
+    where a level is (level - offset) * scale in every format, and for
+    Q5_1 (Q4_1's levels, offset and mins unchanged) through the X' B=1
+    step too."""
+    from biogpt_tpu_torch.ops.decode_kernels import decode_step_fused
+    from biogpt_tpu_torch.ops.prefill_kernels import prefill_fused
+
+    cfg, dev = c.cfg, c.dev
+    D, L, H, S = cfg.d_model, cfg.n_layer, cfg.n_head, cfg.n_positions
+    past = torch.tensor(ragged_past(32, dead=(7, 19)), dtype=torch.int32,
+                        device=dev)
+    kc = c.randn(L, 32, S, D).to(torch.bfloat16)
+    vc = c.randn(L, 32, S, D).to(torch.bfloat16)
+    x32, x1 = c.randn(32, D), c.randn(1, D)
+    x0, _ = padded_prompts(c, 32, 32)
+    runs = {
+        "batched B=32": lambda lyr: decode_step_fused(
+            x32, lyr, kc, vc, past, n_head=H, window=512, ln_eps=cfg.ln_eps),
+        "paged B=32": lambda lyr: decode_step_fused(
+            x32, lyr, kc, vc, past, n_head=H, window=512, ln_eps=cfg.ln_eps,
+            per_slot_kv=True),
+        "prefill 32x32": lambda lyr: prefill_fused(
+            x0, lyr, rows=32, padded=32, n_head=H, ln_eps=cfg.ln_eps)}
+    if fmt == "q5_1":
+        runs["B=1"] = lambda lyr: decode_step_fused(
+            x1, lyr, kc[:, :1].contiguous(), vc[:, :1].contiguous(), 100,
+            n_head=H, window=128, ln_eps=cfg.ln_eps)
+    rec = {"equivalence": f"{fmt} re-encoded Q4 planes vs the Q4 kernels",
+           "format": fmt}
+    for name, run in runs.items():
+        a, b = run(src), run(same)
+        torch.cuda.synchronize()
+        equal = all(bool(torch.equal(u, v)) for u, v in zip(a, b))
+        check(equal, f"{fmt} re-encoded Q4 planes, {name}: not bit-equal to "
+              f"the Q4 kernels (x differs by "
+              f"{(a[0] - b[0]).abs().max().item()})")
+        rec[name] = equal
+    print(json.dumps(rec), flush=True)
+
+
+def phase_format_kernels(c: Ctx, fmt: str) -> None:
+    """Every kernel that reads weights, in format ``fmt``, against its plain
+    version at 347M shapes with the Q4 rows' limits, and timed beside its
+    bound (and, for the GEMVs and tails, a one-call yardstick): the GEMVs
+    at every projection shape (m = 1, 8, 16, 32), ``lm_head_argmax`` at
+    m = 1 and both tails at M = 32, the B=1 and batched steps (bf16 and
+    int8 KV), the paged steps (bf16 and int8), the staged step (step 7 of
+    16) and ``prefill_fused`` (32 x 32, and 8 x 128 held only)."""
+    from biogpt_tpu_torch.ops import dequantize
+    from biogpt_tpu_torch.ops.decode_kernels import (
+        decode_step_fused, decode_step_fused_batched_plain,
+        decode_step_fused_paged_plain, decode_step_fused_plain,
+        decode_step_fused_staged_plain)
+    from biogpt_tpu_torch.ops.prefill_kernels import (prefill_fused,
+                                                      prefill_fused_plain)
+    from biogpt_tpu_torch.ops.qmatmul_kernels import (
+        lm_head_argmax, lm_head_argmax_plain, qmatmul, qmatmul_plain,
+        qmatmul_wide, qmatmul_wide_plain)
+    from biogpt_tpu_torch.tools.kernel_bounds import (bf16_step_cost,
+                                                      int8_step_cost,
+                                                      prefill_cost)
+
+    cfg, dev, V_PAD = c.cfg, c.dev, c.V_PAD
+    D, F, L, H, S = (cfg.d_model, cfg.d_ff, cfg.n_layer, cfg.n_head,
+                     cfg.n_positions)
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    def keep(name, rec):
+        c.fmt_results[(name, fmt)] = rec
+        c.emit(rec)
+
+    # the GEMVs: f32 summation order only, 1e-5 of the output's magnitude
+    for name, d_in, d_out in (("qkv", D, 3 * D), ("o", D, D), ("fc1", D, F),
+                              ("fc2", F, D), ("lm_head", D, V_PAD)):
+        qt = c.rand_qt(d_in, d_out, fmt=fmt)
+        for m, kern, plain, kname in (
+                (1, qmatmul, qmatmul_plain, "qmatmul"),
+                (8, qmatmul, qmatmul_plain, "qmatmul"),
+                (16, qmatmul_wide, qmatmul_wide_plain, "qmatmul_wide"),
+                (32, qmatmul_wide, qmatmul_wide_plain, "qmatmul_wide")):
+            x = c.randn(m, d_in)
+            y = kern(x, qt)
+            ref = plain(x, qt)
+            torch.cuda.synchronize()
+            err = (y - ref).abs().max().item()
+            tol = 1e-5 * ref.abs().max().item() + 1e-5
+            check(err <= tol and bool(torch.isfinite(y).all()),
+                  f"{kname} {name} m={m} {fmt}: err {err} > {tol}")
+            c.formats.setdefault(kname, set()).add(fmt)
+            if (kname, name, m) not in (("qmatmul", "lm_head", 1),
+                                        ("qmatmul_wide", "fc1", 32)):
+                continue
+            rec = {"kernel": kname, "shape": name, "m": m, "format": fmt,
+                   "max_abs_err": err, "tol": tol}
+
+            def lib_call():
+                return x.to(torch.bfloat16) @ dequantize(qt, torch.bfloat16)
+            timed(rec, lambda: kern(x, qt), lambda: plain(x, qt), lib_call,
+                  qbytes(qt) + x.numel() * 4 + m * d_out * 4,
+                  2 * m * d_in * d_out, reps=50, plain_reps=5, flush=flush)
+            keep(kname, rec)
+
+    # lm_head_argmax at m = 1; the tails (and the argmax) at M = 32
+    qt = c.rand_qt(D, V_PAD, fmt=fmt)
+    lnw = 1 + 0.1 * c.randn(D)
+    lnb = 0.1 * c.randn(D)
+    x = c.randn(1, D)
+    ids, mv = lm_head_argmax(x, lnw, lnb, qt, cfg.n_vocab, cfg.ln_eps)
+    what = f"lm_head_argmax {fmt}"
+    exp = lm_head_expect(x, lnw, lnb, qt, cfg.ln_eps, what)
+    torch.cuda.synchronize()
+    err, decided = tail_ids_within(ids, mv, exp, cfg.n_vocab, what)
+    rec = {"kernel": "lm_head_argmax", "m": 1, "format": fmt,
+           "max_abs_err": err, "tol": exp["tol"],
+           "row_tol": exp["row_tol"].tolist(), "ids_decided": decided,
+           "ln_flips": exp["flips"]}
+
+    def argmax_lib():
+        xn = torch.nn.functional.layer_norm(x, (D,), lnw, lnb, cfg.ln_eps)
+        logits = xn.to(torch.bfloat16) @ dequantize(qt, torch.bfloat16)
+        return torch.argmax(logits[:, :cfg.n_vocab], dim=-1)
+    timed(rec, lambda: lm_head_argmax(x, lnw, lnb, qt, cfg.n_vocab,
+                                      cfg.ln_eps),
+          lambda: lm_head_argmax_plain(x, lnw, lnb, qt, cfg.n_vocab,
+                                       cfg.ln_eps),
+          argmax_lib, qbytes(qt) + D * 4 + 2 * D * 4 + 8, 2 * D * V_PAD,
+          reps=50, plain_reps=5, flush=flush)
+    keep("lm_head_argmax", rec)
+    for name, rec in hold_tails(c, qt, lnw, lnb, 32, fmt).items():
+        c.fmt_results[(name, fmt)] = rec
+    del flush_buf, qt
+
+    # the steps over 24 layers on the Q4 rows' random model re-quantized
+    # to fmt: the hidden state's limit, 3e-3 of its magnitude, was set on
+    # that model, whose residual stream grows with the weights' mean (the
+    # random Q4_0 levels average -0.5); random Q8_0 levels, mean ~0, left
+    # it 3.5-4.6 times smaller at the same absolute error (chip run, see
+    # PERF.md). The same Q4 planes re-encoded exactly must give the Q4
+    # kernels' results bit for bit where the numerics are the same.
+    src, _ = c.rand_layers(mins=fmt.endswith("_1"))
+    hold_equivalence(c, src, with_weights(src, lambda qt: reencode(qt, fmt)),
+                     fmt)
+    layers = with_weights(src, lambda qt: requantize(qt, fmt))
+    wbytes = layers_bytes(layers)
+    del src
+    W = 512
+    past32 = ragged_past(32, dead=(7, 19))
+    pt32 = torch.tensor(past32, dtype=torch.int32, device=dev)
+    for quant in (False, True):
+        sfx = "_int8" if quant else ""
+        for B in (1, 32):
+            if quant:
+                kc, ks = rand_int8_cache(c, L, B, S)
+                vc, vs = rand_int8_cache(c, L, B, S)
+                scales = dict(k_scales=ks, v_scales=vs)
+            else:
+                kc = c.randn(L, B, S, D).to(torch.bfloat16)
+                vc = c.randn(L, B, S, D).to(torch.bfloat16)
+                scales = {}
+            x0 = c.randn(B, D)
+            cost = int8_step_cost if quant else bf16_step_cost
+            if B == 1:   # the single stream at past 100, window 128
+                name = "decode_step_fused" + sfx
+                run = lambda: decode_step_fused(
+                    x0, layers, kc, vc, 100, n_head=H, window=128,
+                    ln_eps=cfg.ln_eps, **scales)
+                plain = lambda: decode_step_fused_plain(
+                    x0, layers, kc, vc, 100, n_head=H, window=128,
+                    ln_eps=cfg.ln_eps, **scales)
+                rec = {"kernel": name, "layers": L, "past": 100,
+                       "window": 128, "format": fmt}
+                held_step(run, plain, f"{name} B=1 {fmt}", rec)
+                nbytes, flops = cost(cfg, [100], 128, wbytes)
+                if not quant:   # the B=1 positions stay on the host
+                    nbytes -= 4
+                timed(rec, run, plain, None, nbytes, flops)
+                keep(name, rec)
+                del kc, vc, scales
+                continue
+            # B=32 ragged, window 512: batched, then paged
+            for name, paged, plain_step in (
+                    ("decode_step_fused_batched" + sfx, False,
+                     decode_step_fused_batched_plain),
+                    ("decode_step_fused_paged" + sfx, True,
+                     decode_step_fused_paged_plain)):
+                run = lambda: decode_step_fused(
+                    x0, layers, kc, vc, pt32, n_head=H, window=W,
+                    ln_eps=cfg.ln_eps, per_slot_kv=paged, **scales)
+                plain = lambda: plain_step(
+                    x0, layers, kc, vc, pt32, n_head=H, window=W,
+                    ln_eps=cfg.ln_eps, **scales)
+                rec = {"kernel": name, "layers": L, "B": 32, "past": past32,
+                       "window": W, "format": fmt}
+                held_step(run, plain, f"{name} B=32 {fmt}", rec)
+                timed(rec, run, plain, None, *cost(cfg, past32, W, wbytes))
+                keep(name, rec)
+            del kc, vc, scales
+
+    # the staged step: step 7 of a 16-row chunk
+    B, C, step_i = 32, 16, 7
+    kc = c.randn(L, B, S, D).to(torch.bfloat16)
+    vc = c.randn(L, B, S, D).to(torch.bfloat16)
+    k_st = c.randn(L, B, C, D).to(torch.bfloat16)
+    v_st = c.randn(L, B, C, D).to(torch.bfloat16)
+    x0 = c.randn(B, D)
+    past = [p + step_i for p in past32]
+    pt = torch.tensor(past, dtype=torch.int32, device=dev)
+    run = lambda: decode_step_fused(
+        x0, layers, kc, vc, pt, n_head=H, window=W, ln_eps=cfg.ln_eps,
+        k_stage=k_st, v_stage=v_st, step_i=step_i)
+    plain = lambda: decode_step_fused_staged_plain(
+        x0, layers, kc, vc, pt, k_st, v_st, step_i, n_head=H, window=W,
+        ln_eps=cfg.ln_eps)
+    rec = {"kernel": "decode_step_fused_staged", "layers": L, "B": B,
+           "past": past, "window": W, "stage_rows": C, "step_i": step_i,
+           "format": fmt}
+    held_step(run, plain, f"decode_step_fused_staged step_i={step_i} {fmt}",
+              rec)
+    timed(rec, run, plain, None,
+          *bf16_step_cost(cfg, past, W, wbytes, step_i))
+    keep("decode_step_fused_staged", rec)
+    del kc, vc, k_st, v_st
+
+    # prefill_fused: the uniform refill wave (timed) and the mixed one
+    for R, T in ((32, 32), (8, 128)):
+        x0, lens = padded_prompts(c, R, T)
+        run = lambda: prefill_fused(x0, layers, rows=R, padded=T, n_head=H,
+                                    ln_eps=cfg.ln_eps)
+        plain = lambda: prefill_fused_plain(x0, layers, rows=R, padded=T,
+                                            n_head=H, ln_eps=cfg.ln_eps)
+        rec = {"kernel": "prefill_fused", "layers": L, "R": R, "T": T,
+               "lengths": lens, "format": fmt}
+        held_step(run, plain, f"prefill_fused {R}x{T} {fmt}", rec)
+        if (R, T) == (32, 32):
+            timed(rec, run, plain, None, *prefill_cost(cfg, R, T, wbytes),
+                  reps=10)
+            c.fmt_results[("prefill_fused", fmt)] = rec
+        c.emit(rec)
+    del layers
+
+
+# ------------------------------------------------- 7. single stream, e2e
+
+def teacher_forced_single(c: Ctx, eng, prompt: list, steps: int,
+                          fmt: str) -> None:
+    """``steps`` teacher-forced B=1 decode steps after ``prompt``: the
+    kernels (the fused step, ``lm_head_argmax``) against the plain path on
+    the engine's own weights, the plain rows committed."""
+    from biogpt_tpu_torch.ops import embedding_lookup
+    from biogpt_tpu_torch.ops.decode_kernels import (decode_step_fused,
+                                                     decode_step_fused_plain)
+    from biogpt_tpu_torch.ops.qmatmul_kernels import (
+        layer_norm_bf16, lm_head_argmax, xprime_logits)
+
+    cfg, dev = c.cfg, c.dev
+    D, H = cfg.d_model, cfg.n_head
+    cache = eng.new_cache()
+    logits, cache, past = eng.prefill(cache, prompt)
+    tok = torch.argmax(logits, -1).reshape(1, 1)
+    P = eng.params
+    worst = 0.0
+    for step in range(steps):
+        emb = embedding_lookup(tok, P["embed_tokens"]) * math.sqrt(D)
+        pos = torch.full((1, 1), past + cfg.pos_offset, device=dev)
+        x0 = (emb + embedding_lookup(pos, P["embed_positions"])).reshape(1, D)
+        window = eng._window(past + 1)
+        xk, krk, vrk = decode_step_fused(x0, P["layers"], cache.k, cache.v,
+                                         past, n_head=H, window=window,
+                                         ln_eps=cfg.ln_eps)
+        xp, krp, vrp = decode_step_fused_plain(
+            x0, P["layers"], cache.k, cache.v, past, n_head=H, window=window,
+            ln_eps=cfg.ln_eps)
+        idk, _ = lm_head_argmax(xk, P["final_ln"]["w"], P["final_ln"]["b"],
+                                P["lm_head"], cfg.n_vocab, cfg.ln_eps)
+        lp = xprime_logits(layer_norm_bf16(xp, P["final_ln"]["w"],
+                                           P["final_ln"]["b"], cfg.ln_eps),
+                           P["lm_head"])[0, :cfg.n_vocab]
+        top2 = torch.topk(lp, 2).values
+        what = f"teacher-forced {fmt} step {step}"
+        err = hidden_within(xk, xp, what)
+        worst = max(worst, err / max(3e-3 * xp.abs().max().item(), 1e-30),
+                    rows_within(krk, krp, what + " k"),
+                    rows_within(vrk, vrp, what + " v"))
+        gap = (top2[0] - top2[1]).item()
+        if gap > 2e-2 * lp.abs().max().item():
+            check(int(idk[0]) == int(torch.argmax(lp)),
+                  f"{what}: argmax {int(idk[0])} vs {int(torch.argmax(lp))} "
+                  f"(gap {gap})")
+        cache.k[:, :, past] = krp
+        cache.v[:, :, past] = vrp
+        tok = torch.argmax(lp).reshape(1, 1)
+        past += 1
+    log(f"teacher-forced {fmt}, {steps} steps: worst err/tol {worst:.3f}")
+
 
 def phase_cli(c: Ctx, path: str, smi: str) -> None:
     from biogpt_tpu_torch.cli import main as cli_main
     from biogpt_tpu_torch.config import GenerationParams
     from biogpt_tpu_torch.modelio.checkpoint import load_params
-    from biogpt_tpu_torch.ops import cuda_lib, embedding_lookup
-    from biogpt_tpu_torch.ops.decode_kernels import (decode_step_fused,
-                                                     decode_step_fused_plain)
-    from biogpt_tpu_torch.ops.qmatmul_kernels import (
-        layer_norm_bf16, lm_head_argmax, xprime_logits)
+    from biogpt_tpu_torch.ops import cuda_lib
     from biogpt_tpu_torch.runtime.engine import Engine
 
-    cfg, dev = c.cfg, c.dev
-    D, H = cfg.d_model, cfg.n_head
     runs = [["-p", "cells", "--temp", "0"],                    # 6 tokens
             ["-p", "tumour cells grow", "--temp", "0"],        # 16
             ["-p", "the protein binds the receptor in the membrane of "
@@ -1007,42 +1444,7 @@ def phase_cli(c: Ctx, path: str, smi: str) -> None:
     # teacher-forced decode: kernels vs the plain path on the engine's weights
     eng = Engine(config, params, device="cuda")
     prompt = [2] + list(range(40, 52))
-    cache = eng.new_cache()
-    logits, cache, past = eng.prefill(cache, prompt)
-    tok = torch.argmax(logits, -1).reshape(1, 1)
-    P = eng.params
-    worst = 0.0
-    for step in range(8):
-        emb = embedding_lookup(tok, P["embed_tokens"]) * math.sqrt(D)
-        pos = torch.full((1, 1), past + config.pos_offset, device=dev)
-        x0 = (emb + embedding_lookup(pos, P["embed_positions"])).reshape(1, D)
-        window = eng._window(past + 1)
-        xk, krk, vrk = decode_step_fused(x0, P["layers"], cache.k, cache.v,
-                                         past, n_head=H, window=window,
-                                         ln_eps=cfg.ln_eps)
-        xp, krp, vrp = decode_step_fused_plain(
-            x0, P["layers"], cache.k, cache.v, past, n_head=H, window=window,
-            ln_eps=cfg.ln_eps)
-        idk, _ = lm_head_argmax(xk, P["final_ln"]["w"], P["final_ln"]["b"],
-                                P["lm_head"], config.n_vocab, cfg.ln_eps)
-        lp = xprime_logits(layer_norm_bf16(xp, P["final_ln"]["w"],
-                                           P["final_ln"]["b"], cfg.ln_eps),
-                           P["lm_head"])[0, :config.n_vocab]
-        top2 = torch.topk(lp, 2).values
-        err = hidden_within(xk, xp, f"teacher-forced step {step}")
-        worst = max(worst, err / max(3e-3 * xp.abs().max().item(), 1e-30),
-                    rows_within(krk, krp, f"teacher-forced step {step} k"),
-                    rows_within(vrk, vrp, f"teacher-forced step {step} v"))
-        gap = (top2[0] - top2[1]).item()
-        if gap > 2e-2 * lp.abs().max().item():
-            check(int(idk[0]) == int(torch.argmax(lp)),
-                  f"teacher-forced step {step}: argmax {int(idk[0])} vs "
-                  f"{int(torch.argmax(lp))} (gap {gap})")
-        cache.k[:, :, past] = krp
-        cache.v[:, :, past] = vrp
-        tok = torch.argmax(lp).reshape(1, 1)
-        past += 1
-    log(f"teacher-forced 8 steps: worst err/tol {worst:.3f}")
+    teacher_forced_single(c, eng, prompt, 8, "q4_0")
 
     # decode rate of a 128-token greedy generation, bf16 and int8 KV
     g = GenerationParams(n_predict=128, temp=0.0, stop_at_eos=False, seed=0)
@@ -1060,7 +1462,7 @@ def phase_cli(c: Ctx, path: str, smi: str) -> None:
         check(res.timings["n_new"] == 128, "greedy generation stopped early")
 
 
-# -------------------------------------------------------- 7. serving, e2e
+# -------------------------------------------------------- 8. serving, e2e
 
 # kernels each serving path must launch: bf16 KV, int8 KV
 SERVING_KERNELS = {
@@ -1149,15 +1551,15 @@ def http_round(srv, rng, V: int) -> tuple:
     return sum(len(r["new_ids"]) for r in out if r), wall, stats
 
 
-def phase_serving(c: Ctx, path: str, smi: str, kv_quant: bool = False) -> None:
-    import numpy as np
-
-    from biogpt_tpu_torch.config import GenerationParams
-    from biogpt_tpu_torch.modelio.checkpoint import load_params
-    from biogpt_tpu_torch.models.biogpt import (forward,
-                                                forward_fused_decode_greedy,
-                                                forward_prefill_fused)
-    from biogpt_tpu_torch.ops import cuda_lib, embedding_lookup
+def refill_and_teacher_forced(c: Ctx, eng, rng, kv_quant: bool, steps: int,
+                              fmt: str) -> None:
+    """One refill wave of the uniform serve's shape through the per-op
+    forward and, on a bf16 cache, through the prefill kernel (its logits
+    held to the per-op ones); then ``steps`` teacher-forced B=32 steps
+    from that wave, the kernels against the plain path on the engine's
+    own weights, committing with the plain commit."""
+    from biogpt_tpu_torch.models.biogpt import forward, forward_prefill_fused
+    from biogpt_tpu_torch.ops import embedding_lookup
     from biogpt_tpu_torch.ops.decode_kernels import (
         decode_step_fused, decode_step_fused_batched_plain, kv_commit_plain,
         kv_commit_quant_plain)
@@ -1165,6 +1567,100 @@ def phase_serving(c: Ctx, path: str, smi: str, kv_quant: bool = False) -> None:
                                                       lm_head_logits_plain)
     from biogpt_tpu_torch.runtime.cache import (init_cache, merge_rows,
                                                 quantize_rows)
+
+    P, cfg, dev, config = eng.params, c.cfg, c.dev, eng.config
+    D, H, B, V = cfg.d_model, cfg.n_head, eng.B, config.n_vocab
+    kv = "int8" if kv_quant else "bf16"
+    # one refill wave of the uniform run's shape (32 prompts of 4-23
+    # tokens padded to 32), through the prefill kernel and the per-op
+    # forward (tests/test_pallas_prefill.py's limits)
+    lens = [int(n) for n in rng.integers(4, 24, size=B)]
+    ids = torch.zeros(B, 32, dtype=torch.long)
+    for b, n in enumerate(lens):
+        ids[b, :n] = torch.from_numpy(rng.integers(4, V - 2, size=n))
+    ids = ids.to(dev)
+    last = torch.tensor([n - 1 for n in lens], device=dev)
+    small = init_cache(config, batch=B, max_len=32, dtype=eng.cache_dtype,
+                       device=dev)
+    logits, small = forward(P, ids, small, 0, config,
+                            compute_dtype=torch.bfloat16, allow_kernels=False,
+                            last_index=last)
+    if not kv_quant:
+        lk, _ = forward_prefill_fused(P, ids, config, last)
+        top2 = torch.topk(logits, 2, dim=-1).values
+        decided = (top2[:, 0] - top2[:, 1]) > 2e-2 * logits.abs().amax(-1)
+        same = (torch.argmax(lk, -1) == torch.argmax(logits, -1))[decided]
+        lerr = (lk - logits).abs() - (0.35 + 5e-2 * logits.abs())
+        check(bool(same.all()) and bool((lerr <= 0).all()),
+              f"refill wave {fmt}: prefill kernel vs per-op logits: argmax "
+              f"equal on {int(same.sum())}/{int(decided.sum())} decided rows, "
+              f"worst "
+              f"excess over rtol 5e-2 + atol 0.35: {lerr.max().item()}")
+        print(json.dumps({"refill_logits_check": "prefill_fused vs per-op",
+                          "format": fmt, "rows": B,
+                          "decided_rows": int(decided.sum()),
+                          "argmax_equal": int(same.sum()),
+                          "max_abs_diff": (lk - logits).abs().max().item(),
+                          "logits_max_abs": logits.abs().max().item()}),
+              flush=True)
+
+    # teacher-forced B=32 steps from that wave: kernels vs the plain path
+    # on the engine's weights, committing with the plain commit
+    cache = eng.new_cache()
+    merge_rows(cache, small, torch.arange(B, device=dev),
+               torch.arange(B, device=dev))
+    tok = torch.argmax(logits, -1)
+    past = torch.tensor(lens, dtype=torch.int32, device=dev)
+    fw, fb = P["final_ln"]["w"], P["final_ln"]["b"]
+    scales = (dict(k_scales=cache.ks, v_scales=cache.vs) if kv_quant
+              else {})
+    worst = 0.0
+    for step in range(steps):
+        emb = embedding_lookup(tok[:, None], P["embed_tokens"]) * math.sqrt(D)
+        pos = (past.long() + config.pos_offset)[:, None]
+        x0 = (emb + embedding_lookup(pos, P["embed_positions"])).reshape(B, D)
+        window = 128
+        xk, krk, vrk = decode_step_fused(x0, P["layers"], cache.k, cache.v,
+                                         past, n_head=H, window=window,
+                                         ln_eps=cfg.ln_eps, **scales)
+        xp, krp, vrp = decode_step_fused_batched_plain(
+            x0, P["layers"], cache.k, cache.v, past, n_head=H, window=window,
+            ln_eps=cfg.ln_eps, **scales)
+        idk, _ = lm_head_argmax(xk, fw, fb, P["lm_head"], V, cfg.ln_eps)
+        lp = lm_head_logits_plain(xp, fw, fb, P["lm_head"], cfg.ln_eps)[:, :V]
+        top2 = torch.topk(lp, 2).values
+        what = f"teacher-forced B={B} {kv} KV {fmt} step {step}"
+        err = hidden_within(xk, xp, what)
+        worst = max(worst, err / max(3e-3 * xp.abs().max().item(), 1e-30),
+                    rows_within(krk, krp, what + " k"),
+                    rows_within(vrk, vrp, what + " v"))
+        decided = (top2[:, 0] - top2[:, 1]) > 2e-2 * lp.abs().amax(-1)
+        ref = torch.argmax(lp, -1)
+        wrong = int(((idk.long() != ref) & decided).sum())
+        check(wrong == 0, f"{what}: argmax differs on {wrong} decided rows")
+        if kv_quant:
+            kq, ksc = quantize_rows(krp)
+            vq, vsc = quantize_rows(vrp)
+            kv_commit_quant_plain(cache.k, cache.v, cache.ks, cache.vs,
+                                  kq.transpose(0, 1), vq.transpose(0, 1),
+                                  ksc.transpose(0, 1)[..., None],
+                                  vsc.transpose(0, 1)[..., None], past)
+        else:
+            kv_commit_plain(cache.k, cache.v, krp.transpose(0, 1),
+                            vrp.transpose(0, 1), past)
+        tok = ref
+        past = past + 1
+    log(f"teacher-forced B={B} {kv} KV {fmt}, {steps} steps: worst err/tol "
+        f"{worst:.3f}")
+
+
+def phase_serving(c: Ctx, path: str, smi: str, kv_quant: bool = False) -> None:
+    import numpy as np
+
+    from biogpt_tpu_torch.config import GenerationParams
+    from biogpt_tpu_torch.modelio.checkpoint import load_params
+    from biogpt_tpu_torch.models.biogpt import forward_fused_decode_greedy
+    from biogpt_tpu_torch.ops import cuda_lib
     from biogpt_tpu_torch.runtime.serving import (BatchedEngine, Request,
                                                   ServingScheduler)
     from biogpt_tpu_torch.server import BioGptServer
@@ -1245,7 +1741,7 @@ def phase_serving(c: Ctx, path: str, smi: str, kv_quant: bool = False) -> None:
                       "card_stamp": smi}), flush=True)
 
     P, cfg, dev = eng.params, c.cfg, c.dev
-    D, H, L = cfg.d_model, cfg.n_head, cfg.n_layer
+    D, L = cfg.d_model, cfg.n_layer
     # device time of one greedy serving step at the uniform run's shape
     # (B=32, window 128, positions 5-72) beside that run's wall per step
     cache = eng.new_cache()
@@ -1274,88 +1770,10 @@ def phase_serving(c: Ctx, path: str, smi: str, kv_quant: bool = False) -> None:
     print(json.dumps(serve_rec), flush=True)
     del cache
 
-    # one refill wave of the uniform run's shape (32 prompts of 4-23
-    # tokens padded to 32), through the prefill kernel and the per-op
-    # forward (tests/test_pallas_prefill.py's limits)
-    lens = [int(n) for n in rng.integers(4, 24, size=B)]
-    ids = torch.zeros(B, 32, dtype=torch.long)
-    for b, n in enumerate(lens):
-        ids[b, :n] = torch.from_numpy(rng.integers(4, V - 2, size=n))
-    ids = ids.to(dev)
-    last = torch.tensor([n - 1 for n in lens], device=dev)
-    small = init_cache(config, batch=B, max_len=32, dtype=eng.cache_dtype,
-                       device=dev)
-    logits, small = forward(P, ids, small, 0, config,
-                            compute_dtype=torch.bfloat16, allow_kernels=False,
-                            last_index=last)
-    if not kv_quant:
-        lk, _ = forward_prefill_fused(P, ids, config, last)
-        top2 = torch.topk(logits, 2, dim=-1).values
-        decided = (top2[:, 0] - top2[:, 1]) > 2e-2 * logits.abs().amax(-1)
-        same = (torch.argmax(lk, -1) == torch.argmax(logits, -1))[decided]
-        lerr = (lk - logits).abs() - (0.35 + 5e-2 * logits.abs())
-        check(bool(same.all()) and bool((lerr <= 0).all()),
-              f"refill wave: prefill kernel vs per-op logits: argmax equal on "
-              f"{int(same.sum())}/{int(decided.sum())} decided rows, worst "
-              f"excess over rtol 5e-2 + atol 0.35: {lerr.max().item()}")
-        print(json.dumps({"refill_logits_check": "prefill_fused vs per-op",
-                          "rows": B, "decided_rows": int(decided.sum()),
-                          "argmax_equal": int(same.sum()),
-                          "max_abs_diff": (lk - logits).abs().max().item(),
-                          "logits_max_abs": logits.abs().max().item()}),
-              flush=True)
-
-    # teacher-forced B=32 steps from that wave: kernels vs the plain path
-    # on the engine's weights, committing with the plain commit
-    cache = eng.new_cache()
-    merge_rows(cache, small, torch.arange(B, device=dev),
-               torch.arange(B, device=dev))
-    tok = torch.argmax(logits, -1)
-    past = torch.tensor(lens, dtype=torch.int32, device=dev)
-    fw, fb = P["final_ln"]["w"], P["final_ln"]["b"]
-    scales = (dict(k_scales=cache.ks, v_scales=cache.vs) if kv_quant
-              else {})
-    worst = 0.0
-    for step in range(8):
-        emb = embedding_lookup(tok[:, None], P["embed_tokens"]) * math.sqrt(D)
-        pos = (past.long() + config.pos_offset)[:, None]
-        x0 = (emb + embedding_lookup(pos, P["embed_positions"])).reshape(B, D)
-        window = 128
-        xk, krk, vrk = decode_step_fused(x0, P["layers"], cache.k, cache.v,
-                                         past, n_head=H, window=window,
-                                         ln_eps=cfg.ln_eps, **scales)
-        xp, krp, vrp = decode_step_fused_batched_plain(
-            x0, P["layers"], cache.k, cache.v, past, n_head=H, window=window,
-            ln_eps=cfg.ln_eps, **scales)
-        idk, _ = lm_head_argmax(xk, fw, fb, P["lm_head"], V, cfg.ln_eps)
-        lp = lm_head_logits_plain(xp, fw, fb, P["lm_head"], cfg.ln_eps)[:, :V]
-        top2 = torch.topk(lp, 2).values
-        what = f"teacher-forced B={B} {kv} KV step {step}"
-        err = hidden_within(xk, xp, what)
-        worst = max(worst, err / max(3e-3 * xp.abs().max().item(), 1e-30),
-                    rows_within(krk, krp, what + " k"),
-                    rows_within(vrk, vrp, what + " v"))
-        decided = (top2[:, 0] - top2[:, 1]) > 2e-2 * lp.abs().amax(-1)
-        ref = torch.argmax(lp, -1)
-        check(bool((idk.long() == ref)[decided].all()),
-              f"{what}: argmax differs on {int(((idk.long() != ref) & decided).sum())} "
-              "decided rows")
-        if kv_quant:
-            kq, ksc = quantize_rows(krp)
-            vq, vsc = quantize_rows(vrp)
-            kv_commit_quant_plain(cache.k, cache.v, cache.ks, cache.vs,
-                                  kq.transpose(0, 1), vq.transpose(0, 1),
-                                  ksc.transpose(0, 1)[..., None],
-                                  vsc.transpose(0, 1)[..., None], past)
-        else:
-            kv_commit_plain(cache.k, cache.v, krp.transpose(0, 1),
-                            vrp.transpose(0, 1), past)
-        tok = ref
-        past = past + 1
-    log(f"teacher-forced B={B} {kv} KV, 8 steps: worst err/tol {worst:.3f}")
+    refill_and_teacher_forced(c, eng, rng, kv_quant, 8, "q4_0")
 
 
-# ------------------------------------------- 8. paged and staged serving
+# ------------------------------------------- 9. paged and staged serving
 
 def mixed_reqs(rng, V: int, n: int, Request) -> list:
     """n requests of 48 new tokens, prompts of 5-25 and 100-124 tokens in
@@ -1477,6 +1895,149 @@ def phase_paged_staged_serving(c: Ctx, path: str, smi: str) -> None:
         del eng
 
 
+# ------------------------------------ 10. Q5_0, Q5_1 and Q8_0 end to end
+
+def launched_exactly(c: Ctx, launches: dict, required: set, optional: set,
+                     what: str) -> None:
+    """A run launched every kernel of its route (``required``), and no
+    kernel outside it and the refills' lm_head GEMVs (``optional``); the
+    route's launches count on the ``kernels`` line."""
+    got = {k for k, n in launches.items() if n > 0}
+    check(required <= got <= required | optional,
+          f"{what}: launched {sorted(got)}, expected {sorted(required)} "
+          f"(and perhaps {sorted(optional - required)})")
+    for k in required:
+        c.launches[k] = c.launches.get(k, 0) + launches[k]
+
+
+def phase_format_e2e(c: Ctx, fmt: str, smi: str) -> None:
+    """A random 347M model file in ``fmt`` through the entry points: the CLI
+    greedy, sampled and greedy with ``--kv-quant`` (32 new tokens); the
+    uniform greedy ``serve()`` of 96 requests at B=32 with a bf16 and an
+    int8 cache and through the paged and the staged engine, refilling
+    through ``prefill_fused``. Each run launches exactly its route's
+    kernels: a packed lm_head (Q4, Q5) takes the fused argmax tails, an
+    unpacked Q8_0 one the lm_head GEMV and a torch argmax, as in the JAX
+    engines. Then teacher-forced steps of the kernels against the plain
+    path on the engine's own weights: B=1, and B=32 from a refill wave
+    (bf16 and int8; the wave's prefill-kernel logits held to the per-op
+    refill's)."""
+    import numpy as np
+
+    from biogpt_tpu_torch.cli import main as cli_main
+    from biogpt_tpu_torch.config import GenerationParams
+    from biogpt_tpu_torch.modelio.checkpoint import load_params, tree_map
+    from biogpt_tpu_torch.modelio.synthetic import write_random_quantized_model
+    from biogpt_tpu_torch.ops import cuda_lib
+    from biogpt_tpu_torch.runtime.engine import Engine, _pack_matmul_weights
+    from biogpt_tpu_torch.runtime.serving import BatchedEngine, Request
+
+    qtype, bits = FORMATS[fmt]
+    packed = bits != 8
+    argmax_tail = {"lm_head_argmax"} if packed else set()
+    refill_gemv = {"qmatmul", "qmatmul_wide"}   # the refill's lm_head, m = R
+    card = torch.cuda.get_device_name(0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        path = os.path.join(tmp, f"biogpt347m-{fmt}.bin")
+        t0 = time.perf_counter()
+        write_random_quantized_model(path, c.cfg, qtype, seed=7)
+        log(f"wrote {path} ({os.path.getsize(path) / 1e6:.1f} MB) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        prompt = "the protein binds the receptor"   # 9-32 tokens
+        for argv, required in (
+                (["--temp", "0"], {"qmatmul", "qmatmul_wide",
+                                   "decode_step_fused"} | argmax_tail),
+                (["--temp", "0.9", "-s", "1"],
+                 {"qmatmul", "qmatmul_wide", "decode_step_fused"}),
+                (["--temp", "0", "--kv-quant"],
+                 {"qmatmul", "qmatmul_wide", "decode_step_fused_int8"}
+                 | argmax_tail)):
+            cuda_lib.reset_launch_counts()
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = cli_main(["-m", path, "-p", prompt, "-n", "32",
+                               "--no-stop-at-eos", *argv])
+            text = out.getvalue().strip()
+            log(f"cli {fmt} {argv}: rc={rc} {time.perf_counter() - t0:.1f} "
+                f"s, {len(text)} chars of text")
+            check(rc == 0 and len(text) > 0, f"cli {fmt} {argv} rc={rc}")
+            launched_exactly(c, dict(cuda_lib.LAUNCHES), required, set(),
+                             f"cli {fmt} {argv}")
+        config, _, _, params = load_params(path, device="cpu")
+    # the engines' weights, prepared once on the host and moved to the card
+    # (each engine's own preparation then finds them prepared)
+    params = tree_map(lambda a: a.to(c.dev), _pack_matmul_weights(params))
+    lm = params["lm_head"]
+    check(lm.packed == packed and lm.scales.dtype == torch.bfloat16
+          and lm.levels.dtype == (torch.uint8 if packed else torch.int8),
+          f"{fmt}: the engines' lm_head is not prepared as the JAX engines "
+          f"prepare it (packed={lm.packed}, levels {lm.levels.dtype})")
+    teacher_forced_single(c, Engine(config, params, device="cuda"),
+                          [2] + list(range(40, 52)), 4, fmt)
+
+    B, V = 32, config.n_vocab
+    greedy = GenerationParams(temp=0.0, stop_at_eos=False)
+    routes = (
+        ("lockstep bf16", {}, {"decode_step_fused_batched", "kv_commit"}
+         | ({"lm_head_argmax_commit"} if packed else {"qmatmul_wide"})),
+        ("lockstep int8", dict(kv_quant=True),
+         {"decode_step_fused_batched_int8", "kv_commit_quant"}
+         | (argmax_tail if packed else {"qmatmul_wide"})),
+        ("paged bf16", dict(paged_kv=True), {"decode_step_fused_paged",
+                                             "kv_commit"}
+         | ({"lm_head_argmax_commit"} if packed else {"qmatmul_wide"})),
+        ("staged bf16", dict(staged_kv=True),
+         {"decode_step_fused_staged", "qmatmul_wide"}),
+    )
+    lockstep_ids = None
+    for name, flags, step_kernels in routes:
+        eng = BatchedEngine(config, params, max_batch=B, max_seq=512,
+                            chunk=16, device="cuda", **flags)
+        check(eng._prefill_fused and eng._fused_greedy == packed
+              and eng._paged_kv == bool(flags.get("paged_kv"))
+              and eng._staged_kv == bool(flags.get("staged_kv")),
+              f"BatchedEngine ({name} {fmt}): the path is not live")
+        rng = np.random.default_rng(0)
+
+        def make_reqs(n):   # phase_serving's requests, in its order
+            return [Request(prompt_ids=[2] + rng.integers(
+                4, min(40000, V - 2), size=int(rng.integers(4, 24))).tolist(),
+                n_predict=48, request_id=i) for i in range(n)]
+        eng.serve(make_reqs(4), greedy)   # warm-up
+        reqs = make_reqs(3 * B)
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = eng.serve(reqs, greedy)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_tok = sum(len(r.new_ids) for r in res.values())
+        check(len(res) == 3 * B
+              and all(len(r.new_ids) == 48 for r in res.values())
+              and all(0 <= t < V for r in res.values() for t in r.new_ids)
+              and eng.metrics.snapshot()["health_failures"] == 0,
+              f"serve ({name} {fmt}): {len(res)} results, {n_tok} tokens")
+        launches = dict(cuda_lib.LAUNCHES)
+        log(f"{name} {fmt} uniform serve launches: {launches}")
+        launched_exactly(c, launches, step_kernels | {"prefill_fused"},
+                         refill_gemv, f"serve ({name} {fmt})")
+        ids = {i: r.ids for i, r in res.items()}
+        if lockstep_ids is None:
+            lockstep_ids = ids
+        print(json.dumps({
+            "serving_path": name, "format": fmt, "batch_slots": B,
+            "chunk": eng.chunk, "serve_uniform_greedy_tokens_per_s":
+            n_tok / wall, "requests": len(res), "new_tokens": n_tok,
+            "wall_s": wall, "greedy_ids_equal_lockstep_bf16": sum(
+                ids[i] == lockstep_ids[i] for i in ids),
+            "card": card, "card_stamp": smi}), flush=True)
+        if name.startswith("lockstep"):
+            refill_and_teacher_forced(c, eng, np.random.default_rng(5),
+                                      bool(flags.get("kv_quant")), 4, fmt)
+        del eng
+
+
 # ------------------------------------------------------------------- main
 
 def main() -> int:
@@ -1499,16 +2060,22 @@ def main() -> int:
         f"{torch.__version__} cuda {torch.version.cuda} | TF32 off for "
         "matmul and cuDNN")
     t0 = time.perf_counter()
-    cuda_lib.build_all()
+    per_lib = {k: round(v, 1) for k, v in cuda_lib.build_all().items()}
     log(f"built {len(cuda_lib.SOURCES)} kernel libraries in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s (each nvcc, run together: "
+        f"{json.dumps(per_lib)} s)")
 
     c = Ctx()
-    for phase in (phase_single_kernels, phase_serving_kernels,
-                  phase_refill_int8_kernels, phase_paged_staged_kernels):
+    phases = [(p.__name__, p) for p in (
+        phase_single_kernels, phase_serving_kernels,
+        phase_refill_int8_kernels, phase_paged_staged_kernels)]
+    phases += [(f"phase_format_kernels {fmt}",
+                lambda c, fmt=fmt: phase_format_kernels(c, fmt))
+               for fmt in NEW_FORMATS]
+    for name, phase in phases:
         t0 = time.perf_counter()
         phase(c)
-        log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
+        log(f"{name}: {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         path = os.path.join(tmp, "biogpt347m-q4_0.bin")
         t0 = time.perf_counter()
@@ -1524,8 +2091,12 @@ def main() -> int:
             t0 = time.perf_counter()
             phase(c, path, smi)
             log(f"{name}: {time.perf_counter() - t0:.1f} s")
+    for fmt in NEW_FORMATS:
+        t0 = time.perf_counter()
+        phase_format_e2e(c, fmt, smi)
+        log(f"phase_format_e2e {fmt}: {time.perf_counter() - t0:.1f} s")
 
-    # ------------------------------------------------------- 9. the lines
+    # ------------------------------------------------------ 11. the lines
     sources = {
         "qmatmul": ("biogpt_tpu_torch/csrc/qmatmul.cu",
                     "biogpt_tpu/ops/pallas_qmatmul.py:860"),
@@ -1569,7 +2140,8 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"]})
+                        "library_ms": r["library_ms"],
+                        "formats": sorted(c.formats.get(name, ()))})
     if FAILURES:
         log(f"{len(FAILURES)} failure(s):\n  " + "\n  ".join(FAILURES))
         return 1

@@ -50,6 +50,10 @@ def _bf16(a):
     (codecs.GGML_TYPE_Q4_1, [3, 0, 9, 31, 12, 0, 1, 22, 30, 7, 16, 25], 8,
      None),
     (codecs.GGML_TYPE_Q4_1, [3, 0, 9, 31, 12, 0, 1, 22, 30, 7, 16, 25], 8, 2),
+    (codecs.GGML_TYPE_Q5_0, [0, 5, 17, 40], None, None),
+    (codecs.GGML_TYPE_Q5_1, [3, 0, 9, 31, 12, 0, 1, 22, 30, 7, 16, 25], 8,
+     None),
+    (codecs.GGML_TYPE_Q8_0, [0, 5, 17, 40], 8, None),
 ])
 def test_batched_decode_step_matches_pallas(qtype, past, kv_block, kv_groups):
     """B = 4 and 12, ragged per-slot positions (dead slots at 0, one slot

@@ -1,8 +1,9 @@
 """Full-size (BioGPT-347M) quantized golden through the port.
 
-``tests/goldens/own347m_seed7_quant.npz`` holds the JAX engine's Q4_0
-greedy continuation over seed-7 weights (``biogpt_tpu.tools.make_goldens``,
-f32 compute, unpacked planes, per-op path). The port replays it on its own
+``tests/goldens/own347m_seed7_quant.npz`` holds the JAX engine's Q4_0 and
+Q4_1 greedy continuations over seed-7 weights
+(``biogpt_tpu.tools.make_goldens``, f32 compute, unpacked planes, per-op
+path). The port replays it on its own
 f32 unpacked path from the same planes, carried across by
 ``params_from_numpy``; the ids must match exactly.
 """
@@ -10,6 +11,7 @@ f32 unpacked path from the same planes, carried across by
 import os
 
 import numpy as np
+import pytest
 
 from biogpt_tpu.config import BioGptConfig
 from biogpt_tpu.modelio.checkpoint import params_from_state_dict
@@ -28,20 +30,21 @@ GOLDEN = os.path.join(os.path.dirname(__file__), "goldens",
                       "own347m_seed7_quant.npz")
 
 
-def test_q4_0_347m_golden_replays_exactly():
+@pytest.mark.parametrize("qname", ["q4_0", "q4_1"])
+def test_347m_golden_replays_exactly(qname):
     golden = np.load(GOLDEN)
     assert int(golden["seed"]) == SEED
-    # the weights of make_goldens._quant_engine("q4_0", ...): seeded state
-    # dict (disk-cached at full size) through the real Q4_0 codec
+    # the weights of make_goldens._quant_engine(qname, ...): seeded state
+    # dict (disk-cached at full size) through the real codec
     params = params_from_state_dict(
         make_state_dict(BioGptConfig(), seed=SEED, scale=SCALE),
-        BioGptConfig(), qtype=GGML_TYPE_BY_NAME["q4_0"])
+        BioGptConfig(), qtype=GGML_TYPE_BY_NAME[qname])
     engine = Engine(TorchConfig(), params_from_numpy(params, device="cpu"),
                     compute_dtype=torch.float32, cache_dtype=torch.float32,
                     max_seq=64, pack_q4=False, device="cpu")
     del params
     prompt = golden["prompt"].tolist()
-    want = golden["q4_0_greedy_ids"].tolist()
+    want = golden[f"{qname}_greedy_ids"].tolist()
     gen = GenerationParams(n_predict=len(want) - len(prompt), temp=0.0,
                            stop_at_eos=False)
     toks = []

@@ -161,6 +161,8 @@ def _packed_layers(qtype, seed):
     (codecs.GGML_TYPE_Q4_0, 32, 8, 17),
     (codecs.GGML_TYPE_Q4_1, 64, 16, 40),
     (codecs.GGML_TYPE_Q5_0, 32, 8, 30),
+    (codecs.GGML_TYPE_Q5_1, 32, 8, 25),
+    (codecs.GGML_TYPE_Q8_0, 16, None, 12),
 ])
 def test_decode_step_fused_matches_pallas(qtype, window, kv_block, past):
     """B=1, bf16 KV, several windows and KV blocks (one and several online
@@ -192,6 +194,39 @@ def test_decode_step_fused_matches_pallas(qtype, window, kv_block, past):
     _rel_close(x_t.numpy(), np.asarray(x_j), 1e-3)
     for got, want in ((kr_t, kr_j), (vr_t, vr_j)):
         _rel_close(got.float().numpy(), np.asarray(want, np.float32), 2 ** -7)
+
+
+@pytest.mark.parametrize("qtype", ALL_QTYPES)
+def test_engine_weight_preparation_matches_jax(qtype):
+    """The engines prepare each format's matmul planes as the JAX engine
+    does: 4/5-bit levels packed (uint8), Q8_0 left unpacked as int8 levels
+    with ``packed=False``; scale (and min) planes bf16; the lm_head
+    lane-padded. The CUDA kernels take exactly these planes."""
+    from biogpt_tpu_torch.runtime.engine import (
+        _pack_matmul_weights as port_pack)
+
+    pj = _pack_matmul_weights(params_from_state_dict(
+        make_state_dict(CFG, seed=2), CFG, qtype=qtype))
+    pt = port_pack(params_from_numpy(params_from_state_dict(
+        make_state_dict(CFG, seed=2), CFG, qtype=qtype), "cpu"))
+    packed = qtype != codecs.GGML_TYPE_Q8_0
+    for wj, wt in [(pj["lm_head"], pt["lm_head"])] + [
+            (pj["layers"][n]["w"], pt["layers"][n]["w"])
+            for n in ("qkv", "o", "fc1", "fc2")]:
+        assert wt.packed == wj.packed == packed
+        assert wt.levels.dtype == (torch.uint8 if packed else torch.int8)
+        np.testing.assert_array_equal(wt.levels.numpy(), np.asarray(wj.levels))
+        assert wt.scales.dtype == torch.bfloat16
+        np.testing.assert_array_equal(
+            wt.scales.float().numpy(), np.asarray(wj.scales, np.float32))
+        assert (wt.mins is None) == (wj.mins is None)
+        if wt.mins is not None:
+            assert wt.mins.dtype == torch.bfloat16
+            np.testing.assert_array_equal(
+                wt.mins.float().numpy(), np.asarray(wj.mins, np.float32))
+        bits = qmatmul_kernels.CUDA_FORMATS[(wt.qtype, wt.packed)]
+        assert wt.levels.shape[-2] == qmatmul_kernels.level_rows(wt.d_in, bits)
+    assert pt["lm_head"].d_out % qmatmul_kernels.LANES == 0
 
 
 def test_supports_layers_matches_pallas():

@@ -148,6 +148,8 @@ def _packed_layers(qtype, seed):
     (codecs.GGML_TYPE_Q4_0, [0, 5, 17, 40], 32, None),      # B=4
     (codecs.GGML_TYPE_Q4_1,
      [3, 0, 9, 31, 12, 0, 1, 22, 30, 7, 16, 25], 32, 8),    # B=12
+    (codecs.GGML_TYPE_Q5_0, [21], 32, 8),                   # B=1, 4 blocks
+    (codecs.GGML_TYPE_Q8_0, [0, 5, 17, 40], 32, None),      # B=4
 ])
 def test_int8_decode_step_matches_pallas(qtype, past, window, kv_block):
     """The int8 mode of the plain steps against ``decode_step_fused(

@@ -90,24 +90,31 @@ def test_forward_noncausal_compat_mode_matches_jax():
     (codecs.GGML_TYPE_Q4_0, 6),     # prefill bucket 8: qmatmul (m = 8)
     (codecs.GGML_TYPE_Q4_0, 19),    # bucket 32: qmatmul_wide
     (codecs.GGML_TYPE_Q4_1, 12),    # bucket 16: qmatmul_wide, Q4_1 mins
+    (codecs.GGML_TYPE_Q5_0, 6),     # bucket 8, the fifth-bit plane
+    (codecs.GGML_TYPE_Q5_1, 12),    # bucket 16, Q5_1 mins
+    (codecs.GGML_TYPE_Q8_0, 19),    # bucket 32, the unpacked lm_head tail
 ])
 def test_engine_greedy_ids_match_jax_fused(qtype, prompt_len):
-    """The main path end to end: packed planes, kernel prefill, fused decode
-    and the fused greedy tail; 24 new tokens must equal the JAX engine's
-    (megakernel + lm_head argmax kernel in interpret mode)."""
+    """The main path end to end: engine-prepared planes, kernel prefill,
+    fused decode and the greedy tail -- the fused LN + lm_head + argmax
+    kernel for a packed lm_head, the lm_head GEMV and an argmax for Q8_0's
+    unpacked one, as in the JAX engine; 24 new tokens must equal the JAX
+    engine's (megakernel and Pallas GEMVs in interpret mode)."""
     pj, pt = _params(qtype, seed=7 + prompt_len)
     prompt = [2] + np.random.RandomState(prompt_len).randint(
         3, CFG.n_vocab, size=prompt_len - 1).tolist()
     gen = GenerationParams(n_predict=24, temp=0.0, seed=0, stop_at_eos=False)
     ej = JaxEngine(CFG, pj, compute_dtype=jnp.bfloat16)
-    assert ej._fused_greedy
+    packed = qtype != codecs.GGML_TYPE_Q8_0
+    assert ej._fused_decode and ej._fused_greedy == packed
     try:
         set_pallas_mode(True)
         want = ej.generate(prompt, gen, stream_cb=lambda _: None).ids
     finally:
         set_pallas_mode("auto")
     et = Engine(TCFG, pt, device="cpu")
-    assert et._fused_greedy and et.cache_dtype == torch.bfloat16
+    assert et._fused_decode and et._fused_greedy == packed
+    assert et.cache_dtype == torch.bfloat16
     got = et.generate(prompt, GenerationParams(**vars(gen))).ids
     assert len(got) == prompt_len + 24
     assert got == want

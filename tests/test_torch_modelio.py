@@ -96,20 +96,43 @@ def test_planes_byte_equal_to_jax(quantized_files, qname):
 
 
 @pytest.mark.parametrize("qtype", [codecs.GGML_TYPE_Q4_0,
-                                   codecs.GGML_TYPE_Q4_1])
+                                   codecs.GGML_TYPE_Q4_1,
+                                   codecs.GGML_TYPE_Q5_0,
+                                   codecs.GGML_TYPE_Q5_1,
+                                   codecs.GGML_TYPE_Q8_0])
 def test_port_written_file_loads_in_jax(tmp_path, qtype):
     """``write_random_quantized_model`` writes raw ggml block bytes that
-    the JAX reader decodes to the same planes as the port's reader."""
+    the JAX reader decodes to the same planes as the port's reader: random
+    Q4 blocks, and for Q5_0, Q5_1 and Q8_0 the same seed's Q4_0 (Q4_1)
+    model re-quantized, byte for byte as the JAX codec re-quantizes it."""
+    from biogpt_tpu.quant.layouts import from_planes, quantize_to_planes
+
+    cfg = TorchConfig.tiny(d_model=128, d_ff=256, n_head=2, n_layer=2,
+                           n_vocab=256, n_positions=32)
     path = tmp_path / "rand.bin"
-    write_random_quantized_model(path, TorchConfig.tiny(
-        d_model=128, d_ff=256, n_head=2, n_layer=2, n_vocab=256,
-        n_positions=32), qtype=qtype, seed=3)
+    write_random_quantized_model(path, cfg, qtype=qtype, seed=3)
     _, vj, _, pj = jax_load_params(path)
     _, vt, _, pt = load_params(path, device="cpu")
     assert vj == vt
     _assert_same_bytes(pj, pt)
     scales = np.asarray(pj["lm_head"].scales, np.float32)
-    assert 0.0049 <= scales.min() and scales.max() <= 0.0201
+    if qtype in (codecs.GGML_TYPE_Q4_0, codecs.GGML_TYPE_Q4_1):
+        assert 0.0049 <= scales.min() and scales.max() <= 0.0201
+        return
+    drawn = (codecs.GGML_TYPE_Q4_1 if qtype == codecs.GGML_TYPE_Q5_1
+             else codecs.GGML_TYPE_Q4_0)
+    src = tmp_path / "drawn.bin"
+    write_random_quantized_model(src, cfg, qtype=drawn, seed=3)
+    _, _, _, ps = jax_load_params(src)
+    # lm_head planes are (d_in, d_out); the codec quantizes (d_out, d_in)
+    want = quantize_to_planes(from_planes(ps["lm_head"]).T, qtype)
+    for a, b in ((pj["lm_head"].levels, want.levels),
+                 (pj["lm_head"].scales, want.scales),
+                 (pj["lm_head"].mins, want.mins)):
+        if b is None:
+            assert a is None
+        else:
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 def test_params_from_numpy_keeps_engine_packed_bytes(quantized_files):

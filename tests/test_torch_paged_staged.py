@@ -56,7 +56,8 @@ def _t(a):
 def layers():
     """{qtype: (JAX engine-packed layers, the port's)}"""
     out = {}
-    for qtype in (codecs.GGML_TYPE_Q4_0, codecs.GGML_TYPE_Q4_1):
+    for qtype in (codecs.GGML_TYPE_Q4_0, codecs.GGML_TYPE_Q4_1,
+                  codecs.GGML_TYPE_Q5_1, codecs.GGML_TYPE_Q8_0):
         p = _pack_matmul_weights(params_from_state_dict(
             make_state_dict(CFG, seed=qtype + 3), CFG, qtype=qtype))
         out[qtype] = (p["layers"], params_from_numpy(p["layers"], "cpu"))
@@ -96,9 +97,13 @@ PAST = {1: [13], 4: [0, 5, 17, 9],
         12: [3, 0, 9, 31, 12, 0, 1, 22, 15, 7, 16, 25]}
 
 
-@pytest.mark.parametrize("B", sorted(PAST))
-@pytest.mark.parametrize("qtype", [codecs.GGML_TYPE_Q4_0,
-                                   codecs.GGML_TYPE_Q4_1])
+# Q4_0 and Q4_1 at every B; Q5_1 (packed, mins) and Q8_0 (unpacked) at B=4
+PAGED_CASES = ([(q, B) for q in (codecs.GGML_TYPE_Q4_0, codecs.GGML_TYPE_Q4_1)
+                for B in sorted(PAST)]
+               + [(codecs.GGML_TYPE_Q5_1, 4), (codecs.GGML_TYPE_Q8_0, 4)])
+
+
+@pytest.mark.parametrize("qtype,B", PAGED_CASES)
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
 def test_paged_step_matches_pallas(layers, B, qtype, quant):
     """The plain paged step against ``decode_step_fused(per_slot_kv=True,
@@ -159,9 +164,10 @@ def _staged_inputs(rng):
     return x0, (kj, vj), (kt, vt), stage
 
 
-@pytest.mark.parametrize("step_i", [0, 2, C - 1])
-@pytest.mark.parametrize("qtype", [codecs.GGML_TYPE_Q4_0,
-                                   codecs.GGML_TYPE_Q4_1])
+@pytest.mark.parametrize("qtype,step_i", [
+    (q, i) for q in (codecs.GGML_TYPE_Q4_0, codecs.GGML_TYPE_Q4_1)
+    for i in (0, 2, C - 1)]
+    + [(codecs.GGML_TYPE_Q5_1, 2), (codecs.GGML_TYPE_Q8_0, 2)])
 def test_staged_step_matches_pallas(layers, step_i, qtype):
     """The plain staged step against ``decode_step_fused(k_stage=...,
     step_i=..., interpret=True)``: slot b reads its cache rows below

@@ -66,6 +66,10 @@ def _prompts(lens, padded, seed):
     (codecs.GGML_TYPE_Q4_0, [3, 8, 6, 2, 5, 7, 4, 1], 8),  # 8-row wave
     (codecs.GGML_TYPE_Q4_1, [7, 3], 8),
     (codecs.GGML_TYPE_Q4_1, [13, 4], 16),
+    (codecs.GGML_TYPE_Q5_0, [3, 8, 6, 2], 8),
+    (codecs.GGML_TYPE_Q5_1, [13, 4], 16),
+    (codecs.GGML_TYPE_Q8_0, [7, 3], 8),
+    (codecs.GGML_TYPE_Q8_0, [13, 4], 16),
 ])
 def test_prefill_plain_matches_pallas(qtype, lens, padded):
     """``prefill_fused_plain`` against ``prefill_fused(interpret=True)`` on

@@ -188,14 +188,21 @@ def test_serve_f32_greedy_rows_of_sampled_batch_match_jax(tiny):
         assert all(0 <= t < 256 for t in got[i])
 
 
-@pytest.mark.parametrize("sampled", [False, True])
-def test_serve_bf16_fused_matches_jax_pallas(sampled):
-    """bf16 and packed Q4_0: the port's fused batched step with its greedy
-    (argmax + commit) or sampled (logits + group maxima + commit) tail
-    against the JAX engine's megakernel and epilogues in interpret mode,
-    across a refill wave. Greedy rows are token-identical; sampled rows
-    draw from other random bits and are only checked for range."""
-    pair = _pair(WIDE_KW, seed=11, qtype=codecs.GGML_TYPE_Q4_0)
+@pytest.mark.parametrize("sampled,qtype", [
+    pytest.param(False, codecs.GGML_TYPE_Q4_0, id="False"),
+    pytest.param(True, codecs.GGML_TYPE_Q4_0, id="True"),
+    pytest.param(False, codecs.GGML_TYPE_Q5_1, id="q5_1-greedy"),
+    pytest.param(False, codecs.GGML_TYPE_Q8_0, id="q8_0-greedy"),
+])
+def test_serve_bf16_fused_matches_jax_pallas(sampled, qtype):
+    """bf16 and engine-prepared planes: the port's fused batched step with
+    its greedy (argmax + commit) or sampled (logits + group maxima +
+    commit) tail against the JAX engine's megakernel and epilogues in
+    interpret mode, across a refill wave; packed Q4_0 and Q5_1, and Q8_0,
+    whose unpacked lm_head takes the lm_head GEMV and an argmax instead of
+    the fused tails on both sides. Greedy rows are token-identical; sampled
+    rows draw from other random bits and are only checked for range."""
+    pair = _pair(WIDE_KW, seed=11, qtype=qtype)
     prompts = [[2, 41, 7], [2, 19, 3, 8], [2, 5]]
     gen_kw = dict(temp=0.8 if sampled else 0.0, top_k=12, top_p=0.9,
                   stop_at_eos=False, seed=5)
@@ -206,7 +213,9 @@ def test_serve_bf16_fused_matches_jax_pallas(sampled):
         pair, prompts, 4, gen_kw,
         dict(max_batch=2, chunk=2, max_seq=32, dtype="bf16"),
         req_kw=req_kw if sampled else None, pallas=True)
-    assert te._fused_decode and te._fused_greedy and te._fused_sampled
+    packed = qtype != codecs.GGML_TYPE_Q8_0
+    assert te._fused_decode
+    assert te._fused_greedy == te._fused_sampled == packed
     for i in range(len(prompts)):
         if sampled and i == 1:
             assert len(got[i]) == len(prompts[i]) + 4
