@@ -24,6 +24,11 @@ tails run without the commit fusion, as in the JAX package.
 ``forward_fused_decode_staged`` runs the staged step (chunk-local KV
 staging) and returns the rows for the caller's staging.
 
+``forward(mesh=...)`` is one rank's shard of the tensor-parallel per-op
+forward (``parallel/tp.py``): local heads, sums over the model axis at the
+o and fc2 joins, the column-parallel lm_head's logits gathered, and, with
+``tp_seq_shard``, sequence-parallel prefill.
+
 Position ids past the embedding table clamp to its last row, as the JAX
 gather clamps: a serving slot can run a chunk past its cache's end before
 it is truncated (``runtime/cache.py``).
@@ -59,9 +64,16 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.gelu(x, approximate="none")
 
 
-def _project(x, wb, compute_dtype, allow_kernels: bool) -> torch.Tensor:
+def _project(x, wb, compute_dtype, allow_kernels: bool, mesh=None,
+             seq_scatter: bool = False) -> torch.Tensor:
+    """x @ w + b. ``mesh``: a row-parallel projection under tensor
+    parallelism, whose local product is this shard's partial sum: summed
+    over the model axis (``seq_scatter``: reduce-scattered over the
+    sequence axis) before the bias is added."""
     y = matmul(x, wb["w"], compute_dtype=compute_dtype,
                allow_kernels=allow_kernels)
+    if mesh is not None:
+        y = mesh.reduce_scatter_seq(y) if seq_scatter else mesh.sum(y)
     return y + wb["b"].to(torch.float32)
 
 
@@ -83,11 +95,16 @@ def _positions(past, B: int, N: int, config: BioGptConfig, table, device):
 def _attention(layer: dict, x, cache: KVCache, layer_ix: int, past,
                config: BioGptConfig, compute_dtype, causal: bool,
                n_valid, allow_kernels: bool,
-               kv_window: Optional[int]):
-    B, N, D = x.shape
-    H, Dk = config.n_head, config.d_kv
+               kv_window: Optional[int], mesh=None,
+               tp_seq_shard: bool = False):
+    B, N, _ = x.shape
+    # under tensor parallelism each shard owns n_head / tp contiguous heads:
+    # its q/k/v columns are exactly theirs, and attention is shard-local
+    tp = mesh.model if mesh is not None else 1
+    H, Dk = config.n_head // tp, config.d_kv
+    D = H * Dk
     scaling = 1.0 / math.sqrt(Dk)
-    if "qkv" in layer:   # engine-fused projection
+    if "qkv" in layer:   # engine-fused projection (a shard's q_s|k_s|v_s)
         qkv = _project(x, layer["qkv"], compute_dtype, allow_kernels)
         q, k, v = torch.split(qkv, D, dim=-1)
         q = q * scaling
@@ -96,7 +113,8 @@ def _attention(layer: dict, x, cache: KVCache, layer_ix: int, past,
         k = _project(x, layer["k"], compute_dtype, allow_kernels)
         v = _project(x, layer["v"], compute_dtype, allow_kernels)
 
-    update_layer(cache, layer_ix, k, v, past)
+    update_layer(cache, layer_ix, k, v, past,
+                 group=mesh.group if mesh is not None else None)
     S = cache.max_len if kv_window is None else min(kv_window, cache.max_len)
     if isinstance(cache, QuantKVCache):
         # int8 levels x row scales, dequantized into the compute dtype
@@ -128,19 +146,30 @@ def _attention(layer: dict, x, cache: KVCache, layer_ix: int, past,
         # the dequantized value dtype, not int8 (which would zero p < 1)
         attn = attn.to(kv_dtype).to(torch.float32)
     ctx = torch.einsum("bhns,bshd->bnhd", attn, v_all).reshape(B, N, D)
-    return _project(ctx, layer["o"], compute_dtype, allow_kernels)
+    return _project(ctx, layer["o"], compute_dtype, allow_kernels, mesh,
+                    tp_seq_shard)
 
 
 def forward(params: dict, tokens: torch.Tensor, cache: KVCache, past,
             config: BioGptConfig, compute_dtype=torch.float32,
             causal: bool = True, logits_mode: str = "last",
             allow_kernels: bool = True, kv_window: Optional[int] = None,
-            last_index=None):
+            last_index=None, mesh=None, tp_seq_shard: bool = False):
     """One forward step (prefill or per-op decode) -> (logits, cache):
     (B, n_vocab) for "last" or (B, N, n_vocab) for "all". The cache rows
     [past, past + N) are written in place. ``past``: a host int, or (B,)
     per-slot positions. ``last_index``: the position of the real last
-    token (padded prefill), a host int or (B,) per row."""
+    token (padded prefill), a host int or (B,) per row.
+
+    ``mesh`` (``parallel.mesh.Mesh``): this rank's shard of a tensor-
+    parallel forward (``parallel/tp.py``): params and cache are its local
+    shards, q/k/v, fc1 and the lm_head are column-parallel and run local, o
+    and fc2 are row-parallel and sum over the model axis at their joins,
+    and the logits are gathered over it. ``tp_seq_shard`` (N a multiple of
+    the axis, N > 1): Megatron sequence parallelism -- the residual stream
+    and LayerNorms run on this rank's N / tp rows, activations all-gather
+    over the sequence before the column-parallel products, and the
+    row-parallel joins reduce-scatter back to local rows."""
     B, N = tokens.shape
     dev = tokens.device
     emb = embedding_lookup(tokens, params["embed_tokens"]) * math.sqrt(
@@ -149,22 +178,35 @@ def forward(params: dict, tokens: torch.Tensor, cache: KVCache, past,
         _positions(past, B, N, config, params["embed_positions"], dev),
         params["embed_positions"])
     x = emb + pos_emb
+    if tp_seq_shard:
+        nloc = N // mesh.model
+        x = x[:, mesh.index * nloc:(mesh.index + 1) * nloc]
+
+    def gather_seq(h):   # local rows -> the whole sequence
+        return mesh.all_gather_seq(h) if tp_seq_shard else h
+
     n_valid = N if last_index is None else last_index + 1
     for i in range(config.n_layer):
         layer = layer_slice(params["layers"], i)
         h = _layer_norm(x, layer["ln0"]["w"], layer["ln0"]["b"], config.ln_eps)
-        x = x + _attention(layer, h, cache, i, past, config, compute_dtype,
-                           causal, n_valid, allow_kernels, kv_window)
+        x = x + _attention(layer, gather_seq(h), cache, i, past, config,
+                           compute_dtype, causal, n_valid, allow_kernels,
+                           kv_window, mesh, tp_seq_shard)
         h = _layer_norm(x, layer["ln1"]["w"], layer["ln1"]["b"], config.ln_eps)
-        h = _gelu(_project(h, layer["fc1"], compute_dtype, allow_kernels))
-        x = x + _project(h, layer["fc2"], compute_dtype, allow_kernels)
-    x = _layer_norm(x, params["final_ln"]["w"], params["final_ln"]["b"],
-                    config.ln_eps)
+        h = _gelu(_project(gather_seq(h), layer["fc1"], compute_dtype,
+                           allow_kernels))
+        x = x + _project(h, layer["fc2"], compute_dtype, allow_kernels, mesh,
+                         tp_seq_shard)
+    # the final LN is row-independent: local rows first, then gathered
+    x = gather_seq(_layer_norm(x, params["final_ln"]["w"],
+                               params["final_ln"]["b"], config.ln_eps))
     if logits_mode == "last":
         idx = _per_row(N - 1 if last_index is None else last_index, B, dev)
         x = torch.gather(x, 1, idx[:, None, None].expand(B, 1, x.shape[-1]))
     logits = matmul(x, params["lm_head"], compute_dtype=compute_dtype,
                     allow_kernels=allow_kernels)
+    if mesh is not None:   # the column-parallel lm_head's vocab shards
+        logits = mesh.all_gather_last(logits)
     logits = logits[..., :config.n_vocab]   # the lm_head may be lane-padded
     if logits_mode == "last":
         logits = logits[:, 0, :]

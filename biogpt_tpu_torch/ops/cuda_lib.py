@@ -41,6 +41,7 @@ SOURCES = {
     "decode_paged": "decode_paged.cu",
     "kv_commit": "kv_commit.cu",
     "prefill": "prefill.cu",
+    "decode_tp": "decode_tp.cu",
 }
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -77,6 +78,16 @@ SIGNATURES = {
     ("prefill", "bgt_prefill"): (
         [_P] + [_I] * 6 + [_F, _I, _I] + [_P] * 4 + [_P] * 16 + [_P] * 6
         + [_P]),
+    ("decode_tp", "bgt_tp_part_size"): [_I] * 4,
+    ("decode_tp", "bgt_tp_attn"): (
+        [_P] + [_I] * 10 + [_P, _F, _I, _I] + [_P] * 2 + [_P] * 4 + [_P] * 3
+        + [_P] * 4 + [_P] * 3 + [_P] * 6 + [_P]),
+    ("decode_tp", "bgt_tp_qkv"): (
+        [_P] + [_I] * 6 + [_F, _I, _I] + [_P] * 2 + [_P] * 4 + [_P] * 3
+        + [_P]),
+    ("decode_tp", "bgt_tp_ffn"): (
+        [_P] + [_I] * 5 + [_F, _I, _I] + [_P] * 2 + [_P] * 4 + [_P] * 3
+        + [_P] * 3 + [_P]),
 }
 
 LAUNCHES = {"qmatmul": 0, "qmatmul_wide": 0, "lm_head_argmax": 0,
@@ -85,7 +96,9 @@ LAUNCHES = {"qmatmul": 0, "qmatmul_wide": 0, "lm_head_argmax": 0,
             "lm_head_logits_gmax_commit": 0, "prefill_fused": 0,
             "decode_step_fused_int8": 0, "decode_step_fused_batched_int8": 0,
             "kv_commit_quant": 0, "decode_step_fused_paged": 0,
-            "decode_step_fused_paged_int8": 0, "decode_step_fused_staged": 0}
+            "decode_step_fused_paged_int8": 0, "decode_step_fused_staged": 0,
+            "tp_attn_half": 0, "tp_attn_half_int8": 0, "tp_qkv_half": 0,
+            "tp_ffn_half": 0}
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()

@@ -153,7 +153,7 @@ def to_lookup_planes(raw, shape_rows_cols: tuple[int, int], qtype: int) -> Quant
     return _qt(levels.T, scales.T, mins.T if mins is not None else None, qtype)
 
 
-def pack_nibble_planes(qt: QuantizedTensor) -> QuantizedTensor:
+def pack_nibble_planes(qt: QuantizedTensor, chunks: int = 1) -> QuantizedTensor:
     """Pack a 4/5-bit-format plane tensor into one dense byte plane.
 
     4-bit formats pack two levels per byte in split-half order (byte row i
@@ -161,23 +161,33 @@ def pack_nibble_planes(qt: QuantizedTensor) -> QuantizedTensor:
     the split-eighth fifth-bit plane. Levels are stored UNCENTERED
     (0..15 / 0..31). No-op for Q8_0 and for d_in whose halves would not
     stay block aligned. Works on layer-stacked (L, d_in, d_out) planes.
+
+    ``chunks`` > 1 packs each of ``chunks`` equal d_in chunks on its own
+    (nibbles, then for Q5 the fifth-bit rows, per chunk), so a contiguous
+    d_in shard of the result is a packed plane by itself: the row-parallel
+    weights of tensor parallelism (``parallel/tp.py``). Unpack it with the
+    same ``chunks``.
     """
     if qt.packed or qt.qtype not in (GGML_TYPE_Q4_0, GGML_TYPE_Q4_1) + FIVE_BIT:
         return qt
     levels = _np(qt.levels)
     d_in = levels.shape[-2]
-    if d_in % (2 * QK) != 0:
+    if d_in % (chunks * 2 * QK) != 0:
         return qt
     u = (levels.astype(np.int16) + LEVEL_OFFSET[qt.qtype]).astype(np.uint8)
-    half, eighth = d_in // 2, d_in // 8
-    lo4 = u & 0x0F
-    pieces = [lo4[..., :half, :] | (lo4[..., half:, :] << 4)]
-    if qt.qtype in FIVE_BIT:
-        bit4 = (u >> 4) & 0x01
-        plane = np.zeros(u.shape[:-2] + (eighth, u.shape[-1]), np.uint8)
-        for p in range(8):
-            plane |= bit4[..., p * eighth:(p + 1) * eighth, :] << p
-        pieces.append(plane)
+    per = d_in // chunks
+    half, eighth = per // 2, per // 8
+    pieces = []
+    for c in range(chunks):
+        uc = u[..., c * per:(c + 1) * per, :]
+        lo4 = uc & 0x0F
+        pieces.append(lo4[..., :half, :] | (lo4[..., half:, :] << 4))
+        if qt.qtype in FIVE_BIT:
+            bit4 = (uc >> 4) & 0x01
+            plane = np.zeros(uc.shape[:-2] + (eighth, uc.shape[-1]), np.uint8)
+            for p in range(8):
+                plane |= bit4[..., p * eighth:(p + 1) * eighth, :] << p
+            pieces.append(plane)
     packed = np.concatenate(pieces, axis=-2)
     return dataclasses.replace(
         qt, levels=torch.from_numpy(np.ascontiguousarray(packed)), packed=True)
@@ -198,9 +208,11 @@ def unpack_levels(levels: torch.Tensor, qtype: int) -> torch.Tensor:
     return (lv.to(torch.int16) - LEVEL_OFFSET[qtype]).to(torch.int8)
 
 
-def unpack_nibble_planes(qt: QuantizedTensor) -> QuantizedTensor:
-    """Inverse of :func:`pack_nibble_planes`."""
+def unpack_nibble_planes(qt: QuantizedTensor, chunks: int = 1) -> QuantizedTensor:
+    """Inverse of :func:`pack_nibble_planes` (the same ``chunks``)."""
     if not qt.packed:
         return qt
-    return dataclasses.replace(qt, levels=unpack_levels(qt.levels, qt.qtype),
-                               packed=False)
+    rows = qt.levels.shape[-2] // chunks
+    levels = torch.cat([unpack_levels(qt.levels[..., c * rows:(c + 1) * rows, :],
+                                      qt.qtype) for c in range(chunks)], dim=-2)
+    return dataclasses.replace(qt, levels=levels, packed=False)

@@ -11,6 +11,13 @@ planes, as the JAX package does. Rows quantize through
 :func:`quantize_rows` (amax / 127, round half to even) and read back
 through :func:`dequant_layer` (level x scale in f32, one rounding).
 
+Under tensor parallelism (``parallel/``) each rank holds a shard of the
+feature axis, (n_layer, batch, max_len, d_model / tp): heads are contiguous
+in d_model, so this is head sharding. An int8 shard's scale planes are
+whole on every rank: :func:`quantize_rows` completes each row's absmax
+over the model axis' process group, so every rank writes the same
+full-row scale and the sharded levels equal the unsharded ones.
+
 Positions are a host int (one offset for every row) or a (batch,) integer
 tensor on the device (per-slot positions of batched serving; reading it on
 the host would stall the pipeline). Every block write (:func:`write_block`)
@@ -50,9 +57,10 @@ class QuantKVCache(KVCache):
 
 
 def init_cache(config: BioGptConfig, batch: int = 1, max_len: int | None = None,
-               dtype=torch.float16, device="cpu") -> KVCache:
+               dtype=torch.float16, device="cpu", tp: int = 1) -> KVCache:
+    """Zeroed caches; ``tp`` > 1 builds one rank's feature shard."""
     shape = (config.n_layer, batch, max_len or config.n_positions,
-             config.d_model)
+             config.d_model // tp)
     if dtype == torch.int8:
         sshape = shape[:2] + (1, shape[2])
         return QuantKVCache(
@@ -64,12 +72,21 @@ def init_cache(config: BioGptConfig, batch: int = 1, max_len: int | None = None,
                    v=torch.zeros(shape, dtype=dtype, device=device))
 
 
-def quantize_rows(x: torch.Tensor):
+def quantize_rows(x: torch.Tensor, group=None, amax=None):
     """(..., D) float -> (int8 levels, (...) f32 scales): per-row absmax/127,
     the scale floored at 1e-12 for the division, levels rounded half to
-    even and clipped to +-127."""
+    even and clipped to +-127. ``group``: the model axis' process group
+    when ``x`` is this rank's shard of the rows; the absmax is completed
+    with an all-reduce max over it (order-free, so the scale is the
+    unsharded row's). ``amax``: the local absmax, where a kernel already
+    took it."""
     x = x.to(torch.float32)
-    scale = x.abs().amax(-1) / 127.0
+    if amax is None:
+        amax = x.abs().amax(-1)
+    if group is not None:
+        from ..parallel.distributed import all_reduce_max
+        amax = all_reduce_max(amax, group)
+    scale = amax / 127.0
     safe = torch.clamp(scale, min=1e-12)
     q = torch.clamp(torch.round(x / safe[..., None]), -127, 127)
     return q.to(torch.int8), scale
@@ -118,14 +135,15 @@ def _write(cache: KVCache, layer: int, k_new, v_new, past, ks_new=None,
 
 
 def update_layer(cache: KVCache, layer: int, k_new: torch.Tensor,
-                 v_new: torch.Tensor, past) -> KVCache:
+                 v_new: torch.Tensor, past, group=None) -> KVCache:
     """Write (batch, n_new, d_model) rows into one layer at offset ``past``
     (a host int, or a (batch,) tensor of per-slot offsets), in place; an
-    int8 cache quantizes them first. A write past ``max_len`` clamps, as
+    int8 cache quantizes them first (over ``group``, a sharded cache's
+    model axis: :func:`quantize_rows`). A write past ``max_len`` clamps, as
     ``lax.dynamic_update_slice`` does."""
     if isinstance(cache, QuantKVCache):
-        kq, ksc = quantize_rows(k_new)
-        vq, vsc = quantize_rows(v_new)
+        kq, ksc = quantize_rows(k_new, group)
+        vq, vsc = quantize_rows(v_new, group)
         _write(cache, layer, kq, vq, past, ksc, vsc)
     else:
         _write(cache, layer, k_new, v_new, past)

@@ -11,6 +11,16 @@ the torch sampler or argmax. Every format has its CUDA kernels. ``kv_quant=True`
 per-row scales (``runtime.cache.QuantKVCache``); the fused step then runs
 in its int8 mode.
 
+On a mesh (``mesh``, ``parallel.mesh.make_mesh``; one process per rank,
+each holding its shard) the weights are TP-packed and sharded
+(``parallel/tp.py``) and every forward runs the tensor-parallel one: the
+prompt per op (sequence-parallel where its bucket divides the model
+axis), and decode per op or, with ``tp_fused_decode``, through the TP
+decode step's kernel halves with a bf16 (default) or int8 cache. Every
+rank runs ``generate`` with the same arguments; the logits, and so the
+tokens, are the same on every rank. ``pack_q4=False`` on a mesh (the JAX
+package's GSPMD path) belongs to a later slice and raises.
+
 ``generate`` decodes in chunks of ``SCAN_LEN`` steps. The sampled token,
 the token buffer, the EOS flag and the health bit stay on the device; the
 host knows ``past`` as a Python int and reads the device once per chunk.
@@ -93,6 +103,34 @@ def _pack_matmul_weights(params: dict) -> dict:
     return out
 
 
+def place_params(config: BioGptConfig, params: dict, pack_q4: bool, device,
+                 mesh=None, tp_fused_decode: bool = False):
+    """The engines' weights on their device -> (params, forward, device).
+    Without a mesh: the kernels' packing (:func:`_pack_matmul_weights`,
+    where ``pack_q4``) on ``device``, and ``models.biogpt.forward``. On a
+    mesh (the JAX engines' mesh gates): TP-packed params sharded onto the
+    rank's device, and the TP forward; a model the TP path cannot split,
+    or unpacked weights (the JAX package's GSPMD path), raises."""
+    if mesh is None:
+        dev = resolve_device(device)
+        if pack_q4:
+            params = _pack_matmul_weights(params)
+        return tree_map(lambda a: a.to(dev), params), forward, dev
+    from ..parallel.tp import (make_tp_forward, pack_params_tp,
+                               shard_params_tp, supports_tp)
+
+    tp = mesh.model
+    if not pack_q4 or not supports_tp(config, tp):
+        raise NotImplementedError(
+            "a mesh without the packed tensor-parallel path (pack_q4=False, "
+            f"or a model that does not split over {tp} shards: the JAX "
+            "package's GSPMD sharding) belongs to a later slice of the "
+            "PyTorch port")
+    params = shard_params_tp(pack_params_tp(params, tp), mesh)
+    return (params, make_tp_forward(mesh, fused_decode=tp_fused_decode),
+            mesh.device)
+
+
 @dataclass
 class GenerationResult:
     ids: List[int]
@@ -111,7 +149,11 @@ class Engine:
     parity work. ``cache_dtype`` defaults to bf16 when the fused decode step
     is live, else float16; ``kv_quant`` forces an int8 cache. ``device``
     defaults to "cuda" and raises without a card; the CPU runs every
-    kernel's plain version.
+    kernel's plain version. ``mesh`` / ``tp_fused_decode``: this rank's
+    shard of a tensor-parallel engine (see the module docstring; the
+    mesh's device is the engine's). ``health_check=False`` delivers the
+    tokens of a generation whose logits went non-finite instead of raising
+    ``ModelHealthError``.
     """
 
     SCAN_LEN = 64   # decode steps per chunk (one device read per chunk)
@@ -119,26 +161,32 @@ class Engine:
     def __init__(self, config: BioGptConfig, params: dict,
                  compute_dtype=torch.bfloat16, cache_dtype=None,
                  max_seq: Optional[int] = None, pack_q4: bool = True,
-                 kv_quant: bool = False, device="cuda"):
+                 kv_quant: bool = False, device="cuda", mesh=None,
+                 tp_fused_decode: bool = False, health_check: bool = True):
         if kv_quant:
             if cache_dtype not in (None, torch.int8):
                 raise ValueError("kv_quant forces an int8 cache")
             cache_dtype = torch.int8
-        self.device = resolve_device(device)
         self.config = config
         self.compute_dtype = compute_dtype
         self.max_seq = max_seq or config.n_positions
         self.allow_kernels = pack_q4
-        if pack_q4:
-            params = _pack_matmul_weights(params)
-        self.params = tree_map(lambda a: a.to(self.device), params)
+        # a tripped on-device finite bit fails the generation (the bit is
+        # read with each chunk's tokens) unless the check is off
+        self.health_check = health_check
+        self.mesh = mesh
+        self._tp_fused = mesh is not None and tp_fused_decode
+        self.params, self._fwd, self.device = place_params(
+            config, params, pack_q4, device, mesh, tp_fused_decode)
         self._fused_decode = (
-            pack_q4 and compute_dtype != torch.float32
+            mesh is None and pack_q4 and compute_dtype != torch.float32
             and cache_dtype in (None, torch.bfloat16, torch.int8)
             and supports_layers(self.params.get("layers", {}), torch.bfloat16,
                                 batch=1, n_new=1))
         if cache_dtype is None:
-            cache_dtype = torch.bfloat16 if self._fused_decode else torch.float16
+            cache_dtype = (torch.bfloat16
+                           if self._fused_decode or self._tp_fused
+                           else torch.float16)
         self.cache_dtype = cache_dtype
         lm_head = self.params.get("lm_head")
         self._fused_greedy = (self._fused_decode
@@ -154,7 +202,8 @@ class Engine:
     def new_cache(self, batch: int = 1, max_len: Optional[int] = None) -> KVCache:
         return init_cache(self.config, batch=batch,
                           max_len=max_len or self.max_seq,
-                          dtype=self.cache_dtype, device=self.device)
+                          dtype=self.cache_dtype, device=self.device,
+                          tp=self.mesh.model if self.mesh is not None else 1)
 
     def prefill(self, cache: KVCache, token_ids):
         """Run the prompt through the model -> (logits (1, V), cache, n)."""
@@ -165,7 +214,7 @@ class Engine:
         padded = min(_bucket(n), self.max_seq)
         buf = np.zeros((1, padded), dtype=np.int64)
         buf[:, :n] = ids
-        logits, cache = forward(
+        logits, cache = self._fwd(
             self.params, torch.from_numpy(buf).to(self.device), cache, 0,
             self.config, compute_dtype=self.compute_dtype,
             allow_kernels=self.allow_kernels, logits_mode="last",
@@ -183,10 +232,10 @@ class Engine:
                                         self.config,
                                         compute_dtype=self.compute_dtype,
                                         kv_window=window)
-        return forward(self.params, tok, cache, past, self.config,
-                       compute_dtype=self.compute_dtype,
-                       allow_kernels=self.allow_kernels, logits_mode="last",
-                       kv_window=window)
+        return self._fwd(self.params, tok, cache, past, self.config,
+                         compute_dtype=self.compute_dtype,
+                         allow_kernels=self.allow_kernels, logits_mode="last",
+                         kv_window=window)
 
     def _step(self, cache, tok, past: int, window: int, use_greedy: bool,
               gen, generator):
@@ -250,7 +299,7 @@ class Engine:
         def drain():
             nonlocal emitted, stopped
             vals = torch.cat([out_buf, health.to(torch.int32)[None]]).cpu()
-            if int(vals[-1]) == 0:
+            if self.health_check and int(vals[-1]) == 0:
                 raise ModelHealthError(
                     "non-finite logits during generation (after "
                     f"{emitted} emitted tokens) -- corrupt checkpoint or "
@@ -302,8 +351,8 @@ class Engine:
         if ids.dim() == 1:
             ids = ids[None, :]
         cache = self.new_cache(batch=ids.shape[0], max_len=ids.shape[1])
-        logits, _ = forward(self.params, ids.to(self.device), cache, 0,
-                            self.config, compute_dtype=self.compute_dtype,
-                            allow_kernels=self.allow_kernels,
-                            logits_mode="all")
+        logits, _ = self._fwd(self.params, ids.to(self.device), cache, 0,
+                              self.config, compute_dtype=self.compute_dtype,
+                              allow_kernels=self.allow_kernels,
+                              logits_mode="all")
         return logits.float().cpu().numpy()

@@ -47,10 +47,20 @@ a host read, and each chunk ends with one copy of its (chunk, B) token ring
 into pinned host memory behind a CUDA event. Drain threads wait on that
 event only, never on the device. The caches are updated in place.
 
-Tensor-parallel serving (``mesh``, ``tp_fused_decode``) belongs to a later
-slice of the port and raises ``NotImplementedError`` here. A pool of B=1
-runs the per-op step unless it is paged: the lockstep fused step takes
-per-slot device positions from B=2 on, the paged one at every B.
+On a mesh (``mesh``; one process per rank, each holding its shard, every
+rank calling ``serve`` with the same requests -- ``runtime.dist_serving``
+keeps them so) the weights are TP-packed and sharded and every forward is
+the tensor-parallel one (``parallel/tp.py``), as in the JAX package: the
+single-device fused step, its greedy and sampled tails, paged and staged
+KV and the refill kernel are off; refills run the per-op TP forward
+(sequence-parallel where the bucket divides the model axis); the lockstep
+step runs per op or, with ``tp_fused_decode``, through the TP decode
+step's kernel halves, with a bf16 cache by default. ``decision_sync``
+replicates one rank's slot-freeing decisions (see ``serve``).
+``pack_q4=False`` on a mesh (the JAX package's GSPMD path) belongs to a
+later slice and raises. A pool of B=1 runs the per-op step unless it is
+paged: the lockstep fused step takes per-slot device positions from B=2
+on, the paged one at every B.
 """
 
 from __future__ import annotations
@@ -66,19 +76,17 @@ import numpy as np
 import torch
 
 from ..config import BioGptConfig, GenerationParams
-from ..device import resolve_device
-from ..models.biogpt import (forward, forward_fused_decode,
+from ..models.biogpt import (forward_fused_decode,
                              forward_fused_decode_greedy,
                              forward_fused_decode_sampled,
                              forward_fused_decode_staged,
                              forward_prefill_fused)
-from ..modelio.checkpoint import tree_map
 from ..ops.decode_kernels import supports_layers
 from ..ops.prefill_kernels import supports_prefill
 from ..ops.qmatmul_kernels import supports, supports_wide
 from ..quant.layouts import QuantizedTensor
 from .cache import KVCache, init_cache, merge_rows, write_block
-from .engine import _bucket, _pack_matmul_weights
+from .engine import _bucket, place_params
 from .health import DrainStallError, ModelHealthError
 from .metrics import ServingMetrics
 from .sampling import greedy, sample_per_request
@@ -177,11 +185,6 @@ class BatchedEngine:
         kv_groups: Optional[int] = None,
         device="cuda",
     ):
-        if mesh is not None or tp_fused_decode:
-            raise NotImplementedError(
-                "tensor-parallel serving (mesh, tp_fused_decode) belongs to "
-                "a later slice of the PyTorch port")
-        self.device = resolve_device(device)
         self.config = config
         self.B = max_batch
         self.compute_dtype = compute_dtype
@@ -195,14 +198,16 @@ class BatchedEngine:
         self.metrics = ServingMetrics()
         # undrained chunks the host may run ahead of the drain threads
         self.pipeline = max(1, pipeline)
-        if pack_q4:
-            params = _pack_matmul_weights(params)
+        self.mesh = mesh
+        self._tp_fused = mesh is not None and tp_fused_decode
+        params, self._fwd, self.device = place_params(
+            config, params, pack_q4, device, mesh, tp_fused_decode)
         if kv_quant:
             if cache_dtype not in (None, torch.int8):
                 raise ValueError("kv_quant forces an int8 cache")
             cache_dtype = torch.int8
         self._fused_decode = (
-            pack_q4 and compute_dtype != torch.float32
+            mesh is None and pack_q4 and compute_dtype != torch.float32
             and cache_dtype in (None, torch.bfloat16, torch.int8)
             and (self.B >= 2 or bool(paged_kv))
             and supports_layers(params.get("layers", {}), torch.bfloat16,
@@ -221,10 +226,11 @@ class BatchedEngine:
         # cache at B > 1, unpaged)
         self._staged_kv = bool(staged_kv) and self._fused_decode
         if cache_dtype is None:
-            cache_dtype = (torch.bfloat16 if self._fused_decode
+            cache_dtype = (torch.bfloat16
+                           if self._fused_decode or self._tp_fused
                            else torch.float16)
         self.cache_dtype = cache_dtype
-        self.params = tree_map(lambda a: a.to(self.device), params)
+        self.params = params
         # the per-op step's matmul kernels, where the JAX engine allows its
         # Pallas kernels: on the accelerator
         self.allow_kernels = pack_q4 and self.device.type == "cuda"
@@ -241,9 +247,13 @@ class BatchedEngine:
         # runs, not in interpret mode); tests set it on the CPU
         self._prefill_fused = self._fused_decode and self.device.type == "cuda"
 
+    def _tp(self) -> int:
+        return self.mesh.model if self.mesh is not None else 1
+
     def new_cache(self) -> KVCache:
         return init_cache(self.config, batch=self.B, max_len=self.max_seq,
-                          dtype=self.cache_dtype, device=self.device)
+                          dtype=self.cache_dtype, device=self.device,
+                          tp=self._tp())
 
     # ------------------------------------------------------------- prefill
 
@@ -291,8 +301,9 @@ class BatchedEngine:
                 compute_dtype=self.compute_dtype, cache_dtype=self.cache_dtype)
         else:
             small = init_cache(cfg, batch=nr, max_len=padded,
-                               dtype=self.cache_dtype, device=dev)
-            logits, small = forward(
+                               dtype=self.cache_dtype, device=dev,
+                               tp=self._tp())
+            logits, small = self._fwd(
                 self.params, ids_d, small, 0, cfg,
                 compute_dtype=self.compute_dtype, allow_kernels=False,
                 logits_mode="last", last_index=last_d)
@@ -366,7 +377,7 @@ class BatchedEngine:
                 compute_dtype=self.compute_dtype, kv_window=window,
                 per_slot_kv=self._paged_kv)
         else:
-            logits, cache = forward(
+            logits, cache = self._fwd(
                 self.params, toks, cache, st.lengths, cfg,
                 compute_dtype=self.compute_dtype,
                 allow_kernels=self.allow_kernels, logits_mode="last",
@@ -439,6 +450,7 @@ class BatchedEngine:
         on_complete=None,
         on_token=None,
         is_aborted=None,
+        decision_sync=None,
     ) -> Dict[int, RequestResult]:
         """Run all requests to completion with continuous slot refill.
 
@@ -459,7 +471,15 @@ class BatchedEngine:
         snapshotted at launch), when the cache cannot fit another chunk
         (the request is truncated), or when the drained tokens show it done
         (EOS, abort). Drain threads emit chunks strictly in launch order;
-        ``pipeline`` bounds how far the host runs ahead of them."""
+        ``pipeline`` bounds how far the host runs ahead of them.
+
+        ``decision_sync``: ``f(mask: list[bool]) -> list[bool]`` applied to
+        each iteration's slot-freeness mask. Ranks of a mesh that run this
+        loop together (``runtime.dist_serving``) pass it to replicate one
+        rank's view: freeing on EOS reads drained tokens, whose arrival is
+        each process's own, and every rank must launch the same work.
+        Everything that decides control flow or device inputs derives from
+        the synced mask."""
         gen = gen or GenerationParams(temp=0.0)
         seed = gen.seed if gen.seed >= 0 else int(time.time())
         generator = torch.Generator(device=self.device)
@@ -756,6 +776,8 @@ class BatchedEngine:
                 # ONE slot-freeness decision per scheduling iteration;
                 # everything below derives from this mask
                 free_mask = [slot_free(b) for b in range(self.B)]
+                if decision_sync is not None:
+                    free_mask = decision_sync(free_mask)
                 free = [b for b in range(self.B) if queue and free_mask[b]]
                 for b in free:
                     slot_req[b] = None

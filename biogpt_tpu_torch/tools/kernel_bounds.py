@@ -113,6 +113,50 @@ def int8_step_cost(c: BioGptConfig, past: list, window: int, wbytes: int):
             L * (layer_flops(c, B) + 4 * live * D))
 
 
+def tp_step_cost(c: BioGptConfig, past: list, window: int, wbytes: int,
+                 tp: int, int8: bool = False):
+    """(bytes, operations) of ONE rank's ``decode_step_fused_tp`` at B =
+    len(past) per-slot positions: its 1/tp share of the layer planes and of
+    its slots' live K/V rows (bf16, or int8 levels with their f32 scales,
+    which every rank reads whole), its new local rows out (and, int8, their
+    scales), x in and out (B, D) f32 and the positions."""
+    D, L, B = c.d_model, c.n_layer, len(past)
+    live = sum(min(p, window) for p in past)
+    if int8:
+        kv = (wbytes + 2 * L * live * D) // tp + 2 * L * live * 4
+        out = 2 * L * B * (D // tp) + 2 * L * B * 4
+    else:
+        kv = (wbytes + 2 * L * live * D * 2) // tp
+        out = 2 * L * B * D * 2 // tp
+    return (kv + out + 2 * B * D * 4 + B * 4,
+            (L * layer_flops(c, B) + 4 * L * live * D) // tp)
+
+
+def tp_half_cost(c: BioGptConfig, half: str, B: int, live: int, tp: int,
+                 planes: int):
+    """(bytes, operations) of one call of a TP half for one layer of one
+    rank: ``planes`` the bytes of the local weight planes it reads,
+    ``live`` the slots' live cache rows. ``half``: "attn" (LN0, qkv,
+    attention over bf16 rows, o: x in, rows and the partial out), "attn
+    int8" (q, k, v in, int8 rows and their scales, o), "qkv" (LN0, qkv:
+    x in, qkv and the absmax out) or "ffn" (LN1, fc1, fc2: x in, the
+    partial out)."""
+    D, F = c.d_model, c.d_ff
+    Dl, Fl = D // tp, F // tp
+    x, ln = B * D * 4, 2 * D * 4
+    if half == "attn":
+        return (planes + ln + 3 * Dl * 4 + 2 * x + 2 * live * Dl * 2
+                + 2 * B * Dl * 2 + B * 4,
+                2 * B * D * 3 * Dl + 2 * B * Dl * D + 4 * live * Dl)
+    if half == "attn int8":
+        return (planes + 3 * B * Dl * 4 + x + 2 * live * (Dl + 4) + B * 4,
+                2 * B * Dl * D + 4 * live * Dl)
+    if half == "qkv":
+        return (planes + ln + 3 * Dl * 4 + x + B * 3 * Dl * 4 + B * 8,
+                2 * B * D * 3 * Dl)
+    return planes + ln + Fl * 4 + 2 * x, 4 * B * D * Fl
+
+
 def rows(c: BioGptConfig = BioGptConfig(), fmt: str = "q4_0") -> list:
     D, L = c.d_model, c.n_layer
     V = -(-c.n_vocab // 128) * 128
@@ -155,11 +199,11 @@ def rows(c: BioGptConfig = BioGptConfig(), fmt: str = "q4_0") -> list:
         *(("prefill_fused", "pallas_prefill.py:172",
            f"R={R} prompts x T={T}", *prefill_cost(c, R, T, W))
           for R, T in PREFILL_SHAPES),
-        ("decode_step_fused_tp", "pallas_decode_tp.py:294",
-         "one of 4 shards, B=32 ragged",
-         (W + 2 * L * live * D * 2 + 2 * L * B * D * 2) // 4
-         + 2 * B * D * 4 + B * 4,
-         (L * layer_flops(c, B) + 4 * L * live * D) // 4),
+        *(("decode_step_fused_tp", "pallas_decode_tp.py:294",
+            f"one of {tp} shards, B=32 ragged, window 512"
+            + (", int8 KV" if int8 else ""),
+            *tp_step_cost(c, RAGGED_PAST, WINDOW, W, tp, int8))
+          for tp in (2, 4) for int8 in (False, True)),
         ("decode_step_fused paged int8 KV", "pallas_decode.py:680",
          "B=32 ragged, window 512", *int8_step_cost(c, RAGGED_PAST, WINDOW, W)),
         ("decode_step_fused staged", "pallas_decode.py:502",

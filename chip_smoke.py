@@ -14,27 +14,36 @@ logs its seconds):
   3. likewise every kernel of the batched serving path: the batched decode
      step at B=8 and B=32 (window 512, ragged positions, dead slots), the
      KV commit, and the greedy and sampled lm_head + commit tails at M=8
-     and M=32;
+     and M=32 (and on Q4_1 planes at M=32);
   4. likewise the kernels of the refill and int8 KV paths: ``prefill_fused``
      at 32x32, 8x128 and 1x512 prompts x tokens (ragged lengths; with the
      per-op refill it replaces timed beside it), the int8 decode step at
      B=1 (past 100) and at B=8 and B=32 (window 512, ragged positions, dead
-     slots), and ``kv_commit_quant`` (bit-equal, positions clamped);
+     slots; Q4_0, and Q4_1 at B=1 and B=32), and ``kv_commit_quant``
+     (bit-equal, positions clamped);
   5. likewise the paged and staged steps: the paged step, bf16 and int8, at
      B=1 (past 100 and 600) and B=32 (window 512, ragged positions, dead
      slots, a slot past the window), also held against the batched CUDA
-     step, and the staged step at B=32 (16 staging rows, steps 0, 7, 15);
+     step, and the staged step at B=32 (16 staging rows, steps 0, 7, 15;
+     Q4_1 step 7);
   6. every kernel that reads weights again in each of Q5_0, Q5_1 and
      Q8_0 (the GEMVs at every projection shape, ``lm_head_argmax`` and both
      tails, the B=1, batched, paged and staged steps with bf16 and int8 KV,
      ``prefill_fused``) against its plain version with the Q4 limits,
      timed beside its bound and yardstick;
-  7. single stream end to end: a 347M Q4_0 model file with random weights,
+  7. the tensor-parallel decode step's halves (attention, the int8 mode's
+     qkv and attention, FFN) of a random 347M model's shards at tp 2 and 4,
+     in every format with bf16 and int8 KV, B=32 (window 512, ragged
+     positions, dead slots): every shard's halves over 24 layers in one
+     process, their partials summed in shard order, against the plain
+     halves (each layer's hidden state, the final one, every shard's K/V
+     rows), each half alone and one shard's step timed beside their bounds;
+  8. single stream end to end: a 347M Q4_0 model file with random weights,
      the CLI greedy (prompts of <= 8, 9-32 and >= 33 tokens, 128 new
      tokens) and sampled, then the CLI ``--kv-quant`` greedy, the launch
      counts of each, 8 teacher-forced decode steps of the kernels against
      the plain path, the decode rate with a bf16 and an int8 cache;
-  8. serving end to end on the same file, once with a bf16 and once with
+  9. serving end to end on the same file, once with a bf16 and once with
      an int8 KV cache: ``BatchedEngine.serve`` of 96 uniform greedy
      requests at B=32 (refills through ``prefill_fused``; the wall split
      into decode chunks, refill waves and the rest), then the HTTP server
@@ -43,18 +52,28 @@ logs its seconds):
      first-token logits through the prefill kernel against the per-op
      refill (bf16); 8 teacher-forced B=32 steps of the kernels against the
      plain path; the tokens/s of each run;
-  9. the paged (bf16 and int8) and staged engines on the same file: the
+  10. the paged (bf16 and int8) and staged engines on the same file: the
      uniform greedy serve (ids against the lockstep serve's, the launch
      counts) and a mixed-length serve of 32 requests, half greedy (its
      greedy rows against the lockstep engines' on the same requests);
-  10. a random 347M file in each of Q5_0, Q5_1 and Q8_0: the CLI greedy,
-     sampled and ``--kv-quant`` (32 new tokens), the uniform greedy serve
-     of 96 requests (bf16 and int8 lockstep, paged, staged), each run
-     launching exactly its route's kernels (an unpacked Q8_0 lm_head takes
-     the lm_head GEMV, never the argmax tails), teacher-forced B=1 and B=32
-     steps and a refill wave against the plain path;
-  11. the ``kernels`` line (each kernel with the formats this run held on
-     the card) and the result line.
+  11. tensor-parallel serving on the same file: two ranks that share the
+     card (the port's launcher, gloo, this script with ``--tp-rank``; the
+     kernels built before they start) serve the uniform 96 greedy requests
+     through ``BatchedEngine(mesh, tp_fused_decode=True)`` with a bf16 and
+     an int8 cache and a mixed serve, each rank launching exactly the TP
+     route's kernels, the ranks' ids equal (and counted against the
+     lockstep serve's), with a refill wave and teacher-forced TP steps of
+     the kernels against the plain halves; then a (1, 1) mesh in this
+     process: the same serve, and ``Engine(mesh).generate`` at B=1;
+  12. a random 347M file in each of Q4_1, Q5_0, Q5_1 and Q8_0: the CLI
+     greedy, sampled and ``--kv-quant`` (32 new tokens), the uniform
+     greedy serve of 96 requests (bf16 and int8 lockstep, paged, staged),
+     each run launching exactly its route's kernels (an unpacked Q8_0
+     lm_head takes the lm_head GEMV, never the argmax tails), teacher-
+     forced B=1 and B=32 steps and a refill wave against the plain path;
+  13. the ``kernels`` line (each kernel with the formats this run held it
+     in against its plain version, or drove its route in) and the result
+     line.
 
 Needs a CUDA card; exits non-zero without one or without the package.
 """
@@ -80,8 +99,11 @@ SPREAD: dict = {}
 # weight formats: name -> (ggml type, level bits as the engines prepare them)
 FORMATS = {"q4_0": (2, 4), "q4_1": (3, 4), "q5_0": (6, 5), "q5_1": (7, 5),
            "q8_0": (8, 8)}
-# the formats this slice added, held and driven on their own
+# the formats after Q4_0 and Q4_1, held kernel by kernel on their own
 NEW_FORMATS = ("q5_0", "q5_1", "q8_0")
+# the formats driven end to end from a model file of their own (Q4_0 is the
+# main file's)
+E2E_FORMATS = ("q4_1",) + NEW_FORMATS
 
 
 def log(msg: str) -> None:
@@ -162,6 +184,48 @@ def hidden_within(got, want, what: str) -> float:
     check(err <= tol and bool(torch.isfinite(got).all()),
           f"{what}: x err {err} > {tol}")
     return err
+
+
+def quant_rows_within(got, want, what: str) -> float:
+    """int8 K/V rows, levels (L, B, D) with row scales (L, B), against the
+    plain ones, dequantized: :func:`rows_within`'s limit on the rows
+    before quantization (two bf16 ulps of the layer's largest magnitude)
+    carried through it -- quantizing moves a value by at most half its
+    row's scale, so each row may differ by the limit plus half the two
+    rows' scales. Returns the worst error as a fraction of its limit."""
+    (q, s), (qp, sp) = got, want
+    worst = 0.0
+    for lyr in range(q.shape[0]):
+        g = q[lyr].float() * s[lyr][..., None]
+        w = qp[lyr].float() * sp[lyr][..., None]
+        tol = (2 ** -6 * w.abs().max().item()
+               + (s[lyr] + sp[lyr])[..., None] / 2)
+        ratio = ((g - w).abs() / tol).max().item()
+        check(ratio <= 1, f"{what}: layer {lyr} rows err {ratio} of the limit")
+        worst = max(worst, ratio)
+    return worst
+
+
+def layers_within(got: list, want: list, what: str) -> float:
+    """Each layer's hidden state (B, D) against the plain one, on that
+    layer's own scale: 3e-3 of its largest magnitude, the limit of
+    :func:`hidden_within` taken per layer, as :func:`rows_within` holds the
+    K/V rows. It stands beside the final state's limit, which follows the
+    weights' mean (the residual stream's magnitude grows with it), and
+    applies where a step's layers come out one by one (the TP halves; a
+    fused step returns only its last layer, where the two coincide).
+    ``got[l]`` is layer l's output from the same input as ``want[l]`` (the
+    plain step's state before layer l), so each layer is held on its own;
+    the final state holds the 24 layers' accumulated error. Returns the
+    worst error as a fraction of its layer's limit."""
+    worst = 0.0
+    for lyr, (g, w) in enumerate(zip(got, want)):
+        tol = 3e-3 * w.abs().max().item()
+        err = (g - w).abs().max().item()
+        check(err <= tol and bool(torch.isfinite(g).all()),
+              f"{what}: layer {lyr} x err {err} > {tol}")
+        worst = max(worst, err / max(tol, 1e-30))
+    return worst
 
 
 def held_step(run, plain, what: str, rec: dict):
@@ -675,6 +739,8 @@ def phase_serving_kernels(c: Ctx) -> None:
         recs = hold_tails(c, qt, lnw, lnb, M, "q4_0")
         if M == 32:
             c.results.update(recs)
+    # and on Q4_1 planes (the <BITS=4, HAS_MIN> instantiations)
+    hold_tails(c, c.rand_qt(D, V_PAD, mins=True), lnw, lnb, 32, "q4_1")
 
 
 def hold_tails(c: Ctx, qt, lnw, lnb, M: int, fmt: str) -> dict:
@@ -793,10 +859,11 @@ def hold_tails(c: Ctx, qt, lnw, lnb, M: int, fmt: str) -> dict:
 
 # ------------------------------------- 4. refill prefill and int8 kernels
 
-def rand_int8_cache(c: Ctx, L: int, B: int, S: int):
-    """int8 levels (L, B, S, D) and f32 row scales (L, B, 1, S) whose
-    dequantized rows have about unit magnitude."""
-    D = c.cfg.d_model
+def rand_int8_cache(c: Ctx, L: int, B: int, S: int, D: int | None = None):
+    """int8 levels (L, B, S, D) (D: d_model, or a TP shard's row) and f32
+    row scales (L, B, 1, S) whose dequantized rows have about unit
+    magnitude."""
+    D = D or c.cfg.d_model
     lv = torch.randint(-127, 128, (L, B, S, D), generator=c.gen, device=c.dev,
                        dtype=torch.int32).to(torch.int8)
     sc = torch.rand(L, B, 1, S, generator=c.gen, device=c.dev) * 0.01 + 0.005
@@ -885,63 +952,57 @@ def phase_refill_int8_kernels(c: Ctx) -> None:
         del layers, params
 
     # the int8 decode step: B=1 (past 100, window 128); B=8 and B=32
-    # (window 512, ragged positions, dead slots, one slot past the window)
-    layers, wbytes = c.rand_layers(False)
-    kc, ks = rand_int8_cache(c, L, 1, S)
-    vc, vs = rand_int8_cache(c, L, 1, S)
-    past, window = 100, 128
-    x0 = c.randn(1, D)
-    run = lambda: decode_step_fused(x0, layers, kc, vc, past, n_head=H,
-                                    window=window, ln_eps=cfg.ln_eps,
-                                    k_scales=ks, v_scales=vs)
-    plain = lambda: decode_step_fused_plain(
-        x0, layers, kc, vc, past, n_head=H, window=window, ln_eps=cfg.ln_eps,
-        k_scales=ks, v_scales=vs)
-    x, kr, vr = run()
-    xp, krp, vrp = plain()
-    torch.cuda.synchronize()
-    what = "decode_step_fused int8 B=1 past=100"
-    err = hidden_within(x, xp, what)
-    rows = max(rows_within(kr, krp, what + " k"),
-               rows_within(vr, vrp, what + " v"))
-    rec = {"kernel": "decode_step_fused_int8", "layers": L, "past": past,
-           "window": window, "format": "q4_0", "max_abs_err": err,
-           "tol": 3e-3 * xp.abs().max().item(), "rows_err_over_tol": rows}
-    timed(rec, run, plain, None, *int8_step_cost(cfg, [past], window, wbytes))
-    c.results["decode_step_fused_int8"] = rec
-    c.emit(rec)
-    del kc, vc, ks, vs
-
+    # (window 512, ragged positions, dead slots, one slot past the window);
+    # timed on Q4_0 planes, held on Q4_1 planes too (B=1 and B=32)
     W = 512
-    for B, past in ((8, ragged_past(8, dead=(2, 5), beyond=(7,))),
-                    (32, ragged_past(32, dead=(7, 19)))):
-        kc, ks = rand_int8_cache(c, L, B, S)
-        vc, vs = rand_int8_cache(c, L, B, S)
-        x0 = c.randn(B, D)
-        pt = torch.tensor(past, dtype=torch.int32, device=dev)
-        run = lambda: decode_step_fused(x0, layers, kc, vc, pt, n_head=H,
-                                        window=W, ln_eps=cfg.ln_eps,
+    for mins in (False, True):
+        layers, wbytes = c.rand_layers(mins)
+        fmt = "q4_1" if mins else "q4_0"
+        kc, ks = rand_int8_cache(c, L, 1, S)
+        vc, vs = rand_int8_cache(c, L, 1, S)
+        past, window = 100, 128
+        x0 = c.randn(1, D)
+        run = lambda: decode_step_fused(x0, layers, kc, vc, past, n_head=H,
+                                        window=window, ln_eps=cfg.ln_eps,
                                         k_scales=ks, v_scales=vs)
-        plain = lambda: decode_step_fused_batched_plain(
-            x0, layers, kc, vc, pt, n_head=H, window=W, ln_eps=cfg.ln_eps,
-            k_scales=ks, v_scales=vs)
-        x, kr, vr = run()
-        xp, krp, vrp = plain()
-        torch.cuda.synchronize()
-        what = f"decode_step_fused int8 B={B}"
-        err = hidden_within(x, xp, what)
-        rows = max(rows_within(kr, krp, what + " k"),
-                   rows_within(vr, vrp, what + " v"))
-        rec = {"kernel": "decode_step_fused_batched_int8", "layers": L,
-               "B": B, "past": past, "window": W, "format": "q4_0",
-               "max_abs_err": err, "tol": 3e-3 * xp.abs().max().item(),
-               "rows_err_over_tol": rows}
-        timed(rec, run, plain, None, *int8_step_cost(cfg, past, W, wbytes))
-        if B == 32:
-            c.results["decode_step_fused_batched_int8"] = rec
+        plain = lambda: decode_step_fused_plain(
+            x0, layers, kc, vc, past, n_head=H, window=window,
+            ln_eps=cfg.ln_eps, k_scales=ks, v_scales=vs)
+        rec = {"kernel": "decode_step_fused_int8", "layers": L, "past": past,
+               "window": window, "format": fmt}
+        held_step(run, plain, f"decode_step_fused int8 B=1 past=100 {fmt}",
+                  rec)
+        if not mins:
+            timed(rec, run, plain, None,
+                  *int8_step_cost(cfg, [past], window, wbytes))
+            c.results["decode_step_fused_int8"] = rec
         c.emit(rec)
         del kc, vc, ks, vs
-    del layers
+
+        cases = ((8, ragged_past(8, dead=(2, 5), beyond=(7,))),
+                 (32, ragged_past(32, dead=(7, 19))))
+        for B, past in cases if not mins else cases[1:]:
+            kc, ks = rand_int8_cache(c, L, B, S)
+            vc, vs = rand_int8_cache(c, L, B, S)
+            x0 = c.randn(B, D)
+            pt = torch.tensor(past, dtype=torch.int32, device=dev)
+            run = lambda: decode_step_fused(x0, layers, kc, vc, pt, n_head=H,
+                                            window=W, ln_eps=cfg.ln_eps,
+                                            k_scales=ks, v_scales=vs)
+            plain = lambda: decode_step_fused_batched_plain(
+                x0, layers, kc, vc, pt, n_head=H, window=W, ln_eps=cfg.ln_eps,
+                k_scales=ks, v_scales=vs)
+            rec = {"kernel": "decode_step_fused_batched_int8", "layers": L,
+                   "B": B, "past": past, "window": W, "format": fmt}
+            held_step(run, plain, f"decode_step_fused int8 B={B} {fmt}", rec)
+            if not mins:
+                timed(rec, run, plain, None,
+                      *int8_step_cost(cfg, past, W, wbytes))
+                if B == 32:
+                    c.results["decode_step_fused_batched_int8"] = rec
+            c.emit(rec)
+            del kc, vc, ks, vs
+        del layers
 
     # kv_commit_quant at B=32: bit-equal, and clamped outside [0, S)
     B, S = 32, 512
@@ -1054,18 +1115,17 @@ def phase_paged_staged_kernels(c: Ctx) -> None:
                     c.results[name] = rec
                 c.emit(rec)
                 del kc, vc, scales
-        if mins:
-            break
 
         # the staged step: B=32, 16 staging rows, chunk-start positions
-        # ragged (dead slots at 0), step 0, 7 and 15 of the chunk
+        # ragged (dead slots at 0), step 0, 7 and 15 of the chunk (Q4_1:
+        # step 7)
         B, C = 32, 16
         kc = c.randn(L, B, S, D).to(torch.bfloat16)
         vc = c.randn(L, B, S, D).to(torch.bfloat16)
         k_st = c.randn(L, B, C, D).to(torch.bfloat16)
         v_st = c.randn(L, B, C, D).to(torch.bfloat16)
         x0 = c.randn(B, D)
-        for step_i in (0, 7, 15):
+        for step_i in (0, 7, 15) if not mins else (7,):
             past = [p + step_i for p in timed_past]
             pt = torch.tensor(past, dtype=torch.int32, device=dev)
             run = lambda: decode_step_fused(
@@ -1078,8 +1138,8 @@ def phase_paged_staged_kernels(c: Ctx) -> None:
                    "past": past, "window": W, "stage_rows": C,
                    "step_i": step_i, "format": fmt}
             held_step(run, plain,
-                      f"decode_step_fused_staged step_i={step_i}", rec)
-            if step_i == 7:
+                      f"decode_step_fused_staged step_i={step_i} {fmt}", rec)
+            if step_i == 7 and not mins:
                 timed(rec, run, plain, None,
                       *bf16_step_cost(cfg, past, W, wbytes, step_i))
                 c.results["decode_step_fused_staged"] = rec
@@ -1417,7 +1477,8 @@ def phase_cli(c: Ctx, path: str, smi: str) -> None:
     log(f"single-stream path launches: {launches}")
     for k in ("qmatmul", "qmatmul_wide", "lm_head_argmax", "decode_step_fused"):
         check(launches[k] > 0, f"kernel {k} was not launched on its path")
-        c.launches[k] = c.launches.get(k, 0) + launches[k]
+    count_route(c, launches, ("qmatmul", "qmatmul_wide", "lm_head_argmax",
+                              "decode_step_fused"), "q4_0")
 
     # the int8 KV cache: CLI --kv-quant greedy, 128 new tokens
     cuda_lib.reset_launch_counts()
@@ -1436,7 +1497,8 @@ def phase_cli(c: Ctx, path: str, smi: str) -> None:
     for k in ("decode_step_fused_int8", "lm_head_argmax"):
         check(launches[k] > 0, f"kernel {k} was not launched on the "
               "--kv-quant path")
-        c.launches[k] = c.launches.get(k, 0) + launches[k]
+    count_route(c, launches, ("decode_step_fused_int8", "lm_head_argmax"),
+                "q4_0")
     check(launches["decode_step_fused"] == 0,
           "--kv-quant ran the bf16 decode step")
     config, _, _, params = load_params(path, device="cuda")
@@ -1654,6 +1716,14 @@ def refill_and_teacher_forced(c: Ctx, eng, rng, kv_quant: bool, steps: int,
         f"{worst:.3f}")
 
 
+def uniform_reqs(rng, V: int, n: int, Request) -> list:
+    """phase_serving's uniform requests (bench.py:225-228): prompts of
+    5-24 tokens, 48 new tokens each."""
+    return [Request(prompt_ids=[2] + rng.integers(
+        4, min(40000, V - 2), size=int(rng.integers(4, 24))).tolist(),
+        n_predict=48, request_id=i) for i in range(n)]
+
+
 def phase_serving(c: Ctx, path: str, smi: str, kv_quant: bool = False) -> None:
     import numpy as np
 
@@ -1677,10 +1747,8 @@ def phase_serving(c: Ctx, path: str, smi: str, kv_quant: bool = False) -> None:
           f"BatchedEngine ({kv} KV): the fused serving paths are not live")
     rng = np.random.default_rng(0)
 
-    def make_reqs(n):   # bench.py:225-228
-        return [Request(prompt_ids=[2] + rng.integers(
-            4, min(40000, V - 2), size=int(rng.integers(4, 24))).tolist(),
-            n_predict=48, request_id=i) for i in range(n)]
+    def make_reqs(n):
+        return uniform_reqs(rng, V, n, Request)
 
     greedy = GenerationParams(temp=0.0, stop_at_eos=False)
     eng.serve(make_reqs(4), greedy)   # warm-up: allocator, first launches
@@ -1734,7 +1802,7 @@ def phase_serving(c: Ctx, path: str, smi: str, kv_quant: bool = False) -> None:
     for k in SERVING_KERNELS[kv_quant]:
         check(launches[k] > 0, f"kernel {k} was not launched on its path "
               f"({kv} KV)")
-        c.launches[k] = c.launches.get(k, 0) + launches[k]
+    count_route(c, launches, SERVING_KERNELS[kv_quant], "q4_0")
     print(json.dumps({"http_mixed_tokens_per_s": n_http / wall_http,
                       "kv_cache": kv, "requests": 8, "new_tokens": n_http,
                       "wall_s": wall_http, "stats": stats, "card": card,
@@ -1828,9 +1896,7 @@ def phase_paged_staged_serving(c: Ctx, path: str, smi: str) -> None:
         rng = np.random.default_rng(0)
 
         def make_reqs(n):   # phase_serving's requests, in its order
-            return [Request(prompt_ids=[2] + rng.integers(
-                4, min(40000, V - 2), size=int(rng.integers(4, 24))).tolist(),
-                n_predict=48, request_id=i) for i in range(n)]
+            return uniform_reqs(rng, V, n, Request)
         eng.serve(make_reqs(4), greedy)   # warm-up
         rec = {"serving_path": name, "batch_slots": B, "chunk": eng.chunk,
                "card": card, "card_stamp": smi}
@@ -1855,7 +1921,7 @@ def phase_paged_staged_serving(c: Ctx, path: str, smi: str) -> None:
             for k in uniform_kernels:
                 check(launches[k] > 0, f"kernel {k} was not launched on the "
                       f"{name} uniform serve")
-                c.launches[k] = c.launches.get(k, 0) + launches[k]
+            count_route(c, launches, uniform_kernels, "q4_0")
             log(f"{name} uniform serve launches: {launches}")
             rec.update(serve_uniform_greedy_tokens_per_s=n_tok / wall,
                        requests=len(res), new_tokens=n_tok, wall_s=wall,
@@ -1882,7 +1948,7 @@ def phase_paged_staged_serving(c: Ctx, path: str, smi: str) -> None:
         for k in mixed_kernels:
             check(launches[k] > 0, f"kernel {k} was not launched on the {name} "
                   "mixed serve")
-            c.launches[k] = c.launches.get(k, 0) + launches[k]
+        count_route(c, launches, mixed_kernels, "q4_0")
         greedy_rows = [r.request_id for r in reqs if r.temp is None]
         if uniform_kernels is None:
             mixed_ids[kv] = {i: res[i].ids for i in greedy_rows}
@@ -1897,8 +1963,16 @@ def phase_paged_staged_serving(c: Ctx, path: str, smi: str) -> None:
 
 # ------------------------------------ 10. Q5_0, Q5_1 and Q8_0 end to end
 
+def count_route(c: Ctx, launches: dict, kernels, fmt: str) -> None:
+    """Add a main-path run's launches of ``kernels`` to the ``kernels``
+    line's counts, and note that they drove a route in format ``fmt``."""
+    for k in kernels:
+        c.launches[k] = c.launches.get(k, 0) + launches[k]
+        c.formats.setdefault(k, set()).add(fmt)
+
+
 def launched_exactly(c: Ctx, launches: dict, required: set, optional: set,
-                     what: str) -> None:
+                     what: str, fmt: str) -> None:
     """A run launched every kernel of its route (``required``), and no
     kernel outside it and the refills' lm_head GEMVs (``optional``); the
     route's launches count on the ``kernels`` line."""
@@ -1906,8 +1980,7 @@ def launched_exactly(c: Ctx, launches: dict, required: set, optional: set,
     check(required <= got <= required | optional,
           f"{what}: launched {sorted(got)}, expected {sorted(required)} "
           f"(and perhaps {sorted(optional - required)})")
-    for k in required:
-        c.launches[k] = c.launches.get(k, 0) + launches[k]
+    count_route(c, launches, required, fmt)
 
 
 def phase_format_e2e(c: Ctx, fmt: str, smi: str) -> None:
@@ -1963,7 +2036,7 @@ def phase_format_e2e(c: Ctx, fmt: str, smi: str) -> None:
                 f"s, {len(text)} chars of text")
             check(rc == 0 and len(text) > 0, f"cli {fmt} {argv} rc={rc}")
             launched_exactly(c, dict(cuda_lib.LAUNCHES), required, set(),
-                             f"cli {fmt} {argv}")
+                             f"cli {fmt} {argv}", fmt)
         config, _, _, params = load_params(path, device="cpu")
     # the engines' weights, prepared once on the host and moved to the card
     # (each engine's own preparation then finds them prepared)
@@ -2001,9 +2074,7 @@ def phase_format_e2e(c: Ctx, fmt: str, smi: str) -> None:
         rng = np.random.default_rng(0)
 
         def make_reqs(n):   # phase_serving's requests, in its order
-            return [Request(prompt_ids=[2] + rng.integers(
-                4, min(40000, V - 2), size=int(rng.integers(4, 24))).tolist(),
-                n_predict=48, request_id=i) for i in range(n)]
+            return uniform_reqs(rng, V, n, Request)
         eng.serve(make_reqs(4), greedy)   # warm-up
         reqs = make_reqs(3 * B)
         torch.cuda.synchronize()
@@ -2021,7 +2092,7 @@ def phase_format_e2e(c: Ctx, fmt: str, smi: str) -> None:
         launches = dict(cuda_lib.LAUNCHES)
         log(f"{name} {fmt} uniform serve launches: {launches}")
         launched_exactly(c, launches, step_kernels | {"prefill_fused"},
-                         refill_gemv, f"serve ({name} {fmt})")
+                         refill_gemv, f"serve ({name} {fmt})", fmt)
         ids = {i: r.ids for i, r in res.items()}
         if lockstep_ids is None:
             lockstep_ids = ids
@@ -2038,12 +2109,619 @@ def phase_format_e2e(c: Ctx, fmt: str, smi: str) -> None:
         del eng
 
 
+# --------------------------------------- 11. tensor-parallel decode kernels
+
+TP_FORMATS = ("q4_0", "q4_1", "q5_0", "q5_1", "q8_0")
+
+
+def tp_shards(c: Ctx, tp: int, fmt: str) -> list:
+    """A random 347M model's TP shards, as ``parallel.tp.shard_params_tp``
+    leaves them on each rank: the qkv and fc1 columns, the o and fc2 d_in
+    rows of a chunk-packed plane (a packed plane of the local shape by
+    itself), each a random plane of its local shape (Q5 and Q8_0: the Q4
+    rows' planes re-quantized, as the 24-layer steps of
+    :func:`phase_format_kernels` take them); LayerNorms and the o and fc2
+    biases the same on every shard."""
+    cfg = c.cfg
+    D, F, L = cfg.d_model, cfg.d_ff, cfg.n_layer
+    Dl, Fl = D // tp, F // tp
+    q4 = "q4_1" if fmt.endswith("_1") else "q4_0"
+    shared = {n: {"w": 1 + 0.1 * c.randn(L, D), "b": 0.1 * c.randn(L, D)}
+              for n in ("ln0", "ln1")}
+    row_bias = {"o": 0.02 * c.randn(L, D), "fc2": 0.02 * c.randn(L, D)}
+    shards = []
+    for _ in range(tp):
+        lay = dict(shared)
+        for name, d_in, d_out in (("qkv", D, 3 * Dl), ("o", Dl, D),
+                                  ("fc1", D, Fl), ("fc2", Fl, D)):
+            qt = c.rand_qt(d_in, d_out, (L,), fmt=q4)
+            if fmt != q4:
+                qt = requantize(qt, fmt)
+            b = row_bias.get(name)
+            lay[name] = {"w": qt, "b": 0.02 * c.randn(L, d_out)
+                         if b is None else b}
+        shards.append(lay)
+    return shards
+
+
+def tp_rows_within(got, want, what: str) -> float:
+    """A shard's new K/V rows from the TP step against the plain ones:
+    bf16 (k, v) rows to :func:`rows_within`, int8 (kq, vq, ksc, vsc) to
+    :func:`quant_rows_within`."""
+    if len(got) == 2:
+        return max(rows_within(got[0], want[0], what + " k"),
+                   rows_within(got[1], want[1], what + " v"))
+    return max(quant_rows_within((got[0], got[2]), (want[0], want[2]),
+                                 what + " k"),
+               quant_rows_within((got[1], got[3]), (want[1], want[3]),
+                                 what + " v"))
+
+
+def hold_half(name: str, run, plain, rec: dict) -> None:
+    """One TP half on one layer against its plain version on the same
+    inputs: the partial sums (and qkv, its absmax) within 3e-3 of their
+    largest magnitude, the steps' hidden limit (a half carries the
+    LayerNorm's and the products' bf16 roundings, which the f32 summation
+    order can flip); the attention half's new K/V rows within two bf16
+    ulps of their largest magnitude, the rows' limit."""
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    errs = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = g.float(), w.float()
+        err = (g - w).abs().max().item()
+        rows = name.startswith("tp_attn_half") and i > 0
+        tol = (2 ** -6 if rows else 3e-3) * w.abs().max().item()
+        check(err <= tol and bool(torch.isfinite(g).all()),
+              f"{name} output {i}: err {err} > {tol}")
+        errs.append(err / max(tol, 1e-30))
+    rec.update(max_abs_err=(got[0].float() - want[0].float()).abs().max()
+               .item(), tol=3e-3 * want[0].float().abs().max().item(),
+               err_over_tol=max(errs))
+
+
+def tp_local_widths(c: Ctx, tp: int, pt) -> None:
+    """The kernels the TP route reuses, at one shard's widths: the KV
+    commits on (L, 32, 512, D/tp) caches against their plain versions, bit
+    for bit (positions in range, and clamped), and the local lm_head's
+    GEMVs (d_out 42,496/tp) at m = 1 and 32 within 1e-5 of the output's
+    magnitude (f32 summation order only)."""
+    from biogpt_tpu_torch.ops.decode_kernels import (kv_commit,
+                                                     kv_commit_plain,
+                                                     kv_commit_quant,
+                                                     kv_commit_quant_plain)
+    from biogpt_tpu_torch.ops.qmatmul_kernels import (qmatmul, qmatmul_plain,
+                                                      qmatmul_wide,
+                                                      qmatmul_wide_plain)
+
+    cfg, dev = c.cfg, c.dev
+    D, L, B, S = cfg.d_model, cfg.n_layer, 32, 512
+    Dl = D // tp
+    clamped = torch.tensor([-3, S + 5] + ragged_past(B - 2), dtype=torch.int32,
+                           device=dev)
+    kc = c.randn(L, B, S, Dl).to(torch.bfloat16)
+    vc = c.randn(L, B, S, Dl).to(torch.bfloat16)
+    rows = [c.randn(B, L, Dl).to(torch.bfloat16) for _ in range(2)]
+    lk, lks = rand_int8_cache(c, L, B, S, Dl)
+    lv, lvs = rand_int8_cache(c, L, B, S, Dl)
+    q = [torch.randint(-127, 128, (B, L, Dl), generator=c.gen, device=dev,
+                       dtype=torch.int32).to(torch.int8) for _ in range(2)]
+    sc = [torch.rand(B, L, 1, generator=c.gen, device=dev) for _ in range(2)]
+    same = True
+    for p in (pt, clamped):
+        same &= all(bool(torch.equal(a, b)) for a, b in zip(
+            kv_commit(kc.clone(), vc.clone(), *rows, p),
+            kv_commit_plain(kc.clone(), vc.clone(), *rows, p)))
+        same &= all(bool(torch.equal(a, b)) for a, b in zip(
+            kv_commit_quant(lk.clone(), lv.clone(), lks.clone(), lvs.clone(),
+                            *q, *sc, p),
+            kv_commit_quant_plain(lk.clone(), lv.clone(), lks.clone(),
+                                  lvs.clone(), *q, *sc, p)))
+    check(same, f"kv_commit / kv_commit_quant at D/tp = {Dl}: caches differ "
+          "from the plain commits")
+    lm = c.rand_qt(D, c.V_PAD // tp)
+    errs = []
+    for m, kern, plain in ((1, qmatmul, qmatmul_plain),
+                           (32, qmatmul_wide, qmatmul_wide_plain)):
+        x = c.randn(m, D)
+        y, ref = kern(x, lm), plain(x, lm)
+        torch.cuda.synchronize()
+        err = (y - ref).abs().max().item()
+        tol = 1e-5 * ref.abs().max().item() + 1e-5
+        check(err <= tol, f"local lm_head d_out {lm.d_out} m={m}: err {err} "
+              f"> {tol}")
+        errs.append(err / tol)
+    print(json.dumps({"tp_local_widths": tp, "cache_row": Dl,
+                      "kv_commits_bit_equal": same,
+                      "lm_head_d_out": lm.d_out,
+                      "lm_head_gemv_err_over_tol": errs}), flush=True)
+
+
+def phase_tp_kernels(c: Ctx) -> None:
+    """The TP decode step's halves in one process on the card (and first
+    the reused kernels at a shard's widths, :func:`tp_local_widths`): a
+    random 347M model's shards at tp 2 and 4, every format, bf16 and int8 KV,
+    B=32 ragged positions (dead slots), window 512. Every shard's halves
+    for all 24 layers with the partials summed in shard order (where the
+    all-reduce sums them), against the plain halves on the same inputs:
+    each layer, from the plain step's state before it, on its own scale
+    (:func:`layers_within`), the final state (:func:`hidden_within`) and
+    every shard's new K/V rows (:func:`tp_rows_within`). With an int8
+    cache the attention half's inputs include the current rows, quantized
+    between the halves by torch (``quantize_rows``); the final state is
+    held against the plain halves fed the kernel path's rows. Rounded by
+    each path from its own qkv, a row can differ by one int8 level, and a
+    dead slot's context is its current row alone, so the step carries the
+    whole quantization step into x (on an H100: 1.020 of the limit at a
+    dead slot, 0.37 with the rows shared). The rows, each layer and the qkv
+    half stay held on each path's own quantization. Each half alone on layer
+    12 of shard 0 (:func:`hold_half`), and one shard's whole step, are
+    timed beside their bounds and the plain versions."""
+    from biogpt_tpu_torch.modelio.checkpoint import tree_map
+    from biogpt_tpu_torch.ops.decode_tp_kernels import (
+        decode_step_tp_shards, tp_attn_half, tp_attn_half_plain, tp_ffn_half,
+        tp_ffn_half_plain, tp_qkv_half, tp_qkv_half_plain)
+    from biogpt_tpu_torch.runtime.cache import quantize_rows
+    from biogpt_tpu_torch.tools.kernel_bounds import (tp_half_cost,
+                                                      tp_step_cost)
+
+    cfg, dev = c.cfg, c.dev
+    D, L, H, S, eps = (cfg.d_model, cfg.n_layer, cfg.n_head, cfg.n_positions,
+                       cfg.ln_eps)
+    B, W, li = 32, 512, cfg.n_layer // 2
+    past = ragged_past(B, dead=(7, 19))
+    pt = torch.tensor(past, dtype=torch.int32, device=dev)
+    live = sum(min(p, W) for p in past)
+    for tp in (2, 4):
+        tp_local_widths(c, tp, pt)
+    for fmt in TP_FORMATS:
+        for tp in (2, 4):
+            Dl, Hl = D // tp, H // tp
+            layers = tp_shards(c, tp, fmt)
+            # every shard's planes and biases, the LayerNorms once
+            wbytes = (sum(qbytes(lay[n]["w"]) for lay in layers
+                          for n in PROJECTIONS)
+                      + L * (3 * D + cfg.d_ff + 2 * D) * 4 + 4 * L * D * 4)
+            for int8 in (False, True):
+                kv = "int8" if int8 else "bf16"
+                if int8:
+                    _, ks = rand_int8_cache(c, L, B, S, 1)
+                    _, vs = rand_int8_cache(c, L, B, S, 1)
+                    shards = [dict(layers=lay,
+                                   k_cache=rand_int8_cache(c, L, B, S, Dl)[0],
+                                   v_cache=rand_int8_cache(c, L, B, S, Dl)[0],
+                                   k_scales=ks, v_scales=vs) for lay in layers]
+                else:
+                    shards = [dict(layers=lay,
+                                   k_cache=c.randn(L, B, S, Dl).to(torch.bfloat16),
+                                   v_cache=c.randn(L, B, S, Dl).to(torch.bfloat16))
+                              for lay in layers]
+                x0 = c.randn(B, D)
+                tk, tpl, cur = [], [], []
+
+                def recorded(x, amax):   # the kernel path's int8 rows
+                    cur.append(quantize_rows(x, amax=amax))
+                    return cur[-1]
+                xk, rk = decode_step_tp_shards(x0, shards, pt, n_head=H,
+                                               window=W, ln_eps=eps, trace=tk,
+                                               quantize=recorded)
+                xp, rp = decode_step_tp_shards(x0, shards, pt, n_head=H,
+                                               window=W, ln_eps=eps,
+                                               plain=True, trace=tpl)
+                if int8:
+                    # the final state: the plain halves fed the same int8
+                    # current rows, the attention half's inputs (see the
+                    # docstring)
+                    replay = iter(cur)
+                    xp, _ = decode_step_tp_shards(
+                        x0, shards, pt, n_head=H, window=W, ln_eps=eps,
+                        plain=True, quantize=lambda x, amax: next(replay))
+                # each layer alone from the plain step's state before it
+                per_layer = [decode_step_tp_shards(
+                    x0 if lyr == 0 else tpl[lyr - 1],
+                    [tree_map(lambda a: a[lyr:lyr + 1], sh) for sh in shards],
+                    pt, n_head=H, window=W, ln_eps=eps)[0]
+                    for lyr in range(L)]
+                torch.cuda.synchronize()
+                what = f"TP step tp={tp} {fmt} {kv}"
+                worst = layers_within(per_layer, tpl, what)
+                # the same limit along the 24-layer trajectory, reported
+                drift = max((a - b).abs().max().item()
+                            / (3e-3 * b.abs().max().item())
+                            for a, b in zip(tk, tpl))
+                err = hidden_within(xk, xp, what)
+                rows = max(tp_rows_within(a, b, f"{what} shard {i}")
+                           for i, (a, b) in enumerate(zip(rk, rp)))
+                one = [shards[0]]   # one rank's whole step, no collective
+                step = {"tp_step": "decode_step_fused_tp", "tp": tp,
+                        "format": fmt, "kv_cache": kv, "layers": L, "B": B,
+                        "past": past, "window": W, "max_abs_err": err,
+                        "tol": 3e-3 * xp.abs().max().item(),
+                        "layers_err_over_tol": worst,
+                        "trajectory_layers_err_over_limit": drift,
+                        "rows_err_over_tol": rows}
+                timed(step, lambda: decode_step_tp_shards(
+                          x0, one, pt, n_head=Hl, window=W, ln_eps=eps),
+                      lambda: decode_step_tp_shards(
+                          x0, one, pt, n_head=Hl, window=W, ln_eps=eps,
+                          plain=True),
+                      None, *tp_step_cost(cfg, past, W, wbytes, tp, int8),
+                      reps=10, plain_reps=2)
+                print(json.dumps(step), flush=True)
+
+                # each half alone on layer li of shard 0
+                sh, lay = shards[0], layers[0]
+                x = tpl[li - 1]
+                per_layer = {n: qbytes(lay[n]["w"]) // L for n in PROJECTIONS}
+                kw = dict(n_head=Hl, window=W, ln_eps=eps)
+                halves = []
+                if int8:
+                    qkv, amax = tp_qkv_half_plain(x, lay, li, ln_eps=eps)
+                    kq, ksc = quantize_rows(qkv[:, Dl:2 * Dl], amax=amax[:, 0])
+                    vq, vsc = quantize_rows(qkv[:, 2 * Dl:], amax=amax[:, 1])
+                    ext = dict(k_scales=sh["k_scales"], v_scales=sh["v_scales"],
+                               q=qkv[:, :Dl] * (1 / math.sqrt(Dl // Hl)),
+                               k_cur=kq.float() * ksc[:, None],
+                               v_cur=vq.float() * vsc[:, None])
+                    halves += [
+                        ("tp_qkv_half", "qkv", per_layer["qkv"],
+                         lambda: tp_qkv_half(x, lay, li, ln_eps=eps),
+                         lambda: tp_qkv_half_plain(x, lay, li, ln_eps=eps)),
+                        ("tp_attn_half_int8", "attn int8", per_layer["o"],
+                         lambda: tp_attn_half(x, lay, li, sh["k_cache"],
+                                              sh["v_cache"], pt, **kw, **ext),
+                         lambda: tp_attn_half_plain(
+                             x, lay, li, sh["k_cache"], sh["v_cache"], pt,
+                             **kw, **ext))]
+                else:
+                    halves += [
+                        ("tp_attn_half", "attn",
+                         per_layer["qkv"] + per_layer["o"],
+                         lambda: tp_attn_half(x, lay, li, sh["k_cache"],
+                                              sh["v_cache"], pt, **kw),
+                         lambda: tp_attn_half_plain(
+                             x, lay, li, sh["k_cache"], sh["v_cache"], pt,
+                             **kw)),
+                        ("tp_ffn_half", "ffn",
+                         per_layer["fc1"] + per_layer["fc2"],
+                         lambda: tp_ffn_half(x, lay, li, ln_eps=eps),
+                         lambda: tp_ffn_half_plain(x, lay, li, ln_eps=eps))]
+                for name, half, planes, run, plain in halves:
+                    rec = {"kernel": name, "tp": tp, "layer": li, "B": B,
+                           "past": past, "window": W, "format": fmt}
+                    hold_half(f"{name} tp={tp} {fmt}", run, plain, rec)
+                    timed(rec, run, plain, None,
+                          *tp_half_cost(cfg, half, B, live, tp, planes),
+                          reps=20, plain_reps=3)
+                    if fmt == "q4_0" and tp == 4:
+                        c.results[name] = rec
+                    c.emit(rec)
+                del shards, tk, tpl
+            del layers
+
+
+# ------------------------------- 12. tensor-parallel serving on two ranks
+
+TP_ROUTES = {   # the kernels a TP serve's steps launch (refills run per op)
+    False: {"tp_attn_half", "tp_ffn_half", "kv_commit", "qmatmul_wide"},
+    True: {"tp_qkv_half", "tp_attn_half_int8", "tp_ffn_half",
+           "kv_commit_quant", "qmatmul_wide"},
+}
+
+
+def tp_teacher_forced(eng, mesh, rng, kv_quant: bool, steps: int) -> float:
+    """One refill wave of the uniform serve's shape (32 prompts of 4-23
+    tokens padded to 32) through the per-op TP forward, then ``steps``
+    teacher-forced B=32 TP steps from it: the kernels
+    (``decode_step_fused_tp``, the local lm_head GEMV and the gather)
+    against the plain halves on the engine's own shard, the plain rows
+    committed -> the worst error over its limit."""
+    from biogpt_tpu_torch.models.biogpt import _decode_x0, _layer_norm
+    from biogpt_tpu_torch.ops import matmul
+    from biogpt_tpu_torch.ops.decode_kernels import (kv_commit_plain,
+                                                     kv_commit_quant_plain)
+    from biogpt_tpu_torch.ops.decode_tp_kernels import decode_step_fused_tp
+    from biogpt_tpu_torch.ops.qmatmul_kernels import lm_head_logits_plain
+    from biogpt_tpu_torch.runtime.cache import init_cache, merge_rows
+
+    P, config, dev, B = eng.params, eng.config, eng.device, eng.B
+    V, kv = config.n_vocab, "int8" if kv_quant else "bf16"
+    lens = [int(n) for n in rng.integers(4, 24, size=B)]
+    ids = torch.zeros(B, 32, dtype=torch.long)
+    for b, n in enumerate(lens):
+        ids[b, :n] = torch.from_numpy(rng.integers(4, V - 2, size=n))
+    ids = ids.to(dev)
+    last = torch.tensor([n - 1 for n in lens], device=dev)
+    small = init_cache(config, batch=B, max_len=32, dtype=eng.cache_dtype,
+                       device=dev, tp=mesh.model)
+    logits, small = eng._fwd(P, ids, small, 0, config,
+                             compute_dtype=torch.bfloat16, allow_kernels=False,
+                             last_index=last)
+    check(bool(torch.isfinite(logits).all()),
+          f"TP refill wave ({kv}): non-finite logits")
+    cache = eng.new_cache()
+    merge_rows(cache, small, torch.arange(B, device=dev),
+               torch.arange(B, device=dev))
+    tok = torch.argmax(logits, -1)
+    past = torch.tensor(lens, dtype=torch.int32, device=dev)
+    fw, fb = P["final_ln"]["w"], P["final_ln"]["b"]
+    kw = dict(n_head=config.n_head, tp_size=mesh.model, mesh=mesh,
+              window=128, ln_eps=config.ln_eps)
+    if kv_quant:
+        kw.update(k_scales=cache.ks, v_scales=cache.vs)
+    worst = 0.0
+    for step in range(steps):
+        x0 = _decode_x0(P, tok[:, None], past, config)
+        ko = decode_step_fused_tp(x0, P["layers"], cache.k, cache.v, past, **kw)
+        po = decode_step_fused_tp(x0, P["layers"], cache.k, cache.v, past,
+                                  plain=True, **kw)
+        xk, xp = ko[0], po[0]
+        lk = mesh.all_gather_last(matmul(
+            _layer_norm(xk, fw, fb, config.ln_eps), P["lm_head"],
+            compute_dtype=torch.bfloat16))[:, :V]
+        lp = mesh.all_gather_last(lm_head_logits_plain(
+            xp, fw, fb, P["lm_head"], config.ln_eps))[:, :V]
+        torch.cuda.synchronize()
+        what = f"TP teacher-forced B={B} {kv} KV step {step}"
+        err = hidden_within(xk, xp, what)
+        worst = max(worst, err / max(3e-3 * xp.abs().max().item(), 1e-30),
+                    tp_rows_within(ko[1:], po[1:], what))
+        top2 = torch.topk(lp, 2).values
+        decided = (top2[:, 0] - top2[:, 1]) > 2e-2 * lp.abs().amax(-1)
+        ref = torch.argmax(lp, -1)
+        wrong = int(((torch.argmax(lk, -1) != ref) & decided).sum())
+        check(wrong == 0, f"{what}: argmax differs on {wrong} decided rows")
+        if kv_quant:
+            kq, vq, ksc, vsc = po[1:]
+            kv_commit_quant_plain(cache.k, cache.v, cache.ks, cache.vs,
+                                  kq.transpose(0, 1), vq.transpose(0, 1),
+                                  ksc.transpose(0, 1)[..., None],
+                                  vsc.transpose(0, 1)[..., None], past)
+        else:
+            kv_commit_plain(cache.k, cache.v, po[1].transpose(0, 1),
+                            po[2].transpose(0, 1), past)
+        tok = ref
+        past = past + 1
+    return worst
+
+
+def tp_rank(argv: list) -> int:
+    """One rank of the two-rank TP serve (``chip_smoke.py --tp-rank OUT
+    MODEL``, started by :func:`phase_tp_serving` through the port's
+    launcher with gloo, both ranks on cuda:0): the uniform 96-request
+    greedy serve with a bf16 and an int8 cache and a refill wave with
+    teacher-forced TP steps after each, then a mixed serve (half sampled);
+    its ids, times, launches and failures go to OUT as JSON."""
+    import numpy as np
+
+    from biogpt_tpu_torch.config import GenerationParams
+    from biogpt_tpu_torch.modelio.checkpoint import load_params
+    from biogpt_tpu_torch.ops import cuda_lib
+    from biogpt_tpu_torch.parallel import make_mesh
+    from biogpt_tpu_torch.runtime.serving import BatchedEngine, Request
+
+    out_path, path = argv
+    mesh = make_mesh(1, 2, device="cuda:0")
+    config, _, _, params = load_params(path, device="cpu")
+    B, V = 32, config.n_vocab
+    greedy = GenerationParams(temp=0.0, stop_at_eos=False)
+    out = {"rank": mesh.index, "serves": {}}
+    # the step's collective: a (B, D) f32 all-reduce, host clock
+    part = torch.ones(B, config.d_model, device=mesh.device)
+    mesh.sum(part)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        mesh.sum(part)
+    torch.cuda.synchronize()
+    out["all_reduce_ms"] = (time.perf_counter() - t0) / 50 * 1e3
+
+    def serve(eng, reqs, gen):
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = eng.serve(reqs, gen)
+        torch.cuda.synchronize()
+        return {"wall_s": time.perf_counter() - t0,
+                "ids": {str(i): r.ids for i, r in res.items()},
+                "new_tokens": [len(r.new_ids) for r in res.values()],
+                "launches": dict(cuda_lib.LAUNCHES),
+                "health_failures": eng.metrics.snapshot()["health_failures"]}
+
+    for kv_quant in (False, True):
+        kv = "int8" if kv_quant else "bf16"
+        t0 = time.perf_counter()
+        eng = BatchedEngine(config, params, max_batch=B, max_seq=512,
+                            chunk=16, mesh=mesh, tp_fused_decode=True,
+                            kv_quant=kv_quant)
+        setup = time.perf_counter() - t0
+        check(eng._tp_fused and not eng._fused_decode
+              and not eng._prefill_fused and not eng._paged_kv
+              and eng.cache_dtype == (torch.int8 if kv_quant
+                                      else torch.bfloat16),
+              f"TP BatchedEngine ({kv}): the TP route is not the one live")
+        rng = np.random.default_rng(0)
+        eng.serve(uniform_reqs(rng, V, 4, Request), greedy)   # warm-up
+        rec = serve(eng, uniform_reqs(rng, V, 3 * B, Request), greedy)
+        rec["engine_setup_s"] = setup
+        rec["teacher_forced_worst_err_over_tol"] = tp_teacher_forced(
+            eng, mesh, np.random.default_rng(5), kv_quant, 4)
+        out["serves"][kv] = rec
+        del eng
+    eng = BatchedEngine(config, params, max_batch=B, max_seq=512, chunk=16,
+                        mesh=mesh, tp_fused_decode=True)
+    out["serves"]["mixed"] = serve(
+        eng, mixed_reqs(np.random.default_rng(1), V, B, Request),
+        GenerationParams(temp=0.0, stop_at_eos=False, seed=3))
+    out["failures"] = FAILURES
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def phase_tp_serving(c: Ctx, path: str, smi: str) -> None:
+    """TP serving through two ranks that share the card: the launcher
+    (``python -m biogpt_tpu_torch.parallel.distributed``) starts two
+    processes of :func:`tp_rank` with gloo on cuda:0 (NCCL refuses two
+    ranks on one device); the kernels were built before, so no rank builds.
+    Both ranks must finish cleanly, agree on every id, launch exactly the
+    TP route's kernels and trip no health check; each serve's greedy ids
+    are counted against the single-device lockstep serve's. Their tokens/s
+    measure the wiring of two processes on one card (every all-reduce
+    crosses a process boundary through gloo), not TP speed."""
+    import socket
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
+        s = socket.socket()
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+        s.close()
+        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(2)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "biogpt_tpu_torch.parallel.distributed",
+             "--coordinator", f"localhost:{port}", "--num-processes", "2",
+             "--process-id", str(r), "--backend", "gloo", "--",
+             os.path.join(here, "chip_smoke.py"), "--tp-rank", outs[r], path],
+            cwd=here, stdout=sys.stderr, stderr=sys.stderr) for r in range(2)]
+        try:
+            rcs = [p.wait(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        check(rcs == [0, 0], f"TP ranks exited {rcs}")
+        if rcs != [0, 0]:
+            return
+        ranks = []
+        for o in outs:
+            with open(o) as f:
+                ranks.append(json.load(f))
+    log(f"TP serving, two ranks on one card: {wall:.1f} s")
+    check_tp_ranks(c, ranks, smi)
+
+
+def check_tp_ranks(c: Ctx, ranks: list, smi: str) -> None:
+    """The two ranks' results (:func:`tp_rank`), as
+    :func:`phase_tp_serving` says."""
+    card = torch.cuda.get_device_name(0)
+    for r in ranks:
+        for fail in r["failures"]:
+            check(False, f"TP rank {r['rank']}: {fail}")
+    for kv in ("bf16", "int8", "mixed"):
+        a, b = ranks[0]["serves"][kv], ranks[1]["serves"][kv]
+        n = 3 * 32 if kv != "mixed" else 32
+        check(a["ids"] == b["ids"], f"TP serve ({kv}): the ranks' ids differ")
+        check(len(a["ids"]) == n and all(t == 48 for t in a["new_tokens"])
+              and all(0 <= t < c.cfg.n_vocab for ids in a["ids"].values()
+                      for t in ids)
+              and a["health_failures"] == 0 == b["health_failures"],
+              f"TP serve ({kv}): {len(a['ids'])} results, tokens "
+              f"{sorted(set(a['new_tokens']))}, health failures "
+              f"{a['health_failures']}, {b['health_failures']}")
+        route = TP_ROUTES[kv == "int8"]
+        launched_exactly(c, a["launches"], route, set(),
+                         f"TP serve ({kv}) rank 0", "q4_0")
+        got = sorted(k for k, v in b["launches"].items() if v)
+        check(set(got) == route, f"TP serve ({kv}) rank 1: launched {got}")
+        rec = {"serving_path": f"TP 2 ranks on one card ({kv})",
+               "tp": 2, "backend": "gloo", "batch_slots": 32, "chunk": 16,
+               "requests": len(a["ids"]), "new_tokens": sum(a["new_tokens"]),
+               "wall_s": [a["wall_s"], b["wall_s"]],
+               "tokens_per_s": sum(a["new_tokens"]) / a["wall_s"],
+               "launches": {k: v for k, v in a["launches"].items() if v},
+               "card": card, "card_stamp": smi}
+        if kv != "mixed":
+            lock = c.lockstep_ids[kv]
+            rec["greedy_ids_equal_lockstep"] = sum(
+                a["ids"][str(i)] == lock[i] for i in lock)
+            rec["teacher_forced_worst_err_over_tol"] = [
+                r["serves"][kv]["teacher_forced_worst_err_over_tol"]
+                for r in ranks]
+            rec["engine_setup_s"] = [r["serves"][kv]["engine_setup_s"]
+                                     for r in ranks]
+            rec["all_reduce_ms"] = [r["all_reduce_ms"] for r in ranks]
+        print(json.dumps(rec), flush=True)
+
+
+def phase_tp_one_by_one(c: Ctx, path: str, smi: str) -> None:
+    """A (1, 1) mesh, which needs no process group: the TP engine serves
+    the uniform 96 greedy requests in this process through the TP halves
+    at full width, launching exactly their route (its ids counted against
+    the lockstep serve's), and the TP ``Engine`` generates 32 greedy tokens
+    at B=1 (its ids counted against the single-device engine's)."""
+    import numpy as np
+
+    from biogpt_tpu_torch.config import GenerationParams
+    from biogpt_tpu_torch.modelio.checkpoint import load_params
+    from biogpt_tpu_torch.ops import cuda_lib
+    from biogpt_tpu_torch.parallel import make_mesh
+    from biogpt_tpu_torch.runtime.engine import Engine
+    from biogpt_tpu_torch.runtime.serving import BatchedEngine, Request
+
+    config, _, _, params = load_params(path, device="cpu")
+    mesh = make_mesh(1, 1, device="cuda")
+    eng = BatchedEngine(config, params, max_batch=32, max_seq=512, chunk=16,
+                        mesh=mesh, tp_fused_decode=True)
+    check(eng._tp_fused and not eng._fused_decode and mesh.group is None,
+          "(1, 1) mesh: the TP route is not the one live")
+    greedy = GenerationParams(temp=0.0, stop_at_eos=False)
+    rng = np.random.default_rng(0)
+    eng.serve(uniform_reqs(rng, config.n_vocab, 4, Request), greedy)
+    reqs = uniform_reqs(rng, config.n_vocab, 96, Request)
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = eng.serve(reqs, greedy)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_tok = sum(len(r.new_ids) for r in res.values())
+    check(len(res) == 96 and all(len(r.new_ids) == 48 for r in res.values())
+          and eng.metrics.snapshot()["health_failures"] == 0,
+          f"(1, 1) mesh serve: {len(res)} results, {n_tok} tokens")
+    launched_exactly(c, dict(cuda_lib.LAUNCHES), TP_ROUTES[False], set(),
+                     "(1, 1) mesh serve", "q4_0")
+    lock = c.lockstep_ids["bf16"]
+    print(json.dumps({
+        "serving_path": "TP (1, 1) mesh", "batch_slots": 32, "chunk": 16,
+        "requests": len(res), "new_tokens": n_tok, "wall_s": wall,
+        "serve_uniform_greedy_tokens_per_s": n_tok / wall,
+        "greedy_ids_equal_lockstep": sum(res[i].ids == lock[i] for i in lock),
+        "card": torch.cuda.get_device_name(0), "card_stamp": smi}),
+        flush=True)
+    del eng
+
+    # the single stream on the same mesh: B=1 halves, the per-slot commit
+    prompt = [2] + list(range(40, 52))
+    gen = GenerationParams(n_predict=32, temp=0.0, stop_at_eos=False)
+    want = Engine(config, params).generate(prompt, gen).ids
+    cuda_lib.reset_launch_counts()
+    got = Engine(config, params, mesh=mesh, tp_fused_decode=True).generate(
+        prompt, gen).ids
+    torch.cuda.synchronize()
+    launched_exactly(c, dict(cuda_lib.LAUNCHES),
+                     {"tp_attn_half", "tp_ffn_half", "qmatmul"},
+                     {"qmatmul_wide"}, "(1, 1) mesh generate", "q4_0")
+    check(len(got) == len(prompt) + 32, f"(1, 1) mesh generate: {len(got)} ids")
+    print(json.dumps({"generate_path": "TP (1, 1) mesh", "new_tokens": 32,
+                      "ids_equal_single_device": sum(
+                          a == b for a, b in zip(got, want)) - len(prompt)}),
+          flush=True)
+
+
 # ------------------------------------------------------------------- main
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--tp-rank"]:   # one rank of phase_tp_serving
+        return tp_rank(sys.argv[2:])
     from biogpt_tpu_torch.modelio.synthetic import write_random_quantized_model
     from biogpt_tpu_torch.ops import cuda_lib
     from biogpt_tpu_torch.quant import codecs
@@ -2072,6 +2750,7 @@ def main() -> int:
     phases += [(f"phase_format_kernels {fmt}",
                 lambda c, fmt=fmt: phase_format_kernels(c, fmt))
                for fmt in NEW_FORMATS]
+    phases += [("phase_tp_kernels", phase_tp_kernels)]
     for name, phase in phases:
         t0 = time.perf_counter()
         phase(c)
@@ -2087,11 +2766,13 @@ def main() -> int:
                 ("phase_serving bf16", phase_serving),
                 ("phase_serving int8",
                  lambda *a: phase_serving(*a, kv_quant=True)),
-                ("phase_paged_staged_serving", phase_paged_staged_serving)):
+                ("phase_paged_staged_serving", phase_paged_staged_serving),
+                ("phase_tp_serving", phase_tp_serving),
+                ("phase_tp_one_by_one", phase_tp_one_by_one)):
             t0 = time.perf_counter()
             phase(c, path, smi)
             log(f"{name}: {time.perf_counter() - t0:.1f} s")
-    for fmt in NEW_FORMATS:
+    for fmt in E2E_FORMATS:
         t0 = time.perf_counter()
         phase_format_e2e(c, fmt, smi)
         log(f"phase_format_e2e {fmt}: {time.perf_counter() - t0:.1f} s")
@@ -2131,6 +2812,14 @@ def main() -> int:
             "biogpt_tpu/ops/pallas_decode.py:680"),
         "decode_step_fused_staged": ("biogpt_tpu_torch/csrc/decode_paged.cu",
                                      "biogpt_tpu/ops/pallas_decode.py:502"),
+        "tp_attn_half": ("biogpt_tpu_torch/csrc/decode_tp.cu",
+                         "biogpt_tpu/ops/pallas_decode_tp.py:95"),
+        "tp_attn_half_int8": ("biogpt_tpu_torch/csrc/decode_tp.cu",
+                              "biogpt_tpu/ops/pallas_decode_tp.py:428"),
+        "tp_qkv_half": ("biogpt_tpu_torch/csrc/decode_tp.cu",
+                        "biogpt_tpu/ops/pallas_decode_tp.py:240"),
+        "tp_ffn_half": ("biogpt_tpu_torch/csrc/decode_tp.cu",
+                        "biogpt_tpu/ops/pallas_decode_tp.py:268"),
     }
     kernels = []
     for name, (src, rep) in sources.items():

@@ -167,9 +167,10 @@ def test_tokenizer_matches_jax():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every port module (the serving engine, the HTTP server and the
-    refill prefill kernels among them) and chip_smoke.py's imports, in a
-    fresh process."""
+    """Every port module (the serving engine, the HTTP server, the refill
+    prefill kernels, and the tensor-parallel modules: ``parallel.*``, the
+    TP decode halves and the distributed serving front, among them) and
+    chip_smoke.py's imports, in a fresh process."""
     code = """
 import importlib, pkgutil, sys
 import biogpt_tpu_torch
@@ -181,6 +182,14 @@ from biogpt_tpu_torch.runtime.serving import BatchedEngine, ServingScheduler
 from biogpt_tpu_torch.server import BioGptServer, main as server_main
 from biogpt_tpu_torch.ops.prefill_kernels import prefill_fused, supports_prefill
 from biogpt_tpu_torch.models.biogpt import forward_prefill_fused
+from biogpt_tpu_torch.parallel import make_mesh, Mesh
+from biogpt_tpu_torch.parallel.distributed import initialize, is_primary, main
+from biogpt_tpu_torch.parallel.tp import (make_tp_forward, pack_params_tp,
+                                          shard_params_tp, supports_tp)
+from biogpt_tpu_torch.ops.decode_tp_kernels import (
+    decode_step_fused_tp, decode_step_tp_shards, supports_layers_tp,
+    tp_attn_half, tp_ffn_half, tp_qkv_half)
+from biogpt_tpu_torch.runtime.dist_serving import DistributedScheduler
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith(("jax.", "jaxlib"))
              or k == "biogpt_tpu" or k.startswith("biogpt_tpu."))

@@ -307,17 +307,24 @@ def test_scheduler_http_round_trip(tiny):
 
 
 def test_batched_engine_gates(tiny, tmp_path):
-    """The card by default (raises without one, decided at run time); the
-    tensor-parallel options raise NotImplementedError naming their later
-    slice; ``kv_quant``, ``paged_kv`` and ``staged_kv`` serve."""
+    """The card by default (raises without one, decided at run time); a
+    mesh without packed weights (the JAX package's GSPMD path) and a data
+    axis raise NotImplementedError naming their later slice; ``kv_quant``,
+    ``paged_kv``, ``staged_kv`` and the tensor-parallel options on a (1, 1)
+    mesh serve (the TP step's bf16 cache by default)."""
+    from biogpt_tpu_torch.parallel import make_mesh
+
     _, ct, _, pt = tiny
-    for kw in (dict(mesh=object()), dict(tp_fused_decode=True)):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            BatchedEngine(ct, pt, device="cpu", **kw)
+    mesh = make_mesh(1, 1, device="cpu")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        BatchedEngine(ct, pt, device="cpu", mesh=mesh, pack_q4=False)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        make_mesh(data=2, device="cpu")
     for kw in (dict(kv_quant=True), dict(paged_kv=True),
-               dict(staged_kv=True)):
+               dict(staged_kv=True), dict(mesh=mesh, tp_fused_decode=True)):
         be = BatchedEngine(ct, pt, device="cpu", max_batch=2, chunk=2, **kw)
         assert be.cache_dtype == (torch.int8 if "kv_quant" in kw
+                                  else torch.bfloat16 if "mesh" in kw
                                   else torch.float16)
         res = be.serve([Request(prompt_ids=[2, 5, 9], n_predict=3)],
                        GenerationParams(temp=0.0, stop_at_eos=False))
