@@ -7,33 +7,13 @@
 // one rank's d_model / tp under tensor parallelism.
 #pragma once
 
+#include "async_copy.cuh"
 #include "decode_layers.cuh"
 
 namespace bgt {
 
 constexpr int PG_ROWS = 64;        // cache rows per streamed tile
 constexpr int PG_MAX_KVB = 1024;   // largest KV block (its scores in smem)
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // grid B, block 256: amax (B, 2) = the absmax of slot b's new k and v rows
 // (qkv (M, 3D) f32 with bias), for the int8 mode's fake-quantized current
@@ -110,6 +90,7 @@ attn_paged_kernel(const float* qkv, int D, const KT* kc, const KT* vc,
   __shared__ float sc[PG_MAX_KVB];
   __shared__ float red[ATT_THREADS / 32][DK];
   __shared__ float scratch[32];
+  pdl_trigger();   // the o GEMV after it may start loading its weights
   const int h = blockIdx.x, b = blockIdx.y;
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
   constexpr int NW = ATT_THREADS / 32;

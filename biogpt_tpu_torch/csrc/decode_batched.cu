@@ -20,10 +20,11 @@
 //
 // Bound on an H100: bytes -- the layer weights (~7 MB a layer at 347M in
 // Q4_0, ~13.4 MB in Q8_0), read once for all B rows, plus each slot's live
-// KV rows. This first version is a chain of per-layer kernels behind ONE
-// host call (the layer loop is decode_layers.cuh's `batched_layers`,
-// which decode_paged.cu shares):
-//   qkv GEMV (M rows, LayerNorm-0 prologue) + its partial sum with bias
+// KV rows: 0.2323 ms (bf16) and 0.1435 ms (int8) at B = 32, window 512,
+// ragged positions (tools/kernel_bounds.py). A chain of per-layer kernels
+// behind ONE host call (the layer loop is decode_layers.cuh's
+// `batched_layers`, which decode_paged.cu shares):
+//   qkv GEMV (M rows, LayerNorm-0 prologue) + bias
 //   split-KV attention over B*H head-rows: grid (H, ceil(W/64), B), a
 //     block per (head, 64-row split, slot); splits past a slot's live rows
 //     exit at once
@@ -31,9 +32,13 @@
 //     UNROUNDED, as in the TPU kernel), writes the new bf16 K/V rows
 //   o GEMV + residual, fc1 GEMV with LayerNorm-1 prologue + exact erf
 //   GELU, fc2 GEMV + residual
-// The projections take the M-row dequant-then-dot GEMV of qgemv.cuh (the
-// numerics of `_qmm_dq`, which the TPU kernel uses at every B >= 2), run
-// on M = 8, 16 or 32 rows: rows B..M-1 are zero padding the wrapper adds.
+// The projections are the tensor-core GEMV of qgemv_mma.cuh (the numerics
+// of `_qmm_dq`, which the TPU kernel uses at every B >= 2: bf16 x, each
+// weight rounded once to bf16, mma.sync with f32 accumulation), which keeps
+// every byte of a projection in flight and splits d_in over enough blocks
+// to fill the card, where qgemv.cuh's scalar f32 FMAs took 84% of a 7.3 ms
+// step (H100). It runs on M = 8, 16 or 32 rows: rows B..M-1 are zero
+// padding the wrapper adds. bgt_decode_gemv exposes one projection alone.
 // Attention numerics as decode_step.cu: q * (1/sqrt(Dk)) rounds to bf16,
 // scores are f32 against bf16 K, p rounds to bf16 before p.V relative to
 // its own split's max (the TPU kernel rounds relative to its running max
@@ -131,6 +136,7 @@ attn_combine_batched_kernel(const float* qkv, int D, const float* ml,
                             const float* acc, int ns, float scale, float* ctx,
                             void* k_rows, void* v_rows) {
   __shared__ float scratch[32];
+  pdl_trigger();   // the o GEMV may start loading its weights
   const int h = blockIdx.x, b = blockIdx.y, H = gridDim.x, t = threadIdx.x;
   const int col = h * DK + t;
   const float* row = qkv + (size_t)b * 3 * D;
@@ -185,16 +191,27 @@ void attention(const BatchedStep& s, int l, int ns, float scale, float* ml,
       static_cast<char*>(s.kr) + row_off, static_cast<char*>(s.vr) + row_off);
 }
 
+// One projection alone at M = 8, 16 or 32 rows in the planes' format
+// (launch_mma_gemv) -> false for another M or format.
+bool run_gemv(const MmaGemv& a, int M, int bits, float eps, cudaStream_t st) {
+  if (M != 8 && M != 16 && M != 32) return false;
+  return with_format(bits, a.mn != nullptr, [&](auto fmt) {
+    using T = decltype(fmt);
+    switch (M) {
+      case 8: launch_mma_gemv<8, T::BITS, T::HAS_MIN>(a, eps, st); break;
+      case 16: launch_mma_gemv<16, T::BITS, T::HAS_MIN>(a, eps, st); break;
+      case 32: launch_mma_gemv<32, T::BITS, T::HAS_MIN>(a, eps, st); break;
+    }
+  });
+}
+
 }  // namespace
 
-// Scratch sizes (floats) the wrapper allocates for M padded rows:
-// part >= bgt_decode_batched_part_size(D, F, M), qkv M*3D,
-// ml B*H*ceil(W/64)*2, acc B*H*ceil(W/64)*64, ctx M*D (zeroed), ff M*F.
-// k_scales/v_scales: (L,B,1,S) f32 in the int8 mode (the caches int8, the
-// rows f32), else null (bf16 caches and rows).
-extern "C" int bgt_decode_batched_part_size(int D, int F, int M) {
-  return batched_part_size(D, F, M);
-}
+// Scratch sizes (floats) the wrapper allocates for M padded rows: qkv
+// M*3D, ml B*H*ceil(W/64)*2, acc B*H*ceil(W/64)*64, ctx M*D (zeroed), ff
+// M*F, stats M*2. k_scales/v_scales: (L,B,1,S) f32 in the int8 mode (the
+// caches int8, the rows f32), else null (bf16 caches and rows). n_gemv
+// (host int, or null): each GEMV launch adds one. D, F <= 4096.
 
 extern "C" int bgt_decode_batched(
     float* x, int L, int D, int F, int H, int S, int B, int M, int W,
@@ -205,9 +222,12 @@ extern "C" int bgt_decode_batched(
     const uint8_t* fc1_lv, const void* fc1_sc, const void* fc1_mn, const float* fc1_b,
     const uint8_t* fc2_lv, const void* fc2_sc, const void* fc2_mn, const float* fc2_b,
     const void* k_cache, const void* v_cache, const float* k_scales,
-    const float* v_scales, void* k_rows, void* v_rows, float* part,
-    float* qkv, float* ml, float* acc, float* ctx, float* ff, void* stream) {
-  if (D != H * DK || B < 1 || B > M || W < 1 || W > S
+    const float* v_scales, void* k_rows, void* v_rows, float* qkv,
+    float* ml, float* acc, float* ctx, float* ff, float* stats, int* n_gemv,
+    void* stream) {
+  if (D != H * DK || B < 1 || B > M || W < 1 || W > S || D % MMA_COLS != 0
+      || F % MMA_COLS != 0 || D % (2 * QK) != 0 || F % (2 * QK) != 0
+      || mma_splits(F) > MMA_MAX_SPLITS || mma_splits(D) > MMA_MAX_SPLITS
       || (k_scales == nullptr) != (v_scales == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -216,8 +236,8 @@ extern "C" int bgt_decode_batched(
       ln1b,
       qkv_lv, qkv_sc, qkv_mn, qkv_b, o_lv, o_sc, o_mn, o_b,
       fc1_lv, fc1_sc, fc1_mn, fc1_b, fc2_lv, fc2_sc, fc2_mn, fc2_b,
-      k_cache, v_cache, k_scales, v_scales, k_rows, v_rows, part, qkv, ctx,
-      ff);
+      k_cache, v_cache, k_scales, v_scales, k_rows, v_rows, qkv, ctx, ff,
+      stats, n_gemv);
   const float scale = 1.0f / sqrtf((float)DK);
   const int ns = (W + ATT_ROWS - 1) / ATT_ROWS;
   auto attend = [&](int l) {
@@ -225,5 +245,41 @@ extern "C" int bgt_decode_batched(
     else attention<__nv_bfloat16, false>(s, l, ns, scale, ml, acc, st);
   };
   if (!run_batched(s, M, attend, st)) return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// One projection alone: y (M, d_out) f32 = epi(LN?(x) (M, d_in) @ the
+// planes) -- qgemv_mma.cuh's GEMV at M = 8, 16 or 32 rows, the LayerNorm
+// prologue where ln_w is set (statistics into stats, M*2 floats), epi
+// 0 (+ bias), 1 (+ bias, exact-erf GELU) or 2 ((res + y) + bias; res may
+// alias y); bias may be null. d_in <= 4096.
+
+extern "C" int bgt_decode_gemv(
+    const float* x, int M, int d_in, int d_out, const float* ln_w,
+    const float* ln_b, float eps, const uint8_t* lv, const void* sc,
+    const void* mn, int offset, int bits, const float* bias, int epi,
+    const float* res, float* y, float* stats, void* stream) {
+  if (d_in % (2 * QK) != 0 || d_out % MMA_COLS != 0 || epi < 0 || epi > 2
+      || mma_splits(d_in) > MMA_MAX_SPLITS
+      || (epi == MMA_EPI_RESID) != (res != nullptr)
+      || (ln_w == nullptr) != (ln_b == nullptr))
+    return (int)cudaErrorInvalidValue;
+  MmaGemv a;
+  a.x = x;
+  a.stats = stats;
+  a.ln_w = ln_w;
+  a.ln_b = ln_b;
+  a.lv = lv;
+  a.sc = static_cast<const __nv_bfloat16*>(sc);
+  a.mn = static_cast<const __nv_bfloat16*>(mn);
+  a.d_in = d_in;
+  a.d_out = d_out;
+  a.offset = offset;
+  a.bias = bias;
+  a.epi = epi;
+  a.res = res;
+  a.y = y;
+  if (!run_gemv(a, M, bits, eps, static_cast<cudaStream_t>(stream)))
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -3,10 +3,12 @@
 // chain (prefill.cu): the head width and attention split the kernels are
 // built for, one projection's layer-stacked planes, the GEMV arguments of
 // layer l, the cache reads of the bf16 and int8 KV modes, and the batched
-// chains' layer loop around their own attention.
+// chains' layer loop around their own attention, whose projections take
+// the tensor-core GEMV of qgemv_mma.cuh.
 #pragma once
 
 #include "qgemv.cuh"
+#include "qgemv_mma.cuh"
 
 namespace bgt {
 
@@ -91,7 +93,9 @@ struct BatchedStep {
   const void *kc, *vc;                      // (L, B, S, D) bf16 or int8
   const float *ks, *vs;                     // (L, B, 1, S) f32, or null
   void *kr, *vr;                            // (L, B, D) bf16, or f32 (int8)
-  float *part, *qkvbuf, *ctx, *ff;          // scratch; ctx (M, D) zeroed
+  float *qkvbuf, *ctx, *ff;                 // scratch; ctx (M, D) zeroed
+  float* stats;                             // (M, 2) LayerNorm statistics
+  int* n_gemv;                              // host int: +1 a GEMV launch
 };
 
 inline BatchedStep batched_step(
@@ -103,8 +107,8 @@ inline BatchedStep batched_step(
     const uint8_t* fc1_lv, const void* fc1_sc, const void* fc1_mn, const float* fc1_b,
     const uint8_t* fc2_lv, const void* fc2_sc, const void* fc2_mn, const float* fc2_b,
     const void* k_cache, const void* v_cache, const float* k_scales,
-    const float* v_scales, void* k_rows, void* v_rows, float* part,
-    float* qkv, float* ctx, float* ff) {
+    const float* v_scales, void* k_rows, void* v_rows, float* qkv,
+    float* ctx, float* ff, float* stats, int* n_gemv) {
   BatchedStep s;
   s.x = x;
   s.L = L; s.D = D; s.F = F; s.H = H; s.S = S; s.B = B; s.W = W;
@@ -120,48 +124,60 @@ inline BatchedStep batched_step(
   s.kc = k_cache; s.vc = v_cache;
   s.ks = k_scales; s.vs = v_scales;
   s.kr = k_rows; s.vr = v_rows;
-  s.part = part; s.qkvbuf = qkv; s.ctx = ctx; s.ff = ff;
+  s.qkvbuf = qkv; s.ctx = ctx; s.ff = ff;
+  s.stats = stats; s.n_gemv = n_gemv;
   return s;
 }
 
-// Scratch floats of the chain's GEMV partials for M padded rows.
-inline int batched_part_size(int D, int F, int M) {
-  const int a = splits_of(D) * 3 * D, b = splits_of(D) * F, c = splits_of(F) * D;
-  return M * (a > b ? (a > c ? a : c) : (b > c ? b : c));
+// Layer l's projection `p` (d_in -> d_out) of the M rows x as an MmaGemv:
+// LayerNorm prologue where ln_w is set, epilogue `epi` into y.
+inline MmaGemv mma_args(const BatchedStep& s, const Proj& p, int l, int d_in,
+                        int d_out, const float* x, const float* ln_w,
+                        const float* ln_b, int epi, float* y) {
+  const GemvArgs g = layer_args(p, l, d_in, d_out, x, ln_w, ln_b, s.eps,
+                                s.offset);
+  MmaGemv a;
+  a.x = x;
+  a.stats = s.stats;
+  a.ln_w = ln_w;
+  a.ln_b = ln_b;
+  a.lv = g.lv;
+  a.sc = g.sc;
+  a.mn = g.mn;
+  a.d_in = d_in;
+  a.d_out = d_out;
+  a.offset = s.offset;
+  a.bias = p.b + (size_t)l * d_out;
+  a.epi = epi;
+  a.res = epi == MMA_EPI_RESID ? y : nullptr;
+  a.y = y;
+  return a;
 }
 
-// All L layers over M rows: qkv GEMV (M rows, LayerNorm-0 prologue) + its
-// partial sum with bias into qkvbuf; `attend(l)`, which reads qkvbuf,
-// writes ctx rows < B and layer l's K/V rows; o GEMV + residual, fc1 GEMV
-// with LayerNorm-1 prologue + exact erf GELU, fc2 GEMV + residual. The
-// projections are the dequant-then-dot GEMV (`_qmm_dq`) of level format
-// BITS.
+// All L layers over M rows: qkv GEMV (LayerNorm-0 prologue) + bias into
+// qkvbuf; `attend(l)`, which reads qkvbuf, writes ctx rows < B and layer
+// l's K/V rows; o GEMV + residual, fc1 GEMV with LayerNorm-1 prologue +
+// exact erf GELU, fc2 GEMV + residual. Each projection is the tensor-core
+// GEMV of qgemv_mma.cuh in level format BITS (the numerics of `_qmm_dq`),
+// after its LayerNorm statistics where it has a prologue: 2 + 4 launches a
+// layer beside the attention's.
 template <int M, int BITS, bool HAS_MIN, typename Attend>
 void batched_layers(const BatchedStep& s, Attend attend, cudaStream_t st) {
   const int D = s.D, F = s.F;
-  const int sd = splits_of(D), sf = splits_of(F);
+  auto gemv = [&](const MmaGemv& a) {
+    launch_mma_gemv<M, BITS, HAS_MIN>(a, s.eps, st);
+    if (s.n_gemv != nullptr) ++*s.n_gemv;
+  };
   for (int l = 0; l < s.L; ++l) {
-    launch_partial<M, true, BITS, HAS_MIN>(
-        layer_args(s.qkv, l, D, 3 * D, s.x, s.ln0w + (size_t)l * D,
-                   s.ln0b + (size_t)l * D, s.eps, s.offset), s.part, st);
-    launch_partial_sum(s.part, sd, M, 3 * D, s.qkv.b + (size_t)l * 3 * D, 0,
-                       nullptr, s.qkvbuf, st);
+    gemv(mma_args(s, s.qkv, l, D, 3 * D, s.x, s.ln0w + (size_t)l * D,
+                  s.ln0b + (size_t)l * D, MMA_EPI_BIAS, s.qkvbuf));
     attend(l);
-    launch_partial<M, true, BITS, HAS_MIN>(
-        layer_args(s.o, l, D, D, s.ctx, nullptr, nullptr, s.eps, s.offset),
-        s.part, st);
-    launch_partial_sum(s.part, sd, M, D, s.o.b + (size_t)l * D, 0, s.x, s.x,
-                       st);
-    launch_partial<M, true, BITS, HAS_MIN>(
-        layer_args(s.fc1, l, D, F, s.x, s.ln1w + (size_t)l * D,
-                   s.ln1b + (size_t)l * D, s.eps, s.offset), s.part, st);
-    launch_partial_sum(s.part, sd, M, F, s.fc1.b + (size_t)l * F, 1, nullptr,
-                       s.ff, st);
-    launch_partial<M, true, BITS, HAS_MIN>(
-        layer_args(s.fc2, l, F, D, s.ff, nullptr, nullptr, s.eps, s.offset),
-        s.part, st);
-    launch_partial_sum(s.part, sf, M, D, s.fc2.b + (size_t)l * D, 0, s.x, s.x,
-                       st);
+    gemv(mma_args(s, s.o, l, D, D, s.ctx, nullptr, nullptr, MMA_EPI_RESID,
+                  s.x));
+    gemv(mma_args(s, s.fc1, l, D, F, s.x, s.ln1w + (size_t)l * D,
+                  s.ln1b + (size_t)l * D, MMA_EPI_GELU, s.ff));
+    gemv(mma_args(s, s.fc2, l, F, D, s.ff, nullptr, nullptr, MMA_EPI_RESID,
+                  s.x));
   }
 }
 

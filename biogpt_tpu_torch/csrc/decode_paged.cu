@@ -19,12 +19,15 @@
 //
 // Bound on an H100: bytes -- the layer weights (~7 MB a layer at 347M in
 // Q4_0, ~13.4 MB in Q8_0) read once for all B rows, plus each slot's live
-// K/V rows (and their scales), plus the staged rows < step_i. The layer
-// chain and its M-row dequant-then-dot GEMVs (`_qmm_dq`, which the paged
-// kernel uses at every B, B=1 included) are decode_batched.cu's
-// (`batched_layers` in decode_layers.cuh). Attention is one single-pass
-// CTA per (head, slot) instead of split + combine, carrying the TPU
-// kernel's design over:
+// K/V rows (and their scales), plus the staged rows < step_i: 0.2323 ms
+// (paged bf16), 0.1435 ms (paged int8) and 0.2389 ms (staged, step 7 of
+// 16) at B = 32, window 512, ragged positions (tools/kernel_bounds.py).
+// The layer chain is decode_batched.cu's (`batched_layers` in
+// decode_layers.cuh), and with it the tensor-core GEMV of qgemv_mma.cuh
+// (the dequant-then-dot numerics of `_qmm_dq`, which the paged kernel uses
+// at every B, B=1 included: the paged step at B = 1 runs it on M = 8
+// rows). Attention is one single-pass CTA per (head, slot) instead of
+// split + combine, carrying the TPU kernel's design over:
 //   - the CTA streams the slot's live rows only, in 64-row tiles of one
 //     head's K or V slice (and, in the int8 mode, the rows' scales),
 //     double-buffered in shared memory with cp.async (the counterpart of
@@ -73,16 +76,12 @@ void attention(const BatchedStep& s, int l, int kvb, int step_i,
 
 }  // namespace
 
-// Scratch sizes (floats) the wrapper allocates for M padded rows:
-// part >= bgt_decode_paged_part_size(D, F, M), qkv M*3D, ctx M*D (zeroed),
-// ff M*F, amax B*2. k_scales/v_scales: (L,B,1,S) f32 in the int8 mode (the
-// caches int8, the rows f32), else null. kvb: the KV block; k_stage and
-// v_stage ((L,B,C,D) bf16) with step_i select the staged mode (bf16 only),
-// else null.
-extern "C" int bgt_decode_paged_part_size(int D, int F, int M) {
-  return batched_part_size(D, F, M);
-}
-
+// Scratch sizes (floats) the wrapper allocates for M padded rows: qkv
+// M*3D, ctx M*D (zeroed), ff M*F, amax B*2, stats M*2; n_gemv (host int,
+// or null): each GEMV launch adds one; D, F <= 4096. k_scales/v_scales:
+// (L,B,1,S) f32 in the int8 mode (the caches int8, the rows f32), else
+// null. kvb: the KV block; k_stage and v_stage ((L,B,C,D) bf16) with
+// step_i select the staged mode (bf16 only), else null.
 extern "C" int bgt_decode_paged(
     float* x, int L, int D, int F, int H, int S, int B, int M, int W,
     const int* past, float eps, int offset, int bits, const float* ln0w,
@@ -92,12 +91,15 @@ extern "C" int bgt_decode_paged(
     const uint8_t* fc1_lv, const void* fc1_sc, const void* fc1_mn, const float* fc1_b,
     const uint8_t* fc2_lv, const void* fc2_sc, const void* fc2_mn, const float* fc2_b,
     const void* k_cache, const void* v_cache, const float* k_scales,
-    const float* v_scales, void* k_rows, void* v_rows, float* part,
-    float* qkv, float* ctx, float* ff, float* amax, int kvb, int step_i, int C,
-    const void* k_stage, const void* v_stage, void* stream) {
+    const float* v_scales, void* k_rows, void* v_rows, float* qkv,
+    float* ctx, float* ff, float* amax, int kvb, int step_i, int C,
+    const void* k_stage, const void* v_stage, float* stats, int* n_gemv,
+    void* stream) {
   const bool quant = k_scales != nullptr, staged = k_stage != nullptr;
   if (D != H * DK || B < 1 || B > M || W < 1 || W > S || kvb < 1
-      || kvb > PG_MAX_KVB || (k_scales == nullptr) != (v_scales == nullptr)
+      || D % MMA_COLS != 0 || F % MMA_COLS != 0 || D % (2 * QK) != 0
+      || F % (2 * QK) != 0 || mma_splits(F) > MMA_MAX_SPLITS
+      || mma_splits(D) > MMA_MAX_SPLITS || kvb > PG_MAX_KVB || (k_scales == nullptr) != (v_scales == nullptr)
       || staged != (v_stage != nullptr) || (staged && quant)
       || (staged && (step_i < 0 || step_i > C || C > PG_MAX_KVB)))
     return (int)cudaErrorInvalidValue;
@@ -107,8 +109,8 @@ extern "C" int bgt_decode_paged(
       ln1b,
       qkv_lv, qkv_sc, qkv_mn, qkv_b, o_lv, o_sc, o_mn, o_b,
       fc1_lv, fc1_sc, fc1_mn, fc1_b, fc2_lv, fc2_sc, fc2_mn, fc2_b,
-      k_cache, v_cache, k_scales, v_scales, k_rows, v_rows, part, qkv, ctx,
-      ff);
+      k_cache, v_cache, k_scales, v_scales, k_rows, v_rows, qkv, ctx, ff,
+      stats, n_gemv);
   const float scale = 1.0f / sqrtf((float)DK);
   const auto* kst = static_cast<const __nv_bfloat16*>(k_stage);
   const auto* vst = static_cast<const __nv_bfloat16*>(v_stage);

@@ -8,11 +8,21 @@
 // the caller's transpose of the decode step's (L,B,D) rows is a view),
 // past (B,) int32 on the device. A position outside [0, S) is clamped into
 // it, as the per-slot dynamic_update_slice of the JAX package clamps.
-// Bound on an H100: bytes -- 2*L*B*D bf16 read and written once (3 MB at
-// 347M, B=32); the kernel is one block per (slot, layer), each thread
-// moving 16 bytes at a time. The TPU kernel's 8-row aligned
-// read-modify-write existed for Mosaic's tiled DMAs; a GPU store of one
-// row needs none.
+// Bound on an H100: bytes -- 2*L*B*D bf16 read and written once (6.29 MB
+// moved at 347M, B=32: 0.00188 ms at 3.35 TB/s). A copy this small is
+// latency-bound: an empty kernel's launch alone measured 0.0048-0.0049 ms
+// of device time on the H100 and this kernel 0.0060-0.0062 ms
+// (chip_smoke.py's kv_commit_rule record). So: one block per (slot,
+// layer), 128 threads each moving 16 bytes of the K and of the V row,
+// __restrict__ pointers and read-only loads, so that each thread issues
+// both loads before either store (without __restrict__ the V load waited
+// for the K store), and past[b] read once. Grouping 2, 4 or 8 layers per
+// block (all loads first) was slower: fewer, longer blocks only lengthen
+// the tail. Hopper's bulk copy (cp.async.bulk of a 2 KB row through
+// shared memory, completion on an mbarrier) would add a barrier round
+// trip and a shared-memory hop to a copy whose bytes are all in flight at
+// once. The TPU kernel's 8-row aligned read-modify-write existed for
+// Mosaic's tiled DMAs; a GPU store of one row needs none.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -20,20 +30,21 @@
 namespace {
 
 // grid (B, L), block 128; D % 8 == 0, row strides in elements % 8 == 0.
-__global__ void kv_commit_kernel(__nv_bfloat16* kc, __nv_bfloat16* vc,
-                                 const __nv_bfloat16* kr,
-                                 const __nv_bfloat16* vr, long long stride_b,
-                                 long long stride_l, const int* past, int S,
-                                 int D) {
+__global__ void __launch_bounds__(128)
+kv_commit_kernel(__nv_bfloat16* __restrict__ kc, __nv_bfloat16* __restrict__ vc,
+                 const __nv_bfloat16* __restrict__ kr,
+                 const __nv_bfloat16* __restrict__ vr, long long stride_b,
+                 long long stride_l, const int* __restrict__ past, int S,
+                 int D) {
   const int b = blockIdx.x, l = blockIdx.y, B = gridDim.x;
-  const int p = min(max(past[b], 0), S - 1);
+  const int p = min(max(__ldg(past + b), 0), S - 1);
   const size_t dst = ((size_t)(l * B + b) * S + p) * D;
   const size_t src = (size_t)b * stride_b + (size_t)l * stride_l;
   for (int i = threadIdx.x * 8; i < D; i += blockDim.x * 8) {
-    *reinterpret_cast<uint4*>(kc + dst + i) =
-        *reinterpret_cast<const uint4*>(kr + src + i);
-    *reinterpret_cast<uint4*>(vc + dst + i) =
-        *reinterpret_cast<const uint4*>(vr + src + i);
+    const uint4 k = __ldg(reinterpret_cast<const uint4*>(kr + src + i));
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(vr + src + i));
+    *reinterpret_cast<uint4*>(kc + dst + i) = k;
+    *reinterpret_cast<uint4*>(vc + dst + i) = v;
   }
 }
 
@@ -100,6 +111,7 @@ extern "C" int bgt_kv_commit(void* k_cache, void* v_cache, const void* k_rows,
   kv_commit_kernel<<<dim3(B, L), 128, 0, st>>>(
       static_cast<__nv_bfloat16*>(k_cache), static_cast<__nv_bfloat16*>(v_cache),
       static_cast<const __nv_bfloat16*>(k_rows),
-      static_cast<const __nv_bfloat16*>(v_rows), stride_b, stride_l, past, S, D);
+      static_cast<const __nv_bfloat16*>(v_rows), stride_b, stride_l, past, S,
+      D);
   return (int)cudaGetLastError();
 }

@@ -12,7 +12,9 @@ once. Nothing builds while a module is imported. :func:`build_all` starts
 one ``nvcc`` per source at the same time.
 
 ``LAUNCHES`` counts kernel launches per wrapper; each wrapper adds one
-where it launches its kernel and nowhere else.
+where it launches its kernel and nowhere else. ``decode_gemv`` counts the
+tensor-core GEMV's launches: one per call of its own wrapper, and the
+number the batched, paged and staged steps' C entries report launching.
 """
 
 from __future__ import annotations
@@ -63,14 +65,16 @@ SIGNATURES = {
     ("decode_step", "bgt_decode_step"): (
         [_P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P]
         + [_P] * 16 + [_P] * 6 + [_P] * 5 + [_P]),
-    ("decode_batched", "bgt_decode_batched_part_size"): [_I, _I, _I],
     ("decode_batched", "bgt_decode_batched"): (
         [_P] + [_I] * 8 + [_P, _F, _I, _I] + [_P] * 4
-        + [_P] * 16 + [_P] * 6 + [_P] * 6 + [_P]),
-    ("decode_paged", "bgt_decode_paged_part_size"): [_I, _I, _I],
+        + [_P] * 16 + [_P] * 6 + [_P] * 5 + [_P] * 2 + [_P]),
+    ("decode_batched", "bgt_decode_gemv"): (
+        [_P, _I, _I, _I, _P, _P, _F, _P, _P, _P, _I, _I, _P, _I, _P, _P, _P,
+         _P]),
     ("decode_paged", "bgt_decode_paged"): (
         [_P] + [_I] * 8 + [_P, _F, _I, _I] + [_P] * 4
-        + [_P] * 16 + [_P] * 6 + [_P] * 5 + [_I] * 3 + [_P] * 2 + [_P]),
+        + [_P] * 16 + [_P] * 6 + [_P] * 4 + [_I] * 3 + [_P] * 2 + [_P] * 2
+        + [_P]),
     ("kv_commit", "bgt_kv_commit"): [_P, _P, _P, _P, _LL, _LL, _P, _I, _I, _I,
                                      _I, _P],
     ("kv_commit", "bgt_kv_commit_quant"): (
@@ -98,7 +102,7 @@ LAUNCHES = {"qmatmul": 0, "qmatmul_wide": 0, "lm_head_argmax": 0,
             "kv_commit_quant": 0, "decode_step_fused_paged": 0,
             "decode_step_fused_paged_int8": 0, "decode_step_fused_staged": 0,
             "tp_attn_half": 0, "tp_attn_half_int8": 0, "tp_qkv_half": 0,
-            "tp_ffn_half": 0}
+            "tp_ffn_half": 0, "decode_gemv": 0}
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()

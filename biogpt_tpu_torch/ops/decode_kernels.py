@@ -41,6 +41,11 @@ for int8 level rows and their f32 scales (B, L, 1). Both write the port's
 mutable caches in place (the JAX calls donate their buffers and return new
 ones) and return the same tensors.
 
+``decode_gemv`` is one projection of the batched steps alone: their
+tensor-core GEMV (``csrc/qgemv_mma.cuh``, the dequant-then-dot numerics of
+``pallas_decode._qmm_dq``) with its LayerNorm prologue and its bias, GELU
+or residual epilogue.
+
 On CUDA tensors each function launches its hand-written Hopper kernels
 (``csrc/decode_step.cu``, ``csrc/decode_batched.cu``,
 ``csrc/decode_paged.cu``, ``csrc/kv_commit.cu``;
@@ -52,6 +57,7 @@ roundings included.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -385,6 +391,25 @@ def kv_commit_quant_plain(k_cache, v_cache, ks, vs, kq_t, vq_t, ksc_t, vsc_t,
     return k_cache, v_cache, ks, vs
 
 
+GEMV_ACTS = ("none", "gelu")
+
+
+def decode_gemv_plain(x, qt: QuantizedTensor, bias=None, *, ln_w=None,
+                      ln_b=None, ln_eps: float = 1e-5, act: str = "none",
+                      residual=None):
+    """Plain version of :func:`decode_gemv`: the batched steps' projection
+    (``_lockstep_plain``): LayerNorm (``layer_norm_bf16``) where ``ln_w``
+    is given, the dequant-then-dot product (``qmatmul_wide_plain``), then
+    ``(residual + y) + bias``, or ``y + bias`` and exact-erf GELU."""
+    h = x if ln_w is None else layer_norm_bf16(x, ln_w, ln_b, ln_eps)
+    y = qmatmul_wide_plain(h, qt)
+    b = 0.0 if bias is None else bias.to(torch.float32)
+    if residual is not None:
+        return (residual.to(torch.float32) + y) + b
+    y = y + b
+    return torch.nn.functional.gelu(y) if act == "gelu" else y
+
+
 # --------------------------------------------------------------- wrappers
 
 def _check_cuda_layers(layers: dict, L: int, D: int, batch: int,
@@ -451,6 +476,31 @@ def _layer_norms(layers: dict) -> list:
             for n in ("ln0", "ln1") for k in ("w", "b")]
 
 
+# output columns of a tensor-core GEMV block (MMA_COLS of csrc/qgemv_mma.cuh)
+_MMA_COLS = 64
+# the widest GEMV input: its d_in / 256 splits form one cluster of <= 16
+_MMA_MAX_D_IN = 4096
+
+
+def _kernel_rows(B: int) -> int:
+    """The GEMV row count a batch runs at (8, 16 or 32); rows past B are
+    zero padding."""
+    return 8 if B <= 8 else 16 if B <= 16 else 32
+
+
+def _check_gemv_width(layers: dict, what: str) -> None:
+    """The batched chains' tensor-core GEMV takes d_in <= 4096."""
+    if max(layers[n]["w"].d_in for n in ("qkv", "fc2")) > _MMA_MAX_D_IN:
+        raise NotImplementedError(
+            f"{what}: the tensor-core GEMV takes d_in <= {_MMA_MAX_D_IN}")
+
+
+def _gemv_scratch(M: int, dev) -> tuple:
+    """(the LayerNorm statistics (M, 2) f32, the host int the C entry adds
+    its GEMV launches to)."""
+    return torch.empty(M, 2, dtype=torch.float32, device=dev), ctypes.c_int(0)
+
+
 def _decode_step_b1(x0, layers, k_cache, v_cache, past: int, n_head: int,
                     window: int, ln_eps: float, k_scales, v_scales):
     what = "decode_step_fused_int8" if k_scales is not None else \
@@ -510,10 +560,11 @@ def _decode_step_batched(x0, layers, k_cache, v_cache, past, n_head: int,
             f"{what}: the CUDA kernel is built for head width "
             f"{_CUDA_HEAD_DIM}, got {D // n_head}")
     offset, bits = _check_cuda_layers(layers, L, D, B, what)
+    _check_gemv_width(layers, what)
     dev = x0.device
     past = _cuda_past(past, B, dev, what)
     W = min(window, S)
-    M = 8 if B <= 8 else 16 if B <= 16 else 32   # kernel rows; extra are zero
+    M = _kernel_rows(B)
     F = layers["fc1"]["w"].d_out
     ns = -(-W // 64)
     lib = cuda_lib.library("decode_batched")
@@ -523,12 +574,12 @@ def _decode_step_batched(x0, layers, k_cache, v_cache, past, n_head: int,
     row_dtype = torch.bfloat16 if k_scales is None else torch.float32
     k_rows = torch.empty(L, B, D, dtype=row_dtype, device=dev)
     v_rows = torch.empty(L, B, D, dtype=row_dtype, device=dev)
-    part = torch.empty(lib.bgt_decode_batched_part_size(D, F, M), **f32)
     qkv = torch.empty(M, 3 * D, **f32)
     ml = torch.empty(B * n_head * ns * 2, **f32)
     acc = torch.empty(B * n_head * ns * _CUDA_HEAD_DIM, **f32)
     ctx = torch.zeros(M, D, **f32)
     ff = torch.empty(M, F, **f32)
+    stats, n_gemv = _gemv_scratch(M, dev)
     norms = _layer_norms(layers)
     err = lib.bgt_decode_batched(
         x.data_ptr(), L, D, F, n_head, S, B, M, W, past.data_ptr(),
@@ -536,10 +587,11 @@ def _decode_step_batched(x0, layers, k_cache, v_cache, past, n_head: int,
         *_layer_planes(layers),
         k_cache.data_ptr(), v_cache.data_ptr(), cuda_lib.ptr(k_scales),
         cuda_lib.ptr(v_scales), k_rows.data_ptr(), v_rows.data_ptr(),
-        part.data_ptr(), qkv.data_ptr(), ml.data_ptr(),
-        acc.data_ptr(), ctx.data_ptr(), ff.data_ptr(),
+        qkv.data_ptr(), ml.data_ptr(), acc.data_ptr(), ctx.data_ptr(),
+        ff.data_ptr(), stats.data_ptr(), ctypes.addressof(n_gemv),
         cuda_lib.stream_ptr(dev))
     cuda_lib.LAUNCHES[what] += 1
+    cuda_lib.LAUNCHES["decode_gemv"] += n_gemv.value
     cuda_lib.check(err, what)
     return x[:B], k_rows, v_rows
 
@@ -563,6 +615,7 @@ def _decode_step_paged(x0, layers, k_cache, v_cache, past, n_head: int,
             f"{what}: the CUDA kernel is built for head width "
             f"{_CUDA_HEAD_DIM}, got {D // n_head}")
     offset, bits = _check_cuda_layers(layers, L, D, B, what)
+    _check_gemv_width(layers, what)
     dev = x0.device
     past = _cuda_past(past, B, dev, what)
     W = min(window, S)
@@ -585,7 +638,7 @@ def _decode_step_paged(x0, layers, k_cache, v_cache, past, n_head: int,
         step = int(step_i)
         if not 0 <= step <= C <= _CUDA_MAX_KVB:
             raise ValueError(f"{what}: step_i={step} outside [0, {C}]")
-    M = 8 if B <= 8 else 16 if B <= 16 else 32   # kernel rows; extra are zero
+    M = _kernel_rows(B)
     F = layers["fc1"]["w"].d_out
     lib = cuda_lib.library("decode_paged")
     f32 = dict(dtype=torch.float32, device=dev)
@@ -594,11 +647,11 @@ def _decode_step_paged(x0, layers, k_cache, v_cache, past, n_head: int,
     row_dtype = torch.bfloat16 if k_scales is None else torch.float32
     k_rows = torch.empty(L, B, D, dtype=row_dtype, device=dev)
     v_rows = torch.empty(L, B, D, dtype=row_dtype, device=dev)
-    part = torch.empty(lib.bgt_decode_paged_part_size(D, F, M), **f32)
     qkv = torch.empty(M, 3 * D, **f32)
     ctx = torch.zeros(M, D, **f32)
     ff = torch.empty(M, F, **f32)
     amax = torch.empty(B, 2, **f32)
+    stats, n_gemv = _gemv_scratch(M, dev)
     norms = _layer_norms(layers)
     err = lib.bgt_decode_paged(
         x.data_ptr(), L, D, F, n_head, S, B, M, W, past.data_ptr(),
@@ -606,10 +659,11 @@ def _decode_step_paged(x0, layers, k_cache, v_cache, past, n_head: int,
         *_layer_planes(layers),
         k_cache.data_ptr(), v_cache.data_ptr(), cuda_lib.ptr(k_scales),
         cuda_lib.ptr(v_scales), k_rows.data_ptr(), v_rows.data_ptr(),
-        part.data_ptr(), qkv.data_ptr(), ctx.data_ptr(), ff.data_ptr(),
-        amax.data_ptr(), kvb, step, C, cuda_lib.ptr(k_stage),
-        cuda_lib.ptr(v_stage), cuda_lib.stream_ptr(dev))
+        qkv.data_ptr(), ctx.data_ptr(), ff.data_ptr(), amax.data_ptr(), kvb,
+        step, C, cuda_lib.ptr(k_stage), cuda_lib.ptr(v_stage),
+        stats.data_ptr(), ctypes.addressof(n_gemv), cuda_lib.stream_ptr(dev))
     cuda_lib.LAUNCHES[what] += 1
+    cuda_lib.LAUNCHES["decode_gemv"] += n_gemv.value
     cuda_lib.check(err, what)
     return x[:B], k_rows, v_rows
 
@@ -734,3 +788,64 @@ def kv_commit_quant(k_cache, v_cache, ks, vs, kq_t, vq_t, ksc_t, vsc_t, past):
     cuda_lib.LAUNCHES[what] += 1
     cuda_lib.check(err, what)
     return k_cache, v_cache, ks, vs
+
+
+def decode_gemv(x, qt: QuantizedTensor, bias=None, *, ln_w=None, ln_b=None,
+                ln_eps: float = 1e-5, act: str = "none", residual=None):
+    """One projection of the batched decode steps alone: ``x`` (M, d_in)
+    f32, 1 <= M <= 32, LayerNorm'd first where ``ln_w``/``ln_b`` are given,
+    times the dequantized planes ``qt``, then ``(residual + y) + bias``
+    where ``residual`` (M, d_out) is given, else ``y + bias`` and, with
+    ``act="gelu"``, exact-erf GELU -> (M, d_out) f32. ``bias`` may be None.
+    On CUDA tensors it launches the steps' tensor-core GEMV
+    (``csrc/qgemv_mma.cuh``) at 8, 16 or 32 rows."""
+    if act not in GEMV_ACTS or (residual is not None and act != "none"):
+        raise ValueError(f"decode_gemv: act {act!r} with residual="
+                         f"{residual is not None}")
+    if (ln_w is None) != (ln_b is None):
+        raise ValueError("decode_gemv: ln_w and ln_b go together")
+    if not x.is_cuda:
+        return decode_gemv_plain(x, qt, bias, ln_w=ln_w, ln_b=ln_b,
+                                 ln_eps=ln_eps, act=act, residual=residual)
+    what = "decode_gemv"
+    bits = check_cuda_levels(qt, (), what)
+    d_in, d_out = qt.d_in, qt.d_out
+    if x.dim() != 2 or x.shape[1] != d_in or not 1 <= x.shape[0] <= MAX_BATCH:
+        raise ValueError(f"{what}: x must be (M <= {MAX_BATCH}, {d_in}), got "
+                         f"{tuple(x.shape)}")
+    if d_out % _MMA_COLS or d_in % (2 * QK) or d_in > _MMA_MAX_D_IN:
+        raise ValueError(f"{what}: d_in {d_in} (a multiple of 64 up to "
+                         f"{_MMA_MAX_D_IN}) and d_out {d_out} (of "
+                         f"{_MMA_COLS}) unsupported")
+    rows = x.shape[0]
+    M = _kernel_rows(rows)
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    def vec(t, n, name):
+        if t is None:
+            return None
+        if not t.is_cuda or t.numel() != n:
+            raise ValueError(f"{what}: {name} must be a ({n},) CUDA tensor")
+        return t.reshape(n).to(torch.float32).contiguous()
+    bias, ln_w, ln_b = (vec(bias, d_out, "bias"), vec(ln_w, d_in, "ln_w"),
+                        vec(ln_b, d_in, "ln_b"))
+    xk = torch.zeros(M, d_in, **f32)
+    xk[:rows] = x
+    y = torch.zeros(M, d_out, **f32)
+    if residual is not None:
+        if tuple(residual.shape) != (rows, d_out) or not residual.is_cuda:
+            raise ValueError(f"{what}: residual must be ({rows}, {d_out})")
+        y[:rows] = residual
+    lib = cuda_lib.library("decode_batched")
+    stats, _ = _gemv_scratch(M, dev)
+    err = lib.bgt_decode_gemv(
+        xk.data_ptr(), M, d_in, d_out, cuda_lib.ptr(ln_w), cuda_lib.ptr(ln_b),
+        float(ln_eps), qt.levels.data_ptr(), qt.scales.data_ptr(),
+        cuda_lib.ptr(qt.mins), _offset(qt), bits, cuda_lib.ptr(bias),
+        2 if residual is not None else GEMV_ACTS.index(act),
+        y.data_ptr() if residual is not None else None, y.data_ptr(),
+        stats.data_ptr(), cuda_lib.stream_ptr(dev))
+    cuda_lib.LAUNCHES[what] += 1
+    cuda_lib.check(err, what)
+    return y[:rows]

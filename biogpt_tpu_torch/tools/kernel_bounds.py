@@ -10,7 +10,8 @@ BioGPT-347M; ``row`` is the kernel's number in PERF.md's table. Each line has th
 bytes it must move (each input read once, each output written once), the
 operations it does, and ``bound_ms``, the larger of bytes over the card's
 memory rate and operations over its bf16 tensor rate (published H100 SXM
-figures). ``chip_smoke.py`` computes the ported kernels' bounds with the
+figures). Then the batched steps' four projection GEMVs alone (M = 8,
+16, 32). ``chip_smoke.py`` computes the ported kernels' bounds with the
 same :func:`bound` from the inputs of its own run. Needs no card.
 """
 
@@ -70,6 +71,47 @@ def layer_bytes(c: BioGptConfig, fmt: str = "q4_0") -> int:
     planes = (q_bytes(D, 3 * D, fmt) + q_bytes(D, D, fmt)
               + q_bytes(D, F, fmt) + q_bytes(F, D, fmt))
     return planes + (3 * D + D + F + D) * 4 + 4 * D * 4
+
+
+# the four projections of a layer: (name, d_in, d_out) as multiples of
+# (d_model, d_ff) -- qkv D -> 3D, o D -> D, fc1 D -> F, fc2 F -> D
+PROJECTIONS = ("qkv", "o", "fc1", "fc2")
+
+
+def projection_shape(c: BioGptConfig, name: str) -> tuple:
+    D, F = c.d_model, c.d_ff
+    return {"qkv": (D, 3 * D), "o": (D, D), "fc1": (D, F), "fc2": (F, D)}[name]
+
+
+def gemv_cost(c: BioGptConfig, name: str, M: int, fmt: str = "q4_0"):
+    """(bytes, operations, parameter bytes) of one layer's projection
+    ``name`` on M rows, as the batched steps' tensor-core GEMV computes it
+    (``decode_kernels.decode_gemv``): its planes, its f32 bias and, for qkv
+    and fc1, its LayerNorm's f32 weight and bias (the parameter bytes; the
+    four projections' sum is :func:`layer_bytes`), x in (M, d_in) f32, y
+    out (M, d_out) f32 and, for o and fc2, the residual in."""
+    d_in, d_out = projection_shape(c, name)
+    params = q_bytes(d_in, d_out, fmt) + d_out * 4
+    if name in ("qkv", "fc1"):
+        params += 2 * d_in * 4
+    act = M * d_in * 4 + M * d_out * 4 * (2 if name in ("o", "fc2") else 1)
+    return params + act, 2 * M * d_in * d_out, params
+
+
+def gemv_rows(c: BioGptConfig = BioGptConfig(), M: int = 32,
+              fmt: str = "q4_0") -> list:
+    """The four projection sub-rows of the batched steps (PERF.md's rows 7,
+    8, 9, 14 and 15) at M rows."""
+    recs = []
+    for name in PROJECTIONS:
+        nbytes, flops, params = gemv_cost(c, name, M, fmt)
+        ms, by = bound(nbytes, flops)
+        d_in, d_out = projection_shape(c, name)
+        recs.append({"kernel": "decode_gemv", "projection": name,
+                     "shape": f"{d_in} -> {d_out}", "m": M, "format": fmt,
+                     "bytes": nbytes, "param_bytes": params, "flops": flops,
+                     "bound_ms": ms, "bound_by": by})
+    return recs
 
 
 def layer_flops(c: BioGptConfig, rows: int) -> int:
@@ -226,6 +268,9 @@ def main() -> int:
     for fmt in FORMATS:
         for rec in rows(fmt=fmt):
             print(json.dumps(rec))
+        for M in (8, 16, 32):
+            for rec in gemv_rows(M=M, fmt=fmt):
+                print(json.dumps(rec))
     return 0
 
 

@@ -10,11 +10,15 @@ logs its seconds):
   2. every kernel of the single-stream path against its plain PyTorch
      version at BioGPT-347M shapes on seeded random planes, with its time
      beside its bound, the plain version's time and a one-call PyTorch
-     yardstick;
+     yardstick (each a device time: a spin on the card covers the host's
+     enqueue of the call, whose time is kept beside it; :func:`time_ms`);
   3. likewise every kernel of the batched serving path: the batched decode
-     step at B=8 and B=32 (window 512, ragged positions, dead slots), the
-     KV commit, and the greedy and sampled lm_head + commit tails at M=8
-     and M=32 (and on Q4_1 planes at M=32);
+     step at B=8 and B=32 (window 512, ragged positions, dead slots; at
+     B=32 a profiler trace shows the tensor-core GEMV on all four
+     projections of every layer and where the step's time goes), the KV
+     commit (with row 10's rule: its time against the index store, its
+     bound and an empty launch), and the greedy and sampled lm_head +
+     commit tails at M=8 and M=32 (and on Q4_1 planes at M=32);
   4. likewise the kernels of the refill and int8 KV paths: ``prefill_fused``
      at 32x32, 8x128 and 1x512 prompts x tokens (ragged lengths; with the
      per-op refill it replaces timed beside it), the int8 decode step at
@@ -26,6 +30,12 @@ logs its seconds):
      slots, a slot past the window), also held against the batched CUDA
      step, and the staged step at B=32 (16 staging rows, steps 0, 7, 15;
      Q4_1 step 7);
+  5b. the batched steps' projection alone (``decode_gemv``, the
+     tensor-core GEMV with its LayerNorm prologue and bias, GELU or
+     residual epilogue) at qkv, o, fc1 and fc2 shapes, M = 8, 16, 32, in
+     every format, timed beside its bound and ``x_bf16 @ dequantize(W)``;
+     every B=32 batched, paged and staged step in phases 3-6 is traced to
+     launch it 4 L times and the scalar-FMA GEMV never;
   6. every kernel that reads weights again in each of Q5_0, Q5_1 and
      Q8_0 (the GEMVs at every projection shape, ``lm_head_argmax`` and both
      tails, the B=1, batched, paged and staged steps with bf16 and int8 KV,
@@ -68,7 +78,8 @@ logs its seconds):
   12. a random 347M file in each of Q4_1, Q5_0, Q5_1 and Q8_0: the CLI
      greedy, sampled and ``--kv-quant`` (32 new tokens), the uniform
      greedy serve of 96 requests (bf16 and int8 lockstep, paged, staged),
-     each run launching exactly its route's kernels (an unpacked Q8_0
+     each run launching exactly its route's kernels (the batched, paged
+     and staged steps' GEMV counted as ``decode_gemv``; an unpacked Q8_0
      lm_head takes the lm_head GEMV, never the argmax tails), teacher-
      forced B=1 and B=32 steps and a refill wave against the plain path;
   13. the ``kernels`` line (each kernel with the formats this run held it
@@ -96,6 +107,8 @@ import torch
 
 FAILURES: list = []
 SPREAD: dict = {}
+HOST: dict = {}    # fn -> its host enqueue time and spin (time_ms)
+SPIN: dict = {}    # the device spin's clock rate (spin_rate)
 # weight formats: name -> (ggml type, level bits as the engines prepare them)
 FORMATS = {"q4_0": (2, 4), "q4_1": (3, 4), "q5_0": (6, 5), "q5_1": (7, 5),
            "q8_0": (8, 8)}
@@ -116,41 +129,96 @@ def check(ok: bool, what: str) -> None:
         log(f"FAIL: {what}")
 
 
-def time_ms(fn, reps: int, flush=None) -> float:
-    """Median device time of ``fn`` over ``reps`` CUDA-event-timed calls;
-    ``flush`` runs outside the timed region before each call. The spread
-    (min, max) of the calls goes into ``SPREAD[fn]``."""
-    fn()
-    torch.cuda.synchronize()
-    evs = []
-    for _ in range(reps):
-        if flush is not None:
-            flush()
+def spin_rate() -> float:
+    """Clock cycles per ms of ``torch.cuda._sleep`` on this card, timed once
+    with CUDA events over a 20M-cycle spin."""
+    if "cycles_per_ms" not in SPIN:
+        n = 20_000_000
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
+        torch.cuda._sleep(n)
+        e.record()
+        torch.cuda.synchronize()
+        SPIN["cycles_per_ms"] = n / s.elapsed_time(e)
+    return SPIN["cycles_per_ms"]
+
+
+def time_ms(fn, reps: int, flush=None) -> float:
+    """Median device time of ``fn`` over ``reps`` CUDA-event-timed calls.
+    Before each call, outside the window, on an idle card: ``flush``, then
+    a device spin (``torch.cuda._sleep``) of four times the call's host
+    enqueue time (0.5 ms at least, 100 ms at most; ``utils.profiling.
+    spin_cycles``: the host's time per call varies 2-3x from call to
+    call), so the host enqueues the call's launches while the
+    card spins and the window opens when the spin ends: it holds device
+    time alone, unless the host took longer than the spin. The card is
+    idle before each call (a synchronize), so no backlog of earlier calls
+    stalls the host's enqueue. The host's time around each call goes into
+    ``HOST[fn]`` (median ``host_ms``, ``spin_ms``, ``host_inclusive``),
+    the spread (min, max) of the windows into ``SPREAD[fn]``."""
+    from biogpt_tpu_torch.utils.profiling import spin_cycles
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    rate = spin_rate()
+    cycles = spin_cycles(warm_ms, rate)
+    evs, host = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        if flush is not None:
+            flush()
+        torch.cuda._sleep(cycles)
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        t0 = time.perf_counter()
         fn()
+        host.append((time.perf_counter() - t0) * 1e3)
         e.record()
         evs.append((s, e))
     torch.cuda.synchronize()
     times = [s.elapsed_time(e) for s, e in evs]
     SPREAD[fn] = [min(times), max(times)]
+    host_ms, spin_ms = statistics.median(host), cycles / rate
+    HOST[fn] = {"host_ms": host_ms, "spin_ms": spin_ms,
+                "host_inclusive": host_ms > spin_ms}
     return statistics.median(times)
 
 
 def timed(rec: dict, kfn, plain, lib_call, nbytes, flops, reps=20,
           plain_reps=3, flush=None) -> dict:
-    """Add the kernel's, the plain version's and the yardstick's times and
-    the bound to ``rec`` (``tools/kernel_bounds.py``: the H100's published
-    memory and bf16 rates)."""
+    """Add the kernel's, the plain version's and the yardstick's device
+    times, each with its host enqueue time and whether its window is
+    host-inclusive (:func:`time_ms`), and the bound to ``rec``
+    (``tools/kernel_bounds.py``: the H100's published memory and bf16
+    rates). A kernel's window must hold device time alone."""
     from biogpt_tpu_torch.tools.kernel_bounds import bound
 
     b_ms, b_by = bound(nbytes, flops)
     rec.update(kernel_ms=time_ms(kfn, reps, flush), kernel_ms_range=SPREAD[kfn],
+               kernel_host_ms=HOST[kfn]["host_ms"], spin_ms=HOST[kfn]["spin_ms"],
+               kernel_host_inclusive=HOST[kfn]["host_inclusive"],
                plain_ms=time_ms(plain, plain_reps, flush),
-               library_ms=(None if lib_call is None
-                           else time_ms(lib_call, reps, flush)),
+               plain_host_ms=HOST[plain]["host_ms"],
+               plain_host_inclusive=HOST[plain]["host_inclusive"],
+               library_ms=None, library_host_ms=None,
+               library_host_inclusive=None,
                bytes=nbytes, bound_ms=b_ms, bound_by=b_by)
+    if lib_call is not None:
+        rec.update(library_ms=time_ms(lib_call, reps, flush),
+                   library_host_ms=HOST[lib_call]["host_ms"],
+                   library_host_inclusive=HOST[lib_call]["host_inclusive"])
+    check(not rec["kernel_host_inclusive"],
+          f"{rec.get('kernel', rec.get('tp_step'))}: the kernel's window "
+          "holds host time "
+          f"({rec['kernel_host_ms']} ms on the host, {rec['spin_ms']} ms spin)")
     return rec
 
 
@@ -242,6 +310,70 @@ def held_step(run, plain, what: str, rec: dict):
     rec.update(max_abs_err=err, tol=3e-3 * xp.abs().max().item(),
                rows_err_over_tol=rows)
     return x, kr, vr
+
+
+ATTN_KERNELS = ("attn_split_batched_kernel", "attn_combine_batched_kernel",
+                "attn_paged_kernel")
+
+
+def trace_whole(names: dict, L: int) -> bool:
+    """Whether a step's trace holds every record of the kernels beside its
+    GEMVs: the LayerNorm statistics (``row_stats_kernel``, 2 L) and the
+    attention, L each of the batched split and combine kernels or of the
+    paged one."""
+    count = {f: sum(v[0] for k, v in names.items() if f in k)
+             for f in ("row_stats_kernel",) + ATTN_KERNELS}
+    batched = count[ATTN_KERNELS[0]] + count[ATTN_KERNELS[1]] > 0
+    attn = ATTN_KERNELS[:2] if batched else ATTN_KERNELS[2:]
+    return (count["row_stats_kernel"] == 2 * L
+            and all(count[f] == L for f in attn))
+
+
+def gemv_trace(run, L: int, what: str) -> dict:
+    """One step of ``run`` under ``torch.profiler``: the batched, paged and
+    staged steps must launch the tensor-core GEMV (``qgemv_mma_kernel``)
+    for all four projections of every layer, 4 L launches by the step's
+    own count (``decode_gemv``) and in the trace, and the scalar-FMA
+    ``qgemv_partial_kernel`` for none -> {kernel name: [launches, device
+    ms]}. A trace short of GEMV records is taken again, up to three times,
+    only where the tracer lost records of the step's other kernels too
+    (:func:`trace_whole`; it dropped 53 of 96 once in 27 traces on the
+    H100): GEMV records missing from an otherwise whole trace fail at
+    once. Every attempt's counts are printed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from biogpt_tpu_torch.ops import cuda_lib
+
+    attempts = []
+    for attempt in range(3):
+        torch.cuda.synchronize()
+        counted = cuda_lib.LAUNCHES["decode_gemv"]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        counted = cuda_lib.LAUNCHES["decode_gemv"] - counted
+        names = {}
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                n = names.setdefault(ev.name, [0, 0.0])
+                n[0] += 1
+                n[1] += ev.time_range.elapsed_us() / 1e3
+        mma = sum(v[0] for k, v in names.items() if "qgemv_mma_kernel" in k)
+        old = sum(v[0] for k, v in names.items()
+                  if "qgemv_partial_kernel" in k)
+        whole = trace_whole(names, L)
+        attempts.append({"qgemv_mma_kernel": mma, "decode_gemv_counted":
+                         counted, "qgemv_partial_kernel": old,
+                         "others_whole": whole,
+                         "records": sum(v[0] for v in names.values())})
+        if mma == 4 * L or whole:
+            break
+    check(mma == 4 * L and counted == 4 * L and old == 0,
+          f"{what}: {mma} tensor-core GEMV launches in the trace and "
+          f"{counted} counted (want {4 * L}), {old} of qgemv_partial_kernel "
+          f"(want 0); attempts {attempts}")
+    print(json.dumps({"gemv_route": what, "attempts": attempts}), flush=True)
+    return names
 
 
 def kernel_ln(x, lnw, lnb, eps):
@@ -689,6 +821,11 @@ def phase_serving_kernels(c: Ctx) -> None:
             err = hidden_within(x, xp, what)
             rows = max(rows_within(kr, krp, what + " k"),
                        rows_within(vr, vrp, what + " v"))
+            if B == 32:
+                names = gemv_trace(run, L, f"batched bf16 B=32 {fmt}")
+                if not mins:   # where one B=32 step's device time goes
+                    print(json.dumps({"step_breakdown": "batched bf16 B=32 "
+                                      "q4_0", "kernels": names}), flush=True)
             rec = {"kernel": "decode_step_fused_batched", "layers": L, "B": B,
                    "past": past, "window": W, "format": fmt,
                    "max_abs_err": err, "tol": 3e-3 * xp.abs().max().item(),
@@ -729,6 +866,17 @@ def phase_serving_kernels(c: Ctx) -> None:
           4 * L * B * D * 2 + B * 4, 0, reps=50)
     c.results["kv_commit"] = rec
     c.emit(rec)
+    # row 10 under the port's rule (PERF.md): a kernel slower than its
+    # one-call yardstick, or over twice its bound, is redesigned; beside it
+    # the window of an empty launch (a zero-cycle spin), which no kernel
+    # timed this way undercuts
+    floor = time_ms(lambda: torch.cuda._sleep(0), 50)
+    print(json.dumps({"kv_commit_rule": {
+        "kernel_ms": rec["kernel_ms"], "index_store_ms": rec["library_ms"],
+        "bound_ms": rec["bound_ms"], "empty_launch_ms": floor,
+        "no_slower_than_index_store": rec["kernel_ms"] <= rec["library_ms"],
+        "within_twice_bound": rec["kernel_ms"] <= 2 * rec["bound_ms"]}}),
+        flush=True)
     del kc, vc, k1, v1, k2, v2
 
     # the two tails with their commit, M = 8 and M = 32
@@ -995,6 +1143,8 @@ def phase_refill_int8_kernels(c: Ctx) -> None:
             rec = {"kernel": "decode_step_fused_batched_int8", "layers": L,
                    "B": B, "past": past, "window": W, "format": fmt}
             held_step(run, plain, f"decode_step_fused int8 B={B} {fmt}", rec)
+            if B == 32:
+                gemv_trace(run, L, f"batched int8 B=32 {fmt}")
             if not mins:
                 timed(rec, run, plain, None,
                       *int8_step_cost(cfg, past, W, wbytes))
@@ -1096,6 +1246,8 @@ def phase_paged_staged_kernels(c: Ctx) -> None:
                 rec = {"kernel": name, "layers": L, "B": B, "past": past,
                        "window": W, "format": fmt}
                 x, kr, vr = held_step(run, plain, f"{name} B={B} {fmt}", rec)
+                if B == 32:
+                    gemv_trace(run, L, f"{name} B=32 {fmt}")
                 if B == 32 and not mins:
                     # the paged step against the lockstep (split-KV) CUDA
                     # step on the same inputs: the split kernels' limits
@@ -1139,12 +1291,149 @@ def phase_paged_staged_kernels(c: Ctx) -> None:
                    "step_i": step_i, "format": fmt}
             held_step(run, plain,
                       f"decode_step_fused_staged step_i={step_i} {fmt}", rec)
+            if step_i == 7:
+                gemv_trace(run, L, f"staged B=32 step 7 {fmt}")
             if step_i == 7 and not mins:
                 timed(rec, run, plain, None,
                       *bf16_step_cost(cfg, past, W, wbytes, step_i))
                 c.results["decode_step_fused_staged"] = rec
             c.emit(rec)
         del kc, vc, k_st, v_st, layers
+
+
+# ------------------------------- 5b. the batched steps' projection GEMV
+
+GEMV_SHAPES = (("qkv", True, "none", False), ("o", False, "none", True),
+               ("fc1", True, "gelu", False), ("fc2", False, "none", True))
+# (projection, d_in, d_out, LayerNorm, act, residual) at widths whose split
+# count (ceil(d_in / 256), one cluster) does not divide a column tile's
+# M * 64 sums: d_model 768's qkv (3 splits) and fc2 (d_ff 3072, 12), and
+# d_model 640's fc1 (3 splits, the last block with two idle warps)
+GEMV_ODD_WIDTHS = (("qkv", 768, 2304, True, "none", False),
+                   ("fc2", 3072, 768, False, "none", True),
+                   ("fc1", 640, 2560, True, "gelu", False))
+GELU_SLOPE = 1.1289   # the largest |GELU'(x)|
+
+
+def gemv_expect(x, qt, bias, lnw, lnb, act: str, res, eps: float) -> dict:
+    """What ``decode_gemv``'s output is held to: the plain version's, row
+    by row within f32 summation order, 1e-5 of the product's magnitude --
+    plus, with a LayerNorm prologue, for every element of the row that the
+    two LayerNorms may round to different bf16 values, the gap between its
+    two roundings times its weight row's largest magnitude; after GELU,
+    times GELU's largest slope. The kernel's statistics sum in another
+    order than torch's, which moves an f32 LayerNorm value by about 1e-7
+    of its row's largest magnitude: an element within 2^-19 of it (16
+    times that) of a bf16 rounding boundary may round the other way."""
+    from biogpt_tpu_torch.ops.decode_kernels import decode_gemv_plain
+    from biogpt_tpu_torch.ops.qmatmul_kernels import wide_weight
+
+    plain = decode_gemv_plain(x, qt, bias, ln_w=lnw, ln_b=lnb, ln_eps=eps,
+                              act=act, residual=res)
+    pre = decode_gemv_plain(x, qt, None, ln_w=lnw, ln_b=lnb, ln_eps=eps)
+    tol = 1e-5 * max(pre.abs().max().item(), plain.abs().max().item()) + 1e-5
+    row_tol = torch.full((x.shape[0],), tol, device=x.device)
+    flips = 0
+    if lnw is not None:
+        xc = x - x.mean(-1, keepdim=True)
+        y = (xc * torch.rsqrt((xc * xc).mean(-1, keepdim=True) + eps)
+             * lnw.float() + lnb.float())
+        d = 2 ** -19 * y.abs().amax(-1, keepdim=True)
+        lo, hi = (y - d).to(torch.bfloat16), (y + d).to(torch.bfloat16)
+        gap = torch.where(lo != hi, (hi.float() - lo.float()).abs(),
+                          torch.zeros_like(y))
+        flips = int((lo != hi).sum())
+        row_tol = row_tol + gap @ wide_weight(qt).abs().amax(-1)
+    if act == "gelu":
+        row_tol = row_tol * GELU_SLOPE
+    return {"plain": plain, "tol": tol, "row_tol": row_tol,
+            "ln_flip_candidates": flips}
+
+
+def held_gemv(c: Ctx, qt, d_in: int, d_out: int, ln: bool, act: str,
+              resid: bool, M: int, what: str):
+    """``decode_gemv`` at M rows on random inputs against its plain version
+    (:func:`gemv_expect`) -> (record of the hold, the call's keywords, x)."""
+    from biogpt_tpu_torch.ops.decode_kernels import decode_gemv
+
+    cfg = c.cfg
+    bias = 0.02 * c.randn(d_out)
+    lnw, lnb = ((1 + 0.1 * c.randn(d_in), 0.1 * c.randn(d_in)) if ln
+                else (None, None))
+    x = c.randn(M, d_in)
+    res = c.randn(M, d_out) if resid else None
+    kw = dict(ln_w=lnw, ln_b=lnb, ln_eps=cfg.ln_eps, act=act, residual=res)
+    y = decode_gemv(x, qt, bias, **kw)
+    exp = gemv_expect(x, qt, bias, lnw, lnb, act, res, cfg.ln_eps)
+    torch.cuda.synchronize()
+    rerr = (y - exp["plain"]).abs().amax(-1)
+    check(bool((rerr <= exp["row_tol"]).all())
+          and bool(torch.isfinite(y).all()),
+          f"{what}: row errors {rerr.tolist()} over "
+          f"{exp['row_tol'].tolist()}")
+    rec = {"max_abs_err": rerr.max().item(), "tol": exp["tol"],
+           "row_tol_max": exp["row_tol"].max().item(),
+           "ln_flip_candidates": exp["ln_flip_candidates"]}
+    return rec, dict(kw, bias=bias), x
+
+
+def phase_gemv_kernels(c: Ctx) -> None:
+    """The batched steps' projection alone (``decode_gemv``: the
+    tensor-core GEMV with its LayerNorm prologue and its bias, GELU or
+    residual epilogue) at each 347M projection shape, M = 8, 16 and 32, in
+    every format, against its plain version (:func:`held_gemv`), timed
+    beside its bound and the one-call yardstick ``x_bf16 @ dequantize(W,
+    bf16)`` (timed only; the port never calls it), the L2 flushed before
+    each call; then held, untimed, at the widths of ``GEMV_ODD_WIDTHS``,
+    whose split-K slices are uneven."""
+    from biogpt_tpu_torch.ops import dequantize
+    from biogpt_tpu_torch.ops.decode_kernels import (decode_gemv,
+                                                     decode_gemv_plain)
+    from biogpt_tpu_torch.tools.kernel_bounds import projection_shape
+
+    cfg, dev = c.cfg, c.dev
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    for fmt in FORMATS:
+        for name, ln, act, resid in GEMV_SHAPES:
+            d_in, d_out = projection_shape(cfg, name)
+            qt = c.rand_qt(d_in, d_out, fmt=fmt)
+            for M in (8, 16, 32):
+                held, kw, x = held_gemv(c, qt, d_in, d_out, ln, act, resid, M,
+                                        f"decode_gemv {name} M={M} {fmt}")
+                rec = {"kernel": "decode_gemv", "projection": name,
+                       "shape": f"{d_in} -> {d_out}", "m": M, "format": fmt,
+                       **held}
+
+                def lib_call():
+                    return x.to(torch.bfloat16) @ dequantize(qt,
+                                                             torch.bfloat16)
+                nbytes = (qbytes(qt) + d_out * 4 + (2 * d_in * 4 if ln else 0)
+                          + M * d_in * 4 + M * d_out * 4 * (2 if resid else 1))
+                timed(rec, lambda: decode_gemv(x, qt, **kw),
+                      lambda: decode_gemv_plain(x, qt, **kw), lib_call,
+                      nbytes, 2 * M * d_in * d_out, reps=50, plain_reps=5,
+                      flush=flush)
+                if (fmt, name, M) == ("q4_0", "fc1", 32):
+                    c.results["decode_gemv"] = rec
+                c.emit(rec)
+    del flush_buf
+    for name, d_in, d_out, ln, act, resid in GEMV_ODD_WIDTHS:
+        for fmt in FORMATS:
+            qt = c.rand_qt(d_in, d_out, fmt=fmt)
+            worst = {}
+            for M in (8, 16, 32):
+                held, _, _ = held_gemv(
+                    c, qt, d_in, d_out, ln, act, resid, M,
+                    f"decode_gemv {name} {d_in} -> {d_out} M={M} {fmt}")
+                worst[M] = held["max_abs_err"] / held["row_tol_max"]
+            print(json.dumps({"decode_gemv_odd_width": name,
+                              "shape": f"{d_in} -> {d_out}",
+                              "splits": -(-d_in // 256), "format": fmt,
+                              "err_over_row_tol_by_m": worst}), flush=True)
 
 
 # ------------------------------------ 6. the Q5_0, Q5_1 and Q8_0 kernels
@@ -1349,6 +1638,7 @@ def phase_format_kernels(c: Ctx, fmt: str) -> None:
                 rec = {"kernel": name, "layers": L, "B": 32, "past": past32,
                        "window": W, "format": fmt}
                 held_step(run, plain, f"{name} B=32 {fmt}", rec)
+                gemv_trace(run, L, f"{name} B=32 {fmt}")
                 timed(rec, run, plain, None, *cost(cfg, past32, W, wbytes))
                 keep(name, rec)
             del kc, vc, scales
@@ -1373,6 +1663,7 @@ def phase_format_kernels(c: Ctx, fmt: str) -> None:
            "format": fmt}
     held_step(run, plain, f"decode_step_fused_staged step_i={step_i} {fmt}",
               rec)
+    gemv_trace(run, L, f"staged B=32 step 7 {fmt}")
     timed(rec, run, plain, None,
           *bf16_step_cost(cfg, past, W, wbytes, step_i))
     keep("decode_step_fused_staged", rec)
@@ -1528,9 +1819,10 @@ def phase_cli(c: Ctx, path: str, smi: str) -> None:
 
 # kernels each serving path must launch: bf16 KV, int8 KV
 SERVING_KERNELS = {
-    False: ("decode_step_fused_batched", "kv_commit", "lm_head_argmax_commit",
-            "lm_head_logits_gmax_commit", "prefill_fused"),
-    True: ("decode_step_fused_batched_int8", "kv_commit_quant",
+    False: ("decode_step_fused_batched", "decode_gemv", "kv_commit",
+            "lm_head_argmax_commit", "lm_head_logits_gmax_commit",
+            "prefill_fused"),
+    True: ("decode_step_fused_batched_int8", "decode_gemv", "kv_commit_quant",
            "prefill_fused", "lm_head_argmax", "qmatmul_wide"),
 }
 
@@ -1875,15 +2167,19 @@ def phase_paged_staged_serving(c: Ctx, path: str, smi: str) -> None:
         ("lockstep bf16", {}, None, ()),
         ("lockstep int8", dict(kv_quant=True), None, ()),
         ("paged bf16", dict(paged_kv=True),
-         ("decode_step_fused_paged", "lm_head_argmax_commit", "prefill_fused"),
-         ("decode_step_fused_paged", "kv_commit", "qmatmul_wide")),
-        ("paged int8", dict(paged_kv=True, kv_quant=True),
-         ("decode_step_fused_paged_int8", "kv_commit_quant", "lm_head_argmax",
+         ("decode_step_fused_paged", "decode_gemv", "lm_head_argmax_commit",
           "prefill_fused"),
-         ("decode_step_fused_paged_int8", "kv_commit_quant", "qmatmul_wide")),
+         ("decode_step_fused_paged", "decode_gemv", "kv_commit",
+          "qmatmul_wide")),
+        ("paged int8", dict(paged_kv=True, kv_quant=True),
+         ("decode_step_fused_paged_int8", "decode_gemv", "kv_commit_quant",
+          "lm_head_argmax", "prefill_fused"),
+         ("decode_step_fused_paged_int8", "decode_gemv", "kv_commit_quant",
+          "qmatmul_wide")),
         ("staged bf16", dict(staged_kv=True),
-         ("decode_step_fused_staged", "qmatmul_wide", "prefill_fused"),
-         ("decode_step_fused_staged", "qmatmul_wide")),
+         ("decode_step_fused_staged", "decode_gemv", "qmatmul_wide",
+          "prefill_fused"),
+         ("decode_step_fused_staged", "decode_gemv", "qmatmul_wide")),
     )
     for name, flags, uniform_kernels, mixed_kernels in paths:
         kv = "int8" if flags.get("kv_quant") else "bf16"
@@ -2052,16 +2348,17 @@ def phase_format_e2e(c: Ctx, fmt: str, smi: str) -> None:
     B, V = 32, config.n_vocab
     greedy = GenerationParams(temp=0.0, stop_at_eos=False)
     routes = (
-        ("lockstep bf16", {}, {"decode_step_fused_batched", "kv_commit"}
+        ("lockstep bf16", {}, {"decode_step_fused_batched", "decode_gemv",
+                               "kv_commit"}
          | ({"lm_head_argmax_commit"} if packed else {"qmatmul_wide"})),
         ("lockstep int8", dict(kv_quant=True),
-         {"decode_step_fused_batched_int8", "kv_commit_quant"}
+         {"decode_step_fused_batched_int8", "decode_gemv", "kv_commit_quant"}
          | (argmax_tail if packed else {"qmatmul_wide"})),
         ("paged bf16", dict(paged_kv=True), {"decode_step_fused_paged",
-                                             "kv_commit"}
+                                             "decode_gemv", "kv_commit"}
          | ({"lm_head_argmax_commit"} if packed else {"qmatmul_wide"})),
         ("staged bf16", dict(staged_kv=True),
-         {"decode_step_fused_staged", "qmatmul_wide"}),
+         {"decode_step_fused_staged", "decode_gemv", "qmatmul_wide"}),
     )
     lockstep_ids = None
     for name, flags, step_kernels in routes:
@@ -2746,7 +3043,8 @@ def main() -> int:
     c = Ctx()
     phases = [(p.__name__, p) for p in (
         phase_single_kernels, phase_serving_kernels,
-        phase_refill_int8_kernels, phase_paged_staged_kernels)]
+        phase_refill_int8_kernels, phase_paged_staged_kernels,
+        phase_gemv_kernels)]
     phases += [(f"phase_format_kernels {fmt}",
                 lambda c, fmt=fmt: phase_format_kernels(c, fmt))
                for fmt in NEW_FORMATS]
@@ -2820,6 +3118,8 @@ def main() -> int:
                         "biogpt_tpu/ops/pallas_decode_tp.py:240"),
         "tp_ffn_half": ("biogpt_tpu_torch/csrc/decode_tp.cu",
                         "biogpt_tpu/ops/pallas_decode_tp.py:268"),
+        "decode_gemv": ("biogpt_tpu_torch/csrc/qgemv_mma.cuh",
+                        "biogpt_tpu/ops/pallas_decode.py:190"),
     }
     kernels = []
     for name, (src, rep) in sources.items():

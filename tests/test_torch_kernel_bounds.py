@@ -1,0 +1,88 @@
+"""The port's bounds tool (``tools/kernel_bounds.py``), which ``PERF.md``'s
+kernel table and ``chip_smoke.py`` take every kernel's bound from, and the
+spin length of ``chip_smoke.py``'s device timer (``utils/profiling.py``):
+the bytes it counts are the bytes the engines' planes hold, it has one
+row per TPU kernel of the JAX package, and the batched steps' projection
+rows add up to the step's parameters."""
+
+import re
+from pathlib import Path
+
+import ml_dtypes
+import numpy as np
+import pytest
+
+from biogpt_tpu.quant import codecs
+from biogpt_tpu.quant.layouts import pack_nibble_planes, quantize_to_planes
+
+from biogpt_tpu_torch.config import BioGptConfig
+from biogpt_tpu_torch.modelio.checkpoint import params_from_numpy
+from biogpt_tpu_torch.tools import kernel_bounds as kb
+from biogpt_tpu_torch.utils.profiling import spin_cycles
+
+QTYPES = {"q4_0": codecs.GGML_TYPE_Q4_0, "q4_1": codecs.GGML_TYPE_Q4_1,
+          "q5_0": codecs.GGML_TYPE_Q5_0, "q5_1": codecs.GGML_TYPE_Q5_1,
+          "q8_0": codecs.GGML_TYPE_Q8_0}
+OPS = Path(__file__).resolve().parent.parent / "biogpt_tpu" / "ops"
+
+
+@pytest.mark.parametrize("fmt", kb.FORMATS)
+@pytest.mark.parametrize("d_in,d_out", [(256, 384), (1024, 3072)])
+def test_q_bytes_equals_the_engines_planes(fmt, d_in, d_out):
+    """q_bytes counts the planes as the engines prepare them: packed
+    nibbles (and Q5's fifth-bit plane) or Q8_0's int8 levels, bf16 scales
+    and mins."""
+    rng = np.random.RandomState(d_in)
+    qt = pack_nibble_planes(quantize_to_planes(
+        rng.randn(d_out, d_in).astype(np.float32), QTYPES[fmt]))
+    qt = qt._replace(
+        scales=np.asarray(qt.scales).astype(ml_dtypes.bfloat16),
+        mins=(np.asarray(qt.mins).astype(ml_dtypes.bfloat16)
+              if qt.mins is not None else None))
+    t = params_from_numpy(qt, device="cpu")
+    nbytes = sum(p.numel() * p.element_size()
+                 for p in (t.levels, t.scales, t.mins) if p is not None)
+    assert kb.q_bytes(d_in, d_out, fmt) == nbytes
+
+
+def test_rows_hold_one_row_per_tpu_kernel():
+    """Rows 1-15 of PERF.md's table, each replacing a function of the JAX
+    package's ops at a line of its file; the JAX package has 15
+    ``pl.pallas_call`` sites."""
+    sites = sum(len(re.findall(r"pl\.pallas_call\(", f.read_text()))
+                for f in OPS.glob("*.py"))
+    assert sites == 15
+    recs = kb.rows()
+    assert sorted({r["row"] for r in recs}) == list(range(1, 16))
+    for r in recs:
+        path, line = r["replaces"].rsplit(":", 1)
+        src = (OPS.parent.parent / path).read_text().splitlines()
+        assert 1 <= int(line) <= len(src)
+        assert r["bound_ms"] > 0 and r["bound_by"] in ("bytes", "operations")
+
+
+@pytest.mark.parametrize("fmt", kb.FORMATS)
+@pytest.mark.parametrize("m", [8, 16, 32])
+def test_gemv_rows_sum_to_the_step(fmt, m):
+    """The four projection sub-rows' parameters are one layer's planes,
+    biases and LayerNorms (the batched step's weight bytes over L), and
+    their operations the step's projections."""
+    c = BioGptConfig()
+    recs = kb.gemv_rows(c, M=m, fmt=fmt)
+    assert [r["projection"] for r in recs] == list(kb.PROJECTIONS)
+    assert sum(r["param_bytes"] for r in recs) == kb.layer_bytes(c, fmt)
+    assert sum(r["flops"] for r in recs) == kb.layer_flops(c, m)
+    for r in recs:
+        assert r["bytes"] > r["param_bytes"] and r["bound_by"] == "bytes"
+
+
+def test_spin_covers_the_host():
+    """Four times the host's enqueue time, 0.5 ms at least, 100 ms at
+    most."""
+    rate = 1.98e6   # cycles per ms at 1980 MHz
+    assert spin_cycles(0.01, rate) == int(np.ceil(0.5 * rate))
+    assert spin_cycles(1.5, rate) == int(np.ceil(6.0 * rate))
+    assert spin_cycles(500.0, rate) == int(np.ceil(100.0 * rate))
+    assert spin_cycles(1.5, rate) / rate > 1.5   # the spin covers the host
+    with pytest.raises(ValueError):
+        spin_cycles(-1.0, rate)
