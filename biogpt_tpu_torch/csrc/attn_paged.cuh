@@ -72,8 +72,13 @@ struct TileMap {
 // by `scale`), or, EXT, from q_ext, k_ext, v_ext ((B, D) rows each, q
 // already scaled, k and v already quantized and dequantized by the caller:
 // no fake quantization here and no K/V rows out). kst/vst: this layer's
-// (B, C, D) staging; amax: (B, 2) (QUANT, not EXT).
-template <typename KT, bool QUANT, bool STAGED, bool EXT = false>
+// (B, C, D) staging; amax: (B, 2) (QUANT, not EXT), or, DEP, null. DEP:
+// launched as a programmatic dependent of the kernel that wrote qkv (the
+// B=1 chain, decode_step.cu): it waits for that kernel before reading
+// anything, and in the QUANT mode takes its slot's k and v absmax itself,
+// so no launch sits between the two.
+template <typename KT, bool QUANT, bool STAGED, bool EXT = false,
+          bool DEP = false>
 __global__ void __launch_bounds__(ATT_THREADS)
 attn_paged_kernel(const float* qkv, int D, const KT* kc, const KT* vc,
                   const float* ks, const float* vs, int S, const int* past,
@@ -91,6 +96,7 @@ attn_paged_kernel(const float* qkv, int D, const KT* kc, const KT* vc,
   __shared__ float red[ATT_THREADS / 32][DK];
   __shared__ float scratch[32];
   pdl_trigger();   // the o GEMV after it may start loading its weights
+  if (DEP) pdl_wait();
   const int h = blockIdx.x, b = blockIdx.y;
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
   constexpr int NW = ATT_THREADS / 32;
@@ -132,6 +138,15 @@ attn_paged_kernel(const float* qkv, int D, const KT* kc, const KT* vc,
   };
 
   if (ntiles > 0) load_tile(0);
+  float kmax = 0.f, vmax = 0.f;   // DEP, QUANT: the row's absmax
+  if (DEP && QUANT && !EXT) {
+    for (int c = t; c < D; c += ATT_THREADS) {
+      kmax = fmaxf(kmax, fabsf(row[D + c]));
+      vmax = fmaxf(vmax, fabsf(row[2 * D + c]));
+    }
+    kmax = block_max(kmax, scratch);
+    vmax = block_max(vmax, scratch);
+  }
   __syncthreads();
   const float q0 = q[2 * lane], q1 = q[2 * lane + 1];
   float m = -1e30f, l = 0.f, a0 = 0.f, a1 = 0.f;
@@ -231,8 +246,8 @@ attn_paged_kernel(const float* qkv, int D, const KT* kc, const KT* vc,
     if (QUANT) {
       static_cast<float*>(k_rows)[(size_t)b * D + col] = k;
       static_cast<float*>(v_rows)[(size_t)b * D + col] = v;
-      k = fake_quant(k, amax[2 * b]);
-      v = fake_quant(v, amax[2 * b + 1]);
+      k = fake_quant(k, DEP ? kmax : amax[2 * b]);
+      v = fake_quant(v, DEP ? vmax : amax[2 * b + 1]);
     } else {
       static_cast<__nv_bfloat16*>(k_rows)[(size_t)b * D + col] = __float2bfloat16(k);
       static_cast<__nv_bfloat16*>(v_rows)[(size_t)b * D + col] = __float2bfloat16(v);

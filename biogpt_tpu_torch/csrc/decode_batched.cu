@@ -259,8 +259,7 @@ extern "C" int bgt_decode_gemv(
     const float* ln_b, float eps, const uint8_t* lv, const void* sc,
     const void* mn, int offset, int bits, const float* bias, int epi,
     const float* res, float* y, float* stats, void* stream) {
-  if (d_in % (2 * QK) != 0 || d_out % MMA_COLS != 0 || epi < 0 || epi > 2
-      || mma_splits(d_in) > MMA_MAX_SPLITS
+  if (!mma_widths_ok(d_in, d_out) || epi < 0 || epi > 2
       || (epi == MMA_EPI_RESID) != (res != nullptr)
       || (ln_w == nullptr) != (ln_b == nullptr))
     return (int)cudaErrorInvalidValue;

@@ -1,10 +1,10 @@
 // Per-layer plumbing shared by the decode-step chains (decode_step.cu at
-// B=1; decode_batched.cu and decode_paged.cu over B slots) and the prefill
-// chain (prefill.cu): the head width and attention split the kernels are
-// built for, one projection's layer-stacked planes, the GEMV arguments of
-// layer l, the cache reads of the bf16 and int8 KV modes, and the batched
-// chains' layer loop around their own attention, whose projections take
-// the tensor-core GEMV of qgemv_mma.cuh.
+// B=1; decode_batched.cu and decode_paged.cu over B slots; decode_tp.cu's
+// halves) and the prefill chain (prefill.cu): the head width and attention
+// split the kernels are built for, one projection's layer-stacked planes,
+// the GEMV arguments of layer l, the cache reads of the bf16 and int8 KV
+// modes, and the batched chains' layer loop around their own attention,
+// whose projections take the tensor-core GEMV of qgemv_mma.cuh.
 #pragma once
 
 #include "qgemv.cuh"
@@ -53,9 +53,6 @@ inline GemvArgs layer_args(const Proj& p, int l, int d_in, int d_out,
   a.gpb = pick_gpb(d_in);
   return a;
 }
-
-// Partial-sum blocks along d_in of a layer GEMV.
-inline int splits_of(int d_in) { return d_in / (2 * QK) / pick_gpb(d_in); }
 
 // Two neighbouring cache elements as floats: bf16 values, or int8 levels
 // (exact in bf16, as the TPU kernel widens them before its dots).
@@ -130,15 +127,17 @@ inline BatchedStep batched_step(
 }
 
 // Layer l's projection `p` (d_in -> d_out) of the M rows x as an MmaGemv:
-// LayerNorm prologue where ln_w is set, epilogue `epi` into y.
-inline MmaGemv mma_args(const BatchedStep& s, const Proj& p, int l, int d_in,
-                        int d_out, const float* x, const float* ln_w,
-                        const float* ln_b, int epi, float* y) {
-  const GemvArgs g = layer_args(p, l, d_in, d_out, x, ln_w, ln_b, s.eps,
-                                s.offset);
+// LayerNorm prologue where ln_w is set (its statistics in `stats`),
+// epilogue `epi` with `bias` (or none) into y.
+inline MmaGemv layer_gemv(const Proj& p, int l, int d_in, int d_out,
+                          const float* x, const float* ln_w,
+                          const float* ln_b, int offset, float* stats,
+                          const float* bias, int epi, float* y) {
+  const GemvArgs g = layer_args(p, l, d_in, d_out, x, ln_w, ln_b, 0.f,
+                                offset);
   MmaGemv a;
   a.x = x;
-  a.stats = s.stats;
+  a.stats = stats;
   a.ln_w = ln_w;
   a.ln_b = ln_b;
   a.lv = g.lv;
@@ -146,12 +145,20 @@ inline MmaGemv mma_args(const BatchedStep& s, const Proj& p, int l, int d_in,
   a.mn = g.mn;
   a.d_in = d_in;
   a.d_out = d_out;
-  a.offset = s.offset;
-  a.bias = p.b + (size_t)l * d_out;
+  a.offset = offset;
+  a.bias = bias;
   a.epi = epi;
   a.res = epi == MMA_EPI_RESID ? y : nullptr;
   a.y = y;
   return a;
+}
+
+// The same for a batched step, with the layer's bias.
+inline MmaGemv mma_args(const BatchedStep& s, const Proj& p, int l, int d_in,
+                        int d_out, const float* x, const float* ln_w,
+                        const float* ln_b, int epi, float* y) {
+  return layer_gemv(p, l, d_in, d_out, x, ln_w, ln_b, s.offset, s.stats,
+                    p.b + (size_t)l * d_out, epi, y);
 }
 
 // All L layers over M rows: qkv GEMV (LayerNorm-0 prologue) + bias into

@@ -1,7 +1,8 @@
 // Skinny-M quantized GEMV for the packed 4/5-bit and the unpacked 8-bit
-// weight planes, shared by every kernel of the port (qmatmul.cu,
-// lm_head_argmax.cu, decode_step.cu, decode_batched.cu, decode_paged.cu;
-// prefill.cu shares the level fetch).
+// weight planes (qmatmul.cu, lm_head_argmax.cu), and the planes' layout,
+// level fetch and block reductions that every kernel of the port shares
+// (the tensor-core GEMVs of qgemv_mma.cuh and qgemv_b1.cuh read the same
+// planes; prefill.cu shares the level fetch).
 //
 // Weight layout (biogpt_tpu_torch/quant/layouts.py), one of three level
 // planes, the format BITS a template parameter beside HAS_MIN:

@@ -1,5 +1,7 @@
 // Tensor-core GEMV for the batched decode chains (decode_layers.cuh's
-// `batched_layers`, run by decode_batched.cu and decode_paged.cu): the
+// `batched_layers`, run by decode_batched.cu and decode_paged.cu) and the
+// tensor-parallel halves (decode_tp.cu; qgemv_b1.cuh takes its group
+// loads and fragment layout to one row with the X' numerics): the
 // layer projections of M = 8, 16 or 32 activation rows against one packed
 // 4/5-bit or unpacked 8-bit weight plane (qgemv.cuh's layouts), with the
 // numerics of pallas_decode.py::_qmm_dq, which the TPU's batched and paged
@@ -104,6 +106,14 @@ __host__ __device__ inline int mma_splits(int d_in) {
   return (groups + MMA_WARPS - 1) / MMA_WARPS;
 }
 
+// The widths the tensor-core GEMVs take: d_in a multiple of 64 up to 4096
+// (its splits one cluster), d_out a multiple of 64.
+inline bool mma_widths_ok(int d_in, int d_out) {
+  return d_in > 0 && d_in % (2 * QK) == 0
+         && mma_splits(d_in) <= MMA_MAX_SPLITS && d_out > 0
+         && d_out % MMA_COLS == 0;
+}
+
 // grid M, block THREADS: stats[m] = (mean, 1/sqrt(var + eps)) of x's row
 // m, the mean, then the mean squared deviation (the TPU kernels' `_ln`).
 // A template, so only the libraries that launch it build it.
@@ -190,6 +200,29 @@ __device__ __forceinline__ int level_at(uint64_t lo_word, uint64_t hi_word,
   return v;
 }
 
+// The uncentered levels of column t in packed rows r0 and r1 of a packed
+// format (BITS 4 or 5), r0's in the low 16 bits and r1's in the high 16:
+// w0, w1 the rows' words, f0, f1 their fifth-bit plane words, q0, q1 their
+// fifth-bit positions; `high` picks the level row d_in/2 + k over k.
+template <int BITS>
+__device__ __forceinline__ uint32_t packed_pair(uint64_t w0, uint64_t w1,
+                                                uint64_t f0, uint64_t f1,
+                                                int q0, int q1, bool high,
+                                                int t) {
+  const int b = t & 3;
+  const uint32_t sel = b | (b << 4) | ((4 + b) << 8) | ((4 + b) << 12);
+  const uint32_t p = __byte_perm((uint32_t)(t < 4 ? w0 : w0 >> 32),
+                                 (uint32_t)(t < 4 ? w1 : w1 >> 32), sel);
+  uint32_t v = (high ? p >> 4 : p) & 0x000F000Fu;
+  if (BITS == 5) {
+    const uint32_t f = __byte_perm((uint32_t)(t < 4 ? f0 : f0 >> 32),
+                                   (uint32_t)(t < 4 ? f1 : f1 >> 32), sel);
+    const int qa = high ? q0 + 4 : q0, qb = high ? q1 + 4 : q1;
+    v |= (((f >> qa) & 1u) << 4) | (((f >> (16 + qb)) & 1u) << 20);
+  }
+  return v;
+}
+
 // The bf16 weights of column t in packed rows r0 and r1 (a B-fragment
 // register, r0's in the low half): w0, w1 the rows' words, f0, f1 their
 // fifth-bit plane (Q5) or high-row (Q8_0) words, q0, q1 their fifth-bit
@@ -216,19 +249,75 @@ __device__ __forceinline__ uint32_t weight_pair(uint64_t w0, uint64_t w1,
                                   (float)level_at<8>(w1, f1, 0, high, t));
     return bf162_bits(__hmul2(bf162_of(v), bf162_of(s2)));
   }
-  const int b = t & 3;
-  const uint32_t sel = b | (b << 4) | ((4 + b) << 8) | ((4 + b) << 12);
-  const uint32_t p = __byte_perm((uint32_t)(t < 4 ? w0 : w0 >> 32),
-                                 (uint32_t)(t < 4 ? w1 : w1 >> 32), sel);
-  uint32_t v = (high ? p >> 4 : p) & 0x000F000Fu;
-  if (BITS == 5) {
-    const uint32_t f = __byte_perm((uint32_t)(t < 4 ? f0 : f0 >> 32),
-                                   (uint32_t)(t < 4 ? f1 : f1 >> 32), sel);
-    const int qa = high ? q0 + 4 : q0, qb = high ? q1 + 4 : q1;
-    v |= (((f >> qa) & 1u) << 4) | (((f >> (16 + qb)) & 1u) << 20);
-  }
+  const uint32_t v = packed_pair<BITS>(w0, w1, f0, f1, q0, q1, high, t);
   const __nv_bfloat162 lv = __hsub2(bf162_of(v | 0x43004300u), bf162_of(off2));
   return bf162_bits(__hmul2(lv, bf162_of(s2)));
+}
+
+// One warp's packed group grp of a 64-column tile at n0 in flight (16-byte
+// cp.async, one commit): R level byte rows of 64 bytes into lvs (rows
+// < 32: packed rows k0 + r, or Q8_0's low level rows; rows >= 32: the
+// fifth-bit plane rows of packed rows k0 + r - 32, or Q8_0's high level
+// rows; R = 32 for BITS 4, else 64), then into scs the scale (and min)
+// rows of level blocks grp and grp + d_in/64: scales low, high, then mins
+// low, high, 64 bf16 each.
+template <int BITS, bool HAS_MIN>
+__device__ __forceinline__ void issue_group(const uint8_t* lv,
+                                            const __nv_bfloat16* sc,
+                                            const __nv_bfloat16* mn,
+                                            int d_in, int d_out, int n0,
+                                            int grp, const FifthBit& fb,
+                                            uint8_t* lvs, __nv_bfloat16* scs,
+                                            int lane) {
+  constexpr int R = BITS == 4 ? QK : 2 * QK;
+  const int groups = d_in / (2 * QK), half = d_in / 2, k0 = grp * QK;
+  for (int i = lane; i < R * 4; i += 32) {
+    const int r = i >> 2, c = (i & 3) * 16;
+    size_t row;
+    if (r < QK) {
+      row = (size_t)k0 + r;
+    } else if (BITS == 8) {
+      row = (size_t)half + k0 + r - QK;
+    } else {
+      int j, q;
+      fb.at(r - QK, j, q);
+      row = (size_t)half + j;
+    }
+    cp_async16(lvs + r * MMA_LROW + c, lv + row * d_out + n0 + c);
+  }
+  for (int i = lane; i < (HAS_MIN ? 4 : 2) * 8; i += 32) {
+    const int r = i >> 3, c = (i & 7) * 8;
+    const __nv_bfloat16* src = (r >= 2 ? mn : sc)
+                               + (size_t)(grp + (r & 1) * groups) * d_out
+                               + n0 + c;
+    cp_async16(scs + r * MMA_COLS + c, src);
+  }
+  cp_async_commit();
+}
+
+// Lane (g, tg)'s words of a group issued by issue_group: wlo[c][e] the 8
+// columns 8g.. of packed row r = 16c + 2tg + (e & 1) + 8 (e >> 1) (Q8_0:
+// its low level row), whi[c][e] its fifth-bit plane row (Q8_0: its high
+// level row), q5[c][e] its fifth-bit position.
+template <int BITS>
+__device__ __forceinline__ void group_words(const uint8_t* lvs,
+                                            const FifthBit& fb, int g, int tg,
+                                            uint64_t (&wlo)[2][4],
+                                            uint64_t (&whi)[2][4],
+                                            int (&q5)[2][4]) {
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = 16 * c + 2 * tg + (e & 1) + 8 * (e >> 1);
+      wlo[c][e] = *reinterpret_cast<const uint64_t*>(lvs + r * MMA_LROW + 8 * g);
+      whi[c][e] = BITS == 4 ? 0ull
+                            : *reinterpret_cast<const uint64_t*>(
+                                  lvs + (QK + r) * MMA_LROW + 8 * g);
+      int j = 0, q = 0;
+      if (BITS == 5) fb.at(r, j, q);
+      q5[c][e] = q;
+    }
 }
 
 template <int M, int BITS, bool HAS_MIN>
@@ -271,35 +360,9 @@ qgemv_mma_kernel(MmaGemv a) {
   const int k0 = grp * QK;   // first packed row of the group
   const FifthBit fb(k0, a.d_in);
 
-  if (active) {
-    // 1. the group's weight bytes in flight: R rows of 64 bytes (rows
-    // < 32: packed rows k0 + r, or Q8_0's low level rows; rows >= 32: the
-    // fifth-bit plane rows of packed rows k0 + r - 32, or Q8_0's high
-    // level rows), then the scale (and min) rows of level blocks grp and
-    // grp + groups
-    for (int i = lane; i < R * 4; i += 32) {
-      const int r = i >> 2, c = (i & 3) * 16;
-      size_t row;
-      if (r < QK) {
-        row = (size_t)k0 + r;
-      } else if (BITS == 8) {
-        row = (size_t)half + k0 + r - QK;
-      } else {
-        int j, q;
-        fb.at(r - QK, j, q);
-        row = (size_t)half + j;
-      }
-      cp_async16(lvs + r * MMA_LROW + c, a.lv + row * a.d_out + n0 + c);
-    }
-    for (int i = lane; i < (HAS_MIN ? 4 : 2) * 8; i += 32) {
-      const int r = i >> 3, c = (i & 7) * 8;
-      const __nv_bfloat16* src = (r >= 2 ? a.mn : a.sc)
-                                 + (size_t)(grp + (r & 1) * groups) * a.d_out
-                                 + n0 + c;
-      cp_async16(scs + r * MMA_COLS + c, src);
-    }
-    cp_async_commit();
-  }
+  if (active)   // 1. the group's weight bytes in flight
+    issue_group<BITS, HAS_MIN>(a.lv, a.sc, a.mn, a.d_in, a.d_out, n0, grp,
+                               fb, lvs, scs, lane);
   // the weights are in flight; what follows reads the previous kernel's
   // outputs (x, the statistics, the residual) and writes this one's
   pdl_trigger();
@@ -372,19 +435,7 @@ qgemv_mma_kernel(MmaGemv a) {
       }
     uint64_t wlo[2][4], whi[2][4];   // [low chunk][e]: rows 16c + 2tg + ...
     int q5[2][4];
-#pragma unroll
-    for (int c = 0; c < 2; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = 16 * c + 2 * tg + (e & 1) + 8 * (e >> 1);
-        wlo[c][e] = *reinterpret_cast<const uint64_t*>(lvs + r * MMA_LROW + 8 * g);
-        whi[c][e] = BITS == 4 ? 0ull
-                              : *reinterpret_cast<const uint64_t*>(
-                                    lvs + (QK + r) * MMA_LROW + 8 * g);
-        int j = 0, q = 0;
-        if (BITS == 5) fb.at(r, j, q);
-        q5[c][e] = q;
-      }
+    group_words<BITS>(lvs, fb, g, tg, wlo, whi, q5);
     const uint4 s4[2] = {*reinterpret_cast<const uint4*>(scs + 8 * g),
                          *reinterpret_cast<const uint4*>(scs + MMA_COLS + 8 * g)};
     uint4 m4[2] = {make_uint4(0u, 0u, 0u, 0u), make_uint4(0u, 0u, 0u, 0u)};

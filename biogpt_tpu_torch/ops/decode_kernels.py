@@ -17,8 +17,10 @@ sums raw p), the current token enters attention fake-quantized
 quantizes them (``runtime.cache.quantize_rows``).
 
 ``layers`` are the engine-packed layer-stacked weights (fused ``qkv``,
-packed 4/5-bit or unpacked Q8_0 planes, bf16 scales). ``past`` is the host's int at B=1 and a
-(B,) integer tensor of per-slot positions on the device at B >= 2. The
+packed 4/5-bit or unpacked Q8_0 planes, bf16 scales). ``past`` is the
+host's int or a (1,) integer tensor at B=1 (on the card it is read there,
+as the JAX kernel takes a traced position), and a (B,) integer tensor of
+per-slot positions on the device at B >= 2. The
 caller commits slot b's rows at its position; attention reads slot b's
 cache rows ``< min(past[b], window)`` and the current token, never row
 ``past[b]`` itself. The two paths keep the TPU kernels' two numerics: X'
@@ -44,7 +46,9 @@ ones) and return the same tensors.
 ``decode_gemv`` is one projection of the batched steps alone: their
 tensor-core GEMV (``csrc/qgemv_mma.cuh``, the dequant-then-dot numerics of
 ``pallas_decode._qmm_dq``) with its LayerNorm prologue and its bias, GELU
-or residual epilogue.
+or residual epilogue. ``decode_gemv_b1`` is the B=1 step's projection
+alone: its M=1 GEMV (``csrc/qgemv_b1.cuh``, the X' numerics of
+``pallas_decode._qmm``) with the same prologue and epilogues.
 
 On CUDA tensors each function launches its hand-written Hopper kernels
 (``csrc/decode_step.cu``, ``csrc/decode_batched.cu``,
@@ -158,6 +162,8 @@ def decode_step_fused_plain(x0, layers: dict, k_cache, v_cache, past: int, *,
     Dk = D // H
     W = min(window, S)
     quant = _scale_planes(k_cache, k_scales, v_scales)
+    if isinstance(past, torch.Tensor):   # a (1,) position
+        past = int(past.reshape(-1)[0])
     if not 0 <= past < W:
         raise ValueError(f"past={past} outside the window {W}")
     KVB = kv_block_size or kv_block(W, D)
@@ -394,20 +400,38 @@ def kv_commit_quant_plain(k_cache, v_cache, ks, vs, kq_t, vq_t, ksc_t, vsc_t,
 GEMV_ACTS = ("none", "gelu")
 
 
-def decode_gemv_plain(x, qt: QuantizedTensor, bias=None, *, ln_w=None,
-                      ln_b=None, ln_eps: float = 1e-5, act: str = "none",
-                      residual=None):
-    """Plain version of :func:`decode_gemv`: the batched steps' projection
-    (``_lockstep_plain``): LayerNorm (``layer_norm_bf16``) where ``ln_w``
-    is given, the dequant-then-dot product (``qmatmul_wide_plain``), then
-    ``(residual + y) + bias``, or ``y + bias`` and exact-erf GELU."""
+def _projection_plain(product, x, qt, bias, ln_w, ln_b, ln_eps, act,
+                      residual):
+    """A decode step's projection: LayerNorm (``layer_norm_bf16``) where
+    ``ln_w`` is given, ``product(h, qt)``, then ``(residual + y) + bias``,
+    or ``y + bias`` and exact-erf GELU."""
     h = x if ln_w is None else layer_norm_bf16(x, ln_w, ln_b, ln_eps)
-    y = qmatmul_wide_plain(h, qt)
+    y = product(h, qt)
     b = 0.0 if bias is None else bias.to(torch.float32)
     if residual is not None:
         return (residual.to(torch.float32) + y) + b
     y = y + b
     return torch.nn.functional.gelu(y) if act == "gelu" else y
+
+
+def decode_gemv_plain(x, qt: QuantizedTensor, bias=None, *, ln_w=None,
+                      ln_b=None, ln_eps: float = 1e-5, act: str = "none",
+                      residual=None):
+    """Plain version of :func:`decode_gemv`: the batched steps' projection
+    (``_lockstep_plain``) with the dequant-then-dot product
+    (``qmatmul_wide_plain``)."""
+    return _projection_plain(qmatmul_wide_plain, x, qt, bias, ln_w, ln_b,
+                             ln_eps, act, residual)
+
+
+def decode_gemv_b1_plain(x, qt: QuantizedTensor, bias=None, *, ln_w=None,
+                         ln_b=None, ln_eps: float = 1e-5, act: str = "none",
+                         residual=None):
+    """Plain version of :func:`decode_gemv_b1`: the B=1 step's projection
+    (:func:`decode_step_fused_plain`) with the X' product
+    (``qmatmul_plain``)."""
+    return _projection_plain(qmatmul_plain, x, qt, bias, ln_w, ln_b, ln_eps,
+                             act, residual)
 
 
 # --------------------------------------------------------------- wrappers
@@ -489,7 +513,8 @@ def _kernel_rows(B: int) -> int:
 
 
 def _check_gemv_width(layers: dict, what: str) -> None:
-    """The batched chains' tensor-core GEMV takes d_in <= 4096."""
+    """The tensor-core GEMVs (the batched chains' and the B=1 step's) take
+    d_in <= 4096: their split-K blocks form one cluster of <= 16."""
     if max(layers[n]["w"].d_in for n in ("qkv", "fc2")) > _MMA_MAX_D_IN:
         raise NotImplementedError(
             f"{what}: the tensor-core GEMV takes d_in <= {_MMA_MAX_D_IN}")
@@ -501,48 +526,49 @@ def _gemv_scratch(M: int, dev) -> tuple:
     return torch.empty(M, 2, dtype=torch.float32, device=dev), ctypes.c_int(0)
 
 
-def _decode_step_b1(x0, layers, k_cache, v_cache, past: int, n_head: int,
+def _decode_step_b1(x0, layers, k_cache, v_cache, past, n_head: int,
                     window: int, ln_eps: float, k_scales, v_scales):
     what = "decode_step_fused_int8" if k_scales is not None else \
         "decode_step_fused"
     L, B, S, D = k_cache.shape
     if x0.shape[-1] != D or x0.numel() != D:
         raise ValueError(f"{what}: x0 must be (1, {D})")
-    if isinstance(past, torch.Tensor):
-        raise NotImplementedError(
-            f"{what}: the B=1 kernel takes the host's int past; per-slot "
-            "device positions need B >= 2")
-    if not 0 <= past < min(window, S):
-        raise ValueError(f"{what}: past={past} outside the window "
-                         f"{min(window, S)}")
-    offset, bits = _check_cuda_layers(layers, L, D, 1, what)
-    lib = cuda_lib.library("decode_step")
-    DK = lib.bgt_decode_head_dim()
-    if D != n_head * DK:
-        raise NotImplementedError(f"{what}: the CUDA kernel is built for "
-                                  f"head width {DK}, got {D // n_head}")
-    F = layers["fc1"]["w"].d_out
+    W = min(window, S)
     dev = x0.device
+    if not isinstance(past, torch.Tensor) and not 0 <= past < W:
+        raise ValueError(f"{what}: past={past} outside the window {W}")
+    past = _cuda_past(past, 1, dev, what)
+    offset, bits = _check_cuda_layers(layers, L, D, 1, what)
+    _check_gemv_width(layers, what)
+    if D != n_head * _CUDA_HEAD_DIM:
+        raise NotImplementedError(
+            f"{what}: the CUDA kernel is built for head width "
+            f"{_CUDA_HEAD_DIM}, got {D // n_head}")
+    kvb = kv_block(W, D)
+    if kvb > _CUDA_MAX_KVB:
+        raise ValueError(f"{what}: KV block {kvb} of window {W} exceeds "
+                         f"{_CUDA_MAX_KVB} rows")
+    F = layers["fc1"]["w"].d_out
+    lib = cuda_lib.library("decode_step")
+    f32 = dict(dtype=torch.float32, device=dev)
     x = x0.reshape(D).to(torch.float32).clone()
     row_dtype = torch.bfloat16 if k_scales is None else torch.float32
     k_rows = torch.empty(L, 1, D, dtype=row_dtype, device=dev)
     v_rows = torch.empty(L, 1, D, dtype=row_dtype, device=dev)
-    ns = max(1, -(-past // 64))
-    f32 = dict(dtype=torch.float32, device=dev)
-    part = torch.empty(lib.bgt_decode_part_size(D, F), **f32)
-    ml = torch.empty(n_head * ns * 2, **f32)
-    acc = torch.empty(n_head * ns * DK, **f32)
+    qkv = torch.empty(3 * D, **f32)
     ctx = torch.empty(D, **f32)
     ff = torch.empty(F, **f32)
+    n_gemv = ctypes.c_int(0)
     norms = _layer_norms(layers)
     err = lib.bgt_decode_step(
-        x.data_ptr(), L, D, F, n_head, S, int(past), float(ln_eps), offset,
-        bits, *[t.data_ptr() for t in norms], *_layer_planes(layers),
-        k_cache.data_ptr(), v_cache.data_ptr(), cuda_lib.ptr(k_scales),
-        cuda_lib.ptr(v_scales), k_rows.data_ptr(), v_rows.data_ptr(),
-        part.data_ptr(), ml.data_ptr(), acc.data_ptr(), ctx.data_ptr(),
-        ff.data_ptr(), cuda_lib.stream_ptr(dev))
+        x.data_ptr(), L, D, F, n_head, S, W, kvb, past.data_ptr(),
+        float(ln_eps), offset, bits, *[t.data_ptr() for t in norms],
+        *_layer_planes(layers), k_cache.data_ptr(), v_cache.data_ptr(),
+        cuda_lib.ptr(k_scales), cuda_lib.ptr(v_scales), k_rows.data_ptr(),
+        v_rows.data_ptr(), qkv.data_ptr(), ctx.data_ptr(), ff.data_ptr(),
+        ctypes.addressof(n_gemv), cuda_lib.stream_ptr(dev))
     cuda_lib.LAUNCHES[what] += 1
+    cuda_lib.LAUNCHES["decode_gemv_b1"] += n_gemv.value
     cuda_lib.check(err, what)
     return x.reshape(1, D), k_rows, v_rows
 
@@ -674,8 +700,9 @@ def decode_step_fused(x0, layers: dict, k_cache, v_cache, past, *,
                       k_stage=None, v_stage=None, step_i=None,
                       kv_groups: int | None = None):
     """One decode step over all layers (see the module docstring).
-    ``past``: the host's int at B=1, a (B,) integer tensor of per-slot
-    positions at B >= 2 (and for the paged and staged steps at every B).
+    ``past``: the host's int or a (1,) integer tensor at B=1, a (B,)
+    integer tensor of per-slot positions at B >= 2 (and for the paged and
+    staged steps at every B).
     ``window`` (a host int, >= the live positions + 1) bounds the rows
     attention reads and sizes the KV blocks. ``k_scales``/``v_scales``: the
     int8 mode's (L, B, 1, S) f32 scale planes; the rows then leave in f32.
@@ -790,6 +817,38 @@ def kv_commit_quant(k_cache, v_cache, ks, vs, kq_t, vq_t, ksc_t, vsc_t, past):
     return k_cache, v_cache, ks, vs
 
 
+def _check_epilogue(what: str, act: str, residual, ln_w, ln_b) -> None:
+    if act not in GEMV_ACTS or (residual is not None and act != "none"):
+        raise ValueError(f"{what}: act {act!r} with residual="
+                         f"{residual is not None}")
+    if (ln_w is None) != (ln_b is None):
+        raise ValueError(f"{what}: ln_w and ln_b go together")
+
+
+def _cuda_vec(t, n: int, name: str, what: str):
+    """``t`` as a contiguous (n,) f32 CUDA vector, or None."""
+    if t is None:
+        return None
+    if not t.is_cuda or t.numel() != n:
+        raise ValueError(f"{what}: {name} must be a ({n},) CUDA tensor")
+    return t.reshape(n).to(torch.float32).contiguous()
+
+
+def _gemv_operands(what: str, qt: QuantizedTensor, bias, ln_w, ln_b) -> tuple:
+    """Check a projection's planes for the tensor-core GEMVs (d_in a
+    multiple of 64 up to 4096, d_out of 64) -> (level format, bias, ln_w,
+    ln_b as contiguous f32 CUDA vectors or None)."""
+    bits = check_cuda_levels(qt, (), what)
+    d_in, d_out = qt.d_in, qt.d_out
+    if d_out % _MMA_COLS or d_in % (2 * QK) or d_in > _MMA_MAX_D_IN:
+        raise ValueError(f"{what}: d_in {d_in} (a multiple of 64 up to "
+                         f"{_MMA_MAX_D_IN}) and d_out {d_out} (of "
+                         f"{_MMA_COLS}) unsupported")
+    return (bits, _cuda_vec(bias, d_out, "bias", what),
+            _cuda_vec(ln_w, d_in, "ln_w", what),
+            _cuda_vec(ln_b, d_in, "ln_b", what))
+
+
 def decode_gemv(x, qt: QuantizedTensor, bias=None, *, ln_w=None, ln_b=None,
                 ln_eps: float = 1e-5, act: str = "none", residual=None):
     """One projection of the batched decode steps alone: ``x`` (M, d_in)
@@ -799,37 +858,20 @@ def decode_gemv(x, qt: QuantizedTensor, bias=None, *, ln_w=None, ln_b=None,
     ``act="gelu"``, exact-erf GELU -> (M, d_out) f32. ``bias`` may be None.
     On CUDA tensors it launches the steps' tensor-core GEMV
     (``csrc/qgemv_mma.cuh``) at 8, 16 or 32 rows."""
-    if act not in GEMV_ACTS or (residual is not None and act != "none"):
-        raise ValueError(f"decode_gemv: act {act!r} with residual="
-                         f"{residual is not None}")
-    if (ln_w is None) != (ln_b is None):
-        raise ValueError("decode_gemv: ln_w and ln_b go together")
+    what = "decode_gemv"
+    _check_epilogue(what, act, residual, ln_w, ln_b)
     if not x.is_cuda:
         return decode_gemv_plain(x, qt, bias, ln_w=ln_w, ln_b=ln_b,
                                  ln_eps=ln_eps, act=act, residual=residual)
-    what = "decode_gemv"
-    bits = check_cuda_levels(qt, (), what)
+    bits, bias, ln_w, ln_b = _gemv_operands(what, qt, bias, ln_w, ln_b)
     d_in, d_out = qt.d_in, qt.d_out
     if x.dim() != 2 or x.shape[1] != d_in or not 1 <= x.shape[0] <= MAX_BATCH:
         raise ValueError(f"{what}: x must be (M <= {MAX_BATCH}, {d_in}), got "
                          f"{tuple(x.shape)}")
-    if d_out % _MMA_COLS or d_in % (2 * QK) or d_in > _MMA_MAX_D_IN:
-        raise ValueError(f"{what}: d_in {d_in} (a multiple of 64 up to "
-                         f"{_MMA_MAX_D_IN}) and d_out {d_out} (of "
-                         f"{_MMA_COLS}) unsupported")
     rows = x.shape[0]
     M = _kernel_rows(rows)
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
-
-    def vec(t, n, name):
-        if t is None:
-            return None
-        if not t.is_cuda or t.numel() != n:
-            raise ValueError(f"{what}: {name} must be a ({n},) CUDA tensor")
-        return t.reshape(n).to(torch.float32).contiguous()
-    bias, ln_w, ln_b = (vec(bias, d_out, "bias"), vec(ln_w, d_in, "ln_w"),
-                        vec(ln_b, d_in, "ln_b"))
     xk = torch.zeros(M, d_in, **f32)
     xk[:rows] = x
     y = torch.zeros(M, d_out, **f32)
@@ -849,3 +891,39 @@ def decode_gemv(x, qt: QuantizedTensor, bias=None, *, ln_w=None, ln_b=None,
     cuda_lib.LAUNCHES[what] += 1
     cuda_lib.check(err, what)
     return y[:rows]
+
+
+def decode_gemv_b1(x, qt: QuantizedTensor, bias=None, *, ln_w=None,
+                   ln_b=None, ln_eps: float = 1e-5, act: str = "none",
+                   residual=None):
+    """One projection of the B=1 decode step alone: ``x`` (1, d_in) f32,
+    LayerNorm'd first where ``ln_w``/``ln_b`` are given, times the planes
+    ``qt`` in the X' numerics of ``pallas_decode._qmm`` (per-block f32
+    partials of the uncentered levels, then offset, scale and min), then
+    ``(residual + y) + bias`` where ``residual`` (1, d_out) is given, else
+    ``y + bias`` and, with ``act="gelu"``, exact-erf GELU -> (1, d_out)
+    f32. ``bias`` may be None. On CUDA tensors it launches the step's M=1
+    GEMV (``csrc/qgemv_b1.cuh``)."""
+    what = "decode_gemv_b1"
+    _check_epilogue(what, act, residual, ln_w, ln_b)
+    if not x.is_cuda:
+        return decode_gemv_b1_plain(x, qt, bias, ln_w=ln_w, ln_b=ln_b,
+                                    ln_eps=ln_eps, act=act, residual=residual)
+    bits, bias, ln_w, ln_b = _gemv_operands(what, qt, bias, ln_w, ln_b)
+    d_in, d_out = qt.d_in, qt.d_out
+    if x.numel() != d_in or x.shape[-1] != d_in:
+        raise ValueError(f"{what}: x must be (1, {d_in}), got "
+                         f"{tuple(x.shape)}")
+    dev = x.device
+    res = _cuda_vec(residual, d_out, "residual", what)
+    xk = x.reshape(d_in).to(torch.float32).contiguous()
+    y = torch.empty(d_out, dtype=torch.float32, device=dev)
+    err = cuda_lib.library("decode_step").bgt_decode_gemv_b1(
+        xk.data_ptr(), d_in, d_out, cuda_lib.ptr(ln_w), cuda_lib.ptr(ln_b),
+        float(ln_eps), qt.levels.data_ptr(), qt.scales.data_ptr(),
+        cuda_lib.ptr(qt.mins), _offset(qt), bits, cuda_lib.ptr(bias),
+        2 if residual is not None else GEMV_ACTS.index(act), cuda_lib.ptr(res),
+        y.data_ptr(), cuda_lib.stream_ptr(dev))
+    cuda_lib.LAUNCHES[what] += 1
+    cuda_lib.check(err, what)
+    return y.reshape(1, d_out)

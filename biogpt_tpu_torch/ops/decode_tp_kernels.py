@@ -51,8 +51,8 @@ from ..quant.codecs import QK
 from ..quant.layouts import QuantizedTensor
 from . import cuda_lib
 from .decode_kernels import (MAX_BATCH, _CHUNK, _CUDA_HEAD_DIM, _CUDA_MAX_KVB,
-                             _check_cuda_caches, _cuda_past, _softmax_block,
-                             kv_block)
+                             _MMA_MAX_D_IN, _check_cuda_caches, _cuda_past,
+                             _softmax_block, kv_block)
 from .qmatmul_kernels import (LANES, _offset, check_cuda_levels,
                               layer_norm_bf16, qmatmul_wide_plain)
 
@@ -62,7 +62,9 @@ def supports_layers_tp(layers: dict, tp: int, batch: int) -> bool:
     (``pallas_decode_tp.supports_layers_tp``): 1 <= batch <= 32, a fused
     qkv, every projection quantized in one format, and the LOCAL widths
     lane aligned (column-parallel qkv and fc1 shard d_out, row-parallel o
-    and fc2 shard d_in)."""
+    and fc2 shard d_in). The halves' tensor-core GEMV also takes a local
+    d_in of at most 4096 (its split-K blocks form one cluster of <= 16),
+    which the TPU gate does not ask."""
     if not 1 <= batch <= MAX_BATCH or tp < 1:
         return False
     if "qkv" not in layers:
@@ -88,6 +90,8 @@ def supports_layers_tp(layers: dict, tp: int, batch: int) -> bool:
         if d_out % LANES or (w.packed and d_in % (2 * QK)):
             return False
         if d_in > _CHUNK and d_in % _CHUNK:
+            return False
+        if d_in > _MMA_MAX_D_IN:
             return False
     return True
 
@@ -223,11 +227,9 @@ def _padded(x, M: int, what: str):
     return out
 
 
-def _part(lib, layers: dict, M: int, dev) -> torch.Tensor:
-    """GEMV partial-sum scratch for any half of these layer shards."""
-    qw, fw = layers["qkv"]["w"], layers["fc1"]["w"]
-    n = lib.bgt_tp_part_size(qw.d_in, qw.d_out // 3, fw.d_out, M)
-    return torch.empty(n, dtype=torch.float32, device=dev)
+def _stats(M: int, dev) -> torch.Tensor:
+    """The GEMVs' LayerNorm statistics scratch, (M, 2) f32."""
+    return torch.empty(M, 2, dtype=torch.float32, device=dev)
 
 
 def _li(li: int, L: int, what: str) -> int:
@@ -255,14 +257,14 @@ def tp_qkv_half(x, layers: dict, li: int, *, ln_eps: float = 1e-5):
     lib = cuda_lib.library("decode_tp")
     xp = _padded(x, M, what)
     f32 = dict(dtype=torch.float32, device=x.device)
-    part = _part(lib, layers, M, x.device)
+    stats = _stats(M, x.device)
     qkv = torch.empty(M, 3 * Dl, **f32)
     amax = torch.empty(B, 2, **f32)
     ln = _norm(layers, "ln0")
     err = lib.bgt_tp_qkv(
         xp.data_ptr(), L, li, D, Dl, B, M, float(ln_eps), offset, bits,
         *[t.data_ptr() for t in ln], *_planes(qw),
-        layers["qkv"]["b"].data_ptr(), part.data_ptr(), qkv.data_ptr(),
+        layers["qkv"]["b"].data_ptr(), stats.data_ptr(), qkv.data_ptr(),
         amax.data_ptr(), cuda_lib.stream_ptr(x.device))
     cuda_lib.LAUNCHES[what] += 1
     cuda_lib.check(err, what)
@@ -306,7 +308,7 @@ def tp_attn_half(x, layers: dict, li: int, k_cache, v_cache, past, *,
     past = _cuda_past(past, B, dev, what)
     lib = cuda_lib.library("decode_tp")
     f32 = dict(dtype=torch.float32, device=dev)
-    part = _part(lib, layers, M, dev)
+    stats = _stats(M, dev)
     ctx = torch.zeros(M, Dl, **f32)
     out = torch.empty(M, D, **f32)
     ext = [None] * 3
@@ -332,7 +334,7 @@ def tp_attn_half(x, layers: dict, li: int, k_cache, v_cache, past, *,
         layers["qkv"]["b"].data_ptr(), *_planes(ow), k_cache.data_ptr(),
         v_cache.data_ptr(), cuda_lib.ptr(k_scales), cuda_lib.ptr(v_scales),
         *[cuda_lib.ptr(t) for t in ext], cuda_lib.ptr(k_row),
-        cuda_lib.ptr(v_row), part.data_ptr(), cuda_lib.ptr(qkv),
+        cuda_lib.ptr(v_row), stats.data_ptr(), cuda_lib.ptr(qkv),
         ctx.data_ptr(), out.data_ptr(), cuda_lib.stream_ptr(dev))
     cuda_lib.LAUNCHES[what] += 1
     cuda_lib.check(err, what)
@@ -358,14 +360,14 @@ def tp_ffn_half(x, layers: dict, li: int, *, ln_eps: float = 1e-5):
     lib = cuda_lib.library("decode_tp")
     xp = _padded(x, M, what)
     f32 = dict(dtype=torch.float32, device=x.device)
-    part = _part(lib, layers, M, x.device)
+    stats = _stats(M, x.device)
     ff = torch.empty(M, Fl, **f32)
     out = torch.empty(M, D, **f32)
     ln = _norm(layers, "ln1")
     err = lib.bgt_tp_ffn(
         xp.data_ptr(), L, li, D, Fl, M, float(ln_eps), offset, bits,
         *[t.data_ptr() for t in ln], *_planes(w1),
-        layers["fc1"]["b"].data_ptr(), *_planes(w2), part.data_ptr(),
+        layers["fc1"]["b"].data_ptr(), *_planes(w2), stats.data_ptr(),
         ff.data_ptr(), out.data_ptr(), cuda_lib.stream_ptr(x.device))
     cuda_lib.LAUNCHES[what] += 1
     cuda_lib.check(err, what)

@@ -10,8 +10,9 @@ BioGPT-347M; ``row`` is the kernel's number in PERF.md's table. Each line has th
 bytes it must move (each input read once, each output written once), the
 operations it does, and ``bound_ms``, the larger of bytes over the card's
 memory rate and operations over its bf16 tensor rate (published H100 SXM
-figures). Then the batched steps' four projection GEMVs alone (M = 8,
-16, 32). ``chip_smoke.py`` computes the ported kernels' bounds with the
+figures). Then the four projection GEMVs alone of the batched steps (M =
+8, 16, 32), of the B=1 step (M = 1) and of one rank's TP halves (tp 2 and
+4, M = 32). ``chip_smoke.py`` computes the ported kernels' bounds with the
 same :func:`bound` from the inputs of its own run. Needs no card.
 """
 
@@ -101,15 +102,56 @@ def gemv_cost(c: BioGptConfig, name: str, M: int, fmt: str = "q4_0"):
 def gemv_rows(c: BioGptConfig = BioGptConfig(), M: int = 32,
               fmt: str = "q4_0") -> list:
     """The four projection sub-rows of the batched steps (PERF.md's rows 7,
-    8, 9, 14 and 15) at M rows."""
+    8, 9, 14 and 15) at M rows or, at M = 1, of the B=1 step (rows 6 and
+    9 at B=1: ``decode_gemv_b1``, the same bytes and operations)."""
     recs = []
     for name in PROJECTIONS:
         nbytes, flops, params = gemv_cost(c, name, M, fmt)
         ms, by = bound(nbytes, flops)
         d_in, d_out = projection_shape(c, name)
-        recs.append({"kernel": "decode_gemv", "projection": name,
+        recs.append({"kernel": "decode_gemv_b1" if M == 1 else "decode_gemv",
+                     "projection": name, "shape": f"{d_in} -> {d_out}",
+                     "m": M, "format": fmt, "bytes": nbytes,
+                     "param_bytes": params, "flops": flops, "bound_ms": ms,
+                     "bound_by": by})
+    return recs
+
+
+def tp_gemv_cost(c: BioGptConfig, name: str, tp: int, M: int,
+                 fmt: str = "q4_0"):
+    """(bytes, operations, plane bytes) of one rank's projection ``name``
+    in a TP half (``csrc/decode_tp.cu``) on M rows: qkv and fc1 at d_out /
+    tp with their LayerNorm and their bias shard; o and fc2 at d_in / tp,
+    the partial sum alone (bias and residual are added after the
+    all-reduce); x in, y out, f32."""
+    d_in, d_out = projection_shape(c, name)
+    if name in ("qkv", "fc1"):
+        d_out //= tp
+        extra = d_out * 4 + 2 * d_in * 4
+    else:
+        d_in //= tp
+        extra = 0
+    planes = q_bytes(d_in, d_out, fmt)
+    return (planes + extra + M * d_in * 4 + M * d_out * 4,
+            2 * M * d_in * d_out, planes)
+
+
+def tp_gemv_rows(c: BioGptConfig = BioGptConfig(), tp: int = 4, M: int = 32,
+                 fmt: str = "q4_0") -> list:
+    """The four projection sub-rows of one rank's TP halves (PERF.md's row
+    13) at tp ranks and M rows."""
+    recs = []
+    for name in PROJECTIONS:
+        nbytes, flops, planes = tp_gemv_cost(c, name, tp, M, fmt)
+        ms, by = bound(nbytes, flops)
+        d_in, d_out = projection_shape(c, name)
+        if name in ("qkv", "fc1"):
+            d_out //= tp
+        else:
+            d_in //= tp
+        recs.append({"kernel": "tp_gemv", "projection": name, "tp": tp,
                      "shape": f"{d_in} -> {d_out}", "m": M, "format": fmt,
-                     "bytes": nbytes, "param_bytes": params, "flops": flops,
+                     "bytes": nbytes, "plane_bytes": planes, "flops": flops,
                      "bound_ms": ms, "bound_by": by})
     return recs
 
@@ -147,11 +189,12 @@ def bf16_step_cost(c: BioGptConfig, past: list, window: int, wbytes: int,
 def int8_step_cost(c: BioGptConfig, past: list, window: int, wbytes: int):
     """(bytes, operations) of the int8-KV ``decode_step_fused`` at B =
     len(past): the planes once, each slot's live level rows and their f32
-    scales, the new rows out in f32, x in and out (and the B>1 positions)."""
+    scales, the new rows out in f32, x in and out and the positions (on
+    the card at every B)."""
     D, L, B = c.d_model, c.n_layer, len(past)
     live = sum(min(p, window) for p in past)
     return (wbytes + 2 * L * live * (D + 4) + 2 * L * B * D * 4
-            + 2 * B * D * 4 + (B * 4 if B > 1 else 0),
+            + 2 * B * D * 4 + B * 4,
             L * (layer_flops(c, B) + 4 * live * D))
 
 
@@ -223,8 +266,7 @@ def rows(c: BioGptConfig = BioGptConfig(), fmt: str = "q4_0") -> list:
          lm + B * D * 4 + 2 * D * 4 + B * V * 4 + B * V // 128 * 4 + commit,
          2 * B * D * V),
         ("decode_step_fused B=1", "pallas_decode.py:1016", "past=100",
-         W + 2 * L * 100 * D * 2 + 2 * L * D * 2 + 2 * D * 4,
-         L * layer_flops(c, 1) + 4 * L * 100 * D),
+         *bf16_step_cost(c, [100], 128, W)),
         ("decode_step_fused batched", "pallas_decode.py:358",
          "B=32 ragged, window 512",
          *bf16_step_cost(c, RAGGED_PAST, WINDOW, W)),
@@ -268,8 +310,11 @@ def main() -> int:
     for fmt in FORMATS:
         for rec in rows(fmt=fmt):
             print(json.dumps(rec))
-        for M in (8, 16, 32):
+        for M in (1, 8, 16, 32):
             for rec in gemv_rows(M=M, fmt=fmt):
+                print(json.dumps(rec))
+        for tp in (2, 4):
+            for rec in tp_gemv_rows(tp=tp, fmt=fmt):
                 print(json.dumps(rec))
     return 0
 

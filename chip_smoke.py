@@ -12,6 +12,10 @@ logs its seconds):
      beside its bound, the plain version's time and a one-call PyTorch
      yardstick (each a device time: a spin on the card covers the host's
      enqueue of the call, whose time is kept beside it; :func:`time_ms`);
+     the B=1 step at past 1, 100 and 900 (its position also as a (1,)
+     tensor on the card), at 100 and 900 timed and traced: 5 launches a
+     layer of its own chain and none of the chain it replaced
+     (:func:`b1_trace`);
   3. likewise every kernel of the batched serving path: the batched decode
      step at B=8 and B=32 (window 512, ragged positions, dead slots; at
      B=32 a profiler trace shows the tensor-core GEMV on all four
@@ -22,8 +26,9 @@ logs its seconds):
   4. likewise the kernels of the refill and int8 KV paths: ``prefill_fused``
      at 32x32, 8x128 and 1x512 prompts x tokens (ragged lengths; with the
      per-op refill it replaces timed beside it), the int8 decode step at
-     B=1 (past 100) and at B=8 and B=32 (window 512, ragged positions, dead
-     slots; Q4_0, and Q4_1 at B=1 and B=32), and ``kv_commit_quant``
+     B=1 (past 100 and 900, traced: 5 launches a layer) and at B=8 and
+     B=32 (window 512, ragged positions, dead slots; Q4_0, and Q4_1 at B=1
+     and B=32), and ``kv_commit_quant``
      (bit-equal, positions clamped);
   5. likewise the paged and staged steps: the paged step, bf16 and int8, at
      B=1 (past 100 and 600) and B=32 (window 512, ragged positions, dead
@@ -36,18 +41,24 @@ logs its seconds):
      every format, timed beside its bound and ``x_bf16 @ dequantize(W)``;
      every B=32 batched, paged and staged step in phases 3-6 is traced to
      launch it 4 L times and the scalar-FMA GEMV never;
+  5c. the B=1 step's projection alone (``decode_gemv_b1``, the M=1 GEMV
+     with the X' numerics, its LayerNorm computed in each block, and its
+     bias, GELU or residual epilogue) at the same four shapes in every
+     format, timed beside its bound and ``x_bf16 @ dequantize(W)``, and
+     held untimed at three uneven widths;
   6. every kernel that reads weights again in each of Q5_0, Q5_1 and
      Q8_0 (the GEMVs at every projection shape, ``lm_head_argmax`` and both
-     tails, the B=1, batched, paged and staged steps with bf16 and int8 KV,
-     ``prefill_fused``) against its plain version with the Q4 limits,
-     timed beside its bound and yardstick;
+     tails, the B=1 (past 100 and 900), batched, paged and staged steps
+     with bf16 and int8 KV, ``prefill_fused``) against its plain version
+     with the Q4 limits, timed beside its bound and yardstick;
   7. the tensor-parallel decode step's halves (attention, the int8 mode's
      qkv and attention, FFN) of a random 347M model's shards at tp 2 and 4,
      in every format with bf16 and int8 KV, B=32 (window 512, ragged
      positions, dead slots): every shard's halves over 24 layers in one
      process, their partials summed in shard order, against the plain
      halves (each layer's hidden state, the final one, every shard's K/V
-     rows), each half alone and one shard's step timed beside their bounds;
+     rows), each half alone (traced: every projection on the tensor-core
+     GEMV) and one shard's step timed beside their bounds;
   8. single stream end to end: a 347M Q4_0 model file with random weights,
      the CLI greedy (prompts of <= 8, 9-32 and >= 33 tokens, 128 new
      tokens) and sampled, then the CLI ``--kv-quant`` greedy, the launch
@@ -312,6 +323,42 @@ def held_step(run, plain, what: str, rec: dict):
     return x, kr, vr
 
 
+# short spins that open each trace window (kernel_trace)
+TRACE_PAD = 8
+
+
+def kernel_trace(run) -> dict:
+    """One call of ``run`` under ``torch.profiler`` -> {kernel name:
+    [launches, device ms]}. ``TRACE_PAD`` short spins open the window: on
+    some H100 hosts, after a few dozen traces in one process, the tracer
+    lost the records of a window's first one to three kernels, and once
+    in a while a whole window: the spins take the first losses, and the
+    checks take a short trace again."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRACE_PAD):
+            torch.cuda._sleep(1000)
+        run()
+        torch.cuda.synchronize()
+    names = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            n = names.setdefault(ev.name, [0, 0.0])
+            n[0] += 1
+            n[1] += ev.time_range.elapsed_us() / 1e3
+    return names
+
+
+def launches_of(names: dict, kernel: str) -> int:
+    return sum(v[0] for k, v in names.items() if kernel in k)
+
+
+def span_ms(names: dict, kernel: str) -> float:
+    return sum(v[1] for k, v in names.items() if kernel in k)
+
+
 ATTN_KERNELS = ("attn_split_batched_kernel", "attn_combine_batched_kernel",
                 "attn_paged_kernel")
 
@@ -321,7 +368,7 @@ def trace_whole(names: dict, L: int) -> bool:
     GEMVs: the LayerNorm statistics (``row_stats_kernel``, 2 L) and the
     attention, L each of the batched split and combine kernels or of the
     paged one."""
-    count = {f: sum(v[0] for k, v in names.items() if f in k)
+    count = {f: launches_of(names, f)
              for f in ("row_stats_kernel",) + ATTN_KERNELS}
     batched = count[ATTN_KERNELS[0]] + count[ATTN_KERNELS[1]] > 0
     attn = ATTN_KERNELS[:2] if batched else ATTN_KERNELS[2:]
@@ -340,27 +387,15 @@ def gemv_trace(run, L: int, what: str) -> dict:
     (:func:`trace_whole`; it dropped 53 of 96 once in 27 traces on the
     H100): GEMV records missing from an otherwise whole trace fail at
     once. Every attempt's counts are printed."""
-    from torch.profiler import ProfilerActivity, profile
-
     from biogpt_tpu_torch.ops import cuda_lib
 
     attempts = []
     for attempt in range(3):
-        torch.cuda.synchronize()
         counted = cuda_lib.LAUNCHES["decode_gemv"]
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
+        names = kernel_trace(run)
         counted = cuda_lib.LAUNCHES["decode_gemv"] - counted
-        names = {}
-        for ev in prof.events():
-            if ev.device_type == torch.autograd.DeviceType.CUDA:
-                n = names.setdefault(ev.name, [0, 0.0])
-                n[0] += 1
-                n[1] += ev.time_range.elapsed_us() / 1e3
-        mma = sum(v[0] for k, v in names.items() if "qgemv_mma_kernel" in k)
-        old = sum(v[0] for k, v in names.items()
-                  if "qgemv_partial_kernel" in k)
+        mma = launches_of(names, "qgemv_mma_kernel")
+        old = launches_of(names, "qgemv_partial_kernel")
         whole = trace_whole(names, L)
         attempts.append({"qgemv_mma_kernel": mma, "decode_gemv_counted":
                          counted, "qgemv_partial_kernel": old,
@@ -374,6 +409,74 @@ def gemv_trace(run, L: int, what: str) -> dict:
           f"(want 0); attempts {attempts}")
     print(json.dumps({"gemv_route": what, "attempts": attempts}), flush=True)
     return names
+
+
+# the B=1 step's chain (csrc/decode_step.cu), and the kernels it must
+# never launch: the chain it replaced, and the absmax kernel (its int8
+# mode takes the absmax in the attention CTA)
+B1_CHAIN = ("qgemv_b1_kernel", "attn_paged_kernel")
+B1_NEVER = ("qgemv_partial_kernel", "partial_sum_kernel", "attn_split_kernel",
+            "attn_combine_kernel", "row_absmax_kernel")
+
+
+def b1_trace(run, L: int, what: str) -> dict:
+    """One B=1 step of ``run`` under ``torch.profiler``: 5 launches a layer
+    of its own chain, bf16 or int8 -- 4 L of the M=1 GEMV
+    (``qgemv_b1_kernel``, also by the step's own count ``decode_gemv_b1``)
+    and L of the attention CTA -- none of the old chain's kernels nor the
+    absmax kernel, and fewer launches outside the chain (the wrapper's
+    copies and fills, the trace's opening spins) than layers. A trace
+    short of the chain's records (the tracer loses records on some hosts,
+    :func:`kernel_trace`) is taken again, up to five times; the step's
+    own count of GEMV launches stands beside every attempt -> the record
+    printed (launches and device ms of each kernel)."""
+    from biogpt_tpu_torch.ops import cuda_lib
+
+    want = {"qgemv_b1_kernel": 4 * L, "attn_paged_kernel": L}
+    attempts = []
+    for _ in range(5):
+        counted = cuda_lib.LAUNCHES["decode_gemv_b1"]
+        names = kernel_trace(run)
+        counted = cuda_lib.LAUNCHES["decode_gemv_b1"] - counted
+        chain = {k: launches_of(names, k) for k in B1_CHAIN}
+        never = {k: launches_of(names, k) for k in B1_NEVER}
+        others = sum(v[0] for v in names.values()) - sum(chain.values())
+        attempts.append({"launches": chain, "counted": counted,
+                         "never": never, "outside_chain": others})
+        if chain == want:
+            break
+    per_layer = sum(chain.values()) / L
+    check(chain == want and counted == 4 * L and sum(never.values()) == 0
+          and others < L and per_layer <= 5,
+          f"{what}: B=1 chain launches {chain} (want {want}), {counted} "
+          f"GEMVs counted, {never} of the kernels it must not launch, "
+          f"{others} outside the chain; attempts {attempts}")
+    rec = {"b1_trace": what, "launches_per_layer": per_layer,
+           "launches": chain, "outside_chain": others, "attempts": attempts,
+           "span_ms": {k: span_ms(names, k) for k in B1_CHAIN},
+           "kernels": {k: v for k, v in names.items()}}
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def tp_trace(run, n_mma: int, what: str) -> None:
+    """One call of a TP half under ``torch.profiler``: its ``n_mma``
+    projections all on the tensor-core GEMV (``qgemv_mma_kernel``), the
+    scalar-FMA ``qgemv_partial_kernel`` and ``partial_sum_kernel`` never. A
+    trace short of GEMV records is taken again, up to five times."""
+    attempts = []
+    for _ in range(5):
+        names = kernel_trace(run)
+        mma = launches_of(names, "qgemv_mma_kernel")
+        old = (launches_of(names, "qgemv_partial_kernel")
+               + launches_of(names, "partial_sum_kernel"))
+        attempts.append({"qgemv_mma_kernel": mma, "old": old})
+        if mma >= n_mma or old:
+            break
+    check(mma == n_mma and old == 0,
+          f"{what}: {mma} tensor-core GEMV launches (want {n_mma}), {old} "
+          f"of the scalar GEMV; attempts {attempts}")
+    print(json.dumps({"tp_trace": what, "attempts": attempts}), flush=True)
 
 
 def kernel_ln(x, lnw, lnb, eps):
@@ -644,6 +747,7 @@ def phase_single_kernels(c: Ctx) -> None:
         qmatmul_plain, qmatmul_wide, qmatmul_wide_plain)
     from biogpt_tpu_torch.quant.layouts import QuantizedTensor
     from biogpt_tpu_torch.runtime.engine import _bucket
+    from biogpt_tpu_torch.tools.kernel_bounds import bf16_step_cost
 
     cfg, dev, V_PAD = c.cfg, c.dev, c.V_PAD
     D, F, L, H = cfg.d_model, cfg.d_ff, cfg.n_layer, cfg.n_head
@@ -690,13 +794,15 @@ def phase_single_kernels(c: Ctx) -> None:
                         c.results[kname] = rec
                 c.emit(rec)
 
-    # decode_step_fused over 24 layers at three cache lengths
+    # decode_step_fused over 24 layers at three cache lengths; the short
+    # and the long context timed and traced (Q4_0; Q4_1 the short one),
+    # the position also given as a (1,) tensor on the card
     for mins in (False, True):
         layers, wbytes = c.rand_layers(mins)
         S = cfg.n_positions
         kc = c.randn(L, 1, S, D).to(torch.bfloat16)
         vc = c.randn(L, 1, S, D).to(torch.bfloat16)
-        for past in (1, 100, 700):
+        for past in (1, 100, 900):
             window = min(_bucket(past + 1, 128), S)
             x0 = c.randn(1, D)
             run = lambda: decode_step_fused(x0, layers, kc, vc, past, n_head=H,
@@ -704,23 +810,24 @@ def phase_single_kernels(c: Ctx) -> None:
             plain = lambda: decode_step_fused_plain(
                 x0, layers, kc, vc, past, n_head=H, window=window,
                 ln_eps=cfg.ln_eps)
-            x, kr, vr = run()
-            xp, krp, vrp = plain()
-            torch.cuda.synchronize()
             fmt = "q4_1" if mins else "q4_0"
             what = f"decode_step_fused past={past} {fmt}"
-            err = hidden_within(x, xp, what)
-            rows = max(rows_within(kr, krp, what + " k"),
-                       rows_within(vr, vrp, what + " v"))
             rec = {"kernel": "decode_step_fused", "layers": L, "past": past,
-                   "window": window, "format": fmt, "max_abs_err": err,
-                   "tol": 3e-3 * xp.abs().max().item(),
-                   "rows_err_over_tol": rows}
-            if not mins:
-                nbytes = wbytes + 2 * L * past * D * 2 + 2 * L * D * 2 + 2 * D * 4
-                flops = 2 * L * (D * 3 * D + D * D + 2 * D * F + 2 * past * D)
-                timed(rec, run, plain, None, nbytes, flops)
-                if past == 100:
+                   "window": window, "format": fmt}
+            got = held_step(run, plain, what, rec)
+            on_card = decode_step_fused(
+                x0, layers, kc, vc,
+                torch.tensor([past], dtype=torch.int32, device=dev),
+                n_head=H, window=window, ln_eps=cfg.ln_eps)
+            torch.cuda.synchronize()
+            check(all(bool(torch.equal(a, b)) for a, b in zip(got, on_card)),
+                  f"{what}: the position as a (1,) tensor on the card gives "
+                  "other results than the host's int")
+            if past > 1 and (not mins or past == 100):
+                timed(rec, run, plain, None,
+                      *bf16_step_cost(cfg, [past], window, wbytes))
+                rec["trace"] = b1_trace(run, L, what)["span_ms"]
+                if past == 100 and not mins:
                     c.results["decode_step_fused"] = rec
             c.emit(rec)
         del layers, kc, vc
@@ -1099,32 +1206,35 @@ def phase_refill_int8_kernels(c: Ctx) -> None:
             c.emit(rec)
         del layers, params
 
-    # the int8 decode step: B=1 (past 100, window 128); B=8 and B=32
-    # (window 512, ragged positions, dead slots, one slot past the window);
-    # timed on Q4_0 planes, held on Q4_1 planes too (B=1 and B=32)
+    # the int8 decode step: B=1 (past 100, window 128, and past 900,
+    # window 1024); B=8 and B=32 (window 512, ragged positions, dead slots,
+    # one slot past the window); timed on Q4_0 planes (B=1 traced), held on
+    # Q4_1 planes too (B=1 and B=32; B=1 past 100 timed)
     W = 512
     for mins in (False, True):
         layers, wbytes = c.rand_layers(mins)
         fmt = "q4_1" if mins else "q4_0"
         kc, ks = rand_int8_cache(c, L, 1, S)
         vc, vs = rand_int8_cache(c, L, 1, S)
-        past, window = 100, 128
         x0 = c.randn(1, D)
-        run = lambda: decode_step_fused(x0, layers, kc, vc, past, n_head=H,
-                                        window=window, ln_eps=cfg.ln_eps,
-                                        k_scales=ks, v_scales=vs)
-        plain = lambda: decode_step_fused_plain(
-            x0, layers, kc, vc, past, n_head=H, window=window,
-            ln_eps=cfg.ln_eps, k_scales=ks, v_scales=vs)
-        rec = {"kernel": "decode_step_fused_int8", "layers": L, "past": past,
-               "window": window, "format": fmt}
-        held_step(run, plain, f"decode_step_fused int8 B=1 past=100 {fmt}",
-                  rec)
-        if not mins:
-            timed(rec, run, plain, None,
-                  *int8_step_cost(cfg, [past], window, wbytes))
-            c.results["decode_step_fused_int8"] = rec
-        c.emit(rec)
+        for past, window in ((100, 128), (900, 1024)):
+            run = lambda: decode_step_fused(
+                x0, layers, kc, vc, past, n_head=H, window=window,
+                ln_eps=cfg.ln_eps, k_scales=ks, v_scales=vs)
+            plain = lambda: decode_step_fused_plain(
+                x0, layers, kc, vc, past, n_head=H, window=window,
+                ln_eps=cfg.ln_eps, k_scales=ks, v_scales=vs)
+            what = f"decode_step_fused int8 B=1 past={past} {fmt}"
+            rec = {"kernel": "decode_step_fused_int8", "layers": L,
+                   "past": past, "window": window, "format": fmt}
+            held_step(run, plain, what, rec)
+            if not mins or past == 100:
+                timed(rec, run, plain, None,
+                      *int8_step_cost(cfg, [past], window, wbytes))
+                rec["trace"] = b1_trace(run, L, what)["span_ms"]
+                if past == 100 and not mins:
+                    c.results["decode_step_fused_int8"] = rec
+            c.emit(rec)
         del kc, vc, ks, vs
 
         cases = ((8, ragged_past(8, dead=(2, 5), beyond=(7,))),
@@ -1315,9 +1425,23 @@ GEMV_ODD_WIDTHS = (("qkv", 768, 2304, True, "none", False),
 GELU_SLOPE = 1.1289   # the largest |GELU'(x)|
 
 
-def gemv_expect(x, qt, bias, lnw, lnb, act: str, res, eps: float) -> dict:
-    """What ``decode_gemv``'s output is held to: the plain version's, row
-    by row within f32 summation order, 1e-5 of the product's magnitude --
+def xprime_weight(qt):
+    """The weight the X' product multiplies by, in f32 and unrounded:
+    (level - offset) * scale [+ min] -> (d_in, d_out)."""
+    from biogpt_tpu_torch.ops.qmatmul_kernels import _offset, _raw_levels
+
+    w = ((_raw_levels(qt).float() - _offset(qt))
+         * qt.scales.float().repeat_interleave(32, dim=0))
+    if qt.mins is not None:
+        w = w + qt.mins.float().repeat_interleave(32, dim=0)
+    return w
+
+
+def gemv_expect(x, qt, bias, lnw, lnb, act: str, res, eps: float,
+                b1: bool = False) -> dict:
+    """What ``decode_gemv``'s (``b1``: ``decode_gemv_b1``'s) output is held
+    to: the plain version's, row by row within f32 summation order, 1e-5
+    of the product's magnitude --
     plus, with a LayerNorm prologue, for every element of the row that the
     two LayerNorms may round to different bf16 values, the gap between its
     two roundings times its weight row's largest magnitude; after GELU,
@@ -1325,12 +1449,14 @@ def gemv_expect(x, qt, bias, lnw, lnb, act: str, res, eps: float) -> dict:
     order than torch's, which moves an f32 LayerNorm value by about 1e-7
     of its row's largest magnitude: an element within 2^-19 of it (16
     times that) of a bf16 rounding boundary may round the other way."""
-    from biogpt_tpu_torch.ops.decode_kernels import decode_gemv_plain
+    from biogpt_tpu_torch.ops.decode_kernels import (decode_gemv_b1_plain,
+                                                     decode_gemv_plain)
     from biogpt_tpu_torch.ops.qmatmul_kernels import wide_weight
 
-    plain = decode_gemv_plain(x, qt, bias, ln_w=lnw, ln_b=lnb, ln_eps=eps,
-                              act=act, residual=res)
-    pre = decode_gemv_plain(x, qt, None, ln_w=lnw, ln_b=lnb, ln_eps=eps)
+    fn = decode_gemv_b1_plain if b1 else decode_gemv_plain
+    plain = fn(x, qt, bias, ln_w=lnw, ln_b=lnb, ln_eps=eps, act=act,
+               residual=res)
+    pre = fn(x, qt, None, ln_w=lnw, ln_b=lnb, ln_eps=eps)
     tol = 1e-5 * max(pre.abs().max().item(), plain.abs().max().item()) + 1e-5
     row_tol = torch.full((x.shape[0],), tol, device=x.device)
     flips = 0
@@ -1343,7 +1469,8 @@ def gemv_expect(x, qt, bias, lnw, lnb, act: str, res, eps: float) -> dict:
         gap = torch.where(lo != hi, (hi.float() - lo.float()).abs(),
                           torch.zeros_like(y))
         flips = int((lo != hi).sum())
-        row_tol = row_tol + gap @ wide_weight(qt).abs().amax(-1)
+        w = xprime_weight(qt) if b1 else wide_weight(qt)
+        row_tol = row_tol + gap @ w.abs().amax(-1)
     if act == "gelu":
         row_tol = row_tol * GELU_SLOPE
     return {"plain": plain, "tol": tol, "row_tol": row_tol,
@@ -1351,20 +1478,21 @@ def gemv_expect(x, qt, bias, lnw, lnb, act: str, res, eps: float) -> dict:
 
 
 def held_gemv(c: Ctx, qt, d_in: int, d_out: int, ln: bool, act: str,
-              resid: bool, M: int, what: str):
-    """``decode_gemv`` at M rows on random inputs against its plain version
-    (:func:`gemv_expect`) -> (record of the hold, the call's keywords, x)."""
-    from biogpt_tpu_torch.ops.decode_kernels import decode_gemv
+              resid: bool, M: int, what: str, bias: bool = True):
+    """``decode_gemv`` at M rows (``decode_gemv_b1`` at M = 1) on random
+    inputs against its plain version (:func:`gemv_expect`), with a bias or
+    (``bias=False``) none -> (record of the hold, the call's keywords, x)."""
+    from biogpt_tpu_torch.ops.decode_kernels import decode_gemv, decode_gemv_b1
 
     cfg = c.cfg
-    bias = 0.02 * c.randn(d_out)
+    bias = 0.02 * c.randn(d_out) if bias else None
     lnw, lnb = ((1 + 0.1 * c.randn(d_in), 0.1 * c.randn(d_in)) if ln
                 else (None, None))
     x = c.randn(M, d_in)
     res = c.randn(M, d_out) if resid else None
     kw = dict(ln_w=lnw, ln_b=lnb, ln_eps=cfg.ln_eps, act=act, residual=res)
-    y = decode_gemv(x, qt, bias, **kw)
-    exp = gemv_expect(x, qt, bias, lnw, lnb, act, res, cfg.ln_eps)
+    y = (decode_gemv_b1 if M == 1 else decode_gemv)(x, qt, bias, **kw)
+    exp = gemv_expect(x, qt, bias, lnw, lnb, act, res, cfg.ln_eps, M == 1)
     torch.cuda.synchronize()
     rerr = (y - exp["plain"]).abs().amax(-1)
     check(bool((rerr <= exp["row_tol"]).all())
@@ -1434,6 +1562,61 @@ def phase_gemv_kernels(c: Ctx) -> None:
                               "shape": f"{d_in} -> {d_out}",
                               "splits": -(-d_in // 256), "format": fmt,
                               "err_over_row_tol_by_m": worst}), flush=True)
+
+
+def phase_b1_gemv_kernels(c: Ctx) -> None:
+    """The B=1 step's projection alone (``decode_gemv_b1``: the M=1 GEMV
+    with the X' numerics, its LayerNorm prologue computed in each block,
+    and its bias, GELU or residual epilogue) at each 347M projection
+    shape, in every format, against its plain version (:func:`held_gemv`),
+    timed beside its bound and the one-call yardstick ``x_bf16 @
+    dequantize(W, bf16)`` (timed only; the port never calls it), the L2
+    flushed before each call; then held, untimed, at the widths of
+    ``GEMV_ODD_WIDTHS``, whose split-K slices are uneven."""
+    from biogpt_tpu_torch.ops import dequantize
+    from biogpt_tpu_torch.ops.decode_kernels import (decode_gemv_b1,
+                                                     decode_gemv_b1_plain)
+    from biogpt_tpu_torch.tools.kernel_bounds import (gemv_cost,
+                                                      projection_shape)
+
+    cfg, dev = c.cfg, c.dev
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    for fmt in FORMATS:
+        for name, ln, act, resid in GEMV_SHAPES:
+            d_in, d_out = projection_shape(cfg, name)
+            qt = c.rand_qt(d_in, d_out, fmt=fmt)
+            held, kw, x = held_gemv(c, qt, d_in, d_out, ln, act, resid, 1,
+                                    f"decode_gemv_b1 {name} {fmt}")
+            rec = {"kernel": "decode_gemv_b1", "projection": name,
+                   "shape": f"{d_in} -> {d_out}", "m": 1, "format": fmt,
+                   **held}
+
+            def lib_call():
+                return x.to(torch.bfloat16) @ dequantize(qt, torch.bfloat16)
+            nbytes, flops, _ = gemv_cost(cfg, name, 1, fmt)
+            timed(rec, lambda: decode_gemv_b1(x, qt, **kw),
+                  lambda: decode_gemv_b1_plain(x, qt, **kw), lib_call,
+                  nbytes, flops, reps=50, plain_reps=5, flush=flush)
+            if (fmt, name) == ("q4_0", "fc1"):
+                c.results["decode_gemv_b1"] = rec
+            c.emit(rec)
+    del flush_buf
+    for name, d_in, d_out, ln, act, resid in GEMV_ODD_WIDTHS:
+        for fmt in FORMATS:
+            qt = c.rand_qt(d_in, d_out, fmt=fmt)
+            held, _, _ = held_gemv(
+                c, qt, d_in, d_out, ln, act, resid, 1,
+                f"decode_gemv_b1 {name} {d_in} -> {d_out} {fmt}")
+            print(json.dumps({"decode_gemv_b1_odd_width": name,
+                              "shape": f"{d_in} -> {d_out}",
+                              "splits": -(-d_in // 256), "format": fmt,
+                              "err_over_row_tol":
+                              held["max_abs_err"] / held["row_tol_max"]}),
+                  flush=True)
 
 
 # ------------------------------------ 6. the Q5_0, Q5_1 and Q8_0 kernels
@@ -1605,22 +1788,26 @@ def phase_format_kernels(c: Ctx, fmt: str) -> None:
                 scales = {}
             x0 = c.randn(B, D)
             cost = int8_step_cost if quant else bf16_step_cost
-            if B == 1:   # the single stream at past 100, window 128
+            if B == 1:   # the single stream: past 100 (timed, traced), 900
                 name = "decode_step_fused" + sfx
-                run = lambda: decode_step_fused(
-                    x0, layers, kc, vc, 100, n_head=H, window=128,
-                    ln_eps=cfg.ln_eps, **scales)
-                plain = lambda: decode_step_fused_plain(
-                    x0, layers, kc, vc, 100, n_head=H, window=128,
-                    ln_eps=cfg.ln_eps, **scales)
-                rec = {"kernel": name, "layers": L, "past": 100,
-                       "window": 128, "format": fmt}
-                held_step(run, plain, f"{name} B=1 {fmt}", rec)
-                nbytes, flops = cost(cfg, [100], 128, wbytes)
-                if not quant:   # the B=1 positions stay on the host
-                    nbytes -= 4
-                timed(rec, run, plain, None, nbytes, flops)
-                keep(name, rec)
+                for past, window in ((100, 128), (900, 1024)):
+                    run = lambda: decode_step_fused(
+                        x0, layers, kc, vc, past, n_head=H, window=window,
+                        ln_eps=cfg.ln_eps, **scales)
+                    plain = lambda: decode_step_fused_plain(
+                        x0, layers, kc, vc, past, n_head=H, window=window,
+                        ln_eps=cfg.ln_eps, **scales)
+                    what = f"{name} B=1 past={past} {fmt}"
+                    rec = {"kernel": name, "layers": L, "past": past,
+                           "window": window, "format": fmt}
+                    held_step(run, plain, what, rec)
+                    if past == 100:
+                        timed(rec, run, plain, None,
+                              *cost(cfg, [past], window, wbytes))
+                        rec["trace"] = b1_trace(run, L, what)["span_ms"]
+                        keep(name, rec)
+                    else:
+                        c.emit(rec)
                 del kc, vc, scales
                 continue
             # B=32 ragged, window 512: batched, then paged
@@ -1766,10 +1953,15 @@ def phase_cli(c: Ctx, path: str, smi: str) -> None:
         check(rc == 0 and len(text) > 0, f"cli {argv} rc={rc}")
     launches = dict(cuda_lib.LAUNCHES)
     log(f"single-stream path launches: {launches}")
-    for k in ("qmatmul", "qmatmul_wide", "lm_head_argmax", "decode_step_fused"):
+    single = ("qmatmul", "qmatmul_wide", "lm_head_argmax",
+              "decode_step_fused", "decode_gemv_b1")
+    for k in single:
         check(launches[k] > 0, f"kernel {k} was not launched on its path")
-    count_route(c, launches, ("qmatmul", "qmatmul_wide", "lm_head_argmax",
-                              "decode_step_fused"), "q4_0")
+    check(launches["decode_gemv_b1"] == 4 * c.cfg.n_layer
+          * launches["decode_step_fused"],
+          f"single stream: {launches['decode_gemv_b1']} M=1 GEMVs for "
+          f"{launches['decode_step_fused']} steps")
+    count_route(c, launches, single, "q4_0")
 
     # the int8 KV cache: CLI --kv-quant greedy, 128 new tokens
     cuda_lib.reset_launch_counts()
@@ -1785,11 +1977,11 @@ def phase_cli(c: Ctx, path: str, smi: str) -> None:
     check(rc == 0 and len(text) > 0, f"cli {argv} rc={rc}")
     launches = dict(cuda_lib.LAUNCHES)
     log(f"single-stream int8 path launches: {launches}")
-    for k in ("decode_step_fused_int8", "lm_head_argmax"):
+    for k in ("decode_step_fused_int8", "lm_head_argmax", "decode_gemv_b1"):
         check(launches[k] > 0, f"kernel {k} was not launched on the "
               "--kv-quant path")
-    count_route(c, launches, ("decode_step_fused_int8", "lm_head_argmax"),
-                "q4_0")
+    count_route(c, launches, ("decode_step_fused_int8", "lm_head_argmax",
+                              "decode_gemv_b1"), "q4_0")
     check(launches["decode_step_fused"] == 0,
           "--kv-quant ran the bf16 decode step")
     config, _, _, params = load_params(path, device="cuda")
@@ -1807,9 +1999,13 @@ def phase_cli(c: Ctx, path: str, smi: str) -> None:
         e.generate(prompt, g)
         res = e.generate(prompt, g)
         ms = res.timings["ms_per_token"]
+        step = c.results["decode_step_fused_int8" if kv_quant
+                         else "decode_step_fused"]
         print(json.dumps({"decode_ms_per_token": ms, "tokens_per_s": 1e3 / ms,
                           "kv_cache": "int8" if kv_quant else "bf16",
                           "new_tokens": res.timings["n_new"],
+                          "step_device_ms_past_100": step["kernel_ms"],
+                          "step_host_ms_past_100": step["kernel_host_ms"],
                           "card": torch.cuda.get_device_name(0),
                           "card_stamp": smi}), flush=True)
         check(res.timings["n_new"] == 128, "greedy generation stopped early")
@@ -2315,12 +2511,14 @@ def phase_format_e2e(c: Ctx, fmt: str, smi: str) -> None:
         prompt = "the protein binds the receptor"   # 9-32 tokens
         for argv, required in (
                 (["--temp", "0"], {"qmatmul", "qmatmul_wide",
-                                   "decode_step_fused"} | argmax_tail),
+                                   "decode_step_fused", "decode_gemv_b1"}
+                 | argmax_tail),
                 (["--temp", "0.9", "-s", "1"],
-                 {"qmatmul", "qmatmul_wide", "decode_step_fused"}),
+                 {"qmatmul", "qmatmul_wide", "decode_step_fused",
+                  "decode_gemv_b1"}),
                 (["--temp", "0", "--kv-quant"],
-                 {"qmatmul", "qmatmul_wide", "decode_step_fused_int8"}
-                 | argmax_tail)):
+                 {"qmatmul", "qmatmul_wide", "decode_step_fused_int8",
+                  "decode_gemv_b1"} | argmax_tail)):
             cuda_lib.reset_launch_counts()
             out = io.StringIO()
             t0 = time.perf_counter()
@@ -2409,6 +2607,9 @@ def phase_format_e2e(c: Ctx, fmt: str, smi: str) -> None:
 # --------------------------------------- 11. tensor-parallel decode kernels
 
 TP_FORMATS = ("q4_0", "q4_1", "q5_0", "q5_1", "q8_0")
+# the projections each TP half runs on the tensor-core GEMV
+TP_HALF_GEMVS = {"tp_attn_half": 2, "tp_attn_half_int8": 1, "tp_qkv_half": 1,
+                 "tp_ffn_half": 2}
 
 
 def tp_shards(c: Ctx, tp: int, fmt: str) -> list:
@@ -2536,6 +2737,52 @@ def tp_local_widths(c: Ctx, tp: int, pt) -> None:
                       "lm_head_gemv_err_over_tol": errs}), flush=True)
 
 
+def tp_gemvs(c: Ctx, tp: int) -> None:
+    """The TP halves' four projections alone at one shard's widths
+    (``decode_gemv``, the tensor-core GEMV the halves launch) at M = 32:
+    qkv (LayerNorm, bias) and fc1 (LayerNorm, bias, GELU) at d_out / tp, o
+    and fc2 at d_in / tp with a null bias, the partial sum alone (one
+    split at d_in 256, two at 512); held in every format against the plain
+    version (:func:`held_gemv`), timed in Q4_0 beside the bound
+    (``tools/kernel_bounds.py::tp_gemv_cost``) and ``x_bf16 @
+    dequantize(W)``, the L2 flushed before each call."""
+    from biogpt_tpu_torch.ops import dequantize
+    from biogpt_tpu_torch.ops.decode_kernels import (decode_gemv,
+                                                     decode_gemv_plain)
+    from biogpt_tpu_torch.tools.kernel_bounds import (projection_shape,
+                                                      tp_gemv_cost)
+
+    cfg, M = c.cfg, 32
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=c.dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    for name, ln, act, _ in GEMV_SHAPES:
+        d_in, d_out = projection_shape(cfg, name)
+        if ln:
+            d_out //= tp
+        else:
+            d_in //= tp
+        for fmt in FORMATS:
+            qt = c.rand_qt(d_in, d_out, fmt=fmt)
+            held, kw, x = held_gemv(c, qt, d_in, d_out, ln, act, False, M,
+                                    f"TP GEMV {name} tp={tp} {fmt}",
+                                    bias=ln)
+            rec = {"tp_gemv": name, "tp": tp, "shape": f"{d_in} -> {d_out}",
+                   "m": M, "format": fmt, **held}
+            if fmt == "q4_0":
+                def lib_call():
+                    return x.to(torch.bfloat16) @ dequantize(qt,
+                                                             torch.bfloat16)
+                nbytes, flops, _ = tp_gemv_cost(cfg, name, tp, M, fmt)
+                timed(rec, lambda: decode_gemv(x, qt, **kw),
+                      lambda: decode_gemv_plain(x, qt, **kw), lib_call,
+                      nbytes, flops, reps=50, plain_reps=5, flush=flush)
+            print(json.dumps(rec), flush=True)
+    del flush_buf
+
+
 def phase_tp_kernels(c: Ctx) -> None:
     """The TP decode step's halves in one process on the card (and first
     the reused kernels at a shard's widths, :func:`tp_local_widths`): a
@@ -2554,8 +2801,9 @@ def phase_tp_kernels(c: Ctx) -> None:
     whole quantization step into x (on an H100: 1.020 of the limit at a
     dead slot, 0.37 with the rows shared). The rows, each layer and the qkv
     half stay held on each path's own quantization. Each half alone on layer
-    12 of shard 0 (:func:`hold_half`), and one shard's whole step, are
-    timed beside their bounds and the plain versions."""
+    12 of shard 0 (:func:`hold_half`; traced, :func:`tp_trace`), and one
+    shard's whole step, are timed beside their bounds and the plain
+    versions; then the halves' projections alone (:func:`tp_gemvs`)."""
     from biogpt_tpu_torch.modelio.checkpoint import tree_map
     from biogpt_tpu_torch.ops.decode_tp_kernels import (
         decode_step_tp_shards, tp_attn_half, tp_attn_half_plain, tp_ffn_half,
@@ -2689,6 +2937,8 @@ def phase_tp_kernels(c: Ctx) -> None:
                     rec = {"kernel": name, "tp": tp, "layer": li, "B": B,
                            "past": past, "window": W, "format": fmt}
                     hold_half(f"{name} tp={tp} {fmt}", run, plain, rec)
+                    tp_trace(run, TP_HALF_GEMVS[name],
+                             f"{name} tp={tp} {fmt}")
                     timed(rec, run, plain, None,
                           *tp_half_cost(cfg, half, B, live, tp, planes),
                           reps=20, plain_reps=3)
@@ -2697,6 +2947,8 @@ def phase_tp_kernels(c: Ctx) -> None:
                     c.emit(rec)
                 del shards, tk, tpl
             del layers
+    for tp in (2, 4):
+        tp_gemvs(c, tp)
 
 
 # ------------------------------- 12. tensor-parallel serving on two ranks
@@ -3044,7 +3296,7 @@ def main() -> int:
     phases = [(p.__name__, p) for p in (
         phase_single_kernels, phase_serving_kernels,
         phase_refill_int8_kernels, phase_paged_staged_kernels,
-        phase_gemv_kernels)]
+        phase_gemv_kernels, phase_b1_gemv_kernels)]
     phases += [(f"phase_format_kernels {fmt}",
                 lambda c, fmt=fmt: phase_format_kernels(c, fmt))
                for fmt in NEW_FORMATS]
@@ -3120,6 +3372,8 @@ def main() -> int:
                         "biogpt_tpu/ops/pallas_decode_tp.py:268"),
         "decode_gemv": ("biogpt_tpu_torch/csrc/qgemv_mma.cuh",
                         "biogpt_tpu/ops/pallas_decode.py:190"),
+        "decode_gemv_b1": ("biogpt_tpu_torch/csrc/qgemv_b1.cuh",
+                           "biogpt_tpu/ops/pallas_decode.py:142"),
     }
     kernels = []
     for name, (src, rep) in sources.items():

@@ -76,6 +76,47 @@ def test_gemv_rows_sum_to_the_step(fmt, m):
         assert r["bytes"] > r["param_bytes"] and r["bound_by"] == "bytes"
 
 
+@pytest.mark.parametrize("fmt", kb.FORMATS)
+def test_b1_gemv_rows_sum_to_the_step(fmt):
+    """The B=1 step's four M=1 projection sub-rows: L times their
+    parameters, with the live K/V rows, the new rows, x in and out and the
+    position, are the bytes of the step's row (past 100), and L times
+    their operations with attention's its operations."""
+    c = BioGptConfig()
+    L, D = c.n_layer, c.d_model
+    recs = kb.gemv_rows(c, M=1, fmt=fmt)
+    assert [r["kernel"] for r in recs] == ["decode_gemv_b1"] * 4
+    assert [r["projection"] for r in recs] == list(kb.PROJECTIONS)
+    step = next(r for r in kb.rows(c, fmt)
+                if r["kernel"] == "decode_step_fused B=1")
+    assert (L * sum(r["param_bytes"] for r in recs) + 2 * L * 100 * D * 2
+            + 2 * L * D * 2 + 2 * D * 4 + 4) == step["bytes"]
+    assert (L * sum(r["flops"] for r in recs) + 4 * L * 100 * D
+            == step["flops"])
+    for r in recs:
+        assert r["bytes"] > r["param_bytes"] and r["bound_by"] == "bytes"
+
+
+@pytest.mark.parametrize("fmt", kb.FORMATS)
+@pytest.mark.parametrize("tp", [2, 4])
+def test_tp_gemv_rows_sum_to_the_step(fmt, tp):
+    """One rank's four TP GEMV sub-rows: tp ranks' planes are the layer's
+    planes and their operations the layer's projections; L times one
+    rank's rows fit inside that rank's step (row 13)."""
+    c = BioGptConfig()
+    recs = kb.tp_gemv_rows(c, tp=tp, M=32, fmt=fmt)
+    assert [r["projection"] for r in recs] == list(kb.PROJECTIONS)
+    planes = sum(kb.q_bytes(*kb.projection_shape(c, n), fmt)
+                 for n in kb.PROJECTIONS)
+    assert tp * sum(r["plane_bytes"] for r in recs) == planes
+    assert tp * sum(r["flops"] for r in recs) == kb.layer_flops(c, 32)
+    step, _ = kb.tp_step_cost(c, kb.RAGGED_PAST, kb.WINDOW,
+                              c.n_layer * kb.layer_bytes(c, fmt), tp)
+    assert c.n_layer * sum(r["plane_bytes"] for r in recs) < step
+    for r in recs:
+        assert r["bytes"] > r["plane_bytes"] and r["bound_by"] == "bytes"
+
+
 def test_spin_covers_the_host():
     """Four times the host's enqueue time, 0.5 ms at least, 100 ms at
     most."""

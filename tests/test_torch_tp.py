@@ -44,6 +44,7 @@ from biogpt_tpu.parallel import make_mesh as jax_mesh
 from biogpt_tpu.parallel import tp as jtp
 from biogpt_tpu.quant import codecs
 from biogpt_tpu.quant.layouts import pack_nibble_planes as jax_pack
+from biogpt_tpu.quant.layouts import QuantizedTensor as JaxQT
 from biogpt_tpu.quant.layouts import quantize_to_planes
 from biogpt_tpu.quant.layouts import unpack_nibble_planes as jax_unpack
 from biogpt_tpu.runtime.cache import KVCache as JaxKV
@@ -197,6 +198,29 @@ def test_tp_gates_match_jax():
                               for f in dataclasses.fields(TorchConfig)})
         for tp in (0, 1, 2, 3, 4, 8, 16, 64):
             assert ttp.supports_tp(tcfg, tp) == jtp.supports_tp(cfg, tp)
+
+
+def test_tp_gate_refuses_a_local_d_in_past_4096():
+    """The halves' tensor-core GEMV takes a local d_in of at most 4096
+    (its split-K blocks form one thread block cluster of <= 16): local
+    planes with fc2's d_in 8192 pass the TPU gate and are refused here; at
+    4096 both take them."""
+    def layers(F, jax_side):
+        def planes(d_in, d_out):
+            lv = np.zeros((1, d_in // 2, d_out), np.uint8)
+            sc = np.zeros((1, d_in // 32, d_out), np.float16)
+            if jax_side:
+                return JaxQT(levels=lv, scales=sc, mins=None, qtype=Q4_0,
+                             packed=True)
+            return QuantizedTensor(levels=torch.from_numpy(lv),
+                                   scales=torch.from_numpy(sc), mins=None,
+                                   qtype=Q4_0, packed=True)
+        D = 1024
+        return {"qkv": {"w": planes(D, 3 * D)}, "o": {"w": planes(D, D)},
+                "fc1": {"w": planes(D, F)}, "fc2": {"w": planes(F, D)}}
+    for F in (4096, 8192):
+        assert jax_gate(layers(F, True), 1, 8)
+        assert supports_layers_tp(layers(F, False), 1, 8) == (F <= 4096)
 
 
 def test_mesh_and_engine_gates_raise():
