@@ -14,37 +14,51 @@
 // 1024 x 42496 lm_head (21.8 MB of Q4 levels, 27.2 MB of Q5, 43.5 MB of
 // Q8_0, and 2.7 MB of bf16 scales [+ 2.7 MB of mins]) is read once; the
 // argmax never writes logits, the sampled tail writes them once (5.4 MB at
-// M=32). The TPU kernels walked vocab tiles in order
-// carrying state in VMEM; here each of the d_out/128 blocks (332 at
-// BioGPT-347M, enough to fill the card) recomputes the LayerNorm of all M
-// rows into dynamic shared memory (M * d_in floats), computes its 128
-// logits per row over the full d_in, and then
-//   argmax: writes one (max, lowest index, any-NaN) triple per row; a
-//     second one-warp-per-row kernel folds them in column order with the
-//     TPU kernel's rules, tile by tile (T = its lane tile, 512 columns at
-//     347M): a tile holding a NaN yields (NaN, n_valid - 1) (jnp.max
-//     propagates NaN and no column then satisfies `logits >= tmax`; the id
-//     clamps); tiles fold with a strict `>` from tile 0, so ties keep the
-//     lowest index and a NaN first tile pins the result (the health
-//     lane's probe);
-//   logits+gmax: writes its 128 logits per row and their maximum -- one
-//     block is one 128-column group -- NaN-propagating as jnp.max.
-#include "qgemv.cuh"
+// M=32). The TPU kernels walked vocab tiles in order carrying state in
+// VMEM; here the columns are cut into blocks that run in any order, and
+// each block's result is folded afterwards in column order:
+//   - M = 1..8 (X' numerics): each of the d_out/128 blocks (332 at
+//     BioGPT-347M) recomputes the LayerNorm of its M rows into dynamic
+//     shared memory and runs qgemv.cuh's scalar-FMA GEMV over the full d_in
+//     for its 128 columns;
+//   - M = 16, 32 (dequant-then-dot, _qmm_dq's roundings): the LayerNorm'd
+//     rows once, in bf16 (ln_rows_kernel), then qgemv_mma.cuh's
+//     tensor-core GEMV (lm_head_mma_kernel; each warp's rows by cp.async
+//     beside its weights): 664 column tiles of 64 x 4 splits of d_in,
+//     each tile's splits one thread block cluster whose blocks sum their
+//     partials in split order through distributed shared memory; block r
+//     of a cluster owns rows [r, r + 1) * ceil(M / splits) of the tile and
+//     folds each row's 64 sums into the epilogue's result;
+// then per block of columns and row:
+//   argmax: one (max, lowest index, any-NaN) triple over its columns (pad
+//     columns at -1e30); a second one-warp-per-row kernel folds them in
+//     column order with the TPU kernel's rules, tile by tile (T = its lane
+//     tile, 512 columns at 347M): a tile holding a NaN yields (NaN,
+//     n_valid - 1) (jnp.max propagates NaN and no column then satisfies
+//     `logits >= tmax`; the id clamps); tiles fold with a strict `>` from
+//     tile 0, so ties keep the lowest index and a NaN first tile pins the
+//     result (the health lane's probe);
+//   logits+gmax: its logits and their maximum, NaN-propagating as jnp.max
+//     (at M = 16, 32 the two 64-column maxima of a 128-column group fold
+//     in a second kernel).
+#include <cooperative_groups.h>
+
+#include "qgemv_mma.cuh"
 
 using namespace bgt;
 
 namespace {
 
 // LayerNorm of all M rows into xs (dynamic shared memory), then this
-// block's 128 logits per row into logits (M, 128).
-template <int M, bool WIDE, int BITS, bool HAS_MIN>
+// block's 128 logits per row into logits (M, 128), X' numerics.
+template <int M, int BITS, bool HAS_MIN>
 __device__ __forceinline__ void lm_head_tile(const GemvArgs& a, float* xs,
                                              float* red, float* logits,
                                              float* scratch) {
   stage_x<M>(a, xs, 0, a.gpb * QK, scratch);
   __syncthreads();
   float acc[M][4];
-  gemv_accumulate<M, WIDE, BITS, HAS_MIN>(a, xs, blockIdx.x, 0, acc);
+  gemv_accumulate<M, false, BITS, HAS_MIN>(a, xs, blockIdx.x, 0, acc);
   warp_tile_reduce<M>(acc, red, logits, TILE_COLS);
   __syncthreads();
 }
@@ -63,7 +77,7 @@ __device__ __forceinline__ float block_max_nan(float v, float* wmax) {
   return any_nan ? __int_as_float(0x7fc00000) : mx;
 }
 
-template <int M, bool WIDE, int BITS, bool HAS_MIN>
+template <int M, int BITS, bool HAS_MIN>
 __global__ void __launch_bounds__(GEMV_THREADS)
 lm_head_block_kernel(GemvArgs a, int n_valid, float* bmax, int* bidx,
                      int* bnan) {
@@ -73,7 +87,7 @@ lm_head_block_kernel(GemvArgs a, int n_valid, float* bmax, int* bidx,
   __shared__ float scratch[32];
   __shared__ float wmax[GEMV_WARPS];
   __shared__ int widx[GEMV_WARPS];
-  lm_head_tile<M, WIDE, BITS, HAS_MIN>(a, xs, red, logits, scratch);
+  lm_head_tile<M, BITS, HAS_MIN>(a, xs, red, logits, scratch);
 
   const int nblk = gridDim.x;
   const int col = blockIdx.x * TILE_COLS + threadIdx.x;
@@ -103,7 +117,7 @@ lm_head_block_kernel(GemvArgs a, int n_valid, float* bmax, int* bidx,
 }
 
 // logits (M, d_out) with pad columns -1e30; gmax (M, d_out/128).
-template <int M, bool WIDE, int BITS, bool HAS_MIN>
+template <int M, int BITS, bool HAS_MIN>
 __global__ void __launch_bounds__(GEMV_THREADS)
 lm_head_logits_gmax_kernel(GemvArgs a, int n_valid, float* out,
                            float* gmax) {
@@ -112,7 +126,7 @@ lm_head_logits_gmax_kernel(GemvArgs a, int n_valid, float* out,
   __shared__ float logits[M * TILE_COLS];
   __shared__ float scratch[32];
   __shared__ float wmax[GEMV_WARPS];
-  lm_head_tile<M, WIDE, BITS, HAS_MIN>(a, xs, red, logits, scratch);
+  lm_head_tile<M, BITS, HAS_MIN>(a, xs, red, logits, scratch);
 
   const int nblk = gridDim.x;
   const int col = blockIdx.x * TILE_COLS + threadIdx.x;
@@ -169,6 +183,135 @@ __global__ void argmax_fold_kernel(const float* bmax, const int* bidx,
   }
 }
 
+// M = 16 or 32 (_qmm_dq numerics): the tensor-core GEMV of column tile
+// blockIdx.x (64 columns), split blockIdx.y of a.splits (one cluster);
+// block r owns rows [r * rows, (r + 1) * rows) of the tile, rows =
+// ceil(M / splits), sums them over the cluster's blocks in split order and
+// writes, per row and tile (index m * gridDim.x + blockIdx.x):
+//   LOGITS: the logits (pad columns -1e30) into out (M, d_out), and their
+//     NaN-propagating maximum into tmax;
+//   else: the (max over the non-NaN values, lowest column holding it, any
+//     NaN) triple into tmax, tidx, tnan -- pad columns at -1e30.
+// Lane l of warp w reads column 32 (w & 1) + l of row r0 + 2 it + (w >> 1):
+// each warp folds half a row, and the halves meet in shared memory.
+template <int M, int BITS, bool HAS_MIN, bool LOGITS>
+__global__ void __launch_bounds__(MMA_THREADS)
+lm_head_mma_kernel(MmaGemv a, int n_valid, float* out, float* tmax, int* tidx,
+                   int* tnan) {
+  __shared__ __align__(16) unsigned char smem[MmaSmem<M, BITS>::BYTES];
+  __shared__ float hmax[M][2];
+  __shared__ int hidx[M][2], hnan[M][2];
+  mma_block_sums<M, BITS, HAS_MIN, true>(a, smem);
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const float* red = reinterpret_cast<const float*>(smem);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rows = (M + a.splits - 1) / a.splits;
+  const int r0 = blockIdx.y * rows, r1 = min(M, r0 + rows);
+  const int half = warp & 1, col = 32 * half + lane;
+  const int gcol = blockIdx.x * MMA_COLS + col;
+  for (int m0 = r0; m0 < r1; m0 += 2) {
+    const int m = m0 + (warp >> 1);
+    const bool live = m < r1;   // uniform over the warp
+    float v = 0.f;
+    if (live) {
+      const float* mine = red + m * MMA_RROW + col;
+      float p[MMA_MAX_SPLITS];
+#pragma unroll
+      for (int k = 0; k < MMA_MAX_SPLITS; ++k)
+        if (k < a.splits) p[k] = *cluster.map_shared_rank(mine, k);
+#pragma unroll
+      for (int k = 0; k < MMA_MAX_SPLITS; ++k)
+        if (k < a.splits) v += p[k];
+      if (gcol >= n_valid) v = -1e30f;
+      if (LOGITS) out[(size_t)m * a.d_out + gcol] = v;
+    }
+    const int any_nan = __any_sync(0xffffffffu, live && isnan(v));
+    const float mx = warp_max(live && !isnan(v) ? v : -INFINITY);
+    int id = (live && v == mx) ? gcol : 0x7fffffff;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      id = min(id, __shfl_xor_sync(0xffffffffu, id, o));
+    if (live && lane == 0) {
+      hmax[m][half] = mx;
+      hidx[m][half] = id;
+      hnan[m][half] = any_nan;
+    }
+  }
+  __syncthreads();
+  const int m = r0 + (int)threadIdx.x;
+  if (m < r1) {
+    const float mx = fmaxf(hmax[m][0], hmax[m][1]);
+    const int any_nan = hnan[m][0] | hnan[m][1];
+    const int k = m * gridDim.x + blockIdx.x;
+    if (LOGITS) {
+      tmax[k] = any_nan ? __int_as_float(0x7fc00000) : mx;
+    } else {
+      tmax[k] = mx;
+      tidx[k] = hmax[m][0] == mx ? hidx[m][0] : hidx[m][1];
+      tnan[k] = any_nan;
+    }
+  }
+  cluster.sync();   // the other blocks read this one's sums until here
+}
+
+// gmax (M, d_out/128) from the 64-column maxima tmax (M, d_out/64),
+// NaN-propagating; grid M, block 128.
+__global__ void gmax_pair_kernel(const float* tmax, int n64, float* gmax) {
+  const float* t = tmax + (size_t)blockIdx.x * n64;
+  for (int j = threadIdx.x; j < n64 / 2; j += blockDim.x) {
+    const float a = t[2 * j], b = t[2 * j + 1];
+    gmax[(size_t)blockIdx.x * (n64 / 2) + j] =
+        isnan(a) || isnan(b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+  }
+}
+
+// Launch lm_head_mma_kernel over the d_out/64 column tiles after the
+// LayerNorm of its M rows (into a.xn, bf16). Internal linkage: this
+// library sets its own kernels' cluster attribute (qgemv_mma.cuh's
+// launch_mma_gemv).
+template <int M, bool LOGITS>
+cudaError_t launch_mma_tail(MmaGemv a, float eps, int n_valid, float* out,
+                            float* tmax, int* tidx, int* tnan, int bits,
+                            cudaStream_t st) {
+  a.splits = mma_splits(a.d_in);
+  if (!mma_widths_ok(a.d_in, a.d_out)) return cudaErrorInvalidValue;
+  launch_dependent(ln_rows_kernel<256>, dim3(M), dim3(256), 1, st, a.x,
+                   a.d_in, a.ln_w, a.ln_b, eps,
+                   const_cast<__nv_bfloat16*>(a.xn));
+  const bool ok = with_format(bits, a.mn != nullptr, [&](auto fmt) {
+    using T = decltype(fmt);
+    auto kernel = lm_head_mma_kernel<M, T::BITS, T::HAS_MIN, LOGITS>;
+    static bool wide_clusters = false;   // 16 blocks: past the portable 8
+    if (!wide_clusters) {
+      cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      wide_clusters = true;
+    }
+    launch_dependent(kernel, dim3(a.d_out / MMA_COLS, a.splits),
+                     dim3(MMA_THREADS), a.splits, st, a, n_valid, out, tmax,
+                     tidx, tnan);
+  });
+  return ok ? cudaGetLastError() : cudaErrorInvalidValue;
+}
+
+MmaGemv tail_gemv(const float* x, void* xn, const float* ln_w,
+                  const float* ln_b, const uint8_t* lv, const void* sc,
+                  const void* mn, int d_in, int d_out, int offset) {
+  MmaGemv a{};
+  a.x = x;
+  a.xn = static_cast<const __nv_bfloat16*>(xn);
+  a.ln_w = ln_w;
+  a.ln_b = ln_b;
+  a.lv = lv;
+  a.sc = static_cast<const __nv_bfloat16*>(sc);
+  a.mn = static_cast<const __nv_bfloat16*>(mn);
+  a.d_in = d_in;
+  a.d_out = d_out;
+  a.offset = offset;
+  return a;
+}
+
 // Launch `kernel` over the d_out/128 column blocks with M * d_in floats of
 // dynamic shared memory (above 48 KB only after opting in).
 template <typename Kernel, typename... Args>
@@ -184,27 +327,14 @@ cudaError_t launch_tiles(Kernel kernel, int M, const GemvArgs& a,
   return cudaGetLastError();
 }
 
-template <int M, bool WIDE>
+template <int M>
 cudaError_t launch_argmax(const GemvArgs& a, int n_valid, float* bmax,
                           int* bidx, int* bnan, cudaStream_t st) {
   cudaError_t err = cudaErrorInvalidValue;
   with_format(a.bits, a.mn != nullptr, [&](auto fmt) {
     using T = decltype(fmt);
-    err = launch_tiles(lm_head_block_kernel<M, WIDE, T::BITS, T::HAS_MIN>, M,
-                       a, st, n_valid, bmax, bidx, bnan);
-  });
-  return err;
-}
-
-template <int M, bool WIDE>
-cudaError_t launch_logits(const GemvArgs& a, int n_valid, float* out,
-                          float* gmax, cudaStream_t st) {
-  cudaError_t err = cudaErrorInvalidValue;
-  with_format(a.bits, a.mn != nullptr, [&](auto fmt) {
-    using T = decltype(fmt);
-    err = launch_tiles(
-        lm_head_logits_gmax_kernel<M, WIDE, T::BITS, T::HAS_MIN>, M, a, st,
-        n_valid, out, gmax);
+    err = launch_tiles(lm_head_block_kernel<M, T::BITS, T::HAS_MIN>, M, a,
+                       st, n_valid, bmax, bidx, bnan);
   });
   return err;
 }
@@ -233,59 +363,95 @@ GemvArgs lm_head_args(const float* x, const float* ln_w, const float* ln_b,
 
 // x (M, d_in) f32 with M in 1..8 (X' numerics) or 16 / 32 (dequant-then-
 // dot; the wrapper pads 9..32 rows with zeros); ln_w/ln_b (d_in) f32;
-// scratch bmax/bidx/bnan hold M * d_out/128 entries each; out_idx (M,)
-// i32, out_max (M,) f32; bits: the level format (4, 5 or 8).
+// scratch: bmax/bidx/bnan M * d_out/64 entries each, xn (M, d_in) bf16;
+// out_idx (M,) i32, out_max (M,) f32; bits: the level format (4, 5 or 8);
+// tile: the TPU kernel's lane tile (columns) the fold runs over.
 extern "C" int bgt_lm_head_argmax(const float* x, const float* ln_w,
                                   const float* ln_b, float eps,
                                   const uint8_t* lv, const void* sc,
                                   const void* mn, int M, int d_in, int d_out,
-                                  int offset, int bits, int n_valid,
-                                  int tile_blocks,
+                                  int offset, int bits, int n_valid, int tile,
                                   float* bmax, int* bidx, int* bnan,
-                                  int* out_idx, float* out_max, void* stream) {
+                                  void* xn, int* out_idx, float* out_max,
+                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const GemvArgs a = lm_head_args(x, ln_w, ln_b, eps, lv, sc, mn, d_in,
                                   d_out, offset, bits);
+  const MmaGemv t = tail_gemv(x, xn, ln_w, ln_b, lv, sc, mn, d_in, d_out,
+                              offset);
   cudaError_t err;
+  int block = TILE_COLS;   // columns per (max, index, NaN) triple
   switch (M) {
-    case 1: err = launch_argmax<1, false>(a, n_valid, bmax, bidx, bnan, st); break;
-    case 2: err = launch_argmax<2, false>(a, n_valid, bmax, bidx, bnan, st); break;
-    case 3: err = launch_argmax<3, false>(a, n_valid, bmax, bidx, bnan, st); break;
-    case 4: err = launch_argmax<4, false>(a, n_valid, bmax, bidx, bnan, st); break;
-    case 5: err = launch_argmax<5, false>(a, n_valid, bmax, bidx, bnan, st); break;
-    case 6: err = launch_argmax<6, false>(a, n_valid, bmax, bidx, bnan, st); break;
-    case 7: err = launch_argmax<7, false>(a, n_valid, bmax, bidx, bnan, st); break;
-    case 8: err = launch_argmax<8, false>(a, n_valid, bmax, bidx, bnan, st); break;
-    case 16: err = launch_argmax<16, true>(a, n_valid, bmax, bidx, bnan, st); break;
-    case 32: err = launch_argmax<32, true>(a, n_valid, bmax, bidx, bnan, st); break;
+    case 1: err = launch_argmax<1>(a, n_valid, bmax, bidx, bnan, st); break;
+    case 2: err = launch_argmax<2>(a, n_valid, bmax, bidx, bnan, st); break;
+    case 3: err = launch_argmax<3>(a, n_valid, bmax, bidx, bnan, st); break;
+    case 4: err = launch_argmax<4>(a, n_valid, bmax, bidx, bnan, st); break;
+    case 5: err = launch_argmax<5>(a, n_valid, bmax, bidx, bnan, st); break;
+    case 6: err = launch_argmax<6>(a, n_valid, bmax, bidx, bnan, st); break;
+    case 7: err = launch_argmax<7>(a, n_valid, bmax, bidx, bnan, st); break;
+    case 8: err = launch_argmax<8>(a, n_valid, bmax, bidx, bnan, st); break;
+    case 16:
+      err = launch_mma_tail<16, false>(t, eps, n_valid, nullptr, bmax, bidx,
+                                       bnan, bits, st);
+      block = MMA_COLS;
+      break;
+    case 32:
+      err = launch_mma_tail<32, false>(t, eps, n_valid, nullptr, bmax, bidx,
+                                       bnan, bits, st);
+      block = MMA_COLS;
+      break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return (int)err;
-  const int nblk = d_out / TILE_COLS;
-  const int n_tiles = nblk / tile_blocks;
+  if (tile % block != 0 || d_out % tile != 0)
+    return (int)cudaErrorInvalidValue;
+  const int nblk = d_out / block;
+  const int n_tiles = d_out / tile;
   argmax_fold_kernel<<<M, 32, n_tiles * 8, st>>>(bmax, bidx, bnan, nblk,
-                                                 tile_blocks, n_valid, out_idx,
-                                                 out_max);
+                                                 tile / block, n_valid,
+                                                 out_idx, out_max);
   return (int)cudaGetLastError();
 }
 
 // x (M, d_in) f32 with M = 8 (X' numerics; the wrapper pads 1..8 rows) or
 // 16 / 32 (dequant-then-dot; pads 9..32); out (M, d_out) f32; gmax
-// (M, d_out/128) f32.
+// (M, d_out/128) f32; scratch (M = 16, 32): tmax M * d_out/64 f32, xn
+// (M, d_in) bf16.
 extern "C" int bgt_lm_head_logits_gmax(const float* x, const float* ln_w,
                                        const float* ln_b, float eps,
                                        const uint8_t* lv, const void* sc,
                                        const void* mn, int M, int d_in,
                                        int d_out, int offset, int bits,
-                                       int n_valid,
-                                       float* out, float* gmax, void* stream) {
+                                       int n_valid, float* out, float* gmax,
+                                       float* tmax, void* xn,
+                                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const GemvArgs a = lm_head_args(x, ln_w, ln_b, eps, lv, sc, mn, d_in,
-                                  d_out, offset, bits);
+  if (M == 8) {
+    const GemvArgs a = lm_head_args(x, ln_w, ln_b, eps, lv, sc, mn, d_in,
+                                    d_out, offset, bits);
+    cudaError_t err = cudaErrorInvalidValue;
+    with_format(bits, mn != nullptr, [&](auto fmt) {
+      using T = decltype(fmt);
+      err = launch_tiles(lm_head_logits_gmax_kernel<8, T::BITS, T::HAS_MIN>,
+                         8, a, st, n_valid, out, gmax);
+    });
+    return (int)err;
+  }
+  const MmaGemv t = tail_gemv(x, xn, ln_w, ln_b, lv, sc, mn, d_in, d_out,
+                              offset);
+  cudaError_t err;
   switch (M) {
-    case 8: return (int)launch_logits<8, false>(a, n_valid, out, gmax, st);
-    case 16: return (int)launch_logits<16, true>(a, n_valid, out, gmax, st);
-    case 32: return (int)launch_logits<32, true>(a, n_valid, out, gmax, st);
+    case 16:
+      err = launch_mma_tail<16, true>(t, eps, n_valid, out, tmax, nullptr,
+                                      nullptr, bits, st);
+      break;
+    case 32:
+      err = launch_mma_tail<32, true>(t, eps, n_valid, out, tmax, nullptr,
+                                      nullptr, bits, st);
+      break;
     default: return (int)cudaErrorInvalidValue;
   }
+  if (err != cudaSuccess) return (int)err;
+  gmax_pair_kernel<<<M, 128, 0, st>>>(tmax, d_out / MMA_COLS, gmax);
+  return (int)cudaGetLastError();
 }

@@ -1,8 +1,8 @@
 // Skinny-M quantized GEMV for the packed 4/5-bit and the unpacked 8-bit
 // weight planes (qmatmul.cu, lm_head_argmax.cu), and the planes' layout,
 // level fetch and block reductions that every kernel of the port shares
-// (the tensor-core GEMVs of qgemv_mma.cuh and qgemv_b1.cuh read the same
-// planes; prefill.cu shares the level fetch).
+// (the tensor-core GEMVs of qgemv_mma.cuh and qgemv_b1.cuh and the
+// refill GEMM of prefill.cu read the same planes).
 //
 // Weight layout (biogpt_tpu_torch/quant/layouts.py), one of three level
 // planes, the format BITS a template parameter beside HAS_MIN:
@@ -171,30 +171,6 @@ __device__ __forceinline__ void fetch_levels4(const uint8_t* lv,
       const uint32_t f = ld_u32(lv + (size_t)(half + j) * d_out + col);
       lo |= ((f >> q) & 0x01010101u) << 4;
       hi |= ((f >> (q + 4)) & 0x01010101u) << 4;
-    }
-  }
-}
-
-// The same for one column: (lo, hi) levels as ints.
-template <int BITS>
-__device__ __forceinline__ void fetch_levels1(const uint8_t* lv,
-                                              const FifthBit& fb, int i,
-                                              int half, int d_out, int col,
-                                              int& lo, int& hi) {
-  const int k = fb.k0 + i;
-  if (BITS == 8) {
-    lo = (int)(int8_t)lv[(size_t)k * d_out + col];
-    hi = (int)(int8_t)lv[(size_t)(k + half) * d_out + col];
-  } else {
-    const uint32_t b = lv[(size_t)k * d_out + col];
-    lo = (int)(b & 15u);
-    hi = (int)(b >> 4);
-    if (BITS == 5) {
-      int j, q;
-      fb.at(i, j, q);
-      const uint32_t f = lv[(size_t)(half + j) * d_out + col];
-      lo |= (int)((f >> q) & 1u) << 4;
-      hi |= (int)((f >> (q + 4)) & 1u) << 4;
     }
   }
 }

@@ -1,7 +1,9 @@
 // Tensor-core GEMV for the batched decode chains (decode_layers.cuh's
-// `batched_layers`, run by decode_batched.cu and decode_paged.cu) and the
-// tensor-parallel halves (decode_tp.cu; qgemv_b1.cuh takes its group
-// loads and fragment layout to one row with the X' numerics): the
+// `batched_layers`, run by decode_batched.cu and decode_paged.cu), the
+// tensor-parallel halves (decode_tp.cu) and the M=16/32 lm_head tails
+// (lm_head_argmax.cu, through mma_block_sums with the rows LayerNorm'd
+// once in bf16; qgemv_b1.cuh takes its group loads and fragment layout to
+// one row with the X' numerics, prefill.cu its `weight_pair`): the
 // layer projections of M = 8, 16 or 32 activation rows against one packed
 // 4/5-bit or unpacked 8-bit weight plane (qgemv.cuh's layouts), with the
 // numerics of pallas_decode.py::_qmm_dq, which the TPU's batched and paged
@@ -87,6 +89,8 @@ __device__ __forceinline__ uint32_t pack2_bf16(float lo, float hi) {
 struct MmaGemv {
   const float* x;            // (M, d_in) f32 activations
   float* stats;              // (M, 2) mean, 1/std of x's rows (with ln_w)
+  const __nv_bfloat16* xn;   // or (mma_block_sums<..., XN>) x's rows
+                             // LayerNorm'd to bf16 (ln_rows_kernel)
   const float* ln_w;         // (d_in) LayerNorm weight, or null: no LN
   const float* ln_b;
   const uint8_t* lv;         // level plane of format BITS (qgemv.cuh)
@@ -137,6 +141,30 @@ row_stats_kernel(const float* x, int d, float eps, float* stats) {
     stats[2 * blockIdx.x] = mean;
     stats[2 * blockIdx.x + 1] = 1.0f / sqrtf(var + eps);
   }
+}
+
+// grid M, block THREADS: out[m] = bf16 LayerNorm of x's row m, its
+// statistics as row_stats_kernel computes them.
+template <int THREADS>
+__global__ void __launch_bounds__(THREADS)
+ln_rows_kernel(const float* x, int d, const float* w, const float* b,
+               float eps, __nv_bfloat16* out) {
+  __shared__ float scratch[32];
+  pdl_trigger();
+  pdl_wait();
+  const float* xr = x + (size_t)blockIdx.x * d;
+  float s = 0.f;
+  for (int i = threadIdx.x; i < d; i += THREADS) s += xr[i];
+  const float mean = block_sum(s, scratch) / (float)d;
+  float q = 0.f;
+  for (int i = threadIdx.x; i < d; i += THREADS) {
+    const float c = xr[i] - mean;
+    q += c * c;
+  }
+  const float rstd = 1.0f / sqrtf(block_sum(q, scratch) / (float)d + eps);
+  for (int i = threadIdx.x; i < d; i += THREADS)
+    out[(size_t)blockIdx.x * d + i] =
+        __float2bfloat16((xr[i] - mean) * rstd * w[i] + b[i]);
 }
 
 // y of (row m, column col) from its summed product v.
@@ -320,20 +348,35 @@ __device__ __forceinline__ void group_words(const uint8_t* lvs,
     }
 }
 
-template <int M, int BITS, bool HAS_MIN>
-__global__ void __launch_bounds__(MMA_THREADS)
-qgemv_mma_kernel(MmaGemv a) {
-  constexpr int R = BITS == 4 ? QK : 2 * QK;   // level byte rows per group
+// Shared memory of a GEMV block at M rows in level format BITS: each
+// warp's group (level rows, scales and mins, activations), then the warps'
+// sums over the same bytes.
+template <int M, int BITS>
+struct MmaSmem {
+  static constexpr int R = BITS == 4 ? QK : 2 * QK;   // level byte rows
+  static constexpr int LV_BYTES = R * MMA_LROW;
+  static constexpr int SC_BYTES = 4 * MMA_COLS * 2;
+  static constexpr int A_BYTES = M * MMA_AROW * 2;
+  static constexpr int WARP_BYTES = LV_BYTES + SC_BYTES + A_BYTES;
+  static constexpr int RED_BYTES = MMA_WARPS * M * MMA_RROW * 4;
+  static constexpr int BYTES = MMA_WARPS * WARP_BYTES > RED_BYTES
+                                   ? MMA_WARPS * WARP_BYTES : RED_BYTES;
+  static_assert(BYTES <= 48 * 1024, "static shared memory");
+};
+
+// Steps 1-4 of a GEMV block (column tile blockIdx.x, split blockIdx.y):
+// its sums over its warps' groups, the sum of (row m, column col) at
+// smem[m * MMA_RROW + col] (floats), written by the thread that owns
+// element m * 64 + col (threadIdx.x + k * MMA_THREADS). XN: the rows come
+// LayerNorm'd in bf16 (a.xn), by cp.async beside the weights.
+template <int M, int BITS, bool HAS_MIN, bool XN = false>
+__device__ __forceinline__ void mma_block_sums(const MmaGemv& a,
+                                               unsigned char* smem) {
   constexpr int MI = (M + 15) / 16;            // m16 tiles
-  constexpr int LV_BYTES = R * MMA_LROW;
-  constexpr int SC_BYTES = 4 * MMA_COLS * 2;
-  constexpr int A_BYTES = M * MMA_AROW * 2;
-  constexpr int WARP_BYTES = LV_BYTES + SC_BYTES + A_BYTES;
-  constexpr int RED_BYTES = MMA_WARPS * M * MMA_RROW * 4;
-  constexpr int SMEM = MMA_WARPS * WARP_BYTES > RED_BYTES
-                           ? MMA_WARPS * WARP_BYTES : RED_BYTES;
-  static_assert(SMEM <= 48 * 1024, "static shared memory");
-  __shared__ __align__(16) unsigned char smem[SMEM];
+  using Sm = MmaSmem<M, BITS>;
+  constexpr int LV_BYTES = Sm::LV_BYTES;
+  constexpr int SC_BYTES = Sm::SC_BYTES;
+  constexpr int WARP_BYTES = Sm::WARP_BYTES;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tg = lane & 3;
@@ -368,8 +411,18 @@ qgemv_mma_kernel(MmaGemv a) {
   pdl_trigger();
   pdl_wait();
 
+  if (active && XN) {
+    // 2. activations: row m's columns k0..k0+31 (slots 0..31) and
+    // half+k0..half+k0+31 (slots 32..63), already LayerNorm'd bf16
+    for (int i = lane; i < M * 8; i += 32) {
+      const int m = i >> 3, c = i & 7;
+      const int col = c < 4 ? k0 + 8 * c : half + k0 + 8 * (c - 4);
+      cp_async16(as + m * MMA_AROW + c * 8, a.xn + (size_t)m * a.d_in + col);
+    }
+    cp_async_commit();
+  }
   if (active) {
-
+    if constexpr (!XN) {
     // 2. activations: row m's columns k0..k0+31 (slots 0..31) and
     // half+k0..half+k0+31 (slots 32..63), LayerNorm'd where set, to bf16.
     // Lane l reads float4 c4 = l % 16 of rows 2j + l / 16, j < M/2: every
@@ -409,6 +462,7 @@ qgemv_mma_kernel(MmaGemv a) {
       p.x = pack2_bf16(u.x, u.y);
       p.y = pack2_bf16(u.z, u.w);
       *reinterpret_cast<uint2*>(as + m * MMA_AROW + c4 * 4) = p;
+    }
     }
     cp_async_wait<0>();
     __syncwarp();
@@ -497,12 +551,24 @@ qgemv_mma_kernel(MmaGemv a) {
     float s = red[m * MMA_RROW + col];
 #pragma unroll
     for (int w = 1; w < MMA_WARPS; ++w) s += red[(w * M + m) * MMA_RROW + col];
-    if (a.splits == 1)
-      mma_epilogue(a, m, n0 + col, s);
-    else
-      red[m * MMA_RROW + col] = s;
+    red[m * MMA_RROW + col] = s;
   }
-  if (a.splits == 1) return;
+}
+
+template <int M, int BITS, bool HAS_MIN>
+__global__ void __launch_bounds__(MMA_THREADS)
+qgemv_mma_kernel(MmaGemv a) {
+  __shared__ __align__(16) unsigned char smem[MmaSmem<M, BITS>::BYTES];
+  mma_block_sums<M, BITS, HAS_MIN>(a, smem);
+  const int n0 = blockIdx.x * MMA_COLS;
+  float* red = reinterpret_cast<float*>(smem);
+  if (a.splits == 1) {
+    for (int e = threadIdx.x; e < M * MMA_COLS; e += MMA_THREADS) {
+      const int m = e / MMA_COLS, col = e % MMA_COLS;
+      mma_epilogue(a, m, n0 + col, red[m * MMA_RROW + col]);
+    }
+    return;
+  }
 
   // 5. the splits of the column tile are one thread block cluster: block
   // k's sums stay in its shared memory, and block r sums its slice of the

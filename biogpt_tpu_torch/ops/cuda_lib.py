@@ -15,7 +15,9 @@ one ``nvcc`` per source at the same time.
 where it launches its kernel and nowhere else. ``decode_gemv`` counts the
 tensor-core GEMV's launches: one per call of its own wrapper, and the
 number the batched, paged and staged steps' C entries report launching;
-``decode_gemv_b1`` likewise the single-stream step's M=1 GEMV.
+``decode_gemv_b1`` likewise the single-stream step's M=1 GEMV, and
+``prefill_gemm`` the refill kernel's wgmma GEMM (4 L a ``prefill_fused``
+call).
 """
 
 from __future__ import annotations
@@ -58,9 +60,10 @@ SIGNATURES = {
     ("qmatmul", "bgt_qmatmul_splits"): [_I],
     ("lm_head_argmax", "bgt_lm_head_argmax"): [
         _P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
-        _P, _P, _P],
+        _P, _P, _P, _P],
     ("lm_head_argmax", "bgt_lm_head_logits_gmax"): [
-        _P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+        _P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+        _P],
     ("decode_step", "bgt_decode_head_dim"): [],
     ("decode_step", "bgt_decode_step"): (
         [_P] + [_I] * 7 + [_P, _F, _I, _I] + [_P] * 4
@@ -83,7 +86,10 @@ SIGNATURES = {
         [_P] * 6 + [_LL, _LL, _P, _P, _LL, _LL, _P] + [_I] * 4 + [_P]),
     ("prefill", "bgt_prefill"): (
         [_P] + [_I] * 6 + [_F, _I, _I] + [_P] * 4 + [_P] * 16 + [_P] * 6
-        + [_P]),
+        + [_P] + [_P]),
+    ("prefill", "bgt_prefill_gemm"): (
+        [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _F,
+         _P]),
     ("decode_tp", "bgt_tp_attn"): (
         [_P] + [_I] * 10 + [_P, _F, _I, _I] + [_P] * 2 + [_P] * 4 + [_P] * 3
         + [_P] * 4 + [_P] * 3 + [_P] * 6 + [_P]),
@@ -103,7 +109,8 @@ LAUNCHES = {"qmatmul": 0, "qmatmul_wide": 0, "lm_head_argmax": 0,
             "kv_commit_quant": 0, "decode_step_fused_paged": 0,
             "decode_step_fused_paged_int8": 0, "decode_step_fused_staged": 0,
             "tp_attn_half": 0, "tp_attn_half_int8": 0, "tp_qkv_half": 0,
-            "tp_ffn_half": 0, "decode_gemv": 0, "decode_gemv_b1": 0}
+            "tp_ffn_half": 0, "decode_gemv": 0, "decode_gemv_b1": 0,
+            "prefill_gemm": 0}
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()

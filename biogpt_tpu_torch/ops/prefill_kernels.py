@@ -21,11 +21,14 @@ GELU; fc2 and its residual.
 On CUDA tensors ``prefill_fused`` launches the hand-written Hopper kernels
 of ``csrc/prefill.cu`` (one host call for all layers; see that file for the
 design and what bounds it) or raises; on the CPU it runs
-:func:`prefill_fused_plain`.
+:func:`prefill_fused_plain`. :func:`prefill_gemm` runs one of its
+projections alone through the same GEMM (the wgmma kernel with its qkv,
+residual or GELU epilogue; :func:`prefill_gemm_plain` on the CPU).
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -33,7 +36,9 @@ import torch
 from . import cuda_lib
 from .decode_kernels import (_check_cuda_layers, _layer_norms, _layer_planes,
                              supports_layers)
-from .qmatmul_kernels import CUDA_FORMATS, layer_norm_bf16, qmatmul_wide_plain
+from .qmatmul_kernels import (CUDA_FORMATS, _offset as _qt_offset,
+                              check_cuda_levels, layer_norm_bf16,
+                              qmatmul_wide_plain)
 
 # Routing caps on the flattened rows R*T, kept from the TPU gate
 # (pallas_prefill.py:59-61): there they came from VMEM, here they decide
@@ -43,7 +48,20 @@ _MAX_RT = 512
 _MAX_RT_SHORT = 1024
 _SHORT_T = 128
 HEAD_DIM = 64     # the head width csrc/prefill.cu is built for
-MAX_T = 512       # its longest prompt: a 16-row tile's f32 scores in smem
+MAX_T = 512       # its longest prompt: a 64-row tile's f32 scores in smem
+# the GEMM's epilogues (csrc/prefill.cu's EPI_*): q (scaled), k, v in bf16;
+# the residual (x + y) + bias in f32; GELU(y + bias) in bf16
+GEMM_EPILOGUES = ("qkv", "resid", "gelu")
+_GEMM_BLOCK_COLS = 128   # d_out in whole tiles of the GEMM's narrower width
+_GEMM_STEP = 64          # its k-step: one packed group of 32 rows
+
+
+def gemm_widths_ok(d_in: int, d_out: int) -> bool:
+    """Whether the refill GEMM takes a (d_in, d_out) weight
+    (``csrc/prefill.cu::gemm_widths_ok``): d_in in whole k-steps, d_out in
+    whole 128-column tiles (256-column ones where they divide it)."""
+    return (d_in > 0 and d_out > 0 and d_in % _GEMM_STEP == 0
+            and d_out % _GEMM_BLOCK_COLS == 0)
 
 
 def supports_prefill(layers: dict, rows: int, padded: int, *, n_head: int,
@@ -54,9 +72,10 @@ def supports_prefill(layers: dict, rows: int, padded: int, *, n_head: int,
     needs fused planes of one format as the engines prepare them
     (``supports_layers``: packed Q4_0/Q4_1/Q5_0/Q5_1 or unpacked Q8_0, as
     the JAX gate lets packed and unpacked planes through), head width 64
-    and T <= n_positions. The TPU gate's ``padded % 8`` and
-    ``d_model % 128`` come from Mosaic tiling and are not kept (the layer
-    gate already implies the second)."""
+    and T <= n_positions, and every projection's widths taken by the GEMM
+    (``gemm_widths_ok``, which the layer gate already implies). The TPU
+    gate's ``padded % 8`` and ``d_model % 128`` come from Mosaic tiling
+    and are not kept (the layer gate already implies the second)."""
     rt = rows * padded
     cap = _MAX_RT_SHORT if padded <= _SHORT_T else _MAX_RT
     if rows < 1 or not 0 < padded <= n_positions or rt > cap:
@@ -65,7 +84,9 @@ def supports_prefill(layers: dict, rows: int, padded: int, *, n_head: int,
         return False
     qkv = layers["qkv"]["w"]
     return ((qkv.qtype, qkv.packed) in CUDA_FORMATS
-            and qkv.d_in == n_head * HEAD_DIM)
+            and qkv.d_in == n_head * HEAD_DIM
+            and all(gemm_widths_ok(layers[n]["w"].d_in, layers[n]["w"].d_out)
+                    for n in ("qkv", "o", "fc1", "fc2")))
 
 
 def prefill_fused_plain(x0, layers: dict, *, rows: int, padded: int,
@@ -114,6 +135,94 @@ def prefill_fused_plain(x0, layers: dict, *, rows: int, padded: int,
     return x, torch.stack(k_rows), torch.stack(v_rows)
 
 
+def _check_gemm(a, qt, bias, epi: str, x, scale, what: str) -> None:
+    """The call contract of :func:`prefill_gemm`, on every device."""
+    if epi not in GEMM_EPILOGUES:
+        raise ValueError(f"{what}: epi must be one of {GEMM_EPILOGUES}, got "
+                         f"{epi!r}")
+    M, d_in, d_out = a.shape[0], qt.d_in, qt.d_out
+    if a.dim() != 2 or a.shape[1] != d_in or M < 1:
+        raise ValueError(f"{what}: a must be (M, {d_in}), got "
+                         f"{tuple(a.shape)}")
+    if bias is None or tuple(bias.shape) != (d_out,):
+        raise ValueError(f"{what}: bias must be ({d_out},)")
+    if (epi == "resid") != (x is not None):
+        raise ValueError(f"{what}: x (the residual) goes with epi 'resid' "
+                         f"and only with it")
+    if x is not None and tuple(x.shape) != (M, d_out):
+        raise ValueError(f"{what}: x must be ({M}, {d_out}), got "
+                         f"{tuple(x.shape)}")
+    if (epi == "qkv") != (scale is not None):
+        raise ValueError(f"{what}: scale (q's) goes with epi 'qkv' and only "
+                         f"with it")
+    if epi == "qkv" and d_out % 3 != 0:
+        raise ValueError(f"{what}: the qkv epilogue splits d_out={d_out} "
+                         f"into three")
+
+
+def prefill_gemm_plain(a, qt, bias, *, epi: str, x=None, scale=None):
+    """Plain version of :func:`prefill_gemm`: ``qmatmul_wide_plain`` (x and
+    each weight rounded once to bf16, f32 products), then the epilogue as
+    :func:`prefill_fused_plain` applies it."""
+    _check_gemm(a, qt, bias, epi, x, scale, "prefill_gemm")
+    y = qmatmul_wide_plain(a, qt)
+    b = bias.to(torch.float32)
+    if epi == "resid":
+        return x.to(torch.float32) + y + b
+    y = y + b
+    if epi == "gelu":
+        return torch.nn.functional.gelu(y).to(torch.bfloat16)
+    D = qt.d_out // 3
+    return ((y[:, :D] * scale).to(torch.bfloat16),
+            y[:, D:2 * D].to(torch.bfloat16), y[:, 2 * D:].to(torch.bfloat16))
+
+
+def prefill_gemm(a, qt, bias, *, epi: str, x=None, scale=None):
+    """One projection of the refill kernel alone: ``a`` (M, d_in) rows
+    (rounded to bf16) times the weight ``qt`` (d_in, d_out) through the
+    wgmma GEMM of ``csrc/prefill.cu``, then its epilogue ``epi``:
+
+      "qkv":   -> (q * scale, k, v), each (M, d_out/3) bf16, after + bias
+      "resid": -> (x + y) + bias, (M, d_out) f32 (x the residual, f32)
+      "gelu":  -> GELU(y + bias), (M, d_out) bf16 (exact erf)
+
+    On the CPU it runs :func:`prefill_gemm_plain`."""
+    what = "prefill_gemm"
+    if not a.is_cuda:
+        return prefill_gemm_plain(a, qt, bias, epi=epi, x=x, scale=scale)
+    _check_gemm(a, qt, bias, epi, x, scale, what)
+    bits = check_cuda_levels(qt, (), what)
+    M, d_in, d_out = a.shape[0], qt.d_in, qt.d_out
+    if not gemm_widths_ok(d_in, d_out):
+        raise ValueError(f"{what}: the GEMM takes d_in % {_GEMM_STEP} == 0 "
+                         f"and d_out % {_GEMM_BLOCK_COLS} == 0, got {d_in}, "
+                         f"{d_out}")
+    dev = a.device
+    a = a.to(torch.bfloat16).contiguous()
+    bias = bias.to(torch.float32).contiguous()
+    bf16 = dict(dtype=torch.bfloat16, device=dev)
+    outs, xo, out, k, v = (), None, None, None, None
+    if epi == "qkv":
+        D = d_out // 3
+        out, k, v = (torch.empty(M, D, **bf16) for _ in range(3))
+        outs = (out, k, v)
+    elif epi == "gelu":
+        out = torch.empty(M, d_out, **bf16)
+        outs = out
+    else:
+        xo = x.to(torch.float32).contiguous().clone()
+        outs = xo
+    err = cuda_lib.library("prefill").bgt_prefill_gemm(
+        a.data_ptr(), M, d_in, d_out, qt.levels.data_ptr(),
+        qt.scales.data_ptr(), cuda_lib.ptr(qt.mins), _qt_offset(qt), bits,
+        GEMM_EPILOGUES.index(epi), bias.data_ptr(), cuda_lib.ptr(xo),
+        cuda_lib.ptr(out), cuda_lib.ptr(k), cuda_lib.ptr(v),
+        float(scale or 0.0), cuda_lib.stream_ptr(dev))
+    cuda_lib.LAUNCHES[what] += 1
+    cuda_lib.check(err, what)
+    return outs
+
+
 def prefill_fused(x0, layers: dict, *, rows: int, padded: int, n_head: int,
                   ln_eps: float = 1e-5, cache_dtype=torch.bfloat16):
     """Whole-prompt forward of a refill group (see the module docstring)
@@ -149,11 +258,14 @@ def prefill_fused(x0, layers: dict, *, rows: int, padded: int, n_head: int,
     ctx = torch.empty(RT, D, **bf16)    # attention context
     ff = torch.empty(RT, F, **bf16)     # GELU(fc1)
     norms = _layer_norms(layers)
+    n_gemm = ctypes.c_int(0)
     err = cuda_lib.library("prefill").bgt_prefill(
         x.data_ptr(), R, T, L, D, F, n_head, float(ln_eps), offset, bits,
         *[t.data_ptr() for t in norms], *_layer_planes(layers),
         k_rows.data_ptr(), v_rows.data_ptr(), hb.data_ptr(), qb.data_ptr(),
-        ctx.data_ptr(), ff.data_ptr(), cuda_lib.stream_ptr(dev))
+        ctx.data_ptr(), ff.data_ptr(), ctypes.addressof(n_gemm),
+        cuda_lib.stream_ptr(dev))
     cuda_lib.LAUNCHES[what] += 1
+    cuda_lib.LAUNCHES["prefill_gemm"] += n_gemm.value
     cuda_lib.check(err, what)
     return x, k_rows, v_rows

@@ -321,9 +321,14 @@ def qmatmul_wide(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     return qmatmul_wide_plain(x, qt)
 
 
-# lm_head tails: dynamic shared memory for the LayerNorm'd rows, M * d_in
-# floats, within the card's 227 KB beside the kernels' static buffers
+# lm_head tails at M <= 8: dynamic shared memory for the LayerNorm'd rows,
+# M * d_in floats, within the card's 227 KB beside the kernels' static
+# buffers
 _TAIL_SMEM_BYTES = 200 * 1024
+# at M = 16, 32 the tensor-core GEMV (csrc/qgemv_mma.cuh): its column tile,
+# and d_in at most 16 splits of 256 (one thread block cluster)
+_MMA_COLS = 64
+_MMA_MAX_D_IN = 4096
 
 
 def _tail_rows(x, ln_w, ln_b, qt: QuantizedTensor, n_valid: int, what: str):
@@ -332,8 +337,9 @@ def _tail_rows(x, ln_w, ln_b, qt: QuantizedTensor, n_valid: int, what: str):
     d_in, d_out = qt.d_in, qt.d_out
     x = _cuda_x(x, d_in, what)
     M = x.shape[0]
+    wide_ok = d_in <= _MMA_MAX_D_IN and d_out % _MMA_COLS == 0
     if (not 0 < M <= 32 or d_out % LANES != 0 or not 0 < n_valid <= d_out
-            or 32 * d_in * 4 > _TAIL_SMEM_BYTES):
+            or 8 * d_in * 4 > _TAIL_SMEM_BYTES or (M > 8 and not wide_ok)):
         raise ValueError(f"{what}: unsupported shape M={M} d_in={d_in} "
                          f"d_out={d_out} n_valid={n_valid}")
     ln_w = ln_w.to(torch.float32).contiguous()
@@ -353,11 +359,12 @@ def _launch_argmax(x, ln_w, ln_b, qt, n_valid: int, ln_eps: float,
     # kernel rows: 1..8 (X'), or 16 / 32 (dequant-then-dot) with zero rows
     Mk = M if M <= 8 else 16 if M <= 16 else 32
     x = _pad_rows(x, Mk)
-    nblk = qt.d_out // LANES
+    nblk = qt.d_out // _MMA_COLS   # per-block triples: 128 or 64 columns
     dev = x.device
     bmax = torch.empty(Mk * nblk, dtype=torch.float32, device=dev)
     bidx = torch.empty(Mk * nblk, dtype=torch.int32, device=dev)
     bnan = torch.empty(Mk * nblk, dtype=torch.int32, device=dev)
+    xn = torch.empty(Mk, qt.d_in, dtype=torch.bfloat16, device=dev)
     ids = torch.empty(Mk, dtype=torch.int32, device=dev)
     mv = torch.empty(Mk, dtype=torch.float32, device=dev)
     lib = cuda_lib.library("lm_head_argmax")
@@ -365,8 +372,8 @@ def _launch_argmax(x, ln_w, ln_b, qt, n_valid: int, ln_eps: float,
         x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), float(ln_eps),
         qt.levels.data_ptr(), qt.scales.data_ptr(), cuda_lib.ptr(qt.mins),
         Mk, qt.d_in, qt.d_out, _offset(qt), bits, n_valid,
-        pick_tile(qt.d_out) // LANES, bmax.data_ptr(), bidx.data_ptr(),
-        bnan.data_ptr(), ids.data_ptr(), mv.data_ptr(),
+        pick_tile(qt.d_out), bmax.data_ptr(), bidx.data_ptr(),
+        bnan.data_ptr(), xn.data_ptr(), ids.data_ptr(), mv.data_ptr(),
         cuda_lib.stream_ptr(dev))
     cuda_lib.LAUNCHES[what] += 1
     cuda_lib.check(err, what)
@@ -421,12 +428,16 @@ def lm_head_logits_gmax_commit(x, ln_w, ln_b, qt: QuantizedTensor,
     dev = x.device
     logits = torch.empty(Mk, qt.d_out, dtype=torch.float32, device=dev)
     gmax = torch.empty(Mk, qt.d_out // LANES, dtype=torch.float32, device=dev)
+    tmax = torch.empty(Mk, qt.d_out // _MMA_COLS, dtype=torch.float32,
+                       device=dev)
+    xn = torch.empty(Mk, qt.d_in, dtype=torch.bfloat16, device=dev)
     lib = cuda_lib.library("lm_head_argmax")
     err = lib.bgt_lm_head_logits_gmax(
         x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), float(ln_eps),
         qt.levels.data_ptr(), qt.scales.data_ptr(), cuda_lib.ptr(qt.mins),
         Mk, qt.d_in, qt.d_out, _offset(qt), bits, n_valid,
-        logits.data_ptr(), gmax.data_ptr(), cuda_lib.stream_ptr(dev))
+        logits.data_ptr(), gmax.data_ptr(), tmax.data_ptr(), xn.data_ptr(),
+        cuda_lib.stream_ptr(dev))
     cuda_lib.LAUNCHES[what] += 1
     cuda_lib.check(err, what)
     k_cache, v_cache = kv_commit(k_cache, v_cache, k_rows_t, v_rows_t, past)

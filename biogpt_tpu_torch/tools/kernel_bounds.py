@@ -12,7 +12,10 @@ operations it does, and ``bound_ms``, the larger of bytes over the card's
 memory rate and operations over its bf16 tensor rate (published H100 SXM
 figures). Then the four projection GEMVs alone of the batched steps (M =
 8, 16, 32), of the B=1 step (M = 1) and of one rank's TP halves (tp 2 and
-4, M = 32). ``chip_smoke.py`` computes the ported kernels' bounds with the
+4, M = 32); the refill kernel's four GEMMs and its attention at each refill
+shape (row 12's sub-rows) and the lm_head GEMV and KV commit of the two
+M=32 serving tails (rows 4 and 5); the refill GEMM alone (``prefill_gemm``)
+at 1024 rows. ``chip_smoke.py`` computes the ported kernels' bounds with the
 same :func:`bound` from the inputs of its own run. Needs no card.
 """
 
@@ -172,6 +175,70 @@ def prefill_cost(c: BioGptConfig, R: int, T: int, wbytes: int):
             L * (layer_flops(c, RT) + attn))
 
 
+def prefill_gemm_cost(c: BioGptConfig, name: str, M: int, fmt: str = "q4_0"):
+    """(bytes, operations) of one projection ``name`` alone through the
+    refill kernel's GEMM (``prefill_kernels.prefill_gemm``) on M rows: its
+    planes and f32 bias, the bf16 rows in, and out q, k, v (qkv) or GELU's
+    rows (fc1) in bf16, or the f32 residual in and out (o, fc2)."""
+    d_in, d_out = projection_shape(c, name)
+    out = (2 * M * d_out * 4 if name in ("o", "fc2") else M * d_out * 2)
+    return (q_bytes(d_in, d_out, fmt) + d_out * 4 + M * d_in * 2 + out,
+            2 * M * d_in * d_out)
+
+
+def prefill_sub_rows(c: BioGptConfig = BioGptConfig(), R: int = 32,
+                     T: int = 32, fmt: str = "q4_0") -> list:
+    """Row 12 (``prefill_fused`` on R prompts padded to T) split by the
+    chain's parts over all L layers, so that their bytes and operations sum
+    to the row's: each GEMM its planes, bias and LayerNorm parameters, qkv
+    also x in and every layer's K/V rows out, fc2 x out; attention its
+    operations (its q, k, v and context stay inside the call)."""
+    D, F, L, RT = c.d_model, c.d_ff, c.n_layer, R * T
+    ln = 2 * D * 4
+    parts = (
+        ("qkv", L * (q_bytes(D, 3 * D, fmt) + 3 * D * 4 + ln) + RT * D * 4
+         + 2 * L * RT * D * 2, L * 2 * RT * D * 3 * D),
+        ("attention", 0, L * R * 4 * (T * (T + 1) // 2) * D),
+        ("o", L * (q_bytes(D, D, fmt) + D * 4), L * 2 * RT * D * D),
+        ("fc1", L * (q_bytes(D, F, fmt) + F * 4 + ln), L * 2 * RT * D * F),
+        ("fc2", L * (q_bytes(F, D, fmt) + D * 4) + RT * D * 4,
+         L * 2 * RT * F * D),
+    )
+    recs = []
+    for part, nbytes, flops in parts:
+        ms, by = bound(nbytes, flops)
+        recs.append({"kernel": "prefill_fused", "row": ROW["prefill_fused"],
+                     "part": part, "shape": f"R={R} prompts x T={T}",
+                     "format": fmt, "bytes": nbytes, "flops": flops,
+                     "bound_ms": ms, "bound_by": by})
+    return recs
+
+
+def tail_sub_rows(c: BioGptConfig = BioGptConfig(), fmt: str = "q4_0") -> list:
+    """Rows 4 and 5 (the M=32 greedy and sampled tails with their KV
+    commit) split into the lm_head GEMV (its planes, x and the LayerNorm's
+    parameters in, the ids and winning logits, or the logits and their
+    group maxima, out) and the commit (the rows in, the cache rows out):
+    each pair sums to its row."""
+    D, L = c.d_model, c.n_layer
+    V = -(-c.n_vocab // 128) * 128
+    B = len(RAGGED_PAST)
+    lm = q_bytes(D, V, fmt) + B * D * 4 + 2 * D * 4
+    commit = 4 * L * B * D * 2 + B * 4
+    recs = []
+    for kernel, out in (("lm_head_argmax_commit_pallas", B * 8),
+                        ("lm_head_logits_gmax_commit_pallas",
+                         B * V * 4 + B * V // 128 * 4)):
+        for part, nbytes, flops in (("lm_head GEMV", lm + out, 2 * B * D * V),
+                                    ("KV commit", commit, 0)):
+            ms, by = bound(nbytes, flops)
+            recs.append({"kernel": kernel, "row": ROW[kernel], "part": part,
+                         "shape": "m=32 + commit B=32", "format": fmt,
+                         "bytes": nbytes, "flops": flops, "bound_ms": ms,
+                         "bound_by": by})
+    return recs
+
+
 def bf16_step_cost(c: BioGptConfig, past: list, window: int, wbytes: int,
                    step_i: int = 0):
     """(bytes, operations) of a bf16-KV ``decode_step_fused`` (batched,
@@ -316,6 +383,19 @@ def main() -> int:
         for tp in (2, 4):
             for rec in tp_gemv_rows(tp=tp, fmt=fmt):
                 print(json.dumps(rec))
+        for R, T in PREFILL_SHAPES:
+            for rec in prefill_sub_rows(R=R, T=T, fmt=fmt):
+                print(json.dumps(rec))
+        for rec in tail_sub_rows(fmt=fmt):
+            print(json.dumps(rec))
+        c = BioGptConfig()
+        for name in PROJECTIONS:
+            nbytes, flops = prefill_gemm_cost(c, name, 1024, fmt)
+            ms, by = bound(nbytes, flops)
+            print(json.dumps({"kernel": "prefill_gemm", "projection": name,
+                              "m": 1024, "format": fmt, "bytes": nbytes,
+                              "flops": flops, "bound_ms": ms,
+                              "bound_by": by}))
     return 0
 
 

@@ -22,10 +22,15 @@ logs its seconds):
      projections of every layer and where the step's time goes), the KV
      commit (with row 10's rule: its time against the index store, its
      bound and an empty launch), and the greedy and sampled lm_head +
-     commit tails at M=8 and M=32 (and on Q4_1 planes at M=32);
+     commit tails at M=8, 16 and 32 (and on Q4_1 planes at M=32), at M=16
+     and 32 traced: the LayerNorm'd rows and the tensor-core GEMV
+     (``lm_head_mma_kernel``), never the scalar tile (:func:`tail_trace`);
   4. likewise the kernels of the refill and int8 KV paths: ``prefill_fused``
      at 32x32, 8x128 and 1x512 prompts x tokens (ragged lengths; with the
-     per-op refill it replaces timed beside it), the int8 decode step at
+     per-op refill it replaces timed beside it; traced: 7 launches a layer,
+     the wgmma GEMM on all four projections, the tensor-core attention,
+     never the kernels they replaced, and each part's device ms,
+     :func:`prefill_trace`), the int8 decode step at
      B=1 (past 100 and 900, traced: 5 launches a layer) and at B=8 and
      B=32 (window 512, ragged positions, dead slots; Q4_0, and Q4_1 at B=1
      and B=32), and ``kv_commit_quant``
@@ -46,6 +51,10 @@ logs its seconds):
      bias, GELU or residual epilogue) at the same four shapes in every
      format, timed beside its bound and ``x_bf16 @ dequantize(W)``, and
      held untimed at three uneven widths;
+  5d. the refill kernel's GEMM alone (``prefill_gemm``, the wgmma GEMM
+     with its qkv, residual or GELU epilogue) at its four projections, at
+     1024, 512 and uneven row counts, in every format, at 1024 rows timed
+     beside its bound and ``a_bf16 @ dequantize(W)``;
   6. every kernel that reads weights again in each of Q5_0, Q5_1 and
      Q8_0 (the GEMVs at every projection shape, ``lm_head_argmax`` and both
      tails, the B=1 (past 100 and 900), batched, paged and staged steps
@@ -325,29 +334,52 @@ def held_step(run, plain, what: str, rec: dict):
 
 # short spins that open each trace window (kernel_trace)
 TRACE_PAD = 8
+# retakes of a window the tracer returned empty (it lost two running once,
+# in a process that had taken some hundreds of traces, H100)
+TRACE_EMPTY_RETAKES = 3
 
 
-def kernel_trace(run) -> dict:
+def kernel_trace(run, seq: list | None = None,
+                 counted: dict | None = None) -> dict:
     """One call of ``run`` under ``torch.profiler`` -> {kernel name:
-    [launches, device ms]}. ``TRACE_PAD`` short spins open the window: on
+    [launches, device ms]}; ``seq``, where given, gets every device record
+    as (name, start us, device ms) in start order, and ``counted`` the
+    wrappers' launch counts (``cuda_lib.LAUNCHES``) that the call of the
+    window returned added. ``TRACE_PAD`` short spins open the window: on
     some H100 hosts, after a few dozen traces in one process, the tracer
-    lost the records of a window's first one to three kernels, and once
-    in a while a whole window: the spins take the first losses, and the
+    lost the records of a window's first one to three kernels, and once in
+    a while a whole window: the spins take the first losses, a window
+    without a single device record (the spins always run) is taken again,
+    calling ``run`` again, up to ``TRACE_EMPTY_RETAKES`` times, and the
     checks take a short trace again."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(TRACE_PAD):
-            torch.cuda._sleep(1000)
-        run()
+    from biogpt_tpu_torch.ops import cuda_lib
+
+    for _ in range(TRACE_EMPTY_RETAKES + 1):
         torch.cuda.synchronize()
-    names = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            n = names.setdefault(ev.name, [0, 0.0])
-            n[0] += 1
-            n[1] += ev.time_range.elapsed_us() / 1e3
+        before = dict(cuda_lib.LAUNCHES)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(TRACE_PAD):
+                torch.cuda._sleep(1000)
+            run()
+            torch.cuda.synchronize()
+        if counted is not None:
+            counted.clear()
+            counted.update({k: v - before.get(k, 0)
+                            for k, v in cuda_lib.LAUNCHES.items()})
+        names, recs = {}, []
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                n = names.setdefault(ev.name, [0, 0.0])
+                n[0] += 1
+                n[1] += ev.time_range.elapsed_us() / 1e3
+                recs.append((ev.name, ev.time_range.start,
+                             ev.time_range.elapsed_us() / 1e3))
+        if recs:
+            break
+    if seq is not None:
+        seq.extend(sorted(recs, key=lambda r: r[1]))
     return names
 
 
@@ -387,13 +419,11 @@ def gemv_trace(run, L: int, what: str) -> dict:
     (:func:`trace_whole`; it dropped 53 of 96 once in 27 traces on the
     H100): GEMV records missing from an otherwise whole trace fail at
     once. Every attempt's counts are printed."""
-    from biogpt_tpu_torch.ops import cuda_lib
-
     attempts = []
     for attempt in range(3):
-        counted = cuda_lib.LAUNCHES["decode_gemv"]
-        names = kernel_trace(run)
-        counted = cuda_lib.LAUNCHES["decode_gemv"] - counted
+        launches = {}
+        names = kernel_trace(run, counted=launches)
+        counted = launches["decode_gemv"]
         mma = launches_of(names, "qgemv_mma_kernel")
         old = launches_of(names, "qgemv_partial_kernel")
         whole = trace_whole(names, L)
@@ -430,14 +460,12 @@ def b1_trace(run, L: int, what: str) -> dict:
     :func:`kernel_trace`) is taken again, up to five times; the step's
     own count of GEMV launches stands beside every attempt -> the record
     printed (launches and device ms of each kernel)."""
-    from biogpt_tpu_torch.ops import cuda_lib
-
     want = {"qgemv_b1_kernel": 4 * L, "attn_paged_kernel": L}
     attempts = []
     for _ in range(5):
-        counted = cuda_lib.LAUNCHES["decode_gemv_b1"]
-        names = kernel_trace(run)
-        counted = cuda_lib.LAUNCHES["decode_gemv_b1"] - counted
+        launches = {}
+        names = kernel_trace(run, counted=launches)
+        counted = launches["decode_gemv_b1"]
         chain = {k: launches_of(names, k) for k in B1_CHAIN}
         never = {k: launches_of(names, k) for k in B1_NEVER}
         others = sum(v[0] for v in names.values()) - sum(chain.values())
@@ -477,6 +505,100 @@ def tp_trace(run, n_mma: int, what: str) -> None:
           f"{what}: {mma} tensor-core GEMV launches (want {n_mma}), {old} "
           f"of the scalar GEMV; attempts {attempts}")
     print(json.dumps({"tp_trace": what, "attempts": attempts}), flush=True)
+
+
+# the refill kernel's chain a layer, in launch order (csrc/prefill.cu), the
+# name each role's kernel has, and the kernels it must never launch: the
+# scalar-dequant GEMM and scalar-FMA attention it replaced
+PREFILL_ROLES = ("ln0", "qkv", "attention", "o", "ln1", "fc1", "fc2")
+PREFILL_KERNELS = {"ln0": "ln_rows_kernel", "qkv": "prefill_gemm_kernel",
+                   "attention": "causal_attn_kernel",
+                   "o": "prefill_gemm_kernel", "ln1": "ln_rows_kernel",
+                   "fc1": "prefill_gemm_kernel", "fc2": "prefill_gemm_kernel"}
+PREFILL_NEVER = ("qgemm_kernel", "prefill_attn_kernel")
+
+
+def prefill_trace(run, L: int, what: str) -> dict:
+    """One ``prefill_fused`` call of ``run`` under ``torch.profiler``: its
+    chain's records in launch order, each given its role in the layer
+    (``PREFILL_ROLES``; the chain's kernels are those whose names hold
+    "ln_rows", "gemm" or "attn") -> the record printed: per role its
+    launches and device ms summed over the layers, their share of the
+    roles' sum, and the chain's span on the card (first start to last
+    end; programmatic launches overlap, so the roles' sum may exceed it).
+    The kernels wait inside for the one before (programmatic launch), so a
+    role's span holds that wait; its marginal ms (from the later of its
+    start and the previous kernel's end to its end) is what it adds to the
+    chain, and the marginals sum to the span less the gaps. Checks 7 L
+    records, every role on its kernel of ``PREFILL_KERNELS`` and none of
+    ``PREFILL_NEVER``. A trace short of records (:func:`kernel_trace`) is
+    taken again, up to three times."""
+    attempts = []
+    for _ in range(3):
+        seq = []
+        names = kernel_trace(run, seq)
+        chain = [r for r in seq
+                 if any(k in r[0] for k in ("ln_rows", "gemm", "attn"))]
+        attempts.append(len(chain))
+        if len(chain) == 7 * L:
+            break
+    roles = {r: [0, 0.0, 0.0] for r in PREFILL_ROLES}
+    misplaced, prev_end = 0, None
+    for i, (name, start, ms) in enumerate(chain):
+        role = PREFILL_ROLES[i % 7]
+        end = start / 1e3 + ms
+        roles[role][0] += 1
+        roles[role][1] += ms
+        # what it adds to the chain: from the later of its start and the
+        # previous kernel's end to its own end
+        roles[role][2] += max(0.0, end - max(start / 1e3, prev_end)) \
+            if prev_end is not None else ms
+        prev_end = end if prev_end is None else max(prev_end, end)
+        misplaced += PREFILL_KERNELS[role] not in name
+    total = sum(v[1] for v in roles.values())
+    span = ((chain[-1][1] - chain[0][1]) / 1e3 + chain[-1][2]) if chain else 0.0
+    never = {k: launches_of(names, k) for k in PREFILL_NEVER}
+    check(len(chain) == 7 * L and misplaced == 0
+          and sum(never.values()) == 0,
+          f"{what}: {len(chain)} chain records (want {7 * L}), "
+          f"{misplaced} not on their role's kernel, {never} of the "
+          f"replaced kernels; attempts {attempts}")
+    rec = {"prefill_trace": what, "records": len(chain), "attempts": attempts,
+           "span_ms": span, "roles_ms": {k: v[1] for k, v in roles.items()},
+           "roles_marginal_ms": {k: v[2] for k, v in roles.items()},
+           "roles_share": {k: v[1] / max(total, 1e-30)
+                           for k, v in roles.items()},
+           "roles_launches": {k: v[0] for k, v in roles.items()},
+           "never": never, "kernels": names}
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+# the M=16/32 lm_head tails (csrc/lm_head_argmax.cu): the LayerNorm'd rows
+# and the tensor-core GEMV, and the scalar-FMA tile they replaced
+TAIL_KERNELS = ("ln_rows_kernel", "lm_head_mma_kernel")
+TAIL_NEVER = ("lm_head_block_kernel", "lm_head_logits_gmax_kernel")
+
+
+def tail_trace(run, what: str) -> dict:
+    """One call of an M=16/32 lm_head tail under ``torch.profiler`` -> the
+    record printed (launches and device ms of each kernel). Checks one
+    launch each of ``TAIL_KERNELS`` and none of ``TAIL_NEVER``. A trace
+    short of records is taken again, up to three times."""
+    attempts = []
+    for _ in range(3):
+        names = kernel_trace(run)
+        got = {k: launches_of(names, k) for k in TAIL_KERNELS}
+        never = {k: launches_of(names, k) for k in TAIL_NEVER}
+        attempts.append({"launches": got, "never": never})
+        if all(v == 1 for v in got.values()):
+            break
+    check(all(v == 1 for v in got.values()) and sum(never.values()) == 0,
+          f"{what}: tail launches {got} (want one each), {never} of the "
+          f"replaced kernels; attempts {attempts}")
+    rec = {"tail_trace": what, "attempts": attempts, "kernels": names}
+    print(json.dumps(rec), flush=True)
+    return rec
 
 
 def kernel_ln(x, lnw, lnb, eps):
@@ -990,7 +1112,7 @@ def phase_serving_kernels(c: Ctx) -> None:
     qt = c.rand_qt(D, V_PAD)
     lnw = 1 + 0.1 * c.randn(D)
     lnb = 0.1 * c.randn(D)
-    for M in (8, 32):
+    for M in (8, 16, 32):
         recs = hold_tails(c, qt, lnw, lnb, M, "q4_0")
         if M == 32:
             c.results.update(recs)
@@ -1000,13 +1122,15 @@ def phase_serving_kernels(c: Ctx) -> None:
 
 def hold_tails(c: Ctx, qt, lnw, lnb, M: int, fmt: str) -> dict:
     """The greedy and sampled lm_head tails with their KV commit at M rows,
-    and ``lm_head_argmax`` at M, against their plain versions on random
-    rows and caches, timed beside their bounds and one-call yardsticks ->
-    {kernel: record}."""
+    and ``lm_head_argmax`` at M (timed above M = 8), against their plain
+    versions on random rows and caches, timed beside their bounds and
+    one-call yardsticks; above M = 8 each tail traced (:func:`tail_trace`)
+    -> {kernel: record} of the two tails."""
     from biogpt_tpu_torch.ops import dequantize
     from biogpt_tpu_torch.ops.qmatmul_kernels import (
         lm_head_argmax, lm_head_argmax_commit, lm_head_argmax_commit_plain,
-        lm_head_logits_gmax_commit, lm_head_logits_gmax_commit_plain)
+        lm_head_argmax_plain, lm_head_logits_gmax_commit,
+        lm_head_logits_gmax_commit_plain)
 
     cfg, dev, V_PAD = c.cfg, c.dev, c.V_PAD
     D, L, V = cfg.d_model, cfg.n_layer, cfg.n_vocab
@@ -1041,8 +1165,22 @@ def hold_tails(c: Ctx, qt, lnw, lnb, M: int, fmt: str) -> dict:
     check(bool(torch.equal(k1, k2)) and bool(torch.equal(v1, v2)),
           f"lm_head_argmax_commit M={M} {fmt}: caches differ")
     aid, amv = lm_head_argmax(x, lnw, lnb, qt, V, cfg.ln_eps)
-    tail_ids_within(aid, amv, exp, V, f"lm_head_argmax M={M} {fmt}")
+    aerr, adecided = tail_ids_within(aid, amv, exp, V,
+                                     f"lm_head_argmax M={M} {fmt}")
     c.formats.setdefault("lm_head_argmax", set()).add(fmt)
+    if M > 8:   # row 3 at M > 8: the tail without its commit, timed
+        def argmax_only_lib():
+            xn = torch.nn.functional.layer_norm(x, (D,), lnw, lnb, cfg.ln_eps)
+            logits = xn.to(torch.bfloat16) @ dequantize(qt, torch.bfloat16)
+            return torch.argmax(logits[:, :V], dim=-1)
+        rec = {"kernel": "lm_head_argmax", "m": M, "format": fmt,
+               "max_abs_err": aerr, "tol": tol, "ids_decided": adecided,
+               "ln_flips": exp["flips"]}
+        timed(rec, lambda: lm_head_argmax(x, lnw, lnb, qt, V, cfg.ln_eps),
+              lambda: lm_head_argmax_plain(x, lnw, lnb, qt, V, cfg.ln_eps),
+              argmax_only_lib, qbytes(qt) + M * D * 4 + 2 * D * 4 + M * 8,
+              2 * M * D * V_PAD)
+        c.emit(rec)
 
     def argmax_lib():
         xn = torch.nn.functional.layer_norm(x, (D,), lnw, lnb, cfg.ln_eps)
@@ -1060,6 +1198,10 @@ def hold_tails(c: Ctx, qt, lnw, lnb, M: int, fmt: str) -> dict:
               x, lnw, lnb, qt, V, kc, vc, krt, vrt, pt, cfg.ln_eps),
           argmax_lib, qbytes(qt) + M * D * 4 + 2 * D * 4 + M * 8
           + commit_bytes, 2 * M * D * V_PAD)
+    if M > 8:
+        rec["trace"] = tail_trace(lambda: lm_head_argmax_commit(
+            x, lnw, lnb, qt, V, kc, vc, krt, vrt, pt, cfg.ln_eps),
+            f"lm_head_argmax_commit M={M} {fmt}")["kernels"]
     recs["lm_head_argmax_commit"] = rec
     c.emit(rec)
 
@@ -1106,6 +1248,10 @@ def hold_tails(c: Ctx, qt, lnw, lnb, M: int, fmt: str) -> dict:
           gmax_lib, qbytes(qt) + M * D * 4 + 2 * D * 4
           + M * V_PAD * 4 + M * (V_PAD // 128) * 4 + commit_bytes,
           2 * M * D * V_PAD)
+    if M > 8:
+        rec["trace"] = tail_trace(lambda: lm_head_logits_gmax_commit(
+            x, lnw, lnb, qt, V, kc, vc, krt, vrt, pt, cfg.ln_eps),
+            f"lm_head_logits_gmax_commit M={M} {fmt}")["kernels"]
     recs["lm_head_logits_gmax_commit"] = rec
     c.emit(rec)
     del kc, vc, k1, v1, k2, v2
@@ -1188,6 +1334,9 @@ def phase_refill_int8_kernels(c: Ctx) -> None:
             if not mins:
                 timed(rec, run, plain, None, *prefill_cost(cfg, R, T, wbytes),
                       reps=10)
+                # where its time goes: the chain's kernels by role
+                rec["trace"] = prefill_trace(
+                    run, L, f"prefill_fused {R}x{T} {fmt}")["roles_ms"]
                 # the path it replaces: the per-op refill of the same group
                 ids = torch.randint(4, cfg.n_vocab, (R, T), generator=c.gen,
                                     device=dev)
@@ -1619,6 +1768,189 @@ def phase_b1_gemv_kernels(c: Ctx) -> None:
                   flush=True)
 
 
+# ------------------------------ 5d. the refill kernel's GEMM alone
+
+# the refill kernel's four GEMMs: (projection, epilogue)
+PREFILL_GEMMS = (("qkv", "qkv"), ("o", "resid"), ("fc1", "gelu"),
+                 ("fc2", "resid"))
+# the rows they take: the 32 x 32 and 8 x 128 waves, one 512-token prompt
+# (timed at 1024), and uneven counts: a part-filled 128-row tile, a
+# 9-token prompt padded to 8 x 9, one small group
+PREFILL_GEMM_ROWS = (1024, 512, 200, 72, 8)
+# (projection, epilogue, d_in, d_out) at widths 256 does not divide, which
+# take 128-column tiles in every epilogue (d_model 384 and 640)
+PREFILL_GEMM_ODD_WIDTHS = (("qkv", "qkv", 384, 1152), ("o", "resid", 384, 384),
+                           ("fc1", "gelu", 640, 1920), ("qkv", "qkv", 640, 1920))
+# a narrower model whose qkv width (3 x 384) 256 does not divide: (d_model,
+# heads, d_ff, layers), held through the whole refill kernel (d_ff 2048:
+# the layer gate takes d_in past 1024 in whole 1024-row chunks)
+PREFILL_ODD_MODEL = (384, 6, 2048, 2)
+
+
+def held_prefill_gemm(c: Ctx, qt, epi: str, M: int, what: str):
+    """``prefill_gemm`` at M rows on random inputs against its plain version
+    -> (record of the hold, the call's arguments). The two sum the same
+    exact products in other orders: f32 outputs within 1e-5 of the
+    product's magnitude (``tol``); bf16 outputs within that (times the q
+    scale, or GELU's largest slope), plus, for each element whose plain
+    f32 value lies within that of a bf16 rounding boundary (so the two
+    may round to neighbouring values), the gap between those neighbours."""
+    from biogpt_tpu_torch.ops.prefill_kernels import (prefill_gemm,
+                                                      prefill_gemm_plain)
+    from biogpt_tpu_torch.ops.qmatmul_kernels import qmatmul_wide_plain
+
+    d_in, d_out = qt.d_in, qt.d_out
+    a = c.randn(M, d_in).to(torch.bfloat16)
+    kw = dict(epi=epi, x=c.randn(M, d_out) if epi == "resid" else None,
+              scale=0.125 if epi == "qkv" else None)
+    bias = 0.02 * c.randn(d_out)
+    got = prefill_gemm(a, qt, bias, **kw)
+    want = prefill_gemm_plain(a, qt, bias, **kw)
+    y = qmatmul_wide_plain(a, qt)
+    torch.cuda.synchronize()
+    tol = 1e-5 * y.abs().max().item() + 1e-5
+    # the plain version's f32 values before their bf16 rounding
+    yb = y + bias
+    if epi == "qkv":
+        D = d_out // 3
+        pairs, scales = zip(got, want), (0.125, 1.0, 1.0)
+        pre = (yb[:, :D] * 0.125, yb[:, D:2 * D], yb[:, 2 * D:])
+    elif epi == "gelu":
+        pairs, scales = [(got, want)], (GELU_SLOPE,)
+        pre = (torch.nn.functional.gelu(yb),)
+    else:
+        pairs, scales, pre = [(got, want)], (1.0,), (None,)
+    worst = 0.0
+    for (g, w), sc, v in zip(pairs, scales, pre):
+        g, w = g.float(), w.float()
+        lim = tol * sc
+        if v is not None:
+            lo = (v - lim).to(torch.bfloat16).float()
+            hi = (v + lim).to(torch.bfloat16).float()
+            lim = lim + (hi - lo).abs()
+        ratio = ((g - w).abs() / lim).max().item()
+        check(ratio <= 1 and bool(torch.isfinite(g).all()),
+              f"{what}: error {ratio} of its limit")
+        worst = max(worst, ratio)
+    rec = {"max_abs_err": max((g.float() - w.float()).abs().max().item()
+                              for g, w in (zip(got, want) if epi == "qkv"
+                                           else [(got, want)])),
+           "tol": tol, "err_over_limit": worst}
+    return rec, (a, bias, kw)
+
+
+def phase_prefill_gemm_kernels(c: Ctx) -> None:
+    """The refill kernel's GEMM alone (``prefill_gemm``: the wgmma GEMM with
+    its qkv, residual or GELU epilogue) at each 347M projection, at the
+    rows of ``PREFILL_GEMM_ROWS``, in every format, against its plain
+    version (:func:`held_prefill_gemm`); at 1024 rows timed beside its
+    bound and the one-call yardstick ``a_bf16 @ dequantize(W, bf16)``
+    (timed only; the port never calls it), the L2 flushed before each
+    call."""
+    from biogpt_tpu_torch.ops import dequantize
+    from biogpt_tpu_torch.ops.prefill_kernels import (prefill_gemm,
+                                                      prefill_gemm_plain)
+    from biogpt_tpu_torch.tools.kernel_bounds import (prefill_gemm_cost,
+                                                      projection_shape)
+
+    cfg, dev = c.cfg, c.dev
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    for fmt in FORMATS:
+        for name, epi in PREFILL_GEMMS:
+            qt = c.rand_qt(*projection_shape(cfg, name), fmt=fmt)
+            for M in PREFILL_GEMM_ROWS:
+                held, (a, bias, kw) = held_prefill_gemm(
+                    c, qt, epi, M, f"prefill_gemm {name} M={M} {fmt}")
+                rec = {"kernel": "prefill_gemm", "projection": name,
+                       "epi": epi, "shape": f"{qt.d_in} -> {qt.d_out}",
+                       "m": M, "format": fmt, **held}
+                if M == 1024:
+                    def lib_call():
+                        return a @ dequantize(qt, torch.bfloat16)
+                    nbytes, flops = prefill_gemm_cost(cfg, name, M, fmt)
+                    timed(rec, lambda: prefill_gemm(a, qt, bias, **kw),
+                          lambda: prefill_gemm_plain(a, qt, bias, **kw),
+                          lib_call, nbytes, flops, reps=50, plain_reps=5,
+                          flush=flush)
+                    if (fmt, name) == ("q4_0", "fc2"):
+                        c.results["prefill_gemm"] = rec
+                    c.emit(rec)
+                else:
+                    c.formats.setdefault("prefill_gemm", set()).add(fmt)
+                    print(json.dumps(rec), flush=True)
+    del flush_buf
+    for name, epi, d_in, d_out in PREFILL_GEMM_ODD_WIDTHS:
+        for fmt in FORMATS:
+            qt = c.rand_qt(d_in, d_out, fmt=fmt)
+            worst = {}
+            for M in (1024, 72, 8):
+                held, _ = held_prefill_gemm(
+                    c, qt, epi, M,
+                    f"prefill_gemm {name} {d_in} -> {d_out} M={M} {fmt}")
+                worst[M] = held["err_over_limit"]
+            print(json.dumps({"prefill_gemm_odd_width": name, "epi": epi,
+                              "shape": f"{d_in} -> {d_out}", "format": fmt,
+                              "err_over_limit_by_m": worst}), flush=True)
+    hold_prefill_odd_model(c)
+
+
+def hold_prefill_odd_model(c: Ctx) -> None:
+    """``prefill_fused`` on random layers of ``PREFILL_ODD_MODEL`` at 4 x 32
+    rows against its plain version, at the limits of the 347M holds
+    (:func:`hidden_within`, :func:`rows_within`), on the models those
+    limits were set on: random Q4_0 (Q4_1 for the formats with mins)
+    planes, and for the other formats the same weights re-quantized
+    (``requantize``, as ``phase_format_kernels`` holds them), after the
+    Q4 planes re-encoded exactly in the format gave the Q4 kernel's
+    results bit for bit."""
+    from biogpt_tpu_torch.ops.prefill_kernels import (prefill_fused,
+                                                      prefill_fused_plain)
+
+    D, H, F, L = PREFILL_ODD_MODEL
+    R, T = 4, 32
+    eps = c.cfg.ln_eps
+    for fmt in FORMATS:
+        mins = fmt.endswith("_1")
+        src = {n: {"w": 1 + 0.1 * c.randn(L, D), "b": 0.1 * c.randn(L, D)}
+               for n in ("ln0", "ln1")}
+        for name, d_in, d_out in (("qkv", D, 3 * D), ("o", D, D),
+                                  ("fc1", D, F), ("fc2", F, D)):
+            src[name] = {"w": c.rand_qt(d_in, d_out, (L,), mins),
+                         "b": 0.02 * c.randn(L, d_out)}
+        x0 = c.randn(R * T, D)
+
+        def run(layers):
+            return prefill_fused(x0, layers, rows=R, padded=T, n_head=H,
+                                 ln_eps=eps)
+        what = f"prefill_fused d_model {D} {R}x{T} {fmt}"
+        rec = {"prefill_fused_odd_model": D, "heads": H, "d_ff": F,
+               "layers": L, "R": R, "T": T, "format": fmt}
+        layers = src
+        if fmt not in ("q4_0", "q4_1"):
+            a = run(src)
+            b = run(with_weights(src, lambda qt: reencode(qt, fmt)))
+            torch.cuda.synchronize()
+            rec["reencoded_bit_equal"] = all(bool(torch.equal(u, v))
+                                             for u, v in zip(a, b))
+            check(rec["reencoded_bit_equal"],
+                  f"{what}: re-encoded Q4 planes not bit-equal to the Q4 "
+                  f"kernel (x differs by {(a[0] - b[0]).abs().max().item()})")
+            layers = with_weights(src, lambda qt: requantize(qt, fmt))
+        x, kr, vr = run(layers)
+        xp, krp, vrp = prefill_fused_plain(x0, layers, rows=R, padded=T,
+                                           n_head=H, ln_eps=eps)
+        torch.cuda.synchronize()
+        rec.update(max_abs_err=hidden_within(x, xp, what),
+                   tol=3e-3 * xp.abs().max().item(),
+                   rows_err_over_tol=max(rows_within(kr, krp, what + " k"),
+                                         rows_within(vr, vrp, what + " v")))
+        print(json.dumps(rec), flush=True)
+
+
 # ------------------------------------ 6. the Q5_0, Q5_1 and Q8_0 kernels
 
 def hold_equivalence(c: Ctx, src, same, fmt: str) -> None:
@@ -2017,9 +2349,10 @@ def phase_cli(c: Ctx, path: str, smi: str) -> None:
 SERVING_KERNELS = {
     False: ("decode_step_fused_batched", "decode_gemv", "kv_commit",
             "lm_head_argmax_commit", "lm_head_logits_gmax_commit",
-            "prefill_fused"),
+            "prefill_fused", "prefill_gemm"),
     True: ("decode_step_fused_batched_int8", "decode_gemv", "kv_commit_quant",
-           "prefill_fused", "lm_head_argmax", "qmatmul_wide"),
+           "prefill_fused", "prefill_gemm", "lm_head_argmax",
+           "qmatmul_wide"),
 }
 
 
@@ -2258,6 +2591,19 @@ def phase_serving(c: Ctx, path: str, smi: str, kv_quant: bool = False) -> None:
           and all(0 <= t < V for r in res.values() for t in r.new_ids),
           f"serve ({kv} KV): {len(res)} results, {n_tok} tokens")
     c.lockstep_ids[kv] = {i: r.ids for i, r in res.items()}
+    # every step of the all-greedy serve ran the batched step and the
+    # greedy tail once (M=32: the tensor-core GEMV), every refill group the
+    # refill kernel with 4 L GEMMs
+    step_k = "decode_step_fused_batched" + ("_int8" if kv_quant else "")
+    tail_k = "lm_head_argmax" if kv_quant else "lm_head_argmax_commit"
+    got = {k: cuda_lib.LAUNCHES[k] for k in (step_k, tail_k, "prefill_fused",
+                                             "prefill_gemm")}
+    refills = snap1["refill_programs"] - snap0["refill_programs"]
+    check(got[step_k] == steps and got[tail_k] == steps
+          and got["prefill_fused"] == refills
+          and got["prefill_gemm"] == 4 * c.cfg.n_layer * refills,
+          f"serve ({kv} KV) launches {got}: want {steps} steps and tails, "
+          f"{refills} refills of {4 * c.cfg.n_layer} GEMMs")
     chunk_ms = sum(s.elapsed_time(e) for s, e in spans["chunk"])
     refill_ms = sum(s.elapsed_time(e) for s, e in spans["refill"])
     serve_rec = {"serve_uniform_greedy_tokens_per_s": n_tok / wall,
@@ -2364,17 +2710,17 @@ def phase_paged_staged_serving(c: Ctx, path: str, smi: str) -> None:
         ("lockstep int8", dict(kv_quant=True), None, ()),
         ("paged bf16", dict(paged_kv=True),
          ("decode_step_fused_paged", "decode_gemv", "lm_head_argmax_commit",
-          "prefill_fused"),
+          "prefill_fused", "prefill_gemm"),
          ("decode_step_fused_paged", "decode_gemv", "kv_commit",
           "qmatmul_wide")),
         ("paged int8", dict(paged_kv=True, kv_quant=True),
          ("decode_step_fused_paged_int8", "decode_gemv", "kv_commit_quant",
-          "lm_head_argmax", "prefill_fused"),
+          "lm_head_argmax", "prefill_fused", "prefill_gemm"),
          ("decode_step_fused_paged_int8", "decode_gemv", "kv_commit_quant",
           "qmatmul_wide")),
         ("staged bf16", dict(staged_kv=True),
          ("decode_step_fused_staged", "decode_gemv", "qmatmul_wide",
-          "prefill_fused"),
+          "prefill_fused", "prefill_gemm"),
          ("decode_step_fused_staged", "decode_gemv", "qmatmul_wide")),
     )
     for name, flags, uniform_kernels, mixed_kernels in paths:
@@ -2457,7 +2803,13 @@ def phase_paged_staged_serving(c: Ctx, path: str, smi: str) -> None:
 
 def count_route(c: Ctx, launches: dict, kernels, fmt: str) -> None:
     """Add a main-path run's launches of ``kernels`` to the ``kernels``
-    line's counts, and note that they drove a route in format ``fmt``."""
+    line's counts, and note that they drove a route in format ``fmt``; a
+    route through the refill kernel launched its GEMM 4 L times a call."""
+    if "prefill_fused" in kernels:
+        n = launches["prefill_fused"]
+        check(launches["prefill_gemm"] == 4 * c.cfg.n_layer * n,
+              f"{fmt} route: {launches['prefill_gemm']} refill GEMM launches "
+              f"for {n} prefill_fused calls (want {4 * c.cfg.n_layer} each)")
     for k in kernels:
         c.launches[k] = c.launches.get(k, 0) + launches[k]
         c.formats.setdefault(k, set()).add(fmt)
@@ -2586,7 +2938,8 @@ def phase_format_e2e(c: Ctx, fmt: str, smi: str) -> None:
               f"serve ({name} {fmt}): {len(res)} results, {n_tok} tokens")
         launches = dict(cuda_lib.LAUNCHES)
         log(f"{name} {fmt} uniform serve launches: {launches}")
-        launched_exactly(c, launches, step_kernels | {"prefill_fused"},
+        launched_exactly(c, launches,
+                         step_kernels | {"prefill_fused", "prefill_gemm"},
                          refill_gemv, f"serve ({name} {fmt})", fmt)
         ids = {i: r.ids for i, r in res.items()}
         if lockstep_ids is None:
@@ -3296,7 +3649,8 @@ def main() -> int:
     phases = [(p.__name__, p) for p in (
         phase_single_kernels, phase_serving_kernels,
         phase_refill_int8_kernels, phase_paged_staged_kernels,
-        phase_gemv_kernels, phase_b1_gemv_kernels)]
+        phase_gemv_kernels, phase_b1_gemv_kernels,
+        phase_prefill_gemm_kernels)]
     phases += [(f"phase_format_kernels {fmt}",
                 lambda c, fmt=fmt: phase_format_kernels(c, fmt))
                for fmt in NEW_FORMATS]
@@ -3374,6 +3728,8 @@ def main() -> int:
                         "biogpt_tpu/ops/pallas_decode.py:190"),
         "decode_gemv_b1": ("biogpt_tpu_torch/csrc/qgemv_b1.cuh",
                            "biogpt_tpu/ops/pallas_decode.py:142"),
+        "prefill_gemm": ("biogpt_tpu_torch/csrc/prefill.cu",
+                         "biogpt_tpu/ops/pallas_prefill.py:100"),
     }
     kernels = []
     for name, (src, rep) in sources.items():

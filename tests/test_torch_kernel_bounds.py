@@ -11,6 +11,7 @@ from pathlib import Path
 import ml_dtypes
 import numpy as np
 import pytest
+import torch
 
 from biogpt_tpu.quant import codecs
 from biogpt_tpu.quant.layouts import pack_nibble_planes, quantize_to_planes
@@ -117,6 +118,50 @@ def test_tp_gemv_rows_sum_to_the_step(fmt, tp):
         assert r["bytes"] > r["plane_bytes"] and r["bound_by"] == "bytes"
 
 
+@pytest.mark.parametrize("fmt", kb.FORMATS)
+@pytest.mark.parametrize("R,T", kb.PREFILL_SHAPES)
+def test_prefill_sub_rows_sum_to_the_row(fmt, R, T):
+    """Row 12's five parts (the four GEMMs and attention over all layers)
+    sum to the row's bytes and operations at each refill shape."""
+    c = BioGptConfig()
+    recs = kb.prefill_sub_rows(c, R=R, T=T, fmt=fmt)
+    assert [r["part"] for r in recs] == ["qkv", "attention", "o", "fc1",
+                                         "fc2"]
+    row = next(r for r in kb.rows(c, fmt) if r["kernel"] == "prefill_fused"
+               and r["shape"] == f"R={R} prompts x T={T}")
+    assert sum(r["bytes"] for r in recs) == row["bytes"]
+    assert sum(r["flops"] for r in recs) == row["flops"]
+    assert all(r["row"] == row["row"] == 12 for r in recs)
+
+
+@pytest.mark.parametrize("fmt", kb.FORMATS)
+def test_tail_sub_rows_sum_to_the_rows(fmt):
+    """Rows 4 and 5 split into the lm_head GEMV and the KV commit, each
+    pair summing to its row; the commit's part is row 10's bytes."""
+    c = BioGptConfig()
+    recs = kb.tail_sub_rows(c, fmt)
+    rows = {r["row"]: r for r in kb.rows(c, fmt)}
+    for n in (4, 5):
+        parts = [r for r in recs if r["row"] == n]
+        assert [r["part"] for r in parts] == ["lm_head GEMV", "KV commit"]
+        assert sum(r["bytes"] for r in parts) == rows[n]["bytes"]
+        assert sum(r["flops"] for r in parts) == rows[n]["flops"]
+        assert parts[1]["bytes"] == rows[10]["bytes"]
+
+
+@pytest.mark.parametrize("fmt", kb.FORMATS)
+def test_prefill_gemm_cost_counts_its_planes(fmt):
+    """The GEMM alone reads its planes and bias and the bf16 rows, and its
+    operations are the projection's; at 1024 rows the four projections'
+    operations are one layer's of row 12 at 32 x 32."""
+    c = BioGptConfig()
+    costs = [kb.prefill_gemm_cost(c, n, 1024, fmt) for n in kb.PROJECTIONS]
+    for n, (nbytes, _) in zip(kb.PROJECTIONS, costs):
+        d_in, d_out = kb.projection_shape(c, n)
+        assert nbytes > kb.q_bytes(d_in, d_out, fmt) + 1024 * d_in * 2
+    assert sum(f for _, f in costs) == kb.layer_flops(c, 1024)
+
+
 def test_spin_covers_the_host():
     """Four times the host's enqueue time, 0.5 ms at least, 100 ms at
     most."""
@@ -127,3 +172,63 @@ def test_spin_covers_the_host():
     assert spin_cycles(1.5, rate) / rate > 1.5   # the spin covers the host
     with pytest.raises(ValueError):
         spin_cycles(-1.0, rate)
+
+
+class _Span:
+    def __init__(self, start):
+        self.start = start
+
+    def elapsed_us(self):
+        return 10.0
+
+
+class _Event:
+    def __init__(self, name, start):
+        self.name, self.time_range = name, _Span(start)
+        self.device_type = torch.autograd.DeviceType.CUDA
+
+
+def test_kernel_trace_counts_only_the_window_it_keeps(monkeypatch):
+    """``chip_smoke.py::kernel_trace`` takes a window again where the
+    tracer returned no device record, which calls ``run`` again: the
+    launch counts it hands back are those of the window it keeps, not the
+    sum over the retakes (a retaken staged step once counted 192 GEMVs
+    for 96)."""
+    import importlib
+    import sys
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    chip_smoke = importlib.import_module("chip_smoke")
+    from biogpt_tpu_torch.ops import cuda_lib
+
+    windows = [[], [], [_Event("qgemv_mma_kernel", 5), _Event("x", 1)]]
+
+    class FakeProfile:
+        def __init__(self, activities):
+            self.recs = windows.pop(0)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def events(self):
+            return self.recs
+
+    monkeypatch.setattr(torch.profiler, "profile", FakeProfile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(torch.cuda, "_sleep", lambda n: None)
+    monkeypatch.setitem(cuda_lib.LAUNCHES, "decode_gemv", 0)
+    calls = []
+
+    def run():
+        calls.append(1)
+        cuda_lib.LAUNCHES["decode_gemv"] += 96
+
+    counted, seq = {}, []
+    names = chip_smoke.kernel_trace(run, seq, counted)
+    assert len(calls) == 3 and cuda_lib.LAUNCHES["decode_gemv"] == 288
+    assert counted["decode_gemv"] == 96 and counted["prefill_gemm"] == 0
+    assert names == {"qgemv_mma_kernel": [1, 0.01], "x": [1, 0.01]}
+    assert [r[0] for r in seq] == ["x", "qgemv_mma_kernel"]
