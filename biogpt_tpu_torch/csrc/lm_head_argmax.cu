@@ -17,10 +17,11 @@
 // M=32). The TPU kernels walked vocab tiles in order carrying state in
 // VMEM; here the columns are cut into blocks that run in any order, and
 // each block's result is folded afterwards in column order:
-//   - M = 1..8 (X' numerics): each of the d_out/128 blocks (332 at
-//     BioGPT-347M) recomputes the LayerNorm of its M rows into dynamic
-//     shared memory and runs qgemv.cuh's scalar-FMA GEMV over the full d_in
-//     for its 128 columns;
+//   - M = 1..8 (X' numerics): qgemv_stream.cuh's streaming tensor-core
+//     GEMV in one launch, the M rows LayerNorm'd once per block from their
+//     statistics (a warp a row) into the A fragments, persistent blocks
+//     walking the d_out/64 column tiles (664 at BioGPT-347M), the argmax
+//     or the logits + maximum of each tile written by its block;
 //   - M = 16, 32 (dequant-then-dot, _qmm_dq's roundings): the LayerNorm'd
 //     rows once, in bf16 (ln_rows_kernel), then qgemv_mma.cuh's
 //     tensor-core GEMV (lm_head_mma_kernel; each warp's rows by cp.async
@@ -30,8 +31,8 @@
 //     of a cluster owns rows [r, r + 1) * ceil(M / splits) of the tile and
 //     folds each row's 64 sums into the epilogue's result;
 // then per block of columns and row:
-//   argmax: one (max, lowest index, any-NaN) triple over its columns (pad
-//     columns at -1e30); a second one-warp-per-row kernel folds them in
+//   argmax: one (max, lowest index, any-NaN) triple over its 64 columns
+//     (pad columns at -1e30); a second one-warp-per-row kernel folds them in
 //     column order with the TPU kernel's rules, tile by tile (T = its lane
 //     tile, 512 columns at 347M): a tile holding a NaN yields (NaN,
 //     n_valid - 1) (jnp.max propagates NaN and no column then satisfies
@@ -39,104 +40,15 @@
 //     tile 0, so ties keep the lowest index and a NaN first tile pins the
 //     result (the health lane's probe);
 //   logits+gmax: its logits and their maximum, NaN-propagating as jnp.max
-//     (at M = 16, 32 the two 64-column maxima of a 128-column group fold
-//     in a second kernel).
+//     (the two 64-column maxima of a 128-column group fold in a second
+//     kernel).
 #include <cooperative_groups.h>
 
-#include "qgemv_mma.cuh"
+#include "qgemv_stream.cuh"
 
 using namespace bgt;
 
 namespace {
-
-// LayerNorm of all M rows into xs (dynamic shared memory), then this
-// block's 128 logits per row into logits (M, 128), X' numerics.
-template <int M, int BITS, bool HAS_MIN>
-__device__ __forceinline__ void lm_head_tile(const GemvArgs& a, float* xs,
-                                             float* red, float* logits,
-                                             float* scratch) {
-  stage_x<M>(a, xs, 0, a.gpb * QK, scratch);
-  __syncthreads();
-  float acc[M][4];
-  gemv_accumulate<M, false, BITS, HAS_MIN>(a, xs, blockIdx.x, 0, acc);
-  warp_tile_reduce<M>(acc, red, logits, TILE_COLS);
-  __syncthreads();
-}
-
-// NaN-propagating max of v over the block (as jnp.max); every thread gets
-// it. `wmax` holds GEMV_WARPS floats.
-__device__ __forceinline__ float block_max_nan(float v, float* wmax) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int any_nan = __syncthreads_or(isnan(v) ? 1 : 0);
-  float mx = warp_max(isnan(v) ? -INFINITY : v);
-  if (lane == 0) wmax[warp] = mx;
-  __syncthreads();
-  mx = wmax[0];
-  for (int w = 1; w < GEMV_WARPS; ++w) mx = fmaxf(mx, wmax[w]);
-  __syncthreads();
-  return any_nan ? __int_as_float(0x7fc00000) : mx;
-}
-
-template <int M, int BITS, bool HAS_MIN>
-__global__ void __launch_bounds__(GEMV_THREADS)
-lm_head_block_kernel(GemvArgs a, int n_valid, float* bmax, int* bidx,
-                     int* bnan) {
-  extern __shared__ float xs[];
-  __shared__ float red[GEMV_WARPS * TILE_COLS];
-  __shared__ float logits[M * TILE_COLS];
-  __shared__ float scratch[32];
-  __shared__ float wmax[GEMV_WARPS];
-  __shared__ int widx[GEMV_WARPS];
-  lm_head_tile<M, BITS, HAS_MIN>(a, xs, red, logits, scratch);
-
-  const int nblk = gridDim.x;
-  const int col = blockIdx.x * TILE_COLS + threadIdx.x;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int m = 0; m < M; ++m) {
-    const float v = col < n_valid ? logits[m * TILE_COLS + threadIdx.x] : -1e30f;
-    const int any_nan = __syncthreads_or(isnan(v) ? 1 : 0);
-    float mx = warp_max(isnan(v) ? -INFINITY : v);
-    if (lane == 0) wmax[warp] = mx;
-    __syncthreads();
-    mx = wmax[0];
-    for (int w = 1; w < GEMV_WARPS; ++w) mx = fmaxf(mx, wmax[w]);
-    int id = (v == mx) ? col : 0x7fffffff;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) id = min(id, __shfl_xor_sync(0xffffffffu, id, o));
-    if (lane == 0) widx[warp] = id;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      int best = widx[0];
-      for (int w = 1; w < GEMV_WARPS; ++w) best = min(best, widx[w]);
-      bmax[m * nblk + blockIdx.x] = mx;
-      bidx[m * nblk + blockIdx.x] = best;
-      bnan[m * nblk + blockIdx.x] = any_nan;
-    }
-    __syncthreads();
-  }
-}
-
-// logits (M, d_out) with pad columns -1e30; gmax (M, d_out/128).
-template <int M, int BITS, bool HAS_MIN>
-__global__ void __launch_bounds__(GEMV_THREADS)
-lm_head_logits_gmax_kernel(GemvArgs a, int n_valid, float* out,
-                           float* gmax) {
-  extern __shared__ float xs[];
-  __shared__ float red[GEMV_WARPS * TILE_COLS];
-  __shared__ float logits[M * TILE_COLS];
-  __shared__ float scratch[32];
-  __shared__ float wmax[GEMV_WARPS];
-  lm_head_tile<M, BITS, HAS_MIN>(a, xs, red, logits, scratch);
-
-  const int nblk = gridDim.x;
-  const int col = blockIdx.x * TILE_COLS + threadIdx.x;
-  for (int m = 0; m < M; ++m) {
-    const float v = col < n_valid ? logits[m * TILE_COLS + threadIdx.x] : -1e30f;
-    out[(size_t)m * a.d_out + col] = v;
-    const float mx = block_max_nan(v, wmax);
-    if (threadIdx.x == 0) gmax[m * nblk + blockIdx.x] = mx;
-  }
-}
 
 // One warp per row: per-tile results in column order, then the strict-`>`
 // fold from tile 0. Dynamic shared memory: n_tiles * 8 bytes.
@@ -312,38 +224,16 @@ MmaGemv tail_gemv(const float* x, void* xn, const float* ln_w,
   return a;
 }
 
-// Launch `kernel` over the d_out/128 column blocks with M * d_in floats of
-// dynamic shared memory (above 48 KB only after opting in).
-template <typename Kernel, typename... Args>
-cudaError_t launch_tiles(Kernel kernel, int M, const GemvArgs& a,
-                         cudaStream_t st, Args... args) {
-  const size_t smem = (size_t)M * a.d_in * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  kernel<<<a.d_out / TILE_COLS, GEMV_THREADS, smem, st>>>(a, args...);
-  return cudaGetLastError();
-}
-
-template <int M>
-cudaError_t launch_argmax(const GemvArgs& a, int n_valid, float* bmax,
-                          int* bidx, int* bnan, cudaStream_t st) {
-  cudaError_t err = cudaErrorInvalidValue;
-  with_format(a.bits, a.mn != nullptr, [&](auto fmt) {
-    using T = decltype(fmt);
-    err = launch_tiles(lm_head_block_kernel<M, T::BITS, T::HAS_MIN>, M, a,
-                       st, n_valid, bmax, bidx, bnan);
-  });
-  return err;
-}
-
-GemvArgs lm_head_args(const float* x, const float* ln_w, const float* ln_b,
-                      float eps, const uint8_t* lv, const void* sc,
-                      const void* mn, int d_in, int d_out, int offset,
-                      int bits) {
-  GemvArgs a;
+// The M <= 8 tails' streaming GEMV (XPRIME numerics, the LayerNorm in
+// each block) with epilogue MODE, over grid_x x splits blocks.
+template <int MODE>
+cudaError_t launch_xp_tail(const float* x, const float* ln_w,
+                           const float* ln_b, float eps, const uint8_t* lv,
+                           const void* sc, const void* mn, int M, int d_in,
+                           int d_out, int offset, int bits, int n_valid,
+                           int grid_x, int splits, float* out, float* tmax,
+                           int* tidx, int* tnan, cudaStream_t st) {
+  StreamGemv a{};
   a.x = x;
   a.ln_w = ln_w;
   a.ln_b = ln_b;
@@ -351,105 +241,108 @@ GemvArgs lm_head_args(const float* x, const float* ln_w, const float* ln_b,
   a.lv = lv;
   a.sc = static_cast<const __nv_bfloat16*>(sc);
   a.mn = static_cast<const __nv_bfloat16*>(mn);
+  a.M = M;
   a.d_in = d_in;
   a.d_out = d_out;
   a.offset = offset;
-  a.bits = bits;
-  a.gpb = d_in / (2 * QK);   // one block covers the whole of d_in
-  return a;
+  a.splits = splits;
+  a.n_valid = n_valid;
+  a.y = out;
+  a.tmax = tmax;
+  a.tidx = tidx;
+  a.tnan = tnan;
+  cudaError_t err = cudaErrorInvalidValue;
+  with_format(bits, mn != nullptr, [&](auto fmt) {
+    using T = decltype(fmt);
+    err = launch_stream<8, true, T::BITS, T::HAS_MIN, MODE>(a, grid_x, st);
+  });
+  return err;
 }
 
 }  // namespace
 
 // x (M, d_in) f32 with M in 1..8 (X' numerics) or 16 / 32 (dequant-then-
 // dot; the wrapper pads 9..32 rows with zeros); ln_w/ln_b (d_in) f32;
-// scratch: bmax/bidx/bnan M * d_out/64 entries each, xn (M, d_in) bf16;
-// out_idx (M,) i32, out_max (M,) f32; bits: the level format (4, 5 or 8);
-// tile: the TPU kernel's lane tile (columns) the fold runs over.
+// scratch: bmax/bidx/bnan M * d_out/64 entries each, xn (M, d_in) bf16
+// (M = 16, 32); out_idx (M,) i32, out_max (M,) f32; bits: the level format
+// (4, 5 or 8); tile: the TPU kernel's lane tile (columns) the fold runs
+// over; grid_x, splits: the M <= 8 GEMV's plan (ops/qmatmul_kernels.
+// stream_plan).
 extern "C" int bgt_lm_head_argmax(const float* x, const float* ln_w,
                                   const float* ln_b, float eps,
                                   const uint8_t* lv, const void* sc,
                                   const void* mn, int M, int d_in, int d_out,
                                   int offset, int bits, int n_valid, int tile,
-                                  float* bmax, int* bidx, int* bnan,
-                                  void* xn, int* out_idx, float* out_max,
+                                  int grid_x, int splits, float* bmax,
+                                  int* bidx, int* bnan, void* xn,
+                                  int* out_idx, float* out_max,
                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const GemvArgs a = lm_head_args(x, ln_w, ln_b, eps, lv, sc, mn, d_in,
-                                  d_out, offset, bits);
-  const MmaGemv t = tail_gemv(x, xn, ln_w, ln_b, lv, sc, mn, d_in, d_out,
-                              offset);
   cudaError_t err;
-  int block = TILE_COLS;   // columns per (max, index, NaN) triple
-  switch (M) {
-    case 1: err = launch_argmax<1>(a, n_valid, bmax, bidx, bnan, st); break;
-    case 2: err = launch_argmax<2>(a, n_valid, bmax, bidx, bnan, st); break;
-    case 3: err = launch_argmax<3>(a, n_valid, bmax, bidx, bnan, st); break;
-    case 4: err = launch_argmax<4>(a, n_valid, bmax, bidx, bnan, st); break;
-    case 5: err = launch_argmax<5>(a, n_valid, bmax, bidx, bnan, st); break;
-    case 6: err = launch_argmax<6>(a, n_valid, bmax, bidx, bnan, st); break;
-    case 7: err = launch_argmax<7>(a, n_valid, bmax, bidx, bnan, st); break;
-    case 8: err = launch_argmax<8>(a, n_valid, bmax, bidx, bnan, st); break;
-    case 16:
-      err = launch_mma_tail<16, false>(t, eps, n_valid, nullptr, bmax, bidx,
-                                       bnan, bits, st);
-      block = MMA_COLS;
-      break;
-    case 32:
-      err = launch_mma_tail<32, false>(t, eps, n_valid, nullptr, bmax, bidx,
-                                       bnan, bits, st);
-      block = MMA_COLS;
-      break;
-    default: return (int)cudaErrorInvalidValue;
+  if (M >= 1 && M <= 8) {
+    err = launch_xp_tail<STREAM_ARGMAX>(x, ln_w, ln_b, eps, lv, sc, mn, M,
+                                        d_in, d_out, offset, bits, n_valid,
+                                        grid_x, splits, nullptr, bmax, bidx,
+                                        bnan, st);
+  } else {
+    const MmaGemv t = tail_gemv(x, xn, ln_w, ln_b, lv, sc, mn, d_in, d_out,
+                                offset);
+    switch (M) {
+      case 16:
+        err = launch_mma_tail<16, false>(t, eps, n_valid, nullptr, bmax,
+                                         bidx, bnan, bits, st);
+        break;
+      case 32:
+        err = launch_mma_tail<32, false>(t, eps, n_valid, nullptr, bmax,
+                                         bidx, bnan, bits, st);
+        break;
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
   if (err != cudaSuccess) return (int)err;
-  if (tile % block != 0 || d_out % tile != 0)
+  if (tile % MMA_COLS != 0 || d_out % tile != 0)
     return (int)cudaErrorInvalidValue;
-  const int nblk = d_out / block;
+  const int nblk = d_out / MMA_COLS;
   const int n_tiles = d_out / tile;
   argmax_fold_kernel<<<M, 32, n_tiles * 8, st>>>(bmax, bidx, bnan, nblk,
-                                                 tile / block, n_valid,
+                                                 tile / MMA_COLS, n_valid,
                                                  out_idx, out_max);
   return (int)cudaGetLastError();
 }
 
-// x (M, d_in) f32 with M = 8 (X' numerics; the wrapper pads 1..8 rows) or
-// 16 / 32 (dequant-then-dot; pads 9..32); out (M, d_out) f32; gmax
-// (M, d_out/128) f32; scratch (M = 16, 32): tmax M * d_out/64 f32, xn
-// (M, d_in) bf16.
+// x (M, d_in) f32 with M in 1..8 (X' numerics) or 16 / 32 (dequant-then-
+// dot; the wrapper pads 9..32); out (M, d_out) f32; gmax (M, d_out/128)
+// f32; scratch: tmax M * d_out/64 f32, xn (M, d_in) bf16 (M = 16, 32);
+// grid_x, splits: the M <= 8 GEMV's plan.
 extern "C" int bgt_lm_head_logits_gmax(const float* x, const float* ln_w,
                                        const float* ln_b, float eps,
                                        const uint8_t* lv, const void* sc,
                                        const void* mn, int M, int d_in,
                                        int d_out, int offset, int bits,
-                                       int n_valid, float* out, float* gmax,
-                                       float* tmax, void* xn,
-                                       void* stream) {
+                                       int n_valid, int grid_x, int splits,
+                                       float* out, float* gmax, float* tmax,
+                                       void* xn, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M == 8) {
-    const GemvArgs a = lm_head_args(x, ln_w, ln_b, eps, lv, sc, mn, d_in,
-                                    d_out, offset, bits);
-    cudaError_t err = cudaErrorInvalidValue;
-    with_format(bits, mn != nullptr, [&](auto fmt) {
-      using T = decltype(fmt);
-      err = launch_tiles(lm_head_logits_gmax_kernel<8, T::BITS, T::HAS_MIN>,
-                         8, a, st, n_valid, out, gmax);
-    });
-    return (int)err;
-  }
-  const MmaGemv t = tail_gemv(x, xn, ln_w, ln_b, lv, sc, mn, d_in, d_out,
-                              offset);
   cudaError_t err;
-  switch (M) {
-    case 16:
-      err = launch_mma_tail<16, true>(t, eps, n_valid, out, tmax, nullptr,
-                                      nullptr, bits, st);
-      break;
-    case 32:
-      err = launch_mma_tail<32, true>(t, eps, n_valid, out, tmax, nullptr,
-                                      nullptr, bits, st);
-      break;
-    default: return (int)cudaErrorInvalidValue;
+  if (M >= 1 && M <= 8) {
+    err = launch_xp_tail<STREAM_LOGITS>(x, ln_w, ln_b, eps, lv, sc, mn, M,
+                                        d_in, d_out, offset, bits, n_valid,
+                                        grid_x, splits, out, tmax, nullptr,
+                                        nullptr, st);
+  } else {
+    const MmaGemv t = tail_gemv(x, xn, ln_w, ln_b, lv, sc, mn, d_in, d_out,
+                                offset);
+    switch (M) {
+      case 16:
+        err = launch_mma_tail<16, true>(t, eps, n_valid, out, tmax, nullptr,
+                                        nullptr, bits, st);
+        break;
+      case 32:
+        err = launch_mma_tail<32, true>(t, eps, n_valid, out, tmax, nullptr,
+                                        nullptr, bits, st);
+        break;
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
   if (err != cudaSuccess) return (int)err;
   gmax_pair_kernel<<<M, 128, 0, st>>>(tmax, d_out / MMA_COLS, gmax);

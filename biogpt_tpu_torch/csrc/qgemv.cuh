@@ -1,5 +1,5 @@
 // Skinny-M quantized GEMV for the packed 4/5-bit and the unpacked 8-bit
-// weight planes (qmatmul.cu, lm_head_argmax.cu), and the planes' layout,
+// weight planes (qmatmul.cu at M <= 8), and the planes' layout,
 // level fetch and block reductions that every kernel of the port shares
 // (the tensor-core GEMVs of qgemv_mma.cuh and qgemv_b1.cuh and the
 // refill GEMM of prefill.cu read the same planes).
@@ -31,13 +31,12 @@
 // below) -- no atomics, so every run sums in one order, the same order for
 // every format.
 //
-// Two numerics, one per TPU kernel (biogpt_tpu/ops/pallas_qmatmul.py):
-//   XPRIME (qmatmul_pallas, `_kernel`): x rounded to bf16; per level block
-//     n the f32 partial p_n = sum_k x_k * lv_k over UNCENTERED levels, then
-//     (p_n - offset * xsum_n) * scale_n [+ xsum_n * min_n], summed over n.
-//   WIDE (qmatmul_pallas_wide, `_kernel_wide`): the weight dequantizes in
-//     f32 and rounds once to bf16, w = bf16((lv - offset) * scale [+ min]),
-//     and y = sum_k x_k * w_k in f32.
+// Numerics XPRIME, those of biogpt_tpu/ops/pallas_qmatmul.py::
+// qmatmul_pallas (`_kernel`): x rounded to bf16; per level block n the f32
+// partial p_n = sum_k x_k * lv_k over UNCENTERED levels, then (p_n - offset
+// * xsum_n) * scale_n [+ xsum_n * min_n], summed over n. (The WIDE
+// numerics of qmatmul_pallas_wide, each weight dequantized in f32 and
+// rounded once to bf16, are qgemv_mma.cuh's and qgemv_stream.cuh's.)
 #pragma once
 
 #include <cuda_runtime.h>
@@ -217,7 +216,7 @@ __device__ void stage_x(const GemvArgs& a, float* xs, int g0, int span,
 
 // The per-thread half of a block's column tile: acc[m][c] for columns
 // tile * 128 + lane * 4 + c, summed over this warp's packed groups.
-template <int M, bool WIDE, int BITS, bool HAS_MIN>
+template <int M, int BITS, bool HAS_MIN>
 __device__ __forceinline__ void gemv_accumulate(const GemvArgs& a,
                                                 const float* xs, int tile,
                                                 int g0, float (&acc)[M][4]) {
@@ -264,75 +263,43 @@ __device__ __forceinline__ void gemv_accumulate(const GemvArgs& a,
       }
     }
     FifthBit fb(g * QK, a.d_in);
-    if (WIDE) {
-#pragma unroll 4
-      for (int r = 0; r < QK; ++r) {
-        uint32_t ulo, uhi;
-        fetch_levels4<BITS>(a.lv, fb, r, half, a.d_out, col0, ulo, uhi);
-        float wl[4], wh[4];
+    float plo[M][4], phi[M][4];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          // _rn: no fused multiply-add, so the product rounds before the
-          // min is added, as in the TPU kernel
-          wl[c] = __fmul_rn(level_of<BITS>(ulo, c) - off, slo[c]);
-          wh[c] = __fmul_rn(level_of<BITS>(uhi, c) - off, shi[c]);
-          if (HAS_MIN) {
-            wl[c] += mlo[c];
-            wh[c] += mhi[c];
-          }
-          wl[c] = bf16r(wl[c]);
-          wh[c] = bf16r(wh[c]);
-        }
+    for (int m = 0; m < M; ++m)
 #pragma unroll
-        for (int m = 0; m < M; ++m) {
-          const float xl = xs[(m * 2 + 0) * span + gi * QK + r];
-          const float xh = xs[(m * 2 + 1) * span + gi * QK + r];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            acc[m][c] += xl * wl[c];
-            acc[m][c] += xh * wh[c];
-          }
-        }
-      }
-    } else {
-      float plo[M][4], phi[M][4];
-#pragma unroll
-      for (int m = 0; m < M; ++m)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) plo[m][c] = phi[m][c] = 0.f;
+      for (int c = 0; c < 4; ++c) plo[m][c] = phi[m][c] = 0.f;
 #pragma unroll 8
-      for (int r = 0; r < QK; ++r) {
-        uint32_t ulo, uhi;
-        fetch_levels4<BITS>(a.lv, fb, r, half, a.d_out, col0, ulo, uhi);
-#pragma unroll
-        for (int m = 0; m < M; ++m) {
-          const float xl = xs[(m * 2 + 0) * span + gi * QK + r];
-          const float xh = xs[(m * 2 + 1) * span + gi * QK + r];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            plo[m][c] += xl * level_of<BITS>(ulo, c);
-            phi[m][c] += xh * level_of<BITS>(uhi, c);
-          }
-        }
-      }
+    for (int r = 0; r < QK; ++r) {
+      uint32_t ulo, uhi;
+      fetch_levels4<BITS>(a.lv, fb, r, half, a.d_out, col0, ulo, uhi);
 #pragma unroll
       for (int m = 0; m < M; ++m) {
-        float sl = 0.f, sh = 0.f;   // per-block activation sums
-        for (int r = 0; r < QK; ++r) {
-          sl += xs[(m * 2 + 0) * span + gi * QK + r];
-          sh += xs[(m * 2 + 1) * span + gi * QK + r];
-        }
+        const float xl = xs[(m * 2 + 0) * span + gi * QK + r];
+        const float xh = xs[(m * 2 + 1) * span + gi * QK + r];
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          float tl = (plo[m][c] - off * sl) * slo[c];
-          float th = (phi[m][c] - off * sh) * shi[c];
-          if (HAS_MIN) {
-            tl += sl * mlo[c];
-            th += sh * mhi[c];
-          }
-          acc[m][c] += tl;
-          acc[m][c] += th;
+          plo[m][c] += xl * level_of<BITS>(ulo, c);
+          phi[m][c] += xh * level_of<BITS>(uhi, c);
         }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      float sl = 0.f, sh = 0.f;   // per-block activation sums
+      for (int r = 0; r < QK; ++r) {
+        sl += xs[(m * 2 + 0) * span + gi * QK + r];
+        sh += xs[(m * 2 + 1) * span + gi * QK + r];
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float tl = (plo[m][c] - off * sl) * slo[c];
+        float th = (phi[m][c] - off * sh) * shi[c];
+        if (HAS_MIN) {
+          tl += sl * mlo[c];
+          th += sh * mhi[c];
+        }
+        acc[m][c] += tl;
+        acc[m][c] += th;
       }
     }
   }
@@ -358,7 +325,7 @@ __device__ __forceinline__ void warp_tile_reduce(float (&acc)[M][4], float* red,
 
 // Partial products: part[(blockIdx.y * M + m) * d_out + col].
 // grid = (d_out / 128, nbh / gpb), block = GEMV_THREADS.
-template <int M, bool WIDE, int BITS, bool HAS_MIN>
+template <int M, int BITS, bool HAS_MIN>
 __global__ void __launch_bounds__(GEMV_THREADS)
 qgemv_partial_kernel(GemvArgs a, float* part) {
   __shared__ float xs[XS_BYTES_MAX / 4];
@@ -368,7 +335,7 @@ qgemv_partial_kernel(GemvArgs a, float* part) {
   stage_x<M>(a, xs, g0, a.gpb * QK, scratch);
   __syncthreads();
   float acc[M][4];
-  gemv_accumulate<M, WIDE, BITS, HAS_MIN>(a, xs, blockIdx.x, g0, acc);
+  gemv_accumulate<M, BITS, HAS_MIN>(a, xs, blockIdx.x, g0, acc);
   float* out = part + (size_t)blockIdx.y * M * a.d_out + blockIdx.x * TILE_COLS;
   warp_tile_reduce<M>(acc, red, out, a.d_out);
 }
@@ -435,21 +402,21 @@ inline bool with_format(int bits, bool mins, F f) {
   }
 }
 
-template <int M, bool WIDE, int BITS, bool HAS_MIN>
+template <int M, int BITS, bool HAS_MIN>
 inline void launch_partial(const GemvArgs& a, float* part, cudaStream_t st) {
   const int nbh = a.d_in / (2 * QK);
   dim3 grid(a.d_out / TILE_COLS, nbh / a.gpb);
-  qgemv_partial_kernel<M, WIDE, BITS, HAS_MIN>
+  qgemv_partial_kernel<M, BITS, HAS_MIN>
       <<<grid, GEMV_THREADS, 0, st>>>(a, part);
 }
 
 // launch_partial for the format of `a` -> false for an unknown format
-template <int M, bool WIDE>
+template <int M>
 inline bool launch_partial_fmt(const GemvArgs& a, float* part,
                                cudaStream_t st) {
   return with_format(a.bits, a.mn != nullptr, [&](auto fmt) {
     using T = decltype(fmt);
-    launch_partial<M, WIDE, T::BITS, T::HAS_MIN>(a, part, st);
+    launch_partial<M, T::BITS, T::HAS_MIN>(a, part, st);
   });
 }
 

@@ -93,6 +93,61 @@ __device__ __forceinline__ uint32_t level_pair(uint64_t w0, uint64_t w1,
                             bf162_of(0x43004300u)));
 }
 
+// The X' products of one packed group into acc[0][t][c], c < 2 (row g of
+// the A tile, column 8 (2tg + c) + t): A rows 8..15 zero, xsum[h] row g's
+// sum of its bf16 activations over level block grp (h = 0) and grp +
+// d_in/64 (h = 1). Each level block's two k16 chunks accumulate from zero
+// into p over the uncentered levels, then (p - offset * xsum) * scale
+// [+ xsum * min] in f32 joins the sum, the low block before the high one.
+template <int BITS, bool HAS_MIN>
+__device__ __forceinline__ void xprime_group_products(
+    const uint8_t* lvs, const __nv_bfloat16* scs, const FifthBit& fb,
+    float off, const uint32_t (&af)[4][1][4], const float (&xsum)[2],
+    float (&acc)[1][8][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tg = lane & 3;
+  uint64_t wlo[2][4], whi[2][4];
+  int q5[2][4];
+  group_words<BITS>(lvs, fb, g, tg, wlo, whi, q5);
+  // the scales (and mins) of the lane's columns 16 tg + 8 c + t: [h][c]
+  uint4 s4[2][2], m4[2][2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      s4[h][c] = *reinterpret_cast<const uint4*>(scs + h * MMA_COLS
+                                                 + 16 * tg + 8 * c);
+      m4[h][c] = HAS_MIN ? *reinterpret_cast<const uint4*>(
+                               scs + (2 + h) * MMA_COLS + 16 * tg + 8 * c)
+                         : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+  for (int t = 0; t < 8; ++t) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const bool high = h == 1;
+      float p[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const uint32_t b0 = level_pair<BITS>(wlo[c][0], wlo[c][1], whi[c][0],
+                                             whi[c][1], q5[c][0], q5[c][1],
+                                             high, t);
+        const uint32_t b1 = level_pair<BITS>(wlo[c][2], wlo[c][3], whi[c][2],
+                                             whi[c][3], q5[c][2], q5[c][3],
+                                             high, t);
+        mma_bf16_16816(p, af[2 * h + c][0], b0, b1);
+      }
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float u = (p[c] - off * xsum[h])
+                  * __uint_as_float(bf16_bits(s4[h][c], t) << 16);
+        if (HAS_MIN)
+          u += xsum[h] * __uint_as_float(bf16_bits(m4[h][c], t) << 16);
+        acc[0][t][c] += u;
+      }
+    }
+  }
+}
+
 // The cluster barrier in two halves: every thread of every block of the
 // cluster arrives, then waits for all (acquire: the other blocks' shared
 // memory writes before their arrival are visible). `relaxed` arrives
@@ -214,9 +269,9 @@ qgemv_b1_kernel(B1Gemv a) {
     xh = (xh - mean) * rstd * lw[1] + lb[1];
   }
 
-  float v[8][2];   // the warp's sum of columns 8 (2tg + c) + t (lanes g = 0)
-#pragma unroll
-  for (int t = 0; t < 8; ++t) v[t][0] = v[t][1] = 0.f;
+  // the warp's sum of column 8 (2tg + c) + t at acc[0][t][c], c < 2
+  // (lanes g = 0)
+  float acc[1][8][4] = {};
   if (active) {
     const __nv_bfloat16 bl = __float2bfloat16(xl), bh = __float2bfloat16(xh);
     as[lane] = bl;
@@ -226,49 +281,17 @@ qgemv_b1_kernel(B1Gemv a) {
     cp_async_wait<0>();
     __syncwarp();
 
-    // 3. products: chunks 0, 1 take the low levels of packed rows 16c +
-    // {2tg, 2tg+1, 2tg+8, 2tg+9} (level block grp), chunks 2, 3 the high
-    // levels (block grp + groups); A's row g = 0 holds x, the other rows 0
-    uint32_t af[4][4];
+    // 3. products: A's row g = 0 holds x, the other rows 0
+    uint32_t af[4][1][4];
 #pragma unroll
     for (int kc = 0; kc < 4; ++kc) {
       const __nv_bfloat16* ap = as + kc * 16 + tg * 2;
-      af[kc][0] = g == 0 ? *reinterpret_cast<const uint32_t*>(ap) : 0u;
-      af[kc][2] = g == 0 ? *reinterpret_cast<const uint32_t*>(ap + 8) : 0u;
-      af[kc][1] = af[kc][3] = 0u;
+      af[kc][0][0] = g == 0 ? *reinterpret_cast<const uint32_t*>(ap) : 0u;
+      af[kc][0][2] = g == 0 ? *reinterpret_cast<const uint32_t*>(ap + 8) : 0u;
+      af[kc][0][1] = af[kc][0][3] = 0u;
     }
-    uint64_t wlo[2][4], whi[2][4];
-    int q5[2][4];
-    group_words<BITS>(lvs, fb, g, tg, wlo, whi, q5);
-    const float off = (float)a.offset;
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {   // level block grp, then grp + groups
-        const bool high = h == 1;
-        float p[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const uint32_t b0 = level_pair<BITS>(
-              wlo[c][0], wlo[c][1], whi[c][0], whi[c][1], q5[c][0],
-              q5[c][1], high, t);
-          const uint32_t b1 = level_pair<BITS>(
-              wlo[c][2], wlo[c][3], whi[c][2], whi[c][3], q5[c][2],
-              q5[c][3], high, t);
-          mma_bf16_16816(p, af[2 * h + c], b0, b1);
-        }
-        // p[c], c < 2: row 0's partial of column 8 (2tg + c) + t
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int col = 8 * (2 * tg + c) + t;
-          float u = (p[c] - off * xsum[h])
-                    * __bfloat162float(scs[h * MMA_COLS + col]);
-          if (HAS_MIN)
-            u += xsum[h] * __bfloat162float(scs[(2 + h) * MMA_COLS + col]);
-          v[t][c] += u;
-        }
-      }
-    }
+    xprime_group_products<BITS, HAS_MIN>(lvs, scs, fb, (float)a.offset, af,
+                                         xsum, acc);
   }
 
   if (a.late) pdl_trigger();
@@ -278,7 +301,7 @@ qgemv_b1_kernel(B1Gemv a) {
     for (int t = 0; t < 8; ++t)
 #pragma unroll
       for (int c = 0; c < 2; ++c)
-        red[warp * MMA_COLS + 8 * (2 * tg + c) + t] = v[t][c];
+        red[warp * MMA_COLS + 8 * (2 * tg + c) + t] = acc[0][t][c];
   __syncthreads();
   float s = 0.f;
   if (threadIdx.x < MMA_COLS) {

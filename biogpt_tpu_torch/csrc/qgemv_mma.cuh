@@ -348,6 +348,57 @@ __device__ __forceinline__ void group_words(const uint8_t* lvs,
     }
 }
 
+// The WIDE products of one packed group into acc (MI m16 tiles of A
+// fragments af): lvs, scs the group's level rows, scales and mins as
+// issue_group lands them. Chunks 0, 1 take the low levels of packed rows
+// 16c + {2tg, 2tg+1, 2tg+8, 2tg+9}, chunks 2, 3 the high levels of the same
+// rows; column 8g + t of the tile is column g of n8 fragment t.
+template <int BITS, bool HAS_MIN, int MI>
+__device__ __forceinline__ void wide_group_products(
+    const uint8_t* lvs, const __nv_bfloat16* scs, const FifthBit& fb,
+    float off, const uint32_t (&af)[4][MI][4], float (&acc)[MI][8][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tg = lane & 3;
+  uint64_t wlo[2][4], whi[2][4];   // [low chunk][e]: rows 16c + 2tg + ...
+  int q5[2][4];
+  group_words<BITS>(lvs, fb, g, tg, wlo, whi, q5);
+  const uint4 s4[2] = {*reinterpret_cast<const uint4*>(scs + 8 * g),
+                       *reinterpret_cast<const uint4*>(scs + MMA_COLS + 8 * g)};
+  uint4 m4[2] = {make_uint4(0u, 0u, 0u, 0u), make_uint4(0u, 0u, 0u, 0u)};
+  if (HAS_MIN) {
+    m4[0] = *reinterpret_cast<const uint4*>(scs + 2 * MMA_COLS + 8 * g);
+    m4[1] = *reinterpret_cast<const uint4*>(scs + 3 * MMA_COLS + 8 * g);
+  }
+  const uint32_t off2 = bf162_bits(__floats2bfloat162_rn(128.f + off,
+                                                         128.f + off));
+#pragma unroll
+  for (int t = 0; t < 8; ++t) {
+    uint32_t s2[2];
+    float s[2], mn[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t sb = bf16_bits(s4[h], t);
+      s2[h] = sb | (sb << 16);
+      s[h] = __uint_as_float(sb << 16);
+      mn[h] = __uint_as_float(bf16_bits(m4[h], t) << 16);
+    }
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      const int c = kc & 1;
+      const bool high = kc >= 2;
+      const int h = high ? 1 : 0;
+      const uint32_t b0 = weight_pair<BITS, HAS_MIN>(
+          wlo[c][0], wlo[c][1], whi[c][0], whi[c][1], q5[c][0], q5[c][1],
+          high, t, off, s[h], mn[h], s2[h], off2);
+      const uint32_t b1 = weight_pair<BITS, HAS_MIN>(
+          wlo[c][2], wlo[c][3], whi[c][2], whi[c][3], q5[c][2], q5[c][3],
+          high, t, off, s[h], mn[h], s2[h], off2);
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+        mma_bf16_16816(acc[mi][t], af[kc][mi], b0, b1);
+    }
+  }
+}
+
 // Shared memory of a GEMV block at M rows in level format BITS: each
 // warp's group (level rows, scales and mins, activations), then the warps'
 // sums over the same bytes.
@@ -467,9 +518,8 @@ __device__ __forceinline__ void mma_block_sums(const MmaGemv& a,
     cp_async_wait<0>();
     __syncwarp();
 
-    // 3. products over the group's four k16 chunks: chunks 0, 1 take the
-    // low levels of packed rows 16c + {2tg, 2tg+1, 2tg+8, 2tg+9}, chunks
-    // 2, 3 the high levels of the same rows
+    // 3. products over the group's four k16 chunks: the A fragments of
+    // the M rows (slots kc * 16 ..), then wide_group_products
     uint32_t af[4][MI][4];
 #pragma unroll
     for (int kc = 0; kc < 4; ++kc)
@@ -487,45 +537,7 @@ __device__ __forceinline__ void mma_block_sums(const MmaGemv& a,
           af[kc][mi][1] = af[kc][mi][3] = 0u;
         }
       }
-    uint64_t wlo[2][4], whi[2][4];   // [low chunk][e]: rows 16c + 2tg + ...
-    int q5[2][4];
-    group_words<BITS>(lvs, fb, g, tg, wlo, whi, q5);
-    const uint4 s4[2] = {*reinterpret_cast<const uint4*>(scs + 8 * g),
-                         *reinterpret_cast<const uint4*>(scs + MMA_COLS + 8 * g)};
-    uint4 m4[2] = {make_uint4(0u, 0u, 0u, 0u), make_uint4(0u, 0u, 0u, 0u)};
-    if (HAS_MIN) {
-      m4[0] = *reinterpret_cast<const uint4*>(scs + 2 * MMA_COLS + 8 * g);
-      m4[1] = *reinterpret_cast<const uint4*>(scs + 3 * MMA_COLS + 8 * g);
-    }
-    const uint32_t off2 = bf162_bits(__floats2bfloat162_rn(128.f + off,
-                                                           128.f + off));
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      uint32_t s2[2];
-      float s[2], mn[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const uint32_t sb = bf16_bits(s4[h], t);
-        s2[h] = sb | (sb << 16);
-        s[h] = __uint_as_float(sb << 16);
-        mn[h] = __uint_as_float(bf16_bits(m4[h], t) << 16);
-      }
-#pragma unroll
-      for (int kc = 0; kc < 4; ++kc) {
-        const int c = kc & 1;
-        const bool high = kc >= 2;
-        const int h = high ? 1 : 0;
-        const uint32_t b0 = weight_pair<BITS, HAS_MIN>(
-            wlo[c][0], wlo[c][1], whi[c][0], whi[c][1], q5[c][0], q5[c][1],
-            high, t, off, s[h], mn[h], s2[h], off2);
-        const uint32_t b1 = weight_pair<BITS, HAS_MIN>(
-            wlo[c][2], wlo[c][3], whi[c][2], whi[c][3], q5[c][2], q5[c][3],
-            high, t, off, s[h], mn[h], s2[h], off2);
-#pragma unroll
-        for (int mi = 0; mi < MI; ++mi)
-          mma_bf16_16816(acc[mi][t], af[kc][mi], b0, b1);
-      }
-    }
+    wide_group_products<BITS, HAS_MIN, MI>(lvs, scs, fb, off, af, acc);
   }
 
   // 4. the warps' sums in warp order, into warp 0's slice of red

@@ -55,15 +55,14 @@ _LL = ctypes.c_longlong
 # weight-reading entry points take the level format (4, 5 or 8) after the
 # level offset.
 SIGNATURES = {
-    ("qmatmul", "bgt_qmatmul"): [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
-                                 _P, _P],
+    ("qmatmul", "bgt_qmatmul"): [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+                                 _P],
     ("qmatmul", "bgt_qmatmul_splits"): [_I],
-    ("lm_head_argmax", "bgt_lm_head_argmax"): [
-        _P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
-        _P, _P, _P, _P],
-    ("lm_head_argmax", "bgt_lm_head_logits_gmax"): [
-        _P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-        _P],
+    ("qmatmul", "bgt_qmatmul_wide"): [_P] * 4 + [_I] * 7 + [_P, _P],
+    ("lm_head_argmax", "bgt_lm_head_argmax"): (
+        [_P, _P, _P, _F, _P, _P, _P] + [_I] * 9 + [_P] * 7),
+    ("lm_head_argmax", "bgt_lm_head_logits_gmax"): (
+        [_P, _P, _P, _F, _P, _P, _P] + [_I] * 8 + [_P] * 5),
     ("decode_step", "bgt_decode_head_dim"): [],
     ("decode_step", "bgt_decode_step"): (
         [_P] + [_I] * 7 + [_P, _F, _I, _I] + [_P] * 4

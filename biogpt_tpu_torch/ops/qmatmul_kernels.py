@@ -7,6 +7,11 @@ PyTorch version (``*_plain``), which transcribes what the TPU kernel
 computes, bf16 roundings included; on a CUDA tensor it launches the
 hand-written Hopper kernel (``csrc/qmatmul.cu``, ``csrc/lm_head_argmax.cu``)
 or raises. There is no fallback from the card to the plain version.
+``qmatmul_wide`` and the tails at M <= 8 run the streaming tensor-core GEMV
+(``csrc/qgemv_stream.cuh``) in one launch on the rows as they come, over
+the grid :func:`stream_plan` chooses from the widths; the tails keep their
+scratch in a workspace cached per (device, rows, d_in, d_out)
+(:func:`tail_workspace`), so a call allocates only its outputs.
 
 The CUDA kernels take every format as ``runtime.engine.
 _pack_matmul_weights`` prepares it, with bf16 scale planes: the packed
@@ -32,6 +37,8 @@ each design does about it.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -274,77 +281,167 @@ def _cuda_x(x: torch.Tensor, d_in: int, what: str) -> torch.Tensor:
     return x.to(torch.float32).contiguous()
 
 
-def _launch_qmatmul(x: torch.Tensor, qt: QuantizedTensor, wide: bool):
-    what = "qmatmul_wide" if wide else "qmatmul"
-    bits = check_cuda_levels(qt, (), what)
+# the streaming tensor-core GEMV (csrc/qgemv_stream.cuh): its column tile,
+# warps a block, packed groups (64 rows of d_in) whose A fragments a warp
+# holds at once, blocks of a cluster along d_in at most
+_MMA_COLS = 64
+STREAM_WARPS = 8
+STREAM_GPW = 2
+STREAM_MAX_SPLITS = 16
+
+
+def stream_plan(m: int, d_in: int, d_out: int, n_sm: int) -> tuple:
+    """The grid of the streaming GEMV for m rows of a (d_in, d_out) plane on
+    a card of ``n_sm`` SMs -> (blocks along the 64-column tiles, blocks of
+    a cluster along d_in). d_in splits until a block's slice holds at most
+    two packed groups a warp (the A fragments a warp keeps for every tile),
+    16 blocks at most: past 16 splits of 1024 rows a warp loads its
+    fragments two groups at a time. At vocab width (a tile for every SM or
+    more) persistent blocks, one an SM, walk the tiles, d_in split only as
+    far as that needs; at projection widths a block per tile, d_in split
+    over as many blocks as fill the card, up to one group a warp."""
+    groups, tiles = d_in // (2 * QK), d_out // _MMA_COLS
+    if (d_in <= 0 or d_in % (2 * QK) or d_out <= 0 or d_out % _MMA_COLS
+            or n_sm <= 0 or not 0 < m <= 32):
+        raise ValueError(f"stream_plan: m {m}, d_in {d_in} (of {2 * QK}), "
+                         f"d_out {d_out} (of {_MMA_COLS}) unsupported")
+    least = min(STREAM_MAX_SPLITS,
+                -(-groups // (STREAM_WARPS * STREAM_GPW)))
+    if tiles >= n_sm:
+        return min(tiles, max(1, n_sm // least)), least
+    splits = min(STREAM_MAX_SPLITS, max(1, n_sm // tiles),
+                 -(-groups // STREAM_WARPS))
+    return tiles, max(least, splits)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(index: int, m: int, d_in: int, d_out: int) -> tuple:
+    return stream_plan(m, d_in, d_out, _sm_count(index))
+
+
+def _device_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def _launch_qmatmul(x: torch.Tensor, qt: QuantizedTensor):
+    bits = check_cuda_levels(qt, (), "qmatmul")
     d_in, d_out = qt.d_in, qt.d_out
-    x = _cuda_x(x, d_in, what)
+    x = _cuda_x(x, d_in, "qmatmul")
     M = x.shape[0]
-    if wide:
-        if not supports_wide(qt, M):
-            raise ValueError(f"{what}: unsupported shape M={M} d_in={d_in} "
-                             f"d_out={d_out}")
-        Mk = 16 if M <= 16 else 32   # kernel row counts; extra rows are zero
-        if Mk != M:
-            x = torch.cat([x, x.new_zeros(Mk - M, d_in)])
-    else:
-        if not supports(qt, M):
-            raise ValueError(f"{what}: unsupported shape M={M} d_in={d_in} "
-                             f"d_out={d_out}")
-        Mk = M
+    if not supports(qt, M):
+        raise ValueError(f"qmatmul: unsupported shape M={M} d_in={d_in} "
+                         f"d_out={d_out}")
     lib = cuda_lib.library("qmatmul")
     splits = lib.bgt_qmatmul_splits(d_in)
-    part = torch.empty(splits * Mk * d_out, dtype=torch.float32,
+    part = torch.empty(splits * M * d_out, dtype=torch.float32,
                        device=x.device)
-    y = torch.empty(Mk, d_out, dtype=torch.float32, device=x.device)
+    y = torch.empty(M, d_out, dtype=torch.float32, device=x.device)
     err = lib.bgt_qmatmul(
         x.data_ptr(), qt.levels.data_ptr(), qt.scales.data_ptr(),
-        cuda_lib.ptr(qt.mins), Mk, d_in, d_out, _offset(qt), bits,
-        int(wide), part.data_ptr(), y.data_ptr(),
-        cuda_lib.stream_ptr(x.device))
-    cuda_lib.LAUNCHES[what] += 1
-    cuda_lib.check(err, what)
-    return y[:M]
+        cuda_lib.ptr(qt.mins), M, d_in, d_out, _offset(qt), bits,
+        part.data_ptr(), y.data_ptr(), cuda_lib.stream_ptr(x.device))
+    cuda_lib.LAUNCHES["qmatmul"] += 1
+    cuda_lib.check(err, "qmatmul")
+    return y
+
+
+def _launch_wide(x: torch.Tensor, qt: QuantizedTensor):
+    """One launch of the streaming GEMV on the M rows as they come."""
+    bits = check_cuda_levels(qt, (), "qmatmul_wide")
+    d_in, d_out = qt.d_in, qt.d_out
+    x = _cuda_x(x, d_in, "qmatmul_wide")
+    M = x.shape[0]
+    if not supports_wide(qt, M):
+        raise ValueError(f"qmatmul_wide: unsupported shape M={M} d_in={d_in} "
+                         f"d_out={d_out}")
+    grid_x, splits = _plan(_device_index(x.device), M, d_in, d_out)
+    y = torch.empty(M, d_out, dtype=torch.float32, device=x.device)
+    err = cuda_lib.library("qmatmul").bgt_qmatmul_wide(
+        x.data_ptr(), qt.levels.data_ptr(), qt.scales.data_ptr(),
+        cuda_lib.ptr(qt.mins), M, d_in, d_out, _offset(qt), bits, grid_x,
+        splits, y.data_ptr(), cuda_lib.stream_ptr(x.device))
+    cuda_lib.LAUNCHES["qmatmul_wide"] += 1
+    cuda_lib.check(err, "qmatmul_wide")
+    return y
 
 
 def qmatmul(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     """y = x @ dequant(qt) for M <= 8 rows -> (M, d_out) f32."""
     if x.is_cuda:
-        return _launch_qmatmul(x, qt, wide=False)
+        return _launch_qmatmul(x, qt)
     return qmatmul_plain(x, qt)
 
 
 def qmatmul_wide(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     """y = x @ dequant(qt) for 8 < M <= 32 rows -> (M, d_out) f32."""
     if x.is_cuda:
-        return _launch_qmatmul(x, qt, wide=True)
+        return _launch_wide(x, qt)
     return qmatmul_wide_plain(x, qt)
 
 
-# lm_head tails at M <= 8: dynamic shared memory for the LayerNorm'd rows,
-# M * d_in floats, within the card's 227 KB beside the kernels' static
-# buffers
-_TAIL_SMEM_BYTES = 200 * 1024
-# at M = 16, 32 the tensor-core GEMV (csrc/qgemv_mma.cuh): its column tile,
-# and d_in at most 16 splits of 256 (one thread block cluster)
-_MMA_COLS = 64
+# at M = 16, 32 the tails' tensor-core GEMV (csrc/qgemv_mma.cuh): d_in at
+# most 16 splits of 256 (one thread block cluster); at M <= 8 the streaming
+# GEMV with every warp's A fragments held at once: 16 splits of 1024
 _MMA_MAX_D_IN = 4096
+_TAIL_MAX_D_IN = STREAM_MAX_SPLITS * STREAM_WARPS * STREAM_GPW * 2 * QK
+# the tails' scratch, per (device, kernel rows, d_in, d_out)
+_WORKSPACES: dict = {}
+
+
+def tail_rows(M: int) -> int:
+    """The rows a tail's kernel runs for M rows: M itself up to 8 (the
+    streaming GEMV), else 16 or 32 (the M = 16, 32 GEMV; the wrapper pads
+    with zero rows)."""
+    return M if M <= 8 else 16 if M <= 16 else 32
+
+
+def tail_workspace(dev: torch.device, Mk: int, d_in: int, d_out: int) -> dict:
+    """The scratch of a tail at Mk kernel rows, made once per (device, Mk,
+    d_in, d_out) and reused by every call on the stream: the per-(row,
+    64-column tile) argmax triples ("bmax", "bidx", "bnan"; "bmax" is also
+    the sampled tail's tile maxima) and, above 8 rows, the rows LayerNorm'd
+    in bf16 ("xn")."""
+    key = (dev, Mk, d_in, d_out)
+    ws = _WORKSPACES.get(key)
+    if ws is None:
+        trip = torch.empty(3, Mk * (d_out // _MMA_COLS), dtype=torch.int32,
+                           device=dev)
+        ws = {"bmax": trip[0].view(torch.float32), "bidx": trip[1],
+              "bnan": trip[2],
+              "xn": (torch.empty(Mk, d_in, dtype=torch.bfloat16, device=dev)
+                     if Mk > 8 else None)}
+        _WORKSPACES[key] = ws
+    return ws
 
 
 def _tail_rows(x, ln_w, ln_b, qt: QuantizedTensor, n_valid: int, what: str):
-    """Checked (x, ln_w, ln_b, M, level format) of a tail."""
+    """Checked (x, ln_w, ln_b, M, level format, grid) of a tail; the grid
+    is the M <= 8 GEMV's (:func:`stream_plan`), (0, 0) above."""
     bits = check_cuda_levels(qt, (), what)
     d_in, d_out = qt.d_in, qt.d_out
     x = _cuda_x(x, d_in, what)
     M = x.shape[0]
-    wide_ok = d_in <= _MMA_MAX_D_IN and d_out % _MMA_COLS == 0
-    if (not 0 < M <= 32 or d_out % LANES != 0 or not 0 < n_valid <= d_out
-            or 8 * d_in * 4 > _TAIL_SMEM_BYTES or (M > 8 and not wide_ok)):
+    ok = (0 < M <= 32 and d_out % LANES == 0 and 0 < n_valid <= d_out
+          and d_in % (2 * QK) == 0 and d_in <= _TAIL_MAX_D_IN)
+    grid = (0, 0)
+    if ok and M <= 8:
+        try:
+            grid = _plan(_device_index(x.device), M, d_in, d_out)
+        except ValueError:
+            ok = False
+    elif ok:
+        ok = d_in <= _MMA_MAX_D_IN
+    if not ok:
         raise ValueError(f"{what}: unsupported shape M={M} d_in={d_in} "
                          f"d_out={d_out} n_valid={n_valid}")
     ln_w = ln_w.to(torch.float32).contiguous()
     ln_b = ln_b.to(torch.float32).contiguous()
-    return x, ln_w, ln_b, M, bits
+    return x, ln_w, ln_b, M, bits, grid
 
 
 def _pad_rows(x: torch.Tensor, Mk: int) -> torch.Tensor:
@@ -355,26 +452,22 @@ def _pad_rows(x: torch.Tensor, Mk: int) -> torch.Tensor:
 
 def _launch_argmax(x, ln_w, ln_b, qt, n_valid: int, ln_eps: float,
                    what: str):
-    x, ln_w, ln_b, M, bits = _tail_rows(x, ln_w, ln_b, qt, n_valid, what)
-    # kernel rows: 1..8 (X'), or 16 / 32 (dequant-then-dot) with zero rows
-    Mk = M if M <= 8 else 16 if M <= 16 else 32
+    x, ln_w, ln_b, M, bits, (grid_x, splits) = _tail_rows(
+        x, ln_w, ln_b, qt, n_valid, what)
+    Mk = tail_rows(M)
     x = _pad_rows(x, Mk)
-    nblk = qt.d_out // _MMA_COLS   # per-block triples: 128 or 64 columns
     dev = x.device
-    bmax = torch.empty(Mk * nblk, dtype=torch.float32, device=dev)
-    bidx = torch.empty(Mk * nblk, dtype=torch.int32, device=dev)
-    bnan = torch.empty(Mk * nblk, dtype=torch.int32, device=dev)
-    xn = torch.empty(Mk, qt.d_in, dtype=torch.bfloat16, device=dev)
-    ids = torch.empty(Mk, dtype=torch.int32, device=dev)
-    mv = torch.empty(Mk, dtype=torch.float32, device=dev)
+    ws = tail_workspace(dev, Mk, qt.d_in, qt.d_out)
+    out = torch.empty(2, Mk, dtype=torch.int32, device=dev)
+    ids, mv = out[0], out[1].view(torch.float32)
     lib = cuda_lib.library("lm_head_argmax")
     err = lib.bgt_lm_head_argmax(
         x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), float(ln_eps),
         qt.levels.data_ptr(), qt.scales.data_ptr(), cuda_lib.ptr(qt.mins),
         Mk, qt.d_in, qt.d_out, _offset(qt), bits, n_valid,
-        pick_tile(qt.d_out), bmax.data_ptr(), bidx.data_ptr(),
-        bnan.data_ptr(), xn.data_ptr(), ids.data_ptr(), mv.data_ptr(),
-        cuda_lib.stream_ptr(dev))
+        pick_tile(qt.d_out), grid_x, splits, ws["bmax"].data_ptr(),
+        ws["bidx"].data_ptr(), ws["bnan"].data_ptr(), cuda_lib.ptr(ws["xn"]),
+        ids.data_ptr(), mv.data_ptr(), cuda_lib.stream_ptr(dev))
     cuda_lib.LAUNCHES[what] += 1
     cuda_lib.check(err, what)
     return ids[:M], mv[:M]
@@ -422,22 +515,21 @@ def lm_head_logits_gmax_commit(x, ln_w, ln_b, qt: QuantizedTensor,
     from .decode_kernels import kv_commit
 
     what = "lm_head_logits_gmax_commit"
-    x, ln_w, ln_b, M, bits = _tail_rows(x, ln_w, ln_b, qt, n_valid, what)
-    Mk = 8 if M <= 8 else 16 if M <= 16 else 32   # rows are independent
+    x, ln_w, ln_b, M, bits, (grid_x, splits) = _tail_rows(
+        x, ln_w, ln_b, qt, n_valid, what)
+    Mk = tail_rows(M)   # rows are independent
     x = _pad_rows(x, Mk)
     dev = x.device
+    ws = tail_workspace(dev, Mk, qt.d_in, qt.d_out)
     logits = torch.empty(Mk, qt.d_out, dtype=torch.float32, device=dev)
     gmax = torch.empty(Mk, qt.d_out // LANES, dtype=torch.float32, device=dev)
-    tmax = torch.empty(Mk, qt.d_out // _MMA_COLS, dtype=torch.float32,
-                       device=dev)
-    xn = torch.empty(Mk, qt.d_in, dtype=torch.bfloat16, device=dev)
     lib = cuda_lib.library("lm_head_argmax")
     err = lib.bgt_lm_head_logits_gmax(
         x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), float(ln_eps),
         qt.levels.data_ptr(), qt.scales.data_ptr(), cuda_lib.ptr(qt.mins),
-        Mk, qt.d_in, qt.d_out, _offset(qt), bits, n_valid,
-        logits.data_ptr(), gmax.data_ptr(), tmax.data_ptr(), xn.data_ptr(),
-        cuda_lib.stream_ptr(dev))
+        Mk, qt.d_in, qt.d_out, _offset(qt), bits, n_valid, grid_x, splits,
+        logits.data_ptr(), gmax.data_ptr(), ws["bmax"].data_ptr(),
+        cuda_lib.ptr(ws["xn"]), cuda_lib.stream_ptr(dev))
     cuda_lib.LAUNCHES[what] += 1
     cuda_lib.check(err, what)
     k_cache, v_cache = kv_commit(k_cache, v_cache, k_rows_t, v_rows_t, past)

@@ -15,7 +15,9 @@ figures). Then the four projection GEMVs alone of the batched steps (M =
 4, M = 32); the refill kernel's four GEMMs and its attention at each refill
 shape (row 12's sub-rows) and the lm_head GEMV and KV commit of the two
 M=32 serving tails (rows 4 and 5); the refill GEMM alone (``prefill_gemm``)
-at 1024 rows. ``chip_smoke.py`` computes the ported kernels' bounds with the
+at 1024 rows; row 2 (``qmatmul_wide``) at each shape and M = 16, 32
+(:func:`wide_sub_rows`) and row 3 and the sampled tail's GEMV at M = 1, 8
+(:func:`small_tail_rows`). ``chip_smoke.py`` computes the ported kernels' bounds with the
 same :func:`bound` from the inputs of its own run. Needs no card.
 """
 
@@ -239,6 +241,59 @@ def tail_sub_rows(c: BioGptConfig = BioGptConfig(), fmt: str = "q4_0") -> list:
     return recs
 
 
+# the shapes ``qmatmul_wide`` (row 2) takes on the main paths: the layer
+# projections of a 9-32-token prompt's per-op prefill, and the lm_head of
+# a refill wave (M = R) and of the steps whose logits leave the card whole
+# (the staged serve, an unpacked Q8_0 lm_head: M = B)
+WIDE_SHAPES = PROJECTIONS + ("lm_head",)
+
+
+def wide_sub_rows(c: BioGptConfig = BioGptConfig(), fmt: str = "q4_0",
+                  ms=(16, 32)) -> list:
+    """Row 2 (``qmatmul_wide``) at each of ``WIDE_SHAPES`` and M rows: its
+    planes (``plane_bytes``), x in (M, d_in) and y out (M, d_out), f32."""
+    V = -(-c.n_vocab // 128) * 128
+    recs = []
+    for name in WIDE_SHAPES:
+        d_in, d_out = ((c.d_model, V) if name == "lm_head"
+                       else projection_shape(c, name))
+        planes = q_bytes(d_in, d_out, fmt)
+        for M in ms:
+            nbytes = planes + M * d_in * 4 + M * d_out * 4
+            flops = 2 * M * d_in * d_out
+            ms_, by = bound(nbytes, flops)
+            recs.append({"kernel": "qmatmul_pallas_wide",
+                         "row": ROW["qmatmul_pallas_wide"], "shape": name,
+                         "widths": f"{d_in} -> {d_out}", "m": M,
+                         "format": fmt, "bytes": nbytes, "plane_bytes": planes,
+                         "flops": flops, "bound_ms": ms_, "bound_by": by})
+    return recs
+
+
+def small_tail_rows(c: BioGptConfig = BioGptConfig(), fmt: str = "q4_0",
+                    ms=(1, 8)) -> list:
+    """Row 3 at M <= 8 rows (the greedy tail: the lm_head planes, x and the
+    LayerNorm's parameters in, the ids and winning logits out) and the
+    sampled tail's GEMV at the same M (the logits and their 128-column
+    group maxima out instead)."""
+    D = c.d_model
+    V = -(-c.n_vocab // 128) * 128
+    planes = q_bytes(D, V, fmt)
+    recs = []
+    for M in ms:
+        into = planes + M * D * 4 + 2 * D * 4
+        for kernel, out in (("lm_head_argmax_pallas", M * 8),
+                            ("lm_head_logits_gmax_commit_pallas",
+                             M * V * 4 + M * (V // 128) * 4)):
+            ms_, by = bound(into + out, 2 * M * D * V)
+            recs.append({"kernel": kernel, "row": ROW[kernel],
+                         "part": "lm_head GEMV", "m": M, "format": fmt,
+                         "bytes": into + out, "plane_bytes": planes,
+                         "flops": 2 * M * D * V, "bound_ms": ms_,
+                         "bound_by": by})
+    return recs
+
+
 def bf16_step_cost(c: BioGptConfig, past: list, window: int, wbytes: int,
                    step_i: int = 0):
     """(bytes, operations) of a bf16-KV ``decode_step_fused`` (batched,
@@ -387,6 +442,8 @@ def main() -> int:
             for rec in prefill_sub_rows(R=R, T=T, fmt=fmt):
                 print(json.dumps(rec))
         for rec in tail_sub_rows(fmt=fmt):
+            print(json.dumps(rec))
+        for rec in wide_sub_rows(fmt=fmt) + small_tail_rows(fmt=fmt):
             print(json.dumps(rec))
         c = BioGptConfig()
         for name in PROJECTIONS:

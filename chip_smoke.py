@@ -15,7 +15,12 @@ logs its seconds):
      the B=1 step at past 1, 100 and 900 (its position also as a (1,)
      tensor on the card), at 100 and 900 timed and traced: 5 launches a
      layer of its own chain and none of the chain it replaced
-     (:func:`b1_trace`);
+     (:func:`b1_trace`); ``qmatmul_wide`` at 9, 16, 17, 31 and 32 rows on
+     every projection and the lm_head, at 16 and 32 timed and traced to
+     one launch of the streaming GEMV (:func:`wide_trace`); the M <= 8
+     tails at 1, 2, 5 and 8 rows, greedy and sampled, with a forced tie
+     and a NaN row (:func:`hold_small_tails`), the CLI's greedy tail
+     traced to the streaming GEMV and the fold;
   3. likewise every kernel of the batched serving path: the batched decode
      step at B=8 and B=32 (window 512, ragged positions, dead slots; at
      B=32 a profiler trace shows the tensor-core GEMV on all four
@@ -45,7 +50,9 @@ logs its seconds):
      residual epilogue) at qkv, o, fc1 and fc2 shapes, M = 8, 16, 32, in
      every format, timed beside its bound and ``x_bf16 @ dequantize(W)``;
      every B=32 batched, paged and staged step in phases 3-6 is traced to
-     launch it 4 L times and the scalar-FMA GEMV never;
+     launch it 4 L times and the scalar-FMA GEMV never; then
+     ``qmatmul_wide`` at the same uneven widths and on 8192 -> 1024 and
+     32768 -> 1024 planes, every format;
   5c. the B=1 step's projection alone (``decode_gemv_b1``, the M=1 GEMV
      with the X' numerics, its LayerNorm computed in each block, and its
      bias, GELU or residual epilogue) at the same four shapes in every
@@ -59,7 +66,9 @@ logs its seconds):
      Q8_0 (the GEMVs at every projection shape, ``lm_head_argmax`` and both
      tails, the B=1 (past 100 and 900), batched, paged and staged steps
      with bf16 and int8 KV, ``prefill_fused``) against its plain version
-     with the Q4 limits, timed beside its bound and yardstick;
+     with the Q4 limits, timed beside its bound and yardstick (the
+     lm_head's ``qmatmul_wide`` at M = 16 and 32 among them; the M <= 8
+     tails at 1, 2, 5, 8 rows and the two serving tails at M = 8 too);
   7. the tensor-parallel decode step's halves (attention, the int8 mode's
      qkv and attention, FFN) of a random 347M model's shards at tp 2 and 4,
      in every format with bf16 and int8 KV, B=32 (window 512, ragged
@@ -84,7 +93,8 @@ logs its seconds):
      plain path; the tokens/s of each run;
   10. the paged (bf16 and int8) and staged engines on the same file: the
      uniform greedy serve (ids against the lockstep serve's, the launch
-     counts) and a mixed-length serve of 32 requests, half greedy (its
+     counts; the staged step's tail traced to one launch of the streaming
+     GEMV) and a mixed-length serve of 32 requests, half greedy (its
      greedy rows against the lockstep engines' on the same requests);
   11. tensor-parallel serving on the same file: two ranks that share the
      card (the port's launcher, gloo, this script with ``--tp-rank``; the
@@ -105,6 +115,11 @@ logs its seconds):
   13. the ``kernels`` line (each kernel with the formats this run held it
      in against its plain version, or drove its route in) and the result
      line.
+
+``python3 chip_smoke.py --wide-probe`` runs only :func:`wide_probe`: the
+numbers of ``qmatmul_wide`` and the M <= 8 tails and of the paths they sit
+on, with entry points every tree of the port has (to compare two trees in
+one call).
 
 Needs a CUDA card; exits non-zero without one or without the package.
 """
@@ -132,6 +147,11 @@ SPIN: dict = {}    # the device spin's clock rate (spin_rate)
 # weight formats: name -> (ggml type, level bits as the engines prepare them)
 FORMATS = {"q4_0": (2, 4), "q4_1": (3, 4), "q5_0": (6, 5), "q5_1": (7, 5),
            "q8_0": (8, 8)}
+# the row counts ``qmatmul_wide`` is held at (8 < M <= 32, one and two
+# m16 tiles, full and partial)
+WIDE_ROWS = (9, 16, 17, 31, 32)
+# the row counts the M <= 8 lm_head tails are held at
+SMALL_TAIL_ROWS = (1, 2, 5, 8)
 # the formats after Q4_0 and Q4_1, held kernel by kernel on their own
 NEW_FORMATS = ("q5_0", "q5_1", "q8_0")
 # the formats driven end to end from a model file of their own (Q4_0 is the
@@ -574,21 +594,30 @@ def prefill_trace(run, L: int, what: str) -> dict:
     return rec
 
 
-# the M=16/32 lm_head tails (csrc/lm_head_argmax.cu): the LayerNorm'd rows
-# and the tensor-core GEMV, and the scalar-FMA tile they replaced
+# the lm_head tails (csrc/lm_head_argmax.cu): at M = 16, 32 the LayerNorm'd
+# rows and the tensor-core GEMV, at M <= 8 the streaming GEMV with the
+# LayerNorm in its blocks; and the scalar-FMA kernels they replaced
 TAIL_KERNELS = ("ln_rows_kernel", "lm_head_mma_kernel")
-TAIL_NEVER = ("lm_head_block_kernel", "lm_head_logits_gmax_kernel")
+SMALL_TAIL_KERNELS = ("qgemv_stream_kernel",)
+TAIL_NEVER = ("lm_head_block_kernel", "lm_head_logits_gmax_kernel",
+              "qgemv_partial_kernel", "partial_sum_kernel")
+# the 9-32-row GEMV (csrc/qgemv_stream.cuh) and the two kernels of the
+# scalar-FMA GEMV it replaced
+WIDE_KERNEL = "qgemv_stream_kernel"
+WIDE_NEVER = ("qgemv_partial_kernel", "partial_sum_kernel")
 
 
-def tail_trace(run, what: str) -> dict:
-    """One call of an M=16/32 lm_head tail under ``torch.profiler`` -> the
-    record printed (launches and device ms of each kernel). Checks one
-    launch each of ``TAIL_KERNELS`` and none of ``TAIL_NEVER``. A trace
-    short of records is taken again, up to three times."""
+def tail_trace(run, what: str, small: bool = False) -> dict:
+    """One call of an lm_head tail under ``torch.profiler`` -> the record
+    printed (launches and device ms of each kernel). Checks one launch
+    each of ``TAIL_KERNELS`` (``small``, M <= 8: ``SMALL_TAIL_KERNELS``)
+    and none of ``TAIL_NEVER``. A trace short of records is taken again,
+    up to three times."""
+    kernels = SMALL_TAIL_KERNELS if small else TAIL_KERNELS
     attempts = []
     for _ in range(3):
         names = kernel_trace(run)
-        got = {k: launches_of(names, k) for k in TAIL_KERNELS}
+        got = {k: launches_of(names, k) for k in kernels}
         never = {k: launches_of(names, k) for k in TAIL_NEVER}
         attempts.append({"launches": got, "never": never})
         if all(v == 1 for v in got.values()):
@@ -599,6 +628,46 @@ def tail_trace(run, what: str) -> dict:
     rec = {"tail_trace": what, "attempts": attempts, "kernels": names}
     print(json.dumps(rec), flush=True)
     return rec
+
+
+def wide_trace(run, what: str) -> dict:
+    """One call of ``run`` (one ``qmatmul_wide``, alone or in a tail) under
+    ``torch.profiler``: one launch of the streaming GEMV, none of the
+    scalar-FMA GEMV's two kernels -> {kernel name: [launches, device
+    ms]}. A trace short of records is taken again, up to three times."""
+    attempts = []
+    for _ in range(3):
+        names = kernel_trace(run)
+        got = launches_of(names, WIDE_KERNEL)
+        never = {k: launches_of(names, k) for k in WIDE_NEVER}
+        attempts.append({"launches": got, "never": never})
+        if got == 1:
+            break
+    check(got == 1 and sum(never.values()) == 0,
+          f"{what}: {got} launches of {WIDE_KERNEL} (want 1), {never} of "
+          f"the replaced kernels; attempts {attempts}")
+    print(json.dumps({"wide_trace": what, "attempts": attempts,
+                      "kernels": names}), flush=True)
+    return names
+
+
+def hold_wide(c: "Ctx", qt, m: int, what: str) -> tuple:
+    """``qmatmul_wide`` at m rows on random inputs against its plain
+    version: f32 summation order only, 1e-5 of the output's magnitude ->
+    (x, max error, tolerance)."""
+    from biogpt_tpu_torch.ops.qmatmul_kernels import (qmatmul_wide,
+                                                      qmatmul_wide_plain)
+
+    x = c.randn(m, qt.d_in)
+    y = qmatmul_wide(x, qt)
+    ref = qmatmul_wide_plain(x, qt)
+    torch.cuda.synchronize()
+    err = (y - ref).abs().max().item()
+    tol = 1e-5 * ref.abs().max().item() + 1e-5
+    check(err <= tol and bool(torch.isfinite(y).all())
+          and tuple(y.shape) == (m, qt.d_out),
+          f"{what}: err {err} > {tol} (shape {tuple(y.shape)})")
+    return x, err, tol
 
 
 def kernel_ln(x, lnw, lnb, eps):
@@ -887,33 +956,44 @@ def phase_single_kernels(c: Ctx) -> None:
             for m, kern, plain, kname in (
                     (1, qmatmul, qmatmul_plain, "qmatmul"),
                     (8, qmatmul, qmatmul_plain, "qmatmul"),
-                    (16, qmatmul_wide, qmatmul_wide_plain, "qmatmul_wide"),
-                    (32, qmatmul_wide, qmatmul_wide_plain, "qmatmul_wide")):
-                x = c.randn(m, d_in)
-                y = kern(x, qt)
-                ref = plain(x, qt)
-                torch.cuda.synchronize()
-                err = (y - ref).abs().max().item()
-                # f32 summation order only: 1e-5 of the output's magnitude
-                tol = 1e-5 * ref.abs().max().item() + 1e-5
-                check(err <= tol and bool(torch.isfinite(y).all()),
-                      f"{kname} {name} m={m} {fmt}: err {err} > {tol}")
-                if mins and name not in ("lm_head", "fc1"):
+                    *((m, qmatmul_wide, qmatmul_wide_plain, "qmatmul_wide")
+                      for m in WIDE_ROWS)):
+                what = f"{kname} {name} m={m} {fmt}"
+                if kname == "qmatmul_wide":
+                    x, err, tol = hold_wide(c, qt, m, what)
+                else:
+                    x = c.randn(m, d_in)
+                    y = kern(x, qt)
+                    ref = plain(x, qt)
+                    torch.cuda.synchronize()
+                    err = (y - ref).abs().max().item()
+                    # f32 summation order only: 1e-5 of the output's
+                    # magnitude
+                    tol = 1e-5 * ref.abs().max().item() + 1e-5
+                    check(err <= tol and bool(torch.isfinite(y).all()),
+                          f"{what}: err {err} > {tol}")
+                c.formats.setdefault(kname, set()).add(fmt)
+                # timed: Q4_0 at M = 1, 8, 16, 32, the lm_head at M = 32
+                # in Q4_1 too
+                if (m not in (1, 8, 16, 32)
+                        or mins and (name, m) != ("lm_head", 32)):
                     continue
                 rec = {"kernel": kname, "shape": name, "m": m, "format": fmt,
                        "max_abs_err": err, "tol": tol}
-                if not mins:
-                    def lib_call():
-                        return x.to(torch.bfloat16) @ dequantize(
-                            qt, torch.bfloat16)
-                    timed(rec, lambda: kern(x, qt), lambda: plain(x, qt),
-                          lib_call, qbytes(qt) + x.numel() * 4 + m * d_out * 4,
-                          2 * m * d_in * d_out, reps=50, plain_reps=5,
-                          flush=flush)
-                    key = (kname, name, m)
-                    if key in (("qmatmul", "lm_head", 1),
-                               ("qmatmul_wide", "fc1", 32)):
-                        c.results[kname] = rec
+
+                def lib_call():
+                    return x.to(torch.bfloat16) @ dequantize(
+                        qt, torch.bfloat16)
+                timed(rec, lambda: kern(x, qt), lambda: plain(x, qt),
+                      lib_call, qbytes(qt) + x.numel() * 4 + m * d_out * 4,
+                      2 * m * d_in * d_out, reps=50, plain_reps=5,
+                      flush=flush)
+                if kname == "qmatmul_wide" and not mins:
+                    rec["trace"] = wide_trace(lambda: kern(x, qt), what)
+                key = (kname, name, m)
+                if not mins and key in (("qmatmul", "lm_head", 1),
+                                        ("qmatmul_wide", "fc1", 32)):
+                    c.results[kname] = rec
                 c.emit(rec)
 
     # decode_step_fused over 24 layers at three cache lengths; the short
@@ -999,8 +1079,14 @@ def phase_single_kernels(c: Ctx) -> None:
                                                cfg.ln_eps),
                   lib_call, qbytes(qt) + D * 4 + 2 * D * 4 + 8, 2 * D * V_PAD,
                   reps=50, plain_reps=5, flush=flush)
+            # the CLI's greedy tail: the streaming GEMV and the fold only
+            rec["trace"] = tail_trace(
+                lambda: lm_head_argmax(x, lnw, lnb, qt, cfg.n_vocab,
+                                       cfg.ln_eps),
+                f"lm_head_argmax M=1 {fmt}", small=True)["kernels"]
             c.results["lm_head_argmax"] = rec
         c.emit(rec)
+        hold_small_tails(c, qt, lnw, lnb, fmt, flush if not mins else None)
     del flush_buf
 
 
@@ -1120,6 +1206,90 @@ def phase_serving_kernels(c: Ctx) -> None:
     hold_tails(c, c.rand_qt(D, V_PAD, mins=True), lnw, lnb, 32, "q4_1")
 
 
+def hold_small_tails(c: Ctx, qt, lnw, lnb, fmt: str, flush=None) -> None:
+    """The M <= 8 lm_head tails (the streaming GEMV, X' numerics) at each
+    of ``SMALL_TAIL_ROWS``: ``lm_head_argmax`` and the sampled tail's
+    logits and group maxima against the plain versions
+    (:func:`lm_head_expect`); above one row a forced tie in row 0 (the
+    kernel's winning column copied into a lower one: the lower index wins)
+    and a NaN row M - 1 ((n_valid - 1, NaN), its logits NaN); with
+    ``flush`` the greedy tail timed at M = 8 and traced."""
+    from biogpt_tpu_torch.ops import dequantize
+    from biogpt_tpu_torch.ops.qmatmul_kernels import (
+        lm_head_argmax, lm_head_argmax_plain, lm_head_logits_gmax_commit)
+    from biogpt_tpu_torch.quant.layouts import QuantizedTensor
+
+    cfg, dev, V_PAD = c.cfg, c.dev, c.V_PAD
+    D, V, eps = cfg.d_model, cfg.n_vocab, cfg.ln_eps
+    bf16 = torch.bfloat16
+
+    def sampled(x, w):
+        M = x.shape[0]
+        kc = torch.zeros(1, M, 8, 8, dtype=bf16, device=dev)
+        rows = torch.zeros(M, 1, 8, dtype=bf16, device=dev)
+        past = torch.zeros(M, dtype=torch.int32, device=dev)
+        lo, gm, _, _ = lm_head_logits_gmax_commit(x, lnw, lnb, w, V, kc,
+                                                  kc.clone(), rows, rows,
+                                                  past, eps)
+        return lo, gm
+    for M in SMALL_TAIL_ROWS:
+        x = c.randn(M, D)
+        what = f"lm_head_argmax M={M} {fmt}"
+        ids, mv = lm_head_argmax(x, lnw, lnb, qt, V, eps)
+        exp = lm_head_expect(x, lnw, lnb, qt, eps, what)
+        torch.cuda.synchronize()
+        err, decided = tail_ids_within(ids, mv, exp, V, what)
+        lo, gm = sampled(x, qt)
+        rerr = (lo[:, :V] - exp["plain"][:, :V]).abs().amax(-1)
+        own = lo.reshape(M, -1, 128).amax(-1)
+        check(bool((rerr <= exp["row_tol"]).all()) and bool(torch.equal(gm, own))
+              and bool((lo[:, V:] == -1e30).all()),
+              f"lm_head_logits_gmax M={M} {fmt}: logits err {rerr.tolist()} "
+              f"(tol {exp['row_tol'].tolist()}), gmax equal to its logits' "
+              f"group maxima: {bool(torch.equal(gm, own))}")
+        rec = {"kernel": "lm_head_argmax", "m": M, "format": fmt,
+               "max_abs_err": err, "tol": exp["tol"], "ids_decided": decided,
+               "ln_flips": exp["flips"],
+               "sampled_logits_err": rerr.max().item()}
+        if M > 1:
+            win = int(ids[0])
+            low = 5 if win > 5 else win + 1
+            tied = QuantizedTensor(
+                levels=qt.levels.clone(), scales=qt.scales.clone(),
+                mins=None if qt.mins is None else qt.mins.clone(),
+                qtype=qt.qtype, packed=qt.packed)
+            for t in (tied.levels, tied.scales, tied.mins):
+                if t is not None:
+                    t[:, low] = t[:, win]
+            xt = x.clone()
+            xt[M - 1] = float("nan")
+            tid, tmv = lm_head_argmax(xt, lnw, lnb, tied, V, eps)
+            tlo, tgm = sampled(xt, tied)
+            torch.cuda.synchronize()
+            check(int(tid[0]) == min(low, win)
+                  and int(tid[M - 1]) == V - 1 and bool(torch.isnan(tmv[M - 1]))
+                  and bool(torch.isnan(tlo[M - 1, :V]).all())
+                  and bool(torch.isnan(tgm[M - 1, :V // 128]).all())
+                  and bool(torch.isfinite(tgm[:M - 1]).all()),
+                  f"{what}: tie row 0 id {int(tid[0])} (want {min(low, win)}), "
+                  f"NaN row id {int(tid[M - 1])} max {float(tmv[M - 1])}")
+            rec.update(tie_id=int(tid[0]), nan_row_id=int(tid[M - 1]))
+        if flush is not None and M == 8:
+            def lib_call():
+                xn = torch.nn.functional.layer_norm(x, (D,), lnw, lnb, eps)
+                logits = xn.to(bf16) @ dequantize(qt, bf16)
+                return torch.argmax(logits[:, :V], dim=-1)
+            timed(rec, lambda: lm_head_argmax(x, lnw, lnb, qt, V, eps),
+                  lambda: lm_head_argmax_plain(x, lnw, lnb, qt, V, eps),
+                  lib_call, qbytes(qt) + M * D * 4 + 2 * D * 4 + M * 8,
+                  2 * M * D * V_PAD, reps=50, plain_reps=5, flush=flush)
+            rec["trace"] = tail_trace(
+                lambda: lm_head_argmax(x, lnw, lnb, qt, V, eps),
+                f"lm_head_argmax M={M} {fmt}", small=True)["kernels"]
+        c.emit(rec)
+    c.formats.setdefault("lm_head_logits_gmax_commit", set()).add(fmt)
+
+
 def hold_tails(c: Ctx, qt, lnw, lnb, M: int, fmt: str) -> dict:
     """The greedy and sampled lm_head tails with their KV commit at M rows,
     and ``lm_head_argmax`` at M (timed above M = 8), against their plain
@@ -1198,10 +1368,9 @@ def hold_tails(c: Ctx, qt, lnw, lnb, M: int, fmt: str) -> dict:
               x, lnw, lnb, qt, V, kc, vc, krt, vrt, pt, cfg.ln_eps),
           argmax_lib, qbytes(qt) + M * D * 4 + 2 * D * 4 + M * 8
           + commit_bytes, 2 * M * D * V_PAD)
-    if M > 8:
-        rec["trace"] = tail_trace(lambda: lm_head_argmax_commit(
-            x, lnw, lnb, qt, V, kc, vc, krt, vrt, pt, cfg.ln_eps),
-            f"lm_head_argmax_commit M={M} {fmt}")["kernels"]
+    rec["trace"] = tail_trace(lambda: lm_head_argmax_commit(
+        x, lnw, lnb, qt, V, kc, vc, krt, vrt, pt, cfg.ln_eps),
+        f"lm_head_argmax_commit M={M} {fmt}", small=M <= 8)["kernels"]
     recs["lm_head_argmax_commit"] = rec
     c.emit(rec)
 
@@ -1248,10 +1417,9 @@ def hold_tails(c: Ctx, qt, lnw, lnb, M: int, fmt: str) -> dict:
           gmax_lib, qbytes(qt) + M * D * 4 + 2 * D * 4
           + M * V_PAD * 4 + M * (V_PAD // 128) * 4 + commit_bytes,
           2 * M * D * V_PAD)
-    if M > 8:
-        rec["trace"] = tail_trace(lambda: lm_head_logits_gmax_commit(
-            x, lnw, lnb, qt, V, kc, vc, krt, vrt, pt, cfg.ln_eps),
-            f"lm_head_logits_gmax_commit M={M} {fmt}")["kernels"]
+    rec["trace"] = tail_trace(lambda: lm_head_logits_gmax_commit(
+        x, lnw, lnb, qt, V, kc, vc, krt, vrt, pt, cfg.ln_eps),
+        f"lm_head_logits_gmax_commit M={M} {fmt}", small=M <= 8)["kernels"]
     recs["lm_head_logits_gmax_commit"] = rec
     c.emit(rec)
     del kc, vc, k1, v1, k2, v2
@@ -1711,6 +1879,29 @@ def phase_gemv_kernels(c: Ctx) -> None:
                               "shape": f"{d_in} -> {d_out}",
                               "splits": -(-d_in // 256), "format": fmt,
                               "err_over_row_tol_by_m": worst}), flush=True)
+    # qmatmul_wide at the same widths (their splits of d_in uneven too), on
+    # an 8192 -> 1024 plane (d_in past one cluster of one group a warp) and
+    # a 32768 -> 1024 one (past 16 splits of two groups a warp)
+    from biogpt_tpu_torch.ops.qmatmul_kernels import stream_plan
+
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, d_in, d_out, *_ in GEMV_ODD_WIDTHS + (("wide", 8192, 1024),
+                                                    ("wide", 32768, 1024)):
+        for fmt in FORMATS:
+            qt = c.rand_qt(d_in, d_out, fmt=fmt)
+            worst = {}
+            for M in WIDE_ROWS:
+                _, err, tol = hold_wide(
+                    c, qt, M, f"qmatmul_wide {d_in} -> {d_out} M={M} {fmt}")
+                worst[M] = err / tol
+            c.formats.setdefault("qmatmul_wide", set()).add(fmt)
+            print(json.dumps({"qmatmul_wide_width": name,
+                              "shape": f"{d_in} -> {d_out}",
+                              "plan_by_m": {M: stream_plan(M, d_in, d_out,
+                                                           n_sm)
+                                            for M in WIDE_ROWS},
+                              "format": fmt, "err_over_tol_by_m": worst}),
+                  flush=True)
 
 
 def phase_b1_gemv_kernels(c: Ctx) -> None:
@@ -2037,19 +2228,25 @@ def phase_format_kernels(c: Ctx, fmt: str) -> None:
         for m, kern, plain, kname in (
                 (1, qmatmul, qmatmul_plain, "qmatmul"),
                 (8, qmatmul, qmatmul_plain, "qmatmul"),
-                (16, qmatmul_wide, qmatmul_wide_plain, "qmatmul_wide"),
-                (32, qmatmul_wide, qmatmul_wide_plain, "qmatmul_wide")):
-            x = c.randn(m, d_in)
-            y = kern(x, qt)
-            ref = plain(x, qt)
-            torch.cuda.synchronize()
-            err = (y - ref).abs().max().item()
-            tol = 1e-5 * ref.abs().max().item() + 1e-5
-            check(err <= tol and bool(torch.isfinite(y).all()),
-                  f"{kname} {name} m={m} {fmt}: err {err} > {tol}")
+                *((m, qmatmul_wide, qmatmul_wide_plain, "qmatmul_wide")
+                  for m in WIDE_ROWS)):
+            what = f"{kname} {name} m={m} {fmt}"
+            if kname == "qmatmul_wide":
+                x, err, tol = hold_wide(c, qt, m, what)
+            else:
+                x = c.randn(m, d_in)
+                y = kern(x, qt)
+                ref = plain(x, qt)
+                torch.cuda.synchronize()
+                err = (y - ref).abs().max().item()
+                tol = 1e-5 * ref.abs().max().item() + 1e-5
+                check(err <= tol and bool(torch.isfinite(y).all()),
+                      f"{what}: err {err} > {tol}")
             c.formats.setdefault(kname, set()).add(fmt)
             if (kname, name, m) not in (("qmatmul", "lm_head", 1),
-                                        ("qmatmul_wide", "fc1", 32)):
+                                        ("qmatmul_wide", "fc1", 32),
+                                        ("qmatmul_wide", "lm_head", 16),
+                                        ("qmatmul_wide", "lm_head", 32)):
                 continue
             rec = {"kernel": kname, "shape": name, "m": m, "format": fmt,
                    "max_abs_err": err, "tol": tol}
@@ -2059,7 +2256,10 @@ def phase_format_kernels(c: Ctx, fmt: str) -> None:
             timed(rec, lambda: kern(x, qt), lambda: plain(x, qt), lib_call,
                   qbytes(qt) + x.numel() * 4 + m * d_out * 4,
                   2 * m * d_in * d_out, reps=50, plain_reps=5, flush=flush)
-            keep(kname, rec)
+            if name == "fc1":
+                keep(kname, rec)
+            else:
+                c.emit(rec)
 
     # lm_head_argmax at m = 1; the tails (and the argmax) at M = 32
     qt = c.rand_qt(D, V_PAD, fmt=fmt)
@@ -2087,6 +2287,8 @@ def phase_format_kernels(c: Ctx, fmt: str) -> None:
           argmax_lib, qbytes(qt) + D * 4 + 2 * D * 4 + 8, 2 * D * V_PAD,
           reps=50, plain_reps=5, flush=flush)
     keep("lm_head_argmax", rec)
+    hold_small_tails(c, qt, lnw, lnb, fmt)
+    hold_tails(c, qt, lnw, lnb, 8, fmt)
     for name, rec in hold_tails(c, qt, lnw, lnb, 32, fmt).items():
         c.fmt_results[(name, fmt)] = rec
     del flush_buf, qt
@@ -2768,6 +2970,17 @@ def phase_paged_staged_serving(c: Ctx, path: str, smi: str) -> None:
                        refill_waves_device_ms=sum(
                            s.elapsed_time(e) for s, e in spans["refill"]),
                        greedy_ids_equal_lockstep=same)
+        if flags.get("staged_kv"):
+            # the staged step's tail: final LN, the lm_head at M = B in one
+            # launch of the streaming GEMV, the argmax
+            from biogpt_tpu_torch.models.biogpt import _final_logits
+            from biogpt_tpu_torch.runtime.sampling import greedy
+
+            xh = c.randn(B, config.d_model)
+            rec["tail_trace"] = wide_trace(
+                lambda: greedy(_final_logits(eng.params, xh, config,
+                                             torch.bfloat16)),
+                f"{name} serve's tail (lm_head M={B})")
         # the mixed-length serve, half greedy: tokens/s, and its greedy rows
         # against the lockstep engine's on the same requests
         reqs = mixed_reqs(np.random.default_rng(1), V, B, Request)
@@ -3148,12 +3361,13 @@ def phase_tp_kernels(c: Ctx) -> None:
     every shard's new K/V rows (:func:`tp_rows_within`). With an int8
     cache the attention half's inputs include the current rows, quantized
     between the halves by torch (``quantize_rows``); the final state is
-    held against the plain halves fed the kernel path's rows. Rounded by
-    each path from its own qkv, a row can differ by one int8 level, and a
-    dead slot's context is its current row alone, so the step carries the
-    whole quantization step into x (on an H100: 1.020 of the limit at a
-    dead slot, 0.37 with the rows shared). The rows, each layer and the qkv
-    half stay held on each path's own quantization. Each half alone on layer
+    held against the plain halves fed the kernel path's rows, and so is
+    each layer. Rounded by each path from its own qkv, a row can differ by
+    one int8 level, and a dead slot's context is its current row alone, so
+    the step carries the whole quantization step into x (on an H100: 1.020
+    of the limit at a dead slot, 0.37 with the rows shared; one layer
+    alone 1.369 on its own rows). The rows and the qkv half stay held on
+    each path's own quantization. Each half alone on layer
     12 of shard 0 (:func:`hold_half`; traced, :func:`tp_trace`), and one
     shard's whole step, are timed beside their bounds and the plain
     versions; then the halves' projections alone (:func:`tp_gemvs`)."""
@@ -3216,15 +3430,30 @@ def phase_tp_kernels(c: Ctx) -> None:
                     xp, _ = decode_step_tp_shards(
                         x0, shards, pt, n_head=H, window=W, ln_eps=eps,
                         plain=True, quantize=lambda x, amax: next(replay))
-                # each layer alone from the plain step's state before it
-                per_layer = [decode_step_tp_shards(
-                    x0 if lyr == 0 else tpl[lyr - 1],
-                    [tree_map(lambda a: a[lyr:lyr + 1], sh) for sh in shards],
-                    pt, n_head=H, window=W, ln_eps=eps)[0]
-                    for lyr in range(L)]
+                # each layer alone from the plain step's state before it;
+                # with an int8 cache held, as the final state, against the
+                # plain halves fed the kernel path's current rows of that
+                # layer
+                per_layer, held_to = [], []
+                for lyr in range(L):
+                    x_in = x0 if lyr == 0 else tpl[lyr - 1]
+                    one_layer = [tree_map(lambda a: a[lyr:lyr + 1], sh)
+                                 for sh in shards]
+                    cur = []
+                    per_layer.append(decode_step_tp_shards(
+                        x_in, one_layer, pt, n_head=H, window=W, ln_eps=eps,
+                        quantize=recorded)[0])
+                    if int8:
+                        replay = iter(cur)
+                        held_to.append(decode_step_tp_shards(
+                            x_in, one_layer, pt, n_head=H, window=W,
+                            ln_eps=eps, plain=True,
+                            quantize=lambda x, amax: next(replay))[0])
+                    else:
+                        held_to.append(tpl[lyr])
                 torch.cuda.synchronize()
                 what = f"TP step tp={tp} {fmt} {kv}"
-                worst = layers_within(per_layer, tpl, what)
+                worst = layers_within(per_layer, held_to, what)
                 # the same limit along the 24-layer trajectory, reported
                 drift = max((a - b).abs().max().item()
                             / (3e-3 * b.abs().max().item())
@@ -3618,6 +3847,229 @@ def phase_tp_one_by_one(c: Ctx, path: str, smi: str) -> None:
 
 # ------------------------------------------------------------------- main
 
+# ------------------------------------- the 9-32-row GEMV and M <= 8 tails
+
+WIDE_PROBE_SHAPES = ("qkv", "o", "fc1", "fc2", "lm_head")
+
+
+def wide_probe_serve(c: Ctx, smi: str, fmt: str, name: str, flags: dict,
+                     params, config) -> dict:
+    """The uniform greedy serve of ``name`` (96 requests at B=32) on a
+    ``fmt`` file: tokens/s and the wall split (:func:`span_meter`), then
+    one greedy step at the serve's shape timed whole and its tail alone
+    (final LN, the lm_head at M = 32 and the argmax) and the tail
+    traced."""
+    import numpy as np
+
+    from biogpt_tpu_torch.config import GenerationParams
+    from biogpt_tpu_torch.models.biogpt import (_final_logits,
+                                                forward_fused_decode,
+                                                forward_fused_decode_greedy,
+                                                forward_fused_decode_staged)
+    from biogpt_tpu_torch.runtime.sampling import greedy
+    from biogpt_tpu_torch.runtime.serving import BatchedEngine, Request
+
+    B, V, dev = 32, config.n_vocab, c.dev
+    eng = BatchedEngine(config, params, max_batch=B, max_seq=512, chunk=16,
+                        device="cuda", **flags)
+    rng = np.random.default_rng(0)
+    gen = GenerationParams(temp=0.0, stop_at_eos=False)
+    eng.serve(uniform_reqs(rng, V, 4, Request), gen)   # warm-up
+    reqs = uniform_reqs(rng, V, 3 * B, Request)
+    torch.cuda.synchronize()
+    spans = span_meter(eng)
+    t0 = time.perf_counter()
+    res = eng.serve(reqs, gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del eng._prefill_group, eng._run_chunk
+    n_tok = sum(len(r.new_ids) for r in res.values())
+    check(len(res) == 3 * B and n_tok == 3 * B * 48,
+          f"wide probe serve ({name} {fmt}): {len(res)} results")
+    rec = {"wide_probe": "serve", "serving_path": name, "format": fmt,
+           "serve_uniform_greedy_tokens_per_s": n_tok / wall, "wall_s": wall,
+           "decode_chunks_device_ms": sum(s.elapsed_time(e)
+                                          for s, e in spans["chunk"]),
+           "refill_wave_ms": [s.elapsed_time(e) for s, e in spans["refill"]],
+           "card": torch.cuda.get_device_name(0), "card_stamp": smi}
+    P = eng.params
+    cache = eng.new_cache()
+    past = torch.from_numpy(rng.integers(8, 73, size=B)).to(dev, torch.int32)
+    toks = torch.from_numpy(rng.integers(4, V - 2, size=(B, 1))).to(dev)
+    if flags.get("staged_kv"):
+        L, _, _, D = cache.k.shape
+        k_st = torch.zeros(L, B, eng.chunk, D, dtype=cache.k.dtype, device=dev)
+        v_st = torch.zeros_like(k_st)
+
+        def step():
+            logits, _, _ = forward_fused_decode_staged(
+                P, toks, cache, k_st, v_st, past, 7, config, kv_window=128)
+            return greedy(logits)
+    elif eng._fused_greedy:
+        def step():
+            return forward_fused_decode_greedy(P, toks, cache, past, config,
+                                               kv_window=128)
+    else:
+        def step():
+            logits, _ = forward_fused_decode(P, toks, cache, past, config,
+                                             kv_window=128)
+            return greedy(logits)
+    xh = c.randn(B, config.d_model)
+
+    def tail():
+        return greedy(_final_logits(P, xh, config, torch.bfloat16))
+    rec["step_device_ms"] = time_ms(step, 20)
+    rec["step_host_ms"] = HOST[step]["host_ms"]
+    if not eng._fused_greedy or flags.get("staged_kv"):
+        rec["tail_device_ms"] = time_ms(tail, 20)
+        rec["tail_host_ms"] = HOST[tail]["host_ms"]
+        rec["tail_share_of_step"] = rec["tail_device_ms"] / rec["step_device_ms"]
+        rec["tail_trace"] = kernel_trace(tail)
+    print(json.dumps(rec), flush=True)
+    del eng, cache
+    return rec
+
+
+def wide_probe(c: Ctx, smi: str) -> None:
+    """The numbers of the 9-32-row quantized GEMV (``qmatmul_wide``, row 2)
+    and the M <= 8 lm_head tails (row 3 at M <= 8), and of the paths they
+    sit on, with the helpers of the holds (:func:`timed`: device, host,
+    plain and library ms, L2 flushed; :func:`kernel_trace`); only entry
+    points every tree of the port has:
+      - ``qmatmul_wide`` at M = 16 and 32 on qkv, o, fc1, fc2 and the
+        lm_head (1024 -> 42,496) in Q4_0, the lm_head in the other four
+        formats, each call traced;
+      - ``lm_head_argmax`` and the sampled tail (``lm_head_logits_gmax_
+        commit``) at M = 1 and 8, Q4_0, each traced;
+      - the single stream's time to first token on a 16-token prompt (the
+        per-op prefill at 16 rows: its projections through
+        ``qmatmul_wide``), its device time and its trace;
+      - the uniform greedy serves: bf16 lockstep and staged on a Q4_0
+        file, lockstep on a Q8_0 file (tokens/s, refill waves, one step
+        and its tail, :func:`wide_probe_serve`).
+    Run as ``python3 chip_smoke.py --wide-probe``; the lines are JSON."""
+    from biogpt_tpu_torch.config import GenerationParams
+    from biogpt_tpu_torch.modelio.checkpoint import load_params
+    from biogpt_tpu_torch.modelio.synthetic import write_random_quantized_model
+    from biogpt_tpu_torch.ops import dequantize
+    from biogpt_tpu_torch.ops.qmatmul_kernels import (
+        lm_head_argmax, lm_head_argmax_plain, lm_head_logits_gmax_commit,
+        lm_head_logits_gmax_commit_plain, qmatmul_wide, qmatmul_wide_plain)
+    from biogpt_tpu_torch.runtime.engine import Engine
+
+    cfg, dev, V_PAD = c.cfg, c.dev, c.V_PAD
+    D, F, L, V = cfg.d_model, cfg.d_ff, cfg.n_layer, cfg.n_vocab
+    card = torch.cuda.get_device_name(0)
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    shapes = {"qkv": (D, 3 * D), "o": (D, D), "fc1": (D, F), "fc2": (F, D),
+              "lm_head": (D, V_PAD)}
+    for fmt in FORMATS:
+        for name in WIDE_PROBE_SHAPES:
+            if fmt != "q4_0" and name != "lm_head":
+                continue
+            d_in, d_out = shapes[name]
+            qt = c.rand_qt(d_in, d_out, fmt=fmt)
+            for m in (16, 32):
+                x = c.randn(m, d_in)
+                y, ref = qmatmul_wide(x, qt), qmatmul_wide_plain(x, qt)
+                torch.cuda.synchronize()
+                err = (y - ref).abs().max().item()
+                tol = 1e-5 * ref.abs().max().item() + 1e-5
+                check(err <= tol, f"wide probe {name} m={m} {fmt}: {err}")
+                rec = {"wide_probe": "qmatmul_wide", "shape": name, "m": m,
+                       "format": fmt, "max_abs_err": err, "tol": tol}
+
+                def lib_call():
+                    return x.to(torch.bfloat16) @ dequantize(qt,
+                                                             torch.bfloat16)
+                timed(rec, lambda: qmatmul_wide(x, qt),
+                      lambda: qmatmul_wide_plain(x, qt), lib_call,
+                      qbytes(qt) + m * d_in * 4 + m * d_out * 4,
+                      2 * m * d_in * d_out, reps=50, plain_reps=3,
+                      flush=flush)
+                rec["trace"] = kernel_trace(lambda: qmatmul_wide(x, qt))
+                rec.update(card=card, card_stamp=smi)
+                print(json.dumps(rec), flush=True)
+
+    qt = c.rand_qt(D, V_PAD, fmt="q4_0")
+    lnw, lnb = 1 + 0.1 * c.randn(D), 0.1 * c.randn(D)
+    S = 512
+    for m in (1, 8):
+        x = c.randn(m, D)
+        kc = c.randn(L, m, S, D).to(torch.bfloat16)
+        vc = c.randn(L, m, S, D).to(torch.bfloat16)
+        krt = c.randn(m, L, D).to(torch.bfloat16)
+        vrt = c.randn(m, L, D).to(torch.bfloat16)
+        pt = torch.tensor(ragged_past(m), dtype=torch.int32, device=dev)
+        commit = 4 * L * m * D * 2 + m * 4
+
+        def argmax_lib():
+            xn = torch.nn.functional.layer_norm(x, (D,), lnw, lnb, cfg.ln_eps)
+            logits = xn.to(torch.bfloat16) @ dequantize(qt, torch.bfloat16)
+            return torch.argmax(logits[:, :V], dim=-1)
+
+        def gmax_lib():
+            xn = torch.nn.functional.layer_norm(x, (D,), lnw, lnb, cfg.ln_eps)
+            logits = xn.to(torch.bfloat16) @ dequantize(qt, torch.bfloat16)
+            return logits.float().reshape(m, -1, 128).amax(-1)
+        for kname, run, plain, lib, nbytes in (
+                ("lm_head_argmax",
+                 lambda: lm_head_argmax(x, lnw, lnb, qt, V, cfg.ln_eps),
+                 lambda: lm_head_argmax_plain(x, lnw, lnb, qt, V, cfg.ln_eps),
+                 argmax_lib, qbytes(qt) + m * D * 4 + 2 * D * 4 + m * 8),
+                ("lm_head_logits_gmax_commit",
+                 lambda: lm_head_logits_gmax_commit(
+                     x, lnw, lnb, qt, V, kc, vc, krt, vrt, pt, cfg.ln_eps),
+                 lambda: lm_head_logits_gmax_commit_plain(
+                     x, lnw, lnb, qt, V, kc, vc, krt, vrt, pt, cfg.ln_eps),
+                 gmax_lib, qbytes(qt) + m * D * 4 + 2 * D * 4
+                 + m * V_PAD * 4 + m * (V_PAD // 128) * 4 + commit)):
+            rec = {"wide_probe": kname, "m": m, "format": "q4_0"}
+            timed(rec, run, plain, lib, nbytes, 2 * m * D * V_PAD, reps=50,
+                  plain_reps=3, flush=flush)
+            rec["trace"] = kernel_trace(run)
+            rec.update(card=card, card_stamp=smi)
+            print(json.dumps(rec), flush=True)
+        del kc, vc
+    del flush_buf
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        files = {}
+        for fmt in ("q4_0", "q8_0"):
+            files[fmt] = os.path.join(tmp, f"biogpt347m-{fmt}.bin")
+            write_random_quantized_model(files[fmt], cfg, FORMATS[fmt][0],
+                                         seed=7)
+        config, _, _, params = load_params(files["q4_0"], device="cpu")
+        # time to first token: the per-op prefill of a 16-token prompt
+        eng = Engine(config, params, device="cuda")
+        prompt = [2] + list(range(40, 55))
+        g = GenerationParams(n_predict=2, temp=0.0, stop_at_eos=False, seed=0)
+        eng.generate(prompt, g)
+        ttft = [eng.generate(prompt, g).timings["prefill_s"] * 1e3
+                for _ in range(9)]
+
+        def prefill():
+            return eng.prefill(eng.new_cache(batch=1), prompt)
+        rec = {"wide_probe": "ttft", "prompt_tokens": len(prompt),
+               "prefill_wall_ms": statistics.median(ttft),
+               "prefill_wall_ms_all": ttft,
+               "prefill_device_ms": time_ms(prefill, 20),
+               "prefill_host_ms": HOST[prefill]["host_ms"],
+               "trace": kernel_trace(prefill), "card": card,
+               "card_stamp": smi}
+        print(json.dumps(rec), flush=True)
+        del eng
+        for name, flags in (("lockstep bf16", {}),
+                            ("staged bf16", dict(staged_kv=True))):
+            wide_probe_serve(c, smi, "q4_0", name, flags, params, config)
+        config, _, _, params = load_params(files["q8_0"], device="cpu")
+        wide_probe_serve(c, smi, "q8_0", "lockstep bf16", {}, params, config)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3646,6 +4098,9 @@ def main() -> int:
         f"{json.dumps(per_lib)} s)")
 
     c = Ctx()
+    if sys.argv[1:2] == ["--wide-probe"]:
+        wide_probe(c, smi)
+        return 1 if FAILURES else 0
     phases = [(p.__name__, p) for p in (
         phase_single_kernels, phase_serving_kernels,
         phase_refill_int8_kernels, phase_paged_staged_kernels,
@@ -3685,7 +4140,7 @@ def main() -> int:
     sources = {
         "qmatmul": ("biogpt_tpu_torch/csrc/qmatmul.cu",
                     "biogpt_tpu/ops/pallas_qmatmul.py:860"),
-        "qmatmul_wide": ("biogpt_tpu_torch/csrc/qmatmul.cu",
+        "qmatmul_wide": ("biogpt_tpu_torch/csrc/qgemv_stream.cuh",
                          "biogpt_tpu/ops/pallas_qmatmul.py:246"),
         "lm_head_argmax": ("biogpt_tpu_torch/csrc/lm_head_argmax.cu",
                            "biogpt_tpu/ops/pallas_qmatmul.py:789"),

@@ -232,3 +232,75 @@ def test_kernel_trace_counts_only_the_window_it_keeps(monkeypatch):
     assert counted["decode_gemv"] == 96 and counted["prefill_gemm"] == 0
     assert names == {"qgemv_mma_kernel": [1, 0.01], "x": [1, 0.01]}
     assert [r[0] for r in seq] == ["x", "qgemv_mma_kernel"]
+
+
+def _engine_plane_bytes(qtype, d_in, d_out, seed):
+    """The bytes of one (d_in, d_out) weight's planes as the engines prepare
+    them: packed nibbles (and Q5's fifth-bit plane) or Q8_0's int8 levels,
+    bf16 scales and mins."""
+    rng = np.random.RandomState(seed)
+    qt = pack_nibble_planes(quantize_to_planes(
+        rng.randn(d_out, d_in).astype(np.float32), qtype))
+    qt = qt._replace(
+        scales=np.asarray(qt.scales).astype(ml_dtypes.bfloat16),
+        mins=(np.asarray(qt.mins).astype(ml_dtypes.bfloat16)
+              if qt.mins is not None else None))
+    t = params_from_numpy(qt, device="cpu")
+    return sum(p.numel() * p.element_size()
+               for p in (t.levels, t.scales, t.mins) if p is not None)
+
+
+@pytest.mark.parametrize("fmt", kb.FORMATS)
+def test_wide_sub_rows_count_the_engines_planes(fmt):
+    """Row 2's sub-rows (each projection and the lm_head, M = 16 and 32)
+    read the planes the engines hold at those widths (a small config, so
+    the planes are made here), x in and y out in f32; the M = 32 lm_head
+    sub-row reads the plane and the rows the M=32 tail's GEMV reads
+    (``tail_sub_rows``), which reads the LayerNorm's parameters besides
+    and writes ids and winning logits instead of the logits."""
+    c = BioGptConfig.tiny(d_model=128, d_ff=256, n_head=2, n_vocab=300)
+    V = -(-c.n_vocab // 128) * 128
+    recs = kb.wide_sub_rows(c, fmt)
+    assert [(r["shape"], r["m"]) for r in recs] == [
+        (n, m) for n in kb.WIDE_SHAPES for m in (16, 32)]
+    for r in recs:
+        d_in, d_out = (int(w) for w in r["widths"].split(" -> "))
+        assert (d_in, d_out) == ((c.d_model, V) if r["shape"] == "lm_head"
+                                 else kb.projection_shape(c, r["shape"]))
+        assert r["plane_bytes"] == _engine_plane_bytes(
+            QTYPES[fmt], d_in, d_out, d_in + d_out)
+        assert r["bytes"] == (r["plane_bytes"] + r["m"] * d_in * 4
+                              + r["m"] * d_out * 4)
+        assert r["flops"] == 2 * r["m"] * d_in * d_out and r["row"] == 2
+    c = BioGptConfig()
+    V, D = -(-c.n_vocab // 128) * 128, c.d_model
+    lm32 = next(r for r in kb.wide_sub_rows(c, fmt)
+                if (r["shape"], r["m"]) == ("lm_head", 32))
+    gemv = next(r for r in kb.tail_sub_rows(c, fmt)
+                if r["row"] == 4 and r["part"] == "lm_head GEMV")
+    assert (lm32["bytes"] - 32 * V * 4
+            == gemv["bytes"] - 2 * D * 4 - 32 * 8)
+    assert lm32["flops"] == gemv["flops"]
+
+
+@pytest.mark.parametrize("fmt", kb.FORMATS)
+def test_small_tail_rows_count_the_engines_planes(fmt):
+    """Row 3 at M = 1 and 8 and the sampled tail's GEMV: the lm_head planes
+    as the engines hold them (a small config), and at BioGPT-347M the M = 1
+    greedy sub-row is row 3 itself."""
+    c = BioGptConfig.tiny(d_model=128, d_ff=256, n_head=2, n_vocab=300)
+    V = -(-c.n_vocab // 128) * 128
+    recs = kb.small_tail_rows(c, fmt)
+    assert [(r["row"], r["m"]) for r in recs] == [(3, 1), (5, 1), (3, 8),
+                                                   (5, 8)]
+    for r in recs:
+        assert r["plane_bytes"] == _engine_plane_bytes(QTYPES[fmt], 128, V,
+                                                       7)
+        into = r["plane_bytes"] + r["m"] * 128 * 4 + 2 * 128 * 4
+        out = (r["m"] * 8 if r["row"] == 3
+               else r["m"] * V * 4 + r["m"] * (V // 128) * 4)
+        assert r["bytes"] == into + out
+    c = BioGptConfig()
+    row3 = next(r for r in kb.rows(c, fmt) if r["row"] == 3)
+    m1 = kb.small_tail_rows(c, fmt)[0]
+    assert (m1["bytes"], m1["flops"]) == (row3["bytes"], row3["flops"])

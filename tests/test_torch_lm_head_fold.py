@@ -17,8 +17,9 @@ D_OUT, TILE = 1024, 256
 def argmax_fold_blocks(logits: torch.Tensor, n_valid: int, tile: int,
                        block: int):
     """:func:`argmax_fold` in the two stages the CUDA tails take it
-    (``csrc/lm_head_argmax.cu``: blocks of ``block`` columns, 128 at M <= 8
-    and 64 at M = 16, 32, run in any order): per block and row the triple
+    (``csrc/lm_head_argmax.cu``: blocks of ``block`` columns, 64 at every
+    M since the M <= 8 tails run the streaming GEMV, 128 before, run in
+    any order): per block and row the triple
     (max over its non-NaN values, the lowest column holding it, any NaN),
     pad columns at -1e30; then per lane tile its blocks in column order --
     a NaN anywhere gives (NaN, n_valid-1), else the first block's pair,
@@ -56,13 +57,13 @@ def argmax_fold_blocks(logits: torch.Tensor, n_valid: int, tile: int,
     return bi.to(torch.int32), bv
 
 
-def _logits(seed, n_valid):
+def _logits(seed, n_valid, tile=TILE):
     """Rows of coarse values (many ties), with NaNs placed per row: none, one
     inside a tile, a whole first tile, one in a pad column."""
     rng = np.random.RandomState(seed)
     x = np.round(rng.randn(6, D_OUT) * 2) / 2
     x[1, 300] = np.nan
-    x[2, :TILE] = np.nan
+    x[2, :tile] = np.nan
     x[3, 5] = np.nan
     x[4, D_OUT - 1] = np.nan            # a pad column when n_valid < D_OUT
     x[5] = 0.0                          # every column tied
@@ -96,3 +97,16 @@ def test_two_stage_fold_rules():
         assert ids.tolist()[0] == 300 and mv[0] == 2.0
         assert ids.tolist()[1] == 999 and torch.isnan(mv[1])
         assert ids.tolist()[2] == 999 and mv[2] == -1e30
+
+
+@pytest.mark.parametrize("n_valid", [D_OUT, 1000, 700])
+@pytest.mark.parametrize("seed", [3, 4])
+def test_two_stage_fold_at_eight_blocks_a_tile(n_valid, seed):
+    """The lm_head's lane tile at BioGPT-347M is 512 columns: eight 64-column
+    blocks a tile, as the M <= 8 tails fold them (``tile_blocks`` = 8)."""
+    x = _logits(seed, n_valid, tile=512)
+    ids, mv = argmax_fold_blocks(x, n_valid, 512, 64)
+    want_ids, want_mv = argmax_fold(x, n_valid, 512)
+    assert torch.equal(ids, want_ids)
+    assert torch.equal(torch.isnan(mv), torch.isnan(want_mv))
+    assert torch.equal(mv[~torch.isnan(mv)], want_mv[~torch.isnan(want_mv)])
