@@ -1,7 +1,7 @@
-// Hopper's asynchronous copies, mbarriers and programmatic
-// dependent launch, shared by the paged attention (attn_paged.cuh), the
-// tensor-core GEMVs (qgemv_mma.cuh, qgemv_b1.cuh) and the refill chain
-// (prefill.cu).
+// Hopper's asynchronous copies, mbarriers, cluster barriers and
+// programmatic dependent launch, shared by the attention kernels
+// (attn_paged.cuh, attn_batched.cuh), the tensor-core GEMVs
+// (qgemv_mma.cuh, qgemv_b1.cuh) and the refill chain (prefill.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -75,6 +75,20 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
                  : "=r"(done) : "r"(a), "r"(parity) : "memory");
 }
 
+// the mbarrier's current phase also waits for `bytes` of asynchronous
+// stores or copies (this thread's arrival counted)
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// make the mbarriers this thread initialized visible to the cluster's
+// asynchronous stores
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
 // make this thread's shared-memory writes (plain stores, cp.async) visible
 // to the async proxy (wgmma's operand reads)
 __device__ __forceinline__ void fence_proxy_async() {
@@ -84,6 +98,53 @@ __device__ __forceinline__ void fence_proxy_async() {
 // barrier `id` (1..15) over `threads` threads of the block
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The cluster barrier in two halves: every thread of every block of the
+// cluster arrives, then waits for all (acquire: the other blocks' shared
+// memory writes before their arrival are visible). `relaxed` arrives
+// order no memory.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The shared::cluster address of `p` (this CTA's shared memory) in the
+// CTA of rank `rank` of the cluster.
+__device__ __forceinline__ unsigned cluster_addr(const void* p, int rank) {
+  unsigned a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
+  return a;
+}
+
+// Store to a cluster CTA's shared memory (address from cluster_addr) and
+// count its bytes on the mbarrier at `bar` (cluster_addr) of that CTA.
+__device__ __forceinline__ void st_async(unsigned addr, float v,
+                                         unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, "
+      "[%2];\n" ::"r"(addr), "f"(v), "r"(bar) : "memory");
+}
+
+// wait for phase `parity` of an mbarrier that other CTAs of the cluster
+// complete (acquire at cluster scope: their stores are visible)
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, int parity) {
+  const unsigned a = smem_addr(bar);
+  unsigned done = 0;
+  while (!done)
+    asm volatile("{\n.reg .pred p;\n"
+                 "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, "
+                 "[%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(a), "r"(parity) : "memory");
 }
 
 // Programmatic dependent launch: a kernel launched with

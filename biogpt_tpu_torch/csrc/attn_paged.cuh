@@ -1,8 +1,12 @@
-// The single-pass decode attention CTA shared by the paged and staged
-// steps (decode_paged.cu) and the tensor-parallel attention half
-// (decode_tp.cu): one CTA per (head, slot) streams the slot's live KV rows
-// in 64-row cp.async double-buffered tiles and runs the TPU kernels'
-// online softmax in their order (see decode_paged.cu for the design).
+// The single-pass decode attention CTA of the B=1 step (decode_step.cu)
+// and the tensor-parallel attention half (decode_tp.cu): one CTA per
+// (head, slot) streams the slot's live KV rows in 64-row cp.async
+// double-buffered tiles and runs the TPU kernels' online softmax in their
+// order: per KV block, m_new over the whole block's scores, p = exp(s -
+// m_new) in f32, raw p into the denominator, in int8 each score times its
+// row's K scale and the V scale folded into p, p rounded to bf16, then
+// p.V into the accumulator; the current token last. The batched steps
+// take attn_batched.cuh's kernel instead.
 // The head width is DK; `D` below is the cache's row width -- d_model, or
 // one rank's d_model / tp under tensor parallelism.
 #pragma once
@@ -65,25 +69,22 @@ struct TileMap {
 };
 
 // grid (H, B), block ATT_THREADS: slot b's attention for head h over its
-// live cache rows (and, STAGED, its staged rows < step_i), then the
-// current token -> ctx row (b, h) and the layer's K/V rows (b, h). KT: bf16
+// live cache rows, then the current token -> ctx row (b, h) and the layer's K/V rows (b, h). KT: bf16
 // values, or int8 levels with row scales ks, vs ((B, S) of this layer).
 // The current token's q, k, v come from qkv ((B, 3D) rows, q scaled here
 // by `scale`), or, EXT, from q_ext, k_ext, v_ext ((B, D) rows each, q
 // already scaled, k and v already quantized and dequantized by the caller:
-// no fake quantization here and no K/V rows out). kst/vst: this layer's
-// (B, C, D) staging; amax: (B, 2) (QUANT, not EXT), or, DEP, null. DEP:
+// no fake quantization here and no K/V rows out). amax: (B, 2) (QUANT,
+// not EXT), or, DEP, null. DEP:
 // launched as a programmatic dependent of the kernel that wrote qkv (the
 // B=1 chain, decode_step.cu): it waits for that kernel before reading
 // anything, and in the QUANT mode takes its slot's k and v absmax itself,
 // so no launch sits between the two.
-template <typename KT, bool QUANT, bool STAGED, bool EXT = false,
-          bool DEP = false>
+template <typename KT, bool QUANT, bool EXT = false, bool DEP = false>
 __global__ void __launch_bounds__(ATT_THREADS)
 attn_paged_kernel(const float* qkv, int D, const KT* kc, const KT* vc,
                   const float* ks, const float* vs, int S, const int* past,
-                  int W, int kvb, int step_i, const __nv_bfloat16* kst,
-                  const __nv_bfloat16* vst, int C, const float* amax,
+                  int W, int kvb, const float* amax,
                   float scale, float* ctx, void* k_rows, void* v_rows,
                   const float* q_ext = nullptr, const float* k_ext = nullptr,
                   const float* v_ext = nullptr) {
@@ -105,7 +106,7 @@ attn_paged_kernel(const float* qkv, int D, const KT* kc, const KT* vc,
     q[t] = bf16r((EXT ? q_ext[(size_t)b * D + h * DK + t] : row[h * DK + t])
                  * scale);
 
-  const int live = max(0, min(past[b] - step_i, W));
+  const int live = max(0, min(past[b], W));
   TileMap map;
   map.kvb = kvb;
   map.nb = (live + kvb - 1) / kvb;
@@ -203,36 +204,6 @@ attn_paged_kernel(const float* qkv, int D, const KT* kc, const KT* vc,
   float acc = 0.f;
   if (t < DK)
     for (int w = 0; w < NW; ++w) acc += red[w][t];
-
-  if (STAGED && step_i > 0) {
-    // the chunk's staged rows < step_i: one more block, its own m_new
-    const __nv_bfloat16* ksb = kst + (size_t)b * C * D + h * DK;
-    const __nv_bfloat16* vsb = vst + (size_t)b * C * D + h * DK;
-    for (int r = warp; r < step_i; r += NW) {
-      const float2 k2 = kv_pair(ksb + (size_t)r * D + 2 * lane);
-      const float d = warp_sum(q0 * k2.x + q1 * k2.y);
-      if (lane == 0) sc[r] = d;
-    }
-    __syncthreads();
-    float mx = -1e30f;
-    for (int r = t; r < step_i; r += ATT_THREADS) mx = fmaxf(mx, sc[r]);
-    const float m_new = fmaxf(m, block_max(mx, scratch));
-    float ls = 0.f;
-    for (int r = t; r < step_i; r += ATT_THREADS) {
-      const float p = expf(sc[r] - m_new);
-      sc[r] = p;
-      ls += p;
-    }
-    const float alpha = expf(m - m_new);
-    l = l * alpha + block_sum(ls, scratch);   // (syncs: sc holds p)
-    if (t < DK) {
-      float s = 0.f;
-      for (int r = 0; r < step_i; ++r)
-        s += bf16r(sc[r]) * __bfloat162float(vsb[(size_t)r * D + t]);
-      acc = acc * alpha + s;
-    }
-    m = m_new;
-  }
 
   // the current token, then the context row and the layer's new K/V rows
   const int col = h * DK + t;

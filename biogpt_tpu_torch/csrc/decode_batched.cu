@@ -8,7 +8,7 @@
 // row's K scale, V scale folded into p before its bf16 rounding, the
 // current token fake-quantized, rows out in f32 for the caller to quantize;
 // slot b's scales are the contiguous (S) row of the (L,B,1,S) planes, and
-// each (head, split, slot) block stages its split's 64 of them once).
+// each attention CTA copies those of its rows with them).
 // Contract: (x0 (B,D) f32, layers, k_cache, v_cache (L,B,S,D) bf16, past
 // (B,) int32 on the device, window W) -> (x (B,D) f32, k_rows, v_rows
 // (L,B,D) bf16); the caller commits slot b's rows at past[b]. Slot b's
@@ -25,11 +25,12 @@
 // behind ONE host call (the layer loop is decode_layers.cuh's
 // `batched_layers`, which decode_paged.cu shares):
 //   qkv GEMV (M rows, LayerNorm-0 prologue) + bias
-//   split-KV attention over B*H head-rows: grid (H, ceil(W/64), B), a
-//     block per (head, 64-row split, slot); splits past a slot's live rows
-//     exit at once
-//   combine: folds the splits and the current token (its k/v enter
-//     UNROUNDED, as in the TPU kernel), writes the new bf16 K/V rows
+//   attention (attn_batched.cuh): one launch, a programmatic dependent of
+//     the qkv GEMV that streams each slot's live rows while the GEMV runs,
+//     the TPU kernel's online softmax over its KV blocks of
+//     `_kv_block(W, B, D)` rows (p rounds to bf16 against the running max
+//     after its block), the current token (its k/v UNROUNDED, as in the
+//     TPU kernel) last; it writes the context and the new bf16 K/V rows
 //   o GEMV + residual, fc1 GEMV with LayerNorm-1 prologue + exact erf
 //   GELU, fc2 GEMV + residual
 // The projections are the tensor-core GEMV of qgemv_mma.cuh (the numerics
@@ -40,156 +41,12 @@
 // step (H100). It runs on M = 8, 16 or 32 rows: rows B..M-1 are zero
 // padding the wrapper adds. bgt_decode_gemv exposes one projection alone.
 // Attention numerics as decode_step.cu: q * (1/sqrt(Dk)) rounds to bf16,
-// scores are f32 against bf16 K, p rounds to bf16 before p.V relative to
-// its own split's max (the TPU kernel rounds relative to its running max
-// over KV blocks; see the tolerance in chip_smoke.py).
-#include "decode_layers.cuh"
+// scores are f32 against bf16 K, p rounds to bf16 before p.V.
+#include "attn_batched.cuh"
 
 using namespace bgt;
 
 namespace {
-
-// grid (H, ns, B), block ATT_THREADS. qkv: (M, 3D) f32 with bias.
-// ml: (B, H, ns, 2) = (max, sum); acc: (B, H, ns, DK). KT: bf16 values, or
-// int8 levels with row scales ks, vs ((B, S) of this layer; else null).
-template <typename KT>
-__global__ void __launch_bounds__(ATT_THREADS)
-attn_split_batched_kernel(const float* qkv, int D, const KT* kc, const KT* vc,
-                          const float* ks, const float* vs, int S,
-                          const int* past, int W, float scale, float* ml,
-                          float* acc) {
-  __shared__ float q[DK];
-  __shared__ float sc[ATT_ROWS];
-  __shared__ float kss[ATT_ROWS], vss[ATT_ROWS];
-  __shared__ float red[ATT_THREADS / 32][DK];
-  __shared__ float scratch[32];
-  const int h = blockIdx.x, sp = blockIdx.y, ns = gridDim.y, b = blockIdx.z;
-  const int H = gridDim.x;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nw = ATT_THREADS / 32;
-  const size_t o = ((size_t)(b * H + h) * ns + sp);
-  const int live = max(0, min(past[b], W));
-  const int s0 = sp * ATT_ROWS;
-  const int n = min(live - s0, ATT_ROWS);
-  if (n <= 0) {   // no live rows in this split: a neutral partial
-    if (threadIdx.x < DK) acc[o * DK + threadIdx.x] = 0.f;
-    if (threadIdx.x == 0) {
-      ml[o * 2 + 0] = -INFINITY;
-      ml[o * 2 + 1] = 0.f;
-    }
-    return;
-  }
-  if (threadIdx.x < DK)
-    q[threadIdx.x] = bf16r(qkv[(size_t)b * 3 * D + h * DK + threadIdx.x] * scale);
-  if (ks != nullptr && threadIdx.x < n) {
-    kss[threadIdx.x] = ks[(size_t)b * S + s0 + threadIdx.x];
-    vss[threadIdx.x] = vs[(size_t)b * S + s0 + threadIdx.x];
-  }
-  __syncthreads();
-  const KT* kb = kc + (size_t)b * S * D;
-  const KT* vb = vc + (size_t)b * S * D;
-  const float q0 = q[2 * lane], q1 = q[2 * lane + 1];
-  for (int r = warp; r < n; r += nw) {
-    const float2 k2 = kv_pair(kb + (size_t)(s0 + r) * D + h * DK + 2 * lane);
-    const float d = warp_sum(q0 * k2.x + q1 * k2.y);
-    if (lane == 0) sc[r] = ks != nullptr ? d * kss[r] : d;
-  }
-  __syncthreads();
-  float mx = -INFINITY;
-  for (int r = threadIdx.x; r < n; r += ATT_THREADS) mx = fmaxf(mx, sc[r]);
-  mx = block_max(mx, scratch);
-  float ls = 0.f;
-  for (int r = threadIdx.x; r < n; r += ATT_THREADS) {
-    const float p = expf(sc[r] - mx);
-    sc[r] = p;
-    ls += p;
-  }
-  const float l = block_sum(ls, scratch);   // (syncs before reading sc)
-  float a0 = 0.f, a1 = 0.f;
-  for (int r = warp; r < n; r += nw) {
-    const float p = bf16r(vs != nullptr ? sc[r] * vss[r] : sc[r]);
-    const float2 v2 = kv_pair(vb + (size_t)(s0 + r) * D + h * DK + 2 * lane);
-    a0 += p * v2.x;
-    a1 += p * v2.y;
-  }
-  red[warp][2 * lane] = a0;
-  red[warp][2 * lane + 1] = a1;
-  __syncthreads();
-  if (threadIdx.x < DK) {
-    float s = 0.f;
-    for (int w = 0; w < nw; ++w) s += red[w][threadIdx.x];
-    acc[o * DK + threadIdx.x] = s;
-  }
-  if (threadIdx.x == 0) {
-    ml[o * 2 + 0] = mx;
-    ml[o * 2 + 1] = l;
-  }
-}
-
-// grid (H, B), block DK. Folds slot b's splits and its current token into
-// its context row; writes the K/V rows (B, D) of this layer: bf16, or in
-// the int8 mode (QUANT) raw f32, the current token then entering attention
-// fake-quantized with its whole row's absmax.
-template <bool QUANT>
-__global__ void __launch_bounds__(DK)
-attn_combine_batched_kernel(const float* qkv, int D, const float* ml,
-                            const float* acc, int ns, float scale, float* ctx,
-                            void* k_rows, void* v_rows) {
-  __shared__ float scratch[32];
-  pdl_trigger();   // the o GEMV may start loading its weights
-  const int h = blockIdx.x, b = blockIdx.y, H = gridDim.x, t = threadIdx.x;
-  const int col = h * DK + t;
-  const float* row = qkv + (size_t)b * 3 * D;
-  const float q = bf16r(row[col] * scale);
-  float k = row[D + col];
-  float v = row[2 * D + col];
-  if (QUANT) {
-    static_cast<float*>(k_rows)[(size_t)b * D + col] = k;
-    static_cast<float*>(v_rows)[(size_t)b * D + col] = v;
-    float ka = 0.f, va = 0.f;
-    for (int c = t; c < D; c += DK) {
-      ka = fmaxf(ka, fabsf(row[D + c]));
-      va = fmaxf(va, fabsf(row[2 * D + c]));
-    }
-    k = fake_quant(k, block_max(ka, scratch));
-    v = fake_quant(v, block_max(va, scratch));
-  } else {
-    static_cast<__nv_bfloat16*>(k_rows)[(size_t)b * D + col] = __float2bfloat16(k);
-    static_cast<__nv_bfloat16*>(v_rows)[(size_t)b * D + col] = __float2bfloat16(v);
-  }
-  const float cur = block_sum(q * k, scratch);
-  const size_t base = (size_t)(b * H + h) * ns;
-  float m = cur;
-  for (int j = 0; j < ns; ++j) m = fmaxf(m, ml[(base + j) * 2]);
-  float l = 0.f, a = 0.f;
-  for (int j = 0; j < ns; ++j) {
-    const float w = expf(ml[(base + j) * 2] - m);
-    l += ml[(base + j) * 2 + 1] * w;
-    a += acc[(base + j) * DK + t] * w;
-  }
-  const float pc = expf(cur - m);
-  l += pc;
-  a += pc * v;
-  ctx[(size_t)b * D + col] = a / l;
-}
-
-// Split + combine of layer l's attention (bf16 or int8 KV).
-// ml: (B, H, ns, 2) = (max, sum); acc: (B, H, ns, DK).
-template <typename KT, bool QUANT>
-void attention(const BatchedStep& s, int l, int ns, float scale, float* ml,
-               float* acc, cudaStream_t st) {
-  const size_t kv_off = (size_t)l * s.B * s.S * s.D;
-  const size_t sc_off = (size_t)l * s.B * s.S;
-  const size_t row_off = (size_t)l * s.B * s.D * (QUANT ? 4 : 2);
-  attn_split_batched_kernel<KT><<<dim3(s.H, ns, s.B), ATT_THREADS, 0, st>>>(
-      s.qkvbuf, s.D, static_cast<const KT*>(s.kc) + kv_off,
-      static_cast<const KT*>(s.vc) + kv_off,
-      QUANT ? s.ks + sc_off : nullptr, QUANT ? s.vs + sc_off : nullptr, s.S,
-      s.past, s.W, scale, ml, acc);
-  attn_combine_batched_kernel<QUANT><<<dim3(s.H, s.B), DK, 0, st>>>(
-      s.qkvbuf, s.D, ml, acc, ns, scale, s.ctx,
-      static_cast<char*>(s.kr) + row_off, static_cast<char*>(s.vr) + row_off);
-}
 
 // One projection alone at M = 8, 16 or 32 rows in the planes' format
 // (launch_mma_gemv) -> false for another M or format.
@@ -208,10 +65,12 @@ bool run_gemv(const MmaGemv& a, int M, int bits, float eps, cudaStream_t st) {
 }  // namespace
 
 // Scratch sizes (floats) the wrapper allocates for M padded rows: qkv
-// M*3D, ml B*H*ceil(W/64)*2, acc B*H*ceil(W/64)*64, ctx M*D (zeroed), ff
-// M*F, stats M*2. k_scales/v_scales: (L,B,1,S) f32 in the int8 mode (the
-// caches int8, the rows f32), else null (bf16 caches and rows). n_gemv
-// (host int, or null): each GEMV launch adds one. D, F <= 4096.
+// M*3D, ctx M*D (zeroed), ff M*F, stats M*2. k_scales/v_scales: (L,B,1,S)
+// f32 in the int8 mode (the caches int8, the rows f32), else null (bf16
+// caches and rows). kvb: the KV block; cluster, rows_cap: the attention's
+// CTAs a (head, slot) and the rows each holds (attn_batched.cuh). n_gemv,
+// n_attn (host ints, or null): each GEMV or attention launch adds one. D,
+// F <= 4096.
 
 extern "C" int bgt_decode_batched(
     float* x, int L, int D, int F, int H, int S, int B, int M, int W,
@@ -223,8 +82,8 @@ extern "C" int bgt_decode_batched(
     const uint8_t* fc2_lv, const void* fc2_sc, const void* fc2_mn, const float* fc2_b,
     const void* k_cache, const void* v_cache, const float* k_scales,
     const float* v_scales, void* k_rows, void* v_rows, float* qkv,
-    float* ml, float* acc, float* ctx, float* ff, float* stats, int* n_gemv,
-    void* stream) {
+    float* ctx, float* ff, float* stats, int kvb, int cluster, int rows_cap,
+    int* n_gemv, int* n_attn, void* stream) {
   if (D != H * DK || B < 1 || B > M || W < 1 || W > S || D % MMA_COLS != 0
       || F % MMA_COLS != 0 || D % (2 * QK) != 0 || F % (2 * QK) != 0
       || mma_splits(F) > MMA_MAX_SPLITS || mma_splits(D) > MMA_MAX_SPLITS
@@ -238,11 +97,15 @@ extern "C" int bgt_decode_batched(
       fc1_lv, fc1_sc, fc1_mn, fc1_b, fc2_lv, fc2_sc, fc2_mn, fc2_b,
       k_cache, v_cache, k_scales, v_scales, k_rows, v_rows, qkv, ctx, ff,
       stats, n_gemv);
-  const float scale = 1.0f / sqrtf((float)DK);
-  const int ns = (W + ATT_ROWS - 1) / ATT_ROWS;
+  size_t smem;
+  if (!attn_batched_fits(step_attn(s, 0, kvb, rows_cap, 0, nullptr, nullptr,
+                                   0),
+                         cluster, k_scales != nullptr, &smem))
+    return (int)cudaErrorInvalidValue;
   auto attend = [&](int l) {
-    if (k_scales != nullptr) attention<int8_t, true>(s, l, ns, scale, ml, acc, st);
-    else attention<__nv_bfloat16, false>(s, l, ns, scale, ml, acc, st);
+    launch_attn(step_attn(s, l, kvb, rows_cap, 0, nullptr, nullptr, 0), B,
+                cluster, st);
+    if (n_attn != nullptr) ++*n_attn;
   };
   if (!run_batched(s, M, attend, st)) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -1,7 +1,7 @@
 // Per-layer plumbing shared by the decode-step chains (decode_step.cu at
 // B=1; decode_batched.cu and decode_paged.cu over B slots; decode_tp.cu's
-// halves) and the prefill chain (prefill.cu): the head width and attention
-// split the kernels are built for, one projection's layer-stacked planes,
+// halves) and the prefill chain (prefill.cu): the head width and block
+// size the attention kernels are built for, one projection's layer-stacked planes,
 // the GEMV arguments of layer l, the cache reads of the bf16 and int8 KV
 // modes, and the batched chains' layer loop around their own attention,
 // whose projections take the tensor-core GEMV of qgemv_mma.cuh.
@@ -13,7 +13,6 @@
 namespace bgt {
 
 constexpr int DK = 64;           // head width the attention kernels take
-constexpr int ATT_ROWS = 64;     // cache rows per attention split
 constexpr int ATT_THREADS = 128;
 
 // One projection's layer-stacked planes, their level format (4, 5 or 8;

@@ -26,62 +26,24 @@
 // decode_layers.cuh), and with it the tensor-core GEMV of qgemv_mma.cuh
 // (the dequant-then-dot numerics of `_qmm_dq`, which the paged kernel uses
 // at every B, B=1 included: the paged step at B = 1 runs it on M = 8
-// rows). Attention is one single-pass CTA per (head, slot) instead of
-// split + combine, carrying the TPU kernel's design over:
-//   - the CTA streams the slot's live rows only, in 64-row tiles of one
-//     head's K or V slice (and, in the int8 mode, the rows' scales),
-//     double-buffered in shared memory with cp.async (the counterpart of
-//     the TPU kernel's make_async_copy pair): the next tile's copy is in
-//     flight while the current one is used;
-//   - the TPU kernel's online softmax, in its order: per KV block, m_new
-//     over the whole block's scores, p = exp(s - m_new) in f32, raw p into
-//     the denominator, in int8 each score times its row's K scale and the
-//     V scale folded into p, p rounded to bf16, then p.V into the
-//     accumulator. p rounds relative to the running max, as on the TPU, so
-//     only f32 summation order and the bf16 flips it causes differ from
-//     the plain version (see the tolerance in chip_smoke.py);
-//   - the current token folds in last and the same CTA writes the context
-//     row and the layer's K/V rows (the current token enters attention
-//     unrounded, or fake-quantized in the int8 mode with its row's absmax,
-//     computed once per slot by row_absmax_kernel, not in every head's
-//     CTA).
+// rows), and its attention: attn_batched.cuh's kernel, one launch a layer
+// as a programmatic dependent of the qkv GEMV, over the paged step's
+// blocks of `_kv_block_paged(W)` rows or the staged step's lockstep blocks
+// and its staged rows, in the int8 mode taking each slot's absmax itself.
 // Rows of a block past a slot's live count are neither read nor scored:
 // the TPU kernel masks them to p = 0, which changes no sum.
-#include "attn_paged.cuh"
+#include "attn_batched.cuh"
 
 using namespace bgt;
 
-namespace {
-
-// Layer l's attention: the int8 mode's per-slot absmax, then one CTA per
-// (head, slot).
-template <typename KT, bool QUANT, bool STAGED>
-void attention(const BatchedStep& s, int l, int kvb, int step_i,
-               const __nv_bfloat16* kst, const __nv_bfloat16* vst, int C,
-               float* amax, float scale, cudaStream_t st) {
-  const size_t kv_off = (size_t)l * s.B * s.S * s.D;
-  const size_t sc_off = (size_t)l * s.B * s.S;
-  const size_t st_off = (size_t)l * s.B * C * s.D;
-  const size_t row_off = (size_t)l * s.B * s.D * (QUANT ? 4 : 2);
-  if (QUANT) row_absmax_kernel<<<s.B, 256, 0, st>>>(s.qkvbuf, s.D, amax);
-  attn_paged_kernel<KT, QUANT, STAGED><<<dim3(s.H, s.B), ATT_THREADS, 0, st>>>(
-      s.qkvbuf, s.D, static_cast<const KT*>(s.kc) + kv_off,
-      static_cast<const KT*>(s.vc) + kv_off,
-      QUANT ? s.ks + sc_off : nullptr, QUANT ? s.vs + sc_off : nullptr, s.S,
-      s.past, s.W, kvb, STAGED ? step_i : 0,
-      STAGED ? kst + st_off : nullptr, STAGED ? vst + st_off : nullptr, C,
-      amax, scale, s.ctx, static_cast<char*>(s.kr) + row_off,
-      static_cast<char*>(s.vr) + row_off);
-}
-
-}  // namespace
-
 // Scratch sizes (floats) the wrapper allocates for M padded rows: qkv
-// M*3D, ctx M*D (zeroed), ff M*F, amax B*2, stats M*2; n_gemv (host int,
-// or null): each GEMV launch adds one; D, F <= 4096. k_scales/v_scales:
-// (L,B,1,S) f32 in the int8 mode (the caches int8, the rows f32), else
-// null. kvb: the KV block; k_stage and v_stage ((L,B,C,D) bf16) with
-// step_i select the staged mode (bf16 only), else null.
+// M*3D, ctx M*D (zeroed), ff M*F, stats M*2; n_gemv, n_attn (host ints,
+// or null): each GEMV or attention launch adds one; D, F <= 4096.
+// k_scales/v_scales: (L,B,1,S) f32 in the int8 mode (the caches int8, the
+// rows f32), else null. kvb: the KV block; cluster, rows_cap: the
+// attention's CTAs a (head, slot) and the rows each holds
+// (attn_batched.cuh). k_stage and v_stage ((L,B,C,D) bf16) with step_i
+// select the staged mode (bf16 only), else null.
 extern "C" int bgt_decode_paged(
     float* x, int L, int D, int F, int H, int S, int B, int M, int W,
     const int* past, float eps, int offset, int bits, const float* ln0w,
@@ -92,16 +54,17 @@ extern "C" int bgt_decode_paged(
     const uint8_t* fc2_lv, const void* fc2_sc, const void* fc2_mn, const float* fc2_b,
     const void* k_cache, const void* v_cache, const float* k_scales,
     const float* v_scales, void* k_rows, void* v_rows, float* qkv,
-    float* ctx, float* ff, float* amax, int kvb, int step_i, int C,
-    const void* k_stage, const void* v_stage, float* stats, int* n_gemv,
-    void* stream) {
+    float* ctx, float* ff, int kvb, int cluster, int rows_cap, int step_i,
+    int C, const void* k_stage, const void* v_stage, float* stats,
+    int* n_gemv, int* n_attn, void* stream) {
   const bool quant = k_scales != nullptr, staged = k_stage != nullptr;
   if (D != H * DK || B < 1 || B > M || W < 1 || W > S || kvb < 1
       || D % MMA_COLS != 0 || F % MMA_COLS != 0 || D % (2 * QK) != 0
       || F % (2 * QK) != 0 || mma_splits(F) > MMA_MAX_SPLITS
-      || mma_splits(D) > MMA_MAX_SPLITS || kvb > PG_MAX_KVB || (k_scales == nullptr) != (v_scales == nullptr)
+      || mma_splits(D) > MMA_MAX_SPLITS
+      || (k_scales == nullptr) != (v_scales == nullptr)
       || staged != (v_stage != nullptr) || (staged && quant)
-      || (staged && (step_i < 0 || step_i > C || C > PG_MAX_KVB)))
+      || (staged && (step_i < 0 || step_i > C)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const BatchedStep s = batched_step(
@@ -111,20 +74,60 @@ extern "C" int bgt_decode_paged(
       fc1_lv, fc1_sc, fc1_mn, fc1_b, fc2_lv, fc2_sc, fc2_mn, fc2_b,
       k_cache, v_cache, k_scales, v_scales, k_rows, v_rows, qkv, ctx, ff,
       stats, n_gemv);
-  const float scale = 1.0f / sqrtf((float)DK);
   const auto* kst = static_cast<const __nv_bfloat16*>(k_stage);
   const auto* vst = static_cast<const __nv_bfloat16*>(v_stage);
+  size_t smem;
+  if (!attn_batched_fits(step_attn(s, 0, kvb, rows_cap, step_i, kst, vst, C),
+                         cluster, quant, &smem))
+    return (int)cudaErrorInvalidValue;
   auto attend = [&](int l) {
-    if (quant)
-      attention<int8_t, true, false>(s, l, kvb, 0, nullptr, nullptr, 0, amax,
-                                     scale, st);
-    else if (staged)
-      attention<__nv_bfloat16, false, true>(s, l, kvb, step_i, kst, vst, C,
-                                            amax, scale, st);
-    else
-      attention<__nv_bfloat16, false, false>(s, l, kvb, 0, nullptr, nullptr,
-                                             0, amax, scale, st);
+    launch_attn(step_attn(s, l, kvb, rows_cap, step_i, kst, vst, C), B,
+                cluster, st);
+    if (n_attn != nullptr) ++*n_attn;
   };
   if (!run_batched(s, M, attend, st)) return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// One layer's attention alone, as the batched steps launch it: qkv (B, 3D)
+// f32 with bias; k_cache, v_cache (B, S, D) bf16, or int8 levels with
+// k_scales, v_scales (B, S) f32; past (B,) int32; k_stage, v_stage (B, C,
+// D) bf16 with step_i, or null -> ctx (B, D) f32 and the K/V rows (B, D),
+// bf16 or (int8) f32. kvb, cluster, rows_cap as bgt_decode_paged.
+extern "C" int bgt_batched_attention(
+    const float* qkv, int D, int H, int B, int S, int W, const int* past,
+    int kvb, int cluster, int rows_cap, const void* k_cache,
+    const void* v_cache, const float* k_scales, const float* v_scales,
+    int step_i, int C, const void* k_stage, const void* v_stage, float* ctx,
+    void* k_rows, void* v_rows, void* stream) {
+  if (D != H * DK || B < 1 || W < 1 || W > S
+      || (k_scales == nullptr) != (v_scales == nullptr)
+      || (k_stage == nullptr) != (v_stage == nullptr)
+      || (k_stage != nullptr && (k_scales != nullptr || step_i < 0
+                                 || step_i > C)))
+    return (int)cudaErrorInvalidValue;
+  BatchedAttn a;
+  a.qkv = qkv;
+  a.kc = k_cache;
+  a.vc = v_cache;
+  a.ks = k_scales;
+  a.vs = v_scales;
+  a.kst = static_cast<const __nv_bfloat16*>(k_stage);
+  a.vst = static_cast<const __nv_bfloat16*>(v_stage);
+  a.past = past;
+  a.ctx = ctx;
+  a.k_rows = k_rows;
+  a.v_rows = v_rows;
+  a.D = D;
+  a.H = H;
+  a.S = S;
+  a.W = W;
+  a.kvb = kvb;
+  a.step_i = k_stage != nullptr ? step_i : 0;
+  a.C = C;
+  a.rows_cap = rows_cap;
+  a.scale = 1.0f / sqrtf((float)DK);
+  if (!launch_attn(a, B, cluster, static_cast<cudaStream_t>(stream)))
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -126,24 +126,22 @@ extern "C" int bgt_decode_step(
       const size_t kv_off = (size_t)l * S * D;
       void* krl = kr + (size_t)l * D * row_bytes;
       void* vrl = vr + (size_t)l * D * row_bytes;
-      const __nv_bfloat16* none = nullptr;
       const float* nof = nullptr;
       if (quant) {
         launch_dependent(
-            attn_paged_kernel<int8_t, true, false, false, true>,
+            attn_paged_kernel<int8_t, true, false, true>,
             dim3(H, 1), dim3(ATT_THREADS), 1, st, (const float*)qkv, D,
             static_cast<const int8_t*>(k_cache) + kv_off,
             static_cast<const int8_t*>(v_cache) + kv_off,
             k_scales + (size_t)l * S, v_scales + (size_t)l * S, S, past, W,
-            kvb, 0, none, none, 0, nof, scale, ctx, krl, vrl, nof, nof, nof);
+            kvb, nof, scale, ctx, krl, vrl, nof, nof, nof);
       } else {
         launch_dependent(
-            attn_paged_kernel<__nv_bfloat16, false, false, false, true>,
+            attn_paged_kernel<__nv_bfloat16, false, false, true>,
             dim3(H, 1), dim3(ATT_THREADS), 1, st, (const float*)qkv, D,
             static_cast<const __nv_bfloat16*>(k_cache) + kv_off,
             static_cast<const __nv_bfloat16*>(v_cache) + kv_off, nof, nof, S,
-            past, W, kvb, 0, none, none, 0, nof, scale, ctx, krl, vrl, nof,
-            nof, nof);
+            past, W, kvb, nof, scale, ctx, krl, vrl, nof, nof, nof);
       }
       gemv(b1_args(po, l, D, D, ctx, nullptr, nullptr, eps, offset,
                    MMA_EPI_RESID, x));

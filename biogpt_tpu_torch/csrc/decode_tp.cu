@@ -35,7 +35,7 @@
 // d_in D/tp or F/tp by themselves, in the GEMV's group layout: one split
 // at d_in 256, two at 512). The o and fc2 GEMVs store their sums alone (a
 // null bias: the partial). Attention is the single-pass online-softmax CTA
-// per (head, slot) of the paged step (attn_paged.cuh), here over the local
+// per (head, slot) of attn_paged.cuh (the B=1 step's), here over the local
 // heads and a cache row of D/tp, in the TPU kernel's lockstep KV blocks
 // `_kv_block(W, B, D/tp)` so that p rounds to bf16 against the same
 // running maxima.
@@ -120,23 +120,23 @@ extern "C" int bgt_tp_attn(
   const size_t kv_off = (size_t)l * B * S * Dl;
   const size_t sc_off = (size_t)l * B * S;
   if (quant) {
-    attn_paged_kernel<int8_t, true, false, true>
+    attn_paged_kernel<int8_t, true, true>
         <<<dim3(H, B), ATT_THREADS, 0, st>>>(
             nullptr, Dl, static_cast<const int8_t*>(k_cache) + kv_off,
             static_cast<const int8_t*>(v_cache) + kv_off, k_scales + sc_off,
-            v_scales + sc_off, S, past, W, kvb, 0, nullptr, nullptr, 0,
-            nullptr, 1.0f, ctx, nullptr, nullptr, q_ext, k_ext, v_ext);
+            v_scales + sc_off, S, past, W, kvb, nullptr, 1.0f, ctx, nullptr,
+            nullptr, q_ext, k_ext, v_ext);
   } else {
     if (!gemv(M, pqkv, l, D, 3 * Dl, x, ln0w + (size_t)l * D,
               ln0b + (size_t)l * D, eps, offset, qkv_b + (size_t)l * 3 * Dl,
               MMA_EPI_BIAS, stats, qkv, st))
       return (int)cudaErrorInvalidValue;
-    attn_paged_kernel<__nv_bfloat16, false, false>
+    attn_paged_kernel<__nv_bfloat16, false>
         <<<dim3(H, B), ATT_THREADS, 0, st>>>(
             qkv, Dl, static_cast<const __nv_bfloat16*>(k_cache) + kv_off,
             static_cast<const __nv_bfloat16*>(v_cache) + kv_off, nullptr,
-            nullptr, S, past, W, kvb, 0, nullptr, nullptr, 0, nullptr,
-            1.0f / sqrtf((float)DK), ctx, k_row, v_row);
+            nullptr, S, past, W, kvb, nullptr, 1.0f / sqrtf((float)DK), ctx,
+            k_row, v_row);
   }
   if (!gemv(M, po, l, Dl, D, ctx, nullptr, nullptr, eps, offset, nullptr,
             MMA_EPI_BIAS, stats, out, st))

@@ -23,6 +23,13 @@
 // trip and a shared-memory hop to a copy whose bytes are all in flight at
 // once. The TPU kernel's 8-row aligned read-modify-write existed for
 // Mosaic's tiled DMAs; a GPU store of one row needs none.
+//
+// Both kernels launch in the ordinary way (<<<>>>) and never trigger their
+// dependents early: the batched steps' attention (attn_batched.cuh) copies
+// its cache rows in before it waits on the kernel before it, which is safe
+// only because every writer of the caches has finished by the time any
+// later kernel in the stream starts. Keep it so
+// (tests/test_torch_attn_split.py checks this file's launches).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>

@@ -148,22 +148,6 @@ __device__ __forceinline__ void xprime_group_products(
   }
 }
 
-// The cluster barrier in two halves: every thread of every block of the
-// cluster arrives, then waits for all (acquire: the other blocks' shared
-// memory writes before their arrival are visible). `relaxed` arrives
-// order no memory.
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
 // y of column col from its summed product v, its bias b (read where
 // a.bias is set) and its residual r (MMA_EPI_RESID).
 __device__ __forceinline__ void b1_epilogue(const B1Gemv& a, int col,

@@ -15,9 +15,10 @@ one ``nvcc`` per source at the same time.
 where it launches its kernel and nowhere else. ``decode_gemv`` counts the
 tensor-core GEMV's launches: one per call of its own wrapper, and the
 number the batched, paged and staged steps' C entries report launching;
-``decode_gemv_b1`` likewise the single-stream step's M=1 GEMV, and
+``decode_gemv_b1`` likewise the single-stream step's M=1 GEMV,
 ``prefill_gemm`` the refill kernel's wgmma GEMM (4 L a ``prefill_fused``
-call).
+call), and ``batched_attention`` the batched steps' attention kernel (L a
+batched, paged or staged step, and one a call of its own wrapper).
 """
 
 from __future__ import annotations
@@ -71,13 +72,16 @@ SIGNATURES = {
         [_P, _I, _I, _P, _P, _F, _P, _P, _P, _I, _I, _P, _I, _P, _P, _P]),
     ("decode_batched", "bgt_decode_batched"): (
         [_P] + [_I] * 8 + [_P, _F, _I, _I] + [_P] * 4
-        + [_P] * 16 + [_P] * 6 + [_P] * 5 + [_P] * 2 + [_P]),
+        + [_P] * 16 + [_P] * 6 + [_P] * 4 + [_I] * 3 + [_P] * 2 + [_P]),
     ("decode_batched", "bgt_decode_gemv"): (
         [_P, _I, _I, _I, _P, _P, _F, _P, _P, _P, _I, _I, _P, _I, _P, _P, _P,
          _P]),
     ("decode_paged", "bgt_decode_paged"): (
         [_P] + [_I] * 8 + [_P, _F, _I, _I] + [_P] * 4
-        + [_P] * 16 + [_P] * 6 + [_P] * 4 + [_I] * 3 + [_P] * 2 + [_P] * 2
+        + [_P] * 16 + [_P] * 6 + [_P] * 3 + [_I] * 5 + [_P] * 2 + [_P] * 3
+        + [_P]),
+    ("decode_paged", "bgt_batched_attention"): (
+        [_P] + [_I] * 5 + [_P] + [_I] * 3 + [_P] * 4 + [_I] * 2 + [_P] * 5
         + [_P]),
     ("kv_commit", "bgt_kv_commit"): [_P, _P, _P, _P, _LL, _LL, _P, _I, _I, _I,
                                      _I, _P],
@@ -109,7 +113,7 @@ LAUNCHES = {"qmatmul": 0, "qmatmul_wide": 0, "lm_head_argmax": 0,
             "decode_step_fused_paged_int8": 0, "decode_step_fused_staged": 0,
             "tp_attn_half": 0, "tp_attn_half_int8": 0, "tp_qkv_half": 0,
             "tp_ffn_half": 0, "decode_gemv": 0, "decode_gemv_b1": 0,
-            "prefill_gemm": 0}
+            "prefill_gemm": 0, "batched_attention": 0}
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()

@@ -43,6 +43,11 @@ for int8 level rows and their f32 scales (B, L, 1). Both write the port's
 mutable caches in place (the JAX calls donate their buffers and return new
 ones) and return the same tensors.
 
+``batched_attention`` is one layer's attention of the batched steps
+alone (``csrc/attn_batched.cuh``, split by :func:`attn_plan`), with its
+plain version :func:`batched_attention_plain`, which the batched steps'
+plain versions call each layer.
+
 ``decode_gemv`` is one projection of the batched steps alone: their
 tensor-core GEMV (``csrc/qgemv_mma.cuh``, the dequant-then-dot numerics of
 ``pallas_decode._qmm_dq``) with its LayerNorm prologue and its bias, GELU
@@ -52,7 +57,7 @@ alone: its M=1 GEMV (``csrc/qgemv_b1.cuh``, the X' numerics of
 
 On CUDA tensors each function launches its hand-written Hopper kernels
 (``csrc/decode_step.cu``, ``csrc/decode_batched.cu``,
-``csrc/decode_paged.cu``, ``csrc/kv_commit.cu``;
+``csrc/decode_paged.cu``, ``csrc/attn_batched.cuh``, ``csrc/kv_commit.cu``;
 one host call each -- see those files for the designs and what bounds
 them) or raises; on the CPU it runs its plain version, which transcribes
 the TPU kernel's math, the online softmax over KV blocks and the bf16
@@ -82,7 +87,13 @@ _CUDA_HEAD_DIM = 64   # DK of csrc/decode_layers.cuh
 # the paged kernel's KV block when it divides the window
 # (pallas_decode._PAGED_KVB)
 _PAGED_KVB = 128
-_CUDA_MAX_KVB = 1024  # PG_MAX_KVB of csrc/decode_paged.cu
+_CUDA_MAX_KVB = 1024  # PG_MAX_KVB of csrc/attn_paged.cuh (the B=1 step)
+# the batched steps' attention (csrc/attn_batched.cuh): the rows a CTA
+# takes, and the kernel's limits
+ATTN_ROWS_PER_CTA = 128
+_ATTN_MAX_CLUSTER = 16
+_ATTN_MAX_ROWS = 512
+_ATTN_MAX_BLOCKS = 64
 
 
 def supports_layers(layers: dict, cache_dtype, batch: int, n_new: int) -> bool:
@@ -127,6 +138,36 @@ def kv_block_paged(window: int) -> int:
     """The paged kernel's KV block (``pallas_decode._kv_block_paged``): 128
     rows when they divide the window, else the lockstep block at B=1."""
     return _PAGED_KVB if window % _PAGED_KVB == 0 else kv_block(window)
+
+
+def attn_plan(window: int, kvb: int, staged_rows: int = 0) -> tuple:
+    """How the batched steps' attention (``csrc/attn_batched.cuh``) splits
+    each (head, slot)'s rows -- its live cache rows of the window, then the
+    ``staged_rows`` staged rows -> (cluster, rows_cap): a thread block
+    cluster of ``cluster`` CTAs a (head, slot), CTA c taking the rows
+    ``[c rows_cap, (c + 1) rows_cap)``. A window that one CTA's
+    ``ATTN_ROWS_PER_CTA`` rows cover keeps one CTA, no cluster, while its
+    staged rows fit beside it; else ``ATTN_ROWS_PER_CTA`` rows a CTA, at
+    most 16, whose ranges then split the rows evenly. Each side was the
+    faster for the staged step on an H100 (``chip_smoke.py::
+    staged_plans``). Raises where the rows a CTA holds or the window's KV
+    blocks of ``kvb`` rows (and the staged block) exceed the kernel's
+    tables."""
+    if window < 1 or kvb < 1 or staged_rows < 0:
+        raise ValueError("attn_plan: window and kvb >= 1, staged_rows >= 0")
+    rows = window + staged_rows
+    if window <= ATTN_ROWS_PER_CTA and rows <= _ATTN_MAX_ROWS:
+        cluster = 1
+    else:
+        cluster = min(-(-rows // ATTN_ROWS_PER_CTA), _ATTN_MAX_CLUSTER)
+    rows_cap = -(-rows // cluster)
+    if rows_cap > _ATTN_MAX_ROWS:
+        raise ValueError(f"attn_plan: {rows} rows need {rows_cap} rows a "
+                         f"CTA, over {_ATTN_MAX_ROWS}")
+    if -(-window // kvb) + 1 > _ATTN_MAX_BLOCKS:
+        raise ValueError(f"attn_plan: window {window} holds more than "
+                         f"{_ATTN_MAX_BLOCKS - 1} KV blocks of {kvb} rows")
+    return cluster, rows_cap
 
 
 def fake_quant_rows(x: torch.Tensor) -> torch.Tensor:
@@ -242,27 +283,81 @@ def _softmax_block(m, l, acc, scores, valid, v, v_scale=None):
     return m_new, l, acc * alpha + torch.einsum("bhs,bshd->bhd", pb, v)
 
 
+def batched_attention_plain(qkv, k_cache, v_cache, past, *, n_head: int,
+                            window: int, kvb: int, k_scales=None,
+                            v_scales=None, k_stage=None, v_stage=None,
+                            step_i: int = 0):
+    """Plain version of :func:`batched_attention`: one layer's attention of
+    the batched steps (pallas_decode.py:479-497, the int8 mode :455-496,
+    the staged rows :502-534). ``qkv`` (B, 3D) f32 with bias; ``k_cache``,
+    ``v_cache`` this layer's (B, S, D), bf16 or int8 levels with
+    ``k_scales``, ``v_scales`` (B, 1, S) f32; ``past`` (B,). The online
+    softmax over KV blocks of ``kvb`` rows for all B*H head-rows at once
+    over slot b's cache rows below ``min(past[b] - step_i, window)``; with
+    ``k_stage`` (B, C, D) bf16, the staged rows ``< step_i`` fold in as one
+    more block; then the current token (fake-quantized in the int8 mode)
+    -> (ctx (B, D) f32, k_row, v_row (B, D): bf16, or f32 in the int8
+    mode)."""
+    B, S, D = k_cache.shape
+    H = n_head
+    Dk = D // H
+    W = min(window, S)
+    quant = k_scales is not None
+    scale = 1.0 / math.sqrt(Dk)
+    dev = qkv.device
+    live = torch.as_tensor(past, device=dev).to(torch.int64).reshape(B) \
+        - int(step_i)
+    q, k, v = qkv[:, :D] * scale, qkv[:, D:2 * D], qkv[:, 2 * D:]
+    row_dtype = torch.float32 if quant else k_cache.dtype
+    k_row, v_row = k.to(row_dtype), v.to(row_dtype)
+    if quant:
+        k, v = fake_quant_rows(k), fake_quant_rows(v)
+    qh = q.to(torch.bfloat16).to(torch.float32).reshape(B, H, Dk)
+    kh, vh = k.reshape(B, H, Dk), v.reshape(B, H, Dk)
+    m = torch.full((B, H, 1), -1e30, device=dev)
+    l = torch.zeros(B, H, 1, device=dev)
+    acc = torch.zeros(B, H, Dk, device=dev)
+    kc = k_cache.to(torch.float32).reshape(B, S, H, Dk)
+    vc = v_cache.to(torch.float32).reshape(B, S, H, Dk)
+    for j in range(W // kvb):
+        blk = slice(j * kvb, (j + 1) * kvb)
+        scores = torch.einsum("bhd,bshd->bhs", qh, kc[:, blk])
+        if quant:
+            scores = scores * k_scales[:, :, blk]
+        idx = torch.arange(kvb, device=dev) + j * kvb
+        valid = idx[None, None, :] < live[:, None, None]
+        m, l, acc = _softmax_block(m, l, acc, scores, valid, vc[:, blk],
+                                   v_scales[:, :, blk] if quant else None)
+    if k_stage is not None:
+        C = k_stage.shape[1]
+        ks_ = k_stage.to(torch.bfloat16).to(torch.float32)
+        vs_ = v_stage.to(torch.bfloat16).to(torch.float32)
+        scores = torch.einsum("bhd,bshd->bhs", qh, ks_.reshape(B, C, H, Dk))
+        valid = (torch.arange(C, device=dev) < int(step_i))[None, None, :]
+        m, l, acc = _softmax_block(m, l, acc, scores, valid,
+                                   vs_.reshape(B, C, H, Dk))
+    cur = (qh * kh).sum(-1, keepdim=True)
+    m_fin = torch.maximum(m, cur)
+    alpha2 = torch.exp(m - m_fin)
+    p_cur = torch.exp(cur - m_fin)
+    ctx = ((acc * alpha2 + p_cur * vh) / (l * alpha2 + p_cur)).reshape(B, D)
+    return ctx, k_row, v_row
+
+
 def _lockstep_plain(x0, layers: dict, k_cache, v_cache, past, *, n_head: int,
                     window: int, ln_eps: float, KVB: int, k_scales, v_scales,
                     k_stage=None, v_stage=None, step_i: int = 0):
     """The batched steps' math (pallas_decode.py:358-570, the paged kernel
     :573-751): per-slot positions ``past`` (B,), every projection
-    dequant-then-dot, the online softmax over KV blocks of ``KVB`` rows for
-    all B*H head-rows at once over slot b's cache rows below ``past[b] -
-    step_i``; with ``k_stage``, the staged rows ``< step_i`` fold in as one
-    more block before the current token (:502-534)."""
+    dequant-then-dot, and each layer's attention
+    (:func:`batched_attention_plain`) over KV blocks of ``KVB`` rows."""
     L, B, S, D = k_cache.shape
-    H = n_head
-    Dk = D // H
     W = min(window, S)
     quant = _scale_planes(k_cache, k_scales, v_scales)
     if W % KVB:
         raise ValueError(f"window {W} not divisible by kv_block {KVB}")
-    scale = 1.0 / math.sqrt(Dk)
     dev = x0.device
-    row_dtype = torch.float32 if quant else k_cache.dtype
     past = torch.as_tensor(past, device=dev).to(torch.int64).reshape(B)
-    live = past - int(step_i)
     x = x0.to(torch.float32).reshape(B, D)
     k_rows, v_rows = [], []
     for lyr in range(L):
@@ -275,41 +370,15 @@ def _lockstep_plain(x0, layers: dict, k_cache, v_cache, past, *, n_head: int,
         h = layer_norm_bf16(x, layers["ln0"]["w"][lyr], layers["ln0"]["b"][lyr],
                             ln_eps)
         qkv = qmatmul_wide_plain(h, w("qkv")) + b("qkv")
-        q, k, v = qkv[:, :D] * scale, qkv[:, D:2 * D], qkv[:, 2 * D:]
-        k_rows.append(k.to(row_dtype))
-        v_rows.append(v.to(row_dtype))
-        if quant:
-            k, v = fake_quant_rows(k), fake_quant_rows(v)
-        qh = q.to(torch.bfloat16).to(torch.float32).reshape(B, H, Dk)
-        kh, vh = k.reshape(B, H, Dk), v.reshape(B, H, Dk)
-        m = torch.full((B, H, 1), -1e30, device=dev)
-        l = torch.zeros(B, H, 1, device=dev)
-        acc = torch.zeros(B, H, Dk, device=dev)
-        kc = k_cache[lyr].to(torch.float32).reshape(B, S, H, Dk)
-        vc = v_cache[lyr].to(torch.float32).reshape(B, S, H, Dk)
-        for j in range(W // KVB):
-            blk = slice(j * KVB, (j + 1) * KVB)
-            scores = torch.einsum("bhd,bshd->bhs", qh, kc[:, blk])
-            if quant:
-                scores = scores * k_scales[lyr, :, :, blk]
-            idx = torch.arange(KVB, device=dev) + j * KVB
-            valid = idx[None, None, :] < live[:, None, None]
-            m, l, acc = _softmax_block(
-                m, l, acc, scores, valid, vc[:, blk],
-                v_scales[lyr, :, :, blk] if quant else None)
-        if k_stage is not None:
-            C = k_stage.shape[2]
-            ks_ = k_stage[lyr].to(torch.bfloat16).to(torch.float32)
-            vs_ = v_stage[lyr].to(torch.bfloat16).to(torch.float32)
-            scores = torch.einsum("bhd,bshd->bhs", qh, ks_.reshape(B, C, H, Dk))
-            valid = (torch.arange(C, device=dev) < int(step_i))[None, None, :]
-            m, l, acc = _softmax_block(m, l, acc, scores, valid,
-                                       vs_.reshape(B, C, H, Dk))
-        cur = (qh * kh).sum(-1, keepdim=True)
-        m_fin = torch.maximum(m, cur)
-        alpha2 = torch.exp(m - m_fin)
-        p_cur = torch.exp(cur - m_fin)
-        ctx = ((acc * alpha2 + p_cur * vh) / (l * alpha2 + p_cur)).reshape(B, D)
+        ctx, k_row, v_row = batched_attention_plain(
+            qkv, k_cache[lyr], v_cache[lyr], past, n_head=n_head,
+            window=window, kvb=KVB,
+            k_scales=k_scales[lyr] if quant else None,
+            v_scales=v_scales[lyr] if quant else None,
+            k_stage=None if k_stage is None else k_stage[lyr],
+            v_stage=None if v_stage is None else v_stage[lyr], step_i=step_i)
+        k_rows.append(k_row)
+        v_rows.append(v_row)
         x = x + qmatmul_wide_plain(ctx, w("o")) + b("o")
         h2 = layer_norm_bf16(x, layers["ln1"]["w"][lyr], layers["ln1"]["b"][lyr],
                              ln_eps)
@@ -592,7 +661,8 @@ def _decode_step_batched(x0, layers, k_cache, v_cache, past, n_head: int,
     W = min(window, S)
     M = _kernel_rows(B)
     F = layers["fc1"]["w"].d_out
-    ns = -(-W // 64)
+    kvb = kv_block(W, D, batch=B)
+    cluster, rows_cap = attn_plan(W, kvb)
     lib = cuda_lib.library("decode_batched")
     f32 = dict(dtype=torch.float32, device=dev)
     x = torch.zeros(M, D, **f32)
@@ -601,11 +671,10 @@ def _decode_step_batched(x0, layers, k_cache, v_cache, past, n_head: int,
     k_rows = torch.empty(L, B, D, dtype=row_dtype, device=dev)
     v_rows = torch.empty(L, B, D, dtype=row_dtype, device=dev)
     qkv = torch.empty(M, 3 * D, **f32)
-    ml = torch.empty(B * n_head * ns * 2, **f32)
-    acc = torch.empty(B * n_head * ns * _CUDA_HEAD_DIM, **f32)
     ctx = torch.zeros(M, D, **f32)
     ff = torch.empty(M, F, **f32)
     stats, n_gemv = _gemv_scratch(M, dev)
+    n_attn = ctypes.c_int(0)
     norms = _layer_norms(layers)
     err = lib.bgt_decode_batched(
         x.data_ptr(), L, D, F, n_head, S, B, M, W, past.data_ptr(),
@@ -613,11 +682,12 @@ def _decode_step_batched(x0, layers, k_cache, v_cache, past, n_head: int,
         *_layer_planes(layers),
         k_cache.data_ptr(), v_cache.data_ptr(), cuda_lib.ptr(k_scales),
         cuda_lib.ptr(v_scales), k_rows.data_ptr(), v_rows.data_ptr(),
-        qkv.data_ptr(), ml.data_ptr(), acc.data_ptr(), ctx.data_ptr(),
-        ff.data_ptr(), stats.data_ptr(), ctypes.addressof(n_gemv),
+        qkv.data_ptr(), ctx.data_ptr(), ff.data_ptr(), stats.data_ptr(), kvb,
+        cluster, rows_cap, ctypes.addressof(n_gemv), ctypes.addressof(n_attn),
         cuda_lib.stream_ptr(dev))
     cuda_lib.LAUNCHES[what] += 1
     cuda_lib.LAUNCHES["decode_gemv"] += n_gemv.value
+    cuda_lib.LAUNCHES["batched_attention"] += n_attn.value
     cuda_lib.check(err, what)
     return x[:B], k_rows, v_rows
 
@@ -625,9 +695,9 @@ def _decode_step_batched(x0, layers, k_cache, v_cache, past, n_head: int,
 def _decode_step_paged(x0, layers, k_cache, v_cache, past, n_head: int,
                        window: int, ln_eps: float, k_scales, v_scales,
                        k_stage, v_stage, step_i):
-    """The paged step (bf16 or int8) or, with ``k_stage``, the staged step:
-    one single-pass attention CTA per (head, slot) in the batched chain
-    (``csrc/decode_paged.cu``)."""
+    """The paged step (bf16 or int8) or, with ``k_stage``, the staged step
+    (``csrc/decode_paged.cu``): the batched chain with the batched
+    attention over the paged or the staged step's KV blocks."""
     staged = k_stage is not None
     what = ("decode_step_fused_staged" if staged
             else "decode_step_fused_paged_int8" if k_scales is not None
@@ -646,9 +716,6 @@ def _decode_step_paged(x0, layers, k_cache, v_cache, past, n_head: int,
     past = _cuda_past(past, B, dev, what)
     W = min(window, S)
     kvb = kv_block(W, D, batch=B) if staged else kv_block_paged(W)
-    if kvb > _CUDA_MAX_KVB:
-        raise ValueError(f"{what}: KV block {kvb} of window {W} exceeds "
-                         f"{_CUDA_MAX_KVB} rows")
     C, step = 0, 0
     if staged:
         C = k_stage.shape[2]
@@ -662,8 +729,10 @@ def _decode_step_paged(x0, layers, k_cache, v_cache, past, n_head: int,
         if isinstance(step_i, torch.Tensor) and step_i.is_cuda:
             raise ValueError(f"{what}: step_i is the host loop's int")
         step = int(step_i)
-        if not 0 <= step <= C <= _CUDA_MAX_KVB:
+        if not 0 <= step <= C:
             raise ValueError(f"{what}: step_i={step} outside [0, {C}]")
+        attn_plan(W, kvb, C)   # the chunk's last step fits: raise at its first
+    cluster, rows_cap = attn_plan(W, kvb, step)
     M = _kernel_rows(B)
     F = layers["fc1"]["w"].d_out
     lib = cuda_lib.library("decode_paged")
@@ -676,8 +745,8 @@ def _decode_step_paged(x0, layers, k_cache, v_cache, past, n_head: int,
     qkv = torch.empty(M, 3 * D, **f32)
     ctx = torch.zeros(M, D, **f32)
     ff = torch.empty(M, F, **f32)
-    amax = torch.empty(B, 2, **f32)
     stats, n_gemv = _gemv_scratch(M, dev)
+    n_attn = ctypes.c_int(0)
     norms = _layer_norms(layers)
     err = lib.bgt_decode_paged(
         x.data_ptr(), L, D, F, n_head, S, B, M, W, past.data_ptr(),
@@ -685,11 +754,13 @@ def _decode_step_paged(x0, layers, k_cache, v_cache, past, n_head: int,
         *_layer_planes(layers),
         k_cache.data_ptr(), v_cache.data_ptr(), cuda_lib.ptr(k_scales),
         cuda_lib.ptr(v_scales), k_rows.data_ptr(), v_rows.data_ptr(),
-        qkv.data_ptr(), ctx.data_ptr(), ff.data_ptr(), amax.data_ptr(), kvb,
-        step, C, cuda_lib.ptr(k_stage), cuda_lib.ptr(v_stage),
-        stats.data_ptr(), ctypes.addressof(n_gemv), cuda_lib.stream_ptr(dev))
+        qkv.data_ptr(), ctx.data_ptr(), ff.data_ptr(), kvb, cluster,
+        rows_cap, step, C, cuda_lib.ptr(k_stage), cuda_lib.ptr(v_stage),
+        stats.data_ptr(), ctypes.addressof(n_gemv), ctypes.addressof(n_attn),
+        cuda_lib.stream_ptr(dev))
     cuda_lib.LAUNCHES[what] += 1
     cuda_lib.LAUNCHES["decode_gemv"] += n_gemv.value
+    cuda_lib.LAUNCHES["batched_attention"] += n_attn.value
     cuda_lib.check(err, what)
     return x[:B], k_rows, v_rows
 
@@ -746,6 +817,70 @@ def decode_step_fused(x0, layers: dict, k_cache, v_cache, past, *,
     step = _decode_step_b1 if B == 1 else _decode_step_batched
     return step(x0, layers, k_cache, v_cache, past, n_head, window, ln_eps,
                 k_scales, v_scales)
+
+
+def batched_attention(qkv, k_cache, v_cache, past, *, n_head: int,
+                      window: int, kvb: int, k_scales=None, v_scales=None,
+                      k_stage=None, v_stage=None, step_i: int = 0):
+    """One layer's attention of the batched steps alone, as they launch it
+    (``csrc/attn_batched.cuh``, planned by :func:`attn_plan`): ``qkv`` (B,
+    3D) f32 with bias, ``k_cache``, ``v_cache`` this layer's (B, S, D) bf16,
+    or int8 levels with ``k_scales``, ``v_scales`` (B, 1, S) f32, ``past``
+    (B,) integer positions, KV blocks of ``kvb`` rows; ``k_stage``,
+    ``v_stage`` (B, C, D) bf16 with the host int ``step_i``: the staged
+    rows -> (ctx (B, D) f32, k_row, v_row (B, D): bf16, or f32 in the int8
+    mode). On the CPU it runs :func:`batched_attention_plain`."""
+    if not qkv.is_cuda:
+        return batched_attention_plain(
+            qkv, k_cache, v_cache, past, n_head=n_head, window=window,
+            kvb=kvb, k_scales=k_scales, v_scales=v_scales, k_stage=k_stage,
+            v_stage=v_stage, step_i=step_i)
+    what = "batched_attention"
+    B, S, D = k_cache.shape
+    quant = k_scales is not None or v_scales is not None
+    _check_cuda_caches(k_cache[None], v_cache[None], what,
+                       None if k_scales is None else k_scales[None],
+                       None if v_scales is None else v_scales[None])
+    if (qkv.shape != (B, 3 * D) or qkv.dtype != torch.float32
+            or not qkv.is_contiguous()):
+        raise ValueError(f"{what}: qkv must be a contiguous ({B}, {3 * D}) "
+                         "f32 CUDA tensor")
+    if D != n_head * _CUDA_HEAD_DIM:
+        raise NotImplementedError(
+            f"{what}: the CUDA kernel is built for head width "
+            f"{_CUDA_HEAD_DIM}, got {D // n_head}")
+    W = min(window, S)
+    if W % kvb:
+        raise ValueError(f"{what}: window {W} not divisible by kv_block {kvb}")
+    C, step = 0, 0
+    if k_stage is not None:
+        C = k_stage.shape[1]
+        for t in (k_stage, v_stage):
+            if (t is None or tuple(t.shape) != (B, C, D) or quant
+                    or t.dtype != torch.bfloat16 or not t.is_cuda
+                    or not t.is_contiguous()):
+                raise ValueError(f"{what}: k_stage and v_stage must be "
+                                 f"contiguous bf16 CUDA tensors ({B}, C, {D}) "
+                                 "beside a bf16 cache")
+        step = int(step_i)
+        if not 0 <= step <= C:
+            raise ValueError(f"{what}: step_i={step} outside [0, {C}]")
+    cluster, rows_cap = attn_plan(W, kvb, step)
+    dev = qkv.device
+    past = _cuda_past(past, B, dev, what)
+    row_dtype = torch.float32 if quant else torch.bfloat16
+    ctx = torch.empty(B, D, dtype=torch.float32, device=dev)
+    k_row = torch.empty(B, D, dtype=row_dtype, device=dev)
+    v_row = torch.empty(B, D, dtype=row_dtype, device=dev)
+    err = cuda_lib.library("decode_paged").bgt_batched_attention(
+        qkv.data_ptr(), D, n_head, B, S, W, past.data_ptr(), kvb, cluster,
+        rows_cap, k_cache.data_ptr(), v_cache.data_ptr(),
+        cuda_lib.ptr(k_scales), cuda_lib.ptr(v_scales), step, C,
+        cuda_lib.ptr(k_stage), cuda_lib.ptr(v_stage), ctx.data_ptr(),
+        k_row.data_ptr(), v_row.data_ptr(), cuda_lib.stream_ptr(dev))
+    cuda_lib.LAUNCHES[what] += 1
+    cuda_lib.check(err, what)
+    return ctx, k_row, v_row
 
 
 def kv_commit(k_cache, v_cache, k_rows_t, v_rows_t, past):

@@ -6,7 +6,9 @@ Every rank runs the same program (one process per card), and
 ``parallel.mesh.make_mesh`` then gives each rank its shard of the model
 axis. The group defaults to NCCL (one card per rank); the CPU tests and
 ranks that share one card (NCCL refuses two ranks on one device) ask for
-gloo. Failure handling is fail-fast: any rank's error ends the job.
+gloo. Failure handling is fail-fast: any rank's error ends the job. A
+rank whose script finished waits at a bounded barrier for the others
+before it tears its process group down (:func:`exit_barrier`).
 
 Launch, one process per card:
 
@@ -28,6 +30,7 @@ from __future__ import annotations
 import argparse
 import runpy
 import sys
+from datetime import timedelta
 from typing import Optional
 
 import torch
@@ -97,6 +100,23 @@ def reduce_scatter(x: torch.Tensor, group=None, dim: int = 1) -> torch.Tensor:
     return out.movedim(0, dim)
 
 
+# seconds a rank that finished its script waits at teardown for the others
+EXIT_BARRIER_S = 120.0
+
+
+def exit_barrier(timeout_s: float = EXIT_BARRIER_S) -> None:
+    """Hold this rank until every rank has finished its script, so that none
+    tears down its connections while a peer is still in its last
+    collective; raise if a peer does not arrive within ``timeout_s`` (a
+    dead peer then ends the job instead of hanging it). Gloo's monitored
+    barrier names the rank that did not arrive."""
+    timeout = timedelta(seconds=timeout_s)
+    if dist.get_backend() == "gloo":
+        dist.monitored_barrier(timeout=timeout)
+    else:
+        dist.barrier(async_op=True).wait(timeout=timeout)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--coordinator", default=None,
@@ -112,6 +132,7 @@ def main(argv=None) -> int:
     initialize(args.coordinator, args.num_processes, args.process_id,
                backend=args.backend)
     script = [s for s in args.script if s != "--"]
+    finished = False
     try:
         if script:
             sys.argv = script
@@ -119,9 +140,14 @@ def main(argv=None) -> int:
         elif dist.is_initialized():
             print(f"initialized: process {dist.get_rank()} of "
                   f"{dist.get_world_size()} ({dist.get_backend()})")
+        finished = True
     finally:
         if dist.is_initialized():
-            dist.destroy_process_group()
+            try:
+                if finished:   # a failing rank ends the job at once
+                    exit_barrier()
+            finally:
+                dist.destroy_process_group()
     return 0
 
 

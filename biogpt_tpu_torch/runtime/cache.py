@@ -107,7 +107,11 @@ def write_block(buf: torch.Tensor, rows: torch.Tensor, start) -> None:
     ``buf`` (..., batch, max_len, d) and ``rows`` (..., batch, n, d).
     ``start``: a host int (every slot) or a (batch,) integer tensor
     (per slot). As in ``lax.dynamic_update_slice``, a negative start counts
-    from the end, and then each start clamps into ``[0, max_len - n]``."""
+    from the end, and then each start clamps into ``[0, max_len - n]``.
+    Its torch ops are ordinary launches: the batched steps' attention reads
+    the cache rows before it waits on the kernel before it
+    (``csrc/attn_batched.cuh``), so no writer of the caches may be a
+    programmatic dependent."""
     n, max_len = rows.shape[-2], buf.shape[-2]
     rows = rows.to(buf.dtype)
     if not isinstance(start, torch.Tensor):

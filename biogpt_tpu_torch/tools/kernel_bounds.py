@@ -16,8 +16,9 @@ figures). Then the four projection GEMVs alone of the batched steps (M =
 shape (row 12's sub-rows) and the lm_head GEMV and KV commit of the two
 M=32 serving tails (rows 4 and 5); the refill GEMM alone (``prefill_gemm``)
 at 1024 rows; row 2 (``qmatmul_wide``) at each shape and M = 16, 32
-(:func:`wide_sub_rows`) and row 3 and the sampled tail's GEMV at M = 1, 8
-(:func:`small_tail_rows`). ``chip_smoke.py`` computes the ported kernels' bounds with the
+(:func:`wide_sub_rows`), row 3 and the sampled tail's GEMV at M = 1, 8
+(:func:`small_tail_rows`), and the batched steps' attention in rows 7, 8,
+9, 14 and 15 (:func:`attn_sub_rows`). ``chip_smoke.py`` computes the ported kernels' bounds with the
 same :func:`bound` from the inputs of its own run. Needs no card.
 """
 
@@ -320,6 +321,63 @@ def int8_step_cost(c: BioGptConfig, past: list, window: int, wbytes: int):
             L * (layer_flops(c, B) + 4 * live * D))
 
 
+def attn_cost(c: BioGptConfig, past: list, window: int, int8: bool = False,
+              step_i: int = 0, layers: int | None = None):
+    """(bytes, operations) of the batched steps' attention over ``layers``
+    layers (all L by default) at B = len(past) per-slot positions: each
+    slot's live K/V rows below ``min(past - step_i, window)`` (bf16, or
+    int8 levels with their f32 scales) and its ``step_i`` staged bf16 rows
+    read once, the new K/V rows out (bf16, or f32 in the int8 mode) and the
+    positions. With the projections' parameters (L times
+    :func:`gemv_rows`' ``param_bytes``) and x in and out it is the step's
+    bound (:func:`bf16_step_cost`, :func:`int8_step_cost`)."""
+    D, B = c.d_model, len(past)
+    L = c.n_layer if layers is None else layers
+    live = sum(min(max(p - step_i, 0), window) for p in past)
+    if int8:
+        kv, out = 2 * L * live * (D + 4), 2 * L * B * D * 4
+    else:
+        kv, out = 2 * L * live * D * 2, 2 * L * B * D * 2
+    staged = 2 * L * B * step_i * D * 2
+    return kv + staged + out + B * 4, 4 * L * (live + B * step_i) * D
+
+
+def attn_call_cost(c: BioGptConfig, past: list, window: int,
+                   int8: bool = False, step_i: int = 0):
+    """(bytes, operations) of one call of ``batched_attention`` (one layer):
+    :func:`attn_cost` of one layer, with its qkv rows in (B, 3D) f32 and
+    its context rows out (B, D) f32."""
+    nbytes, flops = attn_cost(c, past, window, int8, step_i, layers=1)
+    B, D = len(past), c.d_model
+    return nbytes + B * 3 * D * 4 + B * D * 4, flops
+
+
+# the batched steps' attention sub-rows: (row, mode, int8, staged step)
+ATTN_MODES = (("decode_step_fused batched", "lockstep bf16", False, 0),
+              ("decode_step_fused paged", "paged bf16", False, 0),
+              ("decode_step_fused int8 KV", "lockstep int8", True, 0),
+              ("decode_step_fused paged int8 KV", "paged int8", True, 0),
+              ("decode_step_fused staged", "staged bf16", False, STEP_I))
+
+
+def attn_sub_rows(c: BioGptConfig = BioGptConfig(), past: list = RAGGED_PAST,
+                  window: int = WINDOW) -> list:
+    """The attention sub-rows of rows 7, 8, 9, 14 and 15 (one step, all L
+    layers, :func:`attn_cost`) at the per-slot positions ``past`` (the
+    staged row's chunk starts: its positions are ``past + STEP_I``)."""
+    recs = []
+    for row, mode, int8, step_i in ATTN_MODES:
+        nbytes, flops = attn_cost(c, [p + step_i for p in past], window,
+                                  int8, step_i)
+        ms, by = bound(nbytes, flops)
+        recs.append({"kernel": "batched_attention", "row": ROW[row],
+                     "mode": mode, "shape": f"B={len(past)}, window {window}",
+                     "step_i": step_i, "launches": c.n_layer,
+                     "bytes": nbytes, "flops": flops, "bound_ms": ms,
+                     "bound_by": by})
+    return recs
+
+
 def tp_step_cost(c: BioGptConfig, past: list, window: int, wbytes: int,
                  tp: int, int8: bool = False):
     """(bytes, operations) of ONE rank's ``decode_step_fused_tp`` at B =
@@ -445,6 +503,9 @@ def main() -> int:
             print(json.dumps(rec))
         for rec in wide_sub_rows(fmt=fmt) + small_tail_rows(fmt=fmt):
             print(json.dumps(rec))
+        if fmt == "q4_0":   # the attention reads no weights
+            for rec in attn_sub_rows():
+                print(json.dumps(rec))
         c = BioGptConfig()
         for name in PROJECTIONS:
             nbytes, flops = prefill_gemm_cost(c, name, 1024, fmt)

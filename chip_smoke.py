@@ -45,6 +45,18 @@ logs its seconds):
      slots, a slot past the window), also held against the batched CUDA
      step, and the staged step at B=32 (16 staging rows, steps 0, 7, 15;
      Q4_1 step 7);
+  5a. the batched steps' attention alone (``batched_attention``: one
+     launch of ``attn_batched_kernel``, ``csrc/attn_batched.cuh``) against
+     its plain version in every mode (lockstep and paged KV blocks, bf16
+     and int8, staged at steps 0, 7, 15) at B=32 window 512 ragged and at
+     the uniform serve's window 128 (each timed beside its bound and one
+     ``scaled_dot_product_attention`` call a layer), B=8 with a slot past
+     the window, window 1024 (eight 128-row blocks, a slot at 1000 live
+     rows whose running max rises late); then each batched step at both
+     shapes timed and traced (``step_breakdown`` lines: device ms, the
+     attention's spans and its time after the qkv GEMV ends); every
+     batched step's trace in phases 3-6 shows one ``attn_batched_kernel``
+     a layer and none of the kernels it replaced (:func:`gemv_trace`);
   5b. the batched steps' projection alone (``decode_gemv``, the
      tensor-core GEMV with its LayerNorm prologue and bias, GELU or
      residual epilogue) at qkv, o, fc1 and fc2 shapes, M = 8, 16, 32, in
@@ -116,6 +128,9 @@ logs its seconds):
      in against its plain version, or drove its route in) and the result
      line.
 
+``python3 chip_smoke.py --attn-probe`` runs only :func:`attn_probe`: each
+batched step's ``step_breakdown`` at both shapes, with entry points every
+tree of the port has (to compare two trees in one call).
 ``python3 chip_smoke.py --wide-probe`` runs only :func:`wide_probe`: the
 numbers of ``qmatmul_wide`` and the M <= 8 tails and of the paths they sit
 on, with entry points every tree of the port has (to compare two trees in
@@ -142,6 +157,7 @@ import torch
 
 FAILURES: list = []
 SPREAD: dict = {}
+WINDOWS: dict = {}   # fn -> every timing window's ms (time_ms)
 HOST: dict = {}    # fn -> its host enqueue time and spin (time_ms)
 SPIN: dict = {}    # the device spin's clock rate (spin_rate)
 # weight formats: name -> (ggml type, level bits as the engines prepare them)
@@ -197,8 +213,12 @@ def time_ms(fn, reps: int, flush=None) -> float:
     time alone, unless the host took longer than the spin. The card is
     idle before each call (a synchronize), so no backlog of earlier calls
     stalls the host's enqueue. The host's time around each call goes into
-    ``HOST[fn]`` (median ``host_ms``, ``spin_ms``, ``host_inclusive``),
-    the spread (min, max) of the windows into ``SPREAD[fn]``."""
+    ``HOST[fn]`` (median ``host_ms``, ``spin_ms``, ``host_inclusive``,
+    and ``host_over_spin``, the windows whose call the host took longer to
+    enqueue than their spin ran: those hold host time), the spread (min,
+    max) of the windows into ``SPREAD[fn]``, and every window's ms, its
+    call's host ms, its spin's ms and the SM clock the spin ran at (its
+    cycles over its ms) into ``WINDOWS[fn]``."""
     from biogpt_tpu_torch.utils.profiling import spin_cycles
 
     fn()
@@ -214,21 +234,27 @@ def time_ms(fn, reps: int, flush=None) -> float:
         torch.cuda.synchronize()
         if flush is not None:
             flush()
-        torch.cuda._sleep(cycles)
+        z = torch.cuda.Event(enable_timing=True)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
+        z.record()
+        torch.cuda._sleep(cycles)
         s.record()
         t0 = time.perf_counter()
         fn()
         host.append((time.perf_counter() - t0) * 1e3)
         e.record()
-        evs.append((s, e))
+        evs.append((z, s, e))
     torch.cuda.synchronize()
-    times = [s.elapsed_time(e) for s, e in evs]
+    times = [s.elapsed_time(e) for _, s, e in evs]
+    spins = [z.elapsed_time(s) for z, s, _ in evs]
     SPREAD[fn] = [min(times), max(times)]
+    WINDOWS[fn] = {"ms": times, "host_ms": host, "spin_ms": spins,
+                   "spin_mhz": [cycles / t / 1e3 for t in spins]}
     host_ms, spin_ms = statistics.median(host), cycles / rate
     HOST[fn] = {"host_ms": host_ms, "spin_ms": spin_ms,
-                "host_inclusive": host_ms > spin_ms}
+                "host_inclusive": host_ms > spin_ms,
+                "host_over_spin": sum(h > t for h, t in zip(host, spins))}
     return statistics.median(times)
 
 
@@ -243,6 +269,9 @@ def timed(rec: dict, kfn, plain, lib_call, nbytes, flops, reps=20,
 
     b_ms, b_by = bound(nbytes, flops)
     rec.update(kernel_ms=time_ms(kfn, reps, flush), kernel_ms_range=SPREAD[kfn],
+               kernel_host_over_spin=HOST[kfn]["host_over_spin"],
+               kernel_spin_mhz_range=[min(WINDOWS[kfn]["spin_mhz"]),
+                                      max(WINDOWS[kfn]["spin_mhz"])],
                kernel_host_ms=HOST[kfn]["host_ms"], spin_ms=HOST[kfn]["spin_ms"],
                kernel_host_inclusive=HOST[kfn]["host_inclusive"],
                plain_ms=time_ms(plain, plain_reps, flush),
@@ -336,14 +365,47 @@ def layers_within(got: list, want: list, what: str) -> float:
     return worst
 
 
-def held_step(run, plain, what: str, rec: dict):
+def fed_rows(plain, k_rows, v_rows):
+    """``plain()`` with its int8 mode's fake quantization of each layer's
+    current rows fed the kernel's rows (``k_rows``, ``v_rows`` (L, B, D)
+    f32, in the order the plain step quantizes them: each layer's k, then
+    its v) in place of its own -> its output."""
+    from biogpt_tpu_torch.ops import decode_kernels as dk
+
+    rows = iter([r for pair in zip(k_rows, v_rows) for r in pair])
+    own = dk.fake_quant_rows
+    dk.fake_quant_rows = lambda x: own(next(rows).reshape(x.shape))
+    try:
+        out = plain()
+    finally:
+        dk.fake_quant_rows = own
+    check(next(rows, None) is None,
+          "fed_rows: the plain step quantized fewer rows than it returned")
+    return out
+
+
+def held_step(run, plain, what: str, rec: dict, int8: bool = False):
     """Run a decode or prefill step's kernel and its plain version, hold
     the hidden state and every layer's K/V rows to the steps' limits
     (:func:`hidden_within`, :func:`rows_within`) and note the errors in
-    ``rec`` -> the kernel's (x, k_rows, v_rows)."""
+    ``rec`` -> the kernel's (x, k_rows, v_rows). With an int8 cache
+    (``int8``) each layer fake-quantizes its current rows, each path from
+    its own qkv: a row can differ by one int8 level, and a dead slot's
+    context is its current row alone, so the step carries that whole
+    level into x. The hidden state is then held against the plain version
+    fed the kernel's current rows (:func:`fed_rows`), as the TP step's
+    is; the rows stay held on each path's own quantization, and x's error
+    against the plain version on its own rows is noted
+    (``x_err_own_rows``, and over the limit)."""
     x, kr, vr = run()
     xp, krp, vrp = plain()
     torch.cuda.synchronize()
+    if int8:
+        own = (x - xp).abs().max().item()
+        rec.update(x_err_own_rows=own, x_err_own_rows_over_tol=own / (
+            3e-3 * xp.abs().max().item()))
+        xp = fed_rows(plain, kr, vr)[0]
+        torch.cuda.synchronize()
     err = hidden_within(x, xp, what)
     rows = max(rows_within(kr, krp, what + " k"),
                rows_within(vr, vrp, what + " v"))
@@ -411,21 +473,22 @@ def span_ms(names: dict, kernel: str) -> float:
     return sum(v[1] for k, v in names.items() if kernel in k)
 
 
-ATTN_KERNELS = ("attn_split_batched_kernel", "attn_combine_batched_kernel",
-                "attn_paged_kernel")
+# the batched, paged and staged steps' attention (csrc/attn_batched.cuh),
+# and the kernels those steps must never launch: the split and combine
+# kernels it replaced, the paged CTA (the B=1 and TP chains' own) and the
+# separate absmax launch of the int8 mode
+BATCHED_ATTN = "attn_batched_kernel"
+BATCHED_ATTN_NEVER = ("attn_split_batched_kernel",
+                      "attn_combine_batched_kernel", "attn_paged_kernel",
+                      "row_absmax_kernel")
 
 
 def trace_whole(names: dict, L: int) -> bool:
     """Whether a step's trace holds every record of the kernels beside its
     GEMVs: the LayerNorm statistics (``row_stats_kernel``, 2 L) and the
-    attention, L each of the batched split and combine kernels or of the
-    paged one."""
-    count = {f: launches_of(names, f)
-             for f in ("row_stats_kernel",) + ATTN_KERNELS}
-    batched = count[ATTN_KERNELS[0]] + count[ATTN_KERNELS[1]] > 0
-    attn = ATTN_KERNELS[:2] if batched else ATTN_KERNELS[2:]
-    return (count["row_stats_kernel"] == 2 * L
-            and all(count[f] == L for f in attn))
+    attention (``attn_batched_kernel``, L)."""
+    return (launches_of(names, "row_stats_kernel") == 2 * L
+            and launches_of(names, BATCHED_ATTN) == L)
 
 
 def gemv_trace(run, L: int, what: str) -> dict:
@@ -433,8 +496,10 @@ def gemv_trace(run, L: int, what: str) -> dict:
     staged steps must launch the tensor-core GEMV (``qgemv_mma_kernel``)
     for all four projections of every layer, 4 L launches by the step's
     own count (``decode_gemv``) and in the trace, and the scalar-FMA
-    ``qgemv_partial_kernel`` for none -> {kernel name: [launches, device
-    ms]}. A trace short of GEMV records is taken again, up to three times,
+    ``qgemv_partial_kernel`` for none; and their attention as one launch
+    of ``attn_batched_kernel`` a layer (L by ``batched_attention``'s count
+    and in the trace), none of ``BATCHED_ATTN_NEVER`` -> {kernel name:
+    [launches, device ms]}. A trace short of GEMV records is taken again, up to three times,
     only where the tracer lost records of the step's other kernels too
     (:func:`trace_whole`; it dropped 53 of 96 once in 27 traces on the
     H100): GEMV records missing from an otherwise whole trace fail at
@@ -446,17 +511,26 @@ def gemv_trace(run, L: int, what: str) -> dict:
         counted = launches["decode_gemv"]
         mma = launches_of(names, "qgemv_mma_kernel")
         old = launches_of(names, "qgemv_partial_kernel")
+        attn = launches_of(names, BATCHED_ATTN)
+        attn_counted = launches["batched_attention"]
+        never = {k: launches_of(names, k) for k in BATCHED_ATTN_NEVER}
         whole = trace_whole(names, L)
         attempts.append({"qgemv_mma_kernel": mma, "decode_gemv_counted":
                          counted, "qgemv_partial_kernel": old,
-                         "others_whole": whole,
+                         BATCHED_ATTN: attn,
+                         "batched_attention_counted": attn_counted,
+                         "never": never, "others_whole": whole,
                          "records": sum(v[0] for v in names.values())})
-        if mma == 4 * L or whole:
+        if (mma == 4 * L and attn == L) or whole:
             break
     check(mma == 4 * L and counted == 4 * L and old == 0,
           f"{what}: {mma} tensor-core GEMV launches in the trace and "
           f"{counted} counted (want {4 * L}), {old} of qgemv_partial_kernel "
           f"(want 0); attempts {attempts}")
+    check(attn == L and attn_counted == L and not any(never.values()),
+          f"{what}: {attn} launches of {BATCHED_ATTN} in the trace and "
+          f"{attn_counted} counted (want one a layer, {L}), of the kernels "
+          f"it replaced {never} (want none); attempts {attempts}")
     print(json.dumps({"gemv_route": what, "attempts": attempts}), flush=True)
     return names
 
@@ -466,7 +540,7 @@ def gemv_trace(run, L: int, what: str) -> dict:
 # mode takes the absmax in the attention CTA)
 B1_CHAIN = ("qgemv_b1_kernel", "attn_paged_kernel")
 B1_NEVER = ("qgemv_partial_kernel", "partial_sum_kernel", "attn_split_kernel",
-            "attn_combine_kernel", "row_absmax_kernel")
+            "attn_combine_kernel", "row_absmax_kernel", BATCHED_ATTN)
 
 
 def b1_trace(run, L: int, what: str) -> dict:
@@ -1544,7 +1618,7 @@ def phase_refill_int8_kernels(c: Ctx) -> None:
             what = f"decode_step_fused int8 B=1 past={past} {fmt}"
             rec = {"kernel": "decode_step_fused_int8", "layers": L,
                    "past": past, "window": window, "format": fmt}
-            held_step(run, plain, what, rec)
+            held_step(run, plain, what, rec, int8=True)
             if not mins or past == 100:
                 timed(rec, run, plain, None,
                       *int8_step_cost(cfg, [past], window, wbytes))
@@ -1569,7 +1643,8 @@ def phase_refill_int8_kernels(c: Ctx) -> None:
                 k_scales=ks, v_scales=vs)
             rec = {"kernel": "decode_step_fused_batched_int8", "layers": L,
                    "B": B, "past": past, "window": W, "format": fmt}
-            held_step(run, plain, f"decode_step_fused int8 B={B} {fmt}", rec)
+            held_step(run, plain, f"decode_step_fused int8 B={B} {fmt}", rec,
+                      int8=True)
             if B == 32:
                 gemv_trace(run, L, f"batched int8 B=32 {fmt}")
             if not mins:
@@ -1672,7 +1747,8 @@ def phase_paged_staged_kernels(c: Ctx) -> None:
                     ln_eps=cfg.ln_eps, **scales)
                 rec = {"kernel": name, "layers": L, "B": B, "past": past,
                        "window": W, "format": fmt}
-                x, kr, vr = held_step(run, plain, f"{name} B={B} {fmt}", rec)
+                x, kr, vr = held_step(run, plain, f"{name} B={B} {fmt}", rec,
+                                      int8=quant)
                 if B == 32:
                     gemv_trace(run, L, f"{name} B=32 {fmt}")
                 if B == 32 and not mins:
@@ -1725,7 +1801,375 @@ def phase_paged_staged_kernels(c: Ctx) -> None:
                       *bf16_step_cost(cfg, past, W, wbytes, step_i))
                 c.results["decode_step_fused_staged"] = rec
             c.emit(rec)
-        del kc, vc, k_st, v_st, layers
+        del k_st, v_st
+        if not mins:
+            # a chunk of 80: at step 70 the staged rows fill more than a
+            # CTA's range and continue over the slot's next CTAs
+            C, step_i = 80, 70
+            k_st = c.randn(L, B, C, D).to(torch.bfloat16)
+            v_st = c.randn(L, B, C, D).to(torch.bfloat16)
+            past = [p + step_i for p in timed_past]
+            pt = torch.tensor(past, dtype=torch.int32, device=dev)
+            run = lambda: decode_step_fused(
+                x0, layers, kc, vc, pt, n_head=H, window=W, ln_eps=cfg.ln_eps,
+                k_stage=k_st, v_stage=v_st, step_i=step_i)
+            plain = lambda: decode_step_fused_staged_plain(
+                x0, layers, kc, vc, pt, k_st, v_st, step_i, n_head=H,
+                window=W, ln_eps=cfg.ln_eps)
+            rec = {"kernel": "decode_step_fused_staged", "layers": L, "B": B,
+                   "past": past, "window": W, "stage_rows": C,
+                   "step_i": step_i, "format": fmt}
+            held_step(run, plain,
+                      f"decode_step_fused_staged step_i={step_i} of {C}", rec)
+            gemv_trace(run, L, f"staged B=32 step {step_i} of {C} {fmt}")
+            c.emit(rec)
+            del k_st, v_st
+        del kc, vc, layers
+
+
+# ------------------------------------ 5a. the batched steps' attention
+
+def attn_operands(c: Ctx, B: int, W: int, S: int, past: list, mode: str,
+                  step_i: int = 0, rising: bool = False,
+                  stage_rows: int | None = None,
+                  block_steps: float | None = None) -> tuple:
+    """One layer's attention inputs in ``mode`` (:data:`BREAKDOWN_MODES`):
+    qkv rows (B, 3D) f32, this layer's (B, S, D) caches (bf16, or int8 with
+    (B, 1, S) scales) and, staged, ``stage_rows`` staging rows (16 by
+    default) at ``step_i``; the KV block of the mode's step; ``rising``:
+    the longest slot's last 300 live rows' K four times larger, so its
+    running max rises in late blocks -> (keyword arguments of
+    ``batched_attention``, the largest |v| the call may weigh).
+    ``block_steps`` (a step d) makes the scores constant in each KV block
+    and falling by d from block to block (q the first element of each
+    head, that element of each cache row -j d in block j, the staged rows
+    -(blocks) d), and every |v| at most 1 with the first element of each
+    head's V 1: each block's p then rounds the same way in every row, so p
+    rounded against anything but the prefix max moves that element of the
+    context by up to 2^-9 (:func:`attn_expect`'s faults)."""
+    from biogpt_tpu_torch.ops.decode_kernels import kv_block, kv_block_paged
+
+    D, H = c.cfg.d_model, c.cfg.n_head
+    Dk = D // H
+    C = stage_rows or BREAKDOWN_STAGE[0]
+    kw = dict(qkv=c.randn(B, 3 * D), n_head=H, window=W,
+              past=torch.tensor(past, dtype=torch.int32, device=c.dev),
+              kvb=kv_block_paged(W) if mode.startswith("paged")
+              else kv_block(W, D, batch=B))
+    if block_steps is not None:
+        kw["qkv"] = torch.rand(B, 3 * D, generator=c.gen, device=c.dev) * 2 - 1
+        kw["qkv"][:, :D] = 0
+        kw["qkv"][:, :D:Dk] = math.sqrt(Dk)   # q: 1 at each head's first
+    if mode.endswith("int8"):
+        kc, ks = rand_int8_cache(c, 1, B, S)
+        vc, vs = rand_int8_cache(c, 1, B, S)
+        kw.update(k_cache=kc[0], v_cache=vc[0], k_scales=ks[0],
+                  v_scales=vs[0])
+        if block_steps is not None:
+            # K: level -16 j at each head's first, the row's scale d / 16;
+            # V: level 127 there, the row's scale 1/127
+            j = (torch.arange(S, device=c.dev) // kw["kvb"]).to(torch.int8)
+            kw["k_cache"][:, :, ::Dk] = (-16 * j)[None, :, None]
+            kw["k_scales"].fill_(block_steps / 16)
+            kw["v_cache"][:, :, ::Dk] = 127
+            kw["v_scales"].fill_(1 / 127)
+        vmax = (kw["v_cache"].float().abs()
+                * kw["v_scales"].transpose(1, 2)).max().item()
+    else:
+        kw.update(k_cache=c.randn(B, S, D).to(torch.bfloat16),
+                  v_cache=c.randn(B, S, D).to(torch.bfloat16))
+        if block_steps is not None:
+            j = (torch.arange(S, device=c.dev) // kw["kvb"]).float()
+            kw["k_cache"][:, :, ::Dk] = (-block_steps * j).to(
+                torch.bfloat16)[None, :, None]
+            kw["v_cache"] = (torch.rand(B, S, D, generator=c.gen,
+                                        device=c.dev) * 2 - 1).to(
+                torch.bfloat16)
+            kw["v_cache"][:, :, ::Dk] = 1
+        vmax = kw["v_cache"].float().abs().max().item()
+    if mode.startswith("staged"):
+        kw.update(k_stage=c.randn(B, C, D).to(torch.bfloat16),
+                  v_stage=c.randn(B, C, D).to(torch.bfloat16),
+                  step_i=step_i)
+        if block_steps is not None:
+            kw["k_stage"][:, :, ::Dk] = -block_steps * (W // kw["kvb"])
+            kw["v_stage"] = (torch.rand(B, C, D, generator=c.gen,
+                                        device=c.dev) * 2 - 1).to(
+                torch.bfloat16)
+            kw["v_stage"][:, :, ::Dk] = 1
+        vmax = max(vmax, kw["v_stage"].float().abs().max().item())
+    if rising:
+        b = max(range(B), key=lambda i: past[i])
+        hi = min(past[b] - step_i, W)
+        if "k_scales" in kw:
+            kw["k_scales"][b, :, hi - 300:hi] *= 4
+        else:
+            kw["k_cache"][b, hi - 300:hi] *= 4
+    vmax = max(vmax, kw["qkv"][:, 2 * D:].abs().max().item())
+    return kw, vmax
+
+
+def attn_expect(kw: dict, vmax: float, rows_cap: int) -> dict:
+    """What ``batched_attention``'s context is held to, element by element,
+    and what two faults would read, from the TPU kernel's arithmetic in
+    torch (the plain fold's scores, prefix maxima and bf16 p; ``rows_cap``
+    rows a CTA, as the kernel's plan) -> {"tol": (B, D), "model": (B, D),
+    "faults": {name: (B, D) context}, "band_rows": rows in a flip band}.
+
+    The limit is the sum of three terms:
+      - f32 order: 2^-24 (W + C + 2) 4 of the largest |v|, the bound that
+        tests/test_torch_attn_split.py holds the split order to when both
+        sides take the same scores (each term exact to a few f32 ulps, at
+        most W + C + 1 rows add, exp(M_j - M_last) for the fold's product
+        of per-block factors);
+      - the scores: the kernel and torch sum q . k in different orders, so
+        a score and its prefix max each differ by up to 2^-18 Dk |q|.|k|
+        between them (2 Dk 2^-24 of the row's |q|.|k|); with the exp's
+        own error (2 ulps each side) and the subtraction's, each raw p
+        moves by a relative e_r (twice that sum, for margin). The
+        denominator and each block's exp(M_j - M_fin) move with it:
+        e (|context| + sum_r |w_r v_r|) with e the largest e_r;
+      - the flips: where p (int8: p times its V scale) lies within e_r of a
+        bf16 rounding boundary, the two sides may round it to neighbouring
+        bf16 values: that row's gap times its weight and |v|.
+    The faults: ``cta_dropped``, the second CTA's partial (l, acc) left
+    out of every slot that has one; ``local_max``, each row's p rounded
+    against the maximum of its block's rows in its own CTA (as the old
+    split kernel rounded against its split's max) instead of the prefix
+    max."""
+    from biogpt_tpu_torch.ops.decode_kernels import fake_quant_rows
+
+    qkv, kc, vc = kw["qkv"], kw["k_cache"], kw["v_cache"]
+    B, S, D = kc.shape
+    H = kw["n_head"]
+    Dk = D // H
+    W = min(kw["window"], S)
+    kvb = kw["kvb"]
+    dev = qkv.device
+    quant = kw.get("k_scales") is not None
+    staged = kw.get("k_stage") is not None
+    step = int(kw.get("step_i", 0)) if staged else 0
+    C = kw["k_stage"].shape[1] if staged else 0
+    q = (qkv[:, :D] * (1.0 / math.sqrt(Dk))).to(torch.bfloat16).float()
+    q = q.view(B, H, Dk)
+    k, v = qkv[:, D:2 * D], qkv[:, 2 * D:]
+    if quant:
+        k, v = fake_quant_rows(k), fake_quant_rows(v)
+    # every row of a slot: its W window rows, then its C staged rows
+    kr = kc[:, :W].float()
+    vr = vc[:, :W].float()
+    if staged:
+        kr = torch.cat([kr, kw["k_stage"].float()], 1)
+        vr = torch.cat([vr, kw["v_stage"].float()], 1)
+    kr, vr = kr.view(B, W + C, H, Dk), vr.view(B, W + C, H, Dk)
+    sc = torch.einsum("bhd,bwhd->bhw", q, kr)
+    mag = torch.einsum("bhd,bwhd->bhw", q.abs(), kr.abs())
+    vs = torch.ones(B, 1, W + C, device=dev)
+    if quant:
+        sc[..., :W] *= kw["k_scales"][:, :, :W]
+        mag[..., :W] *= kw["k_scales"][:, :, :W]
+        vs[..., :W] = kw["v_scales"][:, :, :W]
+    live = (kw["past"].long() - step).clamp(0, W)
+    r = torch.arange(W + C, device=dev)
+    cache = r[None, :] < W
+    valid = torch.where(cache, r[None, :] < live[:, None],
+                        r[None, :] - W < step)[:, None, :]     # (B, 1, W+C)
+    nbw = W // kvb
+    blk = torch.where(cache[0], r // kvb, torch.full_like(r, nbw))
+    masked = torch.where(valid, sc, torch.full_like(sc, -1e30))
+    bmax = torch.full((B, H, nbw + 1), -1e30, device=dev).scatter_reduce(
+        2, blk.expand(B, H, -1), masked, "amax")
+    pref = torch.cummax(bmax, -1).values
+    mj = pref[..., blk]
+    m_last = pref[..., -1]
+    cur = (q * k.view(B, H, Dk)).sum(-1)
+    m_fin = torch.maximum(m_last, cur)
+    p = torch.where(valid, torch.exp(sc - mj), torch.zeros_like(sc))
+    pv = p * vs
+    w = pv.to(torch.bfloat16).float()
+    g = torch.where(valid, torch.exp(mj - m_fin[..., None]),
+                    torch.zeros_like(sc))
+    pc = torch.exp(cur - m_fin)
+    den = (p * g).sum(-1) + pc
+    vcur = v.view(B, H, Dk)
+
+    def context(wt, keep=None):
+        num = torch.einsum("bhw,bwhd->bhd", wt * g, vr)
+        d = den
+        if keep is not None:
+            num = torch.einsum("bhw,bwhd->bhd", wt * g * keep, vr)
+            d = (p * g * keep).sum(-1) + pc
+        return ((num + pc[..., None] * vcur) / d[..., None]).reshape(B, D)
+
+    # the rows' range in the slot's sequence (cache rows, then staged rows
+    # from the live count on), the CTA of each
+    pos = torch.where(cache, r[None, :].expand(B, -1),
+                      live[:, None] + r[None, :] - W)
+    cta = pos // rows_cap
+    # the scores' and exp's room, relative to p
+    amax = torch.where(valid, mag, torch.zeros_like(mag)).amax(
+        -1, keepdim=True)
+    e = 2 * (2 * Dk * 2 ** -24 * (mag + amax)
+             + 2 ** -23 * (sc - mj).abs() + 2 ** -21 + 2 ** -23)
+    e = torch.where(valid, e, torch.zeros_like(e))
+    lo = (pv * (1 - e)).to(torch.bfloat16).float()
+    hi = (pv * (1 + e)).to(torch.bfloat16).float()
+    gap = (hi - lo).abs()
+    weigh = g / den[..., None]
+    flips = torch.einsum("bhw,bwhd->bhd", gap * weigh, vr.abs())
+    model = context(w)
+    wv = torch.einsum("bhw,bwhd->bhd", w * weigh, vr.abs())
+    scores = e.amax(-1)[..., None] * (model.view(B, H, Dk).abs() + wv)
+    f32 = 2 ** -24 * (W + C + 2) * 4 * vmax
+    tol = f32 + scores.reshape(B, D) + flips.reshape(B, D)
+    # the faults
+    dropped = context(w, keep=(cta != 1)[:, None, :].float())
+    grp = blk[None, :] * (W + C) + cta                            # (B, W+C)
+    own = torch.full((B, H, (nbw + 1) * (W + C)), -1e30,
+                     device=dev).scatter_reduce(
+        2, grp[:, None, :].expand(B, H, -1), masked, "amax")
+    own = own.gather(2, grp[:, None, :].expand(B, H, -1))
+    w_loc = ((torch.where(valid, torch.exp(sc - own), torch.zeros_like(sc))
+              * vs).to(torch.bfloat16).float()
+             * torch.where(valid, torch.exp(own - mj), torch.zeros_like(sc)))
+    local = context(w_loc)
+    return {"tol": tol, "model": model,
+            "faults": {"cta_dropped": dropped, "local_max": local},
+            "band_rows": int((gap > 0).sum()), "f32_term": f32,
+            "two_ctas": bool((cta[valid[:, 0, :]] >= 1).any())}
+
+
+def hold_attention(c: Ctx, what: str, kw: dict, vmax: float,
+                   rows_cap: int, faults_seen=()) -> dict:
+    """``batched_attention`` against its plain version on the same inputs:
+    every context element within :func:`attn_expect`'s limit, the K/V rows
+    out equal. Beside it, what each of :func:`attn_expect`'s faults would
+    read against the plain version, as the largest ratio of its error to
+    the limit: the faults named in ``faults_seen`` must read above 1 (the
+    hold would catch them), and a dropped CTA must wherever a slot has a
+    second CTA -> the record."""
+    from biogpt_tpu_torch.ops.decode_kernels import (batched_attention,
+                                                     batched_attention_plain)
+
+    ctx, kr, vr = batched_attention(**kw)
+    ctxp, krp, vrp = batched_attention_plain(**kw)
+    exp = attn_expect(kw, vmax, rows_cap)
+    torch.cuda.synchronize()
+    tol = exp["tol"]
+    d = (ctx - ctxp).abs()
+    err, over = d.max().item(), (d / tol).max().item()
+    same = bool(torch.equal(kr, krp)) and bool(torch.equal(vr, vrp))
+    check(over <= 1 and bool(torch.isfinite(ctx).all()),
+          f"{what}: context err {err}, {over} of its limit")
+    check(same, f"{what}: K/V rows differ from the plain version's")
+    reads = {k: ((f - ctxp).abs() / tol).max().item()
+             for k, f in exp["faults"].items()}
+    seen = set(faults_seen) | ({"cta_dropped"} if exp["two_ctas"] else set())
+    for k in seen:
+        check(reads[k] > 1, f"{what}: the {k} fault reads {reads[k]} of the "
+              "limit, which would not catch it")
+    return {"kernel": "batched_attention", "max_abs_err": err,
+            "err_over_tol": over, "tol": tol.max().item(),
+            "tol_min": tol.min().item(), "f32_term": exp["f32_term"],
+            "band_rows": exp["band_rows"],
+            "model_err_over_tol": ((exp["model"] - ctxp).abs()
+                                   / tol).max().item(),
+            "fault_reads_over_tol": reads, "faults_held": sorted(seen),
+            "rows_equal": same}
+
+
+def phase_attention_kernels(c: Ctx, smi: str) -> None:
+    """The batched steps' attention alone (``batched_attention``: one
+    launch of ``attn_batched_kernel``) against its plain version
+    (:func:`hold_attention`), every mode (lockstep and paged KV blocks,
+    bf16 and int8; staged rows at steps 0, 7, 15 and 70 of 80): B=32
+    ragged at window 512 and at the uniform serve's window 128, each timed
+    beside its bound and one ``scaled_dot_product_attention`` call on the
+    same rows; B=8 with a slot past the window; window 1024 (eight 128-row
+    blocks) with slots at 1000 live rows, whose running max rises in late
+    blocks, and past the window; and at window 1024 with scores constant in
+    each block and falling (``block_steps``), where p rounded against
+    anything but the prefix max reads over the limit. Then each batched
+    step at both shapes (:func:`step_breakdown`), the staged step under
+    two plans (:func:`staged_plans`) and the lockstep bf16 step's timing
+    windows (:func:`step_spread`)."""
+    from biogpt_tpu_torch.ops.decode_kernels import (attn_plan,
+                                                     batched_attention,
+                                                     batched_attention_plain)
+    from biogpt_tpu_torch.tools.kernel_bounds import attn_call_cost
+
+    cfg = c.cfg
+    L, H, D = cfg.n_layer, cfg.n_head, cfg.d_model
+    card = torch.cuda.get_device_name(0)
+    shapes = breakdown_shapes(c)
+    past1024 = ragged_past(32, dead=(7, 19))
+    past1024[30], past1024[31] = 1000, 1100
+    st_step = {"staged bf16": 7}
+    cases = [(shape, mode, st_step.get(mode, 0), {})
+             for shape in shapes for mode in BREAKDOWN_MODES]
+    cases += [("B=32 window 512 ragged", "staged bf16", i, {})
+              for i in (0, 15)]
+    # more staged rows than a CTA's range: they continue over more CTAs
+    cases += [("B=32 window 512 ragged", "staged bf16", 70,
+               {"stage_rows": 80})]
+    cases += [("B=8 window 512, a slot past it", mode,
+               st_step.get(mode, 0), {}) for mode in BREAKDOWN_MODES]
+    cases += [("B=32 window 1024", mode, 15 if mode.startswith("staged")
+               else 0, {"rising": True})
+              for mode in ("lockstep bf16", "paged int8", "staged bf16")]
+    # scores constant in each block, falling block to block: a p rounded
+    # against anything but the prefix max must read over the limit
+    cases += [("B=32 window 1024", mode, step,
+               {"block_steps": BLOCK_STEP, "stage_rows": C})
+              for mode, step, C in (("lockstep bf16", 0, None),
+                                    ("paged int8", 0, None),
+                                    ("staged bf16", 15, None),
+                                    ("staged bf16", 70, 80))]
+    shapes["B=8 window 512, a slot past it"] = (
+        8, 512, cfg.n_positions, ragged_past(8, dead=(2, 5), beyond=(7,)))
+    shapes["B=32 window 1024"] = (32, 1024, cfg.n_positions, past1024)
+    sdpa = {}
+    for shape, mode, step_i, opts in cases:
+        B, W, S, past = shapes[shape]
+        if mode.startswith("staged"):
+            past = [p + step_i for p in past]
+        kw, vmax = attn_operands(c, B, W, S, past, mode, step_i, **opts)
+        what = (f"batched_attention {mode} {shape} step_i={step_i}"
+                + "".join(f" {k}={v}" for k, v in opts.items()))
+        cluster, rows_cap = attn_plan(W, kw["kvb"], step_i)
+        rec = hold_attention(c, what, kw, vmax, rows_cap,
+                             ("local_max",) if "block_steps" in opts else ())
+        rec.update(mode=mode, shape=shape, B=B, window=W, past=past,
+                   step_i=step_i, kvb=kw["kvb"], cluster=cluster,
+                   rows_cap=rows_cap, **opts)
+        timed_case = shape in breakdown_shapes(c) and not opts and (
+            not mode.startswith("staged") or step_i == 7)
+        if timed_case:
+            key = (shape, mode.startswith("staged"))
+            if key not in sdpa:
+                sdpa[key] = sdpa_call(c, B, W, S, past, layers=1)
+            timed(rec, lambda: batched_attention(**kw),
+                  lambda: batched_attention_plain(**kw), sdpa[key],
+                  *attn_call_cost(cfg, past, W, mode.endswith("int8"),
+                                  step_i), reps=50)
+            # a step launches it once a layer
+            rec.update(card=card, card_stamp=smi,
+                       layers_ms=L * rec["kernel_ms"],
+                       layers_bound_ms=L * rec["bound_ms"],
+                       layers_library_ms=L * rec["library_ms"])
+            if mode == "lockstep bf16" and shape.startswith("B=32 window 512"):
+                c.results["batched_attention"] = rec
+        print(json.dumps(rec), flush=True)
+        del kw
+
+    layers, _ = c.rand_layers()
+    sdpa = {}
+    for shape in breakdown_shapes(c):
+        for mode in BREAKDOWN_MODES:
+            step_breakdown(c, smi, mode, shape, layers, sdpa)
+    staged_plans(c, smi, layers)
+    del layers
+    step_spread(c, smi)
 
 
 # ------------------------------- 5b. the batched steps' projection GEMV
@@ -2334,7 +2778,7 @@ def phase_format_kernels(c: Ctx, fmt: str) -> None:
                     what = f"{name} B=1 past={past} {fmt}"
                     rec = {"kernel": name, "layers": L, "past": past,
                            "window": window, "format": fmt}
-                    held_step(run, plain, what, rec)
+                    held_step(run, plain, what, rec, int8=quant)
                     if past == 100:
                         timed(rec, run, plain, None,
                               *cost(cfg, [past], window, wbytes))
@@ -2358,7 +2802,7 @@ def phase_format_kernels(c: Ctx, fmt: str) -> None:
                     ln_eps=cfg.ln_eps, **scales)
                 rec = {"kernel": name, "layers": L, "B": 32, "past": past32,
                        "window": W, "format": fmt}
-                held_step(run, plain, f"{name} B=32 {fmt}", rec)
+                held_step(run, plain, f"{name} B=32 {fmt}", rec, int8=quant)
                 gemv_trace(run, L, f"{name} B=32 {fmt}")
                 timed(rec, run, plain, None, *cost(cfg, past32, W, wbytes))
                 keep(name, rec)
@@ -2549,12 +2993,12 @@ def phase_cli(c: Ctx, path: str, smi: str) -> None:
 
 # kernels each serving path must launch: bf16 KV, int8 KV
 SERVING_KERNELS = {
-    False: ("decode_step_fused_batched", "decode_gemv", "kv_commit",
-            "lm_head_argmax_commit", "lm_head_logits_gmax_commit",
-            "prefill_fused", "prefill_gemm"),
-    True: ("decode_step_fused_batched_int8", "decode_gemv", "kv_commit_quant",
-           "prefill_fused", "prefill_gemm", "lm_head_argmax",
-           "qmatmul_wide"),
+    False: ("decode_step_fused_batched", "decode_gemv", "batched_attention",
+            "kv_commit", "lm_head_argmax_commit",
+            "lm_head_logits_gmax_commit", "prefill_fused", "prefill_gemm"),
+    True: ("decode_step_fused_batched_int8", "decode_gemv",
+           "batched_attention", "kv_commit_quant", "prefill_fused",
+           "prefill_gemm", "lm_head_argmax", "qmatmul_wide"),
 }
 
 
@@ -2911,19 +3355,21 @@ def phase_paged_staged_serving(c: Ctx, path: str, smi: str) -> None:
         ("lockstep bf16", {}, None, ()),
         ("lockstep int8", dict(kv_quant=True), None, ()),
         ("paged bf16", dict(paged_kv=True),
-         ("decode_step_fused_paged", "decode_gemv", "lm_head_argmax_commit",
-          "prefill_fused", "prefill_gemm"),
-         ("decode_step_fused_paged", "decode_gemv", "kv_commit",
-          "qmatmul_wide")),
+         ("decode_step_fused_paged", "decode_gemv", "batched_attention",
+          "lm_head_argmax_commit", "prefill_fused", "prefill_gemm"),
+         ("decode_step_fused_paged", "decode_gemv", "batched_attention",
+          "kv_commit", "qmatmul_wide")),
         ("paged int8", dict(paged_kv=True, kv_quant=True),
-         ("decode_step_fused_paged_int8", "decode_gemv", "kv_commit_quant",
-          "lm_head_argmax", "prefill_fused", "prefill_gemm"),
-         ("decode_step_fused_paged_int8", "decode_gemv", "kv_commit_quant",
-          "qmatmul_wide")),
+         ("decode_step_fused_paged_int8", "decode_gemv", "batched_attention",
+          "kv_commit_quant", "lm_head_argmax", "prefill_fused",
+          "prefill_gemm"),
+         ("decode_step_fused_paged_int8", "decode_gemv", "batched_attention",
+          "kv_commit_quant", "qmatmul_wide")),
         ("staged bf16", dict(staged_kv=True),
-         ("decode_step_fused_staged", "decode_gemv", "qmatmul_wide",
-          "prefill_fused", "prefill_gemm"),
-         ("decode_step_fused_staged", "decode_gemv", "qmatmul_wide")),
+         ("decode_step_fused_staged", "decode_gemv", "batched_attention",
+          "qmatmul_wide", "prefill_fused", "prefill_gemm"),
+         ("decode_step_fused_staged", "decode_gemv", "batched_attention",
+          "qmatmul_wide")),
     )
     for name, flags, uniform_kernels, mixed_kernels in paths:
         kv = "int8" if flags.get("kv_quant") else "bf16"
@@ -3112,16 +3558,19 @@ def phase_format_e2e(c: Ctx, fmt: str, smi: str) -> None:
     greedy = GenerationParams(temp=0.0, stop_at_eos=False)
     routes = (
         ("lockstep bf16", {}, {"decode_step_fused_batched", "decode_gemv",
-                               "kv_commit"}
+                               "batched_attention", "kv_commit"}
          | ({"lm_head_argmax_commit"} if packed else {"qmatmul_wide"})),
         ("lockstep int8", dict(kv_quant=True),
-         {"decode_step_fused_batched_int8", "decode_gemv", "kv_commit_quant"}
+         {"decode_step_fused_batched_int8", "decode_gemv",
+          "batched_attention", "kv_commit_quant"}
          | (argmax_tail if packed else {"qmatmul_wide"})),
         ("paged bf16", dict(paged_kv=True), {"decode_step_fused_paged",
-                                             "decode_gemv", "kv_commit"}
+                                             "decode_gemv",
+                                             "batched_attention", "kv_commit"}
          | ({"lm_head_argmax_commit"} if packed else {"qmatmul_wide"})),
         ("staged bf16", dict(staged_kv=True),
-         {"decode_step_fused_staged", "decode_gemv", "qmatmul_wide"}),
+         {"decode_step_fused_staged", "decode_gemv", "batched_attention",
+          "qmatmul_wide"}),
     )
     lockstep_ids = None
     for name, flags, step_kernels in routes:
@@ -3849,6 +4298,297 @@ def phase_tp_one_by_one(c: Ctx, path: str, smi: str) -> None:
 
 # ------------------------------------- the 9-32-row GEMV and M <= 8 tails
 
+# ------------------------------------- the batched steps' attention, by mode
+
+BREAKDOWN_MODES = ("lockstep bf16", "lockstep int8", "paged bf16",
+                   "paged int8", "staged bf16")
+# the staged steps' chunk and step (tools/kernel_bounds.py's STAGE_ROWS,
+# STEP_I)
+BREAKDOWN_STAGE = (16, 7)
+# the fall of the scores from one KV block to the next in the held cases
+# with constant scores a block (attn_operands' block_steps): exact in bf16
+# and, over 16, in f32; of the steps k/128 it is the one whose local_max
+# fault reads highest in all three modes (attn_expect), no row of its p
+# lying in a flip band
+BLOCK_STEP = 0.265625
+
+
+def serve_past(B: int) -> list:
+    """Positions of the uniform serve's slots: a 5-24-token prompt with up
+    to 48 new tokens (5..72), spread over the B slots."""
+    return [5 + (37 * b) % 68 for b in range(B)]
+
+
+def breakdown_shapes(c: Ctx) -> dict:
+    """name -> (B, window, cache rows S, per-slot positions)."""
+    return {"B=32 window 512 ragged": (32, 512, c.cfg.n_positions,
+                                       ragged_past(32, dead=(7, 19))),
+            "serve B=32 window 128": (32, 128, 512, serve_past(32))}
+
+
+def is_attention(kernel: str) -> bool:
+    """A kernel of a decode step's attention: the batched steps' own, the
+    B=1 and TP chains' paged CTA, or an absmax launch beside them."""
+    return "attn" in kernel or "row_absmax" in kernel
+
+
+def sdpa_call(c: Ctx, B: int, W: int, S: int, past: list,
+              layers: int | None = None):
+    """The attention of a step's ``layers`` layers (all 24 by default) as
+    one library call a layer:
+    ``scaled_dot_product_attention`` with q (B, H, 1, 64) bf16, K and V
+    views (B, H, W, 64) of (B, S, D) bf16 cache rows and a boolean mask of
+    each slot's live rows plus the row that stands for its current token
+    (row min(past, W - 1)) -> a function of no arguments. It reads the same
+    rows as a step's attention (bf16; for the int8 modes the same rows in
+    bf16) and is only timed."""
+    cfg, dev = c.cfg, c.dev
+    D, H = cfg.d_model, cfg.n_head
+    L = cfg.n_layer if layers is None else layers
+    kc = c.randn(L, B, S, D).to(torch.bfloat16)
+    vc = c.randn(L, B, S, D).to(torch.bfloat16)
+    q = c.randn(B, H, 1, D // H).to(torch.bfloat16)
+    last = torch.tensor([min(p, W - 1) for p in past], device=dev)
+    mask = (torch.arange(W, device=dev)[None, :] <= last[:, None])
+    mask = mask[:, None, None, :]
+
+    def heads(t, lyr):
+        return t[lyr, :, :W].view(B, W, H, D // H).transpose(1, 2)
+
+    def run():
+        return [torch.nn.functional.scaled_dot_product_attention(
+            q, heads(kc, lyr), heads(vc, lyr), attn_mask=mask)
+            for lyr in range(L)]
+    return run
+
+
+def attn_exposed_ms(seq: list) -> float:
+    """The attention's time on a step's critical path, from a trace's
+    records in start order (:func:`kernel_trace`): for each layer, from
+    the end of the qkv GEMV (the last GEMV to start before the layer's
+    attention kernels) to the end of the last of them. A kernel that
+    starts early and streams while the GEMV runs shows only what it adds
+    after the GEMV; its device span also holds its wait."""
+    total, gemv_end, attn_end = 0.0, None, None
+    for name, start, ms in seq:
+        end = start + ms * 1e3   # us
+        if "qgemv_mma_kernel" in name:
+            if attn_end is not None:
+                total += attn_end - gemv_end
+                attn_end = None
+            gemv_end = end
+        elif is_attention(name) and gemv_end is not None:
+            attn_end = end if attn_end is None else max(attn_end, end)
+    if attn_end is not None:
+        total += attn_end - gemv_end
+    return total / 1e3
+
+
+def step_breakdown(c: Ctx, smi: str, mode: str, shape: str, layers,
+                   sdpa: dict) -> dict:
+    """One batched step of ``mode`` at ``shape`` (:func:`breakdown_shapes`)
+    on Q4_0 planes ``layers``: its device and host ms (:func:`time_ms`), a
+    trace of its kernels with the attention's launches and the sum of
+    their device spans, and the library call's time for the same rows
+    (:func:`sdpa_call`, cached per shape in ``sdpa``) -> the record,
+    printed as a ``step_breakdown`` line. Its ``attn_exposed_ms`` is the
+    attention's share of the critical path (:func:`attn_exposed_ms`)."""
+    from biogpt_tpu_torch.ops.decode_kernels import decode_step_fused
+
+    cfg, dev = c.cfg, c.dev
+    D, L, H = cfg.d_model, cfg.n_layer, cfg.n_head
+    B, W, S, past = breakdown_shapes(c)[shape]
+    kw = {}
+    if mode.endswith("int8"):
+        kc, ks = rand_int8_cache(c, L, B, S)
+        vc, vs = rand_int8_cache(c, L, B, S)
+        kw.update(k_scales=ks, v_scales=vs)
+    else:
+        kc = c.randn(L, B, S, D).to(torch.bfloat16)
+        vc = c.randn(L, B, S, D).to(torch.bfloat16)
+    if mode.startswith("paged"):
+        kw["per_slot_kv"] = True
+    if mode.startswith("staged"):
+        C, step_i = BREAKDOWN_STAGE
+        past = [p + step_i for p in past]
+        kw.update(k_stage=c.randn(L, B, C, D).to(torch.bfloat16),
+                  v_stage=c.randn(L, B, C, D).to(torch.bfloat16),
+                  step_i=step_i)
+    x0 = c.randn(B, D)
+    pt = torch.tensor(past, dtype=torch.int32, device=dev)
+
+    def run():
+        return decode_step_fused(x0, layers, kc, vc, pt, n_head=H, window=W,
+                                 ln_eps=cfg.ln_eps, **kw)
+    rec = {"step_breakdown": mode, "shape": shape, "B": B, "window": W,
+           "past": past, "format": "q4_0", "step_ms": time_ms(run, 20),
+           "step_ms_range": SPREAD[run], "step_host_ms": HOST[run]["host_ms"]}
+    seq = []
+    names = kernel_trace(run, seq)
+    attn = {k: v for k, v in names.items() if is_attention(k)}
+    rec.update(attn_kernels=attn,
+               attn_launches=sum(v[0] for v in attn.values()),
+               attn_span_ms=sum(v[1] for v in attn.values()),
+               attn_exposed_ms=attn_exposed_ms(seq),
+               gemv_span_ms=span_ms(names, "qgemv_mma_kernel"),
+               kernels=names)
+    key = (shape, mode.startswith("staged"))
+    if key not in sdpa:
+        fn = sdpa_call(c, B, W, S, past)
+        sdpa[key] = (time_ms(fn, 10), HOST[fn]["host_ms"])
+    rec["sdpa_ms"], rec["sdpa_host_ms"] = sdpa[key]
+    rec.update(card=torch.cuda.get_device_name(0), card_stamp=smi)
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def smi_clock() -> str:
+    """The card's SM clock, power draw, temperature and active throttle
+    reasons, as nvidia-smi reads them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu,"
+         "clocks_throttle_reasons.active", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+
+
+def step_spread(c: Ctx, smi: str) -> dict:
+    """Where the lockstep bf16 step's timing windows spread (B=32, window
+    512, ragged, Q4_0; row 7): four rounds of 20 :func:`time_ms` windows,
+    two on a card that has only run the step and two each right after a
+    trace (:func:`kernel_trace`, as ``phase_serving_kernels`` times it
+    after :func:`gemv_trace`), each with every window's record
+    (``WINDOWS``: its ms, its call's host ms, its spin's ms and clock) and
+    nvidia-smi's reading after the round; then 20 steps under one trace,
+    each after such a spin, with each step's device span and the time no
+    kernel of it ran, its attention's time after the qkv GEMVs
+    (:func:`attn_exposed_ms`), its attention launches' summed and largest
+    spans, and how late the latest starts after its qkv GEMV ends -> the
+    record, printed as a ``step_spread`` line."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from biogpt_tpu_torch.ops.decode_kernels import decode_step_fused
+    from biogpt_tpu_torch.utils.profiling import spin_cycles
+
+    cfg, dev = c.cfg, c.dev
+    D, L, H = cfg.d_model, cfg.n_layer, cfg.n_head
+    B, W, S, past = breakdown_shapes(c)["B=32 window 512 ragged"]
+    layers, _ = c.rand_layers()
+    kc = c.randn(L, B, S, D).to(torch.bfloat16)
+    vc = c.randn(L, B, S, D).to(torch.bfloat16)
+    x0 = c.randn(B, D)
+    pt = torch.tensor(past, dtype=torch.int32, device=dev)
+
+    def run():
+        return decode_step_fused(x0, layers, kc, vc, pt, n_head=H, window=W,
+                                 ln_eps=cfg.ln_eps)
+    rounds = []
+    for label in ("fresh", "fresh", "after a trace", "after a trace"):
+        if label == "after a trace":
+            kernel_trace(run)
+        rounds.append({"round": label, "median_ms": time_ms(run, 20),
+                       **WINDOWS[run], "smi_after": smi_clock()})
+    cycles = spin_cycles(HOST[run]["host_ms"], spin_rate())
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            torch.cuda.synchronize()
+            torch.cuda._sleep(cycles)
+            run()
+        torch.cuda.synchronize()
+    recs = sorted(((ev.name, ev.time_range.start,
+                    ev.time_range.elapsed_us() / 1e3)
+                   for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda r: r[1])
+    steps, seg = [], None
+    for r in recs:
+        if "spin" in r[0] or "sleep" in r[0]:
+            seg = []
+            steps.append(seg)
+        elif seg is not None:
+            seg.append(r)
+    per_step = []
+    for seg in steps:
+        if not seg:
+            continue
+        start = min(r[1] for r in seg)
+        end = max(r[1] + r[2] * 1e3 for r in seg)
+        attn, late, gemv_end = [], [], None
+        for name, st, ms in seg:
+            if "qgemv_mma_kernel" in name:
+                gemv_end = st + ms * 1e3
+            elif BATCHED_ATTN in name:
+                attn.append(ms)
+                if gemv_end is not None:
+                    late.append((st - gemv_end) / 1e3)
+        busy, reach = 0.0, start
+        for _, st, ms in seg:
+            busy += max(0.0, st + ms * 1e3 - max(st, reach))
+            reach = max(reach, st + ms * 1e3)
+        per_step.append({"span_ms": (end - start) / 1e3,
+                         "idle_ms": (end - start - busy) / 1e3,
+                         "attn_exposed_ms": attn_exposed_ms(seg),
+                         "attn_span_ms": sum(attn),
+                         "attn_longest_ms": max(attn, default=0.0),
+                         "attn_latest_start_ms": max(late, default=0.0),
+                         "attn_launches": len(attn)})
+    rec = {"step_spread": "lockstep bf16 B=32 window 512 ragged q4_0",
+           "rounds": rounds, "traced_steps": per_step,
+           "card": torch.cuda.get_device_name(0), "card_stamp": smi}
+    print(json.dumps(rec), flush=True)
+    del layers, kc, vc
+    return rec
+
+
+def staged_plans(c: Ctx, smi: str, layers) -> dict:
+    """The staged step (step 7 of 16, Q4_0 planes ``layers``) at both
+    breakdown shapes (:func:`step_breakdown`) under the wrapper's plan
+    (``attn_plan``) and under the other choice at each shape, in turns
+    (plan, other, other, plan): at window 128, its 135 rows in 128-row
+    CTAs (two) in place of one CTA; at window 512, the window's four CTAs
+    with the staged rows spread over them in place of 128-row CTAs (five)
+    -> the step ms of each, printed as a ``staged_plans`` line."""
+    from biogpt_tpu_torch.ops import decode_kernels as dk
+
+    plan = dk.attn_plan
+
+    def other(window, kvb, staged_rows=0):
+        rows = window + staged_rows
+        per = dk.ATTN_ROWS_PER_CTA
+        n = -(-rows // per) if window <= per else max(-(-window // per),
+                                                      -(-rows // 512))
+        return min(n, 16), -(-rows // min(n, 16))
+    rec, sdpa = {"staged_plans": "staged bf16 step 7 of 16, q4_0"}, {}
+    for name in ("attn_plan", "other", "other", "attn_plan"):
+        dk.attn_plan = plan if name == "attn_plan" else other
+        try:
+            for shape in breakdown_shapes(c):
+                with contextlib.redirect_stdout(io.StringIO()):
+                    r = step_breakdown(c, smi, "staged bf16", shape, layers,
+                                       sdpa)
+                rec.setdefault(f"{name}, {shape}", []).append(r["step_ms"])
+        finally:
+            dk.attn_plan = plan
+    rec.update(card=torch.cuda.get_device_name(0), card_stamp=smi)
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def attn_probe(c: Ctx, smi: str) -> None:
+    """Every batched step's attention at both breakdown shapes, each mode
+    (:func:`step_breakdown`), then the lockstep bf16 step's timing windows
+    (:func:`step_spread`). Run as ``python3 chip_smoke.py --attn-probe``;
+    only entry points every tree of the port has, so the script copied into
+    an older tree measures that tree."""
+    layers, _ = c.rand_layers()
+    sdpa = {}
+    for shape in breakdown_shapes(c):
+        for mode in BREAKDOWN_MODES:
+            step_breakdown(c, smi, mode, shape, layers, sdpa)
+    del layers
+    step_spread(c, smi)
+
+
 WIDE_PROBE_SHAPES = ("qkv", "o", "fc1", "fc2", "lm_head")
 
 
@@ -4101,11 +4841,16 @@ def main() -> int:
     if sys.argv[1:2] == ["--wide-probe"]:
         wide_probe(c, smi)
         return 1 if FAILURES else 0
+    if sys.argv[1:2] == ["--attn-probe"]:
+        attn_probe(c, smi)
+        return 1 if FAILURES else 0
     phases = [(p.__name__, p) for p in (
         phase_single_kernels, phase_serving_kernels,
         phase_refill_int8_kernels, phase_paged_staged_kernels,
         phase_gemv_kernels, phase_b1_gemv_kernels,
         phase_prefill_gemm_kernels)]
+    phases.insert(4, ("phase_attention_kernels",
+                      lambda c: phase_attention_kernels(c, smi)))
     phases += [(f"phase_format_kernels {fmt}",
                 lambda c, fmt=fmt: phase_format_kernels(c, fmt))
                for fmt in NEW_FORMATS]
@@ -4185,6 +4930,8 @@ def main() -> int:
                            "biogpt_tpu/ops/pallas_decode.py:142"),
         "prefill_gemm": ("biogpt_tpu_torch/csrc/prefill.cu",
                          "biogpt_tpu/ops/pallas_prefill.py:100"),
+        "batched_attention": ("biogpt_tpu_torch/csrc/attn_batched.cuh",
+                              "biogpt_tpu/ops/pallas_decode.py:479"),
     }
     kernels = []
     for name, (src, rep) in sources.items():

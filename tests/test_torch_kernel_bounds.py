@@ -304,3 +304,38 @@ def test_small_tail_rows_count_the_engines_planes(fmt):
     row3 = next(r for r in kb.rows(c, fmt) if r["row"] == 3)
     m1 = kb.small_tail_rows(c, fmt)[0]
     assert (m1["bytes"], m1["flops"]) == (row3["bytes"], row3["flops"])
+
+
+@pytest.mark.parametrize("fmt", kb.FORMATS)
+def test_attn_sub_rows_with_the_projections_sum_to_the_step(fmt):
+    """Rows 7, 8, 9, 14 and 15: L times the four projections' parameters,
+    the attention sub-row and x in and out are the step's bytes, and L
+    times the projections' operations with the attention's are its
+    operations; a sub-row is one launch a layer."""
+    c = BioGptConfig()
+    L, D, B = c.n_layer, c.d_model, len(kb.RAGGED_PAST)
+    params = L * sum(r["param_bytes"] for r in kb.gemv_rows(c, M=32, fmt=fmt))
+    flops = L * sum(r["flops"] for r in kb.gemv_rows(c, M=B, fmt=fmt))
+    steps = {(r["row"], r["shape"]): r for r in kb.rows(c, fmt)}
+    subs = kb.attn_sub_rows(c)
+    assert [r["row"] for r in subs] == [7, 8, 9, 14, 15]
+    for sub in subs:
+        step = next(r for (row, shape), r in steps.items()
+                    if row == sub["row"] and "B=32" in shape)
+        assert params + sub["bytes"] + 2 * B * D * 4 == step["bytes"]
+        assert flops + sub["flops"] == step["flops"]
+        assert sub["launches"] == L and sub["bound_by"] == "bytes"
+        assert sub["bound_ms"] < step["bound_ms"]
+
+
+def test_attn_call_cost_is_one_layer_of_the_step():
+    """One ``batched_attention`` call: a layer's share of the step's
+    attention bytes with its qkv rows in and context rows out."""
+    c = BioGptConfig()
+    past, W = kb.RAGGED_PAST, kb.WINDOW
+    B, D, L = len(past), c.d_model, c.n_layer
+    for int8 in (False, True):
+        step, step_flops = kb.attn_cost(c, past, W, int8)
+        one, flops = kb.attn_call_cost(c, past, W, int8)
+        assert L * (one - B * 4 * D * 4) == step - B * 4 + L * B * 4
+        assert L * flops == step_flops
