@@ -1,7 +1,8 @@
 // Hopper's asynchronous copies, mbarriers, cluster barriers and
 // programmatic dependent launch, shared by the attention kernels
 // (attn_paged.cuh, attn_batched.cuh), the tensor-core GEMVs
-// (qgemv_mma.cuh, qgemv_b1.cuh) and the refill chain (prefill.cu).
+// (qgemv_mma.cuh, qgemv_b1.cuh, qmatmul.cu) and the refill chain
+// (prefill.cu).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -49,7 +49,6 @@ inline GemvArgs layer_args(const Proj& p, int l, int d_in, int d_out,
   a.d_out = d_out;
   a.offset = offset;
   a.bits = p.bits;
-  a.gpb = pick_gpb(d_in);
   return a;
 }
 

@@ -2,7 +2,7 @@
 // one activation row against one packed 4/5-bit or unpacked 8-bit weight
 // plane (qgemv.cuh's layouts), with the numerics of pallas_decode.py::_qmm,
 // which the TPU's B=1 decode kernel uses (`_make_kernel`, :246-352) and
-// qgemv.cuh calls XPRIME: x rounded to bf16; per 32-level block n the f32
+// qmatmul.cu calls XPRIME: x rounded to bf16; per 32-level block n the f32
 // partial p_n = sum_k x_k * lv_k over UNCENTERED levels, then (p_n - offset
 // * xsum_n) * scale_n [+ xsum_n * min_n], summed over n. Only the order of
 // the f32 sums differs from the plain version (qmatmul_kernels.

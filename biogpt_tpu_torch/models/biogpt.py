@@ -18,9 +18,10 @@ paged variant) and then: the final LN and lm_head; the fused LN + lm_head
 + argmax tail; or the fused LN + lm_head + group-maxima tail of the
 per-request sampler. Per-slot positions commit the new KV rows through
 ``kv_commit`` or inside the fused tails; an int8 cache
-(``runtime.cache.QuantKVCache``) quantizes them and commits through
-``kv_commit_quant`` (or an index store at the host's B=1 position), and its
-tails run without the commit fusion, as in the JAX package.
+(``runtime.cache.QuantKVCache``) quantizes and commits them in one launch
+(``kv_commit_quant_rows``; ``runtime.cache.commit_rows`` at the host's B=1
+position), and its tails run without the commit fusion, as in the JAX
+package.
 ``forward_fused_decode_staged`` runs the staged step (chunk-local KV
 staging) and returns the rows for the caller's staging.
 
@@ -44,7 +45,8 @@ import torch
 from ..config import BioGptConfig
 from ..modelio.checkpoint import layer_slice
 from ..ops import embedding_lookup, matmul
-from ..ops.decode_kernels import decode_step_fused, kv_commit, kv_commit_quant
+from ..ops.decode_kernels import (decode_step_fused, kv_commit,
+                                  kv_commit_quant_rows)
 from ..ops.prefill_kernels import prefill_fused
 from ..ops.qmatmul_kernels import (lm_head_argmax, lm_head_argmax_commit,
                                    lm_head_logits_gmax_commit)
@@ -287,7 +289,7 @@ def _fused_decode_hidden(params: dict, tokens: torch.Tensor, cache: KVCache,
     step (``per_slot_kv``) at every B. ``commit=False`` skips the commit
     and returns (x, k_rows, v_rows) (L, B, D) instead, for the tails that
     fold the commit in. An int8 cache's rows leave the step in f32 and
-    quantize here before they commit."""
+    quantize in their commit (``kv_commit_quant_rows``, one launch)."""
     B = tokens.shape[0]
     x0 = _decode_x0(params, tokens, past, config)
     quant = isinstance(cache, QuantKVCache)
@@ -301,12 +303,8 @@ def _fused_decode_hidden(params: dict, tokens: torch.Tensor, cache: KVCache,
     if B == 1 and not isinstance(past, torch.Tensor):
         commit_rows(cache, k_rows, v_rows, past)
     elif quant:
-        kq, ksc = quantize_rows(k_rows)                 # (L, B) scales
-        vq, vsc = quantize_rows(v_rows)
-        kv_commit_quant(cache.k, cache.v, cache.ks, cache.vs,
-                        kq.transpose(0, 1), vq.transpose(0, 1),
-                        ksc.transpose(0, 1)[..., None],
-                        vsc.transpose(0, 1)[..., None], past)
+        kv_commit_quant_rows(cache.k, cache.v, cache.ks, cache.vs, k_rows,
+                             v_rows, past)
     else:
         kv_commit(cache.k, cache.v, k_rows.transpose(0, 1),
                   v_rows.transpose(0, 1), past)

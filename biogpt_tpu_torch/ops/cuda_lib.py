@@ -56,9 +56,7 @@ _LL = ctypes.c_longlong
 # weight-reading entry points take the level format (4, 5 or 8) after the
 # level offset.
 SIGNATURES = {
-    ("qmatmul", "bgt_qmatmul"): [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
-                                 _P],
-    ("qmatmul", "bgt_qmatmul_splits"): [_I],
+    ("qmatmul", "bgt_qmatmul"): [_P] * 4 + [_I] * 8 + [_P, _P],
     ("qmatmul", "bgt_qmatmul_wide"): [_P] * 4 + [_I] * 7 + [_P, _P],
     ("lm_head_argmax", "bgt_lm_head_argmax"): (
         [_P, _P, _P, _F, _P, _P, _P] + [_I] * 9 + [_P] * 7),
@@ -87,6 +85,7 @@ SIGNATURES = {
                                      _I, _P],
     ("kv_commit", "bgt_kv_commit_quant"): (
         [_P] * 6 + [_LL, _LL, _P, _P, _LL, _LL, _P] + [_I] * 4 + [_P]),
+    ("kv_commit", "bgt_kv_commit_quant_rows"): [_P] * 7 + [_I] * 5 + [_P],
     ("prefill", "bgt_prefill"): (
         [_P] + [_I] * 6 + [_F, _I, _I] + [_P] * 4 + [_P] * 16 + [_P] * 6
         + [_P] + [_P]),
@@ -113,7 +112,8 @@ LAUNCHES = {"qmatmul": 0, "qmatmul_wide": 0, "lm_head_argmax": 0,
             "decode_step_fused_paged_int8": 0, "decode_step_fused_staged": 0,
             "tp_attn_half": 0, "tp_attn_half_int8": 0, "tp_qkv_half": 0,
             "tp_ffn_half": 0, "decode_gemv": 0, "decode_gemv_b1": 0,
-            "prefill_gemm": 0, "batched_attention": 0}
+            "prefill_gemm": 0, "batched_attention": 0,
+            "kv_commit_quant_rows": 0}
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()

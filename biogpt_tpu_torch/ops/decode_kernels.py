@@ -39,9 +39,13 @@ token. Both take device positions at every B.
 ``kv_commit`` replaces ``pallas_decode.py::kv_commit_pallas``: each slot's
 rows (B, L, D), slot-major, land at its own position in every layer's
 cache. ``kv_commit_quant`` replaces ``kv_commit_quant_pallas``: the same
-for int8 level rows and their f32 scales (B, L, 1). Both write the port's
-mutable caches in place (the JAX calls donate their buffers and return new
-ones) and return the same tensors.
+for int8 level rows and their f32 scales (B, L, 1). ``kv_commit_quant_rows``
+is that commit with the rows' quantization (``runtime.cache.
+quantize_rows``) folded into the kernel: it takes the int8 step's f32 rows
+(L, B, D) as the step returns them, and the position as a (B,) device
+tensor or the host's int. All write the port's mutable caches in place
+(the JAX calls donate their buffers and return new ones) and return the
+same tensors.
 
 ``batched_attention`` is one layer's attention of the batched steps
 alone (``csrc/attn_batched.cuh``, split by :func:`attn_plan`), with its
@@ -947,6 +951,60 @@ def kv_commit_quant(k_cache, v_cache, ks, vs, kq_t, vq_t, ksc_t, vsc_t, past):
         kq_t.data_ptr(), vq_t.data_ptr(), sb, sl, ksc_t.data_ptr(),
         vsc_t.data_ptr(), ksc_t.stride(0), ksc_t.stride(1), past.data_ptr(),
         L, B, S, D, cuda_lib.stream_ptr(k_cache.device))
+    cuda_lib.LAUNCHES[what] += 1
+    cuda_lib.check(err, what)
+    return k_cache, v_cache, ks, vs
+
+
+def kv_commit_quant_rows_plain(k_cache, v_cache, ks, vs, k_rows, v_rows,
+                               past):
+    """Plain version of :func:`kv_commit_quant_rows`: ``quantize_rows`` of
+    the f32 rows (L, B, D), then :func:`kv_commit_quant_plain`; in place."""
+    from ..runtime.cache import quantize_rows
+
+    B = k_cache.shape[1]
+    if not isinstance(past, torch.Tensor):
+        past = torch.full((B,), int(past), dtype=torch.int32,
+                          device=k_cache.device)
+    kq, ksc = quantize_rows(k_rows)                     # (L, B) scales
+    vq, vsc = quantize_rows(v_rows)
+    return kv_commit_quant_plain(k_cache, v_cache, ks, vs, kq.transpose(0, 1),
+                                 vq.transpose(0, 1),
+                                 ksc.transpose(0, 1)[..., None],
+                                 vsc.transpose(0, 1)[..., None], past)
+
+
+def kv_commit_quant_rows(k_cache, v_cache, ks, vs, k_rows, v_rows, past):
+    """Quantize every layer's new K and V rows (L, B, D) f32 per row
+    (``runtime.cache.quantize_rows``: absmax / 127, half to even, +-127)
+    and commit slot b's levels and scales at ``past[b]`` of every layer's
+    levels and scale planes, in place, in one launch; return the four.
+    ``past``: a (B,) integer tensor, or the host's int (every slot); a
+    position outside ``[0, S)`` is clamped into it."""
+    if not k_cache.is_cuda:
+        return kv_commit_quant_rows_plain(k_cache, v_cache, ks, vs, k_rows,
+                                          v_rows, past)
+    what = "kv_commit_quant_rows"
+    _check_cuda_caches(k_cache, v_cache, what, ks, vs)
+    L, B, S, D = k_cache.shape
+    k_rows = k_rows.to(torch.float32).contiguous()
+    v_rows = v_rows.to(torch.float32).contiguous()
+    if (k_rows.shape != (L, B, D) or v_rows.shape != (L, B, D)
+            or not k_rows.is_cuda or not v_rows.is_cuda):
+        raise ValueError(f"{what}: rows must be ({L}, {B}, {D}) CUDA tensors")
+    if D % 16 or D > 2048:
+        raise ValueError(f"{what}: D must be a multiple of 16 up to 2048, "
+                         f"got {D}")
+    past_t, past_host = None, 0
+    if isinstance(past, torch.Tensor):
+        past_t = _cuda_past(past, B, k_cache.device, what)
+    else:
+        past_host = int(past)
+    err = cuda_lib.library("kv_commit").bgt_kv_commit_quant_rows(
+        k_cache.data_ptr(), v_cache.data_ptr(), ks.data_ptr(), vs.data_ptr(),
+        k_rows.data_ptr(), v_rows.data_ptr(), cuda_lib.ptr(past_t), past_host,
+        L, B, S, D,
+        cuda_lib.stream_ptr(k_cache.device))
     cuda_lib.LAUNCHES[what] += 1
     cuda_lib.check(err, what)
     return k_cache, v_cache, ks, vs

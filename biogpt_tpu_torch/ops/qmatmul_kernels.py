@@ -7,6 +7,12 @@ PyTorch version (``*_plain``), which transcribes what the TPU kernel
 computes, bf16 roundings included; on a CUDA tensor it launches the
 hand-written Hopper kernel (``csrc/qmatmul.cu``, ``csrc/lm_head_argmax.cu``)
 or raises. There is no fallback from the card to the plain version.
+``qmatmul`` runs, in one launch on the rows as they come, its own
+streaming tensor-core GEMV (``csrc/qmatmul.cu``: a producer warp's TMA
+boxes into a ring of stages, each consumer warp 32 columns over its
+block's slice of d_in) or, at projection widths of up to 1024 rows, the
+streaming GEMV below: :func:`qmm_plan` picks the route and grid from the
+widths;
 ``qmatmul_wide`` and the tails at M <= 8 run the streaming tensor-core GEMV
 (``csrc/qgemv_stream.cuh``) in one launch on the rows as they come, over
 the grid :func:`stream_plan` chooses from the widths; the tails keep their
@@ -328,23 +334,90 @@ def _device_index(dev: torch.device) -> int:
     return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
+# qmatmul's kernel (csrc/qmatmul.cu, M <= 8): the output columns a consumer
+# warp owns, consumer warps a block at most and at projection widths, the
+# packed groups (64 rows of d_in) of a block's slice at most
+QMM_UNIT = 32
+QMM_MAX_WARPS = 16
+QMM_PROJ_WARPS = 4
+QMM_MAX_SLICE_GROUPS = 64
+# rows of d_in up to which ``qmatmul`` takes the streaming GEMV's M <= 8 X'
+# path at projection widths: on an H100 it was 0.2-2.1 us faster than
+# qmatmul's kernel there at d_in 1024 (qkv, o, fc1 of the 347M model),
+# 2.5-3.4 us slower at d_in 4096 (fc2) and 2.9-5.4 us slower at vocab
+# width (chip_smoke.py --qmm-probe)
+QMM_STREAM_MAX_D_IN = 1024
+
+
+def qmm_kernel_plan(m: int, d_in: int, d_out: int, n_sm: int) -> tuple:
+    """The grid of ``qmatmul``'s own kernel for m <= 8 rows of a (d_in,
+    d_out) plane on a card of ``n_sm`` SMs -> (blocks along the columns,
+    blocks of a cluster along d_in, consumer warps a block). Each block
+    takes a contiguous run of 32-column units (runs differ by one unit at
+    most), a consumer warp a unit at a time. At vocab width (a 64-column
+    tile for every SM or more) one persistent block per SM with a warp for
+    each of its units (16 at most: more take several passes), d_in split
+    only past 64 packed groups (4096 rows); at projection widths a block of
+    4 warps per 128 columns and d_in split over as many blocks of a cluster
+    as fill the card, every split at least one group, 16 at most."""
+    groups, units = d_in // (2 * QK), d_out // QMM_UNIT
+    if (d_in <= 0 or d_in % (2 * QK) or d_out <= 0 or d_out % QMM_UNIT
+            or n_sm <= 0 or not 0 < m <= 8):
+        raise ValueError(f"qmm_plan: m {m}, d_in {d_in} (of {2 * QK}), "
+                         f"d_out {d_out} (of {QMM_UNIT}) unsupported")
+    least = -(-groups // QMM_MAX_SLICE_GROUPS)
+    if least > STREAM_MAX_SPLITS:
+        raise ValueError(f"qmm_plan: d_in {d_in} past "
+                         f"{STREAM_MAX_SPLITS * QMM_MAX_SLICE_GROUPS * 2 * QK}")
+    if d_out // _MMA_COLS >= n_sm:
+        splits = least
+        grid_x = min(units, max(1, n_sm // splits))
+        if splits > 1:   # a split block takes its units in one pass
+            grid_x = max(grid_x, -(-units // QMM_MAX_WARPS))
+        warps = min(QMM_MAX_WARPS, -(-units // grid_x))
+    else:
+        warps = QMM_PROJ_WARPS
+        grid_x = -(-units // warps)
+        splits = min(STREAM_MAX_SPLITS, groups,
+                     max(least, n_sm // grid_x))
+    gpb = -(-groups // splits)
+    return grid_x, -(-groups // gpb), warps
+
+
+def qmm_plan(m: int, d_in: int, d_out: int, n_sm: int) -> tuple:
+    """The route and grid of ``qmatmul`` for m <= 8 rows -> (grid_x,
+    splits, warps): at projection widths (fewer 64-column tiles than SMs)
+    of up to ``QMM_STREAM_MAX_D_IN`` rows the streaming GEMV's M <= 8 X'
+    path on :func:`stream_plan`'s grid, with warps 0; elsewhere qmatmul's
+    own kernel on :func:`qmm_kernel_plan`'s."""
+    plan = qmm_kernel_plan(m, d_in, d_out, n_sm)   # checks the shape
+    if (d_out // _MMA_COLS < n_sm and d_in <= QMM_STREAM_MAX_D_IN
+            and d_out % _MMA_COLS == 0):
+        return (*stream_plan(m, d_in, d_out, n_sm), 0)
+    return plan
+
+
+@functools.lru_cache(maxsize=None)
+def _qmm_plan(index: int, m: int, d_in: int, d_out: int) -> tuple:
+    return qmm_plan(m, d_in, d_out, _sm_count(index))
+
+
 def _launch_qmatmul(x: torch.Tensor, qt: QuantizedTensor):
+    """One launch on the M <= 8 rows as they come, on :func:`qmm_plan`'s
+    route and grid."""
     bits = check_cuda_levels(qt, (), "qmatmul")
     d_in, d_out = qt.d_in, qt.d_out
     x = _cuda_x(x, d_in, "qmatmul")
     M = x.shape[0]
-    if not supports(qt, M):
+    if not supports(qt, M) or M < 1:
         raise ValueError(f"qmatmul: unsupported shape M={M} d_in={d_in} "
                          f"d_out={d_out}")
-    lib = cuda_lib.library("qmatmul")
-    splits = lib.bgt_qmatmul_splits(d_in)
-    part = torch.empty(splits * M * d_out, dtype=torch.float32,
-                       device=x.device)
+    grid_x, splits, warps = _qmm_plan(_device_index(x.device), M, d_in, d_out)
     y = torch.empty(M, d_out, dtype=torch.float32, device=x.device)
-    err = lib.bgt_qmatmul(
+    err = cuda_lib.library("qmatmul").bgt_qmatmul(
         x.data_ptr(), qt.levels.data_ptr(), qt.scales.data_ptr(),
-        cuda_lib.ptr(qt.mins), M, d_in, d_out, _offset(qt), bits,
-        part.data_ptr(), y.data_ptr(), cuda_lib.stream_ptr(x.device))
+        cuda_lib.ptr(qt.mins), M, d_in, d_out, _offset(qt), bits, grid_x,
+        splits, warps, y.data_ptr(), cuda_lib.stream_ptr(x.device))
     cuda_lib.LAUNCHES["qmatmul"] += 1
     cuda_lib.check(err, "qmatmul")
     return y

@@ -86,7 +86,9 @@ def quantize_rows(x: torch.Tensor, group=None, amax=None):
     if group is not None:
         from ..parallel.distributed import all_reduce_max
         amax = all_reduce_max(amax, group)
-    scale = amax / 127.0
+    # a divide by a tensor: PyTorch's CUDA divide by a host scalar
+    # multiplies by its reciprocal, which is not the reference's amax / 127
+    scale = amax / torch.full_like(amax, 127.0)
     safe = torch.clamp(scale, min=1e-12)
     q = torch.clamp(torch.round(x / safe[..., None]), -127, 127)
     return q.to(torch.int8), scale
@@ -158,16 +160,15 @@ def commit_rows(cache: KVCache, k_rows: torch.Tensor, v_rows: torch.Tensor,
                 past: int) -> KVCache:
     """Write every layer's new row (L, batch, d_model) at the host's
     position ``past`` -- the single-stream fused decode step's caller-side
-    commit -- in place; an int8 cache quantizes the rows first. Per-slot
-    positions commit through ``ops.decode_kernels.kv_commit`` and
-    ``kv_commit_quant``."""
+    commit -- in place; an int8 cache quantizes the rows in the same
+    commit (``ops.decode_kernels.kv_commit_quant_rows``: one launch on the
+    card, the position clamped into the cache). Per-slot positions commit
+    through ``ops.decode_kernels.kv_commit`` and ``kv_commit_quant_rows``."""
     if isinstance(cache, QuantKVCache):
-        kq, ksc = quantize_rows(k_rows)              # (L, batch) scales
-        vq, vsc = quantize_rows(v_rows)
-        cache.k[:, :, past] = kq
-        cache.v[:, :, past] = vq
-        cache.ks[:, :, 0, past] = ksc
-        cache.vs[:, :, 0, past] = vsc
+        from ..ops.decode_kernels import kv_commit_quant_rows
+
+        kv_commit_quant_rows(cache.k, cache.v, cache.ks, cache.vs, k_rows,
+                             v_rows, past)
         return cache
     cache.k[:, :, past] = k_rows.to(cache.k.dtype)
     cache.v[:, :, past] = v_rows.to(cache.v.dtype)

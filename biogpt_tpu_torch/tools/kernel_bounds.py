@@ -17,8 +17,10 @@ shape (row 12's sub-rows) and the lm_head GEMV and KV commit of the two
 M=32 serving tails (rows 4 and 5); the refill GEMM alone (``prefill_gemm``)
 at 1024 rows; row 2 (``qmatmul_wide``) at each shape and M = 16, 32
 (:func:`wide_sub_rows`), row 3 and the sampled tail's GEMV at M = 1, 8
-(:func:`small_tail_rows`), and the batched steps' attention in rows 7, 8,
-9, 14 and 15 (:func:`attn_sub_rows`). ``chip_smoke.py`` computes the ported kernels' bounds with the
+(:func:`small_tail_rows`), row 1 (``qmatmul``) at each shape and M = 1, 8
+(:func:`qmatmul_sub_rows`), row 11 with the rows' quantization folded in
+at B = 32 and 1 (:func:`commit_quant_sub_rows`), and the batched steps'
+attention in rows 7, 8, 9, 14 and 15 (:func:`attn_sub_rows`). ``chip_smoke.py`` computes the ported kernels' bounds with the
 same :func:`bound` from the inputs of its own run. Needs no card.
 """
 
@@ -271,6 +273,39 @@ def wide_sub_rows(c: BioGptConfig = BioGptConfig(), fmt: str = "q4_0",
     return recs
 
 
+def qmatmul_sub_rows(c: BioGptConfig = BioGptConfig(), fmt: str = "q4_0",
+                     ms=(1, 8)) -> list:
+    """Row 1 (``qmatmul``, M <= 8) at each of ``WIDE_SHAPES`` and M rows:
+    its planes, x in (M, d_in) and y out (M, d_out), f32. At M = 1 the
+    lm_head sub-row is row 1 itself."""
+    recs = []
+    for r in wide_sub_rows(c, fmt, ms):
+        r.update(kernel="qmatmul_pallas", row=ROW["qmatmul_pallas"])
+        recs.append(r)
+    return recs
+
+
+def commit_quant_sub_rows(c: BioGptConfig = BioGptConfig(),
+                          batches=(32, 1)) -> list:
+    """Row 11 with the rows' quantization folded in (``kv_commit_quant_
+    rows``, the int8 steps' commit) at B slots: the step's f32 K and V rows
+    (L, B, D) read, the int8 levels and f32 scales written at each slot's
+    position, and the (B,) positions read where they live on the card
+    (B > 1; the single stream passes the host's)."""
+    D, L = c.d_model, c.n_layer
+    recs = []
+    for B in batches:
+        nbytes = 2 * L * B * D * 4 + 2 * L * B * (D + 4) + (B * 4 if B > 1
+                                                             else 0)
+        ms_, by = bound(nbytes, 0)
+        recs.append({"kernel": "kv_commit_quant_pallas",
+                     "row": ROW["kv_commit_quant_pallas"],
+                     "mode": "f32 rows, quantized in the commit", "B": B,
+                     "bytes": nbytes, "flops": 0, "bound_ms": ms_,
+                     "bound_by": by})
+    return recs
+
+
 def small_tail_rows(c: BioGptConfig = BioGptConfig(), fmt: str = "q4_0",
                     ms=(1, 8)) -> list:
     """Row 3 at M <= 8 rows (the greedy tail: the lm_head planes, x and the
@@ -501,10 +536,11 @@ def main() -> int:
                 print(json.dumps(rec))
         for rec in tail_sub_rows(fmt=fmt):
             print(json.dumps(rec))
-        for rec in wide_sub_rows(fmt=fmt) + small_tail_rows(fmt=fmt):
+        for rec in (wide_sub_rows(fmt=fmt) + small_tail_rows(fmt=fmt)
+                    + qmatmul_sub_rows(fmt=fmt)):
             print(json.dumps(rec))
-        if fmt == "q4_0":   # the attention reads no weights
-            for rec in attn_sub_rows():
+        if fmt == "q4_0":   # the attention and the commits read no weights
+            for rec in attn_sub_rows() + commit_quant_sub_rows():
                 print(json.dumps(rec))
         c = BioGptConfig()
         for name in PROJECTIONS:

@@ -20,7 +20,12 @@ logs its seconds):
      one launch of the streaming GEMV (:func:`wide_trace`); the M <= 8
      tails at 1, 2, 5 and 8 rows, greedy and sampled, with a forced tie
      and a NaN row (:func:`hold_small_tails`), the CLI's greedy tail
-     traced to the streaming GEMV and the fold;
+     traced to the streaming GEMV and the fold; then ``qmatmul`` (row 1,
+     ``csrc/qmatmul.cu``) at every M from 1 to 8 in every format on the
+     five shapes, the TP ranks' local lm_head widths, a 4096 -> 4096
+     plane and Q5-odd widths (d_in 640, 1600), each call traced to one
+     launch of its route's kernel, and timed at M = 1 and 8 on each shape
+     (:func:`phase_qmatmul_kernels`);
   3. likewise every kernel of the batched serving path: the batched decode
      step at B=8 and B=32 (window 512, ragged positions, dead slots; at
      B=32 a profiler trace shows the tensor-core GEMV on all four
@@ -39,7 +44,11 @@ logs its seconds):
      B=1 (past 100 and 900, traced: 5 launches a layer) and at B=8 and
      B=32 (window 512, ragged positions, dead slots; Q4_0, and Q4_1 at B=1
      and B=32), and ``kv_commit_quant``
-     (bit-equal, positions clamped);
+     (bit-equal, positions clamped) and its mode with the rows'
+     quantization folded in, ``kv_commit_quant_rows`` (bit-equal to
+     ``quantize_rows`` + the plain commit at B=32 and B=1 on rows with
+     exact .5 ties, a zero row, NaN and inf rows, positions clamped;
+     :func:`hold_commit_rows`);
   5. likewise the paged and staged steps: the paged step, bf16 and int8, at
      B=1 (past 100 and 600) and B=32 (window 512, ragged positions, dead
      slots, a slot past the window), also held against the batched CUDA
@@ -93,7 +102,10 @@ logs its seconds):
      the CLI greedy (prompts of <= 8, 9-32 and >= 33 tokens, 128 new
      tokens) and sampled, then the CLI ``--kv-quant`` greedy, the launch
      counts of each, 8 teacher-forced decode steps of the kernels against
-     the plain path, the decode rate with a bf16 and an int8 cache;
+     the plain path, the int8 steps' commit traced on the lockstep, paged
+     and single-stream steps (one ``kv_commit_quant_rows_kernel`` after
+     the step, no PyTorch kernel: :func:`commit_traces`), the decode rate
+     with a bf16 and an int8 cache;
   9. serving end to end on the same file, once with a bf16 and once with
      an int8 KV cache: ``BatchedEngine.serve`` of 96 uniform greedy
      requests at B=32 (refills through ``prefill_fused``; the wall split
@@ -135,6 +147,12 @@ tree of the port has (to compare two trees in one call).
 numbers of ``qmatmul_wide`` and the M <= 8 tails and of the paths they sit
 on, with entry points every tree of the port has (to compare two trees in
 one call).
+``python3 chip_smoke.py --qmm-probe`` runs only :func:`qmm_probe`: the
+numbers of ``qmatmul`` at M <= 8 (each of its two routes on every shape,
+where the tree has them) and of the int8 commit as the steps run it, the
+int8 steps and the CLI's decode rates (the sampled CLI and a short
+prefill on each route), with entry points every tree of the port has (to
+compare two trees in one call).
 
 Needs a CUDA card; exits non-zero without one or without the package.
 """
@@ -168,6 +186,8 @@ FORMATS = {"q4_0": (2, 4), "q4_1": (3, 4), "q5_0": (6, 5), "q5_1": (7, 5),
 WIDE_ROWS = (9, 16, 17, 31, 32)
 # the row counts the M <= 8 lm_head tails are held at
 SMALL_TAIL_ROWS = (1, 2, 5, 8)
+# the row counts ``qmatmul`` (row 1) is held at in every format
+QMM_ROWS = tuple(range(1, 9))
 # the formats after Q4_0 and Q4_1, held kernel by kernel on their own
 NEW_FORMATS = ("q5_0", "q5_1", "q8_0")
 # the formats driven end to end from a model file of their own (Q4_0 is the
@@ -1164,6 +1184,98 @@ def phase_single_kernels(c: Ctx) -> None:
     del flush_buf
 
 
+def qmm_route_kernel(qt, m: int) -> str:
+    """The kernel ``qmatmul``'s route launches for m rows of ``qt``
+    (``qmatmul_kernels.qmm_plan``: warps 0 is the streaming GEMV's M <= 8
+    path)."""
+    from biogpt_tpu_torch.ops import qmatmul_kernels as qk
+
+    plan = qk.qmm_plan(m, qt.d_in, qt.d_out,
+                       torch.cuda.get_device_properties(0).multi_processor_count)
+    return "qgemv_stream_kernel" if plan[2] == 0 else "qmatmul_kernel"
+
+
+def qmm_trace(run, what: str, kernel: str) -> dict:
+    """One ``qmatmul`` call traced: one launch of its route's kernel
+    (``qmatmul_kernel`` or ``qgemv_stream_kernel``), none of the two-launch
+    scalar GEMV it replaced -> {kernel: [launches, device ms]} without the
+    trace's spins."""
+    names = kernel_trace(run)
+    n = launches_of(names, kernel)
+    old = sum(launches_of(names, k) for k in WIDE_NEVER)
+    check(n == 1 and old == 0, f"{what}: {n} launches of {kernel}, "
+          f"{old} of {WIDE_NEVER}")
+    return {k: v for k, v in names.items() if "spin_kernel" not in k}
+
+
+def phase_qmatmul_kernels(c: Ctx) -> None:
+    """Row 1, ``qmatmul`` (``csrc/qmatmul.cu``, one launch a call), held at
+    every M from 1 to 8 in every format on the five 347M shapes, the TP
+    ranks' local lm_head widths (42,496 / 2 and / 4), a 4096 -> 4096 plane
+    and widths whose Q5 fifth-bit plane ends inside a stage's rows (d_in
+    640 and 1600, on both routes: 640 -> 2560 streams, 640 -> 10,624,
+    1600 -> 6400 and 1600 -> 42,496 take qmatmul's kernel), each call
+    within 1e-5 of the output's magnitude (f32 summation order only) and
+    traced to one launch of its route's kernel (:func:`qmm_trace`);
+    timed in Q4_0 at M = 1 and 8 on each of the five shapes beside its
+    bound, its plain version and ``x_bf16 @ dequantize(W)`` (L2 flushed
+    before each call)."""
+    from biogpt_tpu_torch.ops import dequantize
+    from biogpt_tpu_torch.ops.qmatmul_kernels import qmatmul, qmatmul_plain
+
+    cfg, dev, V_PAD = c.cfg, c.dev, c.V_PAD
+    D, F = cfg.d_model, cfg.d_ff
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    shapes = (("qkv", D, 3 * D), ("o", D, D), ("fc1", D, F), ("fc2", F, D),
+              ("lm_head", D, V_PAD), ("lm_head/2", D, V_PAD // 2),
+              ("lm_head/4", D, V_PAD // 4), ("4096x4096", F, F),
+              ("640x2560", 640, 2560), ("640x10624", 640, V_PAD // 4),
+              ("1600x6400", 1600, 6400), ("1600x42496", 1600, V_PAD))
+    for fmt in FORMATS:
+        for name, d_in, d_out in shapes:
+            qt = c.rand_qt(d_in, d_out, fmt=fmt)
+            worst, traces = 0.0, {}
+            for m in QMM_ROWS:
+                x = c.randn(m, d_in)
+                what = f"qmatmul {name} m={m} {fmt}"
+                y, ref = qmatmul(x, qt), qmatmul_plain(x, qt)
+                torch.cuda.synchronize()
+                err = (y - ref).abs().max().item()
+                tol = 1e-5 * ref.abs().max().item() + 1e-5
+                check(err <= tol and bool(torch.isfinite(y).all()),
+                      f"{what}: err {err} > {tol}")
+                worst = max(worst, err / tol)
+                traces[m] = qmm_trace(lambda: qmatmul(x, qt), what,
+                                      qmm_route_kernel(qt, m))
+                if fmt != "q4_0" or m not in (1, 8) or name not in (
+                        "qkv", "o", "fc1", "fc2", "lm_head"):
+                    continue
+                rec = {"kernel": "qmatmul", "sub_row": "shape", "shape": name,
+                       "m": m, "format": fmt, "max_abs_err": err, "tol": tol,
+                       "route": qmm_route_kernel(qt, m), "trace": traces[m]}
+
+                def lib_call():
+                    return x.to(torch.bfloat16) @ dequantize(qt,
+                                                             torch.bfloat16)
+                timed(rec, lambda: qmatmul(x, qt), lambda: qmatmul_plain(x, qt),
+                      lib_call, qbytes(qt) + m * d_in * 4 + m * d_out * 4,
+                      2 * m * d_in * d_out, reps=50, plain_reps=3, flush=flush)
+                c.emit(rec)
+            c.formats.setdefault("qmatmul", set()).add(fmt)
+            print(json.dumps({"qmatmul_hold": name, "d_in": d_in,
+                              "d_out": d_out, "format": fmt,
+                              "rows": list(QMM_ROWS),
+                              "worst_err_over_tol": worst,
+                              "kernels": sorted({k for t in traces.values()
+                                                 for k in t})}), flush=True)
+            del qt
+    del flush_buf
+
+
 # ------------------------------------------------ 3. batched serving kernels
 
 def ragged_past(B: int, dead=(), beyond=()) -> list:
@@ -1696,6 +1808,110 @@ def phase_refill_int8_kernels(c: Ctx) -> None:
           commit_lib, 4 * L * B * (D + 4) + B * 4, 0, reps=50)
     c.results["kv_commit_quant"] = rec
     c.emit(rec)
+    del kc, vc, ks, vs
+    hold_commit_rows(c)
+
+
+def commit_rows_case(c: Ctx, L: int, B: int, D: int):
+    """The f32 K and V rows (L, B, D) of a commit hold: random rows, and in
+    slot 0 rows whose every element divides to an exact .5 tie (absmax 127
+    and odd halves; absmax 254 and odd integers), a zero row, rows holding
+    a NaN, an inf and a -inf."""
+    kr, vr = 3 * c.randn(L, B, D), c.randn(L, B, D)
+    ar = torch.arange(D, device=c.dev, dtype=torch.float32) % 254 - 127
+    kr[0, 0] = ar + 0.5
+    kr[0, 0, 0] = 127.0
+    vr[0, 0] = 2 * ar + 1
+    vr[0, 0, 0] = 254.0
+    kr[1, 0] = 0.0
+    kr[2, 0, 5] = float("nan")
+    vr[3, 0, 7] = float("inf")
+    vr[4, 0, 9] = -float("inf")
+    return kr, vr
+
+
+def bits_equal(got, want) -> bool:
+    """The tensors equal bit for bit (f32 through their bits: NaN scales)."""
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+    return all(bool(torch.equal(bits(a), bits(b))) for a, b in zip(got, want))
+
+
+def hold_commit_rows(c: Ctx) -> None:
+    """Row 11's fused mode, ``kv_commit_quant_rows`` (the int8 steps'
+    commit with the rows' quantization folded in), against its plain
+    version on the card (``quantize_rows``, then ``kv_commit_quant_plain``)
+    bit for bit, levels and the scales' bits, on :func:`commit_rows_case`'s
+    rows: at B=32 with positions on the device (ragged with dead slots, and
+    clamped: -3 and S + 5) and at B=1 with the host's position (100, -3, S
+    + 5) and a (1,) tensor; timed on random rows at B=32 and at B=1 (the
+    host's position) beside its bound and ``quantize_rows`` + the index
+    store."""
+    from biogpt_tpu_torch.ops.decode_kernels import (
+        kv_commit_quant_rows, kv_commit_quant_rows_plain)
+    from biogpt_tpu_torch.runtime.cache import quantize_rows
+
+    cfg, dev = c.cfg, c.dev
+    D, L, S = cfg.d_model, cfg.n_layer, 512
+    for B in (32, 1):
+        kc, ks = rand_int8_cache(c, L, B, S)
+        vc, vs = rand_int8_cache(c, L, B, S)
+        kr, vr = commit_rows_case(c, L, B, D)
+        if B == 32:
+            cases = [ragged_past(B, dead=(7, 19)),
+                     [-3, S + 5] + ragged_past(B - 2)]
+            cases = [torch.tensor(p, dtype=torch.int32, device=dev)
+                     for p in cases]
+        else:
+            cases = [100, -3, S + 5,
+                     torch.tensor([S + 5], dtype=torch.int32, device=dev)]
+        same = True
+        for past in cases:
+            got = kv_commit_quant_rows(kc.clone(), vc.clone(), ks.clone(),
+                                       vs.clone(), kr, vr, past)
+            want = kv_commit_quant_rows_plain(kc.clone(), vc.clone(),
+                                              ks.clone(), vs.clone(), kr, vr,
+                                              past)
+            torch.cuda.synchronize()
+            ok = bits_equal(got, want)
+            check(ok, f"kv_commit_quant_rows B={B} past "
+                  f"{past if isinstance(past, int) else past[:3].tolist()}: "
+                  "caches differ from the plain commit")
+            same = same and ok
+        # timed on the rows a step gives (the special rows above take the
+        # divide's slow path)
+        kr, vr = c.randn(L, B, D), c.randn(L, B, D)
+        past = cases[0]
+        if B == 32:
+            slots, pos = torch.arange(B, device=dev), past.long()
+        else:
+            slots, pos = torch.arange(1, device=dev), torch.tensor([past],
+                                                                   device=dev)
+
+        def commit_lib():
+            kq, ksc = quantize_rows(kr)
+            vq, vsc = quantize_rows(vr)
+            kc[:, slots, pos] = kq
+            vc[:, slots, pos] = vq
+            ks[:, slots, 0, pos] = ksc
+            vs[:, slots, 0, pos] = vsc
+        rec = {"kernel": "kv_commit_quant_rows", "B": B, "L": L,
+               "past": past.tolist() if B == 32 else past,
+               "max_abs_err": 0.0 if same else float("nan"), "tol": 0.0}
+        timed(rec, lambda: kv_commit_quant_rows(kc, vc, ks, vs, kr, vr, past),
+              lambda: kv_commit_quant_rows_plain(kc, vc, ks, vs, kr, vr, past),
+              commit_lib, 2 * L * B * D * 4 + 2 * L * B * (D + 4)
+              + (B * 4 if B == 32 else 0), 0, reps=50)
+        rec["trace"] = {k: v for k, v in kernel_trace(
+            lambda: kv_commit_quant_rows(kc, vc, ks, vs, kr, vr, past)).items()
+            if "spin_kernel" not in k}
+        check(launches_of(rec["trace"], "kv_commit_quant_rows_kernel") == 1
+              and len(rec["trace"]) == 1,
+              f"kv_commit_quant_rows B={B}: launched {rec['trace']}")
+        if B == 32:
+            c.results["kv_commit_quant_rows"] = rec
+        c.emit(rec)
+        del kc, vc, ks, vs
 
 
 # ------------------------------------------------- 5. paged and staged steps
@@ -2955,11 +3171,16 @@ def phase_cli(c: Ctx, path: str, smi: str) -> None:
     check(rc == 0 and len(text) > 0, f"cli {argv} rc={rc}")
     launches = dict(cuda_lib.LAUNCHES)
     log(f"single-stream int8 path launches: {launches}")
-    for k in ("decode_step_fused_int8", "lm_head_argmax", "decode_gemv_b1"):
+    int8_single = ("decode_step_fused_int8", "lm_head_argmax",
+                   "decode_gemv_b1", "kv_commit_quant_rows")
+    for k in int8_single:
         check(launches[k] > 0, f"kernel {k} was not launched on the "
               "--kv-quant path")
-    count_route(c, launches, ("decode_step_fused_int8", "lm_head_argmax",
-                              "decode_gemv_b1"), "q4_0")
+    check(launches["kv_commit_quant_rows"]
+          == launches["decode_step_fused_int8"],
+          f"--kv-quant: {launches['kv_commit_quant_rows']} commits for "
+          f"{launches['decode_step_fused_int8']} steps")
+    count_route(c, launches, int8_single, "q4_0")
     check(launches["decode_step_fused"] == 0,
           "--kv-quant ran the bf16 decode step")
     config, _, _, params = load_params(path, device="cuda")
@@ -2968,6 +3189,9 @@ def phase_cli(c: Ctx, path: str, smi: str) -> None:
     eng = Engine(config, params, device="cuda")
     prompt = [2] + list(range(40, 52))
     teacher_forced_single(c, eng, prompt, 8, "q4_0")
+
+    commit_traces(c, Engine(config, params, kv_quant=True,
+                            device="cuda").params, config)
 
     # decode rate of a 128-token greedy generation, bf16 and int8 KV
     g = GenerationParams(n_predict=128, temp=0.0, stop_at_eos=False, seed=0)
@@ -2989,6 +3213,50 @@ def phase_cli(c: Ctx, path: str, smi: str) -> None:
         check(res.timings["n_new"] == 128, "greedy generation stopped early")
 
 
+def commit_traces(c: Ctx, P: dict, config) -> None:
+    """The int8 steps' commit on their paths: one greedy step
+    (``forward_fused_decode_greedy``) of the lockstep and the paged step at
+    B=32 (positions on the device) and of the single stream (B=1, the
+    host's position) on an int8 cache, traced: one launch of
+    ``kv_commit_quant_rows_kernel``, after the step's last GEMV; no
+    ``kv_commit_quant_kernel``, and no PyTorch kernel after the step's first
+    GEMV (none of ``quantize_rows``' elementwise launches)."""
+    from biogpt_tpu_torch.models.biogpt import forward_fused_decode_greedy
+    from biogpt_tpu_torch.runtime.cache import init_cache
+
+    for B, per_slot, what in ((32, False, "lockstep"), (32, True, "paged"),
+                              (1, False, "single stream")):
+        cache = init_cache(config, batch=B, max_len=512, dtype=torch.int8,
+                           device=c.dev)
+        toks = torch.randint(4, config.n_vocab - 2, (B, 1), generator=c.gen,
+                             device=c.dev)
+        past = (torch.randint(8, 73, (B,), generator=c.gen, device=c.dev,
+                              dtype=torch.int32) if B > 1 else 100)
+        seq: list = []
+        kernel_trace(lambda: forward_fused_decode_greedy(
+            P, toks, cache, past, config, kv_window=128,
+            per_slot_kv=per_slot), seq)
+        names = [n for n, _, _ in seq if "spin_kernel" not in n]
+        gemvs = [i for i, n in enumerate(names)   # the step's, not the tail's
+                 if "qgemv_b1_kernel" in n or "qgemv_mma_kernel" in n]
+        commits = [i for i, n in enumerate(names)
+                   if "kv_commit_quant_rows_kernel" in n]
+        torch_after = [n for n in names[gemvs[0]:] if "at::" in n] \
+            if gemvs else names
+        ok = (len(commits) == 1 and bool(gemvs) and commits[0] > gemvs[-1]
+              and not torch_after
+              and not any("kv_commit_quant_kernel" in n for n in names))
+        check(ok, f"int8 {what} step B={B}: the commit's launches "
+              f"{[n[:60] for n in names[gemvs[-1] if gemvs else 0:]]}")
+        print(json.dumps({"commit_trace": what, "B": B,
+                          "after_last_gemv": [n[:80] for n in
+                                              names[gemvs[-1] + 1:]]
+                          if gemvs else names,
+                          "torch_kernels_after_first_gemv": len(torch_after)}),
+              flush=True)
+        del cache
+
+
 # -------------------------------------------------------- 8. serving, e2e
 
 # kernels each serving path must launch: bf16 KV, int8 KV
@@ -2997,7 +3265,7 @@ SERVING_KERNELS = {
             "kv_commit", "lm_head_argmax_commit",
             "lm_head_logits_gmax_commit", "prefill_fused", "prefill_gemm"),
     True: ("decode_step_fused_batched_int8", "decode_gemv",
-           "batched_attention", "kv_commit_quant", "prefill_fused",
+           "batched_attention", "kv_commit_quant_rows", "prefill_fused",
            "prefill_gemm", "lm_head_argmax", "qmatmul_wide"),
 }
 
@@ -3361,10 +3629,10 @@ def phase_paged_staged_serving(c: Ctx, path: str, smi: str) -> None:
           "kv_commit", "qmatmul_wide")),
         ("paged int8", dict(paged_kv=True, kv_quant=True),
          ("decode_step_fused_paged_int8", "decode_gemv", "batched_attention",
-          "kv_commit_quant", "lm_head_argmax", "prefill_fused",
+          "kv_commit_quant_rows", "lm_head_argmax", "prefill_fused",
           "prefill_gemm"),
          ("decode_step_fused_paged_int8", "decode_gemv", "batched_attention",
-          "kv_commit_quant", "qmatmul_wide")),
+          "kv_commit_quant_rows", "qmatmul_wide")),
         ("staged bf16", dict(staged_kv=True),
          ("decode_step_fused_staged", "decode_gemv", "batched_attention",
           "qmatmul_wide", "prefill_fused", "prefill_gemm"),
@@ -3529,7 +3797,7 @@ def phase_format_e2e(c: Ctx, fmt: str, smi: str) -> None:
                   "decode_gemv_b1"}),
                 (["--temp", "0", "--kv-quant"],
                  {"qmatmul", "qmatmul_wide", "decode_step_fused_int8",
-                  "decode_gemv_b1"} | argmax_tail)):
+                  "decode_gemv_b1", "kv_commit_quant_rows"} | argmax_tail)):
             cuda_lib.reset_launch_counts()
             out = io.StringIO()
             t0 = time.perf_counter()
@@ -3562,7 +3830,7 @@ def phase_format_e2e(c: Ctx, fmt: str, smi: str) -> None:
          | ({"lm_head_argmax_commit"} if packed else {"qmatmul_wide"})),
         ("lockstep int8", dict(kv_quant=True),
          {"decode_step_fused_batched_int8", "decode_gemv",
-          "batched_attention", "kv_commit_quant"}
+          "batched_attention", "kv_commit_quant_rows"}
          | (argmax_tail if packed else {"qmatmul_wide"})),
         ("paged bf16", dict(paged_kv=True), {"decode_step_fused_paged",
                                              "decode_gemv",
@@ -4809,6 +5077,287 @@ def wide_probe(c: Ctx, smi: str) -> None:
         config, _, _, params = load_params(files["q8_0"], device="cpu")
         wide_probe_serve(c, smi, "q8_0", "lockstep bf16", {}, params, config)
 
+QMM_PROBE_ROWS = (1, 3, 8)
+
+
+def qmm_route_plans(M: int, d_in: int, d_out: int) -> dict:
+    """Where the tree's ``qmatmul`` has two routes (``qmatmul_kernels.
+    qmm_kernel_plan``): {"kernel": qmatmul's own kernel's grid, "stream":
+    the streaming GEMV's M <= 8 path's grid (warps 0)}, each only where its
+    launcher takes the shape; else {}."""
+    from biogpt_tpu_torch.ops import qmatmul_kernels as qk
+
+    kplan = getattr(qk, "qmm_kernel_plan", None)
+    if kplan is None:
+        return {}
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = {"kernel": kplan(M, d_in, d_out, n_sm)}
+    grid_x, splits = qk.stream_plan(M, d_in, d_out, n_sm)
+    if -(-(d_in // 64) // splits) <= qk.STREAM_WARPS * qk.STREAM_GPW:
+        plans["stream"] = (grid_x, splits, 0)
+    return plans
+
+
+def qmm_probe_route(x, qt, plan):
+    """One ``bgt_qmatmul`` launch on ``plan`` (a route of
+    :func:`qmm_route_plans`), outside the wrapper's own choice."""
+    from biogpt_tpu_torch.ops import cuda_lib
+    from biogpt_tpu_torch.ops import qmatmul_kernels as qk
+
+    bits = qk.check_cuda_levels(qt, (), "qmatmul")
+    M, d_in, d_out = x.shape[0], qt.d_in, qt.d_out
+    y = torch.empty(M, d_out, dtype=torch.float32, device=x.device)
+    cuda_lib.check(cuda_lib.library("qmatmul").bgt_qmatmul(
+        x.data_ptr(), qt.levels.data_ptr(), qt.scales.data_ptr(),
+        cuda_lib.ptr(qt.mins), M, d_in, d_out, qk._offset(qt), bits, *plan,
+        y.data_ptr(), cuda_lib.stream_ptr(x.device)), "qmatmul route")
+    return y
+
+
+def qmm_probe(c: Ctx, smi: str) -> None:
+    """The numbers of the M <= 8 quantized matmul (``qmatmul``, row 1) and
+    of the int8 KV commit (row 11) as the paths run them, with the helpers
+    of the holds (:func:`timed`, L2 flushed before each GEMV call;
+    :func:`kernel_trace`); only entry points every tree of the port has
+    (and, where a tree's ``qmatmul`` has two routes, each route on every
+    shape, :func:`qmm_route_plans`):
+      - ``qmatmul`` at M = 1, 3 and 8 on qkv, o, fc1, fc2 and the lm_head
+        (1024 -> 42,496) in Q4_0, the lm_head in Q4_1 and Q8_0, device and
+        host ms, each call traced;
+      - ``qmatmul``'s host cost a call, enqueued back to back
+        (:func:`qmm_probe_host_loop`);
+      - the int8 commit of a B=32 step (the lockstep and paged steps'
+        commit, from the f32 rows to the caches) and of the B=1 step at
+        the host's position (``runtime.cache.commit_rows``), device and
+        host ms, traced; the int8 lockstep and paged greedy steps at B=32
+        and the B=1 int8 step, device and host ms, traced;
+      - the CLI's decode ms/token, greedy and sampled, bf16 and int8 KV,
+        on a random 347M Q4_0 file (128 new tokens, three runs each), and,
+        where ``qmatmul`` has two routes, the sampled CLI (its lm_head is
+        ``qmatmul`` at M = 1 every token) and a 5-token prompt's prefill
+        (its projections are ``qmatmul`` at M = 8) with ``qmatmul`` as it
+        ships, every call on qmatmul's kernel, and every call on the
+        streaming path where that takes the shape, in turns.
+    Run as ``python3 chip_smoke.py --qmm-probe``; the lines are JSON."""
+    from biogpt_tpu_torch.config import GenerationParams
+    from biogpt_tpu_torch.modelio.checkpoint import load_params
+    from biogpt_tpu_torch.modelio.synthetic import write_random_quantized_model
+    from biogpt_tpu_torch.models.biogpt import forward_fused_decode_greedy
+    from biogpt_tpu_torch.ops import cuda_lib
+    from biogpt_tpu_torch.ops import decode_kernels as dk
+    from biogpt_tpu_torch.ops import dequantize
+    from biogpt_tpu_torch.ops.qmatmul_kernels import qmatmul, qmatmul_plain
+    from biogpt_tpu_torch.runtime import cache as kvc
+    from biogpt_tpu_torch.runtime.engine import Engine
+
+    cfg, dev, V_PAD = c.cfg, c.dev, c.V_PAD
+    D, F, L = cfg.d_model, cfg.d_ff, cfg.n_layer
+    card = torch.cuda.get_device_name(0)
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    def emit(rec):
+        rec.update(card=card, card_stamp=smi)
+        print(json.dumps(rec), flush=True)
+
+    shapes = {"qkv": (D, 3 * D), "o": (D, D), "fc1": (D, F), "fc2": (F, D),
+              "lm_head": (D, V_PAD)}
+    for fmt in ("q4_0", "q4_1", "q8_0"):
+        for name, (d_in, d_out) in shapes.items():
+            if fmt != "q4_0" and name != "lm_head":
+                continue
+            qt = c.rand_qt(d_in, d_out, fmt=fmt)
+            for m in QMM_PROBE_ROWS:
+                x = c.randn(m, d_in)
+                ref = qmatmul_plain(x, qt)
+                tol = 1e-5 * ref.abs().max().item() + 1e-5
+                nbytes = qbytes(qt) + m * d_in * 4 + m * d_out * 4
+
+                def lib_call():
+                    return x.to(torch.bfloat16) @ dequantize(qt,
+                                                             torch.bfloat16)
+                runs = [("qmatmul", lambda: qmatmul(x, qt))]
+                for route, plan in qmm_route_plans(m, d_in, d_out).items():
+                    runs.append((route, lambda plan=plan: qmm_probe_route(
+                        x, qt, plan)))
+                for kname, run in runs:
+                    y = run()
+                    torch.cuda.synchronize()
+                    err = (y - ref).abs().max().item()
+                    check(err <= tol, f"qmm probe {kname} {name} m={m} "
+                          f"{fmt}: {err} > {tol}")
+                    rec = {"qmm_probe": kname, "shape": name, "m": m,
+                           "format": fmt, "max_abs_err": err, "tol": tol}
+                    timed(rec, run, lambda: qmatmul_plain(x, qt),
+                          lib_call if kname == "qmatmul" else None, nbytes,
+                          2 * m * d_in * d_out, reps=50, plain_reps=3,
+                          flush=flush)
+                    rec["trace"] = kernel_trace(run)
+                    emit(rec)
+            del qt
+    del flush_buf
+    qmm_probe_host_loop(c, emit)
+
+    # the int8 commit as the steps run it
+    fused = getattr(dk, "kv_commit_quant_rows", None)
+    S = 512
+    for B in (32, 1):
+        kc, ks = rand_int8_cache(c, L, B, S)
+        vc, vs = rand_int8_cache(c, L, B, S)
+        k_rows, v_rows = c.randn(L, B, D), c.randn(L, B, D)
+        if B == 32:
+            pt = torch.tensor(ragged_past(B, dead=(7, 19)), dtype=torch.int32,
+                              device=dev)
+            if fused is not None:
+                def commit():
+                    fused(kc, vc, ks, vs, k_rows, v_rows, pt)
+            else:
+                def commit():
+                    kq, ksc = kvc.quantize_rows(k_rows)
+                    vq, vsc = kvc.quantize_rows(v_rows)
+                    dk.kv_commit_quant(kc, vc, ks, vs, kq.transpose(0, 1),
+                                       vq.transpose(0, 1),
+                                       ksc.transpose(0, 1)[..., None],
+                                       vsc.transpose(0, 1)[..., None], pt)
+        else:
+            cache = kvc.QuantKVCache(k=kc, v=vc, ks=ks, vs=vs)
+
+            def commit():
+                kvc.commit_rows(cache, k_rows, v_rows, 100)
+        rec = {"qmm_probe": "int8_commit", "B": B, "L": L,
+               "bytes": 2 * L * B * D * 4 + 2 * L * B * (D + 4),
+               "device_ms": time_ms(commit, 50),
+               "host_ms": HOST[commit]["host_ms"],
+               "trace": kernel_trace(commit)}
+        emit(rec)
+        del kc, vc, ks, vs
+
+    # the int8 steps at B=32 (lockstep, paged) and B=1
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        path = os.path.join(tmp, "biogpt347m-q4_0.bin")
+        write_random_quantized_model(path, cfg, FORMATS["q4_0"][0], seed=7)
+        config, _, _, params = load_params(path, device="cpu")
+        eng = Engine(config, params, kv_quant=True, device="cuda")
+        P = eng.params
+        for B, per_slot in ((32, False), (32, True), (1, False)):
+            cache = kvc.init_cache(config, batch=B, max_len=S,
+                                   dtype=torch.int8, device=dev)
+            toks = torch.randint(4, config.n_vocab - 2, (B, 1),
+                                 generator=c.gen, device=dev)
+            past = (torch.randint(8, 73, (B,), generator=c.gen, device=dev,
+                                  dtype=torch.int32)
+                    if B > 1 or per_slot else 100)
+
+            def step():
+                return forward_fused_decode_greedy(P, toks, cache, past,
+                                                   config, kv_window=128,
+                                                   per_slot_kv=per_slot)
+            rec = {"qmm_probe": "int8_step", "B": B,
+                   "mode": "paged" if per_slot else "lockstep",
+                   "device_ms": time_ms(step, 20),
+                   "host_ms": HOST[step]["host_ms"],
+                   "trace": kernel_trace(step)}
+            emit(rec)
+            del cache
+        del eng
+
+        # the CLI's decode rate, greedy and sampled, bf16 and int8 KV
+        prompt = [2] + list(range(40, 52))
+        engs = {False: Engine(config, params, device="cuda"),
+                True: Engine(config, params, kv_quant=True, device="cuda")}
+        for temp in (0.0, 0.9):
+            g = GenerationParams(n_predict=128, temp=temp, stop_at_eos=False,
+                                 seed=1)
+            for kv_quant in (False, True):
+                e = engs[kv_quant]
+                e.generate(prompt, g)
+                ms = [e.generate(prompt, g).timings["ms_per_token"]
+                      for _ in range(3)]
+                emit({"qmm_probe": "cli", "temp": temp,
+                      "kv_cache": "int8" if kv_quant else "bf16",
+                      "decode_ms_per_token": statistics.median(ms),
+                      "decode_ms_per_token_all": ms})
+        qmm_probe_cli_routes(engs[False], emit)
+
+
+def qmm_probe_host_loop(c: Ctx, emit) -> None:
+    """``qmatmul``'s host cost a call (Q4_0; the lm_head, fc2 and qkv at M =
+    1 and 8): 200 calls enqueued back to back with no synchronize between
+    them, so that the launch queue never fills and the loop's host time is
+    the calls' enqueue alone; 7 loops, ms a call (min, median)."""
+    from biogpt_tpu_torch.ops.qmatmul_kernels import qmatmul
+
+    for name, d_in, d_out in (("lm_head", c.cfg.d_model, c.V_PAD),
+                              ("fc2", c.cfg.d_ff, c.cfg.d_model),
+                              ("qkv", c.cfg.d_model, 3 * c.cfg.d_model)):
+        qt = c.rand_qt(d_in, d_out, fmt="q4_0")
+        for m in (1, 8):
+            x = c.randn(m, d_in)
+            for _ in range(20):
+                qmatmul(x, qt)
+            host = []
+            for _ in range(7):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(200):
+                    qmatmul(x, qt)
+                host.append((time.perf_counter() - t0) / 200 * 1e3)
+            torch.cuda.synchronize()
+            emit({"qmm_probe": "host_loop", "shape": name, "m": m,
+                  "host_ms_a_call_min": min(host),
+                  "host_ms_a_call_median": statistics.median(host)})
+        del qt
+
+
+def qmm_probe_cli_routes(eng, emit) -> None:
+    """Where ``qmatmul`` has two routes: the sampled CLI's decode ms/token
+    (128 new tokens) and a 5-token prompt's prefill ms (bf16 KV) with
+    ``qmatmul`` as it ships ("shipped"), every call on qmatmul's kernel
+    ("kernel"), and every call on the streaming path where that takes the
+    shape ("stream"), the three in turns, five rounds; each route's
+    ``qmatmul`` launches counted in its first round."""
+    from biogpt_tpu_torch.config import GenerationParams
+    from biogpt_tpu_torch.ops import cuda_lib
+    from biogpt_tpu_torch.ops import qmatmul_kernels as qk
+
+    if not hasattr(qk, "qmm_kernel_plan"):
+        return
+    shipped = qk._qmm_plan
+
+    def forced(route):
+        def plan(index, m, d_in, d_out):
+            return qmm_route_plans(m, d_in, d_out).get(
+                route, shipped(index, m, d_in, d_out))
+        return plan
+    routes = {"shipped": shipped, "kernel": forced("kernel"),
+              "stream": forced("stream")}
+    g = GenerationParams(n_predict=128, temp=0.9, stop_at_eos=False, seed=1)
+    short = [2, 40, 41, 42, 43]
+    res = {r: {"decode_ms_per_token": [], "prefill_ms": []} for r in routes}
+    try:
+        for rnd in range(5):
+            for route, plan in routes.items():
+                qk._qmm_plan = plan
+                if rnd == 0:
+                    eng.generate(short, g)
+                    cuda_lib.LAUNCHES["qmatmul"] = 0
+                    eng.generate(short, g)
+                    res[route]["qmatmul_launches_a_run"] = \
+                        cuda_lib.LAUNCHES["qmatmul"]
+                t = eng.generate(short, g).timings
+                res[route]["decode_ms_per_token"].append(t["ms_per_token"])
+                res[route]["prefill_ms"].append(t["prefill_s"] * 1e3)
+    finally:
+        qk._qmm_plan = shipped
+    for route, r in res.items():
+        emit({"qmm_probe": "cli_route", "route": route, "temp": 0.9,
+              "prompt_tokens": len(short), **r,
+              "decode_ms_per_token_median":
+                  statistics.median(r["decode_ms_per_token"]),
+              "prefill_ms_median": statistics.median(r["prefill_ms"])})
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4844,12 +5393,15 @@ def main() -> int:
     if sys.argv[1:2] == ["--attn-probe"]:
         attn_probe(c, smi)
         return 1 if FAILURES else 0
+    if sys.argv[1:2] == ["--qmm-probe"]:
+        qmm_probe(c, smi)
+        return 1 if FAILURES else 0
     phases = [(p.__name__, p) for p in (
-        phase_single_kernels, phase_serving_kernels,
+        phase_single_kernels, phase_qmatmul_kernels, phase_serving_kernels,
         phase_refill_int8_kernels, phase_paged_staged_kernels,
         phase_gemv_kernels, phase_b1_gemv_kernels,
         phase_prefill_gemm_kernels)]
-    phases.insert(4, ("phase_attention_kernels",
+    phases.insert(5, ("phase_attention_kernels",
                       lambda c: phase_attention_kernels(c, smi)))
     phases += [(f"phase_format_kernels {fmt}",
                 lambda c, fmt=fmt: phase_format_kernels(c, fmt))
@@ -4909,6 +5461,8 @@ def main() -> int:
             "biogpt_tpu/ops/pallas_decode.py:455"),
         "kv_commit_quant": ("biogpt_tpu_torch/csrc/kv_commit.cu",
                             "biogpt_tpu/ops/pallas_decode.py:839"),
+        "kv_commit_quant_rows": ("biogpt_tpu_torch/csrc/kv_commit.cu",
+                                 "biogpt_tpu/ops/pallas_decode.py:839"),
         "decode_step_fused_paged": ("biogpt_tpu_torch/csrc/decode_paged.cu",
                                     "biogpt_tpu/ops/pallas_decode.py:573"),
         "decode_step_fused_paged_int8": (

@@ -15,6 +15,7 @@ The kernel itself is held against the plain version on the card by
 
 import math
 import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -473,11 +474,13 @@ def test_cache_writers_are_ordinary_launches():
     """The kernel copies its cache rows in before it waits on the qkv
     GEMV, so every kernel that writes the caches must be an ordinary
     launch that never triggers its dependents early (attn_batched.cuh's
-    comment): kv_commit.cu's two commits (the lm_head tails' commits are
-    these) launch with ``<<<>>>`` and hold no programmatic-launch call."""
+    comment): kv_commit.cu's three commits (the lm_head tails' commits are
+    these; the int8 steps' commit quantizes its rows in the kernel) launch
+    with ``<<<>>>`` and hold no programmatic-launch call."""
     src = (CSRC / "kv_commit.cu").read_text()
     assert "kv_commit_kernel<<<" in src
     assert "kv_commit_quant_kernel<<<" in src
+    assert len(re.findall(r"kv_commit_quant_rows_kernel<\d+><<<", src)) == 3
     for word in ("launch_dependent", "cudaLaunchKernelEx", "pdl_trigger",
                  "pdl_wait", "griddepcontrol", "Programmatic"):
         assert word not in src, word

@@ -339,3 +339,48 @@ def test_attn_call_cost_is_one_layer_of_the_step():
         one, flops = kb.attn_call_cost(c, past, W, int8)
         assert L * (one - B * 4 * D * 4) == step - B * 4 + L * B * 4
         assert L * flops == step_flops
+
+
+@pytest.mark.parametrize("fmt", kb.FORMATS)
+def test_qmatmul_sub_rows_count_the_engines_planes(fmt):
+    """Row 1's sub-rows (each projection and the lm_head, M = 1 and 8) read
+    the planes the engines hold at those widths (a small config), x in and
+    y out in f32; at BioGPT-347M the M = 1 lm_head sub-row is row 1."""
+    c = BioGptConfig.tiny(d_model=128, d_ff=256, n_head=2, n_vocab=300)
+    V = -(-c.n_vocab // 128) * 128
+    recs = kb.qmatmul_sub_rows(c, fmt)
+    assert [(r["shape"], r["m"]) for r in recs] == [
+        (n, m) for n in kb.WIDE_SHAPES for m in (1, 8)]
+    for r in recs:
+        d_in, d_out = (int(w) for w in r["widths"].split(" -> "))
+        assert (d_in, d_out) == ((c.d_model, V) if r["shape"] == "lm_head"
+                                 else kb.projection_shape(c, r["shape"]))
+        assert r["plane_bytes"] == _engine_plane_bytes(
+            QTYPES[fmt], d_in, d_out, d_in + 3 * d_out)
+        assert r["bytes"] == (r["plane_bytes"] + r["m"] * d_in * 4
+                              + r["m"] * d_out * 4)
+        assert r["flops"] == 2 * r["m"] * d_in * d_out and r["row"] == 1
+    c = BioGptConfig()
+    row1 = next(r for r in kb.rows(c, fmt) if r["row"] == 1)
+    lm1 = next(r for r in kb.qmatmul_sub_rows(c, fmt)
+               if (r["shape"], r["m"]) == ("lm_head", 1))
+    assert (lm1["bytes"], lm1["flops"]) == (row1["bytes"], row1["flops"])
+
+
+def test_commit_quant_sub_rows_read_the_f32_rows():
+    """Row 11 with the quantization folded in reads the step's f32 rows
+    where the int8-row entry (row 11 itself) reads int8 rows and their
+    scales; both write the same levels and scales; the single stream's
+    position comes from the host."""
+    c = BioGptConfig()
+    D, L = c.d_model, c.n_layer
+    row11 = next(r for r in kb.rows(c) if r["row"] == 11)
+    fused = {r["B"]: r for r in kb.commit_quant_sub_rows(c)}
+    assert set(fused) == {32, 1} and all(r["row"] == 11
+                                         for r in fused.values())
+    assert (fused[32]["bytes"] - row11["bytes"]
+            == 2 * L * 32 * D * 4 - 2 * L * 32 * (D + 4))
+    assert fused[1]["bytes"] == 2 * L * D * 4 + 2 * L * (D + 4)
+    assert fused[32]["bound_by"] == "bytes" and fused[32]["flops"] == 0
+    assert fused[32]["bound_ms"] == pytest.approx(
+        fused[32]["bytes"] / kb.HBM_BYTES_PER_S * 1e3)

@@ -59,7 +59,7 @@ SUM_ORDER_RTOL = 1e-5
 
 
 @pytest.mark.parametrize("qtype", ALL_QTYPES)
-@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("m", [1, 3, 8])
 def test_qmatmul_matches_pallas(qtype, m):
     qt_j, qt_t = _qt_pair(qtype, d_out=256, d_in=128, seed=qtype)
     x = np.random.RandomState(m).randn(m, 128).astype(np.float32)
