@@ -22,7 +22,7 @@ stay in plane layout and are dequantized inside the matmul ops.
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -133,6 +133,40 @@ def load_params(path: str | Path, device="cuda"):
              config.ftype, len(records))
     params = params_from_records(records, config)
     return config, token_to_id, merges, tree_map(lambda a: a.to(dev), params)
+
+
+def should_quantize(name: str, shape: Tuple[int, ...]) -> bool:
+    """The reference's quantization rule (``biogpt.cpp:523``): "weight" in
+    the name and a 2-D tensor whose first dim is not 1."""
+    return "weight" in name and len(shape) == 2 and shape[0] != 1
+
+
+def params_from_state_dict(state_dict: Dict[str, "np.ndarray | torch.Tensor"],
+                           config: BioGptConfig, qtype: int | None = None,
+                           device="cuda") -> dict:
+    """Torch-layout state dict (HF names; numpy arrays or CPU tensors) ->
+    the params on ``device``, as ``params_from_records`` builds them from
+    a model file. Tensors are squeezed as the converter squeezes them;
+    ``qtype`` (a GGML_TYPE_* code) quantizes those :func:`should_quantize`
+    selects through the codec, so the planes are those of the quantized
+    file."""
+    dev = resolve_device(device)
+    records: Dict[str, TensorRecord] = {}
+    for name, arr in state_dict.items():
+        if isinstance(arr, torch.Tensor):
+            arr = arr.detach().cpu().numpy()
+        arr = np.squeeze(np.asarray(arr, dtype=np.float32))
+        if qtype is not None and should_quantize(name, arr.shape):
+            records[name] = TensorRecord(
+                name=name, shape=tuple(arr.shape), ttype=qtype,
+                data=codecs.quantize_rows(arr, qtype))
+        else:
+            if not arr.flags.writeable:   # e.g. a memory-mapped array
+                arr = arr.copy()
+            records[name] = TensorRecord(
+                name=name, shape=tuple(arr.shape),
+                ttype=codecs.GGML_TYPE_F32, data=arr)
+    return tree_map(lambda a: a.to(dev), params_from_records(records, config))
 
 
 def _tensor_from_numpy(a) -> torch.Tensor:

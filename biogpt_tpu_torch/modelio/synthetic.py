@@ -4,6 +4,14 @@ No BioGPT checkpoint ships with the repository, so these helpers write a
 random model with the exact HF tensor-name/shape contract and a small
 working character-level BPE vocabulary, through the real file format.
 
+``make_state_dict`` draws the JAX package's seeded gaussian state dict
+(``np.random.RandomState``, the same draws in the same order, so the
+arrays are equal); ``write_synthetic_model`` writes it as an f32 (or f16)
+model file and ``write_synthetic_hf_dir`` as the HuggingFace checkpoint
+directory the converter reads (``write_hf_dir``: ``config.json``,
+``vocab.json``, ``merges.txt``, ``pytorch_model.bin``). Nothing is cached
+on disk.
+
 ``write_random_quantized_model`` writes random ggml block BYTES straight
 into a Q4_0 or Q4_1 file (random levels, f16 scales in [0.005, 0.02],
 Q4_1 minima in [-0.2, -0.05]) — the same draw ranges as the JAX package's
@@ -17,6 +25,7 @@ would make every weight 16 times larger).
 
 from __future__ import annotations
 
+import json
 import string
 from pathlib import Path
 from typing import Dict, List, Tuple
@@ -27,7 +36,7 @@ from ..config import (BioGptConfig, FTYPE_Q4_0, FTYPE_Q4_1, FTYPE_Q5_0,
                       FTYPE_Q5_1, FTYPE_Q8_0)
 from ..quant import codecs
 from . import ggml_format
-from .ggml_format import TensorRecord
+from .ggml_format import TensorRecord, tensor_record_from_array
 
 _FTYPE_FOR_QTYPE = {
     codecs.GGML_TYPE_Q4_0: FTYPE_Q4_0,
@@ -84,6 +93,77 @@ def _tensor_shapes(config: BioGptConfig) -> List[Tuple[str, Tuple[int, ...]]]:
                    (p + "fc1.weight", (ff, d)), (p + "fc1.bias", (ff,)),
                    (p + "fc2.weight", (d, ff)), (p + "fc2.bias", (d,))]
     return shapes
+
+
+def make_state_dict(config: BioGptConfig, seed: int = 0,
+                    scale: float = 0.02) -> Dict[str, np.ndarray]:
+    """Random torch-layout state dict with the HF BioGPT names and shapes:
+    N(0, scale) f32 weights and biases, layer norms ones and zeros."""
+    rng = np.random.RandomState(seed)
+    sd = {}
+    for name, shape in _tensor_shapes(config):
+        if "layer_norm" in name:
+            fill = 1.0 if name.endswith("weight") else 0.0
+            sd[name] = np.full(shape, fill, np.float32)
+        else:
+            sd[name] = (rng.randn(*shape) * scale).astype(np.float32)
+    return sd
+
+
+def write_synthetic_model(path: str | Path, config: BioGptConfig | None = None,
+                          seed: int = 0, use_f16: bool = False) -> BioGptConfig:
+    """Write :func:`make_state_dict`'s model as an f32 file (f16 for the 2-D
+    weights with ``use_f16``); returns its config."""
+    config = config or BioGptConfig.tiny()
+    vocab, merges = make_char_vocab(config.n_vocab)
+    sd = make_state_dict(config, seed=seed)
+    records = (tensor_record_from_array(name, arr, use_f16=use_f16)
+               for name, arr in sd.items())
+    ggml_format.write_model_file(path, config, vocab, merges, records)
+    return config
+
+
+def write_hf_dir(dir_path: str | Path, config: BioGptConfig,
+                 state_dict: Dict[str, np.ndarray]) -> None:
+    """Write ``state_dict`` as a HuggingFace BioGPT checkpoint directory:
+    ``config.json`` (the HF schema's keys), ``vocab.json`` and
+    ``merges.txt`` (:func:`make_char_vocab`) and ``pytorch_model.bin``."""
+    import torch
+
+    dir_path = Path(dir_path)
+    dir_path.mkdir(parents=True, exist_ok=True)
+    vocab, merges = make_char_vocab(config.n_vocab)
+    hf = {
+        "model_type": "biogpt",
+        "vocab_size": config.n_vocab,
+        "hidden_size": config.d_model,
+        "intermediate_size": config.d_ff,
+        "num_hidden_layers": config.n_layer,
+        "num_attention_heads": config.n_head,
+        "max_position_embeddings": config.n_positions,
+    }
+    with open(dir_path / "config.json", "w", encoding="utf-8") as f:
+        json.dump(hf, f)
+    with open(dir_path / "vocab.json", "w", encoding="utf-8") as f:
+        json.dump(vocab, f)
+    with open(dir_path / "merges.txt", "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n")
+        for a, b in merges:
+            f.write(f"{a} {b}\n")
+    torch.save({k: torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in state_dict.items()},
+               dir_path / "pytorch_model.bin")
+
+
+def write_synthetic_hf_dir(dir_path: str | Path,
+                           config: BioGptConfig | None = None,
+                           seed: int = 0) -> BioGptConfig:
+    """Write :func:`make_state_dict`'s model as a HuggingFace checkpoint
+    directory (:func:`write_hf_dir`), the converter's input; returns its
+    config."""
+    config = config or BioGptConfig.tiny()
+    write_hf_dir(dir_path, config, make_state_dict(config, seed=seed))
+    return config
 
 
 def _random_blocks(rng: np.random.Generator, n_blocks: int, qtype: int) -> bytes:

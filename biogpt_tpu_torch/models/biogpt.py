@@ -9,7 +9,7 @@ new token sees all real tokens written so far).
 
 ``forward`` serves prefill, the serving refill (per-row ``last_index``) and
 per-op decode (a host-int ``past``, or per-slot positions (B,) on the
-device). ``forward_prefill_fused`` runs a serving refill group through the
+device); ``logits_for_tokens`` scores whole sequences through it. ``forward_prefill_fused`` runs a serving refill group through the
 whole-prompt kernel (``ops.prefill_kernels.prefill_fused``).
 ``forward_fused_decode``, ``forward_fused_decode_greedy`` and
 ``forward_fused_decode_sampled`` run the whole-model decode step
@@ -51,7 +51,8 @@ from ..ops.prefill_kernels import prefill_fused
 from ..ops.qmatmul_kernels import (lm_head_argmax, lm_head_argmax_commit,
                                    lm_head_logits_gmax_commit)
 from ..runtime.cache import (KVCache, QuantKVCache, commit_rows,
-                             dequant_layer, quantize_rows, update_layer)
+                             dequant_layer, init_cache, quantize_rows,
+                             update_layer)
 
 
 def _layer_norm(x, w, b, eps: float) -> torch.Tensor:
@@ -213,6 +214,19 @@ def forward(params: dict, tokens: torch.Tensor, cache: KVCache, past,
     if logits_mode == "last":
         logits = logits[:, 0, :]
     return logits, cache
+
+
+def logits_for_tokens(params: dict, tokens: torch.Tensor,
+                      config: BioGptConfig, compute_dtype=torch.float32,
+                      cache_dtype=torch.float16) -> torch.Tensor:
+    """Full-sequence logits (B, N, n_vocab) of ``tokens`` (B, N) in one
+    causal pass over a fresh cache on the tokens' device."""
+    B, N = tokens.shape
+    cache = init_cache(config, batch=B, max_len=N, dtype=cache_dtype,
+                       device=tokens.device)
+    logits, _ = forward(params, tokens, cache, 0, config,
+                        compute_dtype=compute_dtype, logits_mode="all")
+    return logits
 
 
 def forward_prefill_fused(params: dict, ids: torch.Tensor,

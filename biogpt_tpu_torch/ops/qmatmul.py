@@ -21,7 +21,7 @@ from typing import Any
 import torch
 
 from ..quant.codecs import QK
-from ..quant.layouts import QuantizedTensor, unpack_levels
+from ..quant.layouts import QuantizedTensor, from_planes, unpack_levels
 from .qmatmul_kernels import qmatmul, qmatmul_wide, supports, supports_wide
 
 # At and above this many rows, quantized matmuls dequantize the weight and
@@ -34,11 +34,8 @@ def _levels(w: QuantizedTensor) -> torch.Tensor:
 
 
 def dequantize(w: QuantizedTensor, dtype=torch.float32) -> torch.Tensor:
-    """The dequantized kernel (d_in, d_out)."""
-    out = _levels(w).to(dtype) * w.scales.to(dtype).repeat_interleave(QK, dim=0)
-    if w.mins is not None:
-        out = out + w.mins.to(dtype).repeat_interleave(QK, dim=0)
-    return out
+    """The dequantized kernel (d_in, d_out) (``quant.layouts.from_planes``)."""
+    return from_planes(w, dtype)
 
 
 def _as(x: torch.Tensor, dtype) -> torch.Tensor:

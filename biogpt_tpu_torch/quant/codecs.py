@@ -9,12 +9,20 @@ QK=32, nibble packing low=j / high=j+16):
   Q5_1 (24 B/block): fp16 d, m; u32 qh; 16 B nibbles. w = d * q + m
   Q8_0 (34 B/block): fp16 d;        32 int8.       w = d * q
 
-The port reads quantized files, so this module keeps the decoders:
-dequantization widens the stored fp16 scale back to f32. Its encoders are
-the Q5_0, Q5_1 and Q8_0 ones of the ggml reference (as the JAX package's
-quantize tool implements them), which the random model writer
-(``modelio.synthetic``) uses to re-quantize one random model into these
-formats. Blocks never straddle rows (row length = ne[0] = d_in).
+The decoders widen the stored fp16 scale back to f32. The encoders are
+the ggml reference's five, bit-equal to the JAX package's numpy codecs
+(the quantize tool, ``params_from_state_dict`` and the random model
+writer use them):
+
+  Q4_0: d = signed_absmax / -8;  q = clamp(floor(x/d + 8.5), 0, 15)
+  Q4_1: d = (max-min)/15;        q = clamp(floor((x-min)/d + 0.5), 0, 15)
+  Q5_0: d = signed_absmax / -16; q = clamp(floor(x/d + 16.5), 0, 31)
+  Q5_1: d = (max-min)/31;        q = clamp(floor((x-min)/d + 0.5), 0, 31)
+  Q8_0: d = absmax / 127;        q = roundf(x/d)   (half away from zero)
+
+Scales and minima are stored as IEEE fp16 (round to nearest even); the
+reciprocal that quantizes is taken of the f32 scale, as in ggml. Blocks
+never straddle rows (row length = ne[0] = d_in).
 """
 
 from __future__ import annotations
@@ -125,10 +133,34 @@ def _pack_qh(q: np.ndarray) -> np.ndarray:
     return qh.astype("<u4").view(np.uint8).reshape(-1, 4)
 
 
+def _signed_absmax(blocks: np.ndarray) -> np.ndarray:
+    """Each block's value of largest magnitude, sign kept (ggml "max"; the
+    first of equal magnitudes)."""
+    return blocks[np.arange(blocks.shape[0]), np.argmax(np.abs(blocks), 1)]
+
+
+def _quantize_q4_0(blocks: np.ndarray) -> np.ndarray:
+    d = _signed_absmax(blocks) / np.float32(-8.0)
+    q = _trunc_shift(blocks * _inverse(d)[:, None], 8.5, 15)
+    out = np.empty((blocks.shape[0], 18), dtype=np.uint8)
+    out[:, 0:2] = _fp16_bytes(d).reshape(-1, 2)
+    out[:, 2:] = _pack_nibbles(q)
+    return out
+
+
+def _quantize_q4_1(blocks: np.ndarray) -> np.ndarray:
+    mn, mx = blocks.min(axis=1), blocks.max(axis=1)
+    d = (mx - mn) / np.float32(15.0)
+    q = _trunc_shift((blocks - mn[:, None]) * _inverse(d)[:, None], 0.5, 15)
+    out = np.empty((blocks.shape[0], 20), dtype=np.uint8)
+    out[:, 0:2] = _fp16_bytes(d).reshape(-1, 2)
+    out[:, 2:4] = _fp16_bytes(mn).reshape(-1, 2)
+    out[:, 4:] = _pack_nibbles(q)
+    return out
+
+
 def _quantize_q5_0(blocks: np.ndarray) -> np.ndarray:
-    # d from the block's value of largest magnitude, sign kept (ggml "max")
-    smax = blocks[np.arange(blocks.shape[0]), np.argmax(np.abs(blocks), 1)]
-    d = smax / np.float32(-16.0)
+    d = _signed_absmax(blocks) / np.float32(-16.0)
     q = _trunc_shift(blocks * _inverse(d)[:, None], 16.5, 31)
     out = np.empty((blocks.shape[0], 22), dtype=np.uint8)
     out[:, 0:2] = _fp16_bytes(d).reshape(-1, 2)
@@ -161,6 +193,8 @@ def _quantize_q8_0(blocks: np.ndarray) -> np.ndarray:
 
 
 _ENCODERS = {
+    GGML_TYPE_Q4_0: _quantize_q4_0,
+    GGML_TYPE_Q4_1: _quantize_q4_1,
     GGML_TYPE_Q5_0: _quantize_q5_0,
     GGML_TYPE_Q5_1: _quantize_q5_1,
     GGML_TYPE_Q8_0: _quantize_q8_0,
@@ -169,13 +203,24 @@ _ENCODERS = {
 
 def quantize_blocks(x: np.ndarray, qtype: int) -> np.ndarray:
     """float32 values (size % 32 == 0) -> raw ggml block bytes (n_blocks,
-    BLOCK_SIZES[qtype]) of Q5_0, Q5_1 or Q8_0."""
+    BLOCK_SIZES[qtype])."""
     if qtype not in _ENCODERS:
         raise ValueError(f"no encoder for ggml type {qtype}")
     x = np.ascontiguousarray(x, dtype=np.float32)
     if x.size % QK != 0:
         raise ValueError(f"element count {x.size} not a multiple of QK={QK}")
     return _ENCODERS[qtype](x.reshape(-1, QK))
+
+
+def quantize_rows(x: np.ndarray, qtype: int) -> bytes:
+    """A 2-D weight (n_rows, row_len) -> its ggml bytes, quantized row by
+    row (the row length is the codec's, so blocks never straddle rows)."""
+    x = np.ascontiguousarray(x, dtype=np.float32)
+    if x.ndim != 2:
+        raise ValueError("quantize_rows expects a 2-D array")
+    if x.shape[1] % QK != 0:
+        raise ValueError(f"row length {x.shape[1]} not a multiple of {QK}")
+    return quantize_blocks(x.reshape(-1), qtype).tobytes()
 
 
 # ---------------------------------------------------------------- decoders

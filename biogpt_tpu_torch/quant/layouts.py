@@ -153,6 +153,12 @@ def to_lookup_planes(raw, shape_rows_cols: tuple[int, int], qtype: int) -> Quant
     return _qt(levels.T, scales.T, mins.T if mins is not None else None, qtype)
 
 
+def quantize_to_planes(w_out_in: np.ndarray, qtype: int) -> QuantizedTensor:
+    """float32 (d_out, d_in) weight -> plane layout, through the codec."""
+    return to_planes(codecs.quantize_rows(w_out_in, qtype), w_out_in.shape,
+                     qtype)
+
+
 def pack_nibble_planes(qt: QuantizedTensor, chunks: int = 1) -> QuantizedTensor:
     """Pack a 4/5-bit-format plane tensor into one dense byte plane.
 
@@ -216,3 +222,14 @@ def unpack_nibble_planes(qt: QuantizedTensor, chunks: int = 1) -> QuantizedTenso
     levels = torch.cat([unpack_levels(qt.levels[..., c * rows:(c + 1) * rows, :],
                                       qt.qtype) for c in range(chunks)], dim=-2)
     return dataclasses.replace(qt, levels=levels, packed=False)
+
+
+def from_planes(qt: QuantizedTensor, dtype=torch.float32) -> torch.Tensor:
+    """Plane layout (packed or not) -> the dequantized (d_in, d_out) kernel
+    (or an (L, d_in, d_out) stack) in ``dtype`` on the planes' device:
+    ``levels * scale (+ min)``, each computed in ``dtype``."""
+    qt = unpack_nibble_planes(qt)
+    w = qt.levels.to(dtype) * qt.scales.to(dtype).repeat_interleave(QK, dim=-2)
+    if qt.mins is not None:
+        w = w + qt.mins.to(dtype).repeat_interleave(QK, dim=-2)
+    return w

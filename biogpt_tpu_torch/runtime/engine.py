@@ -147,7 +147,10 @@ class Engine:
 
     ``compute_dtype``: torch.bfloat16 (default) or torch.float32 for
     parity work. ``cache_dtype`` defaults to bf16 when the fused decode step
-    is live, else float16; ``kv_quant`` forces an int8 cache. ``device``
+    is live, else float16; ``kv_quant`` forces an int8 cache.
+    ``causal=False`` keeps the reference's unmasked mode in every forward
+    (each new token sees every real token written so far) and turns the
+    fused decode step off, as in the JAX engine. ``device``
     defaults to "cuda" and raises without a card; the CPU runs every
     kernel's plain version. ``mesh`` / ``tp_fused_decode``: this rank's
     shard of a tensor-parallel engine (see the module docstring; the
@@ -160,6 +163,7 @@ class Engine:
 
     def __init__(self, config: BioGptConfig, params: dict,
                  compute_dtype=torch.bfloat16, cache_dtype=None,
+                 causal: bool = True,
                  max_seq: Optional[int] = None, pack_q4: bool = True,
                  kv_quant: bool = False, device="cuda", mesh=None,
                  tp_fused_decode: bool = False, health_check: bool = True):
@@ -169,6 +173,7 @@ class Engine:
             cache_dtype = torch.int8
         self.config = config
         self.compute_dtype = compute_dtype
+        self.causal = causal
         self.max_seq = max_seq or config.n_positions
         self.allow_kernels = pack_q4
         # a tripped on-device finite bit fails the generation (the bit is
@@ -179,7 +184,8 @@ class Engine:
         self.params, self._fwd, self.device = place_params(
             config, params, pack_q4, device, mesh, tp_fused_decode)
         self._fused_decode = (
-            mesh is None and pack_q4 and compute_dtype != torch.float32
+            mesh is None and pack_q4 and causal
+            and compute_dtype != torch.float32
             and cache_dtype in (None, torch.bfloat16, torch.int8)
             and supports_layers(self.params.get("layers", {}), torch.bfloat16,
                                 batch=1, n_new=1))
@@ -199,6 +205,21 @@ class Engine:
         """KV-attention window: the live length bucketed up (floor 128)."""
         return min(_bucket(needed, floor=128), self.max_seq)
 
+    def warmup(self, prompt_len: int = 8, n_tokens: int = 4,
+               sampled: bool = True) -> None:
+        """Run the paths of a first request before it comes: two
+        generations from a ``prompt_len``-token prompt (sampled when
+        ``sampled``), then a greedy one when ``sampled``. On the card this
+        builds the kernels' libraries and pays the first launches and the
+        allocator's first requests."""
+        gen = GenerationParams(n_predict=n_tokens, seed=0, stop_at_eos=False,
+                               temp=0.8 if sampled else 0.0)
+        prompt = list(range(2, 2 + prompt_len))
+        self.generate(prompt, gen)
+        self.generate(prompt, gen)
+        if sampled:
+            self.generate(prompt, dataclasses.replace(gen, temp=0.0))
+
     def new_cache(self, batch: int = 1, max_len: Optional[int] = None) -> KVCache:
         return init_cache(self.config, batch=batch,
                           max_len=max_len or self.max_seq,
@@ -216,7 +237,7 @@ class Engine:
         buf[:, :n] = ids
         logits, cache = self._fwd(
             self.params, torch.from_numpy(buf).to(self.device), cache, 0,
-            self.config, compute_dtype=self.compute_dtype,
+            self.config, compute_dtype=self.compute_dtype, causal=self.causal,
             allow_kernels=self.allow_kernels, logits_mode="last",
             kv_window=self._window(padded), last_index=n - 1)
         return logits, cache, n
@@ -233,7 +254,7 @@ class Engine:
                                         compute_dtype=self.compute_dtype,
                                         kv_window=window)
         return self._fwd(self.params, tok, cache, past, self.config,
-                         compute_dtype=self.compute_dtype,
+                         compute_dtype=self.compute_dtype, causal=self.causal,
                          allow_kernels=self.allow_kernels, logits_mode="last",
                          kv_window=window)
 
@@ -345,14 +366,22 @@ class Engine:
 
     # -------------------------------------------------------------- scoring
 
-    def score(self, token_ids) -> np.ndarray:
-        """Full-sequence logits (B, N, V) as numpy."""
+    def logits(self, token_ids) -> torch.Tensor:
+        """Full-sequence logits (B, N, V) f32 on the engine's device, from
+        one forward over a fresh cache; a 1-D ``token_ids`` is one row."""
         ids = torch.as_tensor(np.asarray(token_ids, dtype=np.int64))
         if ids.dim() == 1:
             ids = ids[None, :]
         cache = self.new_cache(batch=ids.shape[0], max_len=ids.shape[1])
         logits, _ = self._fwd(self.params, ids.to(self.device), cache, 0,
                               self.config, compute_dtype=self.compute_dtype,
+                              causal=self.causal,
                               allow_kernels=self.allow_kernels,
                               logits_mode="all")
-        return logits.float().cpu().numpy()
+        return logits.float()
+
+    def score(self, token_ids, batch: bool = False) -> np.ndarray:
+        """:meth:`logits` as numpy (B, N, V), for perplexity and parity
+        tests. ``batch`` is the JAX engine's flag, which changes nothing
+        there either: the rows come from the array's shape."""
+        return self.logits(token_ids).cpu().numpy()
