@@ -28,7 +28,10 @@ staging) and returns the rows for the caller's staging.
 ``forward(mesh=...)`` is one rank's shard of the tensor-parallel per-op
 forward (``parallel/tp.py``): local heads, sums over the model axis at the
 o and fc2 joins, the column-parallel lm_head's logits gathered, and, with
-``tp_seq_shard``, sequence-parallel prefill.
+``tp_seq_shard``, sequence-parallel prefill. With ``layout`` it is the
+sharded route of unpacked weights (``parallel/sharding.py``): q, k and v
+unfused, each weight a shard or whole, and attention on local heads or on
+all of them with a whole-feature cache.
 
 Position ids past the embedding table clamp to its last row, as the JAX
 gather clamps: a serving slot can run a chunk past its cache's end before
@@ -80,6 +83,41 @@ def _project(x, wb, compute_dtype, allow_kernels: bool, mesh=None,
     return y + wb["b"].to(torch.float32)
 
 
+def _is_shard(mesh, layout, name: str) -> bool:
+    """Whether weight ``name`` is this rank's shard on ``mesh`` rather than
+    whole: on the packed tensor-parallel route (no ``layout``) every one
+    is; on the sharded route of unpacked weights, those of ``layout``
+    (``parallel/sharding.py``)."""
+    return mesh is not None and (layout is None or name in layout.sharded)
+
+
+def _column(x, wb, name: str, compute_dtype, allow_kernels: bool, mesh,
+            layout, whole: bool) -> torch.Tensor:
+    """A column-parallel projection: this rank's columns where the weight
+    is a shard, all-gathered over the model axis where ``whole``."""
+    y = _project(x, wb, compute_dtype, allow_kernels)
+    if whole and _is_shard(mesh, layout, name):
+        y = mesh.all_gather_last(y)
+    return y
+
+
+def _row(x, wb, name: str, x_cols: bool, compute_dtype, allow_kernels: bool,
+         mesh, layout, seq_scatter: bool = False) -> torch.Tensor:
+    """A row-parallel projection of ``x``, which holds this rank's columns
+    of the input where ``x_cols`` (else all of them). A sharded weight
+    takes this rank's columns (sliced from a whole ``x``) and sums its
+    partial product over the model axis; a whole one takes ``x`` whole
+    (gathered from this rank's columns)."""
+    if not _is_shard(mesh, layout, name):
+        if x_cols:
+            x = mesh.all_gather_last(x)
+        return _project(x, wb, compute_dtype, allow_kernels)
+    if not x_cols:
+        n = x.shape[-1] // mesh.model
+        x = x[..., mesh.index * n:(mesh.index + 1) * n]
+    return _project(x, wb, compute_dtype, allow_kernels, mesh, seq_scatter)
+
+
 def _per_row(v, B: int, device) -> torch.Tensor:
     """A host int or a (B,) tensor as a (B,) int64 tensor on ``device``."""
     if isinstance(v, torch.Tensor):
@@ -99,11 +137,13 @@ def _attention(layer: dict, x, cache: KVCache, layer_ix: int, past,
                config: BioGptConfig, compute_dtype, causal: bool,
                n_valid, allow_kernels: bool,
                kv_window: Optional[int], mesh=None,
-               tp_seq_shard: bool = False):
+               tp_seq_shard: bool = False, layout=None):
     B, N, _ = x.shape
-    # under tensor parallelism each shard owns n_head / tp contiguous heads:
-    # its q/k/v columns are exactly theirs, and attention is shard-local
-    tp = mesh.model if mesh is not None else 1
+    # under tensor parallelism each shard owns n_head / tp contiguous heads
+    # (the sharded route's layout may keep every head on every rank): its
+    # q/k/v columns are exactly theirs, and attention is shard-local
+    local = mesh is not None and (layout is None or layout.heads)
+    tp = mesh.model if local else 1
     H, Dk = config.n_head // tp, config.d_kv
     D = H * Dk
     scaling = 1.0 / math.sqrt(Dk)
@@ -112,12 +152,13 @@ def _attention(layer: dict, x, cache: KVCache, layer_ix: int, past,
         q, k, v = torch.split(qkv, D, dim=-1)
         q = q * scaling
     else:
-        q = _project(x, layer["q"], compute_dtype, allow_kernels) * scaling
-        k = _project(x, layer["k"], compute_dtype, allow_kernels)
-        v = _project(x, layer["v"], compute_dtype, allow_kernels)
+        q, k, v = (_column(x, layer[n], n, compute_dtype, allow_kernels,
+                           mesh, layout, whole=not local)
+                   for n in ("q", "k", "v"))
+        q = q * scaling
 
     update_layer(cache, layer_ix, k, v, past,
-                 group=mesh.group if mesh is not None else None)
+                 group=mesh.group if local else None)
     S = cache.max_len if kv_window is None else min(kv_window, cache.max_len)
     if isinstance(cache, QuantKVCache):
         # int8 levels x row scales, dequantized into the compute dtype
@@ -149,15 +190,16 @@ def _attention(layer: dict, x, cache: KVCache, layer_ix: int, past,
         # the dequantized value dtype, not int8 (which would zero p < 1)
         attn = attn.to(kv_dtype).to(torch.float32)
     ctx = torch.einsum("bhns,bshd->bnhd", attn, v_all).reshape(B, N, D)
-    return _project(ctx, layer["o"], compute_dtype, allow_kernels, mesh,
-                    tp_seq_shard)
+    return _row(ctx, layer["o"], "o", local, compute_dtype, allow_kernels,
+                mesh, layout, tp_seq_shard)
 
 
 def forward(params: dict, tokens: torch.Tensor, cache: KVCache, past,
             config: BioGptConfig, compute_dtype=torch.float32,
             causal: bool = True, logits_mode: str = "last",
             allow_kernels: bool = True, kv_window: Optional[int] = None,
-            last_index=None, mesh=None, tp_seq_shard: bool = False):
+            last_index=None, mesh=None, tp_seq_shard: bool = False,
+            layout=None):
     """One forward step (prefill or per-op decode) -> (logits, cache):
     (B, n_vocab) for "last" or (B, N, n_vocab) for "all". The cache rows
     [past, past + N) are written in place. ``past``: a host int, or (B,)
@@ -172,7 +214,12 @@ def forward(params: dict, tokens: torch.Tensor, cache: KVCache, past,
     the axis, N > 1): Megatron sequence parallelism -- the residual stream
     and LayerNorms run on this rank's N / tp rows, activations all-gather
     over the sequence before the column-parallel products, and the
-    row-parallel joins reduce-scatter back to local rows."""
+    row-parallel joins reduce-scatter back to local rows.
+
+    ``layout`` (``parallel.sharding.Layout``) with ``mesh``: the sharded
+    route of unpacked weights, where only the weights of the layout are
+    this rank's shards and the rest are whole; the joins follow each
+    weight's kind (``parallel/sharding.py``)."""
     B, N = tokens.shape
     dev = tokens.device
     emb = embedding_lookup(tokens, params["embed_tokens"]) * math.sqrt(
@@ -194,12 +241,12 @@ def forward(params: dict, tokens: torch.Tensor, cache: KVCache, past,
         h = _layer_norm(x, layer["ln0"]["w"], layer["ln0"]["b"], config.ln_eps)
         x = x + _attention(layer, gather_seq(h), cache, i, past, config,
                            compute_dtype, causal, n_valid, allow_kernels,
-                           kv_window, mesh, tp_seq_shard)
+                           kv_window, mesh, tp_seq_shard, layout)
         h = _layer_norm(x, layer["ln1"]["w"], layer["ln1"]["b"], config.ln_eps)
-        h = _gelu(_project(gather_seq(h), layer["fc1"], compute_dtype,
-                           allow_kernels))
-        x = x + _project(h, layer["fc2"], compute_dtype, allow_kernels, mesh,
-                         tp_seq_shard)
+        h = _gelu(_column(gather_seq(h), layer["fc1"], "fc1", compute_dtype,
+                          allow_kernels, mesh, layout, whole=False))
+        x = x + _row(h, layer["fc2"], "fc2", _is_shard(mesh, layout, "fc1"),
+                     compute_dtype, allow_kernels, mesh, layout, tp_seq_shard)
     # the final LN is row-independent: local rows first, then gathered
     x = gather_seq(_layer_norm(x, params["final_ln"]["w"],
                                params["final_ln"]["b"], config.ln_eps))
@@ -208,7 +255,7 @@ def forward(params: dict, tokens: torch.Tensor, cache: KVCache, past,
         x = torch.gather(x, 1, idx[:, None, None].expand(B, 1, x.shape[-1]))
     logits = matmul(x, params["lm_head"], compute_dtype=compute_dtype,
                     allow_kernels=allow_kernels)
-    if mesh is not None:   # the column-parallel lm_head's vocab shards
+    if _is_shard(mesh, layout, "lm_head"):   # the column-parallel vocab
         logits = mesh.all_gather_last(logits)
     logits = logits[..., :config.n_vocab]   # the lm_head may be lane-padded
     if logits_mode == "last":

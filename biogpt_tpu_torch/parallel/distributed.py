@@ -1,10 +1,11 @@
-"""Multi-process bring-up and the collectives of the model axis
-(``biogpt_tpu/parallel/distributed.py``).
+"""Multi-process bring-up, the mesh's process groups and the collectives
+of its axes (``biogpt_tpu/parallel/distributed.py``).
 
 Every rank runs the same program (one process per card), and
 ``initialize`` joins them into one ``torch.distributed`` process group;
-``parallel.mesh.make_mesh`` then gives each rank its shard of the model
-axis. The group defaults to NCCL (one card per rank); the CPU tests and
+``parallel.mesh.make_mesh`` then gives each rank its place on the (data,
+model) mesh, with the process groups of its two axes from
+:func:`mesh_groups`. The group defaults to NCCL (one card per rank); the CPU tests and
 ranks that share one card (NCCL refuses two ranks on one device) ask for
 gloo. Failure handling is fail-fast: any rank's error ends the job. A
 rank whose script finished waits at a bounded barrier for the others
@@ -76,6 +77,30 @@ def broadcast(x: torch.Tensor, group=None) -> torch.Tensor:
     t = x.detach().clone().contiguous()
     dist.broadcast(t, 0, group)
     return t
+
+
+def mesh_groups(data: int, model: int) -> tuple:
+    """The process groups of this rank on a (data, model) mesh over every
+    rank of the job, laid out as ``jax.make_mesh((data, model))`` lays out
+    devices: rank r sits at (r // model, r % model). -> (its model axis'
+    group: the ranks of its data replica; its data axis' group: the ranks
+    that share its model index); None for an axis of one rank.
+    ``torch.distributed.new_group`` must be called by every rank for every
+    group, in the same order, even for groups it is not in: this is the
+    one place that calls it."""
+    rank = dist.get_rank()
+    model_group = data_group = None
+    if model > 1:
+        for d in range(data):
+            g = dist.new_group([d * model + m for m in range(model)])
+            if rank // model == d:
+                model_group = g
+    if data > 1:
+        for m in range(model):
+            g = dist.new_group([d * model + m for d in range(data)])
+            if rank % model == m:
+                data_group = g
+    return model_group, data_group
 
 
 def all_gather(x: torch.Tensor, group=None, dim: int = -1) -> torch.Tensor:

@@ -20,6 +20,13 @@ per-shard column groups (q_s | k_s | v_s), so a plain column shard is one
 rank's q, k and v; the lm_head's vocab pads to a multiple of tp * 128 so
 every shard's slice stays lane-aligned.
 
+The data axis: the forward takes a replica's own rows. Where the data
+axis divides the batch B, a replica runs its B / data slots (``Mesh.
+batch_rows``) and its cache holds only those; otherwise every replica runs
+the whole batch (JAX ``tp_forward``'s ``dspec``). The engines apply the
+rule; the halves (``supports_layers_tp`` at the local batch) and the
+commits then run at the local batch.
+
 ``make_tp_forward`` gives the drop-in for ``models.biogpt.forward`` that
 the engines call: the per-op body with the collectives (and, with
 ``seq_parallel``, Megatron sequence parallelism for prefill shapes), or,
@@ -187,7 +194,8 @@ def make_tp_forward(mesh: Mesh, seq_parallel: bool = True,
             and last_index is None and kv_window is not None
             and (isinstance(cache, QuantKVCache)
                  or cache.k.dtype == torch.bfloat16)
-            # the local planes: their widths are the shard's own
+            # the local planes (their widths are the shard's own) at the
+            # replica's local batch
             and supports_layers_tp(params.get("layers", {}), 1, batch=B))
         if use_fused:
             return _fused_decode_body(params, tokens, cache, past, config,

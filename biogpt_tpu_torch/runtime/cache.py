@@ -13,7 +13,9 @@ through :func:`dequant_layer` (level x scale in f32, one rounding).
 
 Under tensor parallelism (``parallel/``) each rank holds a shard of the
 feature axis, (n_layer, batch, max_len, d_model / tp): heads are contiguous
-in d_model, so this is head sharding. An int8 shard's scale planes are
+in d_model, so this is head sharding. On a mesh with a data axis that
+divides the serving batch, ``batch`` is the replica's own slots
+(``Mesh.batch_rows``). An int8 shard's scale planes are
 whole on every rank: :func:`quantize_rows` completes each row's absmax
 over the model axis' process group, so every rank writes the same
 full-row scale and the sharded levels equal the unsharded ones.
@@ -58,7 +60,9 @@ class QuantKVCache(KVCache):
 
 def init_cache(config: BioGptConfig, batch: int = 1, max_len: int | None = None,
                dtype=torch.float16, device="cpu", tp: int = 1) -> KVCache:
-    """Zeroed caches; ``tp`` > 1 builds one rank's feature shard."""
+    """Zeroed caches; ``tp`` > 1 builds one rank's feature shard, and
+    ``batch`` is the rows this rank holds (a replica's own slots on a data
+    axis)."""
     shape = (config.n_layer, batch, max_len or config.n_positions,
              config.d_model // tp)
     if dtype == torch.int8:
@@ -79,7 +83,8 @@ def quantize_rows(x: torch.Tensor, group=None, amax=None):
     when ``x`` is this rank's shard of the rows; the absmax is completed
     with an all-reduce max over it (order-free, so the scale is the
     unsharded row's). ``amax``: the local absmax, where a kernel already
-    took it."""
+    took it. On a (data, model) mesh ``group`` is the model axis' group,
+    never the world's: the replicas' rows are other rows."""
     x = x.to(torch.float32)
     if amax is None:
         amax = x.abs().amax(-1)

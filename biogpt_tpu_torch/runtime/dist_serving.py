@@ -15,8 +15,13 @@ arrive at one place (an HTTP port on rank 0). So:
 - slot-freeing decisions that read drained tokens (EOS) ride one more
   broadcast (``serve(decision_sync=)``), since each process drains on its
   own clock;
-- the tokens are the same on every rank (the logits are gathered whole);
+- the tokens are the same on every rank (the logits are gathered whole,
+  and on a data axis each chunk's tokens are gathered over the replicas);
   rank 0 resolves futures and streams tokens, the others discard them.
+
+Both broadcasts run over the whole job (the default group): on a (data,
+model) mesh every rank of every replica runs the same scheduler on the
+same requests, and the engine splits the slots among the replicas.
 
 Failure handling is fail-fast: an error on any rank ends the job.
 """

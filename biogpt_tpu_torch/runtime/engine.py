@@ -12,14 +12,21 @@ per-row scales (``runtime.cache.QuantKVCache``); the fused step then runs
 in its int8 mode.
 
 On a mesh (``mesh``, ``parallel.mesh.make_mesh``; one process per rank,
-each holding its shard) the weights are TP-packed and sharded
+each holding its shard) the weights take one of two routes, by the JAX
+engine's gates (:func:`place_params`). With ``pack_q4`` and a model that
+splits over the model axis they are TP-packed and sharded
 (``parallel/tp.py``) and every forward runs the tensor-parallel one: the
 prompt per op (sequence-parallel where its bucket divides the model
 axis), and decode per op or, with ``tp_fused_decode``, through the TP
-decode step's kernel halves with a bf16 (default) or int8 cache. Every
-rank runs ``generate`` with the same arguments; the logits, and so the
-tokens, are the same on every rank. ``pack_q4=False`` on a mesh (the JAX
-package's GSPMD path) belongs to a later slice and raises.
+decode step's kernel halves with a bf16 (default) or int8 cache.
+Otherwise (``pack_q4=False``, or heads, widths or scale blocks the model
+axis does not divide: the JAX package's GSPMD route) the unpacked weights
+are sharded where their planes divide and whole elsewhere
+(``parallel/sharding.py``), and the per-op forward runs without a kernel.
+Every rank runs ``generate`` with the same arguments; the logits, and so
+the tokens, are the same on every rank. ``generate`` (B=1) runs whole on
+every replica of a data axis, with no collective over it; ``score`` of B
+rows runs each replica's own rows where the data axis divides B.
 
 ``generate`` decodes in chunks of ``SCAN_LEN`` steps. The sampled token,
 the token buffer, the EOS flag and the health bit stay on the device; the
@@ -103,32 +110,51 @@ def _pack_matmul_weights(params: dict) -> dict:
     return out
 
 
+@dataclass
+class Placement:
+    """The engines' weights on their device (:func:`place_params`):
+    ``route`` is None without a mesh, "tp" for the packed tensor-parallel
+    route, "sharded" for the route of unpacked weights (the JAX package's
+    GSPMD route); ``kv_shards`` is the model-axis shards of the KV cache's
+    features (1: whole)."""
+    params: dict
+    forward: Callable
+    device: torch.device
+    route: Optional[str] = None
+    kv_shards: int = 1
+
+
 def place_params(config: BioGptConfig, params: dict, pack_q4: bool, device,
-                 mesh=None, tp_fused_decode: bool = False):
-    """The engines' weights on their device -> (params, forward, device).
+                 mesh=None, tp_fused_decode: bool = False) -> Placement:
+    """The engines' weights on their device, by the JAX engines' gates.
     Without a mesh: the kernels' packing (:func:`_pack_matmul_weights`,
     where ``pack_q4``) on ``device``, and ``models.biogpt.forward``. On a
-    mesh (the JAX engines' mesh gates): TP-packed params sharded onto the
-    rank's device, and the TP forward; a model the TP path cannot split,
-    or unpacked weights (the JAX package's GSPMD path), raises."""
+    mesh, where ``pack_q4`` and the model splits over the model axis
+    (``parallel.tp.supports_tp``): TP-packed params sharded onto the
+    rank's device, and the TP forward. On a mesh otherwise: the unpacked
+    weights' shards (``parallel/sharding.py``), and a forward that runs no
+    kernel."""
     if mesh is None:
         dev = resolve_device(device)
         if pack_q4:
             params = _pack_matmul_weights(params)
-        return tree_map(lambda a: a.to(dev), params), forward, dev
+        return Placement(tree_map(lambda a: a.to(dev), params), forward, dev)
     from ..parallel.tp import (make_tp_forward, pack_params_tp,
                                shard_params_tp, supports_tp)
 
     tp = mesh.model
-    if not pack_q4 or not supports_tp(config, tp):
-        raise NotImplementedError(
-            "a mesh without the packed tensor-parallel path (pack_q4=False, "
-            f"or a model that does not split over {tp} shards: the JAX "
-            "package's GSPMD sharding) belongs to a later slice of the "
-            "PyTorch port")
-    params = shard_params_tp(pack_params_tp(params, tp), mesh)
-    return (params, make_tp_forward(mesh, fused_decode=tp_fused_decode),
-            mesh.device)
+    if pack_q4 and supports_tp(config, tp):
+        params = shard_params_tp(pack_params_tp(params, tp), mesh)
+        return Placement(params,
+                         make_tp_forward(mesh, fused_decode=tp_fused_decode),
+                         mesh.device, "tp", tp)
+    from ..parallel.sharding import (make_sharded_forward, shard_layout,
+                                     shard_params)
+
+    layout = shard_layout(params, config, mesh)
+    return Placement(shard_params(params, mesh, layout),
+                     make_sharded_forward(mesh, layout), mesh.device,
+                     "sharded", tp if layout.heads else 1)
 
 
 @dataclass
@@ -175,14 +201,19 @@ class Engine:
         self.compute_dtype = compute_dtype
         self.causal = causal
         self.max_seq = max_seq or config.n_positions
-        self.allow_kernels = pack_q4
         # a tripped on-device finite bit fails the generation (the bit is
         # read with each chunk's tokens) unless the check is off
         self.health_check = health_check
         self.mesh = mesh
-        self._tp_fused = mesh is not None and tp_fused_decode
-        self.params, self._fwd, self.device = place_params(
-            config, params, pack_q4, device, mesh, tp_fused_decode)
+        placed = place_params(config, params, pack_q4, device, mesh,
+                              tp_fused_decode)
+        self.params, self._fwd, self.device = (placed.params, placed.forward,
+                                               placed.device)
+        self._kv_shards = placed.kv_shards
+        self._tp_fused = placed.route == "tp" and tp_fused_decode
+        # the sharded route of unpacked weights runs no kernel, as the JAX
+        # engine's allow_pallas is off on its GSPMD route
+        self.allow_kernels = pack_q4 and placed.route != "sharded"
         self._fused_decode = (
             mesh is None and pack_q4 and causal
             and compute_dtype != torch.float32
@@ -220,11 +251,20 @@ class Engine:
         if sampled:
             self.generate(prompt, dataclasses.replace(gen, temp=0.0))
 
+    def _rows(self, batch: int) -> tuple:
+        """This replica's rows [lo, hi) of a batch (all of them without a
+        mesh, or where the data axis does not divide the batch)."""
+        return (self.mesh.batch_rows(batch) if self.mesh is not None
+                else (0, batch))
+
     def new_cache(self, batch: int = 1, max_len: Optional[int] = None) -> KVCache:
-        return init_cache(self.config, batch=batch,
+        """A zeroed cache of this rank's rows of ``batch`` (:meth:`_rows`)
+        and its features' shard."""
+        lo, hi = self._rows(batch)
+        return init_cache(self.config, batch=hi - lo,
                           max_len=max_len or self.max_seq,
                           dtype=self.cache_dtype, device=self.device,
-                          tp=self.mesh.model if self.mesh is not None else 1)
+                          tp=self._kv_shards)
 
     def prefill(self, cache: KVCache, token_ids):
         """Run the prompt through the model -> (logits (1, V), cache, n)."""
@@ -368,17 +408,24 @@ class Engine:
 
     def logits(self, token_ids) -> torch.Tensor:
         """Full-sequence logits (B, N, V) f32 on the engine's device, from
-        one forward over a fresh cache; a 1-D ``token_ids`` is one row."""
+        one forward over a fresh cache; a 1-D ``token_ids`` is one row. On
+        a data axis that divides B each replica runs its own rows and the
+        logits are gathered over the replicas once."""
         ids = torch.as_tensor(np.asarray(token_ids, dtype=np.int64))
         if ids.dim() == 1:
             ids = ids[None, :]
-        cache = self.new_cache(batch=ids.shape[0], max_len=ids.shape[1])
-        logits, _ = self._fwd(self.params, ids.to(self.device), cache, 0,
-                              self.config, compute_dtype=self.compute_dtype,
+        B = ids.shape[0]
+        lo, hi = self._rows(B)
+        cache = self.new_cache(batch=B, max_len=ids.shape[1])
+        logits, _ = self._fwd(self.params, ids[lo:hi].to(self.device), cache,
+                              0, self.config, compute_dtype=self.compute_dtype,
                               causal=self.causal,
                               allow_kernels=self.allow_kernels,
                               logits_mode="all")
-        return logits.float()
+        logits = logits.float()
+        if hi - lo < B:
+            logits = self.mesh.gather_data(logits)
+        return logits
 
     def score(self, token_ids, batch: bool = False) -> np.ndarray:
         """:meth:`logits` as numpy (B, N, V), for perplexity and parity

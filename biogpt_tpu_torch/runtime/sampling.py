@@ -73,9 +73,32 @@ def top_k_top_p_probs(logits: torch.Tensor, top_k: int, top_p: float,
     return probs, top_ids.to(torch.int32)
 
 
-def _draw(probs: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+def _uniform(shape, generator: torch.Generator, device,
+             rows=None) -> torch.Tensor:
+    """Uniform draws of ``shape`` (n, k). ``rows`` = (total, index): the
+    n rows are rows ``index`` (a slice, or a tensor of row numbers) of a
+    batch of ``total``, and the draw is made for the whole batch and
+    theirs kept, so that a replica's shard of a batch draws what the whole
+    batch does and every replica's generator advances alike."""
+    if rows is None:
+        return torch.rand(shape, generator=generator, device=device)
+    total, index = rows
+    return torch.rand((total, shape[1]), generator=generator,
+                      device=device)[index]
+
+
+def skip_rows(generator: torch.Generator, total: int, k: int,
+              device) -> None:
+    """Advance ``generator`` past the draw of a (total, k) batch that
+    :func:`sample_per_request` would make, for a replica that owns none of
+    the batch's rows."""
+    torch.rand((total, k), generator=generator, device=device)
+
+
+def _draw(probs: torch.Tensor, generator: torch.Generator,
+          rows=None) -> torch.Tensor:
     """(B,) column drawn from each row of ``probs`` (Gumbel-max)."""
-    u = torch.rand(probs.shape, generator=generator, device=probs.device)
+    u = _uniform(probs.shape, generator, probs.device, rows)
     gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
     return torch.argmax(torch.log(probs.clamp_min(1e-38)) + gumbel, dim=-1)
 
@@ -93,11 +116,14 @@ def sample_top_k_top_p(logits: torch.Tensor, generator: torch.Generator,
 def sample_per_request(logits: torch.Tensor, generator: torch.Generator,
                        top_k: torch.Tensor, top_p: torch.Tensor,
                        temp: torch.Tensor, max_top_k: int = 64,
-                       gmax: torch.Tensor | None = None) -> torch.Tensor:
+                       gmax: torch.Tensor | None = None,
+                       rows=None) -> torch.Tensor:
     """(B,) int32 ids with per-row sampling parameters: ``top_k`` (B,) int
     (at most ``max_top_k`` count), ``top_p`` and ``temp`` (B,) float; a
     temp <= 0 row takes its argmax, ``top_ids[:, 0]``. ``gmax``: the
-    logits' 128-column group maxima, when the caller has them."""
+    logits' 128-column group maxima, when the caller has them. ``rows``:
+    (total, index) where these B rows are a replica's rows ``index`` of a
+    batch of ``total`` (:func:`_uniform`)."""
     B, V = logits.shape
     k_max = min(max_top_k, V)
     temp = temp.to(torch.float32).reshape(B, 1)
@@ -118,7 +144,7 @@ def sample_per_request(logits: torch.Tensor, generator: torch.Generator,
     keep = (((cumsum - probs) < top_p) | (top_p >= 1.0)) & in_k
     probs = torch.where(keep, probs, torch.zeros_like(probs))
     probs = probs / probs.sum(-1, keepdim=True)
-    choice = _draw(probs, generator)
+    choice = _draw(probs, generator, rows)
     sampled = torch.gather(top_ids, 1, choice[:, None])[:, 0]
     return torch.where(temp[:, 0] <= 0.0, top_ids[:, 0], sampled).to(
         torch.int32)

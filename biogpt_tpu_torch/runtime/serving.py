@@ -49,18 +49,34 @@ event only, never on the device. The caches are updated in place.
 
 On a mesh (``mesh``; one process per rank, each holding its shard, every
 rank calling ``serve`` with the same requests -- ``runtime.dist_serving``
-keeps them so) the weights are TP-packed and sharded and every forward is
-the tensor-parallel one (``parallel/tp.py``), as in the JAX package: the
-single-device fused step, its greedy and sampled tails, paged and staged
-KV and the refill kernel are off; refills run the per-op TP forward
-(sequence-parallel where the bucket divides the model axis); the lockstep
-step runs per op or, with ``tp_fused_decode``, through the TP decode
-step's kernel halves, with a bf16 cache by default. ``decision_sync``
-replicates one rank's slot-freeing decisions (see ``serve``).
-``pack_q4=False`` on a mesh (the JAX package's GSPMD path) belongs to a
-later slice and raises. A pool of B=1 runs the per-op step unless it is
-paged: the lockstep fused step takes per-slot device positions from B=2
-on, the paged one at every B.
+keeps them so) the single-device fused step, its greedy and sampled tails,
+paged and staged KV and the refill kernel are off, and the weights take
+the engine's routes (``engine.place_params``): with ``pack_q4`` and a
+model that splits over the model axis, TP-packed and sharded, every
+forward the tensor-parallel one (``parallel/tp.py``): refills per op
+(sequence-parallel where the bucket divides the model axis), the lockstep
+step per op or, with ``tp_fused_decode``, through the TP decode step's
+kernel halves, with a bf16 cache by default; otherwise the unpacked
+weights' shards and the per-op forward without a kernel
+(``parallel/sharding.py``).
+
+The data axis: where it divides B, a replica holds and steps only its own
+B / data slots (``Mesh.batch_rows``): their KV, positions, tokens and
+sampling parameters. Every rank keeps the whole host state. A replica
+prefills only the members of each refill group whose slots it owns
+(joining nothing if it owns none); after the wave one data-axis gather of
+the replicas' first tokens, a (B,) vector, puts every first token on
+every rank. A chunk's steps exchange nothing over the data axis (a slot's
+next input token is its replica's own); at its end one gather of the
+(chunk, B / data) token rings and the health bits builds the drain vector
+(first tokens, the (chunk, B) ring, the bits ANDed). The sampler draws
+every row's random numbers for the whole batch and keeps its own rows, so
+a replica draws what the single-device engine draws for those slots.
+Where the data axis does not divide B every replica runs the whole batch.
+``decision_sync`` replicates one rank's slot-freeing decisions (see
+``serve``). A pool of B=1 runs the per-op step unless it is paged: the
+lockstep fused step takes per-slot device positions from B=2 on, the
+paged one at every B.
 """
 
 from __future__ import annotations
@@ -89,7 +105,7 @@ from .cache import KVCache, init_cache, merge_rows, write_block
 from .engine import _bucket, place_params
 from .health import DrainStallError, ModelHealthError
 from .metrics import ServingMetrics
-from .sampling import greedy, sample_per_request
+from .sampling import greedy, sample_per_request, skip_rows
 
 
 @dataclass
@@ -147,14 +163,22 @@ class _Fetch:
 
 @dataclass
 class _Slots:
-    """Per-slot device state: last tokens, positions, the first tokens of
-    fresh refills, sampling parameters."""
-    toks: torch.Tensor       # (B,) int32
-    lengths: torch.Tensor    # (B,) int32
-    first_buf: torch.Tensor  # (B,) int32
-    temps: torch.Tensor      # (B,) f32
-    top_ps: torch.Tensor     # (B,) f32
-    top_ks: torch.Tensor     # (B,) int32
+    """Per-slot device state of this replica's own slots (all B without a
+    data axis that divides B): last tokens, positions, the first tokens of
+    fresh refills, sampling parameters; and every slot's first token."""
+    toks: torch.Tensor       # (B_local,) int32
+    lengths: torch.Tensor    # (B_local,) int32
+    first_buf: torch.Tensor  # (B_local,) int32
+    temps: torch.Tensor      # (B_local,) f32
+    top_ps: torch.Tensor     # (B_local,) f32
+    top_ks: torch.Tensor     # (B_local,) int32
+    # (B,) int32: every slot's first token, the replicas' first_bufs
+    # gathered; first_buf itself where the replica owns every slot
+    firsts: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        if self.firsts is None:
+            self.firsts = self.first_buf
 
 
 class BatchedEngine:
@@ -199,9 +223,20 @@ class BatchedEngine:
         # undrained chunks the host may run ahead of the drain threads
         self.pipeline = max(1, pipeline)
         self.mesh = mesh
-        self._tp_fused = mesh is not None and tp_fused_decode
-        params, self._fwd, self.device = place_params(
-            config, params, pack_q4, device, mesh, tp_fused_decode)
+        placed = place_params(config, params, pack_q4, device, mesh,
+                              tp_fused_decode)
+        params, self._fwd, self.device = (placed.params, placed.forward,
+                                          placed.device)
+        self._kv_shards = placed.kv_shards
+        self._tp_fused = placed.route == "tp" and tp_fused_decode
+        # this replica's own slots [_lo, _lo + B_local): B / data where the
+        # data axis divides B, else every slot
+        self._lo, hi = (mesh.batch_rows(self.B) if mesh is not None
+                        else (0, self.B))
+        self.B_local = hi - self._lo
+        # a sampled step's draws: the whole batch's, this replica's rows kept
+        self._step_rows = ((self.B, slice(self._lo, hi))
+                           if self.B_local < self.B else None)
         if kv_quant:
             if cache_dtype not in (None, torch.int8):
                 raise ValueError("kv_quant forces an int8 cache")
@@ -232,8 +267,10 @@ class BatchedEngine:
         self.cache_dtype = cache_dtype
         self.params = params
         # the per-op step's matmul kernels, where the JAX engine allows its
-        # Pallas kernels: on the accelerator
-        self.allow_kernels = pack_q4 and self.device.type == "cuda"
+        # Pallas kernels: on the accelerator, and not on the route of
+        # unpacked weights (JAX's GSPMD route)
+        self.allow_kernels = (pack_q4 and self.device.type == "cuda"
+                              and placed.route != "sharded")
         lm = self.params.get("lm_head")
         self._fused_greedy = (
             self._fused_decode and isinstance(lm, QuantizedTensor)
@@ -247,13 +284,11 @@ class BatchedEngine:
         # runs, not in interpret mode); tests set it on the CPU
         self._prefill_fused = self._fused_decode and self.device.type == "cuda"
 
-    def _tp(self) -> int:
-        return self.mesh.model if self.mesh is not None else 1
-
     def new_cache(self) -> KVCache:
-        return init_cache(self.config, batch=self.B, max_len=self.max_seq,
-                          dtype=self.cache_dtype, device=self.device,
-                          tp=self._tp())
+        """This rank's cache: its replica's slots, its features' shard."""
+        return init_cache(self.config, batch=self.B_local,
+                          max_len=self.max_seq, dtype=self.cache_dtype,
+                          device=self.device, tp=self._kv_shards)
 
     # ------------------------------------------------------------- prefill
 
@@ -275,49 +310,61 @@ class BatchedEngine:
         on and the shape passes ``supports_prefill``, else the per-op
         forward --, each request's first token sampled with its own
         parameters, the rows merged over the slots' cache prefix and the
-        slot vectors updated -> (cache, prompt lengths)."""
+        slot vectors updated -> (cache, prompt lengths). On a data axis a
+        replica runs only the pairs of its own slots (none: it only keeps
+        its sampler in step) and draws its rows of the group's draw."""
         lens = [len(req.prompt_ids) for _, req in pairs]
-        n = len(pairs)
         padded = min(_bucket(max(lens)), self.max_seq)
-        nr = min(_bucket(n, floor=1), self.B)
-        ids = np.zeros((nr, padded), dtype=np.int64)
-        last = np.zeros((nr,), dtype=np.int64)
-        for r, (_, req) in enumerate(pairs):
-            ids[r, :lens[r]] = req.prompt_ids
-            last[r] = lens[r] - 1
-        reqs = [req for _, req in pairs]
-        # dummy rows sample from dummy logits; never emitted
-        temps, top_ps, top_ks = self._gen_vectors(
-            reqs + [Request(prompt_ids=[0])] * (nr - n), gen)
+        nr = min(_bucket(len(pairs), floor=1), self.B)
+        own = [r for r, (slot, _) in enumerate(pairs)
+               if self._lo <= slot < self._lo + self.B_local]
         dev = self.device
         cfg = self.config
+        if not own:
+            skip_rows(generator, nr, min(self.MAX_TOP_K, cfg.n_vocab), dev)
+            return cache, lens
+        n = len(own)
+        nr_own = min(_bucket(n, floor=1), self.B_local)
+        ids = np.zeros((nr_own, padded), dtype=np.int64)
+        last = np.zeros((nr_own,), dtype=np.int64)
+        for i, r in enumerate(own):
+            ids[i, :lens[r]] = pairs[r][1].prompt_ids
+            last[i] = lens[r] - 1
+        temps, top_ps, top_ks = self._gen_vectors(
+            [pairs[r][1] for r in own], gen)
         ids_d = _to_device(ids, torch.int64, dev)
         last_d = _to_device(last, torch.int64, dev)
         if self._prefill_fused and supports_prefill(
-                self.params["layers"], nr, padded, n_head=cfg.n_head,
+                self.params["layers"], nr_own, padded, n_head=cfg.n_head,
                 n_positions=cfg.n_positions):
             logits, small = forward_prefill_fused(
                 self.params, ids_d, cfg, last_d,
                 compute_dtype=self.compute_dtype, cache_dtype=self.cache_dtype)
         else:
-            small = init_cache(cfg, batch=nr, max_len=padded,
+            small = init_cache(cfg, batch=nr_own, max_len=padded,
                                dtype=self.cache_dtype, device=dev,
-                               tp=self._tp())
+                               tp=self._kv_shards)
             logits, small = self._fwd(
                 self.params, ids_d, small, 0, cfg,
                 compute_dtype=self.compute_dtype, allow_kernels=False,
                 logits_mode="last", last_index=last_d)
-        firsts = sample_per_request(logits, generator, top_ks, top_ps, temps,
-                                    max_top_k=self.MAX_TOP_K)[:n]
-        slots = _to_device([slot for slot, _ in pairs], torch.int64, dev)
-        rows = torch.arange(n, device=dev)
-        merge_rows(cache, small, slots, rows)
+        # padding rows sample nothing; the draw is the whole group's, of
+        # which a replica that owns every slot keeps the first n rows
+        firsts = sample_per_request(
+            logits[:n], generator, top_ks, top_ps, temps,
+            max_top_k=self.MAX_TOP_K,
+            rows=(nr, slice(0, n) if self.B_local == self.B
+                  else _to_device(own, torch.int64, dev)))
+        slots = _to_device([pairs[r][0] - self._lo for r in own],
+                           torch.int64, dev)
+        merge_rows(cache, small, slots, torch.arange(n, device=dev))
         st.toks[slots] = firsts
         st.first_buf[slots] = firsts
-        st.lengths[slots] = _to_device(lens, torch.int32, dev)
-        st.temps[slots] = temps[:n]
-        st.top_ps[slots] = top_ps[:n]
-        st.top_ks[slots] = top_ks[:n]
+        st.lengths[slots] = _to_device([lens[r] for r in own], torch.int32,
+                                       dev)
+        st.temps[slots] = temps
+        st.top_ps[slots] = top_ps
+        st.top_ks[slots] = top_ks
         return cache, lens
 
     def _split_refill_groups(self, pairs):
@@ -392,20 +439,23 @@ class BatchedEngine:
         if all_greedy:
             return greedy(logits), ok
         return sample_per_request(logits, generator, st.top_ks, st.top_ps,
-                                  st.temps, max_top_k=self.MAX_TOP_K), ok
+                                  st.temps, max_top_k=self.MAX_TOP_K,
+                                  rows=self._step_rows), ok
 
     def _run_chunk(self, st: _Slots, cache: KVCache, live, window: int,
                    all_greedy: bool, generator):
         """``chunk`` lockstep steps enqueued without a host read -> (cache,
         the drain vector: first tokens (B,), the (chunk, B) token ring and
-        the chunk's finite bit)."""
+        the chunk's finite bit). On a data axis the steps run this
+        replica's slots, and the replicas' rings and bits meet in one
+        gather at the end."""
         # slots with no bound request decode garbage; their positions reset
         # to 0 so they never widen a window (a past-0 slot attends only its
         # current token, commits its rows at [0, chunk) of its own slot,
         # and a later refill overwrites [0, prompt) before any read)
         st.lengths = torch.where(live, st.lengths,
                                  torch.zeros_like(st.lengths))
-        ring = torch.zeros(self.chunk, self.B, dtype=torch.int32,
+        ring = torch.zeros(self.chunk, self.B_local, dtype=torch.int32,
                            device=self.device)
         health = torch.ones((), dtype=torch.bool, device=self.device)
         # chunk-local KV staging: a bf16 cache at B > 1, unpaged
@@ -436,9 +486,14 @@ class BatchedEngine:
         if staged:   # one block write per slot at its chunk-start position
             write_block(cache.k, k_stage, lengths0)
             write_block(cache.v, v_stage, lengths0)
-        fetch = torch.cat([st.first_buf, ring.reshape(-1),
-                           health.to(torch.int32)[None]])
-        return cache, fetch
+        tail = torch.cat([ring.reshape(-1), health.to(torch.int32)[None]])
+        if self.B_local < self.B:
+            d = self.mesh.data
+            g = self.mesh.gather_data(tail).reshape(d, -1)
+            ring = g[:, :-1].reshape(d, self.chunk, self.B_local)
+            tail = torch.cat([ring.transpose(0, 1).reshape(-1),
+                              g[:, -1].amin()[None]])
+        return cache, torch.cat([st.firsts, tail])
 
     # --------------------------------------------------------------- serve
 
@@ -640,13 +695,17 @@ class BatchedEngine:
                 raise drain_errors[0]
 
         dev = self.device
+        Bl = self.B_local
+        first_buf = torch.zeros(Bl, dtype=torch.int32, device=dev)
         st = _Slots(
-            toks=torch.zeros(self.B, dtype=torch.int32, device=dev),
-            lengths=torch.zeros(self.B, dtype=torch.int32, device=dev),
-            first_buf=torch.zeros(self.B, dtype=torch.int32, device=dev),
-            temps=torch.zeros(self.B, dtype=torch.float32, device=dev),
-            top_ps=torch.ones(self.B, dtype=torch.float32, device=dev),
-            top_ks=torch.ones(self.B, dtype=torch.int32, device=dev))
+            toks=torch.zeros(Bl, dtype=torch.int32, device=dev),
+            lengths=torch.zeros(Bl, dtype=torch.int32, device=dev),
+            first_buf=first_buf,
+            temps=torch.zeros(Bl, dtype=torch.float32, device=dev),
+            top_ps=torch.ones(Bl, dtype=torch.float32, device=dev),
+            top_ks=torch.ones(Bl, dtype=torch.int32, device=dev),
+            firsts=(None if Bl == self.B else
+                    torch.zeros(self.B, dtype=torch.int32, device=dev)))
 
         def req_done(req: Optional[Request]) -> bool:
             """n_predict reached, EOS emitted, or aborted (monotonic)."""
@@ -755,6 +814,9 @@ class BatchedEngine:
                     sched_new[slot] = 1   # the prefill-sampled first token
                     fresh_slots.append(slot)
                     refilled.append(slot)
+            if pairs and self.B_local < self.B:
+                # the wave's one data-axis exchange: every first token
+                st.firsts = self.mesh.gather_data(st.first_buf)
             return refilled
 
         try:
@@ -796,7 +858,7 @@ class BatchedEngine:
                     if fresh_slots:
                         # a prompt filled the cache to within one chunk: no
                         # chunk runs, but its first token is still owed
-                        vals = st.first_buf.cpu().numpy()
+                        vals = st.firsts.cpu().numpy()
                         with state_lock:
                             for b in fresh_slots:
                                 if not req_done(slot_req[b]):
@@ -816,8 +878,9 @@ class BatchedEngine:
                 # launch-time binding snapshot; also the live mask
                 bound = [slot_req[b] if busy[b] else None
                          for b in range(self.B)]
-                live = _to_device([r is not None for r in bound], torch.bool,
-                                  dev)
+                live = _to_device([r is not None for r in
+                                   bound[self._lo:self._lo + Bl]],
+                                  torch.bool, dev)
                 cache, fetch = self._run_chunk(st, cache, live, window,
                                                all_greedy, generator)
                 fetch = _Fetch(fetch)

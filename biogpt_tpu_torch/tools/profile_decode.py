@@ -120,9 +120,26 @@ def profile_single(config, params, args, stamp: str) -> None:
           flush=True)
 
 
+def step_slots(eng, past: int):
+    """The slot state of :func:`profile_batched`'s steps on ``eng``'s B
+    slots: every slot at token 40 and position ``past``, sampled at temp
+    0.9, top-p 0.9, top-k 40."""
+    from ..runtime.serving import _Slots
+
+    def full(v, dtype):
+        return torch.full((eng.B,), v, dtype=dtype, device=eng.device)
+
+    return _Slots(toks=full(40, torch.int32),
+                  lengths=full(past, torch.int32),
+                  first_buf=full(0, torch.int32),
+                  temps=full(0.9, torch.float32),
+                  top_ps=full(0.9, torch.float32),
+                  top_ks=full(40, torch.int32))
+
+
 def profile_batched(config, params, args, stamp: str) -> None:
     from ..runtime.engine import _bucket
-    from ..runtime.serving import BatchedEngine, _Slots
+    from ..runtime.serving import BatchedEngine
 
     B = args.batch
     eng = BatchedEngine(config, params, max_batch=B, max_seq=512, chunk=16,
@@ -132,16 +149,8 @@ def profile_batched(config, params, args, stamp: str) -> None:
     gen.manual_seed(0)
     live = torch.ones(B, dtype=torch.bool, device=dev)
 
-    def full(v, dtype):
-        return torch.full((B,), v, dtype=dtype, device=dev)
-
     def prepare():
-        st = _Slots(toks=full(40, torch.int32),
-                    lengths=full(args.past, torch.int32),
-                    first_buf=full(0, torch.int32),
-                    temps=full(0.9, torch.float32),
-                    top_ps=full(0.9, torch.float32),
-                    top_ks=full(40, torch.int32))
+        st = step_slots(eng, args.past)
         torch.cuda.synchronize()
         return st, eng.new_cache()
 

@@ -129,6 +129,22 @@ logs its seconds):
      lockstep serve's), with a refill wave and teacher-forced TP steps of
      the kernels against the plain halves; then a (1, 1) mesh in this
      process: the same serve, and ``Engine(mesh).generate`` at B=1;
+  11a. the rest of the mesh on the same file (:func:`phase_mesh_serving`,
+     every rank a process on the one card, started by the launcher with
+     gloo, this script with ``--mesh-rank``): (a) a (2, 2) mesh of four
+     ranks serves the uniform 96 greedy requests at B=32 through
+     ``BatchedEngine(mesh, tp_fused_decode=True)`` with a bf16 and an int8
+     cache and a mixed serve: each rank holds 16 slots of D / 2 features,
+     launches exactly the TP route's kernels, exchanges over the data axis
+     once a chunk and once a refill wave; the four ranks' ids equal, and
+     counted against phase 11's (1, 2) serve; teacher-forced TP steps at
+     the local batch against the plain halves; (b) ``Engine(mesh=(2, 1))
+     .generate`` at B=1 on two ranks: the (1, 1) mesh engine's ids; (c) the
+     route of unpacked weights (``pack_q4=False``, f32) on a (1, 2) mesh:
+     a traced 16-token generate with no launch of the port's kernels, its
+     scores within 1e-3 of the single-device engine's, ids equal where the
+     top-2 margin exceeds that, a serve of 8 requests, and each rank's
+     resident weight bytes (the sharded planes halved, the rest whole);
   12. a random 347M file in each of Q4_1, Q5_0, Q5_1 and Q8_0: the CLI
      greedy, sampled and ``--kv-quant`` (32 new tokens), the uniform
      greedy serve of 96 requests (bf16 and int8 lockstep, paged, staged),
@@ -164,6 +180,8 @@ prefill on each route), with entry points every tree of the port has (to
 compare two trees in one call).
 
 ``python3 chip_smoke.py --model-files`` runs only :func:`phase_model_files`.
+``python3 chip_smoke.py --mesh`` runs only :func:`mesh_phases`: the
+lockstep serves and phases 11 and 11a.
 
 Needs a CUDA card; exits non-zero without one or without the package.
 """
@@ -453,26 +471,28 @@ TRACE_EMPTY_RETAKES = 3
 
 
 def kernel_trace(run, seq: list | None = None,
-                 counted: dict | None = None) -> dict:
-    """One call of ``run`` under ``torch.profiler`` -> {kernel name:
-    [launches, device ms]}; ``seq``, where given, gets every device record
-    as (name, start us, device ms) in start order, and ``counted`` the
-    wrappers' launch counts (``cuda_lib.LAUNCHES``) that the call of the
-    window returned added. ``TRACE_PAD`` short spins open the window: on
+                 counted: dict | None = None,
+                 log_dir: str | None = None) -> dict:
+    """One call of ``run`` under ``torch.profiler`` (the card's records
+    only, ``utils.profiling.trace``) -> {kernel name: [launches, device
+    ms]}; ``seq``, where given, gets every device record as (name, start
+    us, device ms) in start order, ``counted`` the wrappers' launch counts
+    (``cuda_lib.LAUNCHES``) that the call of the window returned added,
+    and ``log_dir`` the window's Chrome trace (``trace.json``).
+    ``TRACE_PAD`` short spins open the window: on
     some H100 hosts, after a few dozen traces in one process, the tracer
     lost the records of a window's first one to three kernels, and once in
     a while a whole window: the spins take the first losses, a window
     without a single device record (the spins always run) is taken again,
     calling ``run`` again, up to ``TRACE_EMPTY_RETAKES`` times, and the
     checks take a short trace again."""
-    from torch.profiler import ProfilerActivity, profile
-
     from biogpt_tpu_torch.ops import cuda_lib
+    from biogpt_tpu_torch.utils.profiling import trace
 
     for _ in range(TRACE_EMPTY_RETAKES + 1):
         torch.cuda.synchronize()
         before = dict(cuda_lib.LAUNCHES)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with trace(log_dir, host=False) as prof:
             for _ in range(TRACE_PAD):
                 torch.cuda._sleep(1000)
             run()
@@ -894,6 +914,8 @@ class Ctx:
         self.formats = {}        # kernel -> formats held on the card
         self.launches = {}
         self.lockstep_ids = {}   # the uniform lockstep serves' ids, per cache
+        self.tp_ids = {}         # phase 11's (1, 2) serves' ids, per serve
+        self.one_by_one_ids = None   # phase 11's (1, 1) mesh generate
 
     def randn(self, *shape):
         return torch.randn(*shape, generator=self.gen, device=self.dev)
@@ -4573,10 +4595,70 @@ TP_ROUTES = {   # the kernels a TP serve's steps launch (refills run per op)
 }
 
 
+def local_batch_probe(eng, rng, steps: int = 2) -> dict:
+    """Whether a slot's results on the engine's TP route depend on the
+    local batch on the card: a refill (the per-op TP forward, as
+    ``_prefill_group`` runs it) of 32 prompts and of their first 16, then
+    ``steps`` greedy steps through ``eng._fwd`` (the TP step's halves, the
+    commits and the local lm_head) at 32 slots and at their first 16 from
+    the same cache rows -> for the refill's logits, its cache rows and each
+    step's logits: whether the first 16 rows are bit-equal, and their
+    largest difference."""
+    import dataclasses
+
+    from biogpt_tpu_torch.runtime.cache import init_cache, merge_rows
+
+    P, config, dev = eng.params, eng.config, eng.device
+    lens = [int(n) for n in rng.integers(4, 24, size=32)]
+    ids = torch.zeros(32, 32, dtype=torch.long)
+    for b, n in enumerate(lens):
+        ids[b, :n] = torch.from_numpy(rng.integers(4, config.n_vocab - 2,
+                                                   size=n))
+    ids, last = ids.to(dev), torch.tensor([n - 1 for n in lens], device=dev)
+
+    def same(a, b) -> dict:
+        a = a[:, :16] if a.dim() == 4 else a[:16]
+        return {"equal": bool(torch.equal(a, b)),
+                "max_abs_diff": (a.float() - b.float()).abs().max().item()}
+
+    refill = {}
+    for n in (32, 16):
+        small = init_cache(config, batch=n, max_len=32, dtype=eng.cache_dtype,
+                           device=dev, tp=eng._kv_shards)
+        logits, small = eng._fwd(P, ids[:n], small, 0, config,
+                                 compute_dtype=eng.compute_dtype,
+                                 allow_kernels=False, last_index=last[:n])
+        refill[n] = (logits, small)
+    out = {"refill_logits": same(refill[32][0], refill[16][0]),
+           "refill_cache_k": same(refill[32][1].k, refill[16][1].k),
+           "refill_cache_v": same(refill[32][1].v, refill[16][1].v)}
+    cache = init_cache(config, batch=32, max_len=128, dtype=eng.cache_dtype,
+                       device=dev, tp=eng._kv_shards)
+    merge_rows(cache, refill[32][1], torch.arange(32, device=dev),
+               torch.arange(32, device=dev))
+    caches = {32: cache, 16: type(cache)(**{
+        f.name: getattr(cache, f.name)[:, :16].clone()
+        for f in dataclasses.fields(cache)})}
+    tok = torch.argmax(refill[32][0], -1)[:, None]
+    past = torch.tensor(lens, dtype=torch.int32, device=dev)
+    for step in range(steps):
+        got = {}
+        for n in (32, 16):
+            got[n], caches[n] = eng._fwd(P, tok[:n], caches[n], past[:n],
+                                         config,
+                                         compute_dtype=eng.compute_dtype,
+                                         kv_window=128)
+        out[f"step{step}_logits"] = same(got[32], got[16])
+        tok, past = torch.argmax(got[32], -1)[:, None], past + 1
+    torch.cuda.synchronize()
+    return out
+
+
 def tp_teacher_forced(eng, mesh, rng, kv_quant: bool, steps: int) -> float:
-    """One refill wave of the uniform serve's shape (32 prompts of 4-23
-    tokens padded to 32) through the per-op TP forward, then ``steps``
-    teacher-forced B=32 TP steps from it: the kernels
+    """One refill wave of the uniform serve's shape (a prompt of 4-23
+    tokens padded to 32 for each of the replica's own slots: 32 on a
+    (1, 2) mesh, 16 on a (2, 2) one) through the per-op TP forward, then
+    ``steps`` teacher-forced TP steps at that local batch from it: the kernels
     (``decode_step_fused_tp``, the local lm_head GEMV and the gather)
     against the plain halves on the engine's own shard, the plain rows
     committed -> the worst error over its limit."""
@@ -4588,7 +4670,7 @@ def tp_teacher_forced(eng, mesh, rng, kv_quant: bool, steps: int) -> float:
     from biogpt_tpu_torch.ops.qmatmul_kernels import lm_head_logits_plain
     from biogpt_tpu_torch.runtime.cache import init_cache, merge_rows
 
-    P, config, dev, B = eng.params, eng.config, eng.device, eng.B
+    P, config, dev, B = eng.params, eng.config, eng.device, eng.B_local
     V, kv = config.n_vocab, "int8" if kv_quant else "bf16"
     lens = [int(n) for n in rng.integers(4, 24, size=B)]
     ids = torch.zeros(B, 32, dtype=torch.long)
@@ -4779,6 +4861,7 @@ def check_tp_ranks(c: Ctx, ranks: list, smi: str) -> None:
         a, b = ranks[0]["serves"][kv], ranks[1]["serves"][kv]
         n = 3 * 32 if kv != "mixed" else 32
         check(a["ids"] == b["ids"], f"TP serve ({kv}): the ranks' ids differ")
+        c.tp_ids[kv] = a["ids"]
         check(len(a["ids"]) == n and all(t == 48 for t in a["new_tokens"])
               and all(0 <= t < c.cfg.n_vocab for ids in a["ids"].values()
                       for t in ids)
@@ -4866,6 +4949,7 @@ def phase_tp_one_by_one(c: Ctx, path: str, smi: str) -> None:
     got = Engine(config, params, mesh=mesh, tp_fused_decode=True).generate(
         prompt, gen).ids
     torch.cuda.synchronize()
+    c.one_by_one_ids = got
     launched_exactly(c, dict(cuda_lib.LAUNCHES),
                      {"tp_attn_half", "tp_ffn_half", "qmatmul"},
                      {"qmatmul_wide"}, "(1, 1) mesh generate", "q4_0")
@@ -4874,6 +4958,557 @@ def phase_tp_one_by_one(c: Ctx, path: str, smi: str) -> None:
                       "ids_equal_single_device": sum(
                           a == b for a, b in zip(got, want)) - len(prompt)}),
           flush=True)
+
+
+# ------------------------- 11a. the data axis and the sharded route on meshes
+
+# the mesh of each rank job of phase 11a: "2x2" four ranks, "pairs" two
+MESH_JOBS = {"2x2": 4, "pairs": 2}
+# the sharded route's logits against the single device's: sums in another
+# order (TF32 off), within this fraction of their magnitude
+SHARDED_LOGITS_TOL = 1e-3
+
+
+# the port's kernels that the script's route checks and the TP route's
+# launches name; :func:`port_kernel_names` must find every one of them
+ROUTE_KERNELS = (
+    "qmatmul_kernel", "qgemv_stream_kernel", "qgemv_mma_kernel",
+    "qgemv_b1_kernel", "row_stats_kernel", "ln_rows_kernel",
+    "attn_batched_kernel", "attn_paged_kernel", "row_absmax_kernel",
+    "kv_commit_kernel", "kv_commit_quant_kernel",
+    "kv_commit_quant_rows_kernel", "lm_head_mma_kernel",
+    "argmax_fold_kernel", "gmax_pair_kernel", "prefill_gemm_kernel",
+    "causal_attn_kernel")
+
+
+def global_name(text: str, i: int) -> str | None:
+    """The name of the kernel whose ``__global__`` ends at ``text[i]``: the
+    first word followed by a parameter list, past the return type and a
+    ``__launch_bounds__(...)`` of any nesting."""
+    import re
+
+    word = re.compile(r"\s*(\w+)\s*")
+    while True:
+        m = word.match(text, i)
+        if m is None:
+            return None
+        i = m.end()
+        if not text.startswith("(", i):
+            continue
+        if m.group(1) != "__launch_bounds__":
+            return m.group(1)
+        depth = 0
+        for i in range(i, len(text)):
+            depth += {"(": 1, ")": -1}.get(text[i], 0)
+            if depth == 0:
+                break
+        i += 1
+
+
+def port_kernel_names() -> list:
+    """Every ``__global__`` function of the port's CUDA sources. Fails the
+    run where a ``__global__`` yields no name, or where a kernel of
+    ``ROUTE_KERNELS`` is not among them."""
+    import glob
+    import re
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    names, n_global = [], 0
+    for src in sorted(glob.glob(os.path.join(here, "biogpt_tpu_torch", "csrc",
+                                             "*.cu*"))):
+        with open(src) as f:
+            text = f.read()
+        for m in re.finditer(r"\b__global__\b", text):
+            n_global += 1
+            names.append(global_name(text, m.end()))
+    missing = sorted(set(ROUTE_KERNELS) - set(names))
+    check(None not in names and len(set(names)) == n_global and not missing,
+          f"port kernel names: {len(set(names) - {None})} names for "
+          f"{n_global} __global__ functions, {missing} not found")
+    return sorted(set(names) - {None})
+
+
+def weight_bytes(params: dict) -> dict:
+    """Resident bytes of a params tree, by the sharded route's spec table
+    (``parallel.sharding.param_pspecs``): the leaves it shards over the
+    model axis (the projections' planes, the column-parallel biases, the
+    lm_head) and the leaves it keeps whole (embeddings, LayerNorms, the
+    row-parallel biases)."""
+    from biogpt_tpu_torch.modelio.checkpoint import tree_map
+    from biogpt_tpu_torch.parallel.sharding import param_pspecs
+
+    def nbytes(tree) -> int:
+        total = [0]
+        tree_map(lambda a: total.__setitem__(0, total[0] + a.numel()
+                                             * a.element_size()) or a, tree)
+        return total[0]
+
+    def split(tree, spec) -> int:
+        if isinstance(spec, dict):
+            return sum(split(tree[k], spec[k]) for k in spec)
+        return nbytes(tree) if "model" in spec else 0
+    sharded = split(params, param_pspecs(params))
+    return {"sharded_by_spec": sharded, "whole": nbytes(params) - sharded}
+
+
+def data_exchanges(BatchedEngine) -> dict:
+    """Count the data axis' exchanges (``Mesh.gather_data``) of the serves
+    that follow, and the refill waves (one ``_split_refill_groups`` call a
+    wave) -> the live counts."""
+    from biogpt_tpu_torch.parallel.mesh import Mesh
+
+    counts = {"exchanges": 0, "waves": 0}
+    gather, split = Mesh.gather_data, BatchedEngine._split_refill_groups
+
+    def counted_gather(self, x, dim=0):
+        counts["exchanges"] += 1
+        return gather(self, x, dim)
+
+    def counted_split(self, pairs):
+        counts["waves"] += 1
+        return split(self, pairs)
+    Mesh.gather_data = counted_gather
+    BatchedEngine._split_refill_groups = counted_split
+    return counts
+
+
+def mesh_rank(argv: list) -> int:
+    """One rank of phase 11a (``chip_smoke.py --mesh-rank JOB OUT MODEL``,
+    started by :func:`phase_mesh_serving` through the port's launcher with
+    gloo, every rank on cuda:0). JOB "2x2": four ranks of a (2, 2) mesh
+    serve the uniform 96 greedy requests at B=32 through
+    ``BatchedEngine(mesh, tp_fused_decode=True)`` with a bf16 and an int8
+    cache (teacher-forced TP steps at the local batch after each) and a
+    mixed serve. JOB "pairs": two ranks run ``Engine(mesh=(2, 1))
+    .generate`` at B=1, then the sharded route of unpacked weights on a
+    (1, 2) mesh (``pack_q4=False``, f32): a traced 16-token greedy
+    generate (its Chrome trace beside OUT), the scores of the
+    single-device engine's ids and a serve of 8 requests against that
+    engine on this card, and the resident weight bytes, by the spec table
+    and by the allocator. Its records and failures go to OUT as JSON."""
+    import re
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from biogpt_tpu_torch.config import GenerationParams
+    from biogpt_tpu_torch.modelio.checkpoint import load_params
+    from biogpt_tpu_torch.ops import cuda_lib
+    from biogpt_tpu_torch.parallel import make_mesh
+    from biogpt_tpu_torch.runtime.engine import Engine
+    from biogpt_tpu_torch.runtime.serving import BatchedEngine, Request
+    from biogpt_tpu_torch.utils.profiling import device_memory_stats
+
+    job, out_path, path = argv
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config, _, _, params = load_params(path, device="cpu")
+    V = config.n_vocab
+    greedy = GenerationParams(temp=0.0, stop_at_eos=False)
+    out = {"rank": dist.get_rank(), "job": job}
+    counts = data_exchanges(BatchedEngine)
+
+    def serve(eng, reqs, gen):
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        counts.update(exchanges=0, waves=0)
+        chunks0 = eng.metrics.snapshot()["chunks_launched"]
+        t0 = time.perf_counter()
+        res = eng.serve(reqs, gen)
+        torch.cuda.synchronize()
+        snap = eng.metrics.snapshot()
+        return {"wall_s": time.perf_counter() - t0,
+                "ids": {str(i): r.ids for i, r in res.items()},
+                "new_tokens": [len(r.new_ids) for r in res.values()],
+                "launches": dict(cuda_lib.LAUNCHES),
+                "chunks": snap["chunks_launched"] - chunks0,
+                "data_exchanges": counts["exchanges"],
+                "refill_waves": counts["waves"],
+                "health_failures": snap["health_failures"]}
+
+    if job == "2x2":
+        mesh = make_mesh(2, 2, device="cuda:0")
+        B = 32
+        out["place"] = [mesh.data_index, mesh.index]
+        out["serves"] = {}
+        for kv_quant in (False, True):
+            kv = "int8" if kv_quant else "bf16"
+            eng = BatchedEngine(config, params, max_batch=B, max_seq=512,
+                                chunk=16, mesh=mesh, tp_fused_decode=True,
+                                kv_quant=kv_quant)
+            check(eng._tp_fused and not eng._fused_decode
+                  and eng.cache_dtype == (torch.int8 if kv_quant
+                                          else torch.bfloat16),
+                  f"(2, 2) BatchedEngine ({kv}): the TP route is not live")
+            rng = np.random.default_rng(0)   # phase 11's requests, whose
+            uniform_reqs(rng, V, 4, Request)   # warm-up this phase skips
+            rec = serve(eng, uniform_reqs(rng, V, 3 * B, Request), greedy)
+            rec["cache_shape"] = list(eng.new_cache().k.shape)
+            rec["B_local"] = eng.B_local
+            rec["teacher_forced_worst_err_over_tol"] = tp_teacher_forced(
+                eng, mesh, np.random.default_rng(5), kv_quant, 4)
+            rec["local_batch_16_vs_32"] = local_batch_probe(
+                eng, np.random.default_rng(6))
+            out["serves"][kv] = rec
+            del eng
+        eng = BatchedEngine(config, params, max_batch=B, max_seq=512,
+                            chunk=16, mesh=mesh, tp_fused_decode=True)
+        out["serves"]["mixed"] = serve(
+            eng, mixed_reqs(np.random.default_rng(1), V, B, Request),
+            GenerationParams(temp=0.0, stop_at_eos=False, seed=3))
+    else:
+        # (b) the data axis at B=1: the generate runs whole on each replica
+        mesh = make_mesh(2, 1, device="cuda:0")
+        prompt = [2] + list(range(40, 52))
+        gen = GenerationParams(n_predict=32, temp=0.0, stop_at_eos=False)
+        cuda_lib.reset_launch_counts()
+        out["generate_2x1"] = Engine(config, params, mesh=mesh,
+                                     tp_fused_decode=True).generate(
+            prompt, gen).ids
+        torch.cuda.synchronize()
+        out["generate_2x1_launches"] = dict(cuda_lib.LAUNCHES)
+        # (c) the sharded route on (1, 2), against the single device
+        mesh = make_mesh(1, 2, device="cuda:0")
+        kw = dict(compute_dtype=torch.float32, pack_q4=False)
+
+        def in_use() -> int:
+            torch.cuda.synchronize()
+            return device_memory_stats()["cuda:0"]["bytes_in_use"]
+        mem = [in_use()]
+        single = Engine(config, params, **kw)
+        mem.append(in_use())
+        sharded = Engine(config, params, mesh=mesh, **kw)
+        mem.append(in_use())
+        # this process's allocations on the card that each engine added
+        out["resident_bytes"] = {"single": mem[1] - mem[0],
+                                 "rank": mem[2] - mem[1]}
+        check(not sharded.allow_kernels and not sharded._tp_fused
+              and sharded._kv_shards == 2,
+              "(1, 2) sharded Engine: the route of unpacked weights is not "
+              "the one live")
+        out["weight_bytes"] = {"rank": weight_bytes(sharded.params),
+                               "single": weight_bytes(single.params)}
+        gen16 = GenerationParams(n_predict=16, temp=0.0, stop_at_eos=False)
+        ids = {}
+        launched = {}
+        log_dir = os.path.join(os.path.dirname(out_path),
+                               f"trace_rank{out['rank']}")
+        names = kernel_trace(
+            lambda: ids.update(sharded=sharded.generate(prompt, gen16).ids),
+            counted=launched, log_dir=log_dir)
+        ids["single"] = single.generate(prompt, gen16).ids
+        port = [re.compile(rf"\b{p}\b") for p in port_kernel_names()]
+
+        def of_port(names) -> list:
+            return sorted({n for n in names if any(p.search(n)
+                                                   for p in port)})
+        # the same window as exported, Chrome's trace format
+        with open(os.path.join(log_dir, "trace.json")) as f:
+            exported = [e["name"] for e in json.load(f)["traceEvents"]
+                        if e.get("cat") == "kernel"]
+        out["sharded_trace"] = {
+            "kernels": len(names), "launches": sum(v[0] for v in
+                                                   names.values()),
+            "port_kernels": of_port(names),
+            "exported_kernel_events": len(exported),
+            "exported_port_kernels": of_port(exported),
+            "wrapper_launches": sum(launched.values())}
+        out["generate_ids"] = ids
+        ref = ids["single"]
+        lg_sh = sharded.logits(ref)[0]
+        lg_ref = single.logits(ref)[0]
+        mag = lg_ref.abs().amax(-1)
+        top2 = torch.topk(lg_ref, 2).values
+        out["logits"] = {
+            "err_over_mag": ((lg_sh - lg_ref).abs().amax(-1) / mag).max()
+            .item(),
+            "decided": (top2[:, 0] - top2[:, 1]
+                        > SHARDED_LOGITS_TOL * mag).tolist(),
+            "argmax_equal": (lg_sh.argmax(-1) == lg_ref.argmax(-1)).tolist(),
+            "prompt_len": len(prompt)}
+        # a serve of 8 requests, per op and without kernels on both sides
+        reqs = uniform_reqs(np.random.default_rng(2), V, 8, Request)
+        bkw = dict(max_batch=8, max_seq=512, chunk=16, **kw)
+        res_sh = serve(BatchedEngine(config, params, mesh=mesh, **bkw), reqs,
+                       greedy)
+        res_ref = BatchedEngine(config, params, **bkw).serve(reqs, greedy)
+        div = {}
+        for i, r in res_ref.items():
+            got = res_sh["ids"][str(i)]
+            j = next((k for k, (a, b) in enumerate(zip(got, r.ids))
+                      if a != b), None)
+            if j is not None:   # the reference's margin where they part
+                lg = single.logits(r.ids[:j])[0, -1]
+                t2 = torch.topk(lg, 2).values
+                div[str(i)] = {"step": j - r.prompt_len,
+                               "margin_over_mag": ((t2[0] - t2[1])
+                                                   / lg.abs().max()).item()}
+        res_sh["divergences"] = div
+        res_sh["requests"] = len(res_ref)
+        out["sharded_serve"] = res_sh
+    out["failures"] = FAILURES
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def mesh_phases(c: Ctx, smi: str) -> None:
+    """``--mesh``: phases 9 (the lockstep serves, whose ids phases 11 and
+    11a count against), 11 and 11a on a fresh 347M Q4_0 file."""
+    from biogpt_tpu_torch.modelio.synthetic import write_random_quantized_model
+    from biogpt_tpu_torch.quant import codecs
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        path = os.path.join(tmp, "biogpt347m-q4_0.bin")
+        write_random_quantized_model(path, c.cfg, codecs.GGML_TYPE_Q4_0, seed=7)
+        for name, phase in (
+                ("phase_serving bf16", phase_serving),
+                ("phase_serving int8",
+                 lambda *a: phase_serving(*a, kv_quant=True)),
+                ("phase_tp_serving", phase_tp_serving),
+                ("phase_tp_one_by_one", phase_tp_one_by_one),
+                ("phase_mesh_serving", phase_mesh_serving)):
+            t0 = time.perf_counter()
+            phase(c, path, smi)
+            log(f"{name}: {time.perf_counter() - t0:.1f} s")
+
+
+def run_mesh_job(job: str, path: str) -> list:
+    """Start ``MESH_JOBS[job]`` ranks of :func:`mesh_rank` through the
+    port's launcher with gloo and return their records (None where a rank
+    failed)."""
+    import socket
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    n = MESH_JOBS[job]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        s = socket.socket()
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+        s.close()
+        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(n)]
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "biogpt_tpu_torch.parallel.distributed",
+             "--coordinator", f"localhost:{port}", "--num-processes", str(n),
+             "--process-id", str(r), "--backend", "gloo", "--",
+             os.path.join(here, "chip_smoke.py"), "--mesh-rank", job,
+             outs[r], path],
+            cwd=here, stdout=sys.stderr, stderr=sys.stderr) for r in range(n)]
+        try:
+            rcs = [p.wait(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        check(rcs == [0] * n, f"mesh job {job}: ranks exited {rcs}")
+        ranks = []
+        for o in outs:
+            if os.path.exists(o):
+                with open(o) as f:
+                    ranks.append(json.load(f))
+            else:
+                ranks.append(None)
+    for r in ranks:
+        for fail in (r or {}).get("failures", []):
+            check(False, f"mesh job {job} rank {r['rank']}: {fail}")
+    return ranks
+
+
+def phase_mesh_serving(c: Ctx, path: str, smi: str) -> None:
+    """Phase 11a: the data axis and the sharded route of unpacked weights
+    on the same 347M Q4_0 file, every rank a process on the one card
+    (gloo; the kernels were built before): (a) a (2, 2) mesh of four ranks
+    through :func:`mesh_rank` "2x2", checked by :func:`check_mesh_2x2`;
+    (b, c) two ranks through "pairs", checked by :func:`check_mesh_pairs`.
+    Their tokens/s measure the wiring of processes on one card through
+    gloo, not the data axis' speed."""
+    t0 = time.perf_counter()
+    ranks = run_mesh_job("2x2", path)
+    t1 = time.perf_counter()
+    if all(ranks):
+        check_mesh_2x2(c, ranks, smi)
+    pairs = run_mesh_job("pairs", path)
+    t2 = time.perf_counter()
+    if all(pairs):
+        check_mesh_pairs(c, pairs, smi)
+    log(f"mesh serving: (2, 2) job {t1 - t0:.1f} s, (2, 1) + (1, 2) job "
+        f"{t2 - t1:.1f} s")
+
+
+def check_mesh_2x2(c: Ctx, ranks: list, smi: str) -> None:
+    """The four ranks of the (2, 2) job: each at (r // 2, r % 2); every
+    serve's ids equal on all four, every request's 48 tokens, no health
+    failure; each rank's cache 16 slots of D / 2 features; each rank
+    launched exactly the TP route's kernels (counted on the ``kernels``
+    line for rank 0, as phase 11 counts its rank 0); one data-axis
+    exchange a chunk and one a refill wave; the uniform serves' ids
+    counted against phase 11's (1, 2) serve (with the step at which each
+    request leaves it) and the lockstep serve."""
+    card = torch.cuda.get_device_name(0)
+    cfg = c.cfg
+    for r in ranks:
+        check(r["place"] == [r["rank"] // 2, r["rank"] % 2],
+              f"(2, 2) rank {r['rank']} at {r['place']}")
+    for kv in ("bf16", "int8", "mixed"):
+        recs = [r["serves"][kv] for r in ranks]
+        a = recs[0]
+        n = 3 * 32 if kv != "mixed" else 32
+        check(all(x["ids"] == a["ids"] for x in recs),
+              f"(2, 2) serve ({kv}): the ranks' ids differ")
+        check(len(a["ids"]) == n and all(t == 48 for t in a["new_tokens"])
+              and all(0 <= t < cfg.n_vocab for ids in a["ids"].values()
+                      for t in ids)
+              and all(x["health_failures"] == 0 for x in recs),
+              f"(2, 2) serve ({kv}): {len(a['ids'])} results, tokens "
+              f"{sorted(set(a['new_tokens']))}")
+        route = TP_ROUTES[kv == "int8"]
+        launched_exactly(c, a["launches"], route, set(),
+                         f"(2, 2) serve ({kv}) rank 0", "q4_0")
+        for x, r in zip(recs[1:], ranks[1:]):
+            got = sorted(k for k, v in x["launches"].items() if v)
+            check(set(got) == route,
+                  f"(2, 2) serve ({kv}) rank {r['rank']}: launched {got}")
+        for x, r in zip(recs, ranks):
+            check(x["data_exchanges"] == x["chunks"] + x["refill_waves"]
+                  and x["chunks"] > 0,
+                  f"(2, 2) serve ({kv}) rank {r['rank']}: "
+                  f"{x['data_exchanges']} data-axis exchanges for "
+                  f"{x['chunks']} chunks and {x['refill_waves']} waves")
+        rec = {"serving_path": f"(2, 2) mesh, 4 ranks on one card ({kv})",
+               "data": 2, "tp": 2, "backend": "gloo", "batch_slots": 32,
+               "chunk": 16, "requests": len(a["ids"]),
+               "new_tokens": sum(a["new_tokens"]),
+               "wall_s": [x["wall_s"] for x in recs],
+               "tokens_per_s": sum(a["new_tokens"]) / a["wall_s"],
+               "chunks": a["chunks"], "refill_waves": a["refill_waves"],
+               "data_exchanges": a["data_exchanges"],
+               "launches": {k: v for k, v in a["launches"].items() if v},
+               "card": card, "card_stamp": smi}
+        if kv != "mixed":
+            want = [cfg.n_layer, 16, 512, cfg.d_model // 2]
+            for x, r in zip(recs, ranks):
+                check(x["cache_shape"] == want and x["B_local"] == 16,
+                      f"(2, 2) serve ({kv}) rank {r['rank']}: cache "
+                      f"{x['cache_shape']}, {x['B_local']} local slots")
+            rec["cache_shape"] = a["cache_shape"]
+            tp_ids, lock = c.tp_ids.get(kv, {}), c.lockstep_ids[kv]
+            rec["greedy_ids_equal_tp_1x2"] = sum(
+                a["ids"][i] == tp_ids.get(i) for i in a["ids"])
+            # where a request's ids leave the (1, 2) serve's: the new
+            # token's step (0: the refill's first token) -> requests
+            steps = {}
+            for i, ids in a["ids"].items():
+                other = tp_ids.get(i)
+                if other is not None and ids != other:
+                    j = next(k for k, (x, y) in enumerate(zip(ids, other))
+                             if x != y)
+                    step = str(j - (len(ids) - 48))
+                    steps[step] = steps.get(step, 0) + 1
+            rec["first_step_leaving_tp_1x2"] = dict(
+                sorted(steps.items(), key=lambda kv: int(kv[0])))
+            rec["greedy_ids_equal_lockstep"] = sum(
+                a["ids"][str(i)] == lock[i] for i in lock)
+            rec["teacher_forced_worst_err_over_tol"] = [
+                x["teacher_forced_worst_err_over_tol"] for x in recs]
+            rec["local_batch_16_vs_32"] = a["local_batch_16_vs_32"]
+        print(json.dumps(rec), flush=True)
+
+
+def check_mesh_pairs(c: Ctx, ranks: list, smi: str) -> None:
+    """The two ranks of the "pairs" job. (b) ``Engine(mesh=(2, 1))
+    .generate`` at B=1: the ids of phase 11's (1, 1) mesh engine on both
+    ranks, through the TP step's halves (counted on the ``kernels`` line).
+    (c) the sharded route on (1, 2): no launch of the port's kernels in
+    its trace, the trace's Chrome export or its wrappers' counts; the
+    scores of the single-device
+    engine's ids within ``SHARDED_LOGITS_TOL`` of their magnitude, argmax
+    equal wherever the reference's top-2 margin exceeds that; the
+    generate's ids equal up to the first undecided step; the serve's ids,
+    where they leave the single device's, left it at a margin within the
+    limit; the projections' and lm_head's resident bytes halved on each
+    rank, the embeddings and norms whole, and the allocator's bytes that
+    each engine added (``utils.profiling.device_memory_stats``) at least
+    its weights' and fewer on a rank than on the single device."""
+    a, b = ranks
+    want = c.one_by_one_ids
+    for r in ranks:
+        check(r["generate_2x1"] == want,
+              f"(2, 1) generate rank {r['rank']}: ids differ from the "
+              "(1, 1) mesh engine's")
+    launched_exactly(c, a["generate_2x1_launches"],
+                     {"tp_attn_half", "tp_ffn_half", "qmatmul"},
+                     {"qmatmul_wide"}, "(2, 1) generate", "q4_0")
+    for r in ranks:
+        tr = r["sharded_trace"]
+        check(tr["port_kernels"] == [] and tr["wrapper_launches"] == 0
+              and tr["launches"] > 0 and tr["exported_port_kernels"] == []
+              and tr["exported_kernel_events"] > 0,
+              f"(1, 2) sharded generate rank {r['rank']}: port kernels "
+              f"{tr['port_kernels']}, wrapper launches "
+              f"{tr['wrapper_launches']} in a trace of {tr['launches']}; "
+              f"exported: port kernels {tr['exported_port_kernels']} in "
+              f"{tr['exported_kernel_events']} kernel events")
+        lg = r["logits"]
+        check(lg["err_over_mag"] <= SHARDED_LOGITS_TOL,
+              f"(1, 2) sharded scores rank {r['rank']}: "
+              f"{lg['err_over_mag']} of their magnitude")
+        bad = [i for i, (d, e) in enumerate(zip(lg["decided"],
+                                                lg["argmax_equal"]))
+               if d and not e]
+        check(not bad, f"(1, 2) sharded scores rank {r['rank']}: argmax "
+              f"differs at decided positions {bad}")
+        ids = r["generate_ids"]
+        p = lg["prompt_len"]
+        first = next((j for j, (x, y) in enumerate(zip(ids["sharded"],
+                                                        ids["single"]))
+                      if x != y), None)
+        check(first is None or not lg["decided"][first - 1],
+              f"(1, 2) sharded generate rank {r['rank']}: leaves the "
+              f"single device at a decided step {first - p if first else 0}")
+        srv = r["sharded_serve"]
+        check(all(d["margin_over_mag"] <= SHARDED_LOGITS_TOL
+                  for d in srv["divergences"].values())
+              and srv["health_failures"] == 0 and srv["launches"]
+              and not any(srv["launches"].values()),
+              f"(1, 2) sharded serve rank {r['rank']}: divergences "
+              f"{srv['divergences']}, launches "
+              f"{ {k: v for k, v in srv['launches'].items() if v} }")
+        wb, rb = r["weight_bytes"], r["resident_bytes"]
+        check(2 * wb["rank"]["sharded_by_spec"]
+              == wb["single"]["sharded_by_spec"]
+              and wb["rank"]["whole"] == wb["single"]["whole"],
+              f"(1, 2) sharded rank {r['rank']}: resident bytes {wb}")
+        check(sum(wb["rank"].values()) <= rb["rank"] < rb["single"]
+              and sum(wb["single"].values()) <= rb["single"],
+              f"(1, 2) sharded rank {r['rank']}: the allocator's bytes {rb} "
+              f"against the weights' {wb}")
+    check(a["sharded_serve"]["ids"] == b["sharded_serve"]["ids"]
+          and a["generate_ids"] == b["generate_ids"],
+          "(1, 2) sharded route: the ranks' ids differ")
+    srv = a["sharded_serve"]
+    print(json.dumps({
+        "mesh_path": "(2, 1) generate and (1, 2) sharded route, 2 ranks on "
+                     "one card", "backend": "gloo",
+        "generate_2x1_ids_equal_1x1": [r["generate_2x1"] == want
+                                       for r in ranks],
+        "sharded_logits_err_over_mag": [r["logits"]["err_over_mag"]
+                                        for r in ranks],
+        "sharded_generate_ids_equal_single": sum(
+            x == y for x, y in zip(a["generate_ids"]["sharded"],
+                                   a["generate_ids"]["single"]))
+        - a["logits"]["prompt_len"],
+        "sharded_serve_requests": srv["requests"],
+        "sharded_serve_ids_equal_single": srv["requests"]
+        - len(srv["divergences"]),
+        "sharded_serve_divergences": srv["divergences"],
+        "sharded_serve_wall_s": srv["wall_s"],
+        "sharded_trace_launches": a["sharded_trace"]["launches"],
+        "sharded_trace_exported_kernel_events": a["sharded_trace"][
+            "exported_kernel_events"],
+        "weight_bytes": [r["weight_bytes"] for r in ranks],
+        "resident_bytes": [r["resident_bytes"] for r in ranks],
+        "card": torch.cuda.get_device_name(0), "card_stamp": smi}),
+        flush=True)
 
 
 # ------------------------------------------------------------------- main
@@ -5679,6 +6314,8 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--tp-rank"]:   # one rank of phase_tp_serving
         return tp_rank(sys.argv[2:])
+    if sys.argv[1:2] == ["--mesh-rank"]:   # one rank of phase_mesh_serving
+        return mesh_rank(sys.argv[2:])
     from biogpt_tpu_torch.modelio.synthetic import write_random_quantized_model
     from biogpt_tpu_torch.ops import cuda_lib
     from biogpt_tpu_torch.quant import codecs
@@ -5713,6 +6350,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--model-files"]:
         phase_model_files(c, smi)
         return 1 if FAILURES else 0
+    if sys.argv[1:2] == ["--mesh"]:
+        mesh_phases(c, smi)
+        return 1 if FAILURES else 0
     phases = [(p.__name__, p) for p in (
         phase_single_kernels, phase_qmatmul_kernels, phase_serving_kernels,
         phase_refill_int8_kernels, phase_paged_staged_kernels,
@@ -5741,7 +6381,8 @@ def main() -> int:
                  lambda *a: phase_serving(*a, kv_quant=True)),
                 ("phase_paged_staged_serving", phase_paged_staged_serving),
                 ("phase_tp_serving", phase_tp_serving),
-                ("phase_tp_one_by_one", phase_tp_one_by_one)):
+                ("phase_tp_one_by_one", phase_tp_one_by_one),
+                ("phase_mesh_serving", phase_mesh_serving)):
             t0 = time.perf_counter()
             phase(c, path, smi)
             log(f"{name}: {time.perf_counter() - t0:.1f} s")

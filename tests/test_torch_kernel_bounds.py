@@ -19,6 +19,7 @@ from biogpt_tpu.quant.layouts import pack_nibble_planes, quantize_to_planes
 from biogpt_tpu_torch.config import BioGptConfig
 from biogpt_tpu_torch.modelio.checkpoint import params_from_numpy
 from biogpt_tpu_torch.tools import kernel_bounds as kb
+from biogpt_tpu_torch.utils import profiling
 from biogpt_tpu_torch.utils.profiling import spin_cycles
 
 QTYPES = {"q4_0": codecs.GGML_TYPE_Q4_0, "q4_1": codecs.GGML_TYPE_Q4_1,
@@ -174,6 +175,39 @@ def test_spin_covers_the_host():
         spin_cycles(-1.0, rate)
 
 
+def test_timer_report_trace_and_memory_stats(tmp_path):
+    """``Timer.report`` prints the JAX package's report for the same
+    phases (totals, and ms a call past one call); ``trace`` writes a
+    Chrome trace of the block; ``device_memory_stats`` is empty without a
+    card and names each card's bytes with one."""
+    from biogpt_tpu.utils.profiling import Timer as JaxTimer
+
+    t, j = profiling.Timer(), JaxTimer()
+    for timer in (t, j):
+        for name, secs in (("decode", 0.25), ("decode", 0.5), ("load", 1.0)):
+            timer.totals[name] += secs
+            timer.counts[name] += 1
+    assert t.report() == j.report()
+    assert "750.00 ms" in t.report() and "over 2" in t.report()
+    with t.phase("sum"):
+        pass
+    assert t.counts["sum"] == 1 and t.ms("sum") >= 0
+    with profiling.trace(str(tmp_path / "tr")) as prof:
+        torch.ones(64, 64) @ torch.ones(64, 64)
+    assert (tmp_path / "tr" / "trace.json").stat().st_size > 0
+    assert any("mm" in e.key for e in prof.key_averages())
+    with profiling.trace() as prof:   # no export without a directory
+        torch.ones(64, 64) @ torch.ones(64, 64)
+    assert any("mm" in e.key for e in prof.key_averages())
+    assert [p.name for p in tmp_path.iterdir()] == ["tr"]
+    stats = profiling.device_memory_stats()
+    if not torch.cuda.is_available():
+        assert stats == {}
+    else:
+        assert set(stats["cuda:0"]) == {"bytes_in_use", "bytes_limit",
+                                        "peak_bytes_in_use"}
+
+
 class _Span:
     def __init__(self, start):
         self.start = start
@@ -207,11 +241,11 @@ def test_kernel_trace_counts_only_the_window_it_keeps(monkeypatch):
         def __init__(self, activities):
             self.recs = windows.pop(0)
 
-        def __enter__(self):
-            return self
+        def start(self):
+            pass
 
-        def __exit__(self, *exc):
-            return False
+        def stop(self):
+            pass
 
         def events(self):
             return self.recs
@@ -232,6 +266,32 @@ def test_kernel_trace_counts_only_the_window_it_keeps(monkeypatch):
     assert counted["decode_gemv"] == 96 and counted["prefill_gemm"] == 0
     assert names == {"qgemv_mma_kernel": [1, 0.01], "x": [1, 0.01]}
     assert [r[0] for r in seq] == ["x", "qgemv_mma_kernel"]
+
+
+def test_port_kernel_names_find_every_kernel():
+    """``chip_smoke.py::port_kernel_names`` names every ``__global__``
+    function of the port's sources, past a ``__launch_bounds__`` of nested
+    parentheses (``qmatmul_kernel``'s), with every kernel the script's
+    route checks name among them; a ``__global__`` it cannot name fails
+    the run."""
+    import importlib
+    import sys
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    chip_smoke = importlib.import_module("chip_smoke")
+    n_failures = len(chip_smoke.FAILURES)
+    names = chip_smoke.port_kernel_names()
+    assert len(chip_smoke.FAILURES) == n_failures
+    assert set(chip_smoke.ROUTE_KERNELS) <= set(names)
+    assert "__launch_bounds__" not in names
+    text = ("__global__ void __launch_bounds__((W + 1) * 32, 1)\n"
+            "k1(const __grid_constant__ M m, A a) {}\n"
+            "template <int N> __global__ void k2(int* x) {}\n"
+            "__global__ void __launch_bounds__(f(g(1), 2)) k3 (int y);")
+    got = [chip_smoke.global_name(text, m.end())
+           for m in re.finditer(r"__global__", text)]
+    assert got == ["k1", "k2", "k3"]
+    assert chip_smoke.global_name("__global__ void", 10) is None
 
 
 def _engine_plane_bytes(qtype, d_in, d_out, seed):

@@ -306,20 +306,53 @@ def test_scheduler_http_round_trip(tiny):
     assert stats["tokens_emitted"] == 20
 
 
+@pytest.mark.parametrize("greedy", [True, False], ids=["greedy", "sampled"])
+def test_profile_decode_slots_step(tiny, greedy):
+    """``tools/profile_decode.py``'s batched profile builds the slot state
+    itself (``step_slots``, no gathered first tokens) and drives
+    ``BatchedEngine._step`` on it: one step gives each slot a token."""
+    from biogpt_tpu_torch.tools.profile_decode import step_slots
+
+    _, ct, _, pt = tiny
+    eng = BatchedEngine(ct, pt, device="cpu", max_batch=3, max_seq=32,
+                        chunk=2)
+    st = step_slots(eng, past=5)
+    assert st.firsts is st.first_buf
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    nxt, ok, cache = eng._step(st, eng.new_cache(),
+                               torch.ones(3, dtype=torch.bool), 32, greedy,
+                               gen)
+    assert nxt.shape == (3,) and bool(ok)
+    assert ((0 <= nxt) & (nxt < ct.n_vocab)).all()
+
+
 def test_batched_engine_gates(tiny, tmp_path):
     """The card by default (raises without one, decided at run time); a
-    mesh without packed weights (the JAX package's GSPMD path) and a data
-    axis raise NotImplementedError naming their later slice; ``kv_quant``,
-    ``paged_kv``, ``staged_kv`` and the tensor-parallel options on a (1, 1)
-    mesh serve (the TP step's bf16 cache by default)."""
+    data axis without ``torch.distributed`` raises the RuntimeError of a
+    mesh of several ranks; a (1, 1) mesh with unpacked Q4_0 weights (the
+    JAX package's GSPMD route) serves the ids of the single-device
+    ``pack_q4=False`` engine, without kernels; ``kv_quant``, ``paged_kv``,
+    ``staged_kv`` and the tensor-parallel options on a (1, 1) mesh serve
+    (the TP step's bf16 cache by default)."""
     from biogpt_tpu_torch.parallel import make_mesh
 
     _, ct, _, pt = tiny
     mesh = make_mesh(1, 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        BatchedEngine(ct, pt, device="cpu", mesh=mesh, pack_q4=False)
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(RuntimeError, match="needs torch.distributed"):
         make_mesh(data=2, device="cpu")
+    _, cq, _, pq = _pair(TINY_KW, seed=21, qtype=codecs.GGML_TYPE_Q4_0)
+    greedy = GenerationParams(temp=0.0, stop_at_eos=False)
+    served = []
+    for kw in (dict(mesh=mesh), {}):
+        be = BatchedEngine(cq, pq, device="cpu", max_batch=2, chunk=2,
+                           pack_q4=False, compute_dtype=torch.float32, **kw)
+        assert not be.allow_kernels and not be._tp_fused
+        res = be.serve([Request(prompt_ids=p, n_predict=4, request_id=i)
+                        for i, p in enumerate(([2, 5, 9], [2, 7], [2, 3]))],
+                       greedy)
+        served.append({i: r.ids for i, r in res.items()})
+    assert served[0] == served[1] and len(served[0]) == 3
     for kw in (dict(kv_quant=True), dict(paged_kv=True),
                dict(staged_kv=True), dict(mesh=mesh, tp_fused_decode=True)):
         be = BatchedEngine(ct, pt, device="cpu", max_batch=2, chunk=2, **kw)

@@ -224,17 +224,29 @@ def test_tp_gate_refuses_a_local_d_in_past_4096():
 
 
 def test_mesh_and_engine_gates_raise():
-    """The data axis, ``pack_q4=False`` on a mesh and a card-less default
-    device raise."""
-    with pytest.raises(NotImplementedError, match="data axis"):
+    """A data axis without ``torch.distributed`` and a card-less default
+    device raise; ``pack_q4=False`` on a (1, 1) mesh takes the route of
+    unpacked weights (the JAX package's GSPMD route) and scores and serves
+    as the single-device ``pack_q4=False`` engine does."""
+    with pytest.raises(RuntimeError, match="needs torch.distributed"):
         make_mesh(data=2, model=1, device="cpu")
     mesh = make_mesh(1, 1, device="cpu")
     assert mesh.shape == {"data": 1, "model": 1} and mesh.group is None
+    assert mesh.batch_rows(6) == (0, 6)
     params = params_from_numpy(_params(Q4_0), "cpu")
-    with pytest.raises(NotImplementedError, match="GSPMD"):
-        Engine(TCFG, params, mesh=mesh, pack_q4=False)
-    with pytest.raises(NotImplementedError, match="GSPMD"):
-        BatchedEngine(TCFG, params, mesh=mesh, pack_q4=False)
+    ids = np.array([[2, 10, 25, 48, 7, 31]])
+    kw = dict(pack_q4=False, compute_dtype=torch.float32, device="cpu")
+    mesh_eng, base = Engine(TCFG, params, mesh=mesh, **kw), Engine(
+        TCFG, params, **kw)
+    assert not mesh_eng.allow_kernels and not mesh_eng._tp_fused
+    assert np.array_equal(mesh_eng.score(ids), base.score(ids))
+    reqs = [Request(prompt_ids=list(p), n_predict=3, request_id=i)
+            for i, p in enumerate(PROMPTS)]
+    greedy = GenerationParams(temp=0.0, stop_at_eos=False)
+    got = [{i: r.ids for i, r in BatchedEngine(
+        TCFG, params, max_batch=2, chunk=2, max_seq=32, **extra, **kw).serve(
+            reqs, greedy).items()} for extra in (dict(mesh=mesh), {})]
+    assert got[0] == got[1]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make_mesh(1, 1)
