@@ -51,7 +51,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="print tokens as they are sampled (one device read "
                         "per token)")
     p.add_argument("--warmup", type=int, default=0, metavar="N",
-                   help="run N warmup tokens first (kernel builds, allocator)")
+                   help="run N warmup tokens first (kernel builds, "
+                        "allocator, the first decode graphs)")
     p.add_argument("--kv-quant", action="store_true",
                    help="int8 KV cache with per-row f32 scales (half the KV "
                         "bytes of bf16)")
@@ -102,9 +103,10 @@ def main(argv=None) -> int:
         stop_at_eos=not args.no_stop_at_eos)
 
     if args.warmup > 0:
-        warm = GenerationParams(n_predict=args.warmup, seed=0,
-                                stop_at_eos=False, temp=args.temp)
-        engine.generate(list(range(2, 10)), warm)
+        # on the card: the kernels' builds, the allocator, and the decode
+        # chunks' graphs of the first KV window
+        engine.warmup(n_tokens=args.warmup, sampled=args.temp > 0,
+                      top_k=args.top_k)
 
     prompt_ids = tokenizer.encode(args.prompt)
     print(f"prompt: '{args.prompt}'", file=sys.stderr)

@@ -21,7 +21,11 @@ per-request sampler. Per-slot positions commit the new KV rows through
 (``runtime.cache.QuantKVCache``) quantizes and commits them in one launch
 (``kv_commit_quant_rows``; ``runtime.cache.commit_rows`` at the host's B=1
 position), and its tails run without the commit fusion, as in the JAX
-package.
+package. At B=1 the position is the host's int or, as JAX's ``past_dev``
+carry, a (1,) integer tensor on the device, end to end (the embedding
+rows, the step, the commit through ``kv_commit`` /
+``kv_commit_quant_rows``): the engine's decode chunks take the latter, so
+a CUDA graph of them reads the position where each replay left it.
 ``forward_fused_decode_staged`` runs the staged step (chunk-local KV
 staging) and returns the rows for the caller's staging.
 
@@ -345,9 +349,11 @@ def _fused_decode_hidden(params: dict, tokens: torch.Tensor, cache: KVCache,
                          past, config: BioGptConfig, kv_window: int = 128,
                          commit: bool = True, per_slot_kv: bool = False):
     """Whole-model decode step (B <= 32) + the KV-row commit -> (hidden
-    (B, D) f32 before the final LN, cache). ``past``: the host's int at
-    B=1, (B,) per-slot positions on the device at B >= 2 and for the paged
-    step (``per_slot_kv``) at every B. ``commit=False`` skips the commit
+    (B, D) f32 before the final LN, cache). ``past``: the host's int or a
+    (1,) device tensor at B=1, (B,) per-slot positions on the device at
+    B >= 2 and for the paged step (``per_slot_kv``) at every B; a tensor
+    commits through the per-slot commits, the host's int through
+    ``commit_rows``. ``commit=False`` skips the commit
     and returns (x, k_rows, v_rows) (L, B, D) instead, for the tails that
     fold the commit in. An int8 cache's rows leave the step in f32 and
     quantize in their commit (``kv_commit_quant_rows``, one launch)."""

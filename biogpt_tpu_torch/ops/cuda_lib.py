@@ -18,7 +18,10 @@ number the batched, paged and staged steps' C entries report launching;
 ``decode_gemv_b1`` likewise the single-stream step's M=1 GEMV,
 ``prefill_gemm`` the refill kernel's wgmma GEMM (4 L a ``prefill_fused``
 call), and ``batched_attention`` the batched steps' attention kernel (L a
-batched, paged or staged step, and one a call of its own wrapper).
+batched, paged or staged step, and one a call of its own wrapper). A
+CUDA graph's replay runs no wrapper: ``runtime.graphs.ChunkGraphs``
+records each graph's counts at its capture and adds them at every
+replay, so the counts hold through replays.
 """
 
 from __future__ import annotations

@@ -76,6 +76,17 @@ def init_cache(config: BioGptConfig, batch: int = 1, max_len: int | None = None,
                    v=torch.zeros(shape, dtype=dtype, device=device))
 
 
+def clear_cache(cache: KVCache) -> None:
+    """Zero every plane of ``cache`` in place, its addresses kept (an
+    engine's reused cache after a generation or serve whose logits went
+    non-finite: masked reads of the plain versions multiply stale rows by
+    zero, which a NaN row would poison)."""
+    for t in (cache.k, cache.v, getattr(cache, "ks", None),
+              getattr(cache, "vs", None)):
+        if t is not None:
+            t.zero_()
+
+
 def quantize_rows(x: torch.Tensor, group=None, amax=None):
     """(..., D) float -> (int8 levels, (...) f32 scales): per-row absmax/127,
     the scale floored at 1e-12 for the division, levels rounded half to

@@ -28,11 +28,28 @@ the tokens, are the same on every rank. ``generate`` (B=1) runs whole on
 every replica of a data axis, with no collective over it; ``score`` of B
 rows runs each replica's own rows where the data axis divides B.
 
-``generate`` decodes in chunks of ``SCAN_LEN`` steps. The sampled token,
-the token buffer, the EOS flag and the health bit stay on the device; the
-host knows ``past`` as a Python int and reads the device once per chunk.
-Steps after an EOS inside a chunk still run (their tokens are discarded at
-the drain), where the JAX scan skipped them with a ``cond``.
+``generate`` decodes in chunks of ``SCAN_LEN`` steps, the JAX engine's
+``decode_scan``. The token, the position (a (1,) device tensor, JAX's
+``past_dev``), the EOS flag, the health bit and the sampling parameters
+live in the engine's own device tensors (:meth:`Engine._decode_state`),
+and so does the B=1 KV cache, reused by every generation (prefill writes
+rows ``[0, padded)``; every read stops below the position). A chunk of
+``budget`` steps runs as the bodies of its binary decomposition
+(``runtime.graphs.binary_chunks``: 64, 32, ..., 1 steps), each through
+``runtime.graphs.ChunkGraphs``: on the card, on the single-device fused
+route (bf16 or int8 cache, B=1 greedy and sampled), a body of one (cache
+dtype, greedy or sampled, top_k, KV window, steps) runs eagerly twice,
+then becomes a CUDA graph of the chunk's hand-written kernels, captured
+once and replayed (a one-off generation's chunks pay no capture;
+:meth:`Engine.warmup` captures the first window's); the per-op route (f16
+cache, f32 compute, unpacked weights) and the mesh routes run every body
+eagerly (the mesh's collectives are gloo's).
+Sampled chunks draw from the engine's generator, reseeded by each
+generation. The host reads the device once per chunk (``bool(done)``);
+streaming runs one-step bodies and reads every token. Steps after an EOS
+inside a chunk still run (their tokens are discarded at the drain), where
+the JAX scan skipped them with a ``cond``; no body steps past the cache,
+where JAX's last chunk over-generates into clamped writes.
 """
 
 from __future__ import annotations
@@ -40,6 +57,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from dataclasses import dataclass, field
+from types import SimpleNamespace
 from typing import Callable, List, Optional
 
 import numpy as np
@@ -53,7 +71,8 @@ from ..modelio.checkpoint import tree_map
 from ..ops.decode_kernels import supports_layers
 from ..ops.qmatmul_kernels import LANES, supports
 from ..quant.layouts import QuantizedTensor, pack_nibble_planes
-from .cache import KVCache, init_cache
+from .cache import KVCache, clear_cache, init_cache
+from .graphs import ChunkGraphs, binary_chunks
 from .sampling import greedy, sample_top_k_top_p
 
 
@@ -182,7 +201,8 @@ class Engine:
     shard of a tensor-parallel engine (see the module docstring; the
     mesh's device is the engine's). ``health_check=False`` delivers the
     tokens of a generation whose logits went non-finite instead of raising
-    ``ModelHealthError``.
+    ``ModelHealthError``. An engine runs one generation at a time: its
+    cache and decode state are its own.
     """
 
     SCAN_LEN = 64   # decode steps per chunk (one device read per chunk)
@@ -229,6 +249,12 @@ class Engine:
         self._fused_greedy = (self._fused_decode
                               and isinstance(lm_head, QuantizedTensor)
                               and lm_head.packed and supports(lm_head, 1))
+        self.generator = torch.Generator(device=self.device)
+        # the fused route's decode chunks as CUDA graphs on the card
+        self.graphs = ChunkGraphs(self.device, self.generator,
+                                  capture=self._fused_decode)
+        self._cache: Optional[KVCache] = None
+        self._state: Optional[SimpleNamespace] = None
 
     # ------------------------------------------------------------ plumbing
 
@@ -237,19 +263,33 @@ class Engine:
         return min(_bucket(needed, floor=128), self.max_seq)
 
     def warmup(self, prompt_len: int = 8, n_tokens: int = 4,
-               sampled: bool = True) -> None:
+               sampled: bool = True, top_k: int = 40) -> None:
         """Run the paths of a first request before it comes: two
         generations from a ``prompt_len``-token prompt (sampled when
         ``sampled``), then a greedy one when ``sampled``. On the card this
         builds the kernels' libraries and pays the first launches and the
-        allocator's first requests."""
+        allocator's first requests; on the graph route it also captures
+        the decode chunks of the first KV window (128): 64, 32, ..., 1
+        steps, greedy and, when ``sampled``, sampled with ``top_k``, each
+        run until its graph has replayed once."""
         gen = GenerationParams(n_predict=n_tokens, seed=0, stop_at_eos=False,
-                               temp=0.8 if sampled else 0.0)
+                               temp=0.8 if sampled else 0.0, top_k=top_k)
         prompt = list(range(2, 2 + prompt_len))
         self.generate(prompt, gen)
         self.generate(prompt, gen)
         if sampled:
             self.generate(prompt, dataclasses.replace(gen, temp=0.0))
+        if not self.graphs.capture:
+            return
+        st, window = self._decode_state(), self._window(prompt_len + 1)
+        for use_greedy in (True, False) if sampled else (True,):
+            for n in binary_chunks(2 * self.SCAN_LEN - 1, self.SCAN_LEN):
+                if prompt_len + n > window:
+                    continue
+                for _ in range(ChunkGraphs.EAGER_RUNS + 1):
+                    st.pos.fill_(prompt_len)
+                    self._run_steps(self._gen_cache(), st, n, window,
+                                    use_greedy, top_k)
 
     def _rows(self, batch: int) -> tuple:
         """This replica's rows [lo, hi) of a batch (all of them without a
@@ -265,6 +305,31 @@ class Engine:
                           max_len=max_len or self.max_seq,
                           dtype=self.cache_dtype, device=self.device,
                           tp=self._kv_shards)
+
+    def _gen_cache(self) -> KVCache:
+        """The engine's own B=1 cache, reused by every generation: its
+        graphs hold its addresses. Prefill writes rows ``[0, padded)``,
+        and every read stops below the position."""
+        if self._cache is None:
+            self._cache = self.new_cache(batch=1)
+        return self._cache
+
+    def _decode_state(self) -> SimpleNamespace:
+        """The decode chunks' state on the device, at fixed addresses: the
+        token, the position, the EOS flag, the health bit, the EOS id,
+        temp and top_p, and the token ring of a chunk's steps."""
+        if self._state is None:
+            dev = self.device
+            i32 = dict(dtype=torch.int32, device=dev)
+            f32 = dict(dtype=torch.float32, device=dev)
+            self._state = SimpleNamespace(
+                tok=torch.zeros(1, **i32), pos=torch.zeros(1, **i32),
+                done=torch.zeros(1, dtype=torch.bool, device=dev),
+                health=torch.ones(1, dtype=torch.bool, device=dev),
+                eos=torch.zeros(1, **i32), temp=torch.ones(1, 1, **f32),
+                top_p=torch.ones(1, 1, **f32),
+                ring=torch.zeros(self.SCAN_LEN, **i32))
+        return self._state
 
     def prefill(self, cache: KVCache, token_ids):
         """Run the prompt through the model -> (logits (1, V), cache, n)."""
@@ -282,10 +347,12 @@ class Engine:
             kv_window=self._window(padded), last_index=n - 1)
         return logits, cache, n
 
-    def decode_step(self, cache: KVCache, token, past: int,
+    def decode_step(self, cache: KVCache, token, past,
                     window: Optional[int] = None):
-        """One-token decode -> (logits (1, V), cache). ``window`` (>= past+1)
-        is the KV window, by default the bucket of past + 1."""
+        """One-token decode -> (logits (1, V), cache). ``past``: the host's
+        int or a (1,) integer tensor on the device; ``window`` (>= past+1)
+        is the KV window, by default the bucket of past + 1 (a host int
+        ``past`` only)."""
         tok = torch.as_tensor(token, device=self.device).reshape(1, 1).long()
         window = window or self._window(past + 1)
         if self._fused_decode:
@@ -298,19 +365,44 @@ class Engine:
                          allow_kernels=self.allow_kernels, logits_mode="last",
                          kv_window=window)
 
-    def _step(self, cache, tok, past: int, window: int, use_greedy: bool,
-              gen, generator):
-        """One decode step -> (next token (1,) int32, finite bit, cache)."""
+    def _step(self, cache, tok, past, window: int, use_greedy: bool,
+              top_k: int, st):
+        """One decode step at the device position ``past`` -> (next token
+        (1,) int32, finite bit); samples with ``st``'s temp and top_p."""
         if use_greedy and self._fused_greedy:
-            nxt, mv, cache = forward_fused_decode_greedy(
+            nxt, mv, _ = forward_fused_decode_greedy(
                 self.params, tok, cache, past, self.config, kv_window=window)
-            return nxt, torch.isfinite(mv).all(), cache
-        logits, cache = self.decode_step(cache, tok, past, window)
+            return nxt, torch.isfinite(mv).all()
+        logits, _ = self.decode_step(cache, tok, past, window)
         ok = torch.isfinite(logits).all()
         if use_greedy:
-            return greedy(logits), ok, cache
-        return sample_top_k_top_p(logits, generator, top_k=gen.top_k,
-                                  top_p=gen.top_p, temp=gen.temp), ok, cache
+            return greedy(logits), ok
+        return sample_top_k_top_p(logits, self.generator, top_k=top_k,
+                                  top_p=st.top_p, temp=st.temp), ok
+
+    def _run_steps(self, cache, st, n: int, window: int, use_greedy: bool,
+                   top_k: int) -> None:
+        """``n`` decode steps from ``st`` (token, position) into
+        ``st.ring[:n]``, the EOS flag and the health bit, in place: one
+        run of their body through the runner (a graph's replay once the
+        key has run eagerly; the module docstring)."""
+        def body():
+            tok = st.tok
+            for i in range(n):
+                nxt, ok = self._step(cache, tok.reshape(1, 1).long(), st.pos,
+                                     window, use_greedy, top_k, st)
+                st.ring[i:i + 1].copy_(nxt)
+                # bitwise ops, as the sampler's mask: a cold process
+                # pays the first launch of every kernel it has not run
+                st.health &= ok
+                st.done |= nxt == st.eos
+                st.pos.add_(1)
+                tok = nxt
+            st.tok.copy_(tok)
+
+        key = ("b1", self.cache_dtype, use_greedy,
+               None if use_greedy else top_k, window, n)
+        self.graphs.run(key, body, sampled=not use_greedy)
 
     # ------------------------------------------------------------ generation
 
@@ -323,8 +415,7 @@ class Engine:
 
         gen = gen or GenerationParams()
         seed = gen.seed if gen.seed >= 0 else int(time.time())
-        generator = torch.Generator(device=self.device)
-        generator.manual_seed(seed)
+        self.generator.manual_seed(seed)
         use_greedy = gen.temp <= 0
         chunk = 1 if stream_cb is not None else self.SCAN_LEN
 
@@ -337,30 +428,38 @@ class Engine:
         sync = (torch.cuda.synchronize if self.device.type == "cuda"
                 else lambda: None)
         t0 = time.perf_counter()
-        cache = self.new_cache(batch=1)
+        cache = self._gen_cache()
         logits, cache, past = self.prefill(cache, ids)
         sync()
         t_prefill = time.perf_counter() - t0
-        health = torch.isfinite(logits).all()
 
         td0 = time.perf_counter()
+        st = self._decode_state()
+        st.health.copy_(torch.isfinite(logits).all().reshape(1))
+        st.temp.fill_(gen.temp)
+        st.top_p.fill_(gen.top_p)
+        st.eos.fill_(gen.eos_token_id if gen.stop_at_eos else -1)
         if use_greedy:
             tok = greedy(logits)
         else:
-            tok = sample_top_k_top_p(logits, generator, top_k=gen.top_k,
-                                     top_p=gen.top_p, temp=gen.temp)
-        eos = gen.eos_token_id if gen.stop_at_eos else -1
-        done = tok[0] == eos
+            tok = sample_top_k_top_p(logits, self.generator, top_k=gen.top_k,
+                                     top_p=st.top_p, temp=st.temp)
+        st.tok.copy_(tok)
+        st.pos.fill_(past)
+        st.done.copy_(tok == st.eos)
 
         # tokens land in a device buffer that the host reads once per chunk
         out_buf = torch.zeros(n_predict, dtype=torch.int32, device=self.device)
         out_buf[0:1] = tok
-        queued, emitted, stopped, steps = 1, 0, False, 0
+        queued, emitted, stopped, steps, finite = 1, 0, False, 0, True
 
         def drain():
-            nonlocal emitted, stopped
-            vals = torch.cat([out_buf, health.to(torch.int32)[None]]).cpu()
-            if self.health_check and int(vals[-1]) == 0:
+            nonlocal emitted, stopped, finite
+            vals = torch.cat([out_buf, st.health.to(torch.int32)]).cpu()
+            finite = int(vals[-1]) != 0
+            if self.health_check and not finite:
+                # the reused cache keeps no non-finite row for a later read
+                clear_cache(cache)
                 raise ModelHealthError(
                     "non-finite logits during generation (after "
                     f"{emitted} emitted tokens) -- corrupt checkpoint or "
@@ -378,24 +477,22 @@ class Engine:
         if stream_cb is not None:
             drain()
         while queued < n_predict and not stopped:
-            if stream_cb is None and bool(done):   # the chunk's one read
+            if stream_cb is None and bool(st.done):   # the chunk's one read
                 break
             budget = min(chunk, n_predict - queued)
             # one KV window per chunk, as the JAX engine compiles one per scan
             window = self._window(past + queued + (budget if stream_cb else chunk))
-            for _ in range(budget):
-                tok, ok, cache = self._step(cache, tok.reshape(1, 1).long(),
-                                            past + queued - 1, window,
-                                            use_greedy, gen, generator)
-                out_buf[queued:queued + 1] = tok
-                health = health & ok
-                done = done | (tok[0] == eos)
-                queued += 1
-                steps += 1
+            for n in binary_chunks(budget, self.SCAN_LEN):
+                self._run_steps(cache, st, n, window, use_greedy, gen.top_k)
+                out_buf[queued:queued + n] = st.ring[:n]
+                queued += n
+                steps += n
             if stream_cb is not None:
                 drain()
         if stream_cb is None:
             drain()
+        if not finite:
+            clear_cache(cache)
         sync()
         t_decode = time.perf_counter() - td
         return GenerationResult(

@@ -60,12 +60,17 @@ def topk_gather(x: torch.Tensor, k: int, gmax: torch.Tensor | None = None):
     return vals, torch.gather(cols, 1, sel)
 
 
-def top_k_top_p_probs(logits: torch.Tensor, top_k: int, top_p: float,
-                      temp: float):
+def top_k_top_p_probs(logits: torch.Tensor, top_k: int, top_p, temp):
     """(probs (B, top_k), token_ids (B, top_k)) after top-k / top-p
-    filtering, sorted by descending probability."""
+    filtering, sorted by descending probability. ``top_p`` and ``temp``:
+    host floats, or tensors on the logits' device that broadcast against
+    (B, 1) (a decode chunk's graph reads them there)."""
     raw, top_ids = topk_stable(logits.to(torch.float32), top_k)
-    probs = torch.softmax(raw / max(temp, 1e-8), dim=-1)
+    if isinstance(temp, torch.Tensor):
+        temp = torch.clamp_min(temp.to(torch.float32), 1e-8)
+    else:
+        temp = max(temp, 1e-8)
+    probs = torch.softmax(raw / temp, dim=-1)
     cumsum = torch.cumsum(probs, dim=-1)
     keep = ((cumsum - probs) < top_p) | (top_p >= 1.0)
     probs = torch.where(keep, probs, torch.zeros_like(probs))
@@ -104,10 +109,10 @@ def _draw(probs: torch.Tensor, generator: torch.Generator,
 
 
 def sample_top_k_top_p(logits: torch.Tensor, generator: torch.Generator,
-                       top_k: int = 40, top_p: float = 0.9,
-                       temp: float = 0.9) -> torch.Tensor:
+                       top_k: int = 40, top_p=0.9, temp=0.9) -> torch.Tensor:
     """(B,) int32 sampled ids; requires temp > 0 (callers route temp <= 0 to
-    :func:`greedy`). ``generator`` lives on the logits' device."""
+    :func:`greedy`). ``generator`` lives on the logits' device; ``top_p``
+    and ``temp`` as in :func:`top_k_top_p_probs`."""
     probs, top_ids = top_k_top_p_probs(logits, top_k, top_p, temp)
     choice = _draw(probs, generator)
     return torch.gather(top_ids, 1, choice[:, None])[:, 0]

@@ -41,11 +41,26 @@ As in the JAX package:
     chunk-start position, the start clamped as ``dynamic_update_slice``
     clamps (``cache.write_block``).
 
-The JAX ``step_scan`` (one dispatch per chunk) is a Python loop of
-``chunk`` steps here: the steps enqueue on the current CUDA stream without
-a host read, and each chunk ends with one copy of its (chunk, B) token ring
-into pinned host memory behind a CUDA event. Drain threads wait on that
-event only, never on the device. The caches are updated in place.
+The JAX ``step_scan`` (one dispatch per chunk) is a chunk body of
+``chunk`` steps that reads and writes the engine's own device tensors in
+place: its pool cache, reused by every serve (a refill writes a slot's
+rows ``[0, padded)``; every read stops below the slot's position), and its
+slot state (tokens, positions, the live mask, sampling parameters, the
+(chunk, B) token ring and the chunk's health bit; ``_slots``). The body
+resets dead slots' positions, runs the steps and, staged, collects the
+staging pair and writes it back at the chunk's end. On the card, on the
+single-device fused routes (lockstep, paged and staged; bf16 or int8
+cache; greedy and sampled tails), a body of one (route, cache dtype,
+greedy or sampled, KV window, chunk) runs eagerly twice and then becomes
+a CUDA graph of the chunk's hand-written kernels
+(``runtime.graphs.ChunkGraphs``), captured once and replayed
+(:meth:`BatchedEngine.warmup` captures the first window's); sampled
+chunks draw from the engine's generator, reseeded by each serve. The
+per-op and mesh routes run every body eagerly (a mesh's collectives are
+gloo's, which a graph cannot hold). Either way the
+steps enqueue without a host read, and each chunk ends with one copy of
+its ring into pinned host memory behind a CUDA event. Drain threads wait
+on that event only, never on the device.
 
 On a mesh (``mesh``; one process per rank, each holding its shard, every
 rank calling ``serve`` with the same requests -- ``runtime.dist_serving``
@@ -101,8 +116,10 @@ from ..ops.decode_kernels import supports_layers
 from ..ops.prefill_kernels import supports_prefill
 from ..ops.qmatmul_kernels import supports, supports_wide
 from ..quant.layouts import QuantizedTensor
-from .cache import KVCache, init_cache, merge_rows, write_block
+from .cache import (KVCache, clear_cache, init_cache, merge_rows,
+                    write_block)
 from .engine import _bucket, place_params
+from .graphs import ChunkGraphs
 from .health import DrainStallError, ModelHealthError
 from .metrics import ServingMetrics
 from .sampling import greedy, sample_per_request, skip_rows
@@ -175,6 +192,11 @@ class _Slots:
     # (B,) int32: every slot's first token, the replicas' first_bufs
     # gathered; first_buf itself where the replica owns every slot
     firsts: Optional[torch.Tensor] = None
+    # a chunk's live mask (B_local,) bool, its (chunk, B_local) int32 token
+    # ring and its (1,) health bit: the chunk body's static tensors
+    live: Optional[torch.Tensor] = None
+    ring: Optional[torch.Tensor] = None
+    health: Optional[torch.Tensor] = None
 
     def __post_init__(self):
         if self.firsts is None:
@@ -182,7 +204,8 @@ class _Slots:
 
 
 class BatchedEngine:
-    """Lockstep batched decode over B slots with continuous refill."""
+    """Lockstep batched decode over B slots with continuous refill; one
+    serve at a time (the pool cache and slot state are the engine's)."""
 
     MAX_TOP_K = 64   # candidates of the per-request sampler
     # padded prompt tokens one more refill prefill group must save
@@ -283,12 +306,67 @@ class BatchedEngine:
         # on the card (the JAX package runs its refill kernel where Pallas
         # runs, not in interpret mode); tests set it on the CPU
         self._prefill_fused = self._fused_decode and self.device.type == "cuda"
+        self.generator = torch.Generator(device=self.device)
+        # the fused routes' decode chunks as CUDA graphs on the card
+        self.graphs = ChunkGraphs(self.device, self.generator,
+                                  capture=self._fused_decode)
+        self._cache: Optional[KVCache] = None
+        self._st: Optional[_Slots] = None
 
     def new_cache(self) -> KVCache:
         """This rank's cache: its replica's slots, its features' shard."""
         return init_cache(self.config, batch=self.B_local,
                           max_len=self.max_seq, dtype=self.cache_dtype,
                           device=self.device, tp=self._kv_shards)
+
+    def _pool_cache(self) -> KVCache:
+        """The engine's own cache (:meth:`new_cache`), reused by every
+        serve: its chunk graphs hold its addresses."""
+        if self._cache is None:
+            self._cache = self.new_cache()
+        return self._cache
+
+    def _slots(self) -> _Slots:
+        """The engine's own slot state, reset for a serve: every tensor at
+        a fixed address, read and written in place by the chunk bodies
+        and the refills (no token, position 0, temp 0, top-p and top-k
+        1); ``firsts`` anew on a data axis that divides B."""
+        dev, Bl = self.device, self.B_local
+        i32 = dict(dtype=torch.int32, device=dev)
+        if self._st is None:
+            self._st = _Slots(
+                toks=torch.zeros(Bl, **i32), lengths=torch.zeros(Bl, **i32),
+                first_buf=torch.zeros(Bl, **i32),
+                temps=torch.zeros(Bl, dtype=torch.float32, device=dev),
+                top_ps=torch.ones(Bl, dtype=torch.float32, device=dev),
+                top_ks=torch.ones(Bl, **i32),
+                live=torch.zeros(Bl, dtype=torch.bool, device=dev),
+                ring=torch.zeros(self.chunk, Bl, **i32),
+                health=torch.ones(1, dtype=torch.bool, device=dev))
+        st = self._st
+        for t in (st.toks, st.lengths, st.first_buf, st.temps):
+            t.zero_()
+        st.top_ps.fill_(1.0)
+        st.top_ks.fill_(1)
+        st.firsts = (st.first_buf if Bl == self.B
+                     else torch.zeros(self.B, **i32))
+        return st
+
+    def warmup(self, prompt_len: int = 8) -> None:
+        """Serve a greedy and then a sampled request of one chunk, each
+        once more than a chunk key's eager runs, before requests come: on
+        the card this builds the kernels' libraries, pays the first
+        launches and, on the graph route, captures the chunk graphs of
+        both tails at the first KV window (128). The metrics start afresh
+        after it."""
+        def reqs():
+            return [Request(prompt_ids=list(range(2, 2 + prompt_len)),
+                            n_predict=self.chunk + 1)]
+        for gen in (GenerationParams(temp=0.0, stop_at_eos=False),
+                    GenerationParams(temp=0.8, stop_at_eos=False, seed=0)):
+            for _ in range(ChunkGraphs.EAGER_RUNS + 1):
+                self.serve(reqs(), gen)
+        self.metrics = ServingMetrics()
 
     # ------------------------------------------------------------- prefill
 
@@ -446,47 +524,57 @@ class BatchedEngine:
                    all_greedy: bool, generator):
         """``chunk`` lockstep steps enqueued without a host read -> (cache,
         the drain vector: first tokens (B,), the (chunk, B) token ring and
-        the chunk's finite bit). On a data axis the steps run this
-        replica's slots, and the replicas' rings and bits meet in one
-        gather at the end."""
-        # slots with no bound request decode garbage; their positions reset
-        # to 0 so they never widen a window (a past-0 slot attends only its
-        # current token, commits its rows at [0, chunk) of its own slot,
-        # and a later refill overwrites [0, prompt) before any read)
-        st.lengths = torch.where(live, st.lengths,
-                                 torch.zeros_like(st.lengths))
-        ring = torch.zeros(self.chunk, self.B_local, dtype=torch.int32,
-                           device=self.device)
-        health = torch.ones((), dtype=torch.bool, device=self.device)
+        the chunk's finite bit). The steps are one body over ``st``'s
+        tensors in place: a graph's replay on the graph route (module
+        docstring). On a data axis the steps run this replica's slots, and
+        the replicas' rings and bits meet in one gather at the end."""
+        st.live.copy_(live)
         # chunk-local KV staging: a bf16 cache at B > 1, unpaged
         staged = (self._staged_kv and self.B > 1 and not self._paged_kv
                   and self.cache_dtype == torch.bfloat16)
-        if staged:
-            L, _, _, D = cache.k.shape
-            k_stage = torch.zeros(L, self.B, self.chunk, D,
-                                  dtype=cache.k.dtype, device=self.device)
-            v_stage = torch.zeros_like(k_stage)
-            lengths0 = st.lengths             # the chunk-start positions
-        for i in range(self.chunk):
+
+        def body():
+            # slots with no bound request decode garbage; their positions
+            # reset to 0 so they never widen a window (a past-0 slot attends
+            # only its current token, commits its rows at [0, chunk) of its
+            # own slot, and a later refill overwrites [0, prompt) before any
+            # read)
+            st.lengths.copy_(torch.where(st.live, st.lengths,
+                                         torch.zeros_like(st.lengths)))
+            health = torch.ones((), dtype=torch.bool, device=self.device)
             if staged:
-                logits, k_rows, v_rows = forward_fused_decode_staged(
-                    self.params, st.toks[:, None], cache, k_stage, v_stage,
-                    st.lengths, i, self.config,
-                    compute_dtype=self.compute_dtype, kv_window=window)
-                k_stage[:, :, i] = k_rows
-                v_stage[:, :, i] = v_rows
-                nxt, ok = self._emit(logits, st, live, all_greedy, generator)
-            else:
-                nxt, ok, cache = self._step(st, cache, live, window,
+                L, _, _, D = cache.k.shape
+                k_stage = torch.zeros(L, self.B, self.chunk, D,
+                                      dtype=cache.k.dtype, device=self.device)
+                v_stage = torch.zeros_like(k_stage)
+                lengths0 = st.lengths.clone()   # the chunk-start positions
+            for i in range(self.chunk):
+                if staged:
+                    logits, k_rows, v_rows = forward_fused_decode_staged(
+                        self.params, st.toks[:, None], cache, k_stage,
+                        v_stage, st.lengths, i, self.config,
+                        compute_dtype=self.compute_dtype, kv_window=window)
+                    k_stage[:, :, i] = k_rows
+                    v_stage[:, :, i] = v_rows
+                    nxt, ok = self._emit(logits, st, st.live, all_greedy,
+                                         generator)
+                else:
+                    nxt, ok, _ = self._step(st, cache, st.live, window,
                                             all_greedy, generator)
-            ring[i] = nxt
-            health = health & ok
-            st.toks = nxt.to(torch.int32)
-            st.lengths = st.lengths + 1
-        if staged:   # one block write per slot at its chunk-start position
-            write_block(cache.k, k_stage, lengths0)
-            write_block(cache.v, v_stage, lengths0)
-        tail = torch.cat([ring.reshape(-1), health.to(torch.int32)[None]])
+                st.ring[i] = nxt
+                health = health & ok
+                st.toks.copy_(nxt)
+                st.lengths.add_(1)
+            if staged:   # one block write per slot at its chunk-start position
+                write_block(cache.k, k_stage, lengths0)
+                write_block(cache.v, v_stage, lengths0)
+            st.health.copy_(health.reshape(1))
+
+        mode = ("paged" if self._paged_kv else "staged" if staged
+                else "lockstep")
+        self.graphs.run((mode, self.cache_dtype, all_greedy, window,
+                         self.chunk), body, sampled=not all_greedy)
+        tail = torch.cat([st.ring.reshape(-1), st.health.to(torch.int32)])
         if self.B_local < self.B:
             d = self.mesh.data
             g = self.mesh.gather_data(tail).reshape(d, -1)
@@ -537,7 +625,7 @@ class BatchedEngine:
         the synced mask."""
         gen = gen or GenerationParams(temp=0.0)
         seed = gen.seed if gen.seed >= 0 else int(time.time())
-        generator = torch.Generator(device=self.device)
+        generator = self.generator
         generator.manual_seed(seed)
         t_serve = time.perf_counter()
         tokens_before = self.metrics.snapshot()["tokens_emitted"]
@@ -556,7 +644,7 @@ class BatchedEngine:
         # capacity-truncated requests: request_id -> the number of new
         # tokens that will ever drain for it
         capped: Dict[int, int] = {}
-        cache = self.new_cache()
+        cache = self._pool_cache()
         # host request state is shared with the drain threads; the lock
         # covers every mutation and multi-step read of results/reqs_by_id
         state_lock = threading.Lock()
@@ -615,11 +703,13 @@ class BatchedEngine:
         next_emit = [0]                   # next seq to emit (under emit_cv)
         launched = [0]                    # chunks handed to the drains
         last_land = [time.monotonic()]    # watchdog: last drain landing
+        nonfinite = [False]               # a chunk's finite bit was 0
 
         def emit_chunk(seq, vals, bound, fbound) -> None:
             """Emit one drained chunk against the bindings snapshotted at
             its launch; the chunk's finite bit fails the serve before any
             of its tokens are delivered."""
+            nonfinite[0] |= int(vals[-1]) == 0
             if self.health_check and int(vals[-1]) == 0:
                 self.metrics.inc("health_failures")
                 raise ModelHealthError(
@@ -696,16 +786,7 @@ class BatchedEngine:
 
         dev = self.device
         Bl = self.B_local
-        first_buf = torch.zeros(Bl, dtype=torch.int32, device=dev)
-        st = _Slots(
-            toks=torch.zeros(Bl, dtype=torch.int32, device=dev),
-            lengths=torch.zeros(Bl, dtype=torch.int32, device=dev),
-            first_buf=first_buf,
-            temps=torch.zeros(Bl, dtype=torch.float32, device=dev),
-            top_ps=torch.ones(Bl, dtype=torch.float32, device=dev),
-            top_ks=torch.ones(Bl, dtype=torch.int32, device=dev),
-            firsts=(None if Bl == self.B else
-                    torch.zeros(self.B, dtype=torch.int32, device=dev)))
+        st = self._slots()
 
         def req_done(req: Optional[Request]) -> bool:
             """n_predict reached, EOS emitted, or aborted (monotonic)."""
@@ -904,6 +985,9 @@ class BatchedEngine:
                 drain_q.put(None)
             for t in drain_threads:
                 t.join()
+            if nonfinite[0]:
+                # the reused cache keeps no non-finite row for a later read
+                clear_cache(cache)
         if drain_errors:
             raise drain_errors[0]
         notify()

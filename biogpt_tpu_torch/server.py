@@ -225,6 +225,8 @@ def main(argv=None) -> int:
     engine = BatchedEngine(config, params, max_batch=args.batch,
                            max_seq=args.max_seq, kv_quant=args.kv_quant,
                            kv_groups=args.kv_groups, device=args.device)
+    # the kernels' builds and, on the card, the first chunk graphs
+    engine.warmup()
     scheduler = ServingScheduler(engine, GenerationParams(temp=args.temp))
     server = BioGptServer(scheduler, tokenizer, host=args.host,
                           port=args.port)

@@ -5,19 +5,27 @@
 
 Builds a BioGPT-347M Q4_0 model on random weights (``write_random_
 quantized_model``, seed 7) and measures one decode step three ways,
-printing one JSON line each:
+printing one JSON line each (with ``--batch 1``, a ``first_use`` line
+first: the B=1 libraries' loads and the commit's first launches):
 
   - ``wall``: host clock over ``--steps`` steps ending in a synchronize
     (ms/step), and the host time to enqueue one step without waiting;
   - ``device``: ``torch.profiler`` over the same steps: kernel launches per
     step, summed kernel time per step, and the device's idle share of the
     wall window, with the kernels that take the most time;
+  - ``step_routes`` (``--batch 1`` only): the same steps at the device
+    position and at the host's int position, greedy and sampled (the
+    sampler's temp and top_p as device tensors or host floats),
+    alternating, four rounds;
   - ``generate`` (``--batch 1`` only): ``Engine.generate`` ms/token over
-    128 greedy tokens.
+    128 greedy tokens after a key's eager runs and its capture, on the
+    graph route (each decode chunk one CUDA graph's replay) and with the
+    engine's capture off (the eager chunk).
 
 ``--batch 1`` (default) is the single-stream main path: the ``Engine``
-prefills a prompt of ``--past`` tokens, and the step is the fused decode
-step + fused LN/lm_head/argmax tail + the KV commit. ``--batch B`` (2..32)
+prefills a prompt of ``--past`` tokens into its own cache, and the step is
+``generate``'s: the fused decode step + fused LN/lm_head/argmax tail + the
+KV commit at the engine's (1,) device position, advanced in place. ``--batch B`` (2..32)
 is the serving step of a ``BatchedEngine`` with every slot at position
 ``--past``: once greedy (fused step + argmax/commit tail) and once sampled
 (fused step + logits/group-maxima/commit tail + the per-request sampler).
@@ -35,6 +43,7 @@ import sys
 import tempfile
 import time
 from collections import defaultdict
+from types import SimpleNamespace
 
 import torch
 
@@ -81,43 +90,126 @@ def measure(prepare, run_steps, n: int, stamp: str, trace, **tags) -> None:
         "card": stamp}), flush=True)
 
 
+def first_use(config, stamp: str) -> None:
+    """Print the ``first_use`` line: in this fresh process, each B=1
+    library's load (``cuda_lib.library``), the B=1 commit's
+    (``kv_commit``) first and second launch at the card's full depth, and
+    the sampler's first and second call on (1, V) logits with temp and
+    top_p as host floats and then as (1, 1) device tensors, each to a
+    synchronize: what a cold process pays once."""
+    from ..ops import cuda_lib
+    from ..ops.decode_kernels import kv_commit
+    from ..runtime.sampling import sample_top_k_top_p
+
+    load = {}
+    for name in ("qmatmul", "lm_head_argmax", "decode_step", "kv_commit"):
+        t0 = time.perf_counter()
+        cuda_lib.library(name)
+        load[name] = (time.perf_counter() - t0) * 1e3
+    L, D = config.n_layer, config.d_model
+    k = torch.zeros(L, 1, 128, D, dtype=torch.bfloat16, device="cuda")
+    v = torch.zeros_like(k)
+    rows = torch.ones(1, L, D, dtype=torch.bfloat16, device="cuda")
+    pos = torch.zeros(1, dtype=torch.int32, device="cuda")
+    launches = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kv_commit(k, v, rows, rows, pos)
+        torch.cuda.synchronize()
+        launches.append((time.perf_counter() - t0) * 1e3)
+    logits = torch.randn(1, config.n_vocab, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    dev = dict(dtype=torch.float32, device="cuda")
+    sampler = {}
+    for name, p in (("host_floats", 0.9),
+                    ("device_tensors", torch.full((1, 1), 0.9, **dev))):
+        sampler[name] = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sample_top_k_top_p(logits, g, top_k=40, top_p=p, temp=p)
+            torch.cuda.synchronize()
+            sampler[name].append((time.perf_counter() - t0) * 1e3)
+    print(json.dumps({"what": "first_use", "library_load_ms": load,
+                      "kv_commit_launch_ms": launches,
+                      "sampler_call_ms": sampler, "card": stamp}),
+          flush=True)
+
+
 def profile_single(config, params, args, stamp: str) -> None:
     from ..config import GenerationParams
     from ..runtime.engine import Engine
+    from ..runtime.graphs import ChunkGraphs
 
     eng = Engine(config, params, device="cuda")
     prompt = [2] + [40 + i % 50 for i in range(args.past - 1)]
     gen = GenerationParams(n_predict=args.steps + 2, temp=0.0,
                            stop_at_eos=False)
 
+    st = eng._decode_state()
+
     def prepare():
-        cache = eng.new_cache()
-        logits, cache, past = eng.prefill(cache, prompt)
+        logits, cache, past = eng.prefill(eng._gen_cache(), prompt)
+        st.pos.fill_(past)
         torch.cuda.synchronize()
         return cache, torch.argmax(logits, -1).to(torch.int32), past
 
-    def run_steps(state, n):
+    def run_steps(state, n, device_pos=True, greedy=True, params=st):
         cache, tok, past = state
         window = eng._window(past + n)
         enqueue = []
         t0 = time.perf_counter()
         for i in range(n):
             te = time.perf_counter()
-            tok, _, cache = eng._step(cache, tok.reshape(1, 1).long(),
-                                      past + i, window, True, gen, None)
+            tok, _ = eng._step(cache, tok.reshape(1, 1).long(),
+                               st.pos if device_pos else past + i, window,
+                               greedy, gen.top_k, params)
+            if device_pos:
+                st.pos.add_(1)
             enqueue.append(time.perf_counter() - te)
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) / n * 1e3, sorted(enqueue)
 
     measure(prepare, run_steps, args.steps, stamp, args.trace, batch=1,
             past=args.past)
+    # the same steps at the host's int position (committed by
+    # ``commit_rows``, as ``Engine.decode_step`` callers run them) beside
+    # the device position's, greedy and sampled (temp and top_p 0.9 as
+    # the engine's device tensors or as host floats), alternating in one
+    # process
+    st.temp.fill_(0.9)
+    st.top_p.fill_(0.9)
+    floats = SimpleNamespace(temp=0.9, top_p=0.9)
+    routes = {"device_position": (True, True, st),
+              "host_int": (False, True, st),
+              "sampled_device_position": (True, False, st),
+              "sampled_host_int": (False, False, st),
+              "sampled_device_position_host_floats": (True, False, floats),
+              "sampled_host_int_host_floats": (False, False, floats)}
+    rounds = {r: [] for r in routes}
+    for _ in range(4):
+        for r, route in routes.items():
+            ms, enqueue = run_steps(prepare(), args.steps, *route)
+            rounds[r].append((ms, enqueue[len(enqueue) // 2] * 1e3))
+    print(json.dumps({
+        "what": "step_routes", "batch": 1, "past": args.past,
+        "steps": args.steps,
+        **{r: {"ms_per_step": [m for m, _ in v],
+               "host_enqueue_ms_median": [e for _, e in v]}
+           for r, v in rounds.items()}, "card": stamp}), flush=True)
     g = GenerationParams(n_predict=128, temp=0.0, stop_at_eos=False, seed=0)
-    eng.generate(prompt[:8], g)
-    res = eng.generate(prompt[:8], g)
-    print(json.dumps({"what": "generate",
-                      "ms_per_token": res.timings["ms_per_token"],
-                      "new_tokens": res.timings["n_new"], "card": stamp}),
-          flush=True)
+    eager = Engine(config, params, device="cuda")
+    eager.graphs.capture = False
+    for route, e in (("graph", eng), ("eager", eager)):
+        for _ in range(ChunkGraphs.EAGER_RUNS + 1):   # the graphs captured
+            e.generate(prompt[:8], g)
+        res = e.generate(prompt[:8], g)
+        print(json.dumps({"what": "generate", "route": route,
+                          "ms_per_token": res.timings["ms_per_token"],
+                          "new_tokens": res.timings["n_new"],
+                          "graphs": e.graphs.stats(), "card": stamp}),
+              flush=True)
 
 
 def step_slots(eng, past: int):
@@ -200,6 +292,8 @@ def main(argv=None) -> int:
         path = os.path.join(tmp, "model.bin")
         write_random_quantized_model(path, BioGptConfig(), seed=7)
         config, _, _, params = load_params(path, device="cpu")
+    if args.batch == 1:
+        first_use(config, stamp)
     (profile_single if args.batch == 1 else profile_batched)(
         config, params, args, stamp)
     return 0

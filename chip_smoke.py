@@ -86,7 +86,8 @@ logs its seconds):
   6. every kernel that reads weights again in each of Q5_0, Q5_1 and
      Q8_0 (the GEMVs at every projection shape, ``lm_head_argmax`` and both
      tails, the B=1 (past 100 and 900), batched, paged and staged steps
-     with bf16 and int8 KV, ``prefill_fused``) against its plain version
+     with bf16 and int8 KV, ``prefill_fused``; the steps and the refill
+     ``FORMAT_DEPTH`` (6) layers deep) against its plain version
      with the Q4 limits, timed beside its bound and yardstick (the
      lm_head's ``qmatmul_wide`` at M = 16 and 32 among them; the M <= 8
      tails at 1, 2, 5, 8 rows and the two serving tails at M = 8 too);
@@ -105,7 +106,8 @@ logs its seconds):
      the plain path, the int8 steps' commit traced on the lockstep, paged
      and single-stream steps (one ``kv_commit_quant_rows_kernel`` after
      the step, no PyTorch kernel: :func:`commit_traces`), the decode rate
-     with a bf16 and an int8 cache;
+     with a bf16 and an int8 cache (a warm engine's fourth generation,
+     every chunk a graph replay);
   9. serving end to end on the same file, once with a bf16 and once with
      an int8 KV cache: ``BatchedEngine.serve`` of 96 uniform greedy
      requests at B=32 (refills through ``prefill_fused``; the wall split
@@ -120,6 +122,19 @@ logs its seconds):
      counts; the staged step's tail traced to one launch of the streaming
      GEMV) and a mixed-length serve of 32 requests, half greedy (its
      greedy rows against the lockstep engines' on the same requests);
+  9a. the decode chunks as CUDA graphs on the same file
+     (:func:`phase_graphs`; every route above decodes through graph
+     replays once a chunk key has run eagerly twice): each graph-route
+     engine beside one whose capture is off (the eager chunk, its bodies
+     under ``set_sync_debug_mode("error")``): the single stream (bf16,
+     int8; greedy, sampled; 150 tokens across windows 128 and 256, four
+     generations each: two eager, the capturing one, one of replays) and the
+     lockstep, paged (bf16, int8) and staged serves at B=32 (uniform
+     greedy and mixed): ids equal exactly, caches bit-equal, ms/token,
+     tokens/s, wall and device ms a step of both routes, captures, capture
+     seconds and the graphs' pool bytes; a 64-step (B=1) and a 16-step
+     (B=32) graph's replay timed, and replays traced: the launch counts a
+     replay adds against the kernels its trace shows;
   11. tensor-parallel serving on the same file: two ranks that share the
      card (the port's launcher, gloo, this script with ``--tp-rank``; the
      kernels built before they start) serve the uniform 96 greedy requests
@@ -145,7 +160,8 @@ logs its seconds):
      scores within 1e-3 of the single-device engine's, ids equal where the
      top-2 margin exceeds that, a serve of 8 requests, and each rank's
      resident weight bytes (the sharded planes halved, the rest whole);
-  12. a random 347M file in each of Q4_1, Q5_0, Q5_1 and Q8_0: the CLI
+  12. a random file of 347M's widths, 6 layers deep, in each of Q4_1,
+     Q5_0, Q5_1 and Q8_0: the CLI
      greedy, sampled and ``--kv-quant`` (32 new tokens), the uniform
      greedy serve of 96 requests (bf16 and int8 lockstep, paged, staged),
      each run launching exactly its route's kernels (the batched, paged
@@ -180,6 +196,8 @@ prefill on each route), with entry points every tree of the port has (to
 compare two trees in one call).
 
 ``python3 chip_smoke.py --model-files`` runs only :func:`phase_model_files`.
+``python3 chip_smoke.py --graphs`` runs only :func:`phase_graphs` (phase
+9a) on the main file.
 ``python3 chip_smoke.py --mesh`` runs only :func:`mesh_phases`: the
 lockstep serves and phases 11 and 11a.
 
@@ -189,6 +207,7 @@ Needs a CUDA card; exits non-zero without one or without the package.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -222,6 +241,10 @@ NEW_FORMATS = ("q5_0", "q5_1", "q8_0")
 # the formats driven end to end from a model file of their own (Q4_0 is the
 # main file's)
 E2E_FORMATS = ("q4_1",) + NEW_FORMATS
+# the depth of the steps and model files of the format phases (6 and 12):
+# 347M's widths, a quarter of its 24 layers; every width-dependent path is
+# the same at any depth, and the Q4_0 phases keep the full depth
+FORMAT_DEPTH = 6
 
 
 def log(msg: str) -> None:
@@ -592,6 +615,9 @@ def gemv_trace(run, L: int, what: str) -> dict:
 B1_CHAIN = ("qgemv_b1_kernel", "attn_paged_kernel")
 B1_NEVER = ("qgemv_partial_kernel", "partial_sum_kernel", "attn_split_kernel",
             "attn_combine_kernel", "row_absmax_kernel", BATCHED_ATTN)
+# the B=1 step's launches beside its chain, whatever its depth: the fill
+# of a host position and the copy of x0 (``decode_kernels._decode_step_b1``)
+B1_WRAPPER_LAUNCHES = 2
 
 
 def b1_trace(run, L: int, what: str) -> dict:
@@ -599,8 +625,9 @@ def b1_trace(run, L: int, what: str) -> dict:
     of its own chain, bf16 or int8 -- 4 L of the M=1 GEMV
     (``qgemv_b1_kernel``, also by the step's own count ``decode_gemv_b1``)
     and L of the attention CTA -- none of the old chain's kernels nor the
-    absmax kernel, and fewer launches outside the chain (the wrapper's
-    copies and fills, the trace's opening spins) than layers. A trace
+    absmax kernel, and outside the chain and the trace's opening spins at
+    most the wrapper's ``B1_WRAPPER_LAUNCHES`` (its position fill and x0
+    copy), at any depth. A trace
     short of the chain's records (the tracer loses records on some hosts,
     :func:`kernel_trace`) is taken again, up to five times; the step's
     own count of GEMV launches stands beside every attempt -> the record
@@ -614,16 +641,19 @@ def b1_trace(run, L: int, what: str) -> dict:
         chain = {k: launches_of(names, k) for k in B1_CHAIN}
         never = {k: launches_of(names, k) for k in B1_NEVER}
         others = sum(v[0] for v in names.values()) - sum(chain.values())
+        wrapper = others - launches_of(names, "spin_kernel")
         attempts.append({"launches": chain, "counted": counted,
-                         "never": never, "outside_chain": others})
+                         "never": never, "outside_chain": others,
+                         "wrapper": wrapper})
         if chain == want:
             break
     per_layer = sum(chain.values()) / L
     check(chain == want and counted == 4 * L and sum(never.values()) == 0
-          and others < L and per_layer <= 5,
+          and wrapper <= B1_WRAPPER_LAUNCHES and per_layer <= 5,
           f"{what}: B=1 chain launches {chain} (want {want}), {counted} "
           f"GEMVs counted, {never} of the kernels it must not launch, "
-          f"{others} outside the chain; attempts {attempts}")
+          f"{others} outside the chain ({wrapper} besides the trace's "
+          f"spins, want <= {B1_WRAPPER_LAUNCHES}); attempts {attempts}")
     rec = {"b1_trace": what, "launches_per_layer": per_layer,
            "launches": chain, "outside_chain": others, "attempts": attempts,
            "span_ms": {k: span_ms(names, k) for k in B1_CHAIN},
@@ -950,10 +980,11 @@ class Ctx:
         return QuantizedTensor(levels=lv, scales=sc.to(torch.bfloat16),
                                mins=mn, qtype=qtype, packed=bits != 8)
 
-    def rand_layers(self, mins=False):
-        """Layer-stacked random planes of 347M -> (layers, their bytes)."""
+    def rand_layers(self, mins=False, n_layer=None):
+        """Layer-stacked random planes of 347M's widths, ``n_layer`` deep
+        (by default 347M's 24) -> (layers, their bytes)."""
         c = self.cfg
-        D, F, L = c.d_model, c.d_ff, c.n_layer
+        D, F, L = c.d_model, c.d_ff, n_layer or c.n_layer
         layers = {n: {"w": 1 + 0.1 * self.randn(L, D), "b": 0.1 * self.randn(L, D)}
                   for n in ("ln0", "ln1")}
         for name, d_in, d_out in (("qkv", D, 3 * D), ("o", D, D),
@@ -2869,7 +2900,8 @@ def hold_equivalence(c: Ctx, src, same, fmt: str) -> None:
     from biogpt_tpu_torch.ops.prefill_kernels import prefill_fused
 
     cfg, dev = c.cfg, c.dev
-    D, L, H, S = cfg.d_model, cfg.n_layer, cfg.n_head, cfg.n_positions
+    D, H, S = cfg.d_model, cfg.n_head, cfg.n_positions
+    L = src["qkv"]["w"].levels.shape[0]
     past = torch.tensor(ragged_past(32, dead=(7, 19)), dtype=torch.int32,
                         device=dev)
     kc = c.randn(L, 32, S, D).to(torch.bfloat16)
@@ -2908,7 +2940,8 @@ def phase_format_kernels(c: Ctx, fmt: str) -> None:
     at every projection shape (m = 1, 8, 16, 32), ``lm_head_argmax`` at
     m = 1 and both tails at M = 32, the B=1 and batched steps (bf16 and
     int8 KV), the paged steps (bf16 and int8), the staged step (step 7 of
-    16) and ``prefill_fused`` (32 x 32, and 8 x 128 held only)."""
+    16) and ``prefill_fused`` (32 x 32, and 8 x 128 held only); the steps
+    and the refill ``FORMAT_DEPTH`` layers deep."""
     from biogpt_tpu_torch.ops import dequantize
     from biogpt_tpu_torch.ops.decode_kernels import (
         decode_step_fused, decode_step_fused_batched_plain,
@@ -2924,8 +2957,7 @@ def phase_format_kernels(c: Ctx, fmt: str) -> None:
                                                       prefill_cost)
 
     cfg, dev, V_PAD = c.cfg, c.dev, c.V_PAD
-    D, F, L, H, S = (cfg.d_model, cfg.d_ff, cfg.n_layer, cfg.n_head,
-                     cfg.n_positions)
+    D, F, H, S = cfg.d_model, cfg.d_ff, cfg.n_head, cfg.n_positions
     flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
 
     def flush():
@@ -3014,7 +3046,9 @@ def phase_format_kernels(c: Ctx, fmt: str) -> None:
     # it 3.5-4.6 times smaller at the same absolute error (chip run, see
     # PERF.md). The same Q4 planes re-encoded exactly must give the Q4
     # kernels' results bit for bit where the numerics are the same.
-    src, _ = c.rand_layers(mins=fmt.endswith("_1"))
+    L = FORMAT_DEPTH
+    cfg = dataclasses.replace(cfg, n_layer=L)   # the bounds' depth
+    src, _ = c.rand_layers(mins=fmt.endswith("_1"), n_layer=L)
     hold_equivalence(c, src, with_weights(src, lambda qt: reencode(qt, fmt)),
                      fmt)
     layers = with_weights(src, lambda qt: requantize(qt, fmt))
@@ -3182,6 +3216,7 @@ def phase_cli(c: Ctx, path: str, smi: str) -> None:
     from biogpt_tpu_torch.modelio.checkpoint import load_params
     from biogpt_tpu_torch.ops import cuda_lib
     from biogpt_tpu_torch.runtime.engine import Engine
+    from biogpt_tpu_torch.runtime.graphs import ChunkGraphs
 
     runs = [["-p", "cells", "--temp", "0"],                    # 6 tokens
             ["-p", "tumour cells grow", "--temp", "0"],        # 16
@@ -3202,7 +3237,7 @@ def phase_cli(c: Ctx, path: str, smi: str) -> None:
     launches = dict(cuda_lib.LAUNCHES)
     log(f"single-stream path launches: {launches}")
     single = ("qmatmul", "qmatmul_wide", "lm_head_argmax",
-              "decode_step_fused", "decode_gemv_b1")
+              "decode_step_fused", "decode_gemv_b1", "kv_commit")
     for k in single:
         check(launches[k] > 0, f"kernel {k} was not launched on its path")
     check(launches["decode_gemv_b1"] == 4 * c.cfg.n_layer
@@ -3247,17 +3282,23 @@ def phase_cli(c: Ctx, path: str, smi: str) -> None:
     commit_traces(c, Engine(config, params, kv_quant=True,
                             device="cuda").params, config)
 
-    # decode rate of a 128-token greedy generation, bf16 and int8 KV
+    # decode rate of a 128-token greedy generation, bf16 and int8 KV, on
+    # one warm engine: its generations 1-2 run the chunks eagerly, the 3rd
+    # captures them, the 4th (the rate) only replays
     g = GenerationParams(n_predict=128, temp=0.0, stop_at_eos=False, seed=0)
     for kv_quant in (False, True):
         e = eng if not kv_quant else Engine(config, params, kv_quant=True,
                                             device="cuda")
-        e.generate(prompt, g)
-        res = e.generate(prompt, g)
+        per_gen = [e.generate(prompt, g)
+                   for _ in range(ChunkGraphs.EAGER_RUNS + 2)]
+        res = per_gen[-1]
         ms = res.timings["ms_per_token"]
         step = c.results["decode_step_fused_int8" if kv_quant
                          else "decode_step_fused"]
         print(json.dumps({"decode_ms_per_token": ms, "tokens_per_s": 1e3 / ms,
+                          "engine": "warm, every chunk a graph replay",
+                          "ms_per_token_by_generation": [
+                              r.timings["ms_per_token"] for r in per_gen],
                           "kv_cache": "int8" if kv_quant else "bf16",
                           "new_tokens": res.timings["n_new"],
                           "step_device_ms_past_100": step["kernel_ms"],
@@ -3789,24 +3830,317 @@ def phase_paged_staged_serving(c: Ctx, path: str, smi: str) -> None:
         del eng
 
 
+# ------------------------------------- 9a. the decode chunks as CUDA graphs
+
+def replay_kernels(counted: dict, L: int, B: int) -> dict:
+    """The kernel launches a graph's trace must show for the wrappers'
+    counts ``counted`` that one replay adds (``ChunkGraphs.launches``), on
+    a model ``L`` deep at B slots: each GEMV, attention and commit count
+    its kernel; the B=1 step the paged attention CTA a layer; the batched,
+    paged and staged steps the LayerNorm statistics of their qkv and fc1
+    GEMVs (2 L); an lm_head tail the streaming GEMV at B <= 8, else the
+    LayerNorm'd rows and the tensor-core GEMV."""
+    tail = ({"qgemv_stream_kernel": 1} if B <= 8
+            else {"lm_head_mma_kernel": 1, "ln_rows_kernel": 1})
+    per = {"decode_gemv_b1": {"qgemv_b1_kernel": 1},
+           "decode_gemv": {"qgemv_mma_kernel": 1},
+           "batched_attention": {"attn_batched_kernel": 1},
+           "kv_commit": {"kv_commit_kernel": 1},
+           "kv_commit_quant_rows": {"kv_commit_quant_rows_kernel": 1},
+           "qmatmul": {"qmatmul_kernel": 1},
+           "qmatmul_wide": {"qgemv_stream_kernel": 1},
+           "decode_step_fused": {"attn_paged_kernel": L},
+           "decode_step_fused_int8": {"attn_paged_kernel": L},
+           "lm_head_argmax": tail, "lm_head_argmax_commit": tail,
+           "lm_head_logits_gmax_commit": tail}
+    for k in ("decode_step_fused_batched", "decode_step_fused_batched_int8",
+              "decode_step_fused_paged", "decode_step_fused_paged_int8",
+              "decode_step_fused_staged"):
+        per[k] = {"row_stats_kernel": 2 * L}
+    want = {}
+    for k, n in counted.items():
+        for kern, m in per[k].items():
+            want[kern] = want.get(kern, 0) + n * m
+    return want
+
+
+def replay_trace(runner, key, L: int, B: int, what: str) -> dict:
+    """One replay of the graph of ``key`` under ``torch.profiler``: the
+    counts the replay adds to ``cuda_lib.LAUNCHES`` are the graph's, and
+    the trace shows each of their kernels as often as they say
+    (:func:`replay_kernels`). A trace short of those records is taken
+    again, up to three times."""
+    attempts = []
+    for _ in range(3):
+        counted = {}
+        names = kernel_trace(lambda: runner.run(key, None), counted=counted)
+        counted = {k: n for k, n in counted.items() if n}
+        want = replay_kernels(counted, L, B)
+        got = {k: launches_of(names, k) for k in want}
+        attempts.append({"counted": counted, "trace": got,
+                         "records": sum(v[0] for v in names.values())})
+        if got == want:
+            break
+    check(counted == runner.launches(key) and got == want,
+          f"{what}: a replay counted {counted} (the graph's "
+          f"{runner.launches(key)}), its trace {got}, want {want}; "
+          f"attempts {attempts}")
+    rec = {"replay_trace": what, "key": [str(k) for k in key],
+           "counted": counted, "trace": got, "attempts": attempts}
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def strict_eager(runner) -> None:
+    """Run each chunk body of ``runner`` (an engine's with capture off)
+    under ``torch.cuda.set_sync_debug_mode("error")``: a body that makes
+    the host wait on the card raises."""
+    real = runner.run
+
+    def run(key, body, sampled=False):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            real(key, body, sampled)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    runner.run = run
+
+
+def caches_equal(a, b) -> bool:
+    """Whether two KV caches' planes (levels and scales) are bit-equal."""
+    planes = ("k", "v", "ks", "vs")
+    return all(torch.equal(getattr(a, n), getattr(b, n)) for n in planes
+               if getattr(a, n, None) is not None)
+
+
+def replay_ms(runner, key, steps: int, reset, reps: int = 5) -> float:
+    """Device ms a step of the graph of ``key``: CUDA events around each of
+    ``reps`` replays, each after ``reset()`` (the positions put back), the
+    median over ``steps``."""
+    times = []
+    for _ in range(reps):
+        reset()
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        runner.run(key, None)
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times) / steps
+
+
+def phase_graphs(c: Ctx, path: str, smi: str) -> None:
+    """The decode chunks as CUDA graphs (``runtime/graphs.py``) on the main
+    file, each engine beside an engine whose capture is off (the eager
+    chunk, every body run under ``set_sync_debug_mode("error")``) on the
+    same weights and requests. The single stream: bf16 and int8 caches,
+    greedy and sampled, 150 tokens from a 16-token prompt (chunks of 64 at
+    window 128, 64 and 16 + 4 + 1 at 256), four generations on each
+    engine (on the graph route: two eager, the one that captures, one
+    that only replays): ids equal, caches bit-equal, ms/token of each
+    generation, a 64-step graph's device ms a step, a replay traced
+    against its counts. The serves: lockstep, paged (bf16, int8)
+    and staged at B=32, the uniform greedy serve (96 requests lockstep, 32
+    the rest) and the mixed one (32, half sampled): ids equal, pool caches
+    bit-equal, tokens/s, wall and device ms a step of both routes, a
+    chunk graph's replay traced and timed, one eager chunk under the sync
+    check. Every engine's captures, capture seconds and pool bytes."""
+    import numpy as np
+
+    from biogpt_tpu_torch.config import GenerationParams
+    from biogpt_tpu_torch.modelio.checkpoint import load_params
+    from biogpt_tpu_torch.runtime.engine import Engine
+    from biogpt_tpu_torch.runtime.graphs import ChunkGraphs
+    from biogpt_tpu_torch.runtime.serving import BatchedEngine, Request
+
+    def eager(eng):
+        eng.graphs.capture = False   # every chunk body runs directly
+        return eng
+
+    config, _, _, params = load_params(path, device="cpu")
+    L, V, card = config.n_layer, config.n_vocab, torch.cuda.get_device_name(0)
+    prompt = [2] + list(range(40, 55))
+    runs = ChunkGraphs.EAGER_RUNS + 2   # eager ones, capturing, replaying
+    for kv_quant in (False, True):
+        kv = "int8" if kv_quant else "bf16"
+        engines = {"graph": Engine(config, params, kv_quant=kv_quant,
+                                   device="cuda"),
+                   "eager": eager(Engine(config, params, kv_quant=kv_quant,
+                                         device="cuda"))}
+        check(engines["graph"].graphs.capture
+              and not engines["eager"].graphs.capture,
+              f"single stream {kv}: the graph route is not live")
+        strict_eager(engines["eager"].graphs)
+        runner = engines["graph"].graphs
+        for temp in (0.0, 0.9):
+            gen = GenerationParams(n_predict=150, temp=temp, top_k=40,
+                                   top_p=0.9, seed=11, stop_at_eos=False)
+            what = f"single stream {kv} {'greedy' if temp <= 0 else 'sampled'}"
+            res = {route: [] for route in engines}
+            for route, eng in engines.items():
+                for _ in range(runs):
+                    before = (runner.captures, sum(runner.runs.values()),
+                              runner.replays)
+                    res[route].append(eng.generate(prompt, gen))
+                    torch.cuda.synchronize()
+                if route == "graph":   # its last generation only replayed
+                    replayed = (runner.captures == before[0]
+                                and sum(runner.runs.values()) == before[1]
+                                and runner.replays > before[2])
+            g, e = res["graph"][-1], res["eager"][-1]
+            same = all(r.ids == g.ids for rs in res.values() for r in rs)
+            equal = caches_equal(engines["graph"]._cache,
+                                 engines["eager"]._cache)
+            check(same and equal and replayed and len(g.new_ids) == 150,
+                  f"{what}: graph ids equal the eager chunk's: {same}, "
+                  f"caches bit-equal: {equal}, the last generation only "
+                  f"replayed: {replayed}")
+            print(json.dumps({
+                "graph_single_stream": what, "kv_cache": kv,
+                "ids_equal": same, "caches_bit_equal": equal,
+                "last_generation_only_replays": replayed,
+                "new_tokens": len(g.new_ids),
+                "graph_ms_per_token": g.timings["ms_per_token"],
+                "eager_ms_per_token": e.timings["ms_per_token"],
+                "graph_route_ms_per_token_by_generation": [
+                    r.timings["ms_per_token"] for r in res["graph"]],
+                "eager_ms_per_token_by_generation": [
+                    r.timings["ms_per_token"] for r in res["eager"]],
+                "graphs": runner.stats(), "card": card, "card_stamp": smi}),
+                flush=True)
+        # after the comparisons: a 64-step graph's device time (the
+        # position put back to the prompt's end) and a traced replay
+        st = engines["graph"]._decode_state()
+        for temp_key in ((True, None), (False, 40)):
+            key = ("b1", engines["graph"].cache_dtype, *temp_key, 128, 64)
+            what = f"single stream {kv} {'greedy' if temp_key[0] else 'sampled'}"
+            print(json.dumps({
+                "graph_replay": what, "steps": 64, "window": 128,
+                "device_ms_per_step": replay_ms(
+                    runner, key, 64, lambda: st.pos.fill_(len(prompt))),
+                "card": card, "card_stamp": smi}), flush=True)
+            st.pos.fill_(130)
+            replay_trace(runner, key[:4] + (256, 4), L, 1, what)
+        del engines, runner, st
+
+    routes = (("lockstep bf16", {}, 96), ("lockstep int8",
+                                          dict(kv_quant=True), 96),
+              ("paged bf16", dict(paged_kv=True), 32),
+              ("paged int8", dict(paged_kv=True, kv_quant=True), 32),
+              ("staged bf16", dict(staged_kv=True), 32))
+    B = 32
+    for name, flags, n_uniform in routes:
+        engines = {route: BatchedEngine(config, params, max_batch=B,
+                                        max_seq=512, chunk=16, device="cuda",
+                                        **flags)
+                   for route in ("graph", "eager")}
+        eager(engines["eager"])
+        check(engines["graph"].graphs.capture
+              and not engines["eager"].graphs.capture,
+              f"serve {name}: the graph route is not live")
+        for eng in engines.values():
+            eng.warmup()   # the window-128 graphs of both tails
+        runner = engines["graph"].graphs
+        for kind, make, gen in (
+                ("uniform greedy", lambda: uniform_reqs(
+                    np.random.default_rng(0), V, n_uniform, Request),
+                 GenerationParams(temp=0.0, stop_at_eos=False)),
+                ("mixed", lambda: mixed_reqs(np.random.default_rng(1), V, B,
+                                             Request),
+                 GenerationParams(temp=0.0, stop_at_eos=False, seed=3))):
+            out = {}
+            for rep in range(2 if kind == "mixed" else 1):
+                for route, eng in engines.items():
+                    snap0 = eng.metrics.snapshot()
+                    captures0 = eng.graphs.captures
+                    replays0 = eng.graphs.replays
+                    spans = span_meter(eng)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    got = eng.serve(make(), gen)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    del eng._prefill_group, eng._run_chunk
+                    steps = eng.chunk * (
+                        eng.metrics.snapshot()["chunks_launched"]
+                        - snap0["chunks_launched"])
+                    out[route] = {
+                        "ids": {i: r.ids for i, r in got.items()},
+                        "tokens_per_s": sum(len(r.new_ids)
+                                            for r in got.values()) / wall,
+                        "wall_ms_per_step": 1e3 * wall / steps,
+                        "chunk_device_ms_per_step": sum(
+                            s.elapsed_time(e) for s, e in spans["chunk"])
+                        / steps,
+                        "captures_in_serve": eng.graphs.captures - captures0,
+                        "replays_in_serve": eng.graphs.replays - replays0}
+            same = out["graph"]["ids"] == out["eager"]["ids"]
+            equal = caches_equal(engines["graph"]._cache,
+                                 engines["eager"]._cache)
+            replayed = (out["graph"]["replays_in_serve"] > 0
+                        and out["eager"]["replays_in_serve"] == 0)
+            check(same and equal and replayed,
+                  f"serve {name} {kind}: graph ids equal the eager chunk's: "
+                  f"{same}, caches bit-equal: {equal}, only the graph route "
+                  f"replayed: {replayed}")
+            print(json.dumps({
+                "graph_serve": name, "serve": kind, "batch_slots": B,
+                "chunk": 16, "requests": len(out["graph"]["ids"]),
+                "ids_equal": same, "caches_bit_equal": equal,
+                **{f"{route}_{k}": v for route, o in out.items()
+                   for k, v in o.items() if k != "ids"},
+                "graphs": runner.stats(), "card": card, "card_stamp": smi}),
+                flush=True)
+        # after the comparisons: the greedy window-128 chunk graph's device
+        # time (positions put back to the uniform serve's) and, lockstep
+        # bf16, a traced replay
+        st = engines["graph"]._st
+        key = next(k for k in runner.graphs if k[2] and k[3] == 128)
+        past = torch.tensor(serve_past(B), dtype=torch.int32, device=c.dev)
+        st.live.fill_(True)
+        print(json.dumps({
+            "graph_replay": f"serve {name}", "steps": 16, "window": 128,
+            "device_ms_per_step": replay_ms(
+                runner, key, 16, lambda: st.lengths.copy_(past)),
+            "card": card, "card_stamp": smi}), flush=True)
+        if name == "lockstep bf16":
+            st.lengths.copy_(past)
+            replay_trace(runner, key, L, B, f"serve {name}")
+        # one eager chunk alone under the sync check (no drain thread runs)
+        eng = engines["eager"]
+        strict_eager(eng.graphs)
+        live = torch.ones(eng.B, dtype=torch.bool, device=c.dev)
+        for all_greedy in (True, False):
+            eng._st.lengths.copy_(past)
+            eng._run_chunk(eng._st, eng._cache, live, 128, all_greedy,
+                           eng.generator)
+        torch.cuda.synchronize()
+        del engines, eng, runner, st
+
+
 # ------------------------------------ 10. Q5_0, Q5_1 and Q8_0 end to end
 
-def count_route(c: Ctx, launches: dict, kernels, fmt: str) -> None:
+def count_route(c: Ctx, launches: dict, kernels, fmt: str,
+                n_layer: int | None = None) -> None:
     """Add a main-path run's launches of ``kernels`` to the ``kernels``
     line's counts, and note that they drove a route in format ``fmt``; a
-    route through the refill kernel launched its GEMM 4 L times a call."""
+    route through the refill kernel of a model ``n_layer`` deep (347M's
+    by default) launched its GEMM 4 L times a call."""
+    L = n_layer or c.cfg.n_layer
     if "prefill_fused" in kernels:
         n = launches["prefill_fused"]
-        check(launches["prefill_gemm"] == 4 * c.cfg.n_layer * n,
+        check(launches["prefill_gemm"] == 4 * L * n,
               f"{fmt} route: {launches['prefill_gemm']} refill GEMM launches "
-              f"for {n} prefill_fused calls (want {4 * c.cfg.n_layer} each)")
+              f"for {n} prefill_fused calls (want {4 * L} each)")
     for k in kernels:
         c.launches[k] = c.launches.get(k, 0) + launches[k]
         c.formats.setdefault(k, set()).add(fmt)
 
 
 def launched_exactly(c: Ctx, launches: dict, required: set, optional: set,
-                     what: str, fmt: str) -> None:
+                     what: str, fmt: str, n_layer: int | None = None) -> None:
     """A run launched every kernel of its route (``required``), and no
     kernel outside it and the refills' lm_head GEMVs (``optional``); the
     route's launches count on the ``kernels`` line."""
@@ -3814,11 +4148,12 @@ def launched_exactly(c: Ctx, launches: dict, required: set, optional: set,
     check(required <= got <= required | optional,
           f"{what}: launched {sorted(got)}, expected {sorted(required)} "
           f"(and perhaps {sorted(optional - required)})")
-    count_route(c, launches, required, fmt)
+    count_route(c, launches, required, fmt, n_layer)
 
 
 def phase_format_e2e(c: Ctx, fmt: str, smi: str) -> None:
-    """A random 347M model file in ``fmt`` through the entry points: the CLI
+    """A random model file in ``fmt``, 347M's widths ``FORMAT_DEPTH``
+    layers deep, through the entry points: the CLI
     greedy, sampled and greedy with ``--kv-quant`` (32 new tokens); the
     uniform greedy ``serve()`` of 96 requests at B=32 with a bf16 and an
     int8 cache and through the paged and the staged engine, refilling
@@ -3844,20 +4179,24 @@ def phase_format_e2e(c: Ctx, fmt: str, smi: str) -> None:
     argmax_tail = {"lm_head_argmax"} if packed else set()
     refill_gemv = {"qmatmul", "qmatmul_wide"}   # the refill's lm_head, m = R
     card = torch.cuda.get_device_name(0)
+    L = FORMAT_DEPTH
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        path = os.path.join(tmp, f"biogpt347m-{fmt}.bin")
+        path = os.path.join(tmp, f"biogpt347m-{L}layers-{fmt}.bin")
         t0 = time.perf_counter()
-        write_random_quantized_model(path, c.cfg, qtype, seed=7)
+        write_random_quantized_model(
+            path, dataclasses.replace(c.cfg, n_layer=L), qtype, seed=7)
         log(f"wrote {path} ({os.path.getsize(path) / 1e6:.1f} MB) in "
             f"{time.perf_counter() - t0:.1f} s")
         prompt = "the protein binds the receptor"   # 9-32 tokens
+        # the single stream's steps commit at their device position
+        # through kv_commit (bf16) or kv_commit_quant_rows (int8)
         for argv, required in (
                 (["--temp", "0"], {"qmatmul", "qmatmul_wide",
-                                   "decode_step_fused", "decode_gemv_b1"}
-                 | argmax_tail),
+                                   "decode_step_fused", "decode_gemv_b1",
+                                   "kv_commit"} | argmax_tail),
                 (["--temp", "0.9", "-s", "1"],
                  {"qmatmul", "qmatmul_wide", "decode_step_fused",
-                  "decode_gemv_b1"}),
+                  "decode_gemv_b1", "kv_commit"}),
                 (["--temp", "0", "--kv-quant"],
                  {"qmatmul", "qmatmul_wide", "decode_step_fused_int8",
                   "decode_gemv_b1", "kv_commit_quant_rows"} | argmax_tail)):
@@ -3872,7 +4211,7 @@ def phase_format_e2e(c: Ctx, fmt: str, smi: str) -> None:
                 f"s, {len(text)} chars of text")
             check(rc == 0 and len(text) > 0, f"cli {fmt} {argv} rc={rc}")
             launched_exactly(c, dict(cuda_lib.LAUNCHES), required, set(),
-                             f"cli {fmt} {argv}", fmt)
+                             f"cli {fmt} {argv}", fmt, L)
         config, _, _, params = load_params(path, device="cpu")
     # the engines' weights, prepared once on the host and moved to the card
     # (each engine's own preparation then finds them prepared)
@@ -3933,7 +4272,7 @@ def phase_format_e2e(c: Ctx, fmt: str, smi: str) -> None:
         log(f"{name} {fmt} uniform serve launches: {launches}")
         launched_exactly(c, launches,
                          step_kernels | {"prefill_fused", "prefill_gemm"},
-                         refill_gemv, f"serve ({name} {fmt})", fmt)
+                         refill_gemv, f"serve ({name} {fmt})", fmt, L)
         ids = {i: r.ids for i, r in res.items()}
         if lockstep_ids is None:
             lockstep_ids = ids
@@ -4148,8 +4487,8 @@ def phase_model_files(c: Ctx, smi: str) -> None:
                           "card_stamp": smi}), flush=True)
         launched_exactly(c, dict(cuda_lib.LAUNCHES),
                          {"qmatmul", "qmatmul_wide", "lm_head_argmax",
-                          "decode_step_fused", "decode_gemv_b1"}, set(),
-                         "model files q4_0 CLI engine", "q4_0")
+                          "decode_step_fused", "decode_gemv_b1", "kv_commit"},
+                         set(), "model files q4_0 CLI engine", "q4_0")
         # windows of 32 rows (row 2) and a last one of 6 (row 1)
         ids = [2] + np.random.default_rng(0).integers(
             4, config.n_vocab, size=4 * 32 + 5).tolist()
@@ -6353,6 +6692,15 @@ def main() -> int:
     if sys.argv[1:2] == ["--mesh"]:
         mesh_phases(c, smi)
         return 1 if FAILURES else 0
+    if sys.argv[1:2] == ["--graphs"]:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            path = os.path.join(tmp, "biogpt347m-q4_0.bin")
+            write_random_quantized_model(path, c.cfg, codecs.GGML_TYPE_Q4_0,
+                                         seed=7)
+            t0 = time.perf_counter()
+            phase_graphs(c, path, smi)
+            log(f"phase_graphs: {time.perf_counter() - t0:.1f} s")
+        return 1 if FAILURES else 0
     phases = [(p.__name__, p) for p in (
         phase_single_kernels, phase_qmatmul_kernels, phase_serving_kernels,
         phase_refill_int8_kernels, phase_paged_staged_kernels,
@@ -6380,6 +6728,7 @@ def main() -> int:
                 ("phase_serving int8",
                  lambda *a: phase_serving(*a, kv_quant=True)),
                 ("phase_paged_staged_serving", phase_paged_staged_serving),
+                ("phase_graphs", phase_graphs),
                 ("phase_tp_serving", phase_tp_serving),
                 ("phase_tp_one_by_one", phase_tp_one_by_one),
                 ("phase_mesh_serving", phase_mesh_serving)):
