@@ -43,10 +43,13 @@
 //     end with the epilogue: the bf16 outputs (q, k, v; GELU) staged in
 //     shared memory and stored in 16-byte pieces of rows, the residual
 //     with its loads issued before its stores, the bias from shared memory;
-//   - where the tiles would not fill the card (o, fc2, small R*T), the host
-//     splits d_in over a thread block cluster of up to 8 blocks, which sum
-//     their partial tiles in split order through distributed shared memory
-//     (no atomics), then apply the epilogue.
+//   - where the tiles of a 512-row group would not fill the card (every
+//     projection of 347M), the host splits d_in over a thread block
+//     cluster of up to 8 blocks, which sum their partial tiles in split
+//     order through distributed shared memory (no atomics), then apply the
+//     epilogue. The split count is a function of the weight's widths,
+//     never of R*T, so a refill row's bits do not depend on how many rows
+//     share its group.
 // Attention (causal_attn_kernel) computes Q.K^T and P.V on the tensor
 // cores (mma.sync m16n8k16, bf16 in, f32 accumulation): a block takes up
 // to 64 query rows of one (prompt, head), 16 a warp, keys and values
@@ -897,11 +900,17 @@ int sm_count() {
   return n;
 }
 
-// Blocks along d_in: doubled while the tiles (bn columns wide) fill at
-// most half the card, up to a cluster of 8, each split a whole number of
-// groups.
-int gemm_splits(int M, int d_in, int d_out, int bn) {
-  const int tiles = (d_out / bn) * ((M + GBM - 1) / GBM);
+// Blocks along d_in: doubled while the tiles (bn columns wide) of a
+// SPLIT_ROWS-row group fill at most half the card, up to a cluster of 8,
+// each split a whole number of groups. The count, and with it the order of
+// each output's f32 sums, is a function of the weight's widths alone: a
+// refill row's results are the same whatever the number of rows beside it.
+// 512 rows sits between the refill shapes this kernel takes (16 to 1024
+// rows): 347M's splits (qkv, o, fc1, fc2) are 2, 4, 2, 4.
+constexpr int SPLIT_ROWS = 512;
+
+int gemm_splits(int d_in, int d_out, int bn) {
+  const int tiles = (d_out / bn) * (SPLIT_ROWS / GBM);
   const int groups = d_in / GBK;
   int s = 1;
   while (2 * s <= MAX_SPLITS && tiles * 2 * s <= sm_count()
@@ -949,7 +958,7 @@ void launch_gemm(const __nv_bfloat16* A, int M, int d_in, int d_out,
   a.mn = p.mn != nullptr ? p.mn + l * sc_stride : nullptr;
   a.off = off;
   const int bn = tile_bn(EPI, d_out);
-  a.splits = gemm_splits(M, d_in, d_out, bn);
+  a.splits = gemm_splits(d_in, d_out, bn);
   a.e = e;
   with_format(p.bits, a.mn != nullptr, [&](auto fmt) {
     using F = decltype(fmt);

@@ -203,12 +203,17 @@ def forward(params: dict, tokens: torch.Tensor, cache: KVCache, past,
             causal: bool = True, logits_mode: str = "last",
             allow_kernels: bool = True, kv_window: Optional[int] = None,
             last_index=None, mesh=None, tp_seq_shard: bool = False,
-            layout=None):
+            layout=None, logits_rows: Optional[int] = None):
     """One forward step (prefill or per-op decode) -> (logits, cache):
     (B, n_vocab) for "last" or (B, N, n_vocab) for "all". The cache rows
     [past, past + N) are written in place. ``past``: a host int, or (B,)
     per-slot positions. ``last_index``: the position of the real last
-    token (padded prefill), a host int or (B,) per row.
+    token (padded prefill), a host int or (B,) per row. ``logits_rows``
+    (> B, "last" logits): these B rows are a data-axis replica's share of
+    a refill group of that many rows, and the last-token lm_head runs on
+    them padded with zero rows to the group's count, so that its product
+    takes the form the group's row count picks (``ops.qmatmul.matmul``),
+    as the JAX program of the whole group does.
 
     ``mesh`` (``parallel.mesh.Mesh``): this rank's shard of a tensor-
     parallel forward (``parallel/tp.py``): params and cache are its local
@@ -257,13 +262,15 @@ def forward(params: dict, tokens: torch.Tensor, cache: KVCache, past,
     if logits_mode == "last":
         idx = _per_row(N - 1 if last_index is None else last_index, B, dev)
         x = torch.gather(x, 1, idx[:, None, None].expand(B, 1, x.shape[-1]))
+        if logits_rows is not None and logits_rows > B:
+            x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, logits_rows - B))
     logits = matmul(x, params["lm_head"], compute_dtype=compute_dtype,
                     allow_kernels=allow_kernels)
     if _is_shard(mesh, layout, "lm_head"):   # the column-parallel vocab
         logits = mesh.all_gather_last(logits)
     logits = logits[..., :config.n_vocab]   # the lm_head may be lane-padded
     if logits_mode == "last":
-        logits = logits[:, 0, :]
+        logits = logits[:B, 0, :]
     return logits, cache
 
 

@@ -220,11 +220,12 @@ def make_sharded_forward(mesh: Mesh, layout: Layout):
     def sharded_forward(params, tokens, cache, past, config: BioGptConfig,
                         compute_dtype=torch.float32, causal: bool = True,
                         logits_mode: str = "last", allow_kernels: bool = False,
-                        kv_window: Optional[int] = None, last_index=None):
+                        kv_window: Optional[int] = None, last_index=None,
+                        logits_rows: Optional[int] = None):
         return forward(params, tokens, cache, past, config,
                        compute_dtype=compute_dtype, causal=causal,
                        logits_mode=logits_mode, allow_kernels=False,
                        kv_window=kv_window, last_index=last_index, mesh=mesh,
-                       layout=layout)
+                       layout=layout, logits_rows=logits_rows)
 
     return sharded_forward

@@ -197,7 +197,9 @@ def merge_rows(cache: KVCache, small: KVCache, slots, rows) -> KVCache:
     prefix, ``padded = small.max_len`` (rows past a prompt hold padding that
     no later read reaches: attention masks ``idx < past``); an int8 cache
     takes the levels on axis 2 and the scales on axis 3. In place;
-    ``slots``/``rows`` are (n,) index tensors on the cache's device."""
+    ``slots``/``rows`` are (n,) index tensors on the cache's device. A slot
+    may repeat only with the same row (a refill body's padding rows write
+    row 0's values again), so every write to it is the same."""
     padded = small.max_len
     cache.k[:, slots, :padded] = small.k[:, rows].to(cache.k.dtype)
     cache.v[:, slots, :padded] = small.v[:, rows].to(cache.v.dtype)

@@ -3,7 +3,12 @@
 Prefill pads the prompt to a power-of-two bucket (floor 8) and runs the
 per-op ``forward``; its quantized projections go through the GEMV kernels
 (m <= 8: ``qmatmul``, 9..32: ``qmatmul_wide``) and larger buckets through
-one dense product. Decode runs the fused whole-model step; greedy decode
+one dense product. The prompt and its last position reach the device in
+one copy, and the forward is one body over static tensors: on the card,
+without a mesh, a (cache dtype, bucket, KV window) key's third prefill
+into the engine's own cache is captured as a CUDA graph and later ones
+replay it (a cold process's single prefill runs eagerly). Decode runs
+the fused whole-model step; greedy decode
 adds the fused LN + lm_head + argmax tail where the lm_head is packed (the
 4- and 5-bit formats), sampled decode, and greedy decode on an unpacked
 Q8_0 lm_head (as in the JAX engine), the final LN, the lm_head GEMV and
@@ -36,14 +41,14 @@ and so does the B=1 KV cache, reused by every generation (prefill writes
 rows ``[0, padded)``; every read stops below the position). A chunk of
 ``budget`` steps runs as the bodies of its binary decomposition
 (``runtime.graphs.binary_chunks``: 64, 32, ..., 1 steps), each through
-``runtime.graphs.ChunkGraphs``: on the card, on the single-device fused
-route (bf16 or int8 cache, B=1 greedy and sampled), a body of one (cache
-dtype, greedy or sampled, top_k, KV window, steps) runs eagerly twice,
-then becomes a CUDA graph of the chunk's hand-written kernels, captured
-once and replayed (a one-off generation's chunks pay no capture;
-:meth:`Engine.warmup` captures the first window's); the per-op route (f16
-cache, f32 compute, unpacked weights) and the mesh routes run every body
-eagerly (the mesh's collectives are gloo's).
+``runtime.graphs.ChunkGraphs``: on the card, on every single-device route
+(the fused step with a bf16 or int8 cache, and the per-op step: an f16
+cache, f32 compute, unpacked weights), a body of one (cache dtype, greedy
+or sampled, top_k, KV window, steps) runs eagerly twice, then becomes a
+CUDA graph of the chunk's launches, captured once and replayed (a one-off
+generation's chunks pay no capture; :meth:`Engine.warmup` captures the
+first window's); the mesh routes run every body eagerly (the mesh's
+collectives are gloo's).
 Sampled chunks draw from the engine's generator, reseeded by each
 generation. The host reads the device once per chunk (``bool(done)``);
 streaming runs one-step bodies and reads every token. Steps after an EOS
@@ -74,6 +79,13 @@ from ..quant.layouts import QuantizedTensor, pack_nibble_planes
 from .cache import KVCache, clear_cache, init_cache
 from .graphs import ChunkGraphs, binary_chunks
 from .sampling import greedy, sample_top_k_top_p
+
+
+def _host(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as the source of a copy to ``device``: pinned for the
+    card, so that the copy does not wait for the work already queued."""
+    t = torch.from_numpy(a)
+    return t.pin_memory() if device.type == "cuda" else t
 
 
 def _bucket(n: int, floor: int = 8) -> int:
@@ -250,11 +262,13 @@ class Engine:
                               and isinstance(lm_head, QuantizedTensor)
                               and lm_head.packed and supports(lm_head, 1))
         self.generator = torch.Generator(device=self.device)
-        # the fused route's decode chunks as CUDA graphs on the card
+        # prefill and the decode chunks as CUDA graphs on the card, on every
+        # route without a mesh (a mesh's collectives are gloo's)
         self.graphs = ChunkGraphs(self.device, self.generator,
-                                  capture=self._fused_decode)
+                                  capture=self.mesh is None)
         self._cache: Optional[KVCache] = None
         self._state: Optional[SimpleNamespace] = None
+        self._prefill_bufs: dict = {}   # padded -> the prefill's inputs
 
     # ------------------------------------------------------------ plumbing
 
@@ -264,21 +278,21 @@ class Engine:
 
     def warmup(self, prompt_len: int = 8, n_tokens: int = 4,
                sampled: bool = True, top_k: int = 40) -> None:
-        """Run the paths of a first request before it comes: two
-        generations from a ``prompt_len``-token prompt (sampled when
-        ``sampled``), then a greedy one when ``sampled``. On the card this
-        builds the kernels' libraries and pays the first launches and the
-        allocator's first requests; on the graph route it also captures
-        the decode chunks of the first KV window (128): 64, 32, ..., 1
-        steps, greedy and, when ``sampled``, sampled with ``top_k``, each
-        run until its graph has replayed once."""
+        """Run the paths of a first request before it comes: three
+        generations from a ``prompt_len``-token prompt (the first two
+        sampled when ``sampled``, the last greedy). On the card this builds
+        the kernels' libraries and pays the first launches and the
+        allocator's first requests; on the graph route (no mesh) the third
+        prefill of that prompt's key is captured and replayed, and the
+        decode chunks of the first KV window (128) are captured: 64, 32,
+        ..., 1 steps, greedy and, when ``sampled``, sampled with
+        ``top_k``, each run until its graph has replayed once."""
         gen = GenerationParams(n_predict=n_tokens, seed=0, stop_at_eos=False,
                                temp=0.8 if sampled else 0.0, top_k=top_k)
         prompt = list(range(2, 2 + prompt_len))
-        self.generate(prompt, gen)
-        self.generate(prompt, gen)
-        if sampled:
-            self.generate(prompt, dataclasses.replace(gen, temp=0.0))
+        for _ in range(ChunkGraphs.EAGER_RUNS):
+            self.generate(prompt, gen)
+        self.generate(prompt, dataclasses.replace(gen, temp=0.0))
         if not self.graphs.capture:
             return
         st, window = self._decode_state(), self._window(prompt_len + 1)
@@ -331,21 +345,54 @@ class Engine:
                 ring=torch.zeros(self.SCAN_LEN, **i32))
         return self._state
 
+    def _prefill_buffers(self, padded: int) -> SimpleNamespace:
+        """The prefill body's static tensors for prompts padded to
+        ``padded``: its input block (the prompt ``ids`` (1, padded), then
+        the last real position ``last`` (1,)), filled by one copy a
+        prefill, and its logits (1, V)."""
+        buf = self._prefill_bufs.get(padded)
+        if buf is None:
+            ints = torch.zeros(padded + 1, dtype=torch.int64,
+                               device=self.device)
+            buf = SimpleNamespace(
+                ints=ints, ids=ints[:padded].view(1, padded),
+                last=ints[padded:],
+                logits=torch.zeros(1, self.config.n_vocab,
+                                   dtype=torch.float32, device=self.device))
+            self._prefill_bufs[padded] = buf
+        return buf
+
     def prefill(self, cache: KVCache, token_ids):
-        """Run the prompt through the model -> (logits (1, V), cache, n)."""
+        """Run the prompt through the model -> (logits (1, V), cache, n).
+        The prompt and its last position go to the device in one copy; the
+        forward is one body over static tensors, run through the engine's
+        graph runner under the key (cache dtype, padded length, KV window):
+        on the card a CUDA graph's replay once the key has run eagerly,
+        where ``cache`` is the engine's own (:meth:`_gen_cache`; any other
+        cache runs the body directly)."""
         ids = np.asarray(token_ids, dtype=np.int64).reshape(1, -1)
         n = ids.shape[1]
         if n > self.max_seq:
             raise ValueError(f"prompt length {n} exceeds max_seq {self.max_seq}")
         padded = min(_bucket(n), self.max_seq)
-        buf = np.zeros((1, padded), dtype=np.int64)
-        buf[:, :n] = ids
-        logits, cache = self._fwd(
-            self.params, torch.from_numpy(buf).to(self.device), cache, 0,
-            self.config, compute_dtype=self.compute_dtype, causal=self.causal,
-            allow_kernels=self.allow_kernels, logits_mode="last",
-            kv_window=self._window(padded), last_index=n - 1)
-        return logits, cache, n
+        window = self._window(padded)
+        buf = self._prefill_buffers(padded)
+        host = np.zeros(padded + 1, dtype=np.int64)
+        host[:n] = ids[0]
+        host[padded] = n - 1
+        buf.ints.copy_(_host(host, self.device), non_blocking=True)
+
+        def body():
+            logits, _ = self._fwd(
+                self.params, buf.ids, cache, 0, self.config,
+                compute_dtype=self.compute_dtype, causal=self.causal,
+                allow_kernels=self.allow_kernels, logits_mode="last",
+                kv_window=window, last_index=buf.last)
+            buf.logits.copy_(logits)
+
+        self.graphs.run(("prefill", self.cache_dtype, padded, window), body,
+                        capture=cache is self._cache)
+        return buf.logits.clone(), cache, n
 
     def decode_step(self, cache: KVCache, token, past,
                     window: Optional[int] = None):

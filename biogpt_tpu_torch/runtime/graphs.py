@@ -1,23 +1,29 @@
-"""Decode chunks as CUDA graphs: the port's one-dispatch scans.
+"""Decode chunks, refills and prefills as CUDA graphs: the port's
+one-dispatch programs.
 
 The JAX engines run a chunk of decode steps as one jitted ``lax.scan``
-(``Engine.decode_scan``, ``BatchedEngine.step_scan``): the token, the
-position, the RNG, the EOS flag and the health bit stay on the device, and
-the host binds a call's arguments once a chunk, not once a step. On the
-card the counterpart is a CUDA graph of the chunk's kernel launches,
-captured once and replayed: :class:`ChunkGraphs`.
+(``Engine.decode_scan``, ``BatchedEngine.step_scan``), a serving refill
+group as one jitted ``refill_commit`` and ``Engine``'s prefill as one
+jitted step: the token, the position, the RNG, the EOS flag and the health
+bit stay on the device, and the host binds a call's arguments once a
+program, not once an op. On the card the counterpart is a CUDA graph of
+the program's kernel launches, captured once and replayed:
+:class:`ChunkGraphs`.
 
-A chunk body is a function of no arguments that reads and writes tensors
-at fixed addresses in place: the engine's KV cache and its static state
+A body is a function of no arguments that reads and writes tensors at
+fixed addresses in place: the engine's KV cache and its static state
 (tokens, positions, the live mask, sampling parameters, the token ring,
-the EOS flag, the health bit). The runner keys each graph by what the
-body's launches depend on besides those tensors (route, cache dtype,
-greedy or sampled, top_k, KV window, steps). The first ``EAGER_RUNS``
+the EOS flag, the health bit; a refill's or a prefill's input block, which
+the host fills with one copy before the run). The runner keys each graph
+by what the body's launches depend on besides those tensors (a decode
+chunk: route, cache dtype, greedy or sampled, top_k, KV window, steps; a
+refill: route, cache dtype, rows, padded length; a prefill: cache dtype,
+padded length, KV window). The first ``EAGER_RUNS``
 runs of a key call the body directly, as real work: they build the
 kernels' libraries, their first-use attributes and cached workspaces
 (``ops.qmatmul_kernels.tail_workspace``) outside any capture. A capture
 costs about an eager run's host time, the graph's instantiation and a
-replay, and each later replay saves a chunk's host time, so a key that
+replay, and each later replay saves a run's host time, so a key that
 runs once or twice (a generation's tail of 32, ..., 1 steps; a cold
 process's single generation) never pays one. The next run of the key
 captures the body into a graph whose memory comes from one pool shared
@@ -34,10 +40,11 @@ nothing: the runner records each graph's count delta at its capture (a
 capture itself launches nothing, so the counts are put back) and adds it
 at every replay.
 
-On the CPU, and where capture is off (``capture=False``: the engines'
-eager routes, decided when the engine is built), :meth:`ChunkGraphs.run`
-calls the body directly. On the card a key's run after its eager ones
-captures or raises: nothing falls back to the eager body.
+On the CPU, and where capture is off (``capture=False``: an engine on a
+mesh, whose collectives are gloo's; or a run's own ``capture=False``: a
+key that is never captured), :meth:`ChunkGraphs.run` calls the body
+directly. On the card a key's run after its eager ones captures or
+raises: nothing falls back to the eager body.
 """
 
 from __future__ import annotations
@@ -85,16 +92,20 @@ class ChunkGraphs:
         self.captures = 0
         self.capture_s = 0.0
         self.replays = 0
+        self.replayed: dict = {}   # key -> its graph's replays
 
-    def run(self, key, body, sampled: bool = False) -> None:
-        """Run ``body`` once: directly where capture is off or ``key`` has
-        run fewer than ``EAGER_RUNS`` times, else as the replay of its
+    def run(self, key, body, sampled: bool = False,
+            capture: bool = True) -> None:
+        """Run ``body`` once: directly where capture is off (the runner's,
+        or ``capture=False``: a key that never becomes a graph) or ``key``
+        has run fewer than ``EAGER_RUNS`` times, else as the replay of its
         graph, captured first if it has none. ``sampled``: the body draws
         from the generator."""
-        entry = self.graphs.get(key) if self.capture else None
+        live = self.capture and capture
+        entry = self.graphs.get(key) if live else None
         if entry is None:
             n = self.runs.get(key, 0)
-            if not self.capture or n < self.EAGER_RUNS:
+            if not live or n < self.EAGER_RUNS:
                 self.runs[key] = n + 1
                 body()
                 return
@@ -102,6 +113,7 @@ class ChunkGraphs:
         graph, counted = entry
         graph.replay()
         self.replays += 1
+        self.replayed[key] = self.replayed.get(key, 0) + 1
         for k, n in counted.items():
             cuda_lib.LAUNCHES[k] += n
 
@@ -139,6 +151,14 @@ class ChunkGraphs:
                    if tuple(s.get("segment_pool_id", ())) == pool)
 
     def stats(self) -> dict:
+        """Graphs, captures, capture seconds, replays and the pool's bytes;
+        the graphs and replays also by the kind of key (its first item:
+        "refill", "prefill", or a decode chunk's route)."""
+        kinds: dict = {}
+        for key in self.graphs:
+            k = kinds.setdefault(str(key[0]), {"graphs": 0, "replays": 0})
+            k["graphs"] += 1
+            k["replays"] += self.replayed.get(key, 0)
         return {"graphs": len(self.graphs), "captures": self.captures,
                 "capture_s": self.capture_s, "replays": self.replays,
-                "pool_bytes": self.pool_bytes()}
+                "pool_bytes": self.pool_bytes(), "by_kind": kinds}

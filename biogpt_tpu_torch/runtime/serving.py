@@ -23,7 +23,12 @@ As in the JAX package:
     (``forward_prefill_fused``); the rest run the per-op forward with
     ``allow_kernels=False``, as the JAX package does. On the CPU the
     refills run the per-op forward unless ``_prefill_fused`` is set, as the
-    JAX package keeps its refill kernel off in interpret mode.
+    JAX package keeps its refill kernel off in interpret mode. A group's
+    device work is one body over static tensors, the JAX ``refill_commit``
+    (``BatchedEngine._refill_body``): the host fills the shape's input
+    block with two copies and runs the body, which a key of at most
+    ``REFILL_GRAPH_ROWS`` rows x tokens on one device turns into a CUDA
+    graph's replay after its eager runs (the chunks' runner, below).
   - ``kv_quant=True`` keeps the slots' KV in int8 with per-row scales
     (``runtime.cache.QuantKVCache``): the step runs in its int8 mode, the
     refills quantize their rows, and the merge moves levels and scales.
@@ -48,16 +53,16 @@ rows ``[0, padded)``; every read stops below the slot's position), and its
 slot state (tokens, positions, the live mask, sampling parameters, the
 (chunk, B) token ring and the chunk's health bit; ``_slots``). The body
 resets dead slots' positions, runs the steps and, staged, collects the
-staging pair and writes it back at the chunk's end. On the card, on the
-single-device fused routes (lockstep, paged and staged; bf16 or int8
-cache; greedy and sampled tails), a body of one (route, cache dtype,
-greedy or sampled, KV window, chunk) runs eagerly twice and then becomes
-a CUDA graph of the chunk's hand-written kernels
+staging pair and writes it back at the chunk's end. On the card, on
+every single-device route (lockstep, paged and staged; bf16 or int8
+cache; greedy and sampled tails; the per-op step), a body of one (route,
+cache dtype, greedy or sampled, KV window, chunk) runs eagerly twice and
+then becomes a CUDA graph of the chunk's launches
 (``runtime.graphs.ChunkGraphs``), captured once and replayed
-(:meth:`BatchedEngine.warmup` captures the first window's); sampled
-chunks draw from the engine's generator, reseeded by each serve. The
-per-op and mesh routes run every body eagerly (a mesh's collectives are
-gloo's, which a graph cannot hold). Either way the
+(:meth:`BatchedEngine.warmup` captures the first window's and its own
+refill's); sampled chunks draw from the engine's generator, reseeded by
+each serve. The mesh routes run every body eagerly (a mesh's collectives
+are gloo's, which a graph cannot hold). Either way the
 steps enqueue without a host read, and each chunk ends with one copy of
 its ring into pinned host memory behind a CUDA event. Drain threads wait
 on that event only, never on the device.
@@ -101,6 +106,7 @@ import threading
 import time
 from dataclasses import dataclass, field
 from itertools import combinations
+from types import SimpleNamespace
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -118,7 +124,7 @@ from ..ops.qmatmul_kernels import supports, supports_wide
 from ..quant.layouts import QuantizedTensor
 from .cache import (KVCache, clear_cache, init_cache, merge_rows,
                     write_block)
-from .engine import _bucket, place_params
+from .engine import _bucket, _host, place_params
 from .graphs import ChunkGraphs
 from .health import DrainStallError, ModelHealthError
 from .metrics import ServingMetrics
@@ -210,6 +216,9 @@ class BatchedEngine:
     MAX_TOP_K = 64   # candidates of the per-request sampler
     # padded prompt tokens one more refill prefill group must save
     REFILL_SPLIT_COST = 512
+    # rows x tokens up to which a refill group's body becomes a CUDA graph
+    # (the refill kernel's own cap, ops.prefill_kernels.supports_prefill)
+    REFILL_GRAPH_ROWS = 1024
 
     def __init__(
         self,
@@ -307,11 +316,13 @@ class BatchedEngine:
         # runs, not in interpret mode); tests set it on the CPU
         self._prefill_fused = self._fused_decode and self.device.type == "cuda"
         self.generator = torch.Generator(device=self.device)
-        # the fused routes' decode chunks as CUDA graphs on the card
+        # the decode chunks and the refills as CUDA graphs on the card, on
+        # every route without a mesh (a mesh's collectives are gloo's)
         self.graphs = ChunkGraphs(self.device, self.generator,
-                                  capture=self._fused_decode)
+                                  capture=self.mesh is None)
         self._cache: Optional[KVCache] = None
         self._st: Optional[_Slots] = None
+        self._refill_bufs: dict = {}   # (rows, padded) -> _refill_buffers
 
     def new_cache(self) -> KVCache:
         """This rank's cache: its replica's slots, its features' shard."""
@@ -357,8 +368,8 @@ class BatchedEngine:
         once more than a chunk key's eager runs, before requests come: on
         the card this builds the kernels' libraries, pays the first
         launches and, on the graph route, captures the chunk graphs of
-        both tails at the first KV window (128). The metrics start afresh
-        after it."""
+        both tails at the first KV window (128) and the refill graph of
+        its one-row group. The metrics start afresh after it."""
         def reqs():
             return [Request(prompt_ids=list(range(2, 2 + prompt_len)),
                             n_predict=self.chunk + 1)]
@@ -370,15 +381,80 @@ class BatchedEngine:
 
     # ------------------------------------------------------------- prefill
 
-    def _gen_vectors(self, reqs, gen: GenerationParams):
-        dev = self.device
-        temps = _to_device([gen.temp if r.temp is None else r.temp
-                            for r in reqs], torch.float32, dev)
-        top_ps = _to_device([gen.top_p if r.top_p is None else r.top_p
-                             for r in reqs], torch.float32, dev)
-        top_ks = _to_device([gen.top_k if r.top_k is None else r.top_k
-                             for r in reqs], torch.int32, dev)
-        return temps, top_ps, top_ks
+    def _req_params(self, req: Request, gen: GenerationParams) -> tuple:
+        """A request's (temp, top_p, top_k), the serve's where it has none."""
+        return (gen.temp if req.temp is None else req.temp,
+                gen.top_p if req.top_p is None else req.top_p,
+                gen.top_k if req.top_k is None else req.top_k)
+
+    def _refill_buffers(self, nr: int, padded: int) -> SimpleNamespace:
+        """The static device inputs of the refill body of ``nr`` rows padded
+        to ``padded`` tokens, made once per shape: one int64 and one f32
+        block, each filled by one copy a refill, and their views -- the
+        prompts ``ids`` (nr, padded), each row's last real position
+        ``last``, the slot each row fills ``dst`` and the row it takes
+        ``src``, the prompt lengths ``lens``, ``top_ks``, the row each
+        takes of the group's draw ``draw`` (a data-axis replica's), ``temps``
+        and ``top_ps``. A padding row repeats row 0's slot, source row,
+        length, draw row and sampling parameters, its prompt all zeros."""
+        key = (nr, padded)
+        buf = self._refill_bufs.get(key)
+        if buf is None:
+            ints = torch.zeros(nr * (padded + 6), dtype=torch.int64,
+                               device=self.device)
+            floats = torch.zeros(2 * nr, dtype=torch.float32,
+                                 device=self.device)
+            cols = ints[nr * padded:].view(6, nr)
+            buf = SimpleNamespace(
+                ints=ints, floats=floats,
+                ids=ints[:nr * padded].view(nr, padded), last=cols[0],
+                dst=cols[1], src=cols[2], lens=cols[3], top_ks=cols[4],
+                draw=cols[5], temps=floats[:nr], top_ps=floats[nr:])
+            self._refill_bufs[key] = buf
+        return buf
+
+    def _refill_body(self, buf, cache: KVCache, st: _Slots, generator,
+                     fused: bool, nr: int):
+        """The device work of a refill group on ``buf``'s tensors, at fixed
+        addresses (the JAX ``refill_commit``): the fresh-cache forward of
+        the prompts (the refill kernel where ``fused``, else the per-op
+        forward without kernels, its last-token lm_head at the group's
+        ``nr`` rows), every row's first token sampled with its own
+        parameters from the group's draw of ``nr`` rows, and each row's
+        prefix rows and first token written to slot ``dst`` from row
+        ``src``, with its slot vectors (a padding row writes row 0's values
+        again: equal values, so the duplicate index is harmless)."""
+        cfg = self.config
+        R, padded = buf.ids.shape
+        # the group's draw: all of it where the replica owns every slot,
+        # else this replica's rows of it
+        rows = None if self.B_local == self.B else (nr, buf.draw)
+
+        def body():
+            if fused:
+                logits, small = forward_prefill_fused(
+                    self.params, buf.ids, cfg, buf.last,
+                    compute_dtype=self.compute_dtype,
+                    cache_dtype=self.cache_dtype)
+            else:
+                small = init_cache(cfg, batch=R, max_len=padded,
+                                   dtype=self.cache_dtype, device=self.device,
+                                   tp=self._kv_shards)
+                logits, small = self._fwd(
+                    self.params, buf.ids, small, 0, cfg,
+                    compute_dtype=self.compute_dtype, allow_kernels=False,
+                    logits_mode="last", last_index=buf.last, logits_rows=nr)
+            firsts = sample_per_request(
+                logits, generator, buf.top_ks, buf.top_ps, buf.temps,
+                max_top_k=self.MAX_TOP_K, rows=rows)[buf.src]
+            merge_rows(cache, small, buf.dst, buf.src)
+            st.toks[buf.dst] = firsts
+            st.first_buf[buf.dst] = firsts
+            st.lengths[buf.dst] = buf.lens.to(torch.int32)
+            st.temps[buf.dst] = buf.temps
+            st.top_ps[buf.dst] = buf.top_ps
+            st.top_ks[buf.dst] = buf.top_ks.to(torch.int32)
+        return body
 
     def _prefill_group(self, pairs, cache: KVCache, generator,
                        gen: GenerationParams, st: _Slots):
@@ -388,9 +464,16 @@ class BatchedEngine:
         on and the shape passes ``supports_prefill``, else the per-op
         forward --, each request's first token sampled with its own
         parameters, the rows merged over the slots' cache prefix and the
-        slot vectors updated -> (cache, prompt lengths). On a data axis a
-        replica runs only the pairs of its own slots (none: it only keeps
-        its sampler in step) and draws its rows of the group's draw."""
+        slot vectors updated -> (cache, prompt lengths). The host fills the
+        shape's static inputs (:meth:`_refill_buffers`) with two copies;
+        the device work is one body (:meth:`_refill_body`) run through the
+        engine's graph runner under the key (route, cache dtype, rows,
+        padded): on the card, without a mesh and at most
+        ``REFILL_GRAPH_ROWS`` rows x tokens, a CUDA graph's replay once
+        the key has run eagerly; larger groups and mesh ranks run it
+        directly. On a data axis a replica runs only the pairs of its own
+        slots (none: it only keeps its sampler in step) and draws its rows
+        of the group's draw."""
         lens = [len(req.prompt_ids) for _, req in pairs]
         padded = min(_bucket(max(lens)), self.max_seq)
         nr = min(_bucket(len(pairs), floor=1), self.B)
@@ -403,46 +486,32 @@ class BatchedEngine:
             return cache, lens
         n = len(own)
         nr_own = min(_bucket(n, floor=1), self.B_local)
-        ids = np.zeros((nr_own, padded), dtype=np.int64)
-        last = np.zeros((nr_own,), dtype=np.int64)
-        for i, r in enumerate(own):
-            ids[i, :lens[r]] = pairs[r][1].prompt_ids
-            last[i] = lens[r] - 1
-        temps, top_ps, top_ks = self._gen_vectors(
-            [pairs[r][1] for r in own], gen)
-        ids_d = _to_device(ids, torch.int64, dev)
-        last_d = _to_device(last, torch.int64, dev)
-        if self._prefill_fused and supports_prefill(
-                self.params["layers"], nr_own, padded, n_head=cfg.n_head,
-                n_positions=cfg.n_positions):
-            logits, small = forward_prefill_fused(
-                self.params, ids_d, cfg, last_d,
-                compute_dtype=self.compute_dtype, cache_dtype=self.cache_dtype)
-        else:
-            small = init_cache(cfg, batch=nr_own, max_len=padded,
-                               dtype=self.cache_dtype, device=dev,
-                               tp=self._kv_shards)
-            logits, small = self._fwd(
-                self.params, ids_d, small, 0, cfg,
-                compute_dtype=self.compute_dtype, allow_kernels=False,
-                logits_mode="last", last_index=last_d)
-        # padding rows sample nothing; the draw is the whole group's, of
-        # which a replica that owns every slot keeps the first n rows
-        firsts = sample_per_request(
-            logits[:n], generator, top_ks, top_ps, temps,
-            max_top_k=self.MAX_TOP_K,
-            rows=(nr, slice(0, n) if self.B_local == self.B
-                  else _to_device(own, torch.int64, dev)))
-        slots = _to_device([pairs[r][0] - self._lo for r in own],
-                           torch.int64, dev)
-        merge_rows(cache, small, slots, torch.arange(n, device=dev))
-        st.toks[slots] = firsts
-        st.first_buf[slots] = firsts
-        st.lengths[slots] = _to_device([lens[r] for r in own], torch.int32,
-                                       dev)
-        st.temps[slots] = temps
-        st.top_ps[slots] = top_ps
-        st.top_ks[slots] = top_ks
+        buf = self._refill_buffers(nr_own, padded)
+        ints = np.zeros((nr_own * (padded + 6),), dtype=np.int64)
+        ids = ints[:nr_own * padded].reshape(nr_own, padded)
+        cols = ints[nr_own * padded:].reshape(6, nr_own)
+        floats = np.zeros((2, nr_own), dtype=np.float32)
+        for i in range(nr_own):
+            r = own[i] if i < n else own[0]
+            req = pairs[r][1]
+            temp, top_p, top_k = self._req_params(req, gen)
+            if i < n:
+                ids[i, :lens[r]] = req.prompt_ids
+                cols[0, i] = lens[r] - 1
+                cols[2, i] = i
+            cols[1, i] = pairs[r][0] - self._lo
+            cols[3, i], cols[4, i], cols[5, i] = lens[r], top_k, r
+            floats[:, i] = temp, top_p
+        buf.ints.copy_(_host(ints, dev), non_blocking=True)
+        buf.floats.copy_(_host(floats.reshape(-1), dev), non_blocking=True)
+        fused = self._prefill_fused and supports_prefill(
+            self.params["layers"], nr_own, padded, n_head=cfg.n_head,
+            n_positions=cfg.n_positions)
+        body = self._refill_body(buf, cache, st, generator, fused, nr)
+        key = ("refill", "fused" if fused else "per_op", self.cache_dtype,
+               nr_own, padded)
+        self.graphs.run(key, body, sampled=True,
+                        capture=nr_own * padded <= self.REFILL_GRAPH_ROWS)
         return cache, lens
 
     def _split_refill_groups(self, pairs):

@@ -122,19 +122,24 @@ logs its seconds):
      counts; the staged step's tail traced to one launch of the streaming
      GEMV) and a mixed-length serve of 32 requests, half greedy (its
      greedy rows against the lockstep engines' on the same requests);
-  9a. the decode chunks as CUDA graphs on the same file
-     (:func:`phase_graphs`; every route above decodes through graph
-     replays once a chunk key has run eagerly twice): each graph-route
-     engine beside one whose capture is off (the eager chunk, its bodies
-     under ``set_sync_debug_mode("error")``): the single stream (bf16,
-     int8; greedy, sampled; 150 tokens across windows 128 and 256, four
-     generations each: two eager, the capturing one, one of replays) and the
-     lockstep, paged (bf16, int8) and staged serves at B=32 (uniform
-     greedy and mixed): ids equal exactly, caches bit-equal, ms/token,
-     tokens/s, wall and device ms a step of both routes, captures, capture
-     seconds and the graphs' pool bytes; a 64-step (B=1) and a 16-step
-     (B=32) graph's replay timed, and replays traced: the launch counts a
-     replay adds against the kernels its trace shows;
+  9a. the decode chunks, refills and prefills as CUDA graphs on the same
+     file (:func:`phase_graphs`; every single-device route above runs
+     through graph replays once a key has run eagerly twice): each
+     graph-route engine beside one whose capture is off (its bodies under
+     ``set_sync_debug_mode("error")``): the single stream (bf16, int8;
+     greedy, sampled; 150 tokens across windows 128 and 256; and the
+     per-op route, an f16 cache and unpacked weights, 48 tokens; four
+     generations each: two eager, the capturing one, one of replays),
+     refill groups alone (1 x 16, 4 x 32, 32 x 32; host and device ms),
+     the lockstep, paged (bf16, int8) and staged serves at B=32 (uniform
+     greedy and mixed) and the per-op serve (an f16 cache, B=8): ids
+     equal exactly, caches bit-equal, refill and prefill keys captured and
+     replayed, ms/token, tokens/s, wall and device ms a step of both
+     routes, captures, capture seconds and the graphs' pool bytes; a
+     64-step (B=1) and a 16-step (B=32) graph's replay timed, and replays
+     traced (a refill's too): the launch counts a replay adds against the
+     kernels its trace shows; the local-batch probe on the refill kernel's
+     route and the per-op route;
   11. tensor-parallel serving on the same file: two ranks that share the
      card (the port's launcher, gloo, this script with ``--tp-rank``; the
      kernels built before they start) serve the uniform 96 greedy requests
@@ -144,17 +149,21 @@ logs its seconds):
      lockstep serve's), with a refill wave and teacher-forced TP steps of
      the kernels against the plain halves; then a (1, 1) mesh in this
      process: the same serve, and ``Engine(mesh).generate`` at B=1;
-  11a. the rest of the mesh on the same file (:func:`phase_mesh_serving`,
-     every rank a process on the one card, started by the launcher with
-     gloo, this script with ``--mesh-rank``): (a) a (2, 2) mesh of four
+  11a. the rest of the mesh on a file of 347M's widths 6 layers deep
+     (:func:`phase_mesh_serving`, every rank a process on the one card,
+     started by the launcher with gloo, this script with ``--mesh-rank``;
+     the lockstep serves and a (1, 1) mesh generate of that file in this
+     process): (a) a (2, 2) mesh of four
      ranks serves the uniform 96 greedy requests at B=32 through
      ``BatchedEngine(mesh, tp_fused_decode=True)`` with a bf16 and an int8
      cache and a mixed serve: each rank holds 16 slots of D / 2 features,
      launches exactly the TP route's kernels, exchanges over the data axis
      once a chunk and once a refill wave; the four ranks' ids equal, and
-     counted against phase 11's (1, 2) serve; teacher-forced TP steps at
-     the local batch against the plain halves; (b) ``Engine(mesh=(2, 1))
-     .generate`` at B=1 on two ranks: the (1, 1) mesh engine's ids; (c) the
+     counted against (d)'s (1, 2) serve; teacher-forced TP steps at
+     the local batch against the plain halves; the local-batch probe
+     (a refill of 16 rows against 32, op by op) held; (b)
+     ``Engine(mesh=(2, 1)).generate`` at B=1 on two ranks: the (1, 1) mesh
+     engine's ids; (d) the (1, 2) TP serves of (a)'s requests; (c) the
      route of unpacked weights (``pack_q4=False``, f32) on a (1, 2) mesh:
      a traced 16-token generate with no launch of the port's kernels, its
      scores within 1e-3 of the single-device engine's, ids equal where the
@@ -195,6 +204,10 @@ int8 steps and the CLI's decode rates (the sampled CLI and a short
 prefill on each route), with entry points every tree of the port has (to
 compare two trees in one call).
 
+``python3 chip_smoke.py --refill-probe`` runs only :func:`refill_probe`:
+the refill kernel's and the per-op refill's device ms at a serve's refill
+shapes, with entry points every tree of the port has (to compare two trees
+in one call).
 ``python3 chip_smoke.py --model-files`` runs only :func:`phase_model_files`.
 ``python3 chip_smoke.py --graphs`` runs only :func:`phase_graphs` (phase
 9a) on the main file.
@@ -944,8 +957,6 @@ class Ctx:
         self.formats = {}        # kernel -> formats held on the card
         self.launches = {}
         self.lockstep_ids = {}   # the uniform lockstep serves' ids, per cache
-        self.tp_ids = {}         # phase 11's (1, 2) serves' ids, per serve
-        self.one_by_one_ids = None   # phase 11's (1, 1) mesh generate
 
     def randn(self, *shape):
         return torch.randn(*shape, generator=self.gen, device=self.dev)
@@ -3839,7 +3850,8 @@ def replay_kernels(counted: dict, L: int, B: int) -> dict:
     its kernel; the B=1 step the paged attention CTA a layer; the batched,
     paged and staged steps the LayerNorm statistics of their qkv and fc1
     GEMVs (2 L); an lm_head tail the streaming GEMV at B <= 8, else the
-    LayerNorm'd rows and the tensor-core GEMV."""
+    LayerNorm'd rows and the tensor-core GEMV; the refill kernel its two
+    LayerNorms and its attention a layer (its GEMMs counted apart)."""
     tail = ({"qgemv_stream_kernel": 1} if B <= 8
             else {"lm_head_mma_kernel": 1, "ln_rows_kernel": 1})
     per = {"decode_gemv_b1": {"qgemv_b1_kernel": 1},
@@ -3852,7 +3864,10 @@ def replay_kernels(counted: dict, L: int, B: int) -> dict:
            "decode_step_fused": {"attn_paged_kernel": L},
            "decode_step_fused_int8": {"attn_paged_kernel": L},
            "lm_head_argmax": tail, "lm_head_argmax_commit": tail,
-           "lm_head_logits_gmax_commit": tail}
+           "lm_head_logits_gmax_commit": tail,
+           "prefill_fused": {"ln_rows_kernel": 2 * L,
+                             "causal_attn_kernel": L},
+           "prefill_gemm": {"prefill_gemm_kernel": 1}}
     for k in ("decode_step_fused_batched", "decode_step_fused_batched_int8",
               "decode_step_fused_paged", "decode_step_fused_paged_int8",
               "decode_step_fused_staged"):
@@ -3864,14 +3879,20 @@ def replay_kernels(counted: dict, L: int, B: int) -> dict:
     return want
 
 
+# traces of a replay taken at most: the tracer can drop a window's
+# records on an H100, more of them late in a long process (a whole step of
+# a 4-step B=1 replay in three traces running, once)
+REPLAY_TRACE_ATTEMPTS = 6
+
+
 def replay_trace(runner, key, L: int, B: int, what: str) -> dict:
     """One replay of the graph of ``key`` under ``torch.profiler``: the
     counts the replay adds to ``cuda_lib.LAUNCHES`` are the graph's, and
     the trace shows each of their kernels as often as they say
     (:func:`replay_kernels`). A trace short of those records is taken
-    again, up to three times."""
+    again, up to ``REPLAY_TRACE_ATTEMPTS`` times in all."""
     attempts = []
-    for _ in range(3):
+    for _ in range(REPLAY_TRACE_ATTEMPTS):
         counted = {}
         names = kernel_trace(lambda: runner.run(key, None), counted=counted)
         counted = {k: n for k, n in counted.items() if n}
@@ -3897,10 +3918,10 @@ def strict_eager(runner) -> None:
     the host wait on the card raises."""
     real = runner.run
 
-    def run(key, body, sampled=False):
+    def run(key, body, sampled=False, capture=True):
         torch.cuda.set_sync_debug_mode("error")
         try:
-            real(key, body, sampled)
+            real(key, body, sampled, capture)
         finally:
             torch.cuda.set_sync_debug_mode(0)
     runner.run = run
@@ -3931,99 +3952,353 @@ def replay_ms(runner, key, steps: int, reset, reps: int = 5) -> float:
     return statistics.median(times) / steps
 
 
-def phase_graphs(c: Ctx, path: str, smi: str) -> None:
-    """The decode chunks as CUDA graphs (``runtime/graphs.py``) on the main
-    file, each engine beside an engine whose capture is off (the eager
-    chunk, every body run under ``set_sync_debug_mode("error")``) on the
-    same weights and requests. The single stream: bf16 and int8 caches,
-    greedy and sampled, 150 tokens from a 16-token prompt (chunks of 64 at
-    window 128, 64 and 16 + 4 + 1 at 256), four generations on each
-    engine (on the graph route: two eager, the one that captures, one
-    that only replays): ids equal, caches bit-equal, ms/token of each
-    generation, a 64-step graph's device ms a step, a replay traced
-    against its counts. The serves: lockstep, paged (bf16, int8)
-    and staged at B=32, the uniform greedy serve (96 requests lockstep, 32
-    the rest) and the mixed one (32, half sampled): ids equal, pool caches
-    bit-equal, tokens/s, wall and device ms a step of both routes, a
-    chunk graph's replay traced and timed, one eager chunk under the sync
-    check. Every engine's captures, capture seconds and pool bytes."""
-    import numpy as np
-
+def single_stream_pair(c: Ctx, config, params, smi: str, what: str,
+                       kw: dict, n_predict: int, timed: bool) -> dict:
+    """An ``Engine`` on the graph route beside one whose capture is off
+    (its bodies under the sync check), built with ``kw``: greedy and then
+    sampled, four generations of ``n_predict`` tokens from a 16-token
+    prompt on each (on the graph route two eager, the capturing one, one
+    that only replays: the prefill key and every chunk key) -> the
+    engines. Ids equal, caches bit-equal, the prefill key captured and
+    replayed, ms/token of each generation; where ``timed``, a 64-step
+    graph's device ms a step and a traced replay of the 4-step one."""
     from biogpt_tpu_torch.config import GenerationParams
-    from biogpt_tpu_torch.modelio.checkpoint import load_params
     from biogpt_tpu_torch.runtime.engine import Engine
     from biogpt_tpu_torch.runtime.graphs import ChunkGraphs
-    from biogpt_tpu_torch.runtime.serving import BatchedEngine, Request
 
-    def eager(eng):
-        eng.graphs.capture = False   # every chunk body runs directly
-        return eng
-
-    config, _, _, params = load_params(path, device="cpu")
-    L, V, card = config.n_layer, config.n_vocab, torch.cuda.get_device_name(0)
+    L, card = config.n_layer, torch.cuda.get_device_name(0)
     prompt = [2] + list(range(40, 55))
     runs = ChunkGraphs.EAGER_RUNS + 2   # eager ones, capturing, replaying
-    for kv_quant in (False, True):
-        kv = "int8" if kv_quant else "bf16"
-        engines = {"graph": Engine(config, params, kv_quant=kv_quant,
-                                   device="cuda"),
-                   "eager": eager(Engine(config, params, kv_quant=kv_quant,
-                                         device="cuda"))}
-        check(engines["graph"].graphs.capture
-              and not engines["eager"].graphs.capture,
-              f"single stream {kv}: the graph route is not live")
-        strict_eager(engines["eager"].graphs)
-        runner = engines["graph"].graphs
-        for temp in (0.0, 0.9):
-            gen = GenerationParams(n_predict=150, temp=temp, top_k=40,
-                                   top_p=0.9, seed=11, stop_at_eos=False)
-            what = f"single stream {kv} {'greedy' if temp <= 0 else 'sampled'}"
-            res = {route: [] for route in engines}
-            for route, eng in engines.items():
-                for _ in range(runs):
-                    before = (runner.captures, sum(runner.runs.values()),
-                              runner.replays)
-                    res[route].append(eng.generate(prompt, gen))
-                    torch.cuda.synchronize()
-                if route == "graph":   # its last generation only replayed
-                    replayed = (runner.captures == before[0]
-                                and sum(runner.runs.values()) == before[1]
-                                and runner.replays > before[2])
-            g, e = res["graph"][-1], res["eager"][-1]
-            same = all(r.ids == g.ids for rs in res.values() for r in rs)
-            equal = caches_equal(engines["graph"]._cache,
-                                 engines["eager"]._cache)
-            check(same and equal and replayed and len(g.new_ids) == 150,
-                  f"{what}: graph ids equal the eager chunk's: {same}, "
-                  f"caches bit-equal: {equal}, the last generation only "
-                  f"replayed: {replayed}")
-            print(json.dumps({
-                "graph_single_stream": what, "kv_cache": kv,
-                "ids_equal": same, "caches_bit_equal": equal,
-                "last_generation_only_replays": replayed,
-                "new_tokens": len(g.new_ids),
-                "graph_ms_per_token": g.timings["ms_per_token"],
-                "eager_ms_per_token": e.timings["ms_per_token"],
-                "graph_route_ms_per_token_by_generation": [
-                    r.timings["ms_per_token"] for r in res["graph"]],
-                "eager_ms_per_token_by_generation": [
-                    r.timings["ms_per_token"] for r in res["eager"]],
-                "graphs": runner.stats(), "card": card, "card_stamp": smi}),
-                flush=True)
+    engines = {"graph": Engine(config, params, device="cuda", **kw),
+               "eager": Engine(config, params, device="cuda", **kw)}
+    engines["eager"].graphs.capture = False
+    check(engines["graph"].graphs.capture,
+          f"single stream {what}: the graph route is not live")
+    strict_eager(engines["eager"].graphs)
+    runner = engines["graph"].graphs
+    prefill_key = ("prefill", engines["graph"].cache_dtype, 16, 128)
+    for temp in (0.0, 0.9):
+        gen = GenerationParams(n_predict=n_predict, temp=temp, top_k=40,
+                               top_p=0.9, seed=11, stop_at_eos=False)
+        label = f"single stream {what} {'greedy' if temp <= 0 else 'sampled'}"
+        res = {route: [] for route in engines}
+        for route, eng in engines.items():
+            for _ in range(runs):
+                before = (runner.captures, sum(runner.runs.values()),
+                          runner.replays)
+                res[route].append(eng.generate(prompt, gen))
+                torch.cuda.synchronize()
+            if route == "graph":   # its last generation only replayed
+                replayed = (runner.captures == before[0]
+                            and sum(runner.runs.values()) == before[1]
+                            and runner.replays > before[2])
+        g, e = res["graph"][-1], res["eager"][-1]
+        same = all(r.ids == g.ids for rs in res.values() for r in rs)
+        equal = caches_equal(engines["graph"]._cache,
+                             engines["eager"]._cache)
+        prefilled = runner.replayed.get(prefill_key, 0) > 0
+        check(same and equal and replayed and prefilled
+              and len(g.new_ids) == n_predict,
+              f"{label}: graph ids equal the eager route's: {same}, "
+              f"caches bit-equal: {equal}, the last generation only "
+              f"replayed: {replayed}, the prefill replayed: {prefilled}")
+        print(json.dumps({
+            "graph_single_stream": label, "kv_cache": str(
+                engines["graph"].cache_dtype),
+            "ids_equal": same, "caches_bit_equal": equal,
+            "last_generation_only_replays": replayed,
+            "prefill_replays": runner.replayed.get(prefill_key, 0),
+            "new_tokens": len(g.new_ids),
+            "graph_ms_per_token": g.timings["ms_per_token"],
+            "eager_ms_per_token": e.timings["ms_per_token"],
+            "graph_prefill_s": g.timings["prefill_s"],
+            "eager_prefill_s": e.timings["prefill_s"],
+            "graph_route_ms_per_token_by_generation": [
+                r.timings["ms_per_token"] for r in res["graph"]],
+            "eager_ms_per_token_by_generation": [
+                r.timings["ms_per_token"] for r in res["eager"]],
+            "graphs": runner.stats(), "card": card, "card_stamp": smi}),
+            flush=True)
+    if timed:
         # after the comparisons: a 64-step graph's device time (the
         # position put back to the prompt's end) and a traced replay
         st = engines["graph"]._decode_state()
         for temp_key in ((True, None), (False, 40)):
             key = ("b1", engines["graph"].cache_dtype, *temp_key, 128, 64)
-            what = f"single stream {kv} {'greedy' if temp_key[0] else 'sampled'}"
+            label = (f"single stream {what} "
+                     f"{'greedy' if temp_key[0] else 'sampled'}")
             print(json.dumps({
-                "graph_replay": what, "steps": 64, "window": 128,
+                "graph_replay": label, "steps": 64, "window": 128,
                 "device_ms_per_step": replay_ms(
                     runner, key, 64, lambda: st.pos.fill_(len(prompt))),
                 "card": card, "card_stamp": smi}), flush=True)
             st.pos.fill_(130)
-            replay_trace(runner, key[:4] + (256, 4), L, 1, what)
-        del engines, runner, st
+            replay_trace(runner, key[:4] + (256, 4), L, 1, label)
+    return engines
+
+
+def refill_pairs(rng, V: int, rows: int, T: int, Request) -> list:
+    """``rows`` (slot, request) pairs into slots 0, 1, ... of prompts
+    whose longest has ``T`` tokens (the others 4 to T), greedy."""
+    lens = [T] + [int(n) for n in rng.integers(4, T + 1, size=rows - 1)]
+    return [(b, Request(prompt_ids=[2] + rng.integers(
+        4, V - 2, size=n - 1).tolist(), n_predict=4, request_id=b))
+        for b, n in enumerate(lens)]
+
+
+def refill_timing(c: Ctx, config, params, smi: str, kw: dict,
+                  what: str) -> None:
+    """Refill groups of 1 x 16, 4 x 32 and 32 x 32 on a fresh graph-route
+    engine and a fresh one whose capture is off: each run three times
+    (two eager runs and the capture on the graph route), then five more:
+    the host's wall a call (its inputs' copy and the enqueue, the card
+    synchronized after) on both, and the device ms of the body (CUDA
+    events around the call) on both; the graph's pool bytes after the
+    three keys' captures (the refill graphs' own, no decode chunk on this
+    engine); a replay traced against its counts. Then a group of 16 x 128
+    (2,048 rows: the per-op forward, never captured): its host ms against
+    its kernels' busy ms in a trace."""
+    import numpy as np
+
+    from biogpt_tpu_torch.config import GenerationParams
+    from biogpt_tpu_torch.runtime.serving import BatchedEngine, Request
+
+    card, L, V = torch.cuda.get_device_name(0), config.n_layer, config.n_vocab
+    engines = {route: BatchedEngine(config, params, max_batch=32, max_seq=512,
+                                    chunk=16, device="cuda", **kw)
+               for route in ("graph", "eager")}
+    engines["eager"].graphs.capture = False
+    gen = GenerationParams(temp=0.0, stop_at_eos=False)
+    out = {}
+    for rows, T in ((1, 16), (4, 32), (32, 32)):
+        pairs = refill_pairs(np.random.default_rng(rows), V, rows, T, Request)
+        rec = {}
+        for route, eng in engines.items():
+            st, cache = eng._slots(), eng._pool_cache()
+            walls, devs = [], []
+            for i in range(8):
+                torch.cuda.synchronize()
+                s = torch.cuda.Event(enable_timing=True)
+                e = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                s.record()
+                eng._prefill_group(pairs, cache, eng.generator, gen, st)
+                e.record()
+                host = time.perf_counter() - t0
+                torch.cuda.synchronize()
+                if i >= 3:
+                    walls.append(1e3 * host)
+                    devs.append(s.elapsed_time(e))
+            rec[route] = {"host_ms": statistics.median(walls),
+                          "device_ms": statistics.median(devs)}
+        key = ("refill", "fused", engines["graph"].cache_dtype, rows, T)
+        runner = engines["graph"].graphs
+        check(key in runner.graphs and runner.replayed.get(key, 0) >= 5,
+              f"refill timing {what} {rows}x{T}: key {key} not replayed")
+        out[f"{rows}x{T}"] = rec
+    # a group above REFILL_GRAPH_ROWS rows x tokens: the per-op forward,
+    # eager every time; its host ms against its kernels' busy ms (a trace)
+    eng = engines["graph"]
+    big = refill_pairs(np.random.default_rng(16), V, 16, 128, Request)
+    st, cache = eng._slots(), eng._pool_cache()
+    hosts = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng._prefill_group(big, cache, eng.generator, gen, st)
+        hosts.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+    names = kernel_trace(lambda: eng._prefill_group(big, cache, eng.generator,
+                                                    gen, st))
+    busy = sum(v[1] for k, v in names.items() if "spin_kernel" not in k)
+    big_key = ("refill", "per_op", eng.cache_dtype, 16, 128)
+    check(big_key in runner.runs and big_key not in runner.graphs,
+          f"refill timing {what} 16x128: the group was captured")
+    out["16x128"] = {"eager_host_ms": statistics.median(hosts),
+                     "device_busy_ms": busy,
+                     "host_over_device": statistics.median(hosts) / busy}
+    print(json.dumps({
+        "refill_graph_timing": what, "shapes": out,
+        "pool_bytes_refill_graphs": runner.pool_bytes(),
+        "graphs": runner.stats(), "card": card, "card_stamp": smi}),
+        flush=True)
+    replay_trace(runner, key, L, 32, f"refill {what} 32x32")
+    del engines, runner
+
+
+def serve_pair(c: Ctx, config, params, smi: str, name: str, flags: dict,
+               n_uniform: int, B: int = 32, mixed_n: int = 32,
+               mixed_reps: int = 4) -> dict:
+    """A ``BatchedEngine`` on the graph route beside one whose capture is
+    off, built with ``flags``, each warmed up (``warmup()``, then one
+    uniform serve of B requests, not measured: a process's first use of a
+    shape is paid there): the uniform greedy serve (``n_uniform``
+    requests: with 96 its second wave of 32 x 32 captures that refill key
+    and its third replays it) and the mixed one (``mixed_n`` requests,
+    half sampled) ``mixed_reps`` times (its refill keys of at most 1024
+    rows x tokens captured on the third, the last only replaying them),
+    the last of each measured -> the engines. Ids equal, pool caches
+    bit-equal, refill keys captured and replayed on the graph route in
+    each serve kind (``n_uniform`` of at least 96) and in none on the
+    other; tokens/s, wall and device ms a step of both routes."""
+    import numpy as np
+
+    from biogpt_tpu_torch.config import GenerationParams
+    from biogpt_tpu_torch.runtime.serving import BatchedEngine, Request
+
+    V, card = config.n_vocab, torch.cuda.get_device_name(0)
+    engines = {route: BatchedEngine(config, params, max_batch=B,
+                                    max_seq=512, chunk=16, device="cuda",
+                                    **flags)
+               for route in ("graph", "eager")}
+    engines["eager"].graphs.capture = False
+    check(engines["graph"].graphs.capture,
+          f"serve {name}: the graph route is not live")
+    for eng in engines.values():
+        eng.warmup()   # the window-128 graphs of both tails
+        eng.serve(uniform_reqs(np.random.default_rng(7), V, B, Request),
+                  GenerationParams(temp=0.0, stop_at_eos=False))
+    runner = engines["graph"].graphs
+
+    def refill_replays(eng):
+        return sum(n for k, n in eng.graphs.replayed.items()
+                   if k[0] == "refill")
+    for kind, make, gen, reps in (
+            ("uniform greedy", lambda: uniform_reqs(
+                np.random.default_rng(0), V, n_uniform, Request),
+             GenerationParams(temp=0.0, stop_at_eos=False), 1),
+            ("mixed", lambda: mixed_reqs(np.random.default_rng(1), V,
+                                         mixed_n, Request),
+             GenerationParams(temp=0.0, stop_at_eos=False, seed=3),
+             mixed_reps)):
+        out = {}
+        for route, eng in engines.items():
+            eng_refills0 = refill_replays(eng)
+            for rep in range(reps):
+                snap0 = eng.metrics.snapshot()
+                captures0 = eng.graphs.captures
+                replays0 = eng.graphs.replays
+                spans = span_meter(eng)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = eng.serve(make(), gen)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                del eng._prefill_group, eng._run_chunk
+                steps = eng.chunk * (
+                    eng.metrics.snapshot()["chunks_launched"]
+                    - snap0["chunks_launched"])
+                out[route] = {
+                    "ids": {i: r.ids for i, r in got.items()},
+                    "tokens_per_s": sum(len(r.new_ids)
+                                        for r in got.values()) / wall,
+                    "wall_ms_per_step": 1e3 * wall / steps,
+                    "chunk_device_ms_per_step": sum(
+                        s.elapsed_time(e) for s, e in spans["chunk"])
+                    / steps,
+                    "refill_device_ms": sum(
+                        s.elapsed_time(e) for s, e in spans["refill"]),
+                    "refill_groups": len(spans["refill"]),
+                    "captures_in_serve": eng.graphs.captures - captures0,
+                    "replays_in_serve": eng.graphs.replays - replays0}
+            out[route]["refill_replays_in_serves"] = (refill_replays(eng)
+                                                      - eng_refills0)
+        same = out["graph"]["ids"] == out["eager"]["ids"]
+        equal = caches_equal(engines["graph"]._cache,
+                             engines["eager"]._cache)
+        replayed = (out["graph"]["replays_in_serve"] > 0
+                    and out["eager"]["replays_in_serve"] == 0)
+        refilled = (out["graph"]["refill_replays_in_serves"] > 0
+                    or (kind == "uniform greedy" and n_uniform < 96))
+        check(same and equal and replayed and refilled,
+              f"serve {name} {kind}: graph ids equal the eager route's: "
+              f"{same}, caches bit-equal: {equal}, only the graph route "
+              f"replayed: {replayed}, refill keys replayed: {refilled}")
+        print(json.dumps({
+            "graph_serve": name, "serve": kind, "batch_slots": B,
+            "chunk": 16, "requests": len(out["graph"]["ids"]),
+            "repeats": reps, "ids_equal": same, "caches_bit_equal": equal,
+            **{f"{route}_{k}": v for route, o in out.items()
+               for k, v in o.items() if k != "ids"},
+            "graphs": runner.stats(), "card": card, "card_stamp": smi}),
+            flush=True)
+    return engines
+
+
+def strict_alone(c: Ctx, eng, pairs, gen) -> None:
+    """One refill group and one chunk of each tail of an engine whose
+    capture is off, alone (no drain thread runs) under the sync check."""
+    strict_eager(eng.graphs)
+    eng._prefill_group(pairs, eng._cache, eng.generator, gen, eng._st)
+    live = torch.ones(eng.B, dtype=torch.bool, device=c.dev)
+    for all_greedy in (True, False):
+        eng._st.lengths.copy_(torch.tensor(serve_past(eng.B),
+                                           dtype=torch.int32, device=c.dev))
+        eng._run_chunk(eng._st, eng._cache, live, 128, all_greedy,
+                       eng.generator)
+    torch.cuda.synchronize()
+
+
+def probe_held(rec: dict, what: str, steps: bool, form: bool) -> None:
+    """The local-batch probe's verdict (:func:`local_batch_probe`): the
+    refill's cache rows (and scales), every layer's K and V rows and, with
+    ``steps``, each step's logits bit-equal at 16 and 32 rows; the logits
+    bit-equal too, or, where ``form`` allows it (groups of 16 and 32 rows
+    on the per-op route), the first op that differs the last-token
+    lm_head, which takes its other form at 32 rows (the JAX package's
+    rule, ``ops.qmatmul._DEQUANT_M_ROWS``)."""
+    held = [k for k in rec if k.startswith("refill_cache")
+            or (steps and k.startswith("step"))]
+    first = rec["ops"]["first_differing"]
+    switched = (form and first is not None
+                and first["op"] == "matmul / einsum"
+                and first["call"] == rec["ops"]["bit_equal_ops"])
+    check(all(rec[k]["equal"] for k in held)
+          and all(rec["layers_k_v_bit_equal"])
+          and (rec["refill_logits"]["equal"] or switched),
+          f"local-batch probe {what}: a refill row's results depend on its "
+          f"group's rows: {json.dumps(rec)}")
+
+
+def phase_graphs(c: Ctx, path: str, smi: str) -> None:
+    """Decode chunks, refills and prefills as CUDA graphs
+    (``runtime/graphs.py``) on the main file, each engine beside an engine
+    whose capture is off (the eager route, its bodies under
+    ``set_sync_debug_mode("error")``) on the same weights and requests.
+    The single stream (:func:`single_stream_pair`): bf16 and int8 caches
+    (150 tokens: chunks of 64 at window 128, 64 and 16 + 4 + 1 at 256) and
+    the per-op route (an f16 cache; unpacked weights; 48 tokens), greedy
+    and sampled, four generations each: ids equal, caches bit-equal, the
+    prefill key replayed. The refill groups alone (:func:`refill_timing`,
+    bf16 and int8): 1 x 16, 4 x 32, 32 x 32, host and device ms of both
+    routes, the refill graphs' pool bytes, a replay traced against its
+    counts. The serves (:func:`serve_pair`): lockstep, paged (bf16, int8)
+    and staged at B=32, the uniform greedy serve (96 requests lockstep, 32
+    the rest) and the mixed one (32, half sampled, four times), and the
+    per-op route (an f16 cache) at B=8: ids equal, pool caches bit-equal,
+    refill keys captured and replayed, tokens/s, wall and device ms a
+    step, a chunk graph's replay traced and timed, one refill group and
+    one chunk of each tail alone under the sync check. The local-batch
+    probe (:func:`local_batch_probe`) on the refill kernel's route and the
+    per-op route, bf16 and int8. Every engine's captures, capture seconds
+    and pool bytes."""
+    import numpy as np
+
+    from biogpt_tpu_torch.config import GenerationParams
+    from biogpt_tpu_torch.modelio.checkpoint import load_params
+    from biogpt_tpu_torch.runtime.serving import Request
+
+    config, _, _, params = load_params(path, device="cpu")
+    L, V, card = config.n_layer, config.n_vocab, torch.cuda.get_device_name(0)
+    for what, kw, n, timed in (
+            ("bf16", {}, 150, True), ("int8", dict(kv_quant=True), 150, True),
+            ("per-op f16 cache", dict(cache_dtype=torch.float16), 48, False),
+            ("per-op unpacked", dict(pack_q4=False), 48, False)):
+        engines = single_stream_pair(c, config, params, smi, what, kw, n,
+                                     timed)
+        del engines
+    for kv, kw in (("bf16", {}), ("int8", dict(kv_quant=True))):
+        refill_timing(c, config, params, smi, kw, kv)
 
     routes = (("lockstep bf16", {}, 96), ("lockstep int8",
                                           dict(kv_quant=True), 96),
@@ -4031,73 +4306,16 @@ def phase_graphs(c: Ctx, path: str, smi: str) -> None:
               ("paged int8", dict(paged_kv=True, kv_quant=True), 32),
               ("staged bf16", dict(staged_kv=True), 32))
     B = 32
+    greedy = GenerationParams(temp=0.0, stop_at_eos=False)
     for name, flags, n_uniform in routes:
-        engines = {route: BatchedEngine(config, params, max_batch=B,
-                                        max_seq=512, chunk=16, device="cuda",
-                                        **flags)
-                   for route in ("graph", "eager")}
-        eager(engines["eager"])
-        check(engines["graph"].graphs.capture
-              and not engines["eager"].graphs.capture,
-              f"serve {name}: the graph route is not live")
-        for eng in engines.values():
-            eng.warmup()   # the window-128 graphs of both tails
+        engines = serve_pair(c, config, params, smi, name, flags, n_uniform)
         runner = engines["graph"].graphs
-        for kind, make, gen in (
-                ("uniform greedy", lambda: uniform_reqs(
-                    np.random.default_rng(0), V, n_uniform, Request),
-                 GenerationParams(temp=0.0, stop_at_eos=False)),
-                ("mixed", lambda: mixed_reqs(np.random.default_rng(1), V, B,
-                                             Request),
-                 GenerationParams(temp=0.0, stop_at_eos=False, seed=3))):
-            out = {}
-            for rep in range(2 if kind == "mixed" else 1):
-                for route, eng in engines.items():
-                    snap0 = eng.metrics.snapshot()
-                    captures0 = eng.graphs.captures
-                    replays0 = eng.graphs.replays
-                    spans = span_meter(eng)
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    got = eng.serve(make(), gen)
-                    torch.cuda.synchronize()
-                    wall = time.perf_counter() - t0
-                    del eng._prefill_group, eng._run_chunk
-                    steps = eng.chunk * (
-                        eng.metrics.snapshot()["chunks_launched"]
-                        - snap0["chunks_launched"])
-                    out[route] = {
-                        "ids": {i: r.ids for i, r in got.items()},
-                        "tokens_per_s": sum(len(r.new_ids)
-                                            for r in got.values()) / wall,
-                        "wall_ms_per_step": 1e3 * wall / steps,
-                        "chunk_device_ms_per_step": sum(
-                            s.elapsed_time(e) for s, e in spans["chunk"])
-                        / steps,
-                        "captures_in_serve": eng.graphs.captures - captures0,
-                        "replays_in_serve": eng.graphs.replays - replays0}
-            same = out["graph"]["ids"] == out["eager"]["ids"]
-            equal = caches_equal(engines["graph"]._cache,
-                                 engines["eager"]._cache)
-            replayed = (out["graph"]["replays_in_serve"] > 0
-                        and out["eager"]["replays_in_serve"] == 0)
-            check(same and equal and replayed,
-                  f"serve {name} {kind}: graph ids equal the eager chunk's: "
-                  f"{same}, caches bit-equal: {equal}, only the graph route "
-                  f"replayed: {replayed}")
-            print(json.dumps({
-                "graph_serve": name, "serve": kind, "batch_slots": B,
-                "chunk": 16, "requests": len(out["graph"]["ids"]),
-                "ids_equal": same, "caches_bit_equal": equal,
-                **{f"{route}_{k}": v for route, o in out.items()
-                   for k, v in o.items() if k != "ids"},
-                "graphs": runner.stats(), "card": card, "card_stamp": smi}),
-                flush=True)
         # after the comparisons: the greedy window-128 chunk graph's device
         # time (positions put back to the uniform serve's) and, lockstep
         # bf16, a traced replay
         st = engines["graph"]._st
-        key = next(k for k in runner.graphs if k[2] and k[3] == 128)
+        key = next(k for k in runner.graphs
+                   if k[0] != "refill" and k[2] and k[3] == 128)
         past = torch.tensor(serve_past(B), dtype=torch.int32, device=c.dev)
         st.live.fill_(True)
         print(json.dumps({
@@ -4108,16 +4326,31 @@ def phase_graphs(c: Ctx, path: str, smi: str) -> None:
         if name == "lockstep bf16":
             st.lengths.copy_(past)
             replay_trace(runner, key, L, B, f"serve {name}")
-        # one eager chunk alone under the sync check (no drain thread runs)
-        eng = engines["eager"]
-        strict_eager(eng.graphs)
-        live = torch.ones(eng.B, dtype=torch.bool, device=c.dev)
-        for all_greedy in (True, False):
-            eng._st.lengths.copy_(past)
-            eng._run_chunk(eng._st, eng._cache, live, 128, all_greedy,
-                           eng.generator)
-        torch.cuda.synchronize()
-        del engines, eng, runner, st
+        if name.startswith("lockstep"):
+            for fused in (True, False):
+                rec = local_batch_probe(engines["graph"],
+                                        np.random.default_rng(6), steps=0,
+                                        fused=fused)
+                probe_held(rec, f"{name} {rec['route']}", steps=False,
+                           form=not fused)
+                print(json.dumps({"local_batch_16_vs_32": name, **rec,
+                                  "card": card, "card_stamp": smi}),
+                      flush=True)
+        strict_alone(c, engines["eager"], refill_pairs(
+            np.random.default_rng(2), V, 4, 32, Request), greedy)
+        del engines, runner, st
+    # the per-op route's serve: an f16 cache (per-op steps and refills)
+    engines = serve_pair(c, config, params, smi, "per-op f16 cache",
+                         dict(cache_dtype=torch.float16), 16, B=8,
+                         mixed_n=16)
+    check(not engines["graph"]._fused_decode
+          and not engines["graph"]._prefill_fused
+          and any(k[0] == "refill" and k[1] == "per_op"
+                  for k in engines["graph"].graphs.graphs),
+          "serve per-op f16 cache: no per-op refill key was captured")
+    strict_alone(c, engines["eager"], refill_pairs(
+        np.random.default_rng(2), V, 4, 32, Request), greedy)
+    del engines
 
 
 # ------------------------------------ 10. Q5_0, Q5_1 and Q8_0 end to end
@@ -4297,6 +4530,9 @@ def phase_format_e2e(c: Ctx, fmt: str, smi: str) -> None:
 # magnitude) apart and carry that to the logits; two such steps of the
 # window's mean nll
 NLL_RTOL = 2.0 ** -7
+# the tokens after the first of (e)'s perplexity text: windows of 1024 at
+# stride 512 from 0, 512 and 1024 (the last scores one token)
+PPL_TOKENS = 1536
 
 
 def load_golden(name: str) -> dict:
@@ -4528,7 +4764,7 @@ def phase_model_files(c: Ctx, smi: str) -> None:
 
         # ------------------ (e) perplexity of every file, window 1024
         ids = [2] + np.random.default_rng(1).integers(
-            4, config.n_vocab, size=2048).tolist()
+            4, config.n_vocab, size=PPL_TOKENS).tolist()
         table = {}
         for name in ("f32", "f16") + QUANT_CHOICES:
             config, _, _, params = load_params(files[name], device="cuda")
@@ -4934,17 +5170,185 @@ TP_ROUTES = {   # the kernels a TP serve's steps launch (refills run per op)
 }
 
 
-def local_batch_probe(eng, rng, steps: int = 2) -> dict:
-    """Whether a slot's results on the engine's TP route depend on the
-    local batch on the card: a refill (the per-op TP forward, as
-    ``_prefill_group`` runs it) of 32 prompts and of their first 16, then
-    ``steps`` greedy steps through ``eng._fwd`` (the TP step's halves, the
-    commits and the local lm_head) at 32 slots and at their first 16 from
-    the same cache rows -> for the refill's logits, its cache rows and each
-    step's logits: whether the first 16 rows are bit-equal, and their
-    largest difference."""
-    import dataclasses
+# the per-op forward's functions whose outputs the local-batch probe logs,
+# by their names in models/biogpt.py (and torch's, for the attention)
+PROBE_OPS = ("_layer_norm", "_project", "matmul", "_gelu", "prefill_fused",
+             "quantize_rows")
+PROBE_TORCH_OPS = ("einsum", "softmax")
 
+
+@contextlib.contextmanager
+def op_log(log: list):
+    """Append (op name, output) for each call of :data:`PROBE_OPS` (in
+    ``models.biogpt``'s namespace) and :data:`PROBE_TORCH_OPS` (torch's)
+    while the block runs, in call order."""
+    from biogpt_tpu_torch.models import biogpt
+
+    def wrap(name, fn):
+        def logged(*a, **k):
+            out = fn(*a, **k)
+            log.append((name, out))
+            return out
+        return logged
+    saved = [(biogpt, n, getattr(biogpt, n)) for n in PROBE_OPS]
+    saved += [(torch, n, getattr(torch, n)) for n in PROBE_TORCH_OPS]
+    for mod, n, fn in saved:
+        setattr(mod, n, wrap(n, fn))
+    try:
+        yield
+    finally:
+        for mod, n, fn in saved:
+            setattr(mod, n, fn)
+
+
+def _first_rows(t, n: int, rows: int, T: int):
+    """The part of ``t`` that belongs to the first ``n`` of ``rows`` prompts
+    padded to ``T`` tokens: its leading axis where that is the prompts',
+    else its first axis of the flattened rows (``rows * T``: the refill
+    kernel's outputs and their scales), sliced to ``[0, n * T)``."""
+    if t.shape[0] == rows:
+        return t[:n]
+    for ax, size in enumerate(t.shape):
+        if size == rows * T:
+            return t.narrow(ax, 0, n * T)
+    raise ValueError(f"probe: no prompt axis in {tuple(t.shape)}")
+
+
+def _tensors(out) -> list:
+    return [t for t in (out if isinstance(out, tuple) else (out,))
+            if isinstance(t, torch.Tensor)]
+
+
+def ops_16_vs_32(logs: dict, T: int) -> dict:
+    """The op-by-op comparison of two logged refills (:func:`op_log`) of
+    32 prompts and of their first 16: each op's output for the first 16
+    prompts against the 16-prompt run's -> the ops compared, how many were
+    bit-equal, and the first that was not (its call number, name, the
+    layer by the LayerNorms before it, its largest difference), or where
+    the two runs first called other ops (a product's form chosen by its
+    row count: ``ops.qmatmul.matmul``)."""
+    a, b = logs[32], logs[16]
+    first, equal, lns = None, 0, 0
+    for i, ((name, x), (other, y)) in enumerate(zip(a, b)):
+        if name != other:
+            first = first or {"call": i, "op": f"{name} / {other}",
+                              "layer": lns // 2, "max_abs_diff": None}
+            break
+        same, diff = True, 0.0
+        for tx, ty in zip(_tensors(x), _tensors(y)):
+            tx = _first_rows(tx, 16, 32, T)
+            if ty.shape[0] == 32:   # a replica's rows padded to the group's
+                ty = ty[:16]
+            if not torch.equal(tx, ty):
+                same = False
+                d = (tx.float() - ty.float()).abs()
+                diff = max(diff, float(torch.nan_to_num(d, nan=float("inf"))
+                                       .max()))
+        equal += same
+        if not same and first is None:
+            first = {"call": i, "op": name, "layer": lns // 2,
+                     "max_abs_diff": diff}
+        lns += name == "_layer_norm"
+    return {"ops": len(a), "bit_equal_ops": equal, "first_differing": first}
+
+
+def _same16(a, b) -> dict:
+    a = a[:, :16] if a.dim() == 4 else a[:16]
+    return {"equal": bool(torch.equal(a, b)),
+            "max_abs_diff": (a.float() - b.float()).abs().max().item()}
+
+
+def refill_16_vs_32(eng, ids, last, fused: bool, replica: bool) -> dict:
+    """A refill of 32 prompts (``ids`` (32, T), ``last`` (32,)) and of
+    their first 16 on the engine's device, through the refill kernel
+    (``forward_prefill_fused``, ``fused``) or the per-op forward as
+    ``_prefill_group`` runs it (``eng._fwd`` with ``allow_kernels=False``;
+    a mesh engine's TP or sharded forward; with ``replica`` the 16 rows
+    are a data-axis replica's of the 32-row group, ``logits_rows=32``;
+    else a group of 16), every op logged -> whether the
+    first 16 prompts' logits and cache rows are bit-equal, their largest
+    difference, the op-by-op comparison (:func:`ops_16_vs_32`) and, per
+    layer, whether the K and V rows are bit-equal; with the (logits,
+    small cache) of both runs."""
+    from biogpt_tpu_torch.models.biogpt import forward_prefill_fused
+    from biogpt_tpu_torch.runtime.cache import init_cache
+
+    P, config, dev = eng.params, eng.config, eng.device
+    T = ids.shape[1]
+    runs, logs = {}, {}
+    for n in (32, 16):
+        logs[n] = []
+        with op_log(logs[n]):
+            if fused:
+                runs[n] = forward_prefill_fused(
+                    P, ids[:n], config, last[:n],
+                    compute_dtype=eng.compute_dtype,
+                    cache_dtype=eng.cache_dtype)
+            else:
+                small = init_cache(config, batch=n, max_len=T,
+                                   dtype=eng.cache_dtype, device=dev,
+                                   tp=eng._kv_shards)
+                runs[n] = eng._fwd(P, ids[:n], small, 0, config,
+                                   compute_dtype=eng.compute_dtype,
+                                   allow_kernels=False, last_index=last[:n],
+                                   logits_rows=32 if replica else None)
+    torch.cuda.synchronize()
+    (l32, c32), (l16, c16) = runs[32], runs[16]
+    out = {"route": "fused" if fused else "per_op",
+           "refill_logits": _same16(l32, l16),
+           "refill_cache_k": _same16(c32.k, c16.k),
+           "refill_cache_v": _same16(c32.v, c16.v)}
+    if getattr(c32, "ks", None) is not None:
+        out["refill_cache_ks"] = _same16(c32.ks, c16.ks)
+        out["refill_cache_vs"] = _same16(c32.vs, c16.vs)
+    out["layers_k_v_bit_equal"] = [
+        bool(torch.equal(c32.k[i, :16], c16.k[i])
+             and torch.equal(c32.v[i, :16], c16.v[i]))
+        for i in range(c32.k.shape[0])]
+    out["ops"] = ops_16_vs_32(logs, T)
+    return out, runs
+
+
+def gemms_16_vs_32(eng, T: int = 32) -> dict:
+    """The refill kernel's four GEMMs alone (``prefill_gemm``, layer 0's
+    planes) on 32 * T seeded rows and on their first 16 * T -> per
+    projection whether the first 16 * T output rows are bit-equal."""
+    from biogpt_tpu_torch.ops.prefill_kernels import prefill_gemm
+
+    layers, dev = eng.params["layers"], eng.device
+    g = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+    for name, epi in (("qkv", "qkv"), ("o", "resid"), ("fc1", "gelu"),
+                      ("fc2", "resid")):
+        qt = layers[name]["w"].map(lambda a: a[0])
+        bias = layers[name]["b"][0]
+        a = torch.randn(32 * T, qt.d_in, generator=g, device=dev).to(
+            torch.bfloat16)
+        x = (torch.randn(32 * T, qt.d_out, generator=g, device=dev)
+             if epi == "resid" else None)
+        kw = dict(epi=epi, scale=0.125 if epi == "qkv" else None)
+        y32 = _tensors(prefill_gemm(a, qt, bias, x=x, **kw))
+        y16 = _tensors(prefill_gemm(a[:16 * T], qt, bias,
+                                    x=None if x is None else x[:16 * T], **kw))
+        out[name] = all(torch.equal(p[:16 * T], q) for p, q in zip(y32, y16))
+    torch.cuda.synchronize()
+    return out
+
+
+def local_batch_probe(eng, rng, steps: int = 2, fused: bool = False,
+                      replica: bool = False) -> dict:
+    """Whether a slot's refill results on the card depend on the number of
+    rows refilled beside it (a group's, or a data-axis replica's local
+    batch, ``replica``: 16 slots of a (2, 2) mesh against 32 of a (1, 2)
+    one): 32 prompts of 4-23 tokens padded to 32 and their first 16,
+    refilled through the refill kernel (``fused``) or the engine's per-op
+    forward (:func:`refill_16_vs_32`: logits, cache rows, each op and
+    each layer); with ``fused`` also the
+    refill kernel's GEMMs alone (:func:`gemms_16_vs_32`). On the per-op
+    route then ``steps`` greedy steps through ``eng._fwd`` (on the TP
+    route the step's halves, the commits and the local lm_head) at 32
+    slots and at their first 16 from the same cache rows, each step's
+    logits compared."""
     from biogpt_tpu_torch.runtime.cache import init_cache, merge_rows
 
     P, config, dev = eng.params, eng.config, eng.device
@@ -4954,23 +5358,10 @@ def local_batch_probe(eng, rng, steps: int = 2) -> dict:
         ids[b, :n] = torch.from_numpy(rng.integers(4, config.n_vocab - 2,
                                                    size=n))
     ids, last = ids.to(dev), torch.tensor([n - 1 for n in lens], device=dev)
-
-    def same(a, b) -> dict:
-        a = a[:, :16] if a.dim() == 4 else a[:16]
-        return {"equal": bool(torch.equal(a, b)),
-                "max_abs_diff": (a.float() - b.float()).abs().max().item()}
-
-    refill = {}
-    for n in (32, 16):
-        small = init_cache(config, batch=n, max_len=32, dtype=eng.cache_dtype,
-                           device=dev, tp=eng._kv_shards)
-        logits, small = eng._fwd(P, ids[:n], small, 0, config,
-                                 compute_dtype=eng.compute_dtype,
-                                 allow_kernels=False, last_index=last[:n])
-        refill[n] = (logits, small)
-    out = {"refill_logits": same(refill[32][0], refill[16][0]),
-           "refill_cache_k": same(refill[32][1].k, refill[16][1].k),
-           "refill_cache_v": same(refill[32][1].v, refill[16][1].v)}
+    out, refill = refill_16_vs_32(eng, ids, last, fused, replica)
+    if fused:
+        out["prefill_gemm_bit_equal"] = gemms_16_vs_32(eng)
+        return out
     cache = init_cache(config, batch=32, max_len=128, dtype=eng.cache_dtype,
                        device=dev, tp=eng._kv_shards)
     merge_rows(cache, refill[32][1], torch.arange(32, device=dev),
@@ -4987,7 +5378,7 @@ def local_batch_probe(eng, rng, steps: int = 2) -> dict:
                                          config,
                                          compute_dtype=eng.compute_dtype,
                                          kv_window=128)
-        out[f"step{step}_logits"] = same(got[32], got[16])
+        out[f"step{step}_logits"] = _same16(got[32], got[16])
         tok, past = torch.argmax(got[32], -1)[:, None], past + 1
     torch.cuda.synchronize()
     return out
@@ -5200,7 +5591,6 @@ def check_tp_ranks(c: Ctx, ranks: list, smi: str) -> None:
         a, b = ranks[0]["serves"][kv], ranks[1]["serves"][kv]
         n = 3 * 32 if kv != "mixed" else 32
         check(a["ids"] == b["ids"], f"TP serve ({kv}): the ranks' ids differ")
-        c.tp_ids[kv] = a["ids"]
         check(len(a["ids"]) == n and all(t == 48 for t in a["new_tokens"])
               and all(0 <= t < c.cfg.n_vocab for ids in a["ids"].values()
                       for t in ids)
@@ -5288,7 +5678,6 @@ def phase_tp_one_by_one(c: Ctx, path: str, smi: str) -> None:
     got = Engine(config, params, mesh=mesh, tp_fused_decode=True).generate(
         prompt, gen).ids
     torch.cuda.synchronize()
-    c.one_by_one_ids = got
     launched_exactly(c, dict(cuda_lib.LAUNCHES),
                      {"tp_attn_half", "tp_ffn_half", "qmatmul"},
                      {"qmatmul_wide"}, "(1, 1) mesh generate", "q4_0")
@@ -5303,6 +5692,9 @@ def phase_tp_one_by_one(c: Ctx, path: str, smi: str) -> None:
 
 # the mesh of each rank job of phase 11a: "2x2" four ranks, "pairs" two
 MESH_JOBS = {"2x2": 4, "pairs": 2}
+# phase 11a's model: 347M's widths this many layers deep (its runs are
+# wiring through gloo, not speed)
+MESH_DEPTH = FORMAT_DEPTH
 # the sharded route's logits against the single device's: sums in another
 # order (TF32 off), within this fraction of their magnitude
 SHARDED_LOGITS_TOL = 1e-3
@@ -5486,7 +5878,7 @@ def mesh_rank(argv: list) -> int:
             rec["teacher_forced_worst_err_over_tol"] = tp_teacher_forced(
                 eng, mesh, np.random.default_rng(5), kv_quant, 4)
             rec["local_batch_16_vs_32"] = local_batch_probe(
-                eng, np.random.default_rng(6))
+                eng, np.random.default_rng(6), replica=True)
             out["serves"][kv] = rec
             del eng
         eng = BatchedEngine(config, params, max_batch=B, max_seq=512,
@@ -5507,6 +5899,18 @@ def mesh_rank(argv: list) -> int:
         out["generate_2x1_launches"] = dict(cuda_lib.LAUNCHES)
         # (c) the sharded route on (1, 2), against the single device
         mesh = make_mesh(1, 2, device="cuda:0")
+        # (d) the (1, 2) TP serves of the "2x2" job's uniform requests, the
+        # ids its (2, 2) serves are counted against
+        out["serves_1x2"] = {}
+        for kv_quant in (False, True):
+            eng = BatchedEngine(config, params, max_batch=32, max_seq=512,
+                                chunk=16, mesh=mesh, tp_fused_decode=True,
+                                kv_quant=kv_quant)
+            rng = np.random.default_rng(0)
+            uniform_reqs(rng, V, 4, Request)
+            out["serves_1x2"]["int8" if kv_quant else "bf16"] = serve(
+                eng, uniform_reqs(rng, V, 96, Request), greedy)["ids"]
+            del eng
         kw = dict(compute_dtype=torch.float32, pack_q4=False)
 
         def in_use() -> int:
@@ -5653,36 +6057,87 @@ def run_mesh_job(job: str, path: str) -> list:
     return ranks
 
 
+def mesh_references(path: str) -> dict:
+    """In this process, on the file of phase 11a: the single-device
+    lockstep serves of the uniform 96 greedy requests (bf16, int8) and the
+    (1, 1) mesh engine's 32-token generate, the ids phase 11a counts and
+    checks its ranks' against."""
+    import numpy as np
+
+    from biogpt_tpu_torch.config import GenerationParams
+    from biogpt_tpu_torch.modelio.checkpoint import load_params
+    from biogpt_tpu_torch.parallel import make_mesh
+    from biogpt_tpu_torch.runtime.engine import Engine
+    from biogpt_tpu_torch.runtime.serving import BatchedEngine, Request
+
+    config, _, _, params = load_params(path, device="cpu")
+    greedy = GenerationParams(temp=0.0, stop_at_eos=False)
+    refs = {"n_layer": config.n_layer, "lockstep": {}}
+    for kv_quant in (False, True):
+        eng = BatchedEngine(config, params, max_batch=32, max_seq=512,
+                            chunk=16, kv_quant=kv_quant)
+        rng = np.random.default_rng(0)
+        uniform_reqs(rng, config.n_vocab, 4, Request)
+        res = eng.serve(uniform_reqs(rng, config.n_vocab, 96, Request),
+                        greedy)
+        refs["lockstep"]["int8" if kv_quant else "bf16"] = {
+            i: r.ids for i, r in res.items()}
+        del eng
+    prompt = [2] + list(range(40, 52))
+    refs["generate_1x1"] = Engine(
+        config, params, mesh=make_mesh(1, 1, device="cuda"),
+        tp_fused_decode=True).generate(prompt, GenerationParams(
+            n_predict=32, temp=0.0, stop_at_eos=False)).ids
+    torch.cuda.synchronize()
+    return refs
+
+
 def phase_mesh_serving(c: Ctx, path: str, smi: str) -> None:
     """Phase 11a: the data axis and the sharded route of unpacked weights
-    on the same 347M Q4_0 file, every rank a process on the one card
-    (gloo; the kernels were built before): (a) a (2, 2) mesh of four ranks
-    through :func:`mesh_rank` "2x2", checked by :func:`check_mesh_2x2`;
-    (b, c) two ranks through "pairs", checked by :func:`check_mesh_pairs`.
-    Their tokens/s measure the wiring of processes on one card through
-    gloo, not the data axis' speed."""
-    t0 = time.perf_counter()
-    ranks = run_mesh_job("2x2", path)
-    t1 = time.perf_counter()
-    if all(ranks):
-        check_mesh_2x2(c, ranks, smi)
-    pairs = run_mesh_job("pairs", path)
-    t2 = time.perf_counter()
+    on a random file of 347M's widths ``MESH_DEPTH`` layers deep (seed 7),
+    every rank a process on the one card (gloo; the kernels were built
+    before): (a) a (2, 2) mesh of four ranks through :func:`mesh_rank`
+    "2x2", checked by :func:`check_mesh_2x2`; (b, c, d) two ranks through
+    "pairs", checked by :func:`check_mesh_pairs`; the references of that
+    depth from this process (:func:`mesh_references`). Their tokens/s
+    measure the wiring of processes on one card through gloo, not the data
+    axis' speed. ``path`` (the main file) is not read: the phase writes
+    its own."""
+    from biogpt_tpu_torch.modelio.synthetic import write_random_quantized_model
+    from biogpt_tpu_torch.quant import codecs
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_file_") as tmp:
+        mesh_path = os.path.join(tmp, f"biogpt347m-{MESH_DEPTH}layers.bin")
+        write_random_quantized_model(
+            mesh_path, dataclasses.replace(c.cfg, n_layer=MESH_DEPTH),
+            codecs.GGML_TYPE_Q4_0, seed=7)
+        t0 = time.perf_counter()
+        refs = mesh_references(mesh_path)
+        t1 = time.perf_counter()
+        ranks = run_mesh_job("2x2", mesh_path)
+        t2 = time.perf_counter()
+        pairs = run_mesh_job("pairs", mesh_path)
+        t3 = time.perf_counter()
     if all(pairs):
-        check_mesh_pairs(c, pairs, smi)
-    log(f"mesh serving: (2, 2) job {t1 - t0:.1f} s, (2, 1) + (1, 2) job "
-        f"{t2 - t1:.1f} s")
+        refs["tp_1x2"] = pairs[0]["serves_1x2"]
+        check_mesh_pairs(c, pairs, smi, refs)
+    if all(ranks):
+        check_mesh_2x2(c, ranks, smi, refs)
+    log(f"mesh serving ({MESH_DEPTH} layers): references {t1 - t0:.1f} s, "
+        f"(2, 2) job {t2 - t1:.1f} s, (2, 1) + (1, 2) job {t3 - t2:.1f} s")
 
 
-def check_mesh_2x2(c: Ctx, ranks: list, smi: str) -> None:
+def check_mesh_2x2(c: Ctx, ranks: list, smi: str, refs: dict) -> None:
     """The four ranks of the (2, 2) job: each at (r // 2, r % 2); every
     serve's ids equal on all four, every request's 48 tokens, no health
     failure; each rank's cache 16 slots of D / 2 features; each rank
     launched exactly the TP route's kernels (counted on the ``kernels``
     line for rank 0, as phase 11 counts its rank 0); one data-axis
     exchange a chunk and one a refill wave; the uniform serves' ids
-    counted against phase 11's (1, 2) serve (with the step at which each
-    request leaves it) and the lockstep serve."""
+    counted against the "pairs" job's (1, 2) serve (with the step at which
+    each request leaves it) and the lockstep serve of the same file
+    (``refs``, :func:`phase_mesh_serving`); each rank's local-batch probe
+    held (:func:`probe_held`)."""
     card = torch.cuda.get_device_name(0)
     cfg = c.cfg
     for r in ranks:
@@ -5724,13 +6179,13 @@ def check_mesh_2x2(c: Ctx, ranks: list, smi: str) -> None:
                "launches": {k: v for k, v in a["launches"].items() if v},
                "card": card, "card_stamp": smi}
         if kv != "mixed":
-            want = [cfg.n_layer, 16, 512, cfg.d_model // 2]
+            want = [refs["n_layer"], 16, 512, cfg.d_model // 2]
             for x, r in zip(recs, ranks):
                 check(x["cache_shape"] == want and x["B_local"] == 16,
                       f"(2, 2) serve ({kv}) rank {r['rank']}: cache "
                       f"{x['cache_shape']}, {x['B_local']} local slots")
             rec["cache_shape"] = a["cache_shape"]
-            tp_ids, lock = c.tp_ids.get(kv, {}), c.lockstep_ids[kv]
+            tp_ids, lock = refs["tp_1x2"].get(kv, {}), refs["lockstep"][kv]
             rec["greedy_ids_equal_tp_1x2"] = sum(
                 a["ids"][i] == tp_ids.get(i) for i in a["ids"])
             # where a request's ids leave the (1, 2) serve's: the new
@@ -5750,10 +6205,14 @@ def check_mesh_2x2(c: Ctx, ranks: list, smi: str) -> None:
             rec["teacher_forced_worst_err_over_tol"] = [
                 x["teacher_forced_worst_err_over_tol"] for x in recs]
             rec["local_batch_16_vs_32"] = a["local_batch_16_vs_32"]
+            for x, r in zip(recs, ranks):
+                probe_held(x["local_batch_16_vs_32"],
+                           f"(2, 2) TP route ({kv}) rank {r['rank']}",
+                           steps=True, form=False)
         print(json.dumps(rec), flush=True)
 
 
-def check_mesh_pairs(c: Ctx, ranks: list, smi: str) -> None:
+def check_mesh_pairs(c: Ctx, ranks: list, smi: str, refs: dict) -> None:
     """The two ranks of the "pairs" job. (b) ``Engine(mesh=(2, 1))
     .generate`` at B=1: the ids of phase 11's (1, 1) mesh engine on both
     ranks, through the TP step's halves (counted on the ``kernels`` line).
@@ -5769,8 +6228,10 @@ def check_mesh_pairs(c: Ctx, ranks: list, smi: str) -> None:
     each engine added (``utils.profiling.device_memory_stats``) at least
     its weights' and fewer on a rank than on the single device."""
     a, b = ranks
-    want = c.one_by_one_ids
+    want = refs["generate_1x1"]
     for r in ranks:
+        check(r["serves_1x2"] == a["serves_1x2"],
+              f"(1, 2) serves rank {r['rank']}: the ranks' ids differ")
         check(r["generate_2x1"] == want,
               f"(2, 1) generate rank {r['rank']}: ids differ from the "
               "(1, 1) mesh engine's")
@@ -6365,6 +6826,61 @@ def wide_probe(c: Ctx, smi: str) -> None:
         config, _, _, params = load_params(files["q8_0"], device="cpu")
         wide_probe_serve(c, smi, "q8_0", "lockstep bf16", {}, params, config)
 
+REFILL_PROBE_FUSED = ((32, 32), (8, 128), (2, 512), (8, 64), (4, 64),
+                      (2, 128), (1, 128), (4, 32), (2, 32), (1, 16))
+REFILL_PROBE_PER_OP = ((1, 16), (4, 32), (16, 32), (32, 32), (16, 128))
+
+
+def refill_probe(c: Ctx, smi: str) -> None:
+    """``python3 chip_smoke.py --refill-probe``: the refill's device ms
+    (``time_ms``, 10 calls) at the shapes a serve's refill groups take:
+    ``prefill_fused`` (row 12) on random 347M Q4_0 layers at
+    :data:`REFILL_PROBE_FUSED`, and the per-op refill forward (``forward``,
+    ``allow_kernels=False``, bf16 compute and cache) at
+    :data:`REFILL_PROBE_PER_OP`, with the host's enqueue ms beside each
+    (the per-op refill's host time exceeds the spin's cap, so its window
+    holds host time: its kernels' busy ms from a trace beside it);
+    entry points every tree of the port has (run it from an unpacked older
+    tree, the script copied in, to compare two trees in one call)."""
+    from biogpt_tpu_torch.models.biogpt import forward
+    from biogpt_tpu_torch.ops.prefill_kernels import prefill_fused
+    from biogpt_tpu_torch.runtime.cache import init_cache
+
+    cfg, card = c.cfg, torch.cuda.get_device_name(0)
+    layers, _ = c.rand_layers(False)
+    for R, T in REFILL_PROBE_FUSED:
+        x0, _ = padded_prompts(c, R, T)
+        run = lambda: prefill_fused(x0, layers, rows=R, padded=T,  # noqa
+                                    n_head=cfg.n_head, ln_eps=cfg.ln_eps)
+        ms = time_ms(run, 10)
+        print(json.dumps({"refill_probe": "prefill_fused", "R": R, "T": T,
+                          "device_ms": ms, "host_ms": HOST[run]["host_ms"],
+                          "spread_ms": SPREAD[run], "card": card,
+                          "card_stamp": smi}), flush=True)
+    params = per_op_params(c, layers)
+    for R, T in REFILL_PROBE_PER_OP:
+        ids = torch.randint(4, cfg.n_vocab - 2, (R, T), generator=c.gen,
+                            device=c.dev)
+        last = torch.full((R,), T - 1, device=c.dev)
+
+        def run():
+            small = init_cache(cfg, batch=R, max_len=T, dtype=torch.bfloat16,
+                               device=c.dev)
+            return forward(params, ids, small, 0, cfg,
+                           compute_dtype=torch.bfloat16, allow_kernels=False,
+                           logits_mode="last", last_index=last)
+        ms = time_ms(run, 5)
+        names = kernel_trace(run)
+        print(json.dumps({"refill_probe": "per_op", "R": R, "T": T,
+                          "device_ms": ms, "host_ms": HOST[run]["host_ms"],
+                          "host_inclusive": HOST[run]["host_inclusive"],
+                          "kernels_busy_ms": sum(
+                              v[1] for k, v in names.items()
+                              if "spin_kernel" not in k),
+                          "spread_ms": SPREAD[run], "card": card,
+                          "card_stamp": smi}), flush=True)
+
+
 QMM_PROBE_ROWS = (1, 3, 8)
 
 
@@ -6685,6 +7201,9 @@ def main() -> int:
         return 1 if FAILURES else 0
     if sys.argv[1:2] == ["--qmm-probe"]:
         qmm_probe(c, smi)
+        return 1 if FAILURES else 0
+    if sys.argv[1:2] == ["--refill-probe"]:
+        refill_probe(c, smi)
         return 1 if FAILURES else 0
     if sys.argv[1:2] == ["--model-files"]:
         phase_model_files(c, smi)

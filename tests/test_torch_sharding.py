@@ -247,8 +247,11 @@ def test_slot_results_depend_on_local_batch_at_refill_lm_head(monkeypatch,
     lm_head is a product of ``local batch`` rows, block-accumulated below
     ``_DEQUANT_M_ROWS`` (32) and dequantize-then-dot at it, so the first
     tokens' logits differ in their rounding; the refill's cache rows and
-    the steps' logits are bit-equal. With that threshold at 16 both sides
-    take one form and the refill's logits are bit-equal too: here the
+    the steps' logits are bit-equal, and the probe's op-by-op comparison
+    names the lm_head as the first op that differs. As a data-axis
+    replica's 16 rows of the 32-row group (``logits_rows=32``, as the
+    serve's refill runs them) the lm_head takes the group's form and every
+    op is bit-equal; so it is with that threshold at 16: here the
     lm_head's form is the only dependence."""
     import importlib
     import sys
@@ -274,10 +277,28 @@ def test_slot_results_depend_on_local_batch_at_refill_lm_head(monkeypatch,
     # dequantize-then-dot rounds the dequantized weight to bf16 once
     refill = got.pop("refill_logits")
     assert not refill["equal"] and refill["max_abs_diff"] < 1e-2
-    assert all(r["equal"] for r in got.values()), got
+    held = [k for k in got if k.startswith(("refill_cache", "step"))]
+    assert len(held) == 4 + 2 * (kv == "int8")
+    assert all(got[k]["equal"] for k in held), got
+    assert got["layers_k_v_bit_equal"] == [True] * cfg.n_layer
+    # the probe names the op: the lm_head, one product in two forms
+    ops = got["ops"]
+    assert ops["first_differing"]["op"] == "matmul / einsum", ops
+    assert ops["first_differing"]["layer"] == cfg.n_layer
+    assert ops["bit_equal_ops"] == ops["first_differing"]["call"]
+    # as a replica's share of the 32-row group (the serve's refill passes
+    # the group's rows) the lm_head takes the group's form: all bit-equal
+    got = chip_smoke.local_batch_probe(eng, np.random.default_rng(6),
+                                       replica=True)
+    assert all(got[k]["equal"] for k in got
+               if k.startswith(("refill", "step"))), got
+    assert got["ops"]["first_differing"] is None
     monkeypatch.setattr(ops_qmatmul, "_DEQUANT_M_ROWS", 16)
     got = chip_smoke.local_batch_probe(eng, np.random.default_rng(6))
-    assert all(r["equal"] for r in got.values()), got
+    assert all(got[k]["equal"] for k in got
+               if k.startswith(("refill", "step"))), got
+    assert got["ops"]["first_differing"] is None
+    assert got["ops"]["bit_equal_ops"] == got["ops"]["ops"]
 
 
 # ------------------------------------------------------- four gloo ranks
