@@ -62,12 +62,26 @@ from ..runtime.cache import (KVCache, QuantKVCache, commit_rows,
                              update_layer)
 
 
+# the fewest rows from which the card's row reductions give every row the
+# same threads: below it PyTorch gives each row more threads the fewer the
+# rows are, which changes the order of a row's sums. Fewer rows are
+# normalized padded to it, so that a row's LayerNorm does not depend on
+# the rows beside it (ops.qmatmul's row tiles do the same for products).
+_LN_ROWS = 16
+
+
 def _layer_norm(x, w, b, eps: float) -> torch.Tensor:
     x32 = x.to(torch.float32)
+    shape, rows = x32.shape, x32.numel() // x32.shape[-1]
+    padded = x32.is_cuda and rows < _LN_ROWS
+    if padded:
+        x32 = torch.nn.functional.pad(x32.reshape(rows, -1),
+                                      (0, 0, 0, _LN_ROWS - rows))
     mean = x32.mean(-1, keepdim=True)
     var = x32.var(-1, unbiased=False, keepdim=True)
     y = (x32 - mean) * torch.rsqrt(var + eps)
-    return y * w.to(torch.float32) + b.to(torch.float32)
+    y = y * w.to(torch.float32) + b.to(torch.float32)
+    return y[:rows].reshape(shape) if padded else y
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
@@ -75,13 +89,14 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def _project(x, wb, compute_dtype, allow_kernels: bool, mesh=None,
-             seq_scatter: bool = False) -> torch.Tensor:
+             seq_scatter: bool = False, form_rows=None) -> torch.Tensor:
     """x @ w + b. ``mesh``: a row-parallel projection under tensor
     parallelism, whose local product is this shard's partial sum: summed
     over the model axis (``seq_scatter``: reduce-scattered over the
-    sequence axis) before the bias is added."""
+    sequence axis) before the bias is added. ``form_rows``: the rows whose
+    count picks the product's form (``ops.qmatmul.matmul``)."""
     y = matmul(x, wb["w"], compute_dtype=compute_dtype,
-               allow_kernels=allow_kernels)
+               allow_kernels=allow_kernels, form_rows=form_rows)
     if mesh is not None:
         y = mesh.reduce_scatter_seq(y) if seq_scatter else mesh.sum(y)
     return y + wb["b"].to(torch.float32)
@@ -96,17 +111,18 @@ def _is_shard(mesh, layout, name: str) -> bool:
 
 
 def _column(x, wb, name: str, compute_dtype, allow_kernels: bool, mesh,
-            layout, whole: bool) -> torch.Tensor:
+            layout, whole: bool, form_rows=None) -> torch.Tensor:
     """A column-parallel projection: this rank's columns where the weight
     is a shard, all-gathered over the model axis where ``whole``."""
-    y = _project(x, wb, compute_dtype, allow_kernels)
+    y = _project(x, wb, compute_dtype, allow_kernels, form_rows=form_rows)
     if whole and _is_shard(mesh, layout, name):
         y = mesh.all_gather_last(y)
     return y
 
 
 def _row(x, wb, name: str, x_cols: bool, compute_dtype, allow_kernels: bool,
-         mesh, layout, seq_scatter: bool = False) -> torch.Tensor:
+         mesh, layout, seq_scatter: bool = False,
+         form_rows=None) -> torch.Tensor:
     """A row-parallel projection of ``x``, which holds this rank's columns
     of the input where ``x_cols`` (else all of them). A sharded weight
     takes this rank's columns (sliced from a whole ``x``) and sums its
@@ -115,11 +131,13 @@ def _row(x, wb, name: str, x_cols: bool, compute_dtype, allow_kernels: bool,
     if not _is_shard(mesh, layout, name):
         if x_cols:
             x = mesh.all_gather_last(x)
-        return _project(x, wb, compute_dtype, allow_kernels)
+        return _project(x, wb, compute_dtype, allow_kernels,
+                        form_rows=form_rows)
     if not x_cols:
         n = x.shape[-1] // mesh.model
         x = x[..., mesh.index * n:(mesh.index + 1) * n]
-    return _project(x, wb, compute_dtype, allow_kernels, mesh, seq_scatter)
+    return _project(x, wb, compute_dtype, allow_kernels, mesh, seq_scatter,
+                    form_rows)
 
 
 def _per_row(v, B: int, device) -> torch.Tensor:
@@ -141,7 +159,7 @@ def _attention(layer: dict, x, cache: KVCache, layer_ix: int, past,
                config: BioGptConfig, compute_dtype, causal: bool,
                n_valid, allow_kernels: bool,
                kv_window: Optional[int], mesh=None,
-               tp_seq_shard: bool = False, layout=None):
+               tp_seq_shard: bool = False, layout=None, form_rows=None):
     B, N, _ = x.shape
     # under tensor parallelism each shard owns n_head / tp contiguous heads
     # (the sharded route's layout may keep every head on every rank): its
@@ -152,12 +170,13 @@ def _attention(layer: dict, x, cache: KVCache, layer_ix: int, past,
     D = H * Dk
     scaling = 1.0 / math.sqrt(Dk)
     if "qkv" in layer:   # engine-fused projection (a shard's q_s|k_s|v_s)
-        qkv = _project(x, layer["qkv"], compute_dtype, allow_kernels)
+        qkv = _project(x, layer["qkv"], compute_dtype, allow_kernels,
+                       form_rows=form_rows)
         q, k, v = torch.split(qkv, D, dim=-1)
         q = q * scaling
     else:
         q, k, v = (_column(x, layer[n], n, compute_dtype, allow_kernels,
-                           mesh, layout, whole=not local)
+                           mesh, layout, whole=not local, form_rows=form_rows)
                    for n in ("q", "k", "v"))
         q = q * scaling
 
@@ -188,14 +207,16 @@ def _attention(layer: dict, x, cache: KVCache, layer_ix: int, past,
     else:
         valid = pos_s < past_b + _per_row(n_valid, B, x.device)[
             :, None, None, None]
-    scores = torch.where(valid, scores, torch.full_like(scores, -math.inf))
-    attn = torch.softmax(scores, dim=-1)
+    # in place, and the scores dropped once the softmax has them: a graph's
+    # pool keeps a body's largest live set, (B, H, N, S) f32 tensors each
+    attn = torch.softmax(scores.masked_fill_(~valid, -math.inf), dim=-1)
+    del scores
     if compute_dtype != torch.float32:
         # the dequantized value dtype, not int8 (which would zero p < 1)
-        attn = attn.to(kv_dtype).to(torch.float32)
+        attn.copy_(attn.to(kv_dtype))
     ctx = torch.einsum("bhns,bshd->bnhd", attn, v_all).reshape(B, N, D)
     return _row(ctx, layer["o"], "o", local, compute_dtype, allow_kernels,
-                mesh, layout, tp_seq_shard)
+                mesh, layout, tp_seq_shard, form_rows)
 
 
 def forward(params: dict, tokens: torch.Tensor, cache: KVCache, past,
@@ -203,17 +224,18 @@ def forward(params: dict, tokens: torch.Tensor, cache: KVCache, past,
             causal: bool = True, logits_mode: str = "last",
             allow_kernels: bool = True, kv_window: Optional[int] = None,
             last_index=None, mesh=None, tp_seq_shard: bool = False,
-            layout=None, logits_rows: Optional[int] = None):
+            layout=None, group_rows: Optional[int] = None):
     """One forward step (prefill or per-op decode) -> (logits, cache):
     (B, n_vocab) for "last" or (B, N, n_vocab) for "all". The cache rows
     [past, past + N) are written in place. ``past``: a host int, or (B,)
     per-slot positions. ``last_index``: the position of the real last
-    token (padded prefill), a host int or (B,) per row. ``logits_rows``
-    (> B, "last" logits): these B rows are a data-axis replica's share of
-    a refill group of that many rows, and the last-token lm_head runs on
-    them padded with zero rows to the group's count, so that its product
-    takes the form the group's row count picks (``ops.qmatmul.matmul``),
-    as the JAX program of the whole group does.
+    token (padded prefill), a host int or (B,) per row. ``group_rows``:
+    these B rows are a data-axis replica's share of a refill group of that
+    many rows, and every product takes the form and the row tiles that
+    the whole group's rows pick (``ops.qmatmul.matmul``'s ``form_rows``):
+    each layer's at ``group_rows`` x N rows, the last-token lm_head's at
+    ``group_rows``, so that a row's results are those the single device
+    computes for it in the group.
 
     ``mesh`` (``parallel.mesh.Mesh``): this rank's shard of a tensor-
     parallel forward (``parallel/tp.py``): params and cache are its local
@@ -245,32 +267,34 @@ def forward(params: dict, tokens: torch.Tensor, cache: KVCache, past,
         return mesh.all_gather_seq(h) if tp_seq_shard else h
 
     n_valid = N if last_index is None else last_index + 1
+    rows = None if group_rows is None else group_rows * N
     for i in range(config.n_layer):
         layer = layer_slice(params["layers"], i)
         h = _layer_norm(x, layer["ln0"]["w"], layer["ln0"]["b"], config.ln_eps)
         x = x + _attention(layer, gather_seq(h), cache, i, past, config,
                            compute_dtype, causal, n_valid, allow_kernels,
-                           kv_window, mesh, tp_seq_shard, layout)
+                           kv_window, mesh, tp_seq_shard, layout, rows)
         h = _layer_norm(x, layer["ln1"]["w"], layer["ln1"]["b"], config.ln_eps)
         h = _gelu(_column(gather_seq(h), layer["fc1"], "fc1", compute_dtype,
-                          allow_kernels, mesh, layout, whole=False))
+                          allow_kernels, mesh, layout, whole=False,
+                          form_rows=rows))
         x = x + _row(h, layer["fc2"], "fc2", _is_shard(mesh, layout, "fc1"),
-                     compute_dtype, allow_kernels, mesh, layout, tp_seq_shard)
+                     compute_dtype, allow_kernels, mesh, layout, tp_seq_shard,
+                     rows)
     # the final LN is row-independent: local rows first, then gathered
     x = gather_seq(_layer_norm(x, params["final_ln"]["w"],
                                params["final_ln"]["b"], config.ln_eps))
     if logits_mode == "last":
         idx = _per_row(N - 1 if last_index is None else last_index, B, dev)
         x = torch.gather(x, 1, idx[:, None, None].expand(B, 1, x.shape[-1]))
-        if logits_rows is not None and logits_rows > B:
-            x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, logits_rows - B))
     logits = matmul(x, params["lm_head"], compute_dtype=compute_dtype,
-                    allow_kernels=allow_kernels)
+                    allow_kernels=allow_kernels,
+                    form_rows=rows if logits_mode == "all" else group_rows)
     if _is_shard(mesh, layout, "lm_head"):   # the column-parallel vocab
         logits = mesh.all_gather_last(logits)
     logits = logits[..., :config.n_vocab]   # the lm_head may be lane-padded
     if logits_mode == "last":
-        logits = logits[:B, 0, :]
+        logits = logits[:, 0, :]
     return logits, cache
 
 

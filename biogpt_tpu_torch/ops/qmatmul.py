@@ -21,12 +21,17 @@ each output's sums, by its shape (on the H100 cuBLAS splits K for some
 row counts and not for others), so without the tiles a serving refill
 row's cache rows and logits would depend on how many rows share its
 group. The form itself still switches at ``_DEQUANT_M_ROWS`` rows, as in
-the JAX package.
+the JAX package. ``form_rows`` sets the row count that picks the form and
+the tile where the rows are a share of a larger product: a data-axis
+replica's rows of a serving refill group take the whole group's form, so
+each of its rows is computed as the single device computes it in the
+group (the rows are not padded: a tile computes each of its rows the same
+whatever the other rows hold).
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
@@ -75,20 +80,25 @@ def _in_row_tiles(x: torch.Tensor, product, tile: int) -> torch.Tensor:
 
 
 def matmul(x: torch.Tensor, w: Any, *, compute_dtype=None,
-           allow_kernels: bool = True) -> torch.Tensor:
+           allow_kernels: bool = True,
+           form_rows: Optional[int] = None) -> torch.Tensor:
     """y = x @ w for dense (d_in, d_out) or ``QuantizedTensor`` weights.
-    ``x``: (..., d_in) -> (..., d_out) f32."""
+    ``x``: (..., d_in) -> (..., d_out) f32. ``form_rows`` (default: the
+    rows of ``x``): the row count whose product's form and row tiles the
+    plain products take (module docstring); the kernels' choice stays
+    with the rows of ``x``."""
     batch_shape = x.shape[:-1]
     m = 1
     for b in batch_shape:
         m *= b
+    form = m if form_rows is None else form_rows
     d_in = x.shape[-1]
     rows = x.reshape(m, d_in)
     if not isinstance(w, QuantizedTensor):
         cd = compute_dtype or x.dtype
         wd = _as(w, cd)
         y = _in_row_tiles(_as(rows, cd), lambda a: a @ wd,
-                          _ROW_TILE if m >= _DEQUANT_M_ROWS
+                          _ROW_TILE if form >= _DEQUANT_M_ROWS
                           else _DEQUANT_M_ROWS)
         return y.reshape(*batch_shape, y.shape[-1])
 
@@ -101,7 +111,7 @@ def matmul(x: torch.Tensor, w: Any, *, compute_dtype=None,
             return y.reshape(*batch_shape, y.shape[-1])
 
     cd = compute_dtype or torch.float32
-    if m >= _DEQUANT_M_ROWS:
+    if form >= _DEQUANT_M_ROWS:
         wd = _as(dequantize(w, torch.float32), cd)
         y = _in_row_tiles(_as(rows, cd), lambda a: a @ wd, _ROW_TILE)
         return y.reshape(*batch_shape, y.shape[-1])

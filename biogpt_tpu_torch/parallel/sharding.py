@@ -221,11 +221,11 @@ def make_sharded_forward(mesh: Mesh, layout: Layout):
                         compute_dtype=torch.float32, causal: bool = True,
                         logits_mode: str = "last", allow_kernels: bool = False,
                         kv_window: Optional[int] = None, last_index=None,
-                        logits_rows: Optional[int] = None):
+                        group_rows: Optional[int] = None):
         return forward(params, tokens, cache, past, config,
                        compute_dtype=compute_dtype, causal=causal,
                        logits_mode=logits_mode, allow_kernels=False,
                        kv_window=kv_window, last_index=last_index, mesh=mesh,
-                       layout=layout, logits_rows=logits_rows)
+                       layout=layout, group_rows=group_rows)
 
     return sharded_forward

@@ -188,7 +188,7 @@ def make_tp_forward(mesh: Mesh, seq_parallel: bool = True,
                    compute_dtype=torch.float32, causal: bool = True,
                    logits_mode: str = "last", allow_kernels: bool = True,
                    kv_window: Optional[int] = None, last_index=None,
-                   logits_rows: Optional[int] = None):
+                   group_rows: Optional[int] = None):
         B, N = tokens.shape
         use_fused = (
             fused_decode and N == 1 and causal and logits_mode == "last"
@@ -208,7 +208,7 @@ def make_tp_forward(mesh: Mesh, seq_parallel: bool = True,
                        compute_dtype=compute_dtype, causal=causal,
                        logits_mode=logits_mode, allow_kernels=allow_kernels,
                        kv_window=kv_window, last_index=last_index, mesh=mesh,
-                       tp_seq_shard=seq_shard, logits_rows=logits_rows)
+                       tp_seq_shard=seq_shard, group_rows=group_rows)
 
     return tp_forward
 

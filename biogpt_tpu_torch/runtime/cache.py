@@ -106,8 +106,9 @@ def quantize_rows(x: torch.Tensor, group=None, amax=None):
     # multiplies by its reciprocal, which is not the reference's amax / 127
     scale = amax / torch.full_like(amax, 127.0)
     safe = torch.clamp(scale, min=1e-12)
-    q = torch.clamp(torch.round(x / safe[..., None]), -127, 127)
-    return q.to(torch.int8), scale
+    # rounded and clipped in place: one f32 temporary beside ``x``
+    q = x / safe[..., None]
+    return q.round_().clamp_(-127, 127).to(torch.int8), scale
 
 
 def dequant_layer(cache: QuantKVCache, layer: int, S: int, dtype):

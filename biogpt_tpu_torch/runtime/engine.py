@@ -7,7 +7,11 @@ one dense product. The prompt and its last position reach the device in
 one copy, and the forward is one body over static tensors: on the card,
 without a mesh, a (cache dtype, bucket, KV window) key's third prefill
 into the engine's own cache is captured as a CUDA graph and later ones
-replay it (a cold process's single prefill runs eagerly). Decode runs
+replay it (a cold process's single prefill runs eagerly). Scoring
+(``logits``, ``score``: the JAX engine's one jitted step) is such a body
+too, its fresh cache allocated inside it, under the key (cache dtype,
+causal, rows, length): perplexity's full windows replay one graph, its
+last, shorter window runs eagerly. Decode runs
 the fused whole-model step; greedy decode
 adds the fused LN + lm_head + argmax tail where the lm_head is packed (the
 4- and 5-bit formats), sampled decode, and greedy decode on an unpacked
@@ -269,6 +273,7 @@ class Engine:
         self._cache: Optional[KVCache] = None
         self._state: Optional[SimpleNamespace] = None
         self._prefill_bufs: dict = {}   # padded -> the prefill's inputs
+        self._score_bufs: dict = {}     # a captured scoring key's tensors
 
     # ------------------------------------------------------------ plumbing
 
@@ -550,29 +555,59 @@ class Engine:
 
     # -------------------------------------------------------------- scoring
 
+    def _score(self, token_ids) -> torch.Tensor:
+        """The logits (B, N, V) of :meth:`logits` in the scoring body's
+        static tensor (the next call of the same shape overwrites it); on
+        a data axis that divides B gathered over the replicas."""
+        ids = np.asarray(token_ids, dtype=np.int64)
+        if ids.ndim == 1:
+            ids = ids[None, :]
+        B, N = ids.shape
+        lo, hi = self._rows(B)
+        key = ("score", self.cache_dtype, self.causal, B, N)
+        # the body's tensors: the ids block, filled by one copy a call, and
+        # the (rows, N, V) f32 logits; kept only once a graph holds them
+        buf = self._score_bufs.get(key)
+        if buf is None:
+            buf = SimpleNamespace(
+                ids=torch.empty(hi - lo, N, dtype=torch.int64,
+                                device=self.device),
+                logits=torch.empty(hi - lo, N, self.config.n_vocab,
+                                   dtype=torch.float32, device=self.device))
+        buf.ids.copy_(_host(np.ascontiguousarray(ids[lo:hi]), self.device),
+                      non_blocking=True)
+
+        def body():
+            cache = self.new_cache(batch=B, max_len=N)
+            logits, _ = self._fwd(self.params, buf.ids, cache, 0, self.config,
+                                  compute_dtype=self.compute_dtype,
+                                  causal=self.causal,
+                                  allow_kernels=self.allow_kernels,
+                                  logits_mode="all")
+            buf.logits.copy_(logits)
+
+        self.graphs.run(key, body)
+        if key in self.graphs.graphs:
+            self._score_bufs[key] = buf
+        if hi - lo < B:
+            return self.mesh.gather_data(buf.logits)
+        return buf.logits
+
     def logits(self, token_ids) -> torch.Tensor:
         """Full-sequence logits (B, N, V) f32 on the engine's device, from
-        one forward over a fresh cache; a 1-D ``token_ids`` is one row. On
-        a data axis that divides B each replica runs its own rows and the
-        logits are gathered over the replicas once."""
-        ids = torch.as_tensor(np.asarray(token_ids, dtype=np.int64))
-        if ids.dim() == 1:
-            ids = ids[None, :]
-        B = ids.shape[0]
-        lo, hi = self._rows(B)
-        cache = self.new_cache(batch=B, max_len=ids.shape[1])
-        logits, _ = self._fwd(self.params, ids[lo:hi].to(self.device), cache,
-                              0, self.config, compute_dtype=self.compute_dtype,
-                              causal=self.causal,
-                              allow_kernels=self.allow_kernels,
-                              logits_mode="all")
-        logits = logits.float()
-        if hi - lo < B:
-            logits = self.mesh.gather_data(logits)
-        return logits
+        one forward over a fresh cache; a 1-D ``token_ids`` is one row. The
+        ids reach the device in one copy and the forward, its fresh cache
+        allocated inside it, is one body over static tensors, run through
+        the engine's graph runner under the key (cache dtype, causal, B,
+        N): on the card without a mesh a CUDA graph's replay once the key
+        has run eagerly (the JAX engine's one jitted step); the logits are
+        copied out of the body's tensor. On a data axis that divides B
+        each replica runs its own rows and the logits are gathered over the
+        replicas once."""
+        return self._score(token_ids).clone()
 
     def score(self, token_ids, batch: bool = False) -> np.ndarray:
         """:meth:`logits` as numpy (B, N, V), for perplexity and parity
         tests. ``batch`` is the JAX engine's flag, which changes nothing
         there either: the rows come from the array's shape."""
-        return self.logits(token_ids).cpu().numpy()
+        return self._score(token_ids).cpu().numpy()

@@ -3,8 +3,8 @@ one-dispatch programs.
 
 The JAX engines run a chunk of decode steps as one jitted ``lax.scan``
 (``Engine.decode_scan``, ``BatchedEngine.step_scan``), a serving refill
-group as one jitted ``refill_commit`` and ``Engine``'s prefill as one
-jitted step: the token, the position, the RNG, the EOS flag and the health
+group as one jitted ``refill_commit`` of every shape, and ``Engine``'s
+prefill and scoring as one jitted step each: the token, the position, the RNG, the EOS flag and the health
 bit stay on the device, and the host binds a call's arguments once a
 program, not once an op. On the card the counterpart is a CUDA graph of
 the program's kernel launches, captured once and replayed:
@@ -18,7 +18,8 @@ the host fills with one copy before the run). The runner keys each graph
 by what the body's launches depend on besides those tensors (a decode
 chunk: route, cache dtype, greedy or sampled, top_k, KV window, steps; a
 refill: route, cache dtype, rows, padded length; a prefill: cache dtype,
-padded length, KV window). The first ``EAGER_RUNS``
+padded length, KV window; a scoring: cache dtype, causal, rows, length).
+The first ``EAGER_RUNS``
 runs of a key call the body directly, as real work: they build the
 kernels' libraries, their first-use attributes and cached workspaces
 (``ops.qmatmul_kernels.tail_workspace``) outside any capture. A capture
@@ -30,10 +31,13 @@ captures the body into a graph whose memory comes from one pool shared
 by all of the runner's graphs, and replays it; every later run replays
 it. A capture launches nothing, so it moves no state tensor and no
 generator. A body's outputs stay in its state tensors, so one graph's
-intermediates may reuse another's memory. Sampled bodies draw from the
-runner's generator, registered with each graph that draws from it: a
-replay advances it as the eager body would, and reseeding it between
-runs takes effect.
+intermediates may reuse what another's freed, where they fit its
+segments: the pool grows with the largest key's capture, not with the
+sum of every key's, and smaller keys captured before a larger one add
+the segments of theirs that it cannot reuse (``pool_bytes``). Sampled
+bodies draw from the runner's generator, registered with each graph that
+draws from it: a replay advances it as the eager body would, and
+reseeding it between runs takes effect.
 
 ``cuda_lib.LAUNCHES`` counts on the host, where a replay launches
 nothing: the runner records each graph's count delta at its capture (a
@@ -153,7 +157,7 @@ class ChunkGraphs:
     def stats(self) -> dict:
         """Graphs, captures, capture seconds, replays and the pool's bytes;
         the graphs and replays also by the kind of key (its first item:
-        "refill", "prefill", or a decode chunk's route)."""
+        "refill", "prefill", "score", or a decode chunk's route)."""
         kinds: dict = {}
         for key in self.graphs:
             k = kinds.setdefault(str(key[0]), {"graphs": 0, "replays": 0})

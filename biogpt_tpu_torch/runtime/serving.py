@@ -26,9 +26,10 @@ As in the JAX package:
     JAX package keeps its refill kernel off in interpret mode. A group's
     device work is one body over static tensors, the JAX ``refill_commit``
     (``BatchedEngine._refill_body``): the host fills the shape's input
-    block with two copies and runs the body, which a key of at most
-    ``REFILL_GRAPH_ROWS`` rows x tokens on one device turns into a CUDA
-    graph's replay after its eager runs (the chunks' runner, below).
+    block with two copies and runs the body, which on one device becomes a
+    CUDA graph's replay after its key's eager runs, whatever the group's
+    rows and padded length (the chunks' runner, below), as JAX compiles
+    ``refill_commit`` for every shape.
   - ``kv_quant=True`` keeps the slots' KV in int8 with per-row scales
     (``runtime.cache.QuantKVCache``): the step runs in its int8 mode, the
     refills quantize their rows, and the merge moves levels and scales.
@@ -216,9 +217,6 @@ class BatchedEngine:
     MAX_TOP_K = 64   # candidates of the per-request sampler
     # padded prompt tokens one more refill prefill group must save
     REFILL_SPLIT_COST = 512
-    # rows x tokens up to which a refill group's body becomes a CUDA graph
-    # (the refill kernel's own cap, ops.prefill_kernels.supports_prefill)
-    REFILL_GRAPH_ROWS = 1024
 
     def __init__(
         self,
@@ -418,8 +416,9 @@ class BatchedEngine:
         """The device work of a refill group on ``buf``'s tensors, at fixed
         addresses (the JAX ``refill_commit``): the fresh-cache forward of
         the prompts (the refill kernel where ``fused``, else the per-op
-        forward without kernels, its last-token lm_head at the group's
-        ``nr`` rows), every row's first token sampled with its own
+        forward without kernels, every product in the form of the group's
+        ``nr`` rows: ``forward(group_rows=)``), every row's first token
+        sampled with its own
         parameters from the group's draw of ``nr`` rows, and each row's
         prefix rows and first token written to slot ``dst`` from row
         ``src``, with its slot vectors (a padding row writes row 0's values
@@ -443,7 +442,7 @@ class BatchedEngine:
                 logits, small = self._fwd(
                     self.params, buf.ids, small, 0, cfg,
                     compute_dtype=self.compute_dtype, allow_kernels=False,
-                    logits_mode="last", last_index=buf.last, logits_rows=nr)
+                    logits_mode="last", last_index=buf.last, group_rows=nr)
             firsts = sample_per_request(
                 logits, generator, buf.top_ks, buf.top_ps, buf.temps,
                 max_top_k=self.MAX_TOP_K, rows=rows)[buf.src]
@@ -468,12 +467,11 @@ class BatchedEngine:
         shape's static inputs (:meth:`_refill_buffers`) with two copies;
         the device work is one body (:meth:`_refill_body`) run through the
         engine's graph runner under the key (route, cache dtype, rows,
-        padded): on the card, without a mesh and at most
-        ``REFILL_GRAPH_ROWS`` rows x tokens, a CUDA graph's replay once
-        the key has run eagerly; larger groups and mesh ranks run it
+        padded): on the card without a mesh a CUDA graph's replay once the
+        key has run eagerly, whatever its shape; mesh ranks run it
         directly. On a data axis a replica runs only the pairs of its own
-        slots (none: it only keeps its sampler in step) and draws its rows
-        of the group's draw."""
+        slots (none: it only keeps its sampler in step), in the form of
+        the group's rows, and draws its rows of the group's draw."""
         lens = [len(req.prompt_ids) for _, req in pairs]
         padded = min(_bucket(max(lens)), self.max_seq)
         nr = min(_bucket(len(pairs), floor=1), self.B)
@@ -510,8 +508,7 @@ class BatchedEngine:
         body = self._refill_body(buf, cache, st, generator, fused, nr)
         key = ("refill", "fused" if fused else "per_op", self.cache_dtype,
                nr_own, padded)
-        self.graphs.run(key, body, sampled=True,
-                        capture=nr_own * padded <= self.REFILL_GRAPH_ROWS)
+        self.graphs.run(key, body, sampled=True)
         return cache, lens
 
     def _split_refill_groups(self, pairs):

@@ -128,9 +128,10 @@ logs its seconds):
      graph-route engine beside one whose capture is off (its bodies under
      ``set_sync_debug_mode("error")``): the single stream (bf16, int8;
      greedy, sampled; 150 tokens across windows 128 and 256; and the
-     per-op route, an f16 cache and unpacked weights, 48 tokens; four
+     per-op route, an f16 cache and unpacked weights, 32 tokens; four
      generations each: two eager, the capturing one, one of replays),
-     refill groups alone (1 x 16, 4 x 32, 32 x 32; host and device ms),
+     refill groups alone (1 x 16, 4 x 32, 32 x 32, 16 x 128, 32 x 512;
+     host and device ms, each key's pool bytes),
      the lockstep, paged (bf16, int8) and staged serves at B=32 (uniform
      greedy and mixed) and the per-op serve (an f16 cache, B=8): ids
      equal exactly, caches bit-equal, refill and prefill keys captured and
@@ -140,16 +141,17 @@ logs its seconds):
      traced (a refill's too): the launch counts a replay adds against the
      kernels its trace shows; the local-batch probe on the refill kernel's
      route and the per-op route;
-  11. tensor-parallel serving on the same file: two ranks that share the
-     card (the port's launcher, gloo, this script with ``--tp-rank``; the
-     kernels built before they start) serve the uniform 96 greedy requests
-     through ``BatchedEngine(mesh, tp_fused_decode=True)`` with a bf16 and
-     an int8 cache and a mixed serve, each rank launching exactly the TP
-     route's kernels, the ranks' ids equal (and counted against the
-     lockstep serve's), with a refill wave and teacher-forced TP steps of
-     the kernels against the plain halves; then a (1, 1) mesh in this
-     process: the same serve, and ``Engine(mesh).generate`` at B=1;
-  11a. the rest of the mesh on a file of 347M's widths 6 layers deep
+  11. tensor-parallel serving on a file of 347M's widths 4 layers deep:
+     two ranks that share the card (the port's launcher, gloo, this
+     script with ``--tp-rank``; the kernels built before they start) serve
+     the uniform 96 greedy requests through ``BatchedEngine(mesh,
+     tp_fused_decode=True)`` with a bf16 and an int8 cache and a mixed
+     serve, each rank launching exactly the TP route's kernels, the ranks'
+     ids equal (and counted against the lockstep serve of that file), with
+     a refill wave and teacher-forced TP steps of the kernels against the
+     plain halves; then a (1, 1) mesh in this process on the main file:
+     the same serve, and ``Engine(mesh).generate`` at B=1;
+  11a. the rest of the mesh on a file of 347M's widths 4 layers deep
      (:func:`phase_mesh_serving`, every rank a process on the one card,
      started by the launcher with gloo, this script with ``--mesh-rank``;
      the lockstep serves and a (1, 1) mesh generate of that file in this
@@ -160,8 +162,9 @@ logs its seconds):
      launches exactly the TP route's kernels, exchanges over the data axis
      once a chunk and once a refill wave; the four ranks' ids equal, and
      counted against (d)'s (1, 2) serve; teacher-forced TP steps at
-     the local batch against the plain halves; the local-batch probe
-     (a refill of 16 rows against 32, op by op) held; (b)
+     the local batch against the plain halves; the local-batch probes
+     (a replica's refill of 16 rows against the group's 32, and of 2
+     prompts against a group of 4 padded to 8, op by op) held; (b)
      ``Engine(mesh=(2, 1)).generate`` at B=1 on two ranks: the (1, 1) mesh
      engine's ids; (d) the (1, 2) TP serves of (a)'s requests; (c) the
      route of unpacked weights (``pack_q4=False``, f32) on a (1, 2) mesh:
@@ -181,11 +184,14 @@ logs its seconds):
      HF golden's seed-7 state dict written as an HF directory, converted
      to f32 and f16 files and quantized to the five formats; the f32 file
      against HF's own prefill logits and greedy ids (dense f32 path), the
-     Q4_0 and Q4_1 files against the quantized goldens (f32, unpacked),
-     the Q4_0 file through the CLI's engine after ``warmup()`` and
-     ``perplexity_of_ids`` at window 32 (rows 1 and 2, the windows' nll
-     against the CPU's plain versions), and perplexity at window 1024 of
-     every file with tokens/s;
+     Q4_0 and Q4_1 files against the quantized goldens (f32, unpacked)
+     and, on the production path (bf16, packed), against the card's own
+     golden (``check_goldens_gpu``: two eager generations and one of graph
+     replays), the Q4_0 file through the CLI's engine after ``warmup()``
+     and ``perplexity_of_ids`` at window 32 (rows 1 and 2, the windows'
+     nll against the CPU's plain versions), and perplexity at window 1024
+     of every file with tokens/s, its full windows replaying one scoring
+     graph (the first window's nll equal to its eager run's);
   14. the ``kernels`` line (each kernel with the formats this run held it
      in against its plain version, or drove its route in) and the result
      line.
@@ -4046,18 +4052,25 @@ def refill_pairs(rng, V: int, rows: int, T: int, Request) -> list:
         for b, n in enumerate(lens)]
 
 
+# refill groups (rows, padded) of phase 9a's refill timing: three of the
+# refill kernel's, the mixed serve's 16 x 128 and a 32 x 512 (the per-op
+# forward), each one graph
+REFILL_SHAPES = ((1, 16), (4, 32), (32, 32), (16, 128), (32, 512))
+
+
 def refill_timing(c: Ctx, config, params, smi: str, kw: dict,
                   what: str) -> None:
-    """Refill groups of 1 x 16, 4 x 32 and 32 x 32 on a fresh graph-route
-    engine and a fresh one whose capture is off: each run three times
-    (two eager runs and the capture on the graph route), then five more:
-    the host's wall a call (its inputs' copy and the enqueue, the card
+    """The refill groups of :data:`REFILL_SHAPES` on a fresh graph-route
+    engine and a fresh one whose capture is off: each run three times (two
+    eager runs and the capture on the graph route), then five more: the
+    host's wall a call (its inputs' copy and the enqueue, the card
     synchronized after) on both, and the device ms of the body (CUDA
-    events around the call) on both; the graph's pool bytes after the
-    three keys' captures (the refill graphs' own, no decode chunk on this
-    engine); a replay traced against its counts. Then a group of 16 x 128
-    (2,048 rows: the per-op forward, never captured): its host ms against
-    its kernels' busy ms in a trace."""
+    events around the call) on both; every key captured and replayed,
+    the two engines' pool caches and slot vectors bit-equal after each
+    shape; the eager body's peak of allocated bytes (its first run) and
+    the graphs' pool bytes after each key's capture (the refill graphs'
+    own, no decode chunk on this engine); a 32 x 32 replay traced against
+    its counts."""
     import numpy as np
 
     from biogpt_tpu_torch.config import GenerationParams
@@ -4068,9 +4081,10 @@ def refill_timing(c: Ctx, config, params, smi: str, kw: dict,
                                     chunk=16, device="cuda", **kw)
                for route in ("graph", "eager")}
     engines["eager"].graphs.capture = False
+    runner = engines["graph"].graphs
     gen = GenerationParams(temp=0.0, stop_at_eos=False)
-    out = {}
-    for rows, T in ((1, 16), (4, 32), (32, 32)):
+    out, keys = {}, {}
+    for rows, T in REFILL_SHAPES:
         pairs = refill_pairs(np.random.default_rng(rows), V, rows, T, Request)
         rec = {}
         for route, eng in engines.items():
@@ -4078,6 +4092,9 @@ def refill_timing(c: Ctx, config, params, smi: str, kw: dict,
             walls, devs = [], []
             for i in range(8):
                 torch.cuda.synchronize()
+                if i == 0:
+                    torch.cuda.reset_peak_memory_stats()
+                    base = torch.cuda.memory_allocated()
                 s = torch.cuda.Event(enable_timing=True)
                 e = torch.cuda.Event(enable_timing=True)
                 t0 = time.perf_counter()
@@ -4086,44 +4103,145 @@ def refill_timing(c: Ctx, config, params, smi: str, kw: dict,
                 e.record()
                 host = time.perf_counter() - t0
                 torch.cuda.synchronize()
+                if i == 0:
+                    peak = torch.cuda.max_memory_allocated() - base
                 if i >= 3:
                     walls.append(1e3 * host)
                     devs.append(s.elapsed_time(e))
             rec[route] = {"host_ms": statistics.median(walls),
-                          "device_ms": statistics.median(devs)}
-        key = ("refill", "fused", engines["graph"].cache_dtype, rows, T)
-        runner = engines["graph"].graphs
-        check(key in runner.graphs and runner.replayed.get(key, 0) >= 5,
-              f"refill timing {what} {rows}x{T}: key {key} not replayed")
+                          "device_ms": statistics.median(devs),
+                          "first_run_peak_bytes": peak}
+        graph, eager = engines["graph"], engines["eager"]
+        key = next(k for k in runner.graphs
+                   if k[0] == "refill" and k[3:] == (rows, T))
+        keys[f"{rows}x{T}"] = key
+        equal = caches_equal(graph._cache, eager._cache) and all(
+            torch.equal(getattr(graph._st, n), getattr(eager._st, n))
+            for n in ("toks", "first_buf", "lengths", "temps", "top_ps",
+                      "top_ks"))
+        check(runner.replayed.get(key, 0) >= 5 and equal,
+              f"refill timing {what} {rows}x{T}: key {key} replayed "
+              f"{runner.replayed.get(key, 0)} times, pool caches and slot "
+              f"vectors bit-equal to the eager engine's: {equal}")
+        rec["route"] = key[1]
+        rec["bit_equal_to_eager"] = equal
+        rec["pool_bytes_after"] = runner.pool_bytes()
         out[f"{rows}x{T}"] = rec
-    # a group above REFILL_GRAPH_ROWS rows x tokens: the per-op forward,
-    # eager every time; its host ms against its kernels' busy ms (a trace)
-    eng = engines["graph"]
-    big = refill_pairs(np.random.default_rng(16), V, 16, 128, Request)
-    st, cache = eng._slots(), eng._pool_cache()
-    hosts = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        eng._prefill_group(big, cache, eng.generator, gen, st)
-        hosts.append(1e3 * (time.perf_counter() - t0))
-        torch.cuda.synchronize()
-    names = kernel_trace(lambda: eng._prefill_group(big, cache, eng.generator,
-                                                    gen, st))
-    busy = sum(v[1] for k, v in names.items() if "spin_kernel" not in k)
-    big_key = ("refill", "per_op", eng.cache_dtype, 16, 128)
-    check(big_key in runner.runs and big_key not in runner.graphs,
-          f"refill timing {what} 16x128: the group was captured")
-    out["16x128"] = {"eager_host_ms": statistics.median(hosts),
-                     "device_busy_ms": busy,
-                     "host_over_device": statistics.median(hosts) / busy}
+        log(f"refill timing {what} {rows}x{T} ({key[1]}): host ms graph "
+            f"{rec['graph']['host_ms']:.3f} / eager "
+            f"{rec['eager']['host_ms']:.3f}, device ms "
+            f"{rec['graph']['device_ms']:.3f} / "
+            f"{rec['eager']['device_ms']:.3f}, eager peak "
+            f"{rec['eager']['first_run_peak_bytes']} bytes, pool "
+            f"{rec['pool_bytes_after']} bytes")
+    peaks = [r["eager"]["first_run_peak_bytes"] for r in out.values()]
     print(json.dumps({
         "refill_graph_timing": what, "shapes": out,
         "pool_bytes_refill_graphs": runner.pool_bytes(),
+        "largest_key_peak_bytes": max(peaks),
+        "sum_of_key_peaks_bytes": sum(peaks),
         "graphs": runner.stats(), "card": card, "card_stamp": smi}),
         flush=True)
-    replay_trace(runner, key, L, 32, f"refill {what} 32x32")
+    replay_trace(runner, keys["32x32"], L, 32, f"refill {what} 32x32")
     del engines, runner
+
+
+# refill groups (rows, padded) of phase 9a's pool check, in the order a
+# serve meets them: REFILL_SHAPES, then the largest group a server of 32
+# slots and 1024 positions forms
+POOL_SHAPES = REFILL_SHAPES + ((32, 1024),)
+# the longest prompt of the 32 x 1024 group: room left for new tokens
+LONGEST_PROMPT = 1000
+
+
+def refill_pool(c: Ctx, config, params, smi: str, kw: dict,
+                what: str) -> None:
+    """The refill keys of :data:`POOL_SHAPES` on one graph-route engine of
+    32 slots and 1024 positions, in ascending order as a serve captures
+    them: each key's three runs (two eager, the capture), the pool's bytes
+    after it, then a replay whose pool cache must be bit-equal to the
+    cache after the key's first, eager run. Then each key alone on a
+    fresh runner: its eager peak of allocated bytes (its first run) and
+    its own pool. The keys share the pool: the pool after all of them
+    must lie nearer the largest key's own pool than the sum of the keys'
+    own pools (the smaller keys add less than half of what their own
+    pools hold)."""
+    import numpy as np
+
+    from biogpt_tpu_torch.config import GenerationParams
+    from biogpt_tpu_torch.runtime.graphs import ChunkGraphs
+    from biogpt_tpu_torch.runtime.serving import BatchedEngine, Request
+
+    V = config.n_vocab
+    eng = BatchedEngine(config, params, max_batch=32, max_seq=1024, chunk=16,
+                        device="cuda", **kw)
+    gen = GenerationParams(temp=0.0, stop_at_eos=False)
+    st, cache = eng._slots(), eng._pool_cache()
+
+    def run(pairs):
+        eng._prefill_group(pairs, cache, eng.generator, gen, st)
+        torch.cuda.synchronize()
+
+    planes = [n for n in ("k", "v", "ks", "vs")
+              if getattr(cache, n, None) is not None]
+    ascending, equal, dev_ms = {}, {}, {}
+    for rows, T in POOL_SHAPES:
+        name = f"{rows}x{T}"
+        pairs = refill_pairs(np.random.default_rng(rows), V, rows,
+                             min(T, LONGEST_PROMPT), Request)
+        run(pairs)
+        first = {n: getattr(cache, n).clone() for n in planes}
+        for _ in range(ChunkGraphs.EAGER_RUNS):
+            run(pairs)
+        ascending[name] = eng.graphs.pool_bytes()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        replays0 = eng.graphs.replays
+        s.record()
+        eng._prefill_group(pairs, cache, eng.generator, gen, st)
+        e.record()
+        torch.cuda.synchronize()
+        dev_ms[name] = s.elapsed_time(e)
+        equal[name] = (eng.graphs.replays == replays0 + 1 and all(
+            torch.equal(getattr(cache, n), t) for n, t in first.items()))
+        del first
+    runner = eng.graphs
+    pool = runner.pool_bytes()
+    own, peaks = {}, {}
+    for rows, T in POOL_SHAPES:
+        name = f"{rows}x{T}"
+        pairs = refill_pairs(np.random.default_rng(rows), V, rows,
+                             min(T, LONGEST_PROMPT), Request)
+        eng.graphs = ChunkGraphs(eng.device, eng.generator)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        run(pairs)
+        peaks[name] = torch.cuda.max_memory_allocated() - base
+        for _ in range(ChunkGraphs.EAGER_RUNS):
+            run(pairs)
+        own[name] = eng.graphs.pool_bytes()
+        eng.graphs = None
+        torch.cuda.empty_cache()
+    eng.graphs = runner
+    largest = max(own.values())
+    shared = pool - largest < 0.5 * (sum(own.values()) - largest)
+    check(all(equal.values()) and shared,
+          f"refill pool {what}: a replay bit-equal to the key's eager run "
+          f"{equal}; the pool after every key, in ascending order, "
+          f"{pool} bytes against the largest key's own {largest} and the "
+          f"sum of the keys' own {sum(own.values())}: nearer the largest: "
+          f"{shared}")
+    print(json.dumps({
+        "refill_pool": what, "order": "ascending",
+        "pool_bytes_after": ascending, "pool_bytes": pool,
+        "own_pool_bytes": own, "eager_peak_bytes": peaks,
+        "replay_bit_equal_to_eager": equal, "replay_device_ms": dev_ms,
+        "card": torch.cuda.get_device_name(0), "card_stamp": smi}),
+        flush=True)
+    log(f"refill pool {what}: ascending {ascending}, own {own}, eager peak "
+        f"{peaks}, 32 x 1024 replay {dev_ms['32x1024']:.1f} device ms")
+    del eng, runner, st, cache
+    torch.cuda.empty_cache()
 
 
 def serve_pair(c: Ctx, config, params, smi: str, name: str, flags: dict,
@@ -4135,8 +4253,8 @@ def serve_pair(c: Ctx, config, params, smi: str, name: str, flags: dict,
     shape is paid there): the uniform greedy serve (``n_uniform``
     requests: with 96 its second wave of 32 x 32 captures that refill key
     and its third replays it) and the mixed one (``mixed_n`` requests,
-    half sampled) ``mixed_reps`` times (its refill keys of at most 1024
-    rows x tokens captured on the third, the last only replaying them),
+    half sampled) ``mixed_reps`` times (its refill keys, the 16 x 128 group
+    among them, captured on the third, the last only replaying them),
     the last of each measured -> the engines. Ids equal, pool caches
     bit-equal, refill keys captured and replayed on the graph route in
     each serve kind (``n_uniform`` of at least 96) and in none on the
@@ -4242,9 +4360,10 @@ def strict_alone(c: Ctx, eng, pairs, gen) -> None:
 def probe_held(rec: dict, what: str, steps: bool, form: bool) -> None:
     """The local-batch probe's verdict (:func:`local_batch_probe`): the
     refill's cache rows (and scales), every layer's K and V rows and, with
-    ``steps``, each step's logits bit-equal at 16 and 32 rows; the logits
-    bit-equal too, or, where ``form`` allows it (groups of 16 and 32 rows
-    on the per-op route), the first op that differs the last-token
+    ``steps``, each step's logits bit-equal in the group and in its first
+    half; the logits bit-equal too, or, where ``form`` allows it (groups
+    of 16 and 32 rows on the per-op route), the first op that differs the
+    last-token
     lm_head, which takes its other form at 32 rows (the JAX package's
     rule, ``ops.qmatmul._DEQUANT_M_ROWS``)."""
     held = [k for k in rec if k.startswith("refill_cache")
@@ -4267,12 +4386,15 @@ def phase_graphs(c: Ctx, path: str, smi: str) -> None:
     ``set_sync_debug_mode("error")``) on the same weights and requests.
     The single stream (:func:`single_stream_pair`): bf16 and int8 caches
     (150 tokens: chunks of 64 at window 128, 64 and 16 + 4 + 1 at 256) and
-    the per-op route (an f16 cache; unpacked weights; 48 tokens), greedy
+    the per-op route (an f16 cache; unpacked weights; 32 tokens), greedy
     and sampled, four generations each: ids equal, caches bit-equal, the
     prefill key replayed. The refill groups alone (:func:`refill_timing`,
-    bf16 and int8): 1 x 16, 4 x 32, 32 x 32, host and device ms of both
-    routes, the refill graphs' pool bytes, a replay traced against its
-    counts. The serves (:func:`serve_pair`): lockstep, paged (bf16, int8)
+    bf16 and int8): 1 x 16, 4 x 32, 32 x 32, 16 x 128 and 32 x 512, each
+    captured and replayed, bit-equal to the eager route, host and device
+    ms of both routes, each key's peak and the refill graphs' pool bytes
+    after it, a replay traced against its counts; the pool in the order a
+    serve captures its keys, to the largest group of 1024 positions
+    (:func:`refill_pool`). The serves (:func:`serve_pair`): lockstep, paged (bf16, int8)
     and staged at B=32, the uniform greedy serve (96 requests lockstep, 32
     the rest) and the mixed one (32, half sampled, four times), and the
     per-op route (an f16 cache) at B=8: ids equal, pool caches bit-equal,
@@ -4292,13 +4414,14 @@ def phase_graphs(c: Ctx, path: str, smi: str) -> None:
     L, V, card = config.n_layer, config.n_vocab, torch.cuda.get_device_name(0)
     for what, kw, n, timed in (
             ("bf16", {}, 150, True), ("int8", dict(kv_quant=True), 150, True),
-            ("per-op f16 cache", dict(cache_dtype=torch.float16), 48, False),
-            ("per-op unpacked", dict(pack_q4=False), 48, False)):
+            ("per-op f16 cache", dict(cache_dtype=torch.float16), 32, False),
+            ("per-op unpacked", dict(pack_q4=False), 32, False)):
         engines = single_stream_pair(c, config, params, smi, what, kw, n,
                                      timed)
         del engines
     for kv, kw in (("bf16", {}), ("int8", dict(kv_quant=True))):
         refill_timing(c, config, params, smi, kw, kv)
+        refill_pool(c, config, params, smi, kw, kv)
 
     routes = (("lockstep bf16", {}, 96), ("lockstep int8",
                                           dict(kv_quant=True), 96),
@@ -4594,13 +4717,21 @@ def phase_model_files(c: Ctx, smi: str) -> None:
     each step's seconds logged; (b) the f32 file on the f32 dense path
     against HF's own prefill logits and greedy ids; (c) the Q4_0 and Q4_1
     files on the f32 unpacked path against ``own347m_seed7_quant.npz``'s
-    greedy ids; (d) the Q4_0 file through the CLI's engine (bf16, packed)
+    greedy ids, and on the production path (bf16, packed, 64 positions,
+    as ``tools/make_goldens.py --gpu-bf16`` builds it) against
+    ``gpu347m_seed7_bf16.npz``'s (``check_goldens_gpu.check_engine``: two
+    eager generations, then one whose prefill and chunk keys replay their
+    graphs); (d) the Q4_0 file through the CLI's engine (bf16, packed)
     after ``warmup()``, greedy and sampled, then ``perplexity_of_ids`` at
     window 32 on the card against the same engine on the CPU (the kernels'
     plain versions) over four windows, each run launching exactly its
     route's kernels; (e) perplexity at window 1024, stride 512, of every
-    file in f32 and bf16, with tokens/s: synthetic weights, no quality
-    claim."""
+    file in f32 and bf16, with tokens/s, after three scorings of one full
+    window (two eager, the third captures its graph): the full windows
+    replay, the last, shorter one runs eagerly, the first window's nll
+    equals the eager scoring's bit for bit, and every window's nll that of
+    the same run with capture off, whose tokens/s stand beside the
+    replayed run's; synthetic weights, no quality claim."""
     import numpy as np
     from concurrent.futures import ProcessPoolExecutor
     from multiprocessing import get_context
@@ -4610,12 +4741,17 @@ def phase_model_files(c: Ctx, smi: str) -> None:
     from biogpt_tpu_torch.modelio.synthetic import make_state_dict, write_hf_dir
     from biogpt_tpu_torch.ops import cuda_lib
     from biogpt_tpu_torch.runtime.engine import Engine
+    from biogpt_tpu_torch.runtime.graphs import ChunkGraphs
+    from biogpt_tpu_torch.tools import check_goldens_gpu
     from biogpt_tpu_torch.tools.convert_hf import convert
     from biogpt_tpu_torch.tools.perplexity import perplexity_of_ids
     from biogpt_tpu_torch.tools.quantize_cli import QUANT_CHOICES, quantize_file
 
     hf = load_golden("hf347m_seed7.npz")
     quant = load_golden("own347m_seed7_quant.npz")
+    gpu = load_golden(check_goldens_gpu.GOLDEN)
+    goldens = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "goldens")
     seed = int(hf["seed"])
     # the npz keeps the scale as f32; its shortest repr is the literal 0.1
     scale = float(np.format_float_positional(np.float32(hf["scale"]),
@@ -4695,6 +4831,27 @@ def phase_model_files(c: Ctx, smi: str) -> None:
                         quant[f"{q}_greedy_ids"].tolist(),
                         f"{q} golden, quantized file, f32 unpacked path")
             free(eng)
+            # the production path against the card's own golden
+            config, _, _, params = load_params(files[q], device="cuda")
+            eng = Engine(config, params, max_seq=64, device="cuda")
+            del params
+            check(eng._fused_decode, f"{q} card golden: the fused decode "
+                  "step does not run")
+            want = gpu[f"{q}_greedy_ids"].tolist()
+            got = check_goldens_gpu.check_engine(eng, want)
+            rec = {"model_files": "gpu347m_golden", "format": q, **got,
+                   "want": want[len(prompt):],
+                   **{f"agree_with_{o}": check_goldens_gpu.agreement(
+                       got["new_ids"][-1], os.path.join(goldens, o), q)
+                      for o in check_goldens_gpu.OTHERS},
+                   "golden_card": str(gpu["device"]), "card": card,
+                   "card_stamp": smi}
+            print(json.dumps(rec), flush=True)
+            check(all(got["equal"]) and got["last_run_replayed"],
+                  f"{q} card golden (bf16, packed): runs equal "
+                  f"{got['equal']}, the last replayed "
+                  f"{got['replayed_kinds']}: {json.dumps(rec)}")
+            free(eng)
 
         # ------------------ (d) the kernels: the CLI's engine, perplexity
         config, _, _, params = load_params(files["q4_0"], device="cuda")
@@ -4772,21 +4929,46 @@ def phase_model_files(c: Ctx, smi: str) -> None:
                                  (torch.bfloat16, "bf16")):
                 eng = Engine(config, params, compute_dtype=dtype,
                              device="cuda")
-                perplexity_of_ids(eng, ids[:1024], window=1024)   # warm
+                # two eager scorings of a full window, then its capture
+                warm = [perplexity_of_ids(eng, ids[:1024], window=1024)
+                        for _ in range(ChunkGraphs.EAGER_RUNS + 1)]
                 torch.cuda.synchronize()
+                replays0 = eng.graphs.stats()["by_kind"].get(
+                    "score", {}).get("replays", 0)
                 t0 = time.perf_counter()
                 st = perplexity_of_ids(eng, ids, window=1024, stride=512)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
-                check(math.isfinite(st["nll"]),
+                score = eng.graphs.stats()["by_kind"].get("score", {})
+                replayed = score.get("replays", 0) - replays0
+                # the same run with capture off: every window eager
+                eng.graphs.capture = False
+                t0 = time.perf_counter()
+                eager = perplexity_of_ids(eng, ids, window=1024, stride=512)
+                torch.cuda.synchronize()
+                eager_wall = time.perf_counter() - t0
+                eng.graphs.capture = True
+                same = (st["window_nll"][0] == warm[0]["window_nll"][0]
+                        == warm[-1]["window_nll"][0]
+                        and st["window_nll"] == eager["window_nll"])
+                check(math.isfinite(st["nll"]) and replayed == 2 and same,
                       f"perplexity of the {name} file ({label}): nll "
-                      f"{st['nll']}")
+                      f"{st['nll']}, scoring replays {replayed} (want the "
+                      f"two full windows), the window nll "
+                      f"{st['window_nll']} against an eager run's "
+                      f"{eager['window_nll']}, the first window's eager "
+                      f"scoring's {warm[0]['window_nll'][0]} and its "
+                      f"capture's {warm[-1]['window_nll'][0]}")
                 table[f"{name} {label}"] = st["ppl"]
                 print(json.dumps({
                     "model_files": "perplexity", "file": name,
                     "compute": label, "window": 1024, "stride": 512,
                     "tokens": st["tokens"], "nll": st["nll"],
                     "ppl": st["ppl"], "tokens_per_s": st["tokens"] / wall,
+                    "eager_tokens_per_s": eager["tokens"] / eager_wall,
+                    "window_nll": st["window_nll"],
+                    "score_replays": replayed, "score_graphs": score,
+                    "window_nll_equal_eager": same,
                     "weights": "synthetic (seed 7, scale 0.1): no quality "
                     "claim", "card": card, "card_stamp": smi}), flush=True)
                 free(eng)
@@ -5219,15 +5401,16 @@ def _tensors(out) -> list:
             if isinstance(t, torch.Tensor)]
 
 
-def ops_16_vs_32(logs: dict, T: int) -> dict:
+def ops_half_vs_whole(logs: dict, rows: int, T: int) -> dict:
     """The op-by-op comparison of two logged refills (:func:`op_log`) of
-    32 prompts and of their first 16: each op's output for the first 16
-    prompts against the 16-prompt run's -> the ops compared, how many were
-    bit-equal, and the first that was not (its call number, name, the
-    layer by the LayerNorms before it, its largest difference), or where
-    the two runs first called other ops (a product's form chosen by its
-    row count: ``ops.qmatmul.matmul``)."""
-    a, b = logs[32], logs[16]
+    ``rows`` prompts padded to ``T`` tokens and of their first half: each
+    op's output for the first half of the prompts against the half's run
+    -> the ops compared, how many were bit-equal, and the first that was
+    not (its call number, name, the layer by the LayerNorms before it, its
+    largest difference), or where the two runs first called other ops (a
+    product's form chosen by its row count: ``ops.qmatmul.matmul``)."""
+    half = rows // 2
+    a, b = logs[rows], logs[half]
     first, equal, lns = None, 0, 0
     for i, ((name, x), (other, y)) in enumerate(zip(a, b)):
         if name != other:
@@ -5236,9 +5419,12 @@ def ops_16_vs_32(logs: dict, T: int) -> dict:
             break
         same, diff = True, 0.0
         for tx, ty in zip(_tensors(x), _tensors(y)):
-            tx = _first_rows(tx, 16, 32, T)
-            if ty.shape[0] == 32:   # a replica's rows padded to the group's
-                ty = ty[:16]
+            if tx.shape == ty.shape and tx.shape[0] not in (rows, half):
+                # a product's row tile, of one shape in both runs (the
+                # card's zero-padded tiles): its first rows hold the half's
+                tx, ty = tx[:half], ty[:half]
+            else:
+                tx = _first_rows(tx, half, rows, T)
             if not torch.equal(tx, ty):
                 same = False
                 d = (tx.float() - ty.float()).abs()
@@ -5252,31 +5438,34 @@ def ops_16_vs_32(logs: dict, T: int) -> dict:
     return {"ops": len(a), "bit_equal_ops": equal, "first_differing": first}
 
 
-def _same16(a, b) -> dict:
-    a = a[:, :16] if a.dim() == 4 else a[:16]
+def _same_half(a, b) -> dict:
+    """Whether the whole group's ``a`` holds the half's ``b`` in its first
+    rows (a cache plane's second axis, else the first)."""
+    a = a[:, :b.shape[1]] if a.dim() == 4 else a[:b.shape[0]]
     return {"equal": bool(torch.equal(a, b)),
             "max_abs_diff": (a.float() - b.float()).abs().max().item()}
 
 
-def refill_16_vs_32(eng, ids, last, fused: bool, replica: bool) -> dict:
-    """A refill of 32 prompts (``ids`` (32, T), ``last`` (32,)) and of
-    their first 16 on the engine's device, through the refill kernel
-    (``forward_prefill_fused``, ``fused``) or the per-op forward as
-    ``_prefill_group`` runs it (``eng._fwd`` with ``allow_kernels=False``;
-    a mesh engine's TP or sharded forward; with ``replica`` the 16 rows
-    are a data-axis replica's of the 32-row group, ``logits_rows=32``;
-    else a group of 16), every op logged -> whether the
-    first 16 prompts' logits and cache rows are bit-equal, their largest
-    difference, the op-by-op comparison (:func:`ops_16_vs_32`) and, per
-    layer, whether the K and V rows are bit-equal; with the (logits,
-    small cache) of both runs."""
+def refill_half_vs_whole(eng, ids, last, fused: bool, replica: bool) -> dict:
+    """A refill of a group of prompts (``ids`` (rows, T), ``last``
+    (rows,)) and of their first half on the engine's device, through the
+    refill kernel (``forward_prefill_fused``, ``fused``) or the per-op
+    forward as ``_prefill_group`` runs it (``eng._fwd`` with
+    ``allow_kernels=False``; a mesh engine's TP or sharded forward; with
+    ``replica`` the half is a data-axis replica's share of the group,
+    ``group_rows=rows``; else a group of its own), every op logged ->
+    whether the first half's logits and cache rows are bit-equal, their
+    largest difference, the op-by-op comparison
+    (:func:`ops_half_vs_whole`) and, per layer, whether the K and V rows
+    are bit-equal; with the (logits, small cache) of both runs."""
     from biogpt_tpu_torch.models.biogpt import forward_prefill_fused
     from biogpt_tpu_torch.runtime.cache import init_cache
 
     P, config, dev = eng.params, eng.config, eng.device
-    T = ids.shape[1]
+    rows, T = ids.shape
+    half = rows // 2
     runs, logs = {}, {}
-    for n in (32, 16):
+    for n in (rows, half):
         logs[n] = []
         with op_log(logs[n]):
             if fused:
@@ -5291,21 +5480,22 @@ def refill_16_vs_32(eng, ids, last, fused: bool, replica: bool) -> dict:
                 runs[n] = eng._fwd(P, ids[:n], small, 0, config,
                                    compute_dtype=eng.compute_dtype,
                                    allow_kernels=False, last_index=last[:n],
-                                   logits_rows=32 if replica else None)
+                                   group_rows=rows if replica else None)
     torch.cuda.synchronize()
-    (l32, c32), (l16, c16) = runs[32], runs[16]
-    out = {"route": "fused" if fused else "per_op",
-           "refill_logits": _same16(l32, l16),
-           "refill_cache_k": _same16(c32.k, c16.k),
-           "refill_cache_v": _same16(c32.v, c16.v)}
-    if getattr(c32, "ks", None) is not None:
-        out["refill_cache_ks"] = _same16(c32.ks, c16.ks)
-        out["refill_cache_vs"] = _same16(c32.vs, c16.vs)
+    (lw, cw), (lh, ch) = runs[rows], runs[half]
+    out = {"route": "fused" if fused else "per_op", "rows": [rows, half],
+           "padded": T, "replica": replica,
+           "refill_logits": _same_half(lw, lh),
+           "refill_cache_k": _same_half(cw.k, ch.k),
+           "refill_cache_v": _same_half(cw.v, ch.v)}
+    if getattr(cw, "ks", None) is not None:
+        out["refill_cache_ks"] = _same_half(cw.ks, ch.ks)
+        out["refill_cache_vs"] = _same_half(cw.vs, ch.vs)
     out["layers_k_v_bit_equal"] = [
-        bool(torch.equal(c32.k[i, :16], c16.k[i])
-             and torch.equal(c32.v[i, :16], c16.v[i]))
-        for i in range(c32.k.shape[0])]
-    out["ops"] = ops_16_vs_32(logs, T)
+        bool(torch.equal(cw.k[i, :half], ch.k[i])
+             and torch.equal(cw.v[i, :half], ch.v[i]))
+        for i in range(cw.k.shape[0])]
+    out["ops"] = ops_half_vs_whole(logs, rows, T)
     return out, runs
 
 
@@ -5336,50 +5526,53 @@ def gemms_16_vs_32(eng, T: int = 32) -> dict:
 
 
 def local_batch_probe(eng, rng, steps: int = 2, fused: bool = False,
-                      replica: bool = False) -> dict:
+                      replica: bool = False, rows: int = 32,
+                      padded: int = 32) -> dict:
     """Whether a slot's refill results on the card depend on the number of
     rows refilled beside it (a group's, or a data-axis replica's local
-    batch, ``replica``: 16 slots of a (2, 2) mesh against 32 of a (1, 2)
-    one): 32 prompts of 4-23 tokens padded to 32 and their first 16,
+    batch, ``replica``: by default 16 slots of a (2, 2) mesh against 32 of
+    a (1, 2) one): ``rows`` prompts of ``padded`` / 8 to 3 ``padded`` / 4
+    tokens (4-23 at 32) padded to ``padded`` and their first half,
     refilled through the refill kernel (``fused``) or the engine's per-op
-    forward (:func:`refill_16_vs_32`: logits, cache rows, each op and
-    each layer); with ``fused`` also the
-    refill kernel's GEMMs alone (:func:`gemms_16_vs_32`). On the per-op
-    route then ``steps`` greedy steps through ``eng._fwd`` (on the TP
-    route the step's halves, the commits and the local lm_head) at 32
-    slots and at their first 16 from the same cache rows, each step's
-    logits compared."""
+    forward (:func:`refill_half_vs_whole`: logits, cache rows, each op
+    and each layer); with ``fused`` also the refill kernel's GEMMs alone
+    (:func:`gemms_16_vs_32`). On the per-op route then ``steps`` greedy
+    steps through ``eng._fwd`` (on the TP route the step's halves, the
+    commits and the local lm_head) at ``rows`` slots and at their first
+    half from the same cache rows, each step's logits compared."""
     from biogpt_tpu_torch.runtime.cache import init_cache, merge_rows
 
     P, config, dev = eng.params, eng.config, eng.device
-    lens = [int(n) for n in rng.integers(4, 24, size=32)]
-    ids = torch.zeros(32, 32, dtype=torch.long)
+    half = rows // 2
+    lens = [int(n) for n in rng.integers(padded // 8, padded * 3 // 4,
+                                         size=rows)]
+    ids = torch.zeros(rows, padded, dtype=torch.long)
     for b, n in enumerate(lens):
         ids[b, :n] = torch.from_numpy(rng.integers(4, config.n_vocab - 2,
                                                    size=n))
     ids, last = ids.to(dev), torch.tensor([n - 1 for n in lens], device=dev)
-    out, refill = refill_16_vs_32(eng, ids, last, fused, replica)
+    out, refill = refill_half_vs_whole(eng, ids, last, fused, replica)
     if fused:
         out["prefill_gemm_bit_equal"] = gemms_16_vs_32(eng)
         return out
-    cache = init_cache(config, batch=32, max_len=128, dtype=eng.cache_dtype,
+    cache = init_cache(config, batch=rows, max_len=128, dtype=eng.cache_dtype,
                        device=dev, tp=eng._kv_shards)
-    merge_rows(cache, refill[32][1], torch.arange(32, device=dev),
-               torch.arange(32, device=dev))
-    caches = {32: cache, 16: type(cache)(**{
-        f.name: getattr(cache, f.name)[:, :16].clone()
+    merge_rows(cache, refill[rows][1], torch.arange(rows, device=dev),
+               torch.arange(rows, device=dev))
+    caches = {rows: cache, half: type(cache)(**{
+        f.name: getattr(cache, f.name)[:, :half].clone()
         for f in dataclasses.fields(cache)})}
-    tok = torch.argmax(refill[32][0], -1)[:, None]
+    tok = torch.argmax(refill[rows][0], -1)[:, None]
     past = torch.tensor(lens, dtype=torch.int32, device=dev)
     for step in range(steps):
         got = {}
-        for n in (32, 16):
+        for n in (rows, half):
             got[n], caches[n] = eng._fwd(P, tok[:n], caches[n], past[:n],
                                          config,
                                          compute_dtype=eng.compute_dtype,
                                          kv_window=128)
-        out[f"step{step}_logits"] = _same16(got[32], got[16])
-        tok, past = torch.argmax(got[32], -1)[:, None], past + 1
+        out[f"step{step}_logits"] = _same_half(got[rows], got[half])
+        tok, past = torch.argmax(got[rows], -1)[:, None], past + 1
     torch.cuda.synchronize()
     return out
 
@@ -5542,13 +5735,24 @@ def phase_tp_serving(c: Ctx, path: str, smi: str) -> None:
     ranks on one device); the kernels were built before, so no rank builds.
     Both ranks must finish cleanly, agree on every id, launch exactly the
     TP route's kernels and trip no health check; each serve's greedy ids
-    are counted against the single-device lockstep serve's. Their tokens/s
-    measure the wiring of two processes on one card (every all-reduce
-    crosses a process boundary through gloo), not TP speed."""
+    are counted against the single-device lockstep serve's. The ranks
+    serve a random file of 347M's widths ``MESH_DEPTH`` layers deep (seed
+    7), written here, whose lockstep references this process computes
+    (:func:`mesh_references`); ``path`` (the main file) is not read. Their
+    tokens/s measure the wiring of two processes on one card (every
+    all-reduce crosses a process boundary through gloo), not TP speed."""
     import socket
+
+    from biogpt_tpu_torch.modelio.synthetic import write_random_quantized_model
+    from biogpt_tpu_torch.quant import codecs
 
     here = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
+        path = os.path.join(tmp, f"biogpt347m-{MESH_DEPTH}layers.bin")
+        write_random_quantized_model(
+            path, dataclasses.replace(c.cfg, n_layer=MESH_DEPTH),
+            codecs.GGML_TYPE_Q4_0, seed=7)
+        lock = mesh_references(path)["lockstep"]
         s = socket.socket()
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
@@ -5576,13 +5780,15 @@ def phase_tp_serving(c: Ctx, path: str, smi: str) -> None:
         for o in outs:
             with open(o) as f:
                 ranks.append(json.load(f))
-    log(f"TP serving, two ranks on one card: {wall:.1f} s")
-    check_tp_ranks(c, ranks, smi)
+    log(f"TP serving, two ranks on one card ({MESH_DEPTH} layers): "
+        f"{wall:.1f} s")
+    check_tp_ranks(c, ranks, smi, lock)
 
 
-def check_tp_ranks(c: Ctx, ranks: list, smi: str) -> None:
+def check_tp_ranks(c: Ctx, ranks: list, smi: str, lockstep: dict) -> None:
     """The two ranks' results (:func:`tp_rank`), as
-    :func:`phase_tp_serving` says."""
+    :func:`phase_tp_serving` says; ``lockstep``: the single-device
+    lockstep serves' ids of the ranks' file, by cache."""
     card = torch.cuda.get_device_name(0)
     for r in ranks:
         for fail in r["failures"]:
@@ -5611,7 +5817,7 @@ def check_tp_ranks(c: Ctx, ranks: list, smi: str) -> None:
                "launches": {k: v for k, v in a["launches"].items() if v},
                "card": card, "card_stamp": smi}
         if kv != "mixed":
-            lock = c.lockstep_ids[kv]
+            lock = lockstep[kv]
             rec["greedy_ids_equal_lockstep"] = sum(
                 a["ids"][str(i)] == lock[i] for i in lock)
             rec["teacher_forced_worst_err_over_tol"] = [
@@ -5692,9 +5898,9 @@ def phase_tp_one_by_one(c: Ctx, path: str, smi: str) -> None:
 
 # the mesh of each rank job of phase 11a: "2x2" four ranks, "pairs" two
 MESH_JOBS = {"2x2": 4, "pairs": 2}
-# phase 11a's model: 347M's widths this many layers deep (its runs are
-# wiring through gloo, not speed)
-MESH_DEPTH = FORMAT_DEPTH
+# the model of phase 11's ranks and phase 11a's: 347M's widths this many
+# layers deep (their runs are wiring through gloo, not speed)
+MESH_DEPTH = 4
 # the sharded route's logits against the single device's: sums in another
 # order (TF32 off), within this fraction of their magnitude
 SHARDED_LOGITS_TOL = 1e-3
@@ -5809,9 +6015,11 @@ def mesh_rank(argv: list) -> int:
     gloo, every rank on cuda:0). JOB "2x2": four ranks of a (2, 2) mesh
     serve the uniform 96 greedy requests at B=32 through
     ``BatchedEngine(mesh, tp_fused_decode=True)`` with a bf16 and an int8
-    cache (teacher-forced TP steps at the local batch after each) and a
-    mixed serve. JOB "pairs": two ranks run ``Engine(mesh=(2, 1))
-    .generate`` at B=1, then the sharded route of unpacked weights on a
+    cache (teacher-forced TP steps at the local batch after each, then the
+    local-batch probes: a replica's 16 of 32 prompts padded to 32, and its
+    2 of a group of 4 padded to 8) and a mixed serve. JOB "pairs": two
+    ranks run ``Engine(mesh=(2, 1)).generate`` at B=1, then the sharded
+    route of unpacked weights on a
     (1, 2) mesh (``pack_q4=False``, f32): a traced 16-token greedy
     generate (its Chrome trace beside OUT), the scores of the
     single-device engine's ids and a serve of 8 requests against that
@@ -5879,6 +6087,12 @@ def mesh_rank(argv: list) -> int:
                 eng, mesh, np.random.default_rng(5), kv_quant, 4)
             rec["local_batch_16_vs_32"] = local_batch_probe(
                 eng, np.random.default_rng(6), replica=True)
+            # a group of 4 prompts padded to 8 (32 rows x tokens: the
+            # dequantize-then-dot form) as a replica's 2 (16: the other
+            # form on their own) against the whole group
+            rec["local_batch_2_vs_4x8"] = local_batch_probe(
+                eng, np.random.default_rng(8), steps=0, replica=True,
+                rows=4, padded=8)
             out["serves"][kv] = rec
             del eng
         eng = BatchedEngine(config, params, max_batch=B, max_seq=512,
@@ -6136,8 +6350,9 @@ def check_mesh_2x2(c: Ctx, ranks: list, smi: str, refs: dict) -> None:
     exchange a chunk and one a refill wave; the uniform serves' ids
     counted against the "pairs" job's (1, 2) serve (with the step at which
     each request leaves it) and the lockstep serve of the same file
-    (``refs``, :func:`phase_mesh_serving`); each rank's local-batch probe
-    held (:func:`probe_held`)."""
+    (``refs``, :func:`phase_mesh_serving`); each rank's local-batch probes
+    held (:func:`probe_held`), every op of a replica's 2 rows of a 4 x 8
+    group bit-equal to the whole group's."""
     card = torch.cuda.get_device_name(0)
     cfg = c.cfg
     for r in ranks:
@@ -6205,10 +6420,19 @@ def check_mesh_2x2(c: Ctx, ranks: list, smi: str, refs: dict) -> None:
             rec["teacher_forced_worst_err_over_tol"] = [
                 x["teacher_forced_worst_err_over_tol"] for x in recs]
             rec["local_batch_16_vs_32"] = a["local_batch_16_vs_32"]
+            rec["local_batch_2_vs_4x8"] = a["local_batch_2_vs_4x8"]
             for x, r in zip(recs, ranks):
                 probe_held(x["local_batch_16_vs_32"],
                            f"(2, 2) TP route ({kv}) rank {r['rank']}",
                            steps=True, form=False)
+                small = x["local_batch_2_vs_4x8"]
+                probe_held(small, f"(2, 2) TP route ({kv}) rank "
+                           f"{r['rank']}, a replica's 2 of a 4 x 8 group",
+                           steps=False, form=False)
+                check(small["ops"]["first_differing"] is None,
+                      f"(2, 2) TP route ({kv}) rank {r['rank']}: a "
+                      f"replica's 2 of a 4 x 8 group differ from the group "
+                      f"at op {small['ops']['first_differing']}")
         print(json.dumps(rec), flush=True)
 
 

@@ -19,14 +19,18 @@ phase holds the two equal there). Here:
   the refill kernel's route; on the per-op route the cache rows are, and
   the first tokens' logits too once both groups take one form of the
   last-token lm_head (the JAX package's own rule switches it at 32 rows);
+  a data-axis replica's share of a group takes the group's forms
+  (``forward(group_rows=)``);
 - ``Engine.prefill``'s body against the forward it ran before (the host's
   last index, a fresh cache): logits and cache bit-equal;
 - the runner's order on a CPU stand-in for ``torch.cuda.CUDAGraph`` whose
   capture launches nothing (the state the body moves is put back) and
-  whose replay runs the body: refill and prefill keys run eagerly twice,
-  are captured, then replay, with results equal to an eager engine's; a
-  group above ``REFILL_GRAPH_ROWS`` rows x tokens and a mesh engine never
-  capture.
+  whose replay runs the body: refill keys of every shape, prefill keys
+  and scoring keys (``Engine.logits``) run eagerly twice, are captured,
+  then replay, with results equal to an eager engine's (the scores also
+  to the eager forward's, JAX ``Engine.score``'s and, through
+  ``perplexity_of_ids``, an eager engine's perplexity); a mesh engine
+  never captures.
 """
 
 import contextlib
@@ -345,10 +349,11 @@ def test_slot_refill_independent_of_group_rows(pair, kv_quant, mode, fused,
 def test_replica_share_of_a_group_takes_the_groups_lm_head_form(pair,
                                                                 kv_quant):
     """A data-axis replica's 16 rows of a 32-row refill group
-    (``forward(logits_rows=32)``, as ``_refill_body`` runs a replica's
-    per-op refill) against the whole group's forward: the logits and the
-    cache rows bit-equal, where a group of 16 alone takes the lm_head's
-    other form below ``_DEQUANT_M_ROWS`` rows."""
+    (``forward(group_rows=32)``, as ``_refill_body`` runs a replica's
+    per-op refill: every product in the group's form) against the whole
+    group's forward: the logits and the cache rows bit-equal, where a
+    group of 16 alone takes the lm_head's other form below
+    ``_DEQUANT_M_ROWS`` rows."""
     _, pt = pair
     lens = [int(n) for n in np.random.RandomState(2).randint(4, 17, size=B)]
     ids = torch.zeros(B, 16, dtype=torch.long)
@@ -362,7 +367,7 @@ def test_replica_share_of_a_group_takes_the_groups_lm_head_form(pair,
         runs[(n, rows)] = forward(pt, ids[:n], small, 0, TCFG,
                                   compute_dtype=torch.bfloat16,
                                   allow_kernels=False, last_index=last[:n],
-                                  logits_rows=rows)
+                                  group_rows=rows)
     (l32, c32), (l16, c16) = runs[(32, None)], runs[(16, 32)]
     assert l16.shape == (16, CFG.n_vocab)
     assert torch.equal(l16, l32[:16])
@@ -524,26 +529,41 @@ def test_prefill_keys_run_eagerly_then_capture_and_replay(pair, kv_quant,
         ("prefill", warm.cache_dtype, 8, warm._window(8))]
 
 
-def test_large_groups_and_mesh_engines_never_capture(pair, monkeypatch):
-    """A refill group above ``REFILL_GRAPH_ROWS`` rows x tokens (32 rows of
-    a 64-token bucket) runs its body directly on a capturing runner, every
-    time; an engine on a mesh builds its runner with capture off (its
-    collectives are gloo's), a single-device one, per-op route included,
-    with capture on."""
+@pytest.mark.parametrize("kv_quant", KV, ids=KV_IDS)
+def test_large_groups_and_mesh_engines_never_capture(pair, kv_quant,
+                                                     monkeypatch):
+    """Its name dates from when groups above 1024 rows x tokens ran
+    eagerly; they are captured now, and only mesh engines never capture.
+
+    A refill key of any shape is captured: a group of 32 rows of a
+    64-token bucket (2,048 rows x tokens, the per-op forward) on a
+    capturing runner (the stand-in) runs eagerly twice, is captured on its
+    third run and replays on the fourth, its pool cache, slot vectors and
+    generator after each run bit-equal to an eager engine's (each run
+    refills the same seeded pool with the same seed), as JAX
+    compiles ``refill_commit`` for every shape. An engine on a mesh builds
+    its runner with capture off (its collectives are gloo's), a
+    single-device one, per-op route included, with capture on."""
     from biogpt_tpu_torch.parallel.mesh import Mesh
 
     _, pt = pair
-    eng = _engine(pt, False, False)
-    _stand_in(monkeypatch, _serving_state(eng))
-    eng.graphs.capture = True
+    live, eager = (_engine(pt, kv_quant, False) for _ in range(2))
+    _stand_in(monkeypatch, _serving_state(live))
+    live.graphs.capture = True
     lens = [33 + i % 31 for i in range(B)]
-    pairs = _pairs(Request, list(range(B)), lens, "greedy")
-    assert 32 * 64 > BatchedEngine.REFILL_GRAPH_ROWS
+    pairs = _pairs(Request, list(range(B)), lens, "sampled")
     gen = GenerationParams(**GEN)
-    for _ in range(4):
-        _refill(eng, pairs, gen)
-    key = ("refill", "per_op", eng.cache_dtype, 32, 64)
-    assert eng.graphs.runs[key] == 4 and eng.graphs.captures == 0
+    key = ("refill", "per_op", live.cache_dtype, 32, 64)
+    # every run starts from the same seeded pool and generator
+    g_eager = _refill(eager, pairs, gen)
+    for r in range(4):
+        assert torch.equal(_refill(live, pairs, gen), g_eager)
+        for a, b in zip(_planes(live._cache) + _vectors(live._st),
+                        _planes(eager._cache) + _vectors(eager._st)):
+            assert torch.equal(a, b)
+        assert live.graphs.runs[key] == min(r + 1, 2)
+        assert (key in live.graphs.graphs) == (r >= 2)
+    assert live.graphs.replayed[key] == 2 and eager.graphs.captures == 0
 
     wanted = []
     real = graphs.ChunkGraphs.__init__
@@ -560,3 +580,56 @@ def test_large_groups_and_mesh_engines_never_capture(pair, monkeypatch):
                   compute_dtype=torch.float32)
     Engine(TCFG, pt, device="cpu", cache_dtype=torch.float16)
     assert wanted == [False, False, True, True]
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_score_keys_run_eagerly_then_capture_and_replay(pair, causal,
+                                                        monkeypatch):
+    """``Engine.logits`` of two 12-token rows, four times on one f32
+    engine of unpacked weights (no kernel on either side, as JAX's CPU
+    engine runs none) whose runner captures (the stand-in): the scoring key (cache
+    dtype, causal, rows, length) runs eagerly twice, is captured on its
+    third call and replays on the fourth; every call's logits are
+    bit-equal to the forward it ran before (a fresh cache on the host's
+    ids) and to an eager engine's, and a returned tensor keeps its values
+    through the next call. Its scores against JAX ``Engine.score`` at
+    ``tests/test_torch_tools.py``'s rtol/atol 1e-5; ``perplexity_of_ids``
+    (windows of 16, stride 8: one key replayed, the last window's own)
+    bit-equal to an eager engine's."""
+    from biogpt_tpu.runtime.engine import Engine as JaxEngine
+    from biogpt_tpu_torch.tools.perplexity import perplexity_of_ids
+
+    pj, pt = pair
+    kw = dict(compute_dtype=torch.float32, cache_dtype=torch.float32,
+              causal=causal, pack_q4=False, device="cpu")
+    live, eager = Engine(TCFG, pt, **kw), Engine(TCFG, pt, **kw)
+    # the body's one output, its logits, is written whole by every run
+    _stand_in(monkeypatch, lambda: [])
+    live.graphs.capture = True
+    ids = np.asarray(_prompts([12, 12], 7))
+    small = init_cache(TCFG, batch=2, max_len=12, dtype=torch.float32)
+    want, _ = forward(live.params, torch.from_numpy(ids), small, 0, TCFG,
+                      compute_dtype=torch.float32, causal=causal,
+                      allow_kernels=live.allow_kernels, logits_mode="all")
+    key = ("score", torch.float32, causal, 2, 12)
+    kept = []
+    for r in range(4):
+        got = live.logits(ids)
+        kept.append(got)
+        assert torch.equal(got, want) and torch.equal(eager.logits(ids), want)
+        assert live.graphs.runs[key] == min(r + 1, 2)
+        assert (key in live.graphs.graphs) == (r >= 2)
+    assert live.graphs.replayed[key] == 2 and eager.graphs.captures == 0
+    assert list(live._score_bufs) == [key] and not eager._score_bufs
+    assert all(torch.equal(k, want) for k in kept)
+    assert kept[0].data_ptr() != kept[1].data_ptr()
+
+    jax_eng = JaxEngine(CFG, pj, compute_dtype=jnp.float32,
+                        cache_dtype=jnp.float32, causal=causal, pack_q4=False)
+    np.testing.assert_allclose(live.score(ids), jax_eng.score(ids),
+                               rtol=1e-5, atol=1e-5)
+    text = [2] + np.random.RandomState(3).randint(
+        4, CFG.n_vocab - 10, size=43).tolist()
+    got = perplexity_of_ids(live, text, window=16, stride=8)
+    assert got == perplexity_of_ids(eager, text, window=16, stride=8)
+    assert live.graphs.replayed[("score", torch.float32, causal, 1, 16)] >= 2

@@ -9,7 +9,11 @@ package's GSPMD route) against the JAX package, on the CPU.
 - a slot's results on the packed TP route at a local batch of 16 against
   32 (a (2, 2) replica's against a (1, 2) mesh's), by ``chip_smoke.py``'s
   ``local_batch_probe`` on the plain versions: they differ only through
-  the form of the refill's last-token lm_head product;
+  the form of the refill's last-token lm_head product; a data-axis
+  replica's share of a refill group (2 of 4 prompts padded to 8) takes
+  the group's form in every product, on the packed TP route and on the
+  route of unpacked weights, and its replicas' first tokens and cache
+  rows are the JAX (2, 1) mesh engine's;
 - four gloo ranks (processes started through the port's launcher,
   ``python -m biogpt_tpu_torch.parallel.distributed``, sharing one run for
   every multi-rank case): ``Engine.score`` on the sharded route at (1, 4)
@@ -299,6 +303,89 @@ def test_slot_results_depend_on_local_batch_at_refill_lm_head(monkeypatch,
                if k.startswith(("refill", "step"))), got
     assert got["ops"]["first_differing"] is None
     assert got["ops"]["bit_equal_ops"] == got["ops"]["ops"]
+
+
+def _replica(cfg, params, route, data_index):
+    """One replica's ``BatchedEngine`` of a (2, 1) mesh (f32, 4 slots), in
+    process: its model axis has one rank, so no collective runs."""
+    from biogpt_tpu_torch.runtime.serving import BatchedEngine
+
+    return BatchedEngine(cfg, params, max_batch=4, max_seq=16, chunk=4,
+                         compute_dtype=torch.float32,
+                         cache_dtype=torch.float32, pack_q4=route == "tp",
+                         device="cpu",
+                         mesh=Mesh(2, 1, 0, None, torch.device("cpu"),
+                                   data_index))
+
+
+@pytest.mark.parametrize("route", ["tp", "sharded"])
+def test_replica_refill_takes_the_groups_form_in_every_product(monkeypatch,
+                                                               route):
+    """A refill group of 4 prompts padded to 8 tokens has 32 rows x tokens
+    (``_DEQUANT_M_ROWS``: every product dequantize-then-dot); a replica of
+    a (2, 1) mesh owns 2 of them, 16 rows x tokens, which on their own take
+    the block-accumulated form. On the packed TP route and on the route of
+    unpacked weights (f32), through ``chip_smoke.py``'s
+    ``local_batch_probe`` (the card runs it in phase 11a): the replica's
+    2 rows as its share of the group (``group_rows``, as ``_refill_body``
+    runs them) against the whole group's refill, every op bit-equal (a
+    form chosen by the local rows differs from layer 0's qkv product on).
+    Then each replica's ``_prefill_group`` of four greedy requests into
+    slots 0-3 against the JAX ``BatchedEngine(mesh=make_mesh(2, 1))``'s
+    refill: first tokens equal, the refilled cache rows within the
+    file's rtol/atol 2e-5."""
+    import importlib
+    import sys
+
+    from biogpt_tpu_torch.config import GenerationParams
+    from biogpt_tpu_torch.runtime.serving import Request
+
+    sys.path.insert(0, REPO)
+    chip_smoke = importlib.import_module("chip_smoke")
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    cfg = _torch_cfg(W128)
+    pj = _params(W128, 11, Q4_0)
+    pt = params_from_numpy(pj, "cpu")
+    eng = _replica(cfg, pt, route, 0)
+    assert eng.B_local == 2
+    got = chip_smoke.local_batch_probe(eng, np.random.default_rng(8),
+                                       steps=0, replica=True, rows=4,
+                                       padded=8)
+    assert got["ops"]["first_differing"] is None, got["ops"]
+    assert got["ops"]["bit_equal_ops"] == got["ops"]["ops"] > 0
+    assert all(got[k]["equal"] for k in got if k.startswith("refill")), got
+    assert got["layers_k_v_bit_equal"] == [True] * cfg.n_layer
+
+    prompts = ([2, 41, 7], [2, 19, 3, 8, 5, 60], [2, 5], [2, 60, 11, 4])
+    firsts, rows = [], []
+    for d in (0, 1):
+        eng = _replica(cfg, pt, route, d)
+        st, cache = eng._slots(), eng._pool_cache()
+        eng._prefill_group(
+            [(s, Request(prompt_ids=list(p), n_predict=4, request_id=s))
+             for s, p in enumerate(prompts)], cache, eng.generator,
+            GenerationParams(temp=0.0, stop_at_eos=False), st)
+        firsts += st.first_buf.tolist()
+        rows += [cache.k[:, :, :8].numpy(), cache.v[:, :, :8].numpy()]
+    je = JaxBatched(W128, pj, max_batch=4, max_seq=16, chunk=4,
+                    compute_dtype=jnp.float32, cache_dtype=jnp.float32,
+                    pack_q4=route == "tp", mesh=jax_mesh(2, 1))
+    i32 = dict(dtype=jnp.int32)
+    slot_state = (jnp.zeros((4, 1), **i32), jnp.zeros((4,), **i32),
+                  jnp.zeros((4,), **i32), jnp.zeros((4,), jnp.float32),
+                  jnp.ones((4,), jnp.float32), jnp.ones((4,), **i32))
+    cache_j, vec_j, _, _ = je._prefill_group(
+        [(s, JaxRequest(prompt_ids=list(p), n_predict=4, request_id=s))
+         for s, p in enumerate(prompts)], je.new_cache(),
+        jax.random.PRNGKey(0), JaxGen(temp=0.0, stop_at_eos=False),
+        slot_state)
+    assert firsts == np.asarray(vec_j[2]).tolist()
+    k_j, v_j = (np.asarray(t)[:, :, :8] for t in (cache_j.k, cache_j.v))
+    for d in (0, 1):
+        np.testing.assert_allclose(rows[2 * d], k_j[:, 2 * d:2 * d + 2],
+                                   rtol=2e-5, atol=2e-5)
+        np.testing.assert_allclose(rows[2 * d + 1], v_j[:, 2 * d:2 * d + 2],
+                                   rtol=2e-5, atol=2e-5)
 
 
 # ------------------------------------------------------- four gloo ranks
